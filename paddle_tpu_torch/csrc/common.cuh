@@ -11,8 +11,9 @@ namespace ptt {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
-// dynamic shared memory a block gets without an opt-in attribute; an entry
-// asked for more returns cudaErrorInvalidConfiguration before launching
+// dynamic shared memory a block gets without an opt-in attribute; the K1
+// and K4 entries refuse a shape that needs more (cudaErrorInvalidConfiguration
+// before launching), B1 and B2 opt in through allow_smem
 constexpr size_t kMaxDynamicSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -27,6 +28,52 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as a dtype cast
+}
+
+// 16 bytes of T as floats: 8 bfloat16 or 4 float32 values
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* out) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// dynamic shared memory past the 48 KB default: opt the kernel in (up to
+// the device's per-block limit) or refuse the shape before launching
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= kMaxDynamicSmem) return cudaSuccess;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -37,35 +37,6 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;  // keys per tile: one per thread
 
-// 16 bytes of T as floats: 8 bfloat16 or 4 float32 values
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
@@ -73,7 +44,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int* __restrict__ dec, const int* __restrict__ now,
     const int* __restrict__ cu, const int* __restrict__ bt, int B, int P,
     int NB, int H, int KV, int D, int bs, int max_q_len, float scale) {
-  using V = Vec16<T>;
+  using V = ptt::Vec16<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = H / KV;
   const int DC = D / V::N;        // threads per value row in P @ V
@@ -203,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 template <typename T>
 size_t smem_bytes(int H, int KV, int D) {
   const int G = H / KV;
-  const int KG = kThreads / (D / Vec16<T>::N);
+  const int KG = kThreads / (D / ptt::Vec16<T>::N);
   return kTile * sizeof(long long) +
          (size_t)(2 * G * D + G * kTile + KG * D + 3 * G) * sizeof(float);
 }

@@ -28,9 +28,9 @@ reference is a plain function here:
   same KV bits, as in the reference.
 
 There is no program cache and nothing compiles: ``compile_count`` stays 0.
-Sampling draws with a counter-based function of ``(seed, sample index)``
-on the device (``_uniform``), not with JAX's threefry, so seeded streams
-replay across K, rebuilds and preemption but are not JAX's tokens.
+Sampling draws on the device with JAX's threefry under the key
+``fold_in(key(seed), sample index)`` (``framework/random.py``), so a seeded
+stream is the JAX engine's, and replays across K, rebuilds and preemption.
 ``spec_k > 0`` and ``cache_quant="int8"`` are not ported yet and raise.
 
 ``ServingEngine(model, ..., device=None)`` runs on CUDA and raises
@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..framework.random import categorical, fold_in, key
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
 from ..ops.hopper.fused_ops import swiglu_fused
 from ..ops.paged_attention import blha_attention, plan_step
@@ -119,39 +120,6 @@ class SamplingParams:
                 "logprobs": self.logprobs, "spec": self.spec}
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32) and c < 2**32, without
-    leaving int64: multiply the 16-bit halves separately."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finalizer: a bijective avalanche mix."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
-
-
-def _uniform(seeds: torch.Tensor, sample_pos: torch.Tensor,
-             V: int) -> torch.Tensor:
-    """[B, V] float32 uniforms in (0, 1), a pure function of (seed, sample
-    index, vocab id): the counter-based draw that stands in for the
-    reference's ``fold_in(PRNGKey(seed), sample_pos)`` keys.  The same seed
-    gives the same stream at any batch slot, megastep size or replica."""
-    s = seeds.long()[:, None] & _M32
-    p = sample_pos.long()[:, None] & _M32
-    v = torch.arange(V, device=seeds.device)[None, :]
-    h = _fmix32(_fmix32(s ^ 0x3C6EF372) ^ _mul32(p, 0x9E3779B1))
-    h = _fmix32(h ^ _mul32(v, 0x27D4EB2F))
-    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
-
-
 def _filtered(scaled, top_ks, top_ps):
     """Top-k then top-p in sorted space (ties at the threshold are kept);
     filtered logits are -inf."""
@@ -174,11 +142,11 @@ def _filtered(scaled, top_ks, top_ps):
 
 
 def _draw(filt, seeds, sample_pos):
-    """Gumbel-max draw from the filtered logits: argmax(filt + G) with
-    G = -log(-log(u)) is a categorical sample, as jax.random.categorical
-    takes it."""
-    g = -torch.log(-torch.log(_uniform(seeds, sample_pos, filt.shape[1])))
-    return torch.argmax(filt + g, dim=-1).to(torch.int32)
+    """One categorical draw per row of the filtered logits under the key
+    ``fold_in(key(seed), sample_pos)`` of that row: JAX's threefry draw,
+    token for token (``framework/random.py``), on the logits' device."""
+    keys = fold_in(key(seeds), sample_pos)
+    return categorical(keys, filt).to(torch.int32)
 
 
 def _sample_tokens(logits, temps, top_ks, top_ps, seeds, sample_pos,
@@ -189,7 +157,7 @@ def _sample_tokens(logits, temps, top_ks, top_ps, seeds, sample_pos,
 
     Greedy rows (``temps <= 0``) take the exact float32 argmax.  Sampled
     rows divide by temperature, apply top-k and top-p in sorted space and
-    draw with the counter-based ``(seed, sample_pos)`` stream.  The caller
+    draw with threefry under ``fold_in(key(seed), sample_pos)``.  The caller
     passes ``all_greedy`` (it knows the temperatures on the host) so an
     all-greedy batch skips the two [B, V] sorts without a device sync;
     None reads it from ``temps``.  Returns (next_token [B] int32,

@@ -1,13 +1,24 @@
 """Llama model family — the port of ``paddle_tpu/models/llama.py``.
 
-This slice carries the configuration (``LlamaConfig``, ``llama_tiny``,
-``llama_7b``, ``_rope_cache``) and the parameter structure of
-``LlamaForCausalLM`` with the reference's ``state_dict`` names and
-layouts, so a paddle_tpu checkpoint loads one for one
-(``load_numpy_state_dict``).  The serving engine
-(``inference/serving.py``) runs the forward over these parameters.
-``LlamaForCausalLM.forward`` and ``generate`` come with the static-ring
-decode path in the next slice.
+``LlamaConfig``, ``llama_tiny``, ``llama_7b`` and ``_rope_cache`` as the
+reference's; ``LlamaForCausalLM`` with the reference's ``state_dict`` names
+and layouts, so a paddle_tpu checkpoint loads one for one
+(``load_numpy_state_dict``), and its forward in the reference's three cache
+modes:
+
+- no cache: causal flash attention (kernel B1);
+- a growing ``(k, v)`` cache per layer: the new keys are appended and the
+  unmasked causal SDPA runs over them (B1, bottom-right, ``Sq`` may be 1);
+- the static KV ring ``(k_buf, v_buf, pos)`` per layer
+  (``_static_cache_attn``): a decode step writes its row with B3 and
+  attends with B2; a prefill writes its rows with B3 and runs B1 over the
+  ring with the query offset ``pos``.  The ring is updated IN PLACE (the
+  reference returns new buffers); ``pos`` stays on the device.
+
+The trunk's norms are K1 (the residual add fused into each norm after the
+first), rope K2 and SwiGLU K3; the projections are ``torch.matmul``, as the
+reference leaves them to XLA.  The serving engine
+(``inference/serving.py``) runs its own forward over these parameters.
 """
 from __future__ import annotations
 
@@ -20,9 +31,14 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
+from ..nn import functional as F
+from ..ops.hopper.decode_attention import decode_attention, kv_ring_write
+from ..ops.hopper.flash_attention import flash_attention_fwd
+from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
+from ..ops.hopper.fused_ops import rope_fused, swiglu_fused
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama_7b", "load_numpy_state_dict"]
+           "llama_7b", "load_numpy_state_dict", "apply_rotary_pos_emb"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -87,14 +103,80 @@ class _Init:
         return RMSNorm(hidden, eps, device=self.device, dtype=self.dtype)
 
 
+def apply_rotary_pos_emb(q, k, cos, sin, position_offset=0):
+    """q [B, S, H, D], k [B, S, KVH, D]; cos/sin [Smax, D/2] float32 ->
+    rotated (q, k) through kernel K2.  ``position_offset`` is an int or a
+    0-d integer tensor on the device: the rope window is then gathered
+    with ``index_select`` (no host sync), its start clamped to
+    ``[0, Smax - S]`` as ``lax.dynamic_slice`` clamps it."""
+    S = q.shape[1]
+    if isinstance(position_offset, torch.Tensor):
+        start = torch.clamp(position_offset, 0, cos.shape[0] - S).long()
+        rows = start + torch.arange(S, device=cos.device)
+        cw, sw = cos.index_select(0, rows), sin.index_select(0, rows)
+    else:
+        cw = cos[position_offset:position_offset + S]
+        sw = sin[position_offset:position_offset + S]
+    return rope_fused(q, k, cw, sw)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, init: _Init):
         super().__init__()
         h, d = config.hidden_size, config.head_dim
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = d
         self.q_proj = init.linear(h, config.num_attention_heads * d)
         self.k_proj = init.linear(h, config.num_key_value_heads * d)
         self.v_proj = init.linear(h, config.num_key_value_heads * d)
         self.o_proj = init.linear(config.num_attention_heads * d, h)
+
+    def forward(self, hidden, cos, sin, attn_mask=None, cache=None):
+        """hidden [b, s, E] (normed) -> out [b, s, E], and the layer's new
+        cache when ``cache`` is given."""
+        b, s = hidden.shape[0], hidden.shape[1]
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        q = self.q_proj(hidden).view(b, s, nh, hd)
+        k = self.k_proj(hidden).view(b, s, nkv, hd)
+        v = self.v_proj(hidden).view(b, s, nkv, hd)
+        if cache is not None and len(cache) == 3:
+            return self._static_cache_attn(q, k, v, cos, sin, cache, b, s)
+        offset = 0 if cache is None else cache[0].shape[1]
+        q, k = apply_rotary_pos_emb(q, k, cos, sin, position_offset=offset)
+        new_cache = None
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            new_cache = (k, v)
+        if attn_mask is None and cache is None:
+            out, _ = F.flash_attention(q, k, v, causal=True)
+        else:
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                 is_causal=attn_mask is None)
+        out = self.o_proj(out.reshape(b, s, nh * hd))
+        if cache is not None:
+            return out, new_cache
+        return out
+
+    def _static_cache_attn(self, q, k, v, cos, sin, cache, b, s):
+        """The fixed-size KV ring: cache = (k_buf [B, L, KVH, D], v_buf,
+        pos), pos a 0-d int32 tensor on the device.  Writes this step's
+        rows at pos .. pos + s - 1 INTO the ring (kernel B3, in place: the
+        returned buffers are the given ones), then a decode step (s == 1)
+        attends with kernel B2 over cols <= pos, and a prefill with B1 over
+        the ring, row i seeing cols <= pos + i (the reference's mask).
+        Returns (out, (k_buf, v_buf, pos + s))."""
+        kbuf, vbuf, pos = cache
+        q, k = apply_rotary_pos_emb(q, k, cos, sin, position_offset=pos)
+        kv_ring_write(kbuf, vbuf, k, v, pos)
+        if s == 1:
+            out = decode_attention(q, kbuf, vbuf, pos)
+        else:
+            out = flash_attention_fwd(q, kbuf, vbuf, causal=True,
+                                      q_offset=pos)
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return out, (kbuf, vbuf, pos + s)
 
 
 class LlamaMLP(nn.Module):
@@ -104,6 +186,10 @@ class LlamaMLP(nn.Module):
         self.gate_proj = init.linear(h, m)
         self.up_proj = init.linear(h, m)
         self.down_proj = init.linear(m, h)
+
+    def forward(self, x):
+        """down(silu(gate(x)) * up(x)), the gating in kernel K3."""
+        return self.down_proj(swiglu_fused(self.gate_proj(x), self.up_proj(x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -116,6 +202,31 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = init.norm(config.hidden_size,
                                                   config.rms_norm_eps)
 
+    def forward(self, x, residual, cos, sin, attn_mask=None, cache=None):
+        """The reference's ``residual + attn(ln1(h))`` then
+        ``+ mlp(ln2(.))`` over the layer input ``h = x + residual``
+        (``residual`` None: h = x), with each residual add fused into the
+        norm after it (K1).  Returns (mlp_out, residual) — the layer's
+        output is their sum, left for the next norm to take — and the new
+        cache when ``cache`` is given."""
+        ln1 = self.input_layernorm
+        if residual is None:
+            h, residual = rms_norm_fused(x, ln1.weight, ln1.epsilon), x
+        else:
+            h, residual = rms_norm_residual_fused(x, residual, ln1.weight,
+                                                  ln1.epsilon)
+        attn = self.self_attn(h, cos, sin, attn_mask, cache)
+        new_cache = None
+        if cache is not None:
+            attn, new_cache = attn
+        ln2 = self.post_attention_layernorm
+        h2, residual = rms_norm_residual_fused(attn, residual, ln2.weight,
+                                               ln2.epsilon)
+        out = self.mlp(h2)
+        if cache is not None:
+            return out, residual, new_cache
+        return out, residual
+
 
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, init: _Init):
@@ -127,13 +238,45 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList([LlamaDecoderLayer(config, init)
                                      for _ in range(config.num_hidden_layers)])
         self.norm = init.norm(config.hidden_size, config.rms_norm_eps)
+        cos, sin = _rope_cache(config)
+        self.register_buffer("rope_cos", torch.as_tensor(cos,
+                                                         device=init.device),
+                             persistent=False)
+        self.register_buffer("rope_sin", torch.as_tensor(sin,
+                                                         device=init.device),
+                             persistent=False)
+
+    def forward(self, input_ids, attn_mask=None, caches=None):
+        """input_ids [B, S] -> final-normed hidden [B, S, E], and the new
+        caches when ``caches`` is given."""
+        x = self.embed_tokens(input_ids)
+        if self.config.dtype == "bfloat16":
+            x = x.to(torch.bfloat16)
+        cos, sin = self.rope_cos, self.rope_sin
+        residual = None
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if caches is not None:
+                x, residual, c = layer(x, residual, cos, sin, attn_mask,
+                                       caches[i])
+                new_caches.append(c)
+            else:
+                x, residual = layer(x, residual, cos, sin, attn_mask)
+        hidden, _ = rms_norm_residual_fused(x, residual, self.norm.weight,
+                                            self.norm.epsilon)
+        if caches is not None:
+            return hidden, new_caches
+        return hidden
 
 
 class LlamaForCausalLM(nn.Module):
-    """Parameters of the causal LM.  ``device=None`` means CUDA and raises
-    ``RuntimeError`` without it; pass ``device="cpu"`` for the CPU.
-    Parameters are made in ``config.dtype`` on the device, drawn from a
-    ``torch.Generator`` there seeded with ``seed``."""
+    """The causal LM.  ``device=None`` means CUDA and raises
+    ``RuntimeError`` without it; pass ``device="cpu"`` for the CPU, where
+    every kernel runs its plain version.  Parameters are made in
+    ``config.dtype`` on the device, drawn from a ``torch.Generator`` there
+    seeded with ``seed``."""
+
+    supports_static_kv_cache = True  # 3-tuple (k_buf, v_buf, pos) ring
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
@@ -150,11 +293,26 @@ class LlamaForCausalLM(nn.Module):
                         else init.linear(config.hidden_size,
                                          config.vocab_size))
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LlamaForCausalLM.forward/generate come with the static-ring "
-            "decode slice (flash attention, decode attention and the KV ring "
-            "write); serve through inference.serving.ServingEngine")
+    @property
+    def device(self) -> torch.device:
+        return self.llama.embed_tokens.weight.device
+
+    def forward(self, input_ids, attn_mask=None, caches=None):
+        """input_ids [B, S] (a tensor on the model's device, or anything
+        ``torch.as_tensor`` takes) -> logits [B, S, V] in the model's
+        dtype, or (logits, new caches) when ``caches`` is given: per layer
+        an empty or growing ``(k, v)`` [B, T, KVH, D], or the static ring
+        ``(k_buf, v_buf, pos)``."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        out = self.llama(ids, attn_mask, caches)
+        hidden = out[0] if caches is not None else out
+        if self.lm_head is None:
+            logits = hidden @ self.llama.embed_tokens.weight.t()
+        else:
+            logits = self.lm_head(hidden)
+        if caches is not None:
+            return logits, out[1]
+        return logits
 
 
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:

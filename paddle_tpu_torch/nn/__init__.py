@@ -6,8 +6,10 @@ Column/Row/VocabParallel layers at mp=1 (which hold the same parameters).
 A ``Linear`` weight is ``[in, out]`` (``y = x @ W``), not torch's
 ``[out, in]``, so a paddle_tpu ``state_dict`` loads one for one.
 
-These layers hold parameters only: the serving engine reads them and runs
-its own forward (``inference/serving.py``).  Weights are drawn from an
+Their forwards serve ``LlamaForCausalLM.forward``: ``Linear`` is one
+``torch.matmul`` (the reference leaves it to XLA), ``RMSNorm`` is kernel K1
+(``ops/hopper/fused_norm.py``); the serving engine reads the parameters and
+runs its own forward (``inference/serving.py``).  Weights are drawn from an
 explicit ``torch.Generator``, never from global random state.
 """
 from __future__ import annotations
@@ -16,6 +18,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..ops.hopper.fused_norm import rms_norm_fused
 
 __all__ = ["Linear", "Embedding", "RMSNorm"]
 
@@ -33,6 +37,9 @@ class Linear(nn.Module):
         w.uniform_(-bound, bound, generator=generator)
         self.weight = nn.Parameter(w, requires_grad=False)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight
+
 
 class Embedding(nn.Module):
     """``weight [num_embeddings, dim]`` ~ N(0, 1), as VocabParallelEmbedding
@@ -47,10 +54,12 @@ class Embedding(nn.Module):
         w.normal_(0.0, 1.0, generator=generator)
         self.weight = nn.Parameter(w, requires_grad=False)
 
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.weight[ids.long()]
+
 
 class RMSNorm(nn.Module):
-    """``weight [hidden]`` = ones; ``epsilon`` kept for the forward that
-    reads it."""
+    """``weight [hidden]`` = ones; the forward is kernel K1."""
 
     def __init__(self, hidden_size: int, epsilon: float = 1e-6, *,
                  device: torch.device, dtype: torch.dtype):
@@ -59,3 +68,6 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(
             torch.ones(hidden_size, device=device, dtype=dtype),
             requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm_fused(x, self.weight, self.epsilon)

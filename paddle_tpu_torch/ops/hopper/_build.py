@@ -61,6 +61,16 @@ _SIGNATURES = {
     # max_q_len, scale, dtype, stream
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, out, lse, q_off|NULL, B, Sq, Sk, H, KVH, D, q/k/v strides
+    # over (batch, seq, head), causal, q_off_host, scale, dtype, stream
+    "ptt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            *[ctypes.c_longlong] * 9, _I, _I, _F, _I, _P],
+    # q, kbuf, vbuf, out, part_acc|NULL, part_ml|NULL, pos, B, L, H, KVH,
+    # D, chunk, scale, dtype, stream
+    "ptt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _P],
+    # kbuf, vbuf, k_new, v_new, pos, B, L, S, row_bytes, stream
+    "ptt_kv_ring_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # cudaError_t -> its name (returns a C string, not an error)
     "ptt_error_string": [_I],
 }
@@ -168,7 +178,8 @@ def device_guard(t: torch.Tensor):
 def check(err: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry.  An
     entry returns cudaErrorInvalidConfiguration for a shape whose block
-    would need more than the 48 KB default of shared memory."""
+    would need more shared memory than it may use (48 KB for K1 and K4,
+    the device's opt-in limit for B1 and B2)."""
     if err != 0:
         what = lib().ptt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "

@@ -38,7 +38,11 @@ def _port_files():
 
 def test_import_leaves_no_jax_or_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference.serving,"
-            " paddle_tpu_torch.models.llama\n"
+            " paddle_tpu_torch.models.llama, paddle_tpu_torch.framework.random,"
+            " paddle_tpu_torch.nn.functional, paddle_tpu_torch.tensor.search,"
+            " paddle_tpu_torch.models.generation,"
+            " paddle_tpu_torch.ops.hopper.flash_attention,"
+            " paddle_tpu_torch.ops.hopper.decode_attention\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')"
             " or m.startswith(('jax.', 'paddle_tpu.'))]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -73,6 +77,31 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
+
+
+def test_generation_runs_on_the_model_device():
+    """generate and greedy_decode run where the model lives: a CPU model
+    (the only kind this machine can build) gives CPU tokens, through the
+    plain versions, without a kernel launch; a CUDA model cannot be made
+    here."""
+    from paddle_tpu_torch.models.generation import generate, greedy_decode
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LlamaForCausalLM(llama_tiny())
+    model = LlamaForCausalLM(llama_tiny(), device="cpu")
+    ids = np.array([[3, 17, 101, 7]], np.int32)
+    launched = (fa.flash_attention_fused.launches,
+                da.decode_attention.launches, da.kv_ring_write.launches)
+    for out in (generate(model, ids, max_new_tokens=3),
+                generate(model, ids, max_new_tokens=3,
+                         use_static_cache=True),
+                greedy_decode(model, ids, max_new_tokens=3)):
+        assert out.device.type == "cpu" and tuple(out.shape) == (1, 3)
+    assert (fa.flash_attention_fused.launches, da.decode_attention.launches,
+            da.kv_ring_write.launches) == launched
 
 
 def test_precision_pin():

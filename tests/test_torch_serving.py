@@ -133,10 +133,11 @@ def test_engine_parity_with_jax(request, which, k):
 
 
 def test_sample_tokens_matches_jax():
-    """Identical logits: greedy rows give identical tokens; logprobs and
-    the post-filter distributions agree for temperature, top-k and top-p
-    rows (the draws themselves use another generator).  Tolerance 1e-6:
-    both take float32 softmaxes of the same numbers."""
+    """Identical logits: every row gives JAX's token, greedy and sampled
+    (the port draws with JAX's threefry under the same
+    ``fold_in(key(seed), sample_pos)`` keys); logprobs and the post-filter
+    distributions agree for temperature, top-k and top-p rows.  Tolerance
+    1e-6: both take float32 softmaxes of the same numbers."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(0)
@@ -159,6 +160,15 @@ def test_sample_tokens_matches_jax():
         logits, temps, top_ks, top_ps, seeds, spos)), return_probs=True)
     greedy = temps <= 0
     np.testing.assert_array_equal(pn.numpy()[greedy], np.asarray(jn)[greedy])
+    np.testing.assert_array_equal(pn.numpy(), np.asarray(jn))
+    # the same draws without the probabilities (the JAX side's lax.cond
+    # path), and over other keys
+    for k in range(3):
+        jn2, _, _ = jax_sample(*(jnp.asarray(a) for a in (
+            logits, temps, top_ks, top_ps, seeds + 100 * k, spos + k)))
+        pn2, _, _ = port_sample(*(torch.as_tensor(a) for a in (
+            logits, temps, top_ks, top_ps, seeds + 100 * k, spos + k)))
+        np.testing.assert_array_equal(pn2.numpy(), np.asarray(jn2))
     np.testing.assert_allclose(pp.numpy(), np.asarray(jp), rtol=1e-6,
                                atol=1e-6)
     # logprob of the drawn token, read off the same raw-logit log-softmax
@@ -175,6 +185,26 @@ def _run(pm, prompt, n, k, sampling=None, **kw):
     eng = PortEngine(pm, megastep_k=k, device="cpu", **{**ENGINE, **kw})
     rid = eng.add_request(prompt, max_new_tokens=n, sampling=sampling)
     return eng.run()[rid]
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_sampled_engine_parity_with_jax(mha, k):
+    """Seeded sampled requests beside greedy ones: the port engine emits
+    the JAX engine's tokens (one threefry stream per request, keyed by
+    its seed and sample index)."""
+    jm, pm = mha
+    wave = [(0, [3, 17, 101, 7, 250], 10, SAMPLED),
+            (1, [40 + i for i in range(20)], 6, {**SAMPLED, "seed": 99,
+                                                 "top_k": 0}),
+            (2, [7, 9, 11], 8, {}),
+            (3, [5, 6], 7, dict(temperature=1.1, seed=4, top_p=0.9))]
+    jt, _ = _drive(JaxEngine(jm, megastep_k=k, **ENGINE), [wave])
+    pt, _ = _drive(PortEngine(pm, megastep_k=k, device="cpu", **ENGINE),
+                   [wave])
+    assert pt == jt
+    greedy, _ = _drive(JaxEngine(jm, megastep_k=k, **ENGINE),
+                       [[(0, wave[0][1], 10, {})]])
+    assert pt[0] != greedy[0]       # the sampled row really sampled
 
 
 @pytest.mark.parametrize("sampling", [None, SAMPLED])
