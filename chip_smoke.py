@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's two paths — Llama serving through the paged
-ServingEngine, and Llama generation (forward, generate, greedy_decode) over
-the static KV ring — on one NVIDIA H100, and check every Hopper kernel on
-them.
+"""Drive paddle_tpu_torch's three paths — Llama serving through the paged
+ServingEngine, Llama generation (forward, generate, greedy_decode) over the
+static KV ring, and Llama pretraining (TrainStep + AdamW) — on one NVIDIA
+H100, and check every Hopper kernel on them.
 
     python3 chip_smoke.py               # all phases
     python3 chip_smoke.py --phases 1,2  # build + kernel checks only
@@ -12,7 +12,8 @@ Phases (each prints its seconds):
      (nvidia-smi), compute capability 9.0, and the kernel build from
      paddle_tpu_torch/csrc (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the same CUDA tensors,
-     in bfloat16 and float32, at the shapes the serving path gives it;
+     in bfloat16 and float32, at the shapes the paths give it (B9 over
+     three steps from one state);
      then CUDA-event times (L2 flushed before each launch) of the kernel,
      the plain version and, where one exists, the one PyTorch call that
      computes the same function, beside the bound: the larger of bytes
@@ -51,9 +52,23 @@ Phases (each prints its seconds):
   6. phase 4's two 2-layer float32 models: forward logits on cuda and on
      the CPU agree, and greedy_decode and generate (ring and growing) on
      cuda agree with greedy_decode on the CPU up to the top-2-gap stop;
-  7. one JSON line {"kernels": [...]}, "launches" per path ({"serving": n,
-     "generate": m}, null for a path whose phase did not run), then the
-     card line, then {"ok": true, "device": {...}} as the last line.
+  7. training at bench.py's honest geometry (32000 vocab, 2560 hidden,
+     8192 intermediate, 9 layers, 20 heads of 128, bfloat16, recompute)
+     with seeded random weights: AdamW(1e-4, multi_precision=True),
+     LlamaPretrainingCriterion and TrainStep on one [8, 2048] batch; the
+     counters are zeroed, then 2 warm-up and 10 timed steps (finite losses,
+     the last below the first; tokens/s, ms per step, peak memory and MFU
+     against 989 TFLOP/s printed, informative), run_steps over a
+     [4, 8, 2048] stack with CUDA sync debugging set to raise, one step
+     untraced and one under torch.profiler (busy share, time by kernel);
+     then every kernel of the path launched;
+  8. phase 4's float32 pair: one step's loss and every parameter's
+     gradient, then the parameters after 3 AdamW(multi_precision) steps
+     through TrainStep, kernels on cuda against the plain path on the CPU
+     (1e-4 of each tensor's largest |value|);
+  then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
+  "generate", "train"}, null for a path whose phase did not run), then the
+  card line, then {"ok": true, "device": {...}} as the last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
 imports nothing of JAX or paddle_tpu.
@@ -74,29 +89,42 @@ REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas/fused_norm.py:47",
     "rms_norm_residual": "paddle_tpu/ops/pallas/fused_norm.py:61",
     "rope": "paddle_tpu/ops/pallas/fused_ops.py:65",
+    # the same kernel rotating the cotangents by -theta
+    "rope_bwd": "paddle_tpu/ops/pallas/fused_ops.py:121",
     "swiglu": "paddle_tpu/ops/pallas/fused_ops.py:164",
+    "swiglu_bwd": "paddle_tpu/ops/pallas/fused_ops.py:178",
     # not a Pallas kernel: the jnp attention core XLA compiles
     "paged_attention": "paddle_tpu/ops/paged_attention.py:262",
     "flash_attention": "paddle_tpu/ops/pallas/flash_attention.py:148",
     "decode_attention": "paddle_tpu/ops/pallas/decode_attention.py:155",
     "kv_ring_write": "paddle_tpu/ops/pallas/decode_attention.py:70",
+    "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:279",
+    "fused_adamw": "paddle_tpu/ops/pallas/fused_adamw.py:53",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
     "rms_norm_residual": "paddle_tpu_torch/csrc/fused_norm.cu",
     "rope": "paddle_tpu_torch/csrc/fused_ops.cu",
+    "rope_bwd": "paddle_tpu_torch/csrc/fused_ops.cu",
     "swiglu": "paddle_tpu_torch/csrc/fused_ops.cu",
+    "swiglu_bwd": "paddle_tpu_torch/csrc/fused_ops.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
     "flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
     "decode_attention": "paddle_tpu_torch/csrc/decode_attention.cu",
     "kv_ring_write": "paddle_tpu_torch/csrc/decode_attention.cu",
+    "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "fused_adamw": "paddle_tpu_torch/csrc/fused_adamw.cu",
 }
-# the kernels each path runs (phase 3 serving, phase 5 generation)
+# the kernels each path runs (phase 3 serving, phase 5 generation, phase 7
+# training)
 PATHS = {
     "serving": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                 "paged_attention"),
     "generate": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                  "flash_attention", "decode_attention", "kv_ring_write"),
+    "train": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd", "swiglu",
+              "swiglu_bwd", "flash_attention", "flash_attention_bwd",
+              "fused_adamw"),
 }
 
 
@@ -188,7 +216,8 @@ def _tol(dtype_name, ref):
 
 def kernel_cases(torch, dtype):
     """(name, shape label, kernel fn, plain fn, library fn | None, bytes,
-    ops) at the shapes the serving path gives each kernel."""
+    ops[, check fn -> (kernel result, plain result)]) at the shapes the
+    serving, generation and training paths give each kernel."""
     from paddle_tpu_torch.ops.hopper import fused_norm, fused_ops
 
     g = torch.Generator(device="cuda")
@@ -241,6 +270,7 @@ def kernel_cases(torch, dtype):
         3 * a.numel() * es, 5 * a.numel()))
 
     cases += _generation_cases(torch, rnd, es, g, dtype)
+    cases += _training_cases(torch, rnd, es, g, dtype)
 
     # paged attention: pool of 256 blocks of 16, 8 rows of up to 32 blocks
     # (max_seq_len 512); the 7B heads, and a head_dim-256 GQA geometry
@@ -343,6 +373,183 @@ def _generation_cases(torch, rnd, es, g, dtype):
     return cases
 
 
+def _training_cases(torch, rnd, es, g, dtype):
+    """The training path's kernels at its shapes (bench.py's honest
+    geometry: batch 8 x seq 2048, hidden 2560, 20 heads of 128,
+    intermediate 8192): K1-K3 and B1 forward, the rope backward (K2 with
+    -sin), B6b, B8 and B9."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    from paddle_tpu_torch.ops.hopper import fused_norm, fused_ops
+
+    dev = "cuda"
+    N, E, I, S, H, D = 8 * 2048, 2560, 8192, 2048, 20, 128
+    cases = []
+    x, r, w = rnd(N, E), rnd(N, E), rnd(E)
+    cases.append((
+        "rms_norm_residual", f"train [{N}, {E}]",
+        lambda x=x, r=r, w=w: fused_norm.rms_norm_residual_fused(
+            x, r, w, 1e-6),
+        lambda x=x, r=r, w=w: fused_norm._ref_rms_residual(x, r, w, 1e-6),
+        None, (4 * N * E + E) * es, 5 * N * E))
+    inv = 1.0 / (10000.0 ** (torch.arange(0, D, 2, device=dev) / D))
+    fr = torch.arange(S, device=dev)[:, None].double() * inv[None].double()
+    cos, sin = fr.cos().float().contiguous(), fr.sin().float().contiguous()
+    q, k = rnd(8, S, H, D), rnd(8, S, H, D)
+    rope_bytes = 4 * 8 * S * H * D * es + 2 * S * (D // 2) * 4
+    cases.append((
+        "rope", f"train q, k [8, {S}, {H}, {D}]",
+        lambda q=q, k=k: fused_ops.rope_fused(q, k, cos, sin),
+        lambda q=q, k=k: fused_ops._rope_ref(q, k, cos, sin), None,
+        rope_bytes, 6 * 8 * S * 2 * H * D // 2))
+    cases.append((
+        "rope_bwd", f"train gq, gk [8, {S}, {H}, {D}]",
+        lambda q=q, k=k: fused_ops.rope_bwd_fused(q, k, cos, sin),
+        lambda q=q, k=k: fused_ops._rope_ref(q, k, cos, -sin), None,
+        rope_bytes, 6 * 8 * S * 2 * H * D // 2))
+    a, b, gg = rnd(N, I), rnd(N, I), rnd(N, I)
+    cases.append((
+        "swiglu", f"train [{N}, {I}]",
+        lambda a=a, b=b: fused_ops.swiglu_fused(a, b),
+        lambda a=a, b=b: fused_ops._swiglu_ref(a, b), None,
+        3 * a.numel() * es, 5 * a.numel()))
+    cases.append((
+        "swiglu_bwd", f"[{N}, {I}]",
+        lambda a=a, b=b, g=gg: fused_ops.swiglu_bwd_fused(a, b, g),
+        lambda a=a, b=b, g=gg: fused_ops._swiglu_bwd_ref(a, b, g), None,
+        5 * a.numel() * es, 12 * a.numel()))
+    # B1 and B8: (label, B, Sq, Sk, H, KVH, D, causal)
+    for label, B, Sq, Sk, Hq, KVH, Dh, causal in (
+            (f"causal [8, {S}, {H}, {D}]", 8, S, S, H, H, D, True),
+            ("GQA causal q [1, 512, 32, 128], k/v 8 heads", 1, 512, 512, 32,
+             8, 128, True),
+            ("causal Sq 256 < Sk 512 [2, 8 heads, 128]", 2, 256, 512, 8, 8,
+             128, True),
+            ("non-causal [1, 256, 8, 64]", 1, 256, 256, 8, 8, 64, False),
+            (f"causal head_dim 256 [8, {S}, 10, 256] (bench.py headline)", 8,
+             S, S, 10, 10, 256, True),
+            ("causal Sq 96 > Sk 64: rows 0-31 see no key", 1, 96, 64, 8, 8,
+             128, True)):
+        q, kk, v = rnd(B, Sq, Hq, Dh), rnd(B, Sk, KVH, Dh), rnd(B, Sk, KVH,
+                                                                Dh)
+        scale = 1.0 / Dh ** 0.5
+        off = Sk - Sq
+        vis = (sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
+               if causal else Sq * Sk)
+        if label.startswith("causal ["):
+            cases.append((
+                "flash_attention", f"train {label}",
+                lambda q=q, k=kk, v=v: fa.flash_attention_fused(
+                    q, k, v, True),
+                lambda q=q, k=kk, v=v, s=scale: fa._plain_bshd(
+                    q, k, v, True, s, None),
+                _sdpa_b1(torch, q, kk, v, True, 0),
+                (2 * B * Sq * Hq * Dh + 2 * B * Sk * KVH * Dh) * es
+                + B * Hq * Sq * 4, 4 * B * Hq * vis * Dh))
+        o, lse = fa.flash_attention_fused(q, kk, v, causal)
+        go = rnd(B, Sq, Hq, Dh)
+        cases.append((
+            "flash_attention_bwd", label,
+            lambda q=q, k=kk, v=v, o=o, l=lse, go=go, c=causal:
+                fa.flash_attention_bwd_fused(q, k, v, o, l, go, c),
+            lambda q=q, k=kk, v=v, o=o, l=lse, go=go, c=causal, s=scale:
+                fa._plain_bwd_bshd(q, k, v, o, l, go, c, s),
+            None if Sq > Sk else _sdpa_b8(torch, q, kk, v, go, causal),
+            # q, k, v, o, dO and lse read once; dq, dk, dv written once
+            (4 * B * Sq * Hq * Dh + 4 * B * Sk * KVH * Dh) * es
+            + B * Hq * Sq * 4,
+            # S, dP, dQ, dK, dV: 10 D per visible pair
+            10 * B * Hq * vis * Dh))
+    cases += [_adamw_case(torch, rnd, es, dtype, shape)
+              for shape in ((2560, 8192), (2560,))]
+    return cases
+
+
+def _sdpa_b8(torch, q, k, v, go, causal):
+    """The backward of F.scaled_dot_product_attention alone: its forward
+    runs here, once, and each call is torch.autograd.grad of that output
+    (graph retained) on [B, H, S, D] copies."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = go.transpose(1, 2).contiguous()
+    Sq, Sk = q.shape[1], k.shape[1]
+    kw = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
+    if causal and Sq != Sk:
+        rows = torch.arange(Sq, device=q.device)[:, None] + Sk - Sq
+        kw["attn_mask"] = torch.arange(Sk, device=q.device)[None, :] <= rows
+    else:
+        kw["is_causal"] = causal
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+
+
+def _adamw_case(torch, rnd, es, dtype, shape):
+    """B9 on one parameter (bf16 or f32, the case's type) with float32
+    master and moments.  The check runs three steps (t = 1, 2, 3) on the
+    kernel and on the plain version from one state, and holds each output
+    to its own limit: the master within 1e-3 of the plain version's largest
+    change over the steps (a missing or stale step is off by a whole
+    change), m and v within 1e-4 of their own largest value, and a bf16
+    parameter within one bf16 ulp of its own value everywhere and equal to
+    the plain rounding in all but 1e-3 of the elements (the two masters may
+    straddle a rounding midpoint; a skipped, stale or truncating store
+    differs almost everywhere).  The times are of one step.  Library:
+    torch.optim.AdamW(fused=True) over the float32 master, which writes no
+    low-precision copy."""
+    from paddle_tpu_torch.ops.hopper import fused_adamw as fad
+
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    w0 = rnd(*shape, dt=torch.float32) * 0.02
+    grads = [rnd(*shape) * 0.01 for _ in range(3)]
+
+    def state():
+        w = w0.clone()
+        p = w.to(dtype) if dtype != torch.float32 else w
+        return [p, w, torch.zeros_like(w), torch.zeros_like(w),
+                torch.ones(1, device="cuda")]
+
+    def run(fn, st, steps):
+        for i in range(steps):
+            st[4].fill_(i + 1)
+            fn(*st[:4], grads[i], 1e-4, st[4], **kw)
+        return tuple(st[:4])
+
+    def check():
+        kp, kw, km, kv = run(fad.fused_adamw, state(), 3)
+        rp, rw, rm, rv = run(fad._fused_adamw_ref, state(), 3)
+        torch.cuda.synchronize()
+        parts = [("master", _err(torch, kw, rw),
+                  1e-3 * _scale(rw - w0) + 1e-12),
+                 ("m", _err(torch, km, rm), 1e-4 * _scale(rm) + 1e-12),
+                 ("v", _err(torch, kv, rv), 1e-4 * _scale(rv) + 1e-12)]
+        err = max(e for _, e, _ in parts)
+        if not own:
+            rf, d = rp.float(), (kp.float() - rp.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(
+                rf.abs().clamp_min(2.0 ** -126))) - 7)
+            parts += [("p / own bf16 ulp", float((d / ulp).max()), 1.0),
+                      ("p share off the plain rounding",
+                       float((d > 0).float().mean()), 1e-3)]
+            err = max(err, float(d.max()))
+        return err, parts
+
+    ks, ps = state(), state()
+    lw = w0.clone().requires_grad_()
+    lw.grad = grads[0].float()
+    lib = torch.optim.AdamW([lw], lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.01, fused=True)
+    n = w0.numel()
+    own = dtype == torch.float32
+    return ("fused_adamw", f"{list(shape)} x 3 steps",
+            lambda: fad.fused_adamw(*ks[:4], grads[0], 1e-4, ks[4], **kw),
+            lambda: fad._fused_adamw_ref(*ps[:4], grads[0], 1e-4, ps[4],
+                                         **kw),
+            lib.step,
+            # g read, w/m/v read and written, p written (no p: w is p)
+            n * (es + 24 + (0 if own else es)), 15 * n, check)
+
+
 def _sdpa_b1(torch, q, k, v, causal, off):
     """F.scaled_dot_product_attention on [B, H, S, D] copies (transposes
     made here, not timed): is_causal when Sq == Sk and the offset is 0,
@@ -428,27 +635,39 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
 
 def kernels_vs_plain(torch, iters=20):
     """Check every case in both types; time it; return the rows of the
-    kernels line (bfloat16, the serving type)."""
+    kernels line (bfloat16, the type the paths run in)."""
     timer = Timer(torch, iters)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for name, label, kern, plain, lib, nbytes, ops in kernel_cases(
-                torch, dtype):
-            got = kern()
-            ref = plain()
-            torch.cuda.synchronize()
-            err, tol = _err(torch, got, ref), _tol(dname, ref)
+        for name, label, kern, plain, lib, nbytes, ops, *check in \
+                kernel_cases(torch, dtype):
+            # a case may bring its own check (several steps from one state,
+            # a limit for each output): (max abs error, [(output, value,
+            # limit)])
+            if check:
+                err, parts = check[0]()
+            else:
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err = _err(torch, got, ref)
+                parts = [("", err, _tol(dname, ref))]
+            tol = (parts[0][2] if len(parts) == 1
+                   else {lab: lim for lab, _, lim in parts})
             ms, plain_ms = timer(kern), timer(plain)
             lib_ms = timer(lib) if lib is not None else None
             bound_ms, bound_by = _bound(nbytes, ops, dname)
+            limits = " ".join(f"{lab + ' ' if lab else ''}{val:.3e} "
+                              f"tol {lim:.3e}" for lab, val, lim in parts)
             print(f"kernel {name} {dname} {label}: max_abs_err {err:.3e} "
-                  f"tol {tol:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"[{limits}] ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                   f" bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
-            if not err <= tol:
-                raise AssertionError(f"{name} {dname} {label}: kernel and "
-                                     f"plain differ by {err} > {tol}")
+            for lab, val, lim in parts:
+                if not val <= lim:
+                    raise AssertionError(
+                        f"{name} {dname} {label}: kernel and plain differ "
+                        f"{'in ' + lab + ' ' if lab else ''}by {val} > {lim}")
             if dtype == torch.bfloat16:
                 rows.append(dict(
                     name=name, shape=label, dtype=dname, route="cuda",
@@ -499,14 +718,20 @@ def _counters():
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
     from paddle_tpu_torch.ops.hopper import fused_norm, fused_ops
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
+    from paddle_tpu_torch.ops.hopper.fused_adamw import fused_adamw
 
     return {"rms_norm": fused_norm.rms_norm_fused,
             "rms_norm_residual": fused_norm.rms_norm_residual_fused,
-            "rope": fused_ops.rope_fused, "swiglu": fused_ops.swiglu_fused,
+            "rope": fused_ops.rope_fused,
+            "rope_bwd": fused_ops.rope_bwd_fused,
+            "swiglu": fused_ops.swiglu_fused,
+            "swiglu_bwd": fused_ops.swiglu_bwd_fused,
             "paged_attention": pa.paged_attention,
             "flash_attention": fa.flash_attention_fused,
             "decode_attention": da.decode_attention,
-            "kv_ring_write": da.kv_ring_write}
+            "kv_ring_write": da.kv_ring_write,
+            "flash_attention_bwd": fa.flash_attention_bwd_fused,
+            "fused_adamw": fused_adamw}
 
 
 def _zero_counters():
@@ -975,10 +1200,174 @@ def generation_kernels_vs_plain(torch, gpu_model, cpu_model):
           "ring and growing)")
 
 
+# --------------------------------------------------------------- phase 7
+def _train_setup(torch, model, lr):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                multi_precision=True)
+    crit = LlamaPretrainingCriterion()
+    return TrainStep(model, lambda m, ids: crit(m(ids), ids), opt)
+
+
+def _profile_train(torch, step, ids):
+    """One step untraced (wall time), then one under torch.profiler: the
+    device's busy share of the untraced wall time and device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step(ids)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(ids)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in evs)
+    print(f"profile train step: untraced wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {dev_us / 1e3:.1f} ms "
+          f"({100 * dev_us / wall_us:.1f}%), "
+          f"{sum(e.count for e in evs)} device kernels")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
+              f"x{e.count:6d}  {e.key[:90]}")
+
+
+def full_width_training(torch):
+    """Phase 7: bench.py's honest geometry in bfloat16 with recompute,
+    AdamW(1e-4, multi_precision) through TrainStep on one [8, 2048] batch;
+    returns the training path's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=2560,
+                      intermediate_size=8192, num_hidden_layers=9,
+                      num_attention_heads=20, max_position_embeddings=2048,
+                      dtype="bfloat16", recompute=True)
+    B, S = 8, 2048
+    t = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=0)
+    step = _train_setup(torch, model, 1e-4)
+    torch.cuda.synchronize()
+    n_params = model.num_params
+    print(f"train model: {n_params} parameters, {len(list(model.parameters()))}"
+          f" tensors, setup seconds {time.perf_counter() - t:.3f}")
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int64, device="cuda")
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids) for _ in range(2)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        losses.append(step(ids))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / 10
+    lv = torch.stack(losses).float().cpu()
+    print(f"losses {[round(float(x), 4) for x in lv]}")
+    if not bool(torch.isfinite(lv).all()) or not lv[-1] < lv[0]:
+        raise AssertionError(f"training losses not finite and falling: {lv}")
+    tok_s = B * S / dt
+    # bench.py:96: 6 N per token (forward + backward) + the attention term
+    flops_tok = 6 * n_params + 12 * cfg.num_hidden_layers \
+        * cfg.hidden_size * S * 0.5
+    print(f"train step [{B}, {S}]: {dt * 1e3:.1f} ms, {tok_s:.1f} tokens/s, "
+          f"MFU {tok_s * flops_tok / 989e12:.4f} against 989 TFLOP/s "
+          f"(informative), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    # run_steps: 4 steps over a stacked window, no host sync inside
+    stack = ids[None].expand(4, B, S)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    l4 = _sync_free(torch, step.run_steps)(stack)
+    torch.cuda.synchronize()
+    l4 = l4.float().cpu()
+    if l4.shape != (4,) or not bool(torch.isfinite(l4).all()):
+        raise AssertionError(f"run_steps losses {l4}")
+    print(f"run_steps [4, {B}, {S}]: {time.perf_counter() - t:.3f} s, "
+          f"losses {[round(float(x), 4) for x in l4]}, no host sync inside")
+    _profile_train(torch, step, ids)
+    n_steps = 12 + 4 + 2
+    launches = _path_launches("train", counters)
+    print("launches per train step: " + json.dumps(
+        {k: launches[k] / n_steps for k in PATHS["train"]}))
+    return launches
+
+
+# --------------------------------------------------------------- phase 8
+def _grads_of(torch, model, ids):
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+
+    model.zero_grad(set_to_none=True)
+    loss = LlamaPretrainingCriterion()(model(ids), ids)
+    loss.backward()
+    return float(loss.detach())
+
+
+def training_kernels_vs_plain(torch, gpu_model, cpu_model):
+    """Phase 8 on phase 4's float32 pair: one step's loss and every
+    gradient, then the parameters after 3 AdamW(multi_precision) steps
+    through TrainStep, kernels on cuda against plain versions on the CPU;
+    1e-4 of each tensor's largest |value|."""
+    g = torch.Generator()
+    g.manual_seed(17)
+    V = gpu_model.config.vocab_size
+    ids = torch.randint(1, V, (2, 64), generator=g)
+    lg = _grads_of(torch, gpu_model, ids.cuda())
+    lc = _grads_of(torch, cpu_model, ids)
+    print(f"loss: cuda {lg:.6f} cpu {lc:.6f}")
+    if not abs(lg - lc) <= 1e-4 * abs(lc):
+        raise AssertionError("losses differ beyond 1e-4")
+    worst = 0.0
+    for (n, pg), (_, pc) in zip(gpu_model.named_parameters(),
+                                cpu_model.named_parameters()):
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        scale = float(pc.grad.abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not err <= 1e-4 * scale + 1e-9:
+            raise AssertionError(f"grad of {n}: {err} > 1e-4 of {scale}")
+    print(f"gradients: every parameter within {worst:.2e} of its largest "
+          f"|grad|")
+    gpu_model.zero_grad(set_to_none=True)
+    cpu_model.zero_grad(set_to_none=True)
+    lr, steps = 1e-4, 3
+    sg, sc = _train_setup(torch, gpu_model, lr), _train_setup(
+        torch, cpu_model, lr)
+    for i in range(steps):
+        a, b = float(sg(ids.cuda())), float(sc(ids))
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"step {i} loss cuda {a} cpu {b}")
+    # Adam moves an element by ~lr a step whatever its gradient's size:
+    # where a gradient is within float noise of zero its sign, and the
+    # step, may differ; such elements stay within 2 lr steps
+    n_out = n_all = 0
+    for (n, pg), (_, pc) in zip(gpu_model.named_parameters(),
+                                cpu_model.named_parameters()):
+        err = (pg.detach().cpu() - pc.detach()).abs()
+        tol = 1e-4 * float(pc.detach().abs().max())
+        n_out += int((err > tol).sum())
+        n_all += err.numel()
+        if not float(err.max()) <= tol + 2 * lr * steps:
+            raise AssertionError(f"{n} after {steps} steps: "
+                                 f"{float(err.max())}")
+    print(f"parameters after {steps} AdamW steps: {n_out} of {n_all} "
+          f"elements beyond 1e-4 of their tensor's largest |w| (all within "
+          f"2 lr steps)")
+    if n_out > 1e-4 * n_all:
+        raise AssertionError("too many parameters differ after AdamW")
+    print("training kernel path == plain path (loss, gradients, AdamW)")
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="phases to run after phase 1 (always run)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1009,7 +1398,7 @@ def main(argv=None) -> int:
         t = _phase("3 full-width serving")
         launches["serving"] = full_width_serving(torch, model)
         _done("3", t)
-    pair = two_layer_models(torch) if phases & {4, 6} else None
+    pair = two_layer_models(torch) if phases & {4, 6, 8} else None
     if 4 in phases:
         t = _phase("4 kernel path vs plain path")
         kernels_vs_plain_path(torch, *pair)
@@ -1022,6 +1411,17 @@ def main(argv=None) -> int:
         t = _phase("6 generation: kernel path vs plain path")
         generation_kernels_vs_plain(torch, *pair)
         _done("6", t)
+    model = None                # the 7B weights: room for training
+    torch.cuda.empty_cache()
+    if 7 in phases:
+        t = _phase("7 full-width training")
+        launches["train"] = full_width_training(torch)
+        torch.cuda.empty_cache()
+        _done("7", t)
+    if 8 in phases:
+        t = _phase("8 training: kernel path vs plain path")
+        training_kernels_vs_plain(torch, *pair)
+        _done("8", t)
     # launches per path, each from that path's own run: null when its
     # phase did not run
     for r in rows:

@@ -6,13 +6,17 @@
 // engine passes B = 1, S = T packed tokens and the cos/sin rows gathered at
 // each token's absolute position.  One launch rotates q and k together.
 // K3 replaces fused_ops.py:_swiglu_pallas: silu(a) * b with float32 math.
+// B6b replaces fused_ops.py:_swiglu_bwd_pallas (kernel _swiglu_bwd_kernel):
+// da = g * b * (sig + silu * (1 - sig)), db = g * silu, with sig = sigmoid(a)
+// recomputed from a (no activation stash), float32 math.  The rope backward
+// is K2 itself, launched with -sin (fused_ops.py:_rope_bwd).
 //
-// Bound on the H100: bytes for both (a handful of flops per element).
+// Bound on the H100: bytes for all three (a handful of flops per element).
 // Design: K2 gives one block to one token and walks all q and k heads of it,
 // so the token's cos/sin row is read once and each element once; q and k
 // may be strided views over the tokens (the columns of a packed qkv buffer),
-// and the outputs are contiguous.  K3 is one grid-stride pass, one read of
-// each input and one write.
+// and the outputs are contiguous.  K3 and B6b are one grid-stride pass each,
+// one read of each input and one write of each output.
 #include "common.cuh"
 
 namespace {
@@ -64,6 +68,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    swiglu_bwd_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                      const T* __restrict__ g, T* __restrict__ da,
+                      T* __restrict__ db, long long n) {
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += step) {
+    const float av = ptt::to_f(a[i]), bv = ptt::to_f(b[i]);
+    const float gv = ptt::to_f(g[i]);
+    const float sig = 1.f / (1.f + expf(-av));
+    const float silu = av * sig;
+    da[i] = ptt::from_f<T>(gv * bv * (sig + silu * (1.f - sig)));
+    db[i] = ptt::from_f<T>(gv * silu);
+  }
+}
+
+int grid_for(long long n) {
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
+}
+
 }  // namespace
 
 extern "C" int ptt_rope(const void* q, const void* k, void* oq, void* ok,
@@ -91,8 +117,7 @@ extern "C" int ptt_rope(const void* q, const void* k, void* oq, void* ok,
 extern "C" int ptt_swiglu(const void* a, const void* b, void* o, long long n,
                           int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  const int grid = (int)(blocks < 132 * 16 ? blocks : 132 * 16);
+  const int grid = grid_for(n);
   if (dtype == ptt::kFloat32)
     swiglu_kernel<float><<<grid, kThreads, 0, st>>>(
         (const float*)a, (const float*)b, (float*)o, n);
@@ -100,6 +125,24 @@ extern "C" int ptt_swiglu(const void* a, const void* b, void* o, long long n,
     swiglu_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (__nv_bfloat16*)o,
         n);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptt_swiglu_bwd(const void* a, const void* b, const void* g,
+                              void* da, void* db, long long n, int dtype,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int grid = grid_for(n);
+  if (dtype == ptt::kFloat32)
+    swiglu_bwd_kernel<float><<<grid, kThreads, 0, st>>>(
+        (const float*)a, (const float*)b, (const float*)g, (float*)da,
+        (float*)db, n);
+  else if (dtype == ptt::kBFloat16)
+    swiglu_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)a, (const __nv_bfloat16*)b,
+        (const __nv_bfloat16*)g, (__nv_bfloat16*)da, (__nv_bfloat16*)db, n);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1064,9 +1064,11 @@ class ServingEngine:
         seeds[slot] = sp.seed
         spos[slot] = req.sample_offset + len(req.generated)
 
+    @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:
         """One engine iteration: schedule -> device step(s) -> retire.
-        Returns tokens appended this step, {rid: [tok, ...]}.
+        Returns tokens appended this step, {rid: [tok, ...]}.  Records no
+        autograd graph (the weights are detached copies as well).
 
         ARMING: whenever any scheduled row is decoding (and
         ``megastep_k > 1``), up to ``megastep_k`` iterations run in ONE

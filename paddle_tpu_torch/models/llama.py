@@ -19,6 +19,15 @@ The trunk's norms are K1 (the residual add fused into each norm after the
 first), rope K2 and SwiGLU K3; the projections are ``torch.matmul``, as the
 reference leaves them to XLA.  The serving engine
 (``inference/serving.py``) runs its own forward over these parameters.
+
+Training: the forward is differentiable (K1's backward is the reference's
+jnp vjp in torch ops, K2's is K2 with -sin, K3's is B6b, B1's is B8).  With
+``config.recompute``, while training and without caches, each decoder
+layer runs under ``torch.utils.checkpoint`` (the reference's
+``recompute``, ``distributed/fleet/utils/recompute.py``), so its forward
+kernels launch again in the backward.  ``LlamaPretrainingCriterion`` is the
+shifted next-token loss over the logits; ``pretraining_loss`` the same loss
+through the chunked head (``_chunked_lm_loss``), each chunk checkpointed.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..nn import Embedding, Linear, RMSNorm
@@ -37,8 +47,9 @@ from ..ops.hopper.flash_attention import flash_attention_fwd
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
 from ..ops.hopper.fused_ops import rope_fused, swiglu_fused
 
-__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
-           "llama_7b", "load_numpy_state_dict", "apply_rotary_pos_emb"]
+__all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
+           "LlamaPretrainingCriterion", "llama_tiny", "llama_7b",
+           "load_numpy_state_dict", "apply_rotary_pos_emb"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -255,11 +266,19 @@ class LlamaModel(nn.Module):
         cos, sin = self.rope_cos, self.rope_sin
         residual = None
         new_caches = []
+        recompute = (self.config.recompute and caches is None
+                     and self.training and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             if caches is not None:
                 x, residual, c = layer(x, residual, cos, sin, attn_mask,
                                        caches[i])
                 new_caches.append(c)
+            elif recompute:
+                # the layer takes and returns (x, residual): checkpointed
+                # whole, its activations rebuilt in the backward
+                x, residual = checkpoint(layer, x, residual, cos, sin,
+                                         attn_mask, use_reentrant=False,
+                                         preserve_rng_state=False)
             else:
                 x, residual = layer(x, residual, cos, sin, attn_mask)
         hidden, _ = rms_norm_residual_fused(x, residual, self.norm.weight,
@@ -306,13 +325,79 @@ class LlamaForCausalLM(nn.Module):
         ids = torch.as_tensor(input_ids, device=self.device)
         out = self.llama(ids, attn_mask, caches)
         hidden = out[0] if caches is not None else out
-        if self.lm_head is None:
-            logits = hidden @ self.llama.embed_tokens.weight.t()
-        else:
-            logits = self.lm_head(hidden)
+        logits = hidden @ self._head_weight()
         if caches is not None:
             return logits, out[1]
         return logits
+
+    def _head_weight(self) -> torch.Tensor:
+        if self.lm_head is None:
+            return self.llama.embed_tokens.weight.t()
+        return self.lm_head.weight
+
+    def pretraining_loss(self, input_ids, labels=None, n_chunks: int = 8):
+        """Shifted next-token loss through the chunked head: no [N, V]
+        logits are kept (``_chunked_lm_loss``).  Equals
+        ``LlamaPretrainingCriterion()(self(ids), ids)`` up to float32
+        summation order."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        labels = ids if labels is None else torch.as_tensor(
+            labels, device=self.device)
+        hidden = self.llama(ids)
+        return _chunked_lm_loss(hidden, self._head_weight(), labels,
+                                n_chunks)
+
+    @property
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted next-token cross-entropy over logits [B, S, V] and labels
+    [B, S] (the reference's, ``models/llama.py:554``)."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels):
+        shift_logits = logits[:, :-1, :]
+        shift_labels = labels[:, 1:]
+        return F.cross_entropy(
+            shift_logits.reshape(-1, shift_logits.shape[-1]),
+            shift_labels.reshape(-1))
+
+
+def _chunk_sum(h_c, w, y_c):
+    """One chunk's (sum of -log p(label), count of labels >= 0): the GEMM
+    on the operands' dtype (float32 accumulation), the softmax in
+    float32."""
+    logits = (h_c @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = y_c >= 0
+    tgt = logits.gather(1, torch.clamp(y_c, min=0)[:, None])[:, 0]
+    return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
+
+
+def _chunked_lm_loss(hidden, w, labels, n_chunks: int):
+    """The reference's fused head + shifted cross-entropy: the tokens go
+    through in ``n_chunks`` slices, each slice's logits live only inside a
+    checkpointed chunk (rebuilt in the backward), so peak memory is
+    O(N V / n_chunks).  Padding labels are -1."""
+    B, S, H = hidden.shape
+    sh = hidden[:, :-1, :].reshape(-1, H)
+    sl = labels[:, 1:].reshape(-1).long()
+    n = sh.shape[0]
+    pad = (-n) % n_chunks
+    if pad:
+        sh = torch.cat([sh, sh.new_zeros((pad, H))])
+        sl = torch.cat([sl, sl.new_full((pad,), -1)])
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for h_c, y_c in zip(sh.chunk(n_chunks), sl.chunk(n_chunks)):
+        s, c = checkpoint(_chunk_sum, h_c, w, y_c, use_reentrant=False,
+                          preserve_rng_state=False)
+        tot, cnt = tot + s, cnt + c
+    return tot / torch.clamp(cnt.float(), min=1.0)
 
 
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:

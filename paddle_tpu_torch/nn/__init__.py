@@ -7,10 +7,14 @@ A ``Linear`` weight is ``[in, out]`` (``y = x @ W``), not torch's
 ``[out, in]``, so a paddle_tpu ``state_dict`` loads one for one.
 
 Their forwards serve ``LlamaForCausalLM.forward``: ``Linear`` is one
-``torch.matmul`` (the reference leaves it to XLA), ``RMSNorm`` is kernel K1
-(``ops/hopper/fused_norm.py``); the serving engine reads the parameters and
-runs its own forward (``inference/serving.py``).  Weights are drawn from an
-explicit ``torch.Generator``, never from global random state.
+``torch.matmul`` (the reference leaves it to XLA), ``Embedding`` one
+``index_select`` (its backward an ``index_add_``, which needs no host
+sync), ``RMSNorm`` is kernel K1 (``ops/hopper/fused_norm.py``); the serving
+engine reads the parameters and runs its own forward
+(``inference/serving.py``).  Parameters are trainable
+(``requires_grad=True``, the reference's ``stop_gradient=False``); the
+inference entry points run under ``torch.no_grad``.  Weights are drawn
+from an explicit ``torch.Generator``, never from global random state.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ class Linear(nn.Module):
         bound = math.sqrt(6.0 / (in_features + out_features))
         w = torch.empty(in_features, out_features, device=device, dtype=dtype)
         w.uniform_(-bound, bound, generator=generator)
-        self.weight = nn.Parameter(w, requires_grad=False)
+        self.weight = nn.Parameter(w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.weight
@@ -52,10 +56,11 @@ class Embedding(nn.Module):
         w = torch.empty(num_embeddings, embedding_dim, device=device,
                         dtype=dtype)
         w.normal_(0.0, 1.0, generator=generator)
-        self.weight = nn.Parameter(w, requires_grad=False)
+        self.weight = nn.Parameter(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids.long()]
+        rows = self.weight.index_select(0, ids.reshape(-1).long())
+        return rows.view(*ids.shape, self.weight.shape[1])
 
 
 class RMSNorm(nn.Module):
@@ -66,8 +71,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(
-            torch.ones(hidden_size, device=device, dtype=dtype),
-            requires_grad=False)
+            torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm_fused(x, self.weight, self.epsilon)

@@ -1,14 +1,14 @@
-"""Attention functionals — the port of
-``paddle_tpu/nn/functional/flash_attention.py`` (``flash_attention``,
-``scaled_dot_product_attention``) on paddle's ``[batch, seq, heads,
-head_dim]`` layout.
+"""Functionals — the port of ``paddle_tpu/nn/functional/flash_attention.py``
+(``flash_attention``, ``scaled_dot_product_attention``) on paddle's
+``[batch, seq, heads, head_dim]`` layout, and of
+``nn/functional/loss.py``'s ``cross_entropy`` (hard labels).
 
-An unmasked call goes to the flash-attention kernel B1
-(``ops/hopper/flash_attention.py``, its plain version for CPU tensors); an
-explicit ``attn_mask`` goes to the plain masked attention
-(``_ref_attention``), as in the reference, where that path is jnp and no
-kernel.  Dropout needs a random stream and is not on this slice's path:
-a dropout above 0 while training raises.
+An unmasked attention call goes to the flash-attention kernels B1 forward /
+B8 backward (``ops/hopper/flash_attention.py``, their plain versions for
+CPU tensors); an explicit ``attn_mask`` goes to the plain masked attention
+(``_ref_attention``, differentiable as plain torch), as in the reference,
+where that path is jnp and no kernel.  Dropout needs a random stream and is
+not on the ported paths: a dropout above 0 while training raises.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import torch
 
 from ..ops.hopper.flash_attention import flash_attention_fwd
 
-__all__ = ["flash_attention", "scaled_dot_product_attention"]
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "cross_entropy"]
 
 
 def _ref_attention(q, k, v, *, causal: bool, scale: Optional[float],
@@ -74,3 +75,30 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return _ref_attention(query, key, value, causal=is_causal,
                               scale=None, mask=attn_mask)
     return flash_attention_fwd(query, key, value, causal=is_causal)
+
+
+def cross_entropy(input, label, ignore_index: int = -100,  # noqa: A002
+                  reduction: str = "mean"):
+    """paddle's ``cross_entropy`` with hard labels (``loss.py:28-79``):
+    input [..., C] logits, label [...] (or [..., 1]) class ids.  The
+    log-softmax is taken in the logits' dtype, as ``jax.nn.log_softmax``
+    is; labels equal to ``ignore_index`` contribute 0 and leave the mean's
+    count.  ``reduction`` is "mean" (over the counted labels, at least
+    1), "sum" or "none".  Class weights, soft labels and label smoothing
+    are not ported."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction must be mean, sum or none, got "
+                         f"{reduction!r}")
+    logp = torch.log_softmax(input, dim=-1)
+    lab = label.long()
+    if lab.dim() == logp.dim():          # paddle allows a trailing 1
+        lab = lab.squeeze(-1)
+    valid = lab != ignore_index
+    safe = torch.where(valid, lab, 0)
+    per = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    per = per.masked_fill(~valid, 0.0)
+    if reduction == "mean":
+        return per.sum() / valid.sum().to(per.dtype).clamp(min=1.0)
+    if reduction == "sum":
+        return per.sum()
+    return per

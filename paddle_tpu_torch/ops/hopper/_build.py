@@ -28,8 +28,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-__all__ = ["build", "lib", "check", "launch_args", "device_guard", "SOURCES",
-           "LIB_PATH"]
+__all__ = ["build", "lib", "check", "launch_args", "dtype_code",
+           "device_guard", "wants_grad", "SOURCES", "LIB_PATH"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -56,6 +56,8 @@ _SIGNATURES = {
                  ctypes.c_longlong, _I, _P],
     # a, b, out, n, dtype, stream
     "ptt_swiglu": [_P, _P, _P, ctypes.c_longlong, _I, _P],
+    # a, b, g, da, db, n, dtype, stream
+    "ptt_swiglu_bwd": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     # q, key_cache, value_cache, out, seq_lens_decoder, seq_lens_this_time,
     # cu_seqlens_q, block_tables, T, B, P, NB, H, KV, D, block_size,
     # max_q_len, scale, dtype, stream
@@ -65,6 +67,16 @@ _SIGNATURES = {
     # over (batch, seq, head), causal, q_off_host, scale, dtype, stream
     "ptt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             *[ctypes.c_longlong] * 9, _I, _I, _F, _I, _P],
+    # q, k, v, o, dout, lse, delta (workspace), dq, dk, dv, B, Sq, Sk, H,
+    # KVH, D, q/k/v strides over (batch, seq, head), causal, scale, dtype,
+    # stream
+    "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I,
+                                *[ctypes.c_longlong] * 9, _I, _F, _I, _P],
+    # p|NULL, w, m, v, g, t, n, lr, b1, b2, 1 - b1, 1 - b2, eps, wd,
+    # p_dtype, g_dtype, stream
+    "ptt_fused_adamw": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                        *[_F] * 7, _I, _I, _P],
     # q, kbuf, vbuf, out, part_acc|NULL, part_ml|NULL, pos, B, L, H, KVH,
     # D, chunk, scale, dtype, stream
     "ptt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -149,6 +161,14 @@ def lib() -> ctypes.CDLL:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    """The C entries' code for ``t``'s dtype (0 float32, 1 bfloat16)."""
+    if t.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"got {t.dtype}")
+    return _DTYPE_CODES[t.dtype]
+
+
 def launch_args(name: str, *tensors: torch.Tensor) -> Tuple[int, int]:
     """Check that ``tensors`` share one CUDA device and a kernel dtype;
     return (dtype code, current stream handle) for the C entry.  The
@@ -161,10 +181,14 @@ def launch_args(name: str, *tensors: torch.Tensor) -> Tuple[int, int]:
             raise ValueError(f"{name}: inputs must share one device and "
                              f"dtype, got {t.device}/{t.dtype} beside "
                              f"{dev}/{dt}")
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
-                        f"got {dt}")
-    return _DTYPE_CODES[dt], torch.cuda.current_stream(dev).cuda_stream
+    return dtype_code(name, tensors[0]), torch.cuda.current_stream(
+        dev).cuda_stream
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a wrapper must record its backward: grad mode is on and an
+    input requires grad.  Otherwise it launches its forward alone."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def device_guard(t: torch.Tensor):
@@ -179,7 +203,7 @@ def check(err: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry.  An
     entry returns cudaErrorInvalidConfiguration for a shape whose block
     would need more shared memory than it may use (48 KB for K1 and K4,
-    the device's opt-in limit for B1 and B2)."""
+    the device's opt-in limit for B1, B2 and B8)."""
     if err != 0:
         what = lib().ptt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "

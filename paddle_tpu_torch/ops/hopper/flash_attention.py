@@ -1,12 +1,15 @@
-"""Flash attention forward — Hopper kernel B1 (``csrc/flash_attention.cu``).
+"""Flash attention — Hopper kernels B1 (forward, ``csrc/flash_attention.cu``)
+and B8 (backward, ``csrc/flash_attention_bwd.cu``).
 
-Port of the forward half of ``paddle_tpu/ops/pallas/flash_attention.py``:
-``flash_attention_fused`` replaces ``_pallas_fwd`` (``_fwd_kernel``).  It
-computes tiled online-softmax attention with float32 accumulators and a
-per-row float32 logsumexp, causal with FlashAttention-2's bottom-right
-alignment, GQA by reading KV head ``h // (H / KVH)``.  Bound on the H100 by
-operations at prefill lengths (the kernel is SIMT float32, see the source's
-note) and by bytes for a single query row.
+Port of ``paddle_tpu/ops/pallas/flash_attention.py``:
+``flash_attention_fused`` replaces ``_pallas_fwd`` (``_fwd_kernel``) and
+``flash_attention_bwd_fused`` replaces ``_pallas_bwd`` (``_dq_kernel`` and
+``_dkv_kernel``).  The forward computes tiled online-softmax attention
+with float32 accumulators and a per-row float32 logsumexp, causal with
+FlashAttention-2's bottom-right alignment, GQA by reading KV head
+``h // (H / KVH)``.  Bound on the H100 by operations at prefill lengths (the
+kernels are SIMT float32, see the sources' notes) and by bytes for a single
+query row.
 
 Beside the reference it takes a query offset: causal row ``i`` sees the
 columns ``<= i + q_offset``, where ``q_offset`` is ``Sk - Sq`` by default
@@ -16,11 +19,20 @@ at ``pos .. pos + Sq - 1`` of a ring of ``Sk`` rows.  Rows that see no key
 give zeros and a logsumexp of -1e30, as ``_ref_fwd_impl`` and the Pallas
 kernel do.
 
-``flash_attention_fused`` runs the plain version (``_ref_fwd_impl``, the
-reference's jnp fallback transcribed, in float32) only for CPU tensors.
-For CUDA tensors it launches the kernel or raises; ``launches`` counts
-kernel launches.  ``block_fwd`` and ``flash_attention_fwd`` are the
-reference's two entries over it.  The backward (B8) comes with training.
+The backward recomputes the probabilities from the saved logsumexp
+(FlashAttention-2): dQ, dK and dV with float32 accumulation, the causal
+rule and the tile skipping of the forward, zero gradients for rows that see
+no key, and for GQA dK/dV summed over each KV head's group in float32
+before one cast (K and V are never repeated).
+
+``flash_attention_fused`` and ``flash_attention_bwd_fused`` run their plain
+versions (``_ref_fwd_impl`` / ``_ref_bwd_impl``, the reference's jnp
+fallbacks transcribed, in float32) only for CPU tensors.  For CUDA tensors
+they launch the kernel or raise; ``launches`` counts kernel launches.
+``block_fwd`` / ``block_bwd`` and ``flash_attention_fwd`` are the
+reference's entries over them; ``flash_attention_fwd`` is differentiable
+(a ``torch.autograd.Function`` saving q, k, v, out and lse, as
+``_flash_core_fwd``) for the default causal offset.
 """
 from __future__ import annotations
 
@@ -31,7 +43,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_fused", "block_fwd", "flash_attention_fwd"]
+__all__ = ["flash_attention_fused", "flash_attention_bwd_fused", "block_fwd",
+           "block_bwd", "flash_attention_fwd"]
 
 NEG_INF = -1e30
 
@@ -64,6 +77,30 @@ def _ref_fwd_impl(q, k, v, causal: bool, scale: float,
     return out.to(q.dtype), lse
 
 
+def _ref_bwd_impl(q, k, v, o, lse, g, causal: bool, scale: float):
+    """The reference's jnp backward from the saved lse, [BH, S, D] blocks
+    -> float32 (dq, dk, dv); rows that see no key give zeros."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    row_valid = None
+    if causal:
+        sq, sk = s.shape[1], s.shape[2]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        s = torch.where(mask, s, NEG_INF)
+        row_valid = mask.any(dim=-1)
+    p = torch.exp(s - lse[..., None])
+    if row_valid is not None:
+        p = torch.where(row_valid[None, :, None], p, 0.0)
+    gf = g.float()
+    delta = torch.sum(gf * o.float(), dim=-1)                # [BH, Sq]
+    dv = torch.einsum("bqk,bqd->bkd", p, gf)
+    dp = torch.einsum("bqd,bkd->bqk", gf, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float())
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    return dq, dk, dv
+
+
 def _plain_bshd(q, k, v, causal, scale, q_offset):
     """The plain version over the [B, S, H, D] layout: heads folded into
     the batch, KV heads repeated for GQA -> (out [B, Sq, H, D], lse
@@ -79,6 +116,32 @@ def _plain_bshd(q, k, v, causal, scale, q_offset):
     out, lse = _ref_fwd_impl(qb, kb, vb, causal, scale, q_offset)
     return (out.reshape(B, H, Sq, D).permute(0, 2, 1, 3).contiguous(),
             lse.reshape(B, H, Sq))
+
+
+def _plain_bwd_bshd(q, k, v, o, lse, g, causal, scale):
+    """The plain backward over the [B, S, H, D] layout: heads folded into
+    the batch, KV heads repeated for GQA and their gradients summed over
+    each group in float32 -> (dq, dk, dv) in the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    rep = H // KVH
+
+    def fold(x, r=1):
+        x = x.permute(0, 2, 1, 3)
+        if r > 1:
+            x = x.repeat_interleave(r, dim=1)
+        return x.reshape(-1, x.shape[2], D)
+
+    dq, dk, dv = _ref_bwd_impl(
+        fold(q), fold(k, rep), fold(v, rep), fold(o), lse.reshape(B * H, Sq),
+        fold(g), causal, scale)
+
+    def unfold(x, heads, S, dt):
+        x = x.reshape(B, heads, -1, S, D).sum(dim=2)
+        return x.permute(0, 2, 1, 3).contiguous().to(dt)
+
+    return (unfold(dq, H, Sq, q.dtype), unfold(dk, KVH, Sk, k.dtype),
+            unfold(dv, KVH, Sk, v.dtype))
 
 
 def _check(name, q, k, v, q_offset):
@@ -146,7 +209,75 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, g: torch.Tensor,
+                              causal: bool = False,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Kernel B8: the gradients of ``flash_attention_fused``'s output for
+    the cotangent ``g`` [B, Sq, H, D], from its saved ``out`` and ``lse``
+    [B, H, Sq] -> (dq [B, Sq, H, D], dk, dv [B, Sk, KVH, D]) in the inputs'
+    dtype.  q/k/v as the forward takes them.  Causal is bottom-right
+    (``Sk - Sq``)."""
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return _plain_bwd_bshd(q, k, v, out, lse, g, causal, scale)
+    name = "flash_attention_bwd_fused"
+    _check(name, q, k, v, None)
+    out, g = out.contiguous(), g.contiguous()
+    B, Sq, H, _ = q.shape
+    Sk, KVH = k.shape[1], k.shape[2]
+    if out.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"{name}: out and g must be {tuple(q.shape)}")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be contiguous float32 "
+                         f"[{B}, {H}, {Sq}]")
+    dt, stream = _build.launch_args(name, q, k, v, out, g)
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KVH, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Sk, KVH, D), dtype=v.dtype, device=v.device)
+    # rowsum(g * out), written by the dQ kernel for the dK/dV kernel
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if B * H * Sq == 0 or Sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    with _build.device_guard(q):
+        _build.check(_build.lib().ptt_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            int(bool(causal)), scale, dt, stream), name)
+    flash_attention_bwd_fused.launches += 1
+    return dq, dk, dv
+
+
 flash_attention_fused.launches = 0
+flash_attention_bwd_fused.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v) with B1 forward and B8 backward; saves q, k,
+    v, out and lse, as the reference's ``_flash_core_fwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fused(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_fused(q, k, v, out, lse, g,
+                                               ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def block_fwd(qb, kb, vb, causal: bool, scale: float, kv_rep: int = 1,
@@ -166,10 +297,38 @@ def block_fwd(qb, kb, vb, causal: bool, scale: float, kv_rep: int = 1,
             lse.reshape(bh, sq))
 
 
+def block_bwd(qb, kb, vb, o, lse, g, causal: bool, scale: float,
+              kv_rep: int = 1):
+    """Backward of one attention block (``block_fwd``'s layout): o and g
+    [BH, Sq, D], lse [BH, Sq] -> (dq [BH, Sq, D], dk [BHk, Sk, D], dv [BHk, Sk, D])."""
+    bh, sq, d = qb.shape
+    bhk, sk, _ = kb.shape
+
+    def q4(x):
+        return x.reshape(bhk, kv_rep, sq, d).permute(0, 2, 1, 3)
+
+    def kv4(x):
+        return x.reshape(bhk, 1, sk, d).permute(0, 2, 1, 3)
+
+    dq, dk, dv = flash_attention_bwd_fused(
+        q4(qb), kv4(kb), kv4(vb), q4(o), lse.reshape(bhk, kv_rep, sq),
+        q4(g), causal, scale)
+    return (dq.permute(0, 2, 1, 3).reshape(bh, sq, d),
+            dk.reshape(bhk, sk, d), dv.reshape(bhk, sk, d))
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         scale: Optional[float] = None,
                         q_offset: Offset = None) -> torch.Tensor:
     """Public entry: q [B, Sq, H, D], k/v [B, Sk, KVH, D] -> [B, Sq, H, D].
     K/V are never repeated to the query head count (the kernel indexes the
-    group's KV head)."""
+    group's KV head).  Differentiable in q, k and v (backward: B8) with the
+    default causal offset; a gradient through a ``q_offset`` (the static
+    ring's prefill, an inference path) is refused."""
+    if _build.wants_grad(q, k, v):
+        if q_offset is not None:
+            raise NotImplementedError(
+                "flash_attention_fwd: no backward for a q_offset (the "
+                "static KV ring is an inference path)")
+        return _FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_fused(q, k, v, causal, scale, q_offset)[0]

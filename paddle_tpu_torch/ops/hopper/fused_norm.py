@@ -9,6 +9,13 @@ source's note).
 A wrapper runs the plain version (``_ref_rms`` / ``_ref_rms_residual``, a
 transcription of the Pallas kernels) only for CPU tensors.  For CUDA tensors
 it launches the kernel or raises; ``launches`` counts kernel launches.
+
+Both are differentiable.  Where a gradient is wanted the forward runs inside
+a ``torch.autograd.Function`` that saves its inputs, and the backward is the
+reference's own vjp transcribed into plain torch ops (``_rms_bwd`` from
+``fused_norm.py:_bwd``, ``_rms_residual_bwd`` from ``_bwd_res``, which
+recomputes the sum in float32 and sends ``dsum`` to both inputs): the
+reference has no Pallas kernel there, and XLA fuses its jnp.
 """
 from __future__ import annotations
 
@@ -62,14 +69,75 @@ def _launch(fn, x, r, w, eps):
     return out, res_out
 
 
+def _rms_fwd(x, w, eps):
+    if x.device.type == "cpu":
+        return _ref_rms(x, w, eps)
+    return _launch(rms_norm_fused, x, None, w, eps)[0]
+
+
+def _rms_residual_fwd(x, residual, w, eps):
+    if x.device.type == "cpu":
+        return _ref_rms_residual(x, residual, w, eps)
+    return _launch(rms_norm_residual_fused, x, residual, w, eps)
+
+
+def _rms_bwd(x, w, g, eps):
+    """The reference's ``_bwd``: (dx in x's dtype, dw in w's dtype), float32
+    math."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gw = (gf * xhat).reshape(-1, x.shape[-1]).sum(dim=0).to(w.dtype)
+    gx_hat = gf * wf
+    dx = inv * (gx_hat - xhat * torch.mean(gx_hat * xhat, dim=-1,
+                                           keepdim=True))
+    return dx.to(x.dtype), gw
+
+
+def _rms_residual_bwd(x, residual, w, g_out, g_res, eps):
+    """The reference's ``_bwd_res``: the pre-norm sum recomputed in float32,
+    ``dsum = dx + g_res`` to both inputs."""
+    s = x.float() + residual.float()
+    dx, gw = _rms_bwd(s, w, g_out, eps)
+    dsum = dx + g_res.float()
+    return dsum.to(x.dtype), dsum.to(residual.dtype), gw
+
+
+class _RmsNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rms_fwd(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, gw = _rms_bwd(x, w, g, ctx.eps)
+        return dx, gw, None
+
+
+class _RmsNormResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, w, eps):
+        ctx.save_for_backward(x, residual, w)
+        ctx.eps = eps
+        return _rms_residual_fwd(x, residual, w, eps)
+
+    @staticmethod
+    def backward(ctx, g_out, g_res):
+        x, residual, w = ctx.saved_tensors
+        return (*_rms_residual_bwd(x, residual, w, g_out, g_res, ctx.eps),
+                None)
+
+
 def rms_norm_fused(x: torch.Tensor, w: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """x [..., H], w [H] -> x * rsqrt(mean(x^2) + eps) * w, float32
     statistics, in x's dtype."""
-    if x.device.type == "cpu":
-        return _ref_rms(x, w, eps)
-    out, _ = _launch(rms_norm_fused, x, None, w, eps)
-    return out
+    if _build.wants_grad(x, w):
+        return _RmsNorm.apply(x, w, eps)
+    return _rms_fwd(x, w, eps)
 
 
 def rms_norm_residual_fused(x: torch.Tensor, residual: torch.Tensor,
@@ -77,9 +145,9 @@ def rms_norm_residual_fused(x: torch.Tensor, residual: torch.Tensor,
     """-> (rms(x + residual) * w, x + residual): the sum is taken in
     float32 and normalized unrounded; ``residual_out`` is it in x's
     dtype."""
-    if x.device.type == "cpu":
-        return _ref_rms_residual(x, residual, w, eps)
-    return _launch(rms_norm_residual_fused, x, residual, w, eps)
+    if _build.wants_grad(x, residual, w):
+        return _RmsNormResidual.apply(x, residual, w, eps)
+    return _rms_residual_fwd(x, residual, w, eps)
 
 
 rms_norm_fused.launches = 0

@@ -1,15 +1,22 @@
-"""Fused rotary embedding and SwiGLU — Hopper kernels K2 and K3
+"""Fused rotary embedding and SwiGLU — Hopper kernels K2, K3 and B6b
 (``csrc/fused_ops.cu``).
 
-Port of the forward half of ``paddle_tpu/ops/pallas/fused_ops.py``:
-``rope_fused`` replaces ``_rope_one_pallas`` (one launch rotates q and k)
-and ``swiglu_fused`` replaces ``_swiglu_pallas``.  Both are bound on the
+Port of ``paddle_tpu/ops/pallas/fused_ops.py``: ``rope_fused`` replaces
+``_rope_one_pallas`` (one launch rotates q and k), ``rope_bwd_fused`` is
+its backward ``_rope_bwd`` (the same kernel K2 rotating the cotangents by
+-theta, i.e. with ``-sin``), ``swiglu_fused`` replaces ``_swiglu_pallas``
+and ``swiglu_bwd_fused`` (B6b) ``_swiglu_bwd_pallas``.  All are bound on the
 H100 by bytes and make one read of each input and one write of each output
-(see the source's note).  The backward kernels come with training.
+(see the source's note).
 
-A wrapper runs the plain version (``_rope_ref`` / ``_swiglu_ref``, the
-reference's jnp forms transcribed) only for CPU tensors.  For CUDA tensors
-it launches the kernel or raises; ``launches`` counts kernel launches.
+A wrapper runs the plain version (``_rope_ref`` / ``_swiglu_ref`` /
+``_swiglu_bwd_ref``, the reference's jnp forms transcribed) only for CPU
+tensors.  For CUDA tensors it launches the kernel or raises; ``launches``
+counts kernel launches.  ``rope_fused`` and ``swiglu_fused`` are
+differentiable: where a gradient is wanted they run inside a
+``torch.autograd.Function`` whose backward is ``rope_bwd_fused`` (saving
+only the cos/sin windows, as ``_rope_fwd``) or ``swiglu_bwd_fused``
+(saving ``(a, b)``, as ``_swiglu_fwd``).
 """
 from __future__ import annotations
 
@@ -19,7 +26,8 @@ import torch
 
 from . import _build
 
-__all__ = ["rope_fused", "swiglu_fused"]
+__all__ = ["rope_fused", "rope_bwd_fused", "swiglu_fused",
+           "swiglu_bwd_fused"]
 
 
 def _rope_ref(q, k, cos, sin):
@@ -40,14 +48,20 @@ def _swiglu_ref(a, b):
     return (af * torch.sigmoid(af) * b.float()).to(a.dtype)
 
 
-def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [B, S, H, D], k [B, S, KVH, D], cos/sin [S, D/2] float32 ->
-    rotated (q, k), neox half-split, float32 math, in q's dtype.  q and k
-    may be strided over B and S; each head's [D] must be contiguous."""
-    if q.device.type == "cpu":
-        return _rope_ref(q, k, cos, sin)
-    name = "rope_fused"
+def _swiglu_bwd_ref(a, b, g):
+    """The reference's jnp backward (``_swiglu_bwd``): (da, db)."""
+    af, bf, gf = a.float(), b.float(), g.float()
+    sig = torch.sigmoid(af)
+    silu = af * sig
+    da = gf * bf * (sig + silu * (1.0 - sig))
+    db = gf * silu
+    return da.to(a.dtype), db.to(b.dtype)
+
+
+def _rope_launch(fn, q, k, cos, sin):
+    """K2 on CUDA tensors, counted on ``fn`` (the forward or the
+    backward wrapper)."""
+    name = fn.__name__
     B, S, H, D = q.shape
     KVH = k.shape[2]
     if k.shape[:2] != (B, S) or k.shape[3] != D or D % 2:
@@ -72,19 +86,64 @@ def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                 cos.data_ptr(), sin.data_ptr(), B, S, H, KVH, D,
                 q.stride(0), q.stride(1), k.stride(0), k.stride(1), dt,
                 stream), name)
-        rope_fused.launches += 1
+        fn.launches += 1
     return oq, ok
 
 
-def swiglu_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """silu(a) * b with float32 math, in a's dtype; a, b contiguous, same
-    shape."""
+def _rope_fwd(q, k, cos, sin):
+    if q.device.type == "cpu":
+        return _rope_ref(q, k, cos, sin)
+    return _rope_launch(rope_fused, q, k, cos, sin)
+
+
+def rope_bwd_fused(gq: torch.Tensor, gk: torch.Tensor, cos: torch.Tensor,
+                   sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rope backward (``_rope_bwd``): the cotangents of the rotated
+    (q, k) rotated by -theta, i.e. K2 with ``-sin``; shapes as
+    ``rope_fused``."""
+    if gq.device.type == "cpu":
+        return _rope_ref(gq, gk, cos, -sin)
+    return _rope_launch(rope_bwd_fused, gq.contiguous(), gk.contiguous(),
+                        cos, torch.neg(sin))
+
+
+class _Rope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope_fwd(q, k, cos, sin)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        cos, sin = ctx.saved_tensors
+        dq, dk = rope_bwd_fused(gq, gk, cos, sin)
+        return dq, dk, None, None
+
+
+def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [B, S, H, D], k [B, S, KVH, D], cos/sin [S, D/2] float32 ->
+    rotated (q, k), neox half-split, float32 math, in q's dtype.  q and k
+    may be strided over B and S; each head's [D] must be contiguous.
+    Differentiable in q and k."""
+    if _build.wants_grad(q, k):
+        return _Rope.apply(q, k, cos, sin)
+    return _rope_fwd(q, k, cos, sin)
+
+
+def _check_same(name, *tensors):
+    a = tensors[0]
+    for t in tensors:
+        if t.shape != a.shape or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous and of one "
+                             f"shape, got {[tuple(x.shape) for x in tensors]}")
+
+
+def _swiglu_fwd(a, b):
     if a.device.type == "cpu":
         return _swiglu_ref(a, b)
     name = "swiglu_fused"
-    if a.shape != b.shape or not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError(f"{name}: a and b must be contiguous and of one "
-                         f"shape, got {tuple(a.shape)} and {tuple(b.shape)}")
+    _check_same(name, a, b)
     dt, stream = _build.launch_args(name, a, b)
     out = torch.empty_like(a)
     if a.numel():
@@ -96,5 +155,48 @@ def swiglu_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def swiglu_bwd_fused(a: torch.Tensor, b: torch.Tensor,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B6b: the gradients (da, db) of silu(a) * b for the output
+    cotangent g, sigmoid recomputed from a, float32 math, in a's dtype; a,
+    b, g contiguous, one shape and dtype."""
+    if a.device.type == "cpu":
+        return _swiglu_bwd_ref(a, b, g)
+    name = "swiglu_bwd_fused"
+    g = g.contiguous()
+    _check_same(name, a, b, g)
+    dt, stream = _build.launch_args(name, a, b, g)
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    if a.numel():
+        with _build.device_guard(a):
+            _build.check(_build.lib().ptt_swiglu_bwd(
+                a.data_ptr(), b.data_ptr(), g.data_ptr(), da.data_ptr(),
+                db.data_ptr(), a.numel(), dt, stream), name)
+        swiglu_bwd_fused.launches += 1
+    return da, db
+
+
+class _SwiGLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _swiglu_fwd(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return swiglu_bwd_fused(a, b, g)
+
+
+def swiglu_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """silu(a) * b with float32 math, in a's dtype; a, b contiguous, same
+    shape.  Differentiable (backward: kernel B6b)."""
+    if _build.wants_grad(a, b):
+        return _SwiGLU.apply(a, b)
+    return _swiglu_fwd(a, b)
+
+
 rope_fused.launches = 0
+rope_bwd_fused.launches = 0
 swiglu_fused.launches = 0
+swiglu_bwd_fused.launches = 0

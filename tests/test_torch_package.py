@@ -42,7 +42,9 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.nn.functional, paddle_tpu_torch.tensor.search,"
             " paddle_tpu_torch.models.generation,"
             " paddle_tpu_torch.ops.hopper.flash_attention,"
-            " paddle_tpu_torch.ops.hopper.decode_attention\n"
+            " paddle_tpu_torch.ops.hopper.decode_attention,"
+            " paddle_tpu_torch.ops.hopper.fused_adamw,"
+            " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')"
             " or m.startswith(('jax.', 'paddle_tpu.'))]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
