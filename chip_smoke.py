@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's three paths — Llama serving through the paged
+"""Drive paddle_tpu_torch's four paths — Llama serving through the paged
 ServingEngine, Llama generation (forward, generate, greedy_decode) over the
-static KV ring, and Llama pretraining (TrainStep + AdamW) — on one NVIDIA
-H100, and check every Hopper kernel on them.
+static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
+Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
+— on one NVIDIA H100, and check every Hopper kernel on them.
 
-    python3 chip_smoke.py               # all phases
-    python3 chip_smoke.py --phases 1,2  # build + kernel checks only
+    python3 chip_smoke.py                  # all phases
+    python3 chip_smoke.py --phases 1,2     # build + kernel checks only
+    python3 chip_smoke.py --phases 2,9,10  # kernels + the int8 predictor
 
 Phases (each prints its seconds):
   1. environment: torch/CUDA versions, the card's name and power limit
@@ -18,7 +20,8 @@ Phases (each prints its seconds):
      the plain version and, where one exists, the one PyTorch call that
      computes the same function, beside the bound: the larger of bytes
      moved over 3.35 TB/s and operations over the peak rate of the type;
-     and a shape past a kernel's shared memory is refused with an error;
+     a shape past a kernel's shared memory is refused with an error, and
+     B7 refuses a float16 x and an int32 weight;
   3. Llama-2-7B geometry (32000 vocab, 4096 hidden, 11008 intermediate, 32
      layers, 32 heads) in bfloat16 with seeded random weights, served by
      ServingEngine(max_batch_size=8, max_seq_len=512, block_size=16,
@@ -66,9 +69,25 @@ Phases (each prints its seconds):
      gradient, then the parameters after 3 AdamW(multi_precision) steps
      through TrainStep, kernels on cuda against the plain path on the CPU
      (1e-4 of each tensor's largest |value|);
+  9. bench_ladder.py's BERT-base classifier (vocab 30522, hidden 768, 12
+     layers, 12 heads, FFN 3072, seq 128) in bfloat16 with seeded random
+     weights, ids [32, 128]: (a) the float Predictor gives finite logits;
+     (b) the weight-only int8 Predictor, with the counters zeroed just
+     before one run and read just after, launches B7 exactly 73 times and
+     B1 12 times and gives finite logits (their distance from (a) printed,
+     informative); (c) a full-width bf16 weight quantizes to the same int8
+     values and scales on cuda and on the CPU; (d) ms per run and
+     sequences/s of both predictors at [32, 128] and [1, 128], and one int8
+     run untraced and one under torch.profiler (busy share, time by
+     kernel), informative;
+ 10. the classifier at 2 layers in float32 with identical weights on cuda
+     and on the CPU, ids [4, 128], through int8 Predictors (identical
+     quantized weights) and float ones: logits within 1e-4 of the largest
+     |logit|;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
-  "generate", "train"}, null for a path whose phase did not run), then the
-  card line, then {"ok": true, "device": {...}} as the last line.
+  "generate", "train", "predict"}, null for a path whose phase did not
+  run), then the card line, then {"ok": true, "device": {...}} as the last
+  line.
 
 Any failure raises and the script exits non-zero before the last line.  It
 imports nothing of JAX or paddle_tpu.
@@ -100,6 +119,7 @@ REPLACES = {
     "kv_ring_write": "paddle_tpu/ops/pallas/decode_attention.py:70",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:279",
     "fused_adamw": "paddle_tpu/ops/pallas/fused_adamw.py:53",
+    "int8_matmul": "paddle_tpu/ops/pallas/int8_matmul.py:65",
 }
 SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
@@ -114,9 +134,20 @@ SOURCES = {
     "kv_ring_write": "paddle_tpu_torch/csrc/decode_attention.cu",
     "flash_attention_bwd": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
     "fused_adamw": "paddle_tpu_torch/csrc/fused_adamw.cu",
+    "int8_matmul": "paddle_tpu_torch/csrc/int8_matmul.cu",
+}
+# the names of a kernel's outputs, where it has more than one
+OUTPUTS = {
+    "flash_attention": ("out", "lse"),
+    "flash_attention_bwd": ("dq", "dk", "dv"),
+    "rms_norm_residual": ("out", "residual"),
+    "rope": ("q", "k"),
+    "rope_bwd": ("gq", "gk"),
+    "swiglu_bwd": ("da", "db"),
+    "kv_ring_write": ("k ring", "v ring"),
 }
 # the kernels each path runs (phase 3 serving, phase 5 generation, phase 7
-# training)
+# training, phase 9 the int8 predictor)
 PATHS = {
     "serving": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                 "paged_attention"),
@@ -125,7 +156,10 @@ PATHS = {
     "train": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd", "swiglu",
               "swiglu_bwd", "flash_attention", "flash_attention_bwd",
               "fused_adamw"),
+    "predict": ("int8_matmul", "flash_attention"),
 }
+# bench_ladder.py's BERT-base classifier, accelerator branch (:103)
+BERT = dict(vocab=30522, hidden=768, layers=12, heads=12, seq=128, batch=32)
 
 
 def _phase(name):
@@ -271,6 +305,7 @@ def kernel_cases(torch, dtype):
 
     cases += _generation_cases(torch, rnd, es, g, dtype)
     cases += _training_cases(torch, rnd, es, g, dtype)
+    cases += _predict_cases(torch, rnd, es, dtype)
 
     # paged attention: pool of 256 blocks of 16, 8 rows of up to 32 blocks
     # (max_seq_len 512); the 7B heads, and a head_dim-256 GQA geometry
@@ -464,6 +499,66 @@ def _training_cases(torch, rnd, es, g, dtype):
     return cases
 
 
+def _predict_cases(torch, rnd, es, dtype):
+    """B7 at the int8 predictor's shapes (BERT-base at [32, 128]: 4096
+    token rows, hidden 768, FFN 3072, the 2-way head on the strided first
+    token), an odd shape, and one decode-sized case off the path; B1
+    non-causal at the classifier's heads."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    from paddle_tpu_torch.ops.hopper import int8_matmul as im
+    from paddle_tpu_torch.quantization import weight_quantize
+
+    T, E, I, S, H = (BERT["batch"] * BERT["seq"], BERT["hidden"],
+                     4 * BERT["hidden"], BERT["seq"], BERT["heads"])
+    cases = []
+    for label, x, K, N in (
+            (f"q/k/v/out [{T}, {E}] x [{E}, {E}]", rnd(T, E), E, E),
+            (f"linear1 [{T}, {E}] x [{E}, {I}]", rnd(T, E), E, I),
+            (f"linear2 [{T}, {I}] x [{I}, {E}]", rnd(T, I), I, E),
+            (f"head x[:, 0] [{BERT['batch']}, {E}] x [{E}, 2], rows "
+             f"{S * E} apart", rnd(BERT["batch"], S, E)[:, 0], E, 2),
+            ("odd [3, 100] x [100, 130]", rnd(3, 100), 100, 130),
+            ("odd, 16-byte copies with tails: [64, 100 of 104] x [100, 144]",
+             rnd(64, 104)[:, :100], 100, 144),
+            ("off the path: decode-sized [8, 4096] x [4096, 11008]",
+             rnd(8, 4096), 4096, 11008)):
+        qw, sc = weight_quantize(rnd(K, N, dt=torch.float32) * 0.05)
+        M = x.shape[0]
+        cases.append((
+            "int8_matmul", label,
+            lambda x=x, qw=qw, sc=sc: im.int8_matmul(x, qw, sc),
+            lambda x=x, qw=qw, sc=sc: im._int8_matmul_ref(x, qw, sc),
+            _int8pack_lib(torch, x, qw, sc),
+            # x, qw and scale read once, out written once
+            M * K * es + K * N + 4 * N + M * N * es, 2 * M * N * K))
+    B, D = BERT["batch"], E // H
+    q, k, v = rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+    cases.append((
+        "flash_attention", f"predict non-causal [{B}, {S}, {H}, {D}]",
+        lambda: fa.flash_attention_fused(q, k, v, False),
+        lambda: fa._plain_bshd(q, k, v, False, 1.0 / D ** 0.5, None),
+        _sdpa_b1(torch, q, k, v, False, 0),
+        4 * B * S * H * D * es + B * H * S * 4, 4 * B * H * S * S * D))
+    return cases
+
+
+def _int8pack_lib(torch, x, qw, scale):
+    """torch._weight_int8pack_mm (weight [N, K], scales in x's dtype) on
+    copies made here, or None where this PyTorch has no CUDA version."""
+    xc, wt, sc = x.contiguous(), qw.t().contiguous(), scale.to(x.dtype)
+    try:
+        got = torch._weight_int8pack_mm(xc, wt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        print(f"library torch._weight_int8pack_mm: none ({str(e)[:120]})")
+        return None
+    ref = ((xc.float() @ qw.float()) * scale).to(x.dtype)
+    print(f"library torch._weight_int8pack_mm {tuple(xc.shape)} x "
+          f"{tuple(qw.shape)}: max abs diff from the plain version "
+          f"{float((got.float() - ref.float()).abs().max()):.3e}")
+    return lambda: torch._weight_int8pack_mm(xc, wt, sc)
+
+
 def _sdpa_b8(torch, q, k, v, go, causal):
     """The backward of F.scaled_dot_product_attention alone: its forward
     runs here, once, and each call is torch.autograd.grad of that output
@@ -651,7 +746,16 @@ def kernels_vs_plain(torch, iters=20):
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
                 err = _err(torch, got, ref)
-                parts = [("", err, _tol(dname, ref))]
+                # several outputs (B1's out and lse, B8's dq, dk, dv, two
+                # rings): each is held to its own scale, so a small output
+                # beside a large one gets a limit of its own size
+                if isinstance(ref, tuple):
+                    names = OUTPUTS.get(name) or [f"output {i}"
+                                                  for i in range(len(ref))]
+                    parts = [(n, _err(torch, a, b), _tol(dname, b))
+                             for n, a, b in zip(names, got, ref)]
+                else:
+                    parts = [("", err, _tol(dname, ref))]
             tol = (parts[0][2] if len(parts) == 1
                    else {lab: lim for lab, _, lim in parts})
             ms, plain_ms = timer(kern), timer(plain)
@@ -709,6 +813,22 @@ def _refusals(torch):
             print(f"refused {label}: {e}")
         else:
             raise AssertionError(f"{label} was not refused")
+    # B7 takes float32 or bfloat16 x and int8 weights, nothing else
+    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul
+    q8 = torch.zeros(64, 32, dtype=torch.int8, device=dev)
+    s8 = torch.ones(32, device=dev)
+    for label, call in {
+            "int8_matmul float16 x": lambda: int8_matmul(
+                torch.ones(4, 64, dtype=torch.float16, device=dev), q8, s8),
+            "int8_matmul int32 qw": lambda: int8_matmul(
+                torch.ones(4, 64, dtype=dt, device=dev), q8.int(), s8)
+    }.items():
+        try:
+            call()
+        except TypeError as e:
+            print(f"refused {label}: {e}")
+        else:
+            raise AssertionError(f"{label} was not refused")
     torch.cuda.synchronize()
 
 
@@ -719,6 +839,7 @@ def _counters():
     from paddle_tpu_torch.ops.hopper import fused_norm, fused_ops
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
     from paddle_tpu_torch.ops.hopper.fused_adamw import fused_adamw
+    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul
 
     return {"rms_norm": fused_norm.rms_norm_fused,
             "rms_norm_residual": fused_norm.rms_norm_residual_fused,
@@ -731,7 +852,8 @@ def _counters():
             "decode_attention": da.decode_attention,
             "kv_ring_write": da.kv_ring_write,
             "flash_attention_bwd": fa.flash_attention_bwd_fused,
-            "fused_adamw": fused_adamw}
+            "fused_adamw": fused_adamw,
+            "int8_matmul": int8_matmul}
 
 
 def _zero_counters():
@@ -851,8 +973,10 @@ def full_width_serving(torch, model):
         if any(not 0 <= t < cfg.vocab_size for t in o):
             raise AssertionError("token outside the vocabulary")
     # a decode-heavy wave: 8 rows, 64-token prompts, 32 new tokens each
-    _profile_window(torch, eng, [[(prompt(64), 32, None) for _ in range(8)]
-                                 for _ in range(2)])
+    waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(2)]
+    _profile(torch, "decode wave (8 rows, 64-token prompts, 32 new tokens)",
+             lambda: _serve_waves(eng, [waves[0]]),
+             lambda: _serve_waves(eng, [waves[1]]), top=15)
     _draw_cost(torch, cfg.vocab_size)
     return launches
 
@@ -884,30 +1008,30 @@ def _draw_cost(torch, V):
           f"greedy {greedy:.4f} ms, threefry draw alone {draw:.4f} ms")
 
 
-def _profile_window(torch, eng, waves):
-    """Serve ``waves[0]`` untraced (wall time), then ``waves[1]`` (same
-    shape, other prompts) under torch.profiler: device time by kernel, and
-    the device's busy share of the untraced wall time (one stream, so
-    kernel times do not overlap; the trace's own wall time is inflated by
-    the profiler)."""
+def _profile(torch, label, untraced, traced=None, top=12):
+    """Run ``untraced()`` on the host clock (wall time), then ``traced()``
+    (the same call by default) under torch.profiler: the device's busy share
+    of the untraced wall time (one stream, so kernel times do not overlap;
+    the trace's own wall time is inflated by the profiler) and device time
+    by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    _serve_waves(eng, [waves[0]])
+    untraced()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t) * 1e6
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _serve_waves(eng, [waves[1]])
+        (traced or untraced)()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in evs)
-    print(f"profile: untraced wall {wall_us / 1e3:.1f} ms, device busy "
-          f"{dev_us / 1e3:.1f} ms ({100 * dev_us / wall_us:.1f}%), "
+    print(f"profile {label}: untraced wall {wall_us / 1e3:.2f} ms, device "
+          f"busy {dev_us / 1e3:.2f} ms ({100 * dev_us / wall_us:.1f}%), "
           f"{sum(e.count for e in evs)} device kernels")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"profile kernel {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:6d}  {e.key[:90]}")
 
 
@@ -1061,34 +1185,6 @@ def _gaps(torch, logits):
     return (top2[..., 0] - top2[..., 1]).cpu().tolist()
 
 
-def _profile_decode(torch, model, ids):
-    """A 32-token greedy_decode untraced (wall time), then the same under
-    torch.profiler: the device's busy share of the untraced wall time and
-    device time by kernel (as _profile_window does for serving)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from paddle_tpu_torch.models.generation import greedy_decode
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    greedy_decode(model, ids, max_new_tokens=32, max_length=512)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t) * 1e6
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        greedy_decode(model, ids, max_new_tokens=32, max_length=512)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in evs)
-    print(f"profile greedy_decode [8, 128] + 32 tokens: untraced wall "
-          f"{wall_us / 1e3:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
-          f"({100 * dev_us / wall_us:.1f}%), "
-          f"{sum(e.count for e in evs)} device kernels")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
-              f"x{e.count:6d}  {e.key[:90]}")
-
-
 def full_width_generation(torch, model):
     """Phase 5 on the 7B model; returns the generation path's launches."""
     from paddle_tpu_torch.framework.random import Generator
@@ -1128,7 +1224,9 @@ def full_width_generation(torch, model):
     print(f"(b) greedy_decode [8, 128] + 128 tokens, ring 512: {secs:.3f} s "
           f"({8 * 128 / secs:.1f} tokens/s, informative), no host sync "
           "inside the loop")
-    _profile_decode(torch, model, p8)
+    _profile(torch, "greedy_decode [8, 128] + 32 tokens",
+             lambda: greedy_decode(model, p8, max_new_tokens=32,
+                                   max_length=512))
     ref = greedy_decode(model, p4, max_new_tokens=32)
     ring = generate(model, p4, max_new_tokens=32, use_static_cache=True)
     grow = generate(model, p4, max_new_tokens=32)
@@ -1212,32 +1310,6 @@ def _train_setup(torch, model, lr):
     return TrainStep(model, lambda m, ids: crit(m(ids), ids), opt)
 
 
-def _profile_train(torch, step, ids):
-    """One step untraced (wall time), then one under torch.profiler: the
-    device's busy share of the untraced wall time and device time by
-    kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    step(ids)
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t) * 1e6
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step(ids)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in evs)
-    print(f"profile train step: untraced wall {wall_us / 1e3:.1f} ms, "
-          f"device busy {dev_us / 1e3:.1f} ms "
-          f"({100 * dev_us / wall_us:.1f}%), "
-          f"{sum(e.count for e in evs)} device kernels")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"profile kernel {e.self_device_time_total / 1e3:9.2f} ms "
-              f"x{e.count:6d}  {e.key[:90]}")
-
-
 def full_width_training(torch):
     """Phase 7: bench.py's honest geometry in bfloat16 with recompute,
     AdamW(1e-4, multi_precision) through TrainStep on one [8, 2048] batch;
@@ -1292,7 +1364,7 @@ def full_width_training(torch):
         raise AssertionError(f"run_steps losses {l4}")
     print(f"run_steps [4, {B}, {S}]: {time.perf_counter() - t:.3f} s, "
           f"losses {[round(float(x), 4) for x in l4]}, no host sync inside")
-    _profile_train(torch, step, ids)
+    _profile(torch, "train step", lambda: step(ids), top=20)
     n_steps = 12 + 4 + 2
     launches = _path_launches("train", counters)
     print("launches per train step: " + json.dumps(
@@ -1364,10 +1436,181 @@ def training_kernels_vs_plain(torch, gpu_model, cpu_model):
     print("training kernel path == plain path (loss, gradients, AdamW)")
 
 
+# --------------------------------------------------------------- phase 9
+def bert_classifier(torch, layers, dtype, device=None, seed=0):
+    """bench_ladder.py's BertClassifier (bench_ladder.py:107-123) from the
+    port's layers: token and learned position embeddings, a post-norm gelu
+    TransformerEncoder (FFN 4 x hidden, dropout 0.1, the identity in eval),
+    a 2-way Linear head on the first token.  Random weights from a
+    generator seeded with ``seed`` on ``device`` (None: CUDA)."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.nn.transformer import (
+        TransformerEncoder,
+        TransformerEncoderLayer,
+    )
+
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    h, seq = BERT["hidden"], BERT["seq"]
+    kw = dict(device=dev, dtype=dtype, generator=g)
+
+    class BertClassifier(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.embed = pnn.Embedding(BERT["vocab"], h, **kw)
+            self.pos = pnn.Embedding(seq, h, **kw)
+            self.encoder = TransformerEncoder(TransformerEncoderLayer(
+                h, BERT["heads"], 4 * h, dropout=0.1, activation="gelu",
+                **kw), layers)
+            self.cls = pnn.Linear(h, 2, **kw)
+
+        def forward(self, ids):
+            x = self.embed(ids) + self.pos(torch.arange(seq,
+                                                        device=ids.device))
+            return self.cls(self.encoder(x)[:, 0])
+
+    return BertClassifier()
+
+
+def _predictor(model, int8):
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    cfg = Config()
+    cfg.set_layer(model)
+    if int8:
+        cfg.enable_weight_only_quant("int8")
+    return create_predictor(cfg)
+
+
+def _ms_per_run(torch, pred, ids, n=10):
+    """Host time of ``pred.run`` (each run ends in the logits' copy to the
+    host, which waits for the card), after one warm-up run."""
+    pred.run([ids])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        pred.run([ids])
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def full_width_predictor(torch, card):
+    """Phase 9: BERT-base in bfloat16 through the float and the
+    weight-only int8 Predictor; returns the predict path's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.quantization import weight_quantize
+
+    t = time.perf_counter()
+    model = bert_classifier(torch, BERT["layers"], torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, BERT["vocab"], (BERT["batch"], BERT["seq"])
+                       ).astype(np.int32)
+    ids1 = ids[:1]
+    fp = _predictor(model, int8=False)
+    q8 = _predictor(model, int8=True)
+    torch.cuda.synchronize()
+    print(f"bert_base: {n_params} parameters, bf16; both predictors built "
+          f"in {time.perf_counter() - t:.3f} s")
+    ref = fp.run([ids])[0]
+    if ref.shape != (BERT["batch"], 2) or not np.isfinite(ref).all():
+        raise AssertionError(f"float logits {ref.shape} not finite [32, 2]")
+    print(f"(a) float predictor: logits {ref.shape} {ref.dtype}, finite")
+    torch.cuda.synchronize()
+    counters = _zero_counters()
+    got = q8.run([ids])[0]
+    launches = _path_launches("predict", counters)
+    want = {"int8_matmul": 6 * BERT["layers"] + 1,
+            "flash_attention": BERT["layers"]}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"one int8 run launched {launches}, "
+                             f"expected {want}")
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError("int8 logits not finite")
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"(b) int8 predictor: B7 {launches['int8_matmul']} and B1 "
+          f"{launches['flash_attention']} launches in one run, logits "
+          f"finite; largest difference from (a) {rel:.4f} of the largest "
+          f"|logit| {float(np.abs(ref).max()):.4f} (informative)")
+    w = model.encoder.layers[0].linear1.weight
+    qg, sg = weight_quantize(w)
+    qc, sc = weight_quantize(w.detach().cpu())
+    if not (torch.equal(qg.cpu(), qc)
+            and torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32))):
+        raise AssertionError("weight_quantize differs between cuda and cpu")
+    print(f"(c) weight_quantize of a bf16 {list(w.shape)} weight: int8 "
+          f"values and scales identical on cuda and the CPU")
+    for x in (ids, ids1):
+        for name, pred in (("float", fp), ("int8", q8)):
+            ms = _ms_per_run(torch, pred, x)
+            print(f"(d) {name} predictor [{x.shape[0]}, {x.shape[1]}]: "
+                  f"{ms:.3f} ms per run, {x.shape[0] / ms * 1e3:.1f} "
+                  f"sequences/s ({card}; informative)")
+    _profile(torch, f"int8 predictor [{ids.shape[0]}, {ids.shape[1]}]",
+             lambda: q8.run([ids]))
+    return launches
+
+
+# -------------------------------------------------------------- phase 10
+def predictor_kernels_vs_plain(torch):
+    """Phase 10: a 2-layer BERT-width float32 classifier with identical
+    weights on cuda and on the CPU, through int8 and float Predictors:
+    identical quantized weights, logits within 1e-4 of the largest
+    |logit|."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import Int8Linear
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    gm = bert_classifier(torch, 2, torch.float32, seed=1)
+    cm = bert_classifier(torch, 2, torch.float32, device="cpu", seed=2)
+    # biases start at zero and the encoder's layers are copies of one: give
+    # every bias and norm weight its own seeded values, so B7's bias add
+    # and each layer's own norms carry something
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    with torch.no_grad():
+        for name, p in gm.named_parameters():
+            r = torch.randn(p.shape, generator=g, device="cuda")
+            if name.endswith("bias"):
+                p.copy_(0.1 * r)
+            elif "norm" in name:
+                p.copy_(1.0 + 0.1 * r)
+    load_numpy_state_dict(cm, {k: v.cpu().numpy()
+                               for k, v in gm.state_dict().items()})
+    ids = np.random.default_rng(3).integers(
+        0, BERT["vocab"], (4, BERT["seq"])).astype(np.int32)
+    for int8 in (True, False):
+        pg, pc = _predictor(gm, int8), _predictor(cm, int8)
+        if int8:
+            mods = [(a, b) for a, b in zip(pg._layer.modules(),
+                                           pc._layer.modules())
+                    if isinstance(a, Int8Linear)]
+            if len(mods) != 13 or not all(
+                    torch.equal(a.qweight.cpu(), b.qweight)
+                    and torch.equal(a.scale.cpu(), b.scale)
+                    for a, b in mods):
+                raise AssertionError("quantized weights differ between "
+                                     "cuda and the CPU")
+        lg, lc = pg.run([ids])[0], pc.run([ids])[0]
+        err = float(np.abs(lg - lc).max())
+        tol = 1e-4 * float(np.abs(lc).max())
+        what = "int8" if int8 else "float"
+        print(f"{what} predictor [4, {BERT['seq']}] cuda vs cpu: "
+              f"max_abs_err {err:.3e} tol {tol:.3e}"
+              + (" (13 qweights and scales identical)" if int8 else ""))
+        if not err <= tol:
+            raise AssertionError(f"{what} predictor logits differ beyond "
+                                 "1e-4 of the largest |logit|")
+    print("predictor kernel path == plain path (int8 and float)")
+
+
 # ------------------------------------------------------------------ main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="phases to run after phase 1 (always run)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1422,6 +1665,16 @@ def main(argv=None) -> int:
         t = _phase("8 training: kernel path vs plain path")
         training_kernels_vs_plain(torch, *pair)
         _done("8", t)
+    pair = None
+    torch.cuda.empty_cache()
+    if 9 in phases:
+        t = _phase("9 full-width predictor")
+        launches["predict"] = full_width_predictor(torch, card)
+        _done("9", t)
+    if 10 in phases:
+        t = _phase("10 predictor: kernel path vs plain path")
+        predictor_kernels_vs_plain(torch)
+        _done("10", t)
     # launches per path, each from that path's own run: null when its
     # phase did not run
     for r in rows:

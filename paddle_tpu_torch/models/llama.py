@@ -32,7 +32,7 @@ through the chunked head (``_chunked_lm_loss``), each chunk checkpointed.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..nn import Embedding, Linear, RMSNorm
+from ..nn import Embedding, ParallelLinear, RMSNorm, load_numpy_state_dict
 from ..nn import functional as F
 from ..ops.hopper.decode_attention import decode_attention, kv_ring_write
 from ..ops.hopper.flash_attention import flash_attention_fwd
@@ -106,9 +106,9 @@ class _Init:
                  generator: torch.Generator):
         self.device, self.dtype, self.generator = device, dtype, generator
 
-    def linear(self, n_in: int, n_out: int) -> Linear:
-        return Linear(n_in, n_out, device=self.device, dtype=self.dtype,
-                      generator=self.generator)
+    def linear(self, n_in: int, n_out: int) -> ParallelLinear:
+        return ParallelLinear(n_in, n_out, device=self.device,
+                              dtype=self.dtype, generator=self.generator)
 
     def norm(self, hidden: int, eps: float) -> RMSNorm:
         return RMSNorm(hidden, eps, device=self.device, dtype=self.dtype)
@@ -398,33 +398,3 @@ def _chunked_lm_loss(hidden, w, labels, n_chunks: int):
                           preserve_rng_state=False)
         tot, cnt = tot + s, cnt + c
     return tot / torch.clamp(cnt.float(), min=1.0)
-
-
-def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """numpy -> CPU tensor; a bfloat16 array (ml_dtypes) is read by its
-    raw 16-bit pattern, so no import of ml_dtypes is needed."""
-    if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(arr, copy=True))
-
-
-def load_numpy_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]):
-    """Copy ``{name: np.ndarray}`` (paddle_tpu's ``state_dict`` as numpy)
-    into ``model``'s parameters, converting to each parameter's dtype and
-    device.  Raises ``KeyError`` on a missing or extra name and
-    ``ValueError`` on a shape mismatch, before copying anything."""
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(sd))
-    extra = sorted(set(sd) - set(params))
-    if missing or extra:
-        raise KeyError(f"state_dict mismatch: missing {missing}, "
-                       f"unexpected {extra}")
-    for name, p in params.items():
-        if tuple(sd[name].shape) != tuple(p.shape):
-            raise ValueError(f"{name}: shape {tuple(sd[name].shape)} does "
-                             f"not match the parameter's {tuple(p.shape)}")
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(_tensor_from_numpy(np.asarray(sd[name])))
-    return model

@@ -1,45 +1,85 @@
-"""The parameter-holding layers the Llama model needs, with paddle's layouts.
+"""The parameter-holding layers of the port, with paddle's layouts.
 
-Counterparts: ``paddle_tpu/nn/layer/common.py`` ``Linear``/``Embedding``,
-``nn/layer/norm.py`` ``RMSNorm``, and ``distributed/fleet/mp_layers.py``
-Column/Row/VocabParallel layers at mp=1 (which hold the same parameters).
-A ``Linear`` weight is ``[in, out]`` (``y = x @ W``), not torch's
-``[out, in]``, so a paddle_tpu ``state_dict`` loads one for one.
+Counterparts: ``paddle_tpu/nn/layer/common.py`` ``Linear``/``Dropout``/
+``Embedding``, ``nn/layer/norm.py`` ``LayerNorm``/``RMSNorm``, and
+``distributed/fleet/mp_layers.py`` Column/Row/VocabParallel layers at mp=1
+(``ParallelLinear``, ``Embedding``: they hold the same parameters).  A
+``Linear`` weight is ``[in, out]`` (``y = x @ W + b``), not torch's
+``[out, in]``, so a paddle_tpu ``state_dict`` loads one for one
+(``load_numpy_state_dict``).  The transformer layers are in
+``nn/transformer.py``; ``torch.nn.ModuleList``/``Sequential`` stand for
+paddle's ``LayerList``/``Sequential`` under the same attribute names.
 
-Their forwards serve ``LlamaForCausalLM.forward``: ``Linear`` is one
-``torch.matmul`` (the reference leaves it to XLA), ``Embedding`` one
-``index_select`` (its backward an ``index_add_``, which needs no host
-sync), ``RMSNorm`` is kernel K1 (``ops/hopper/fused_norm.py``); the serving
-engine reads the parameters and runs its own forward
-(``inference/serving.py``).  Parameters are trainable
-(``requires_grad=True``, the reference's ``stop_gradient=False``); the
-inference entry points run under ``torch.no_grad``.  Weights are drawn
-from an explicit ``torch.Generator``, never from global random state.
+``Linear`` and ``ParallelLinear`` are one ``torch.matmul`` (the reference
+leaves it to XLA), ``Embedding`` one ``index_select`` (its backward an
+``index_add_``, which needs no host sync), ``LayerNorm``
+``torch.nn.functional.layer_norm`` (not a TPU kernel in the reference),
+``RMSNorm`` kernel K1 (``ops/hopper/fused_norm.py``).  Parameters are
+trainable (``requires_grad=True``, the reference's ``stop_gradient=False``);
+the inference entry points run under ``torch.no_grad``.  Layers take
+``device=None`` (CUDA, or ``RuntimeError`` without it; ``device="cpu"`` for
+the plain path), a ``dtype``, and draw random weights from an explicit
+``torch.Generator``, never from global random state.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from ..ops.hopper.fused_norm import rms_norm_fused
+from . import functional as F
 
-__all__ = ["Linear", "Embedding", "RMSNorm"]
+__all__ = ["Linear", "ParallelLinear", "Embedding", "LayerNorm", "RMSNorm",
+           "Dropout", "load_numpy_state_dict"]
+
+
+def _xavier(in_features: int, out_features: int, device, dtype,
+            generator: torch.Generator) -> nn.Parameter:
+    """``[in, out]`` Xavier-uniform, paddle's default Linear initializer."""
+    bound = math.sqrt(6.0 / (in_features + out_features))
+    w = torch.empty(in_features, out_features, device=resolve_device(device),
+                    dtype=dtype)
+    w.uniform_(-bound, bound, generator=generator)
+    return nn.Parameter(w)
 
 
 class Linear(nn.Module):
-    """``weight [in, out]``, Xavier-uniform (paddle's default initializer);
-    no bias (Llama's projections have none)."""
+    """``y = x @ weight + bias``: ``weight [in, out]`` Xavier-uniform,
+    ``bias [out]`` zeros, or none with ``bias_attr=False``."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 device: torch.device, dtype: torch.dtype,
+                 bias_attr: Optional[bool] = None, device=None,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
-        bound = math.sqrt(6.0 / (in_features + out_features))
-        w = torch.empty(in_features, out_features, device=device, dtype=dtype)
-        w.uniform_(-bound, bound, generator=generator)
-        self.weight = nn.Parameter(w)
+        self.weight = _xavier(in_features, out_features, device, dtype,
+                              generator)
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(out_features, device=self.weight.device,
+                        dtype=dtype)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class ParallelLinear(nn.Module):
+    """Column/RowParallelLinear at mp=1, as Llama's projections use them:
+    ``weight [in, out]`` Xavier-uniform, no bias.  Not a ``Linear``, as the
+    reference's mp layers are not, so the weight-only int8 rewrite of
+    ``inference.Predictor`` leaves them as they are, as the reference's
+    does."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator):
+        super().__init__()
+        self.weight = _xavier(in_features, out_features, device, dtype,
+                              generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.weight
@@ -50,17 +90,54 @@ class Embedding(nn.Module):
     initializes it."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 device: torch.device, dtype: torch.dtype,
+                 device=None, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
-        w = torch.empty(num_embeddings, embedding_dim, device=device,
-                        dtype=dtype)
+        w = torch.empty(num_embeddings, embedding_dim,
+                        device=resolve_device(device), dtype=dtype)
         w.normal_(0.0, 1.0, generator=generator)
         self.weight = nn.Parameter(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         rows = self.weight.index_select(0, ids.reshape(-1).long())
         return rows.view(*ids.shape, self.weight.shape[1])
+
+
+class LayerNorm(nn.Module):
+    """``(x - mean) / sqrt(var + eps) * weight + bias`` over the trailing
+    ``normalized_shape`` (biased variance, ``nn/functional/norm.py:87``);
+    ``weight`` ones, ``bias`` zeros."""
+
+    def __init__(self, normalized_shape: Union[int, Sequence[int]],
+                 epsilon: float = 1e-5, *, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = tuple(normalized_shape)
+        self._epsilon = epsilon
+        dev = resolve_device(device)
+        self.weight = nn.Parameter(torch.ones(self._normalized_shape,
+                                              device=dev, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(self._normalized_shape,
+                                             device=dev, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.layer_norm(
+            x, self._normalized_shape, self.weight, self.bias, self._epsilon)
+
+
+class Dropout(nn.Module):
+    """The identity in eval or at ``p == 0``; dropout while training needs
+    a random stream that is not ported, and raises."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        F._no_dropout("Dropout", self.p, self.training)
+        return x
 
 
 class RMSNorm(nn.Module):
@@ -75,3 +152,33 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm_fused(x, self.weight, self.epsilon)
+
+
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """numpy -> CPU tensor; a bfloat16 array (ml_dtypes) is read by its
+    raw 16-bit pattern, so no import of ml_dtypes is needed."""
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def load_numpy_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]):
+    """Copy ``{name: np.ndarray}`` (paddle_tpu's ``state_dict`` as numpy)
+    into ``model``'s parameters, converting to each parameter's dtype and
+    device.  Raises ``KeyError`` on a missing or extra name and
+    ``ValueError`` on a shape mismatch, before copying anything."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(sd))
+    extra = sorted(set(sd) - set(params))
+    if missing or extra:
+        raise KeyError(f"state_dict mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    for name, p in params.items():
+        if tuple(sd[name].shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(sd[name].shape)} does "
+                             f"not match the parameter's {tuple(p.shape)}")
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(_tensor_from_numpy(np.asarray(sd[name])))
+    return model

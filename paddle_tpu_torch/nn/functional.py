@@ -1,7 +1,8 @@
 """Functionals — the port of ``paddle_tpu/nn/functional/flash_attention.py``
 (``flash_attention``, ``scaled_dot_product_attention``) on paddle's
-``[batch, seq, heads, head_dim]`` layout, and of
-``nn/functional/loss.py``'s ``cross_entropy`` (hard labels).
+``[batch, seq, heads, head_dim]`` layout, of ``nn/functional/loss.py``'s
+``cross_entropy`` (hard labels), of ``common.py``'s ``linear`` and of
+``activation.py``'s ``relu`` and ``gelu``.
 
 An unmasked attention call goes to the flash-attention kernels B1 forward /
 B8 backward (``ops/hopper/flash_attention.py``, their plain versions for
@@ -20,7 +21,25 @@ import torch
 from ..ops.hopper.flash_attention import flash_attention_fwd
 
 __all__ = ["flash_attention", "scaled_dot_product_attention",
-           "cross_entropy"]
+           "cross_entropy", "linear", "relu", "gelu"]
+
+
+def linear(x, weight, bias=None):
+    """``x @ weight (+ bias)``, paddle's ``[in, out]`` weight; one
+    ``torch.matmul``, as the reference leaves it to XLA."""
+    out = x @ weight
+    return out if bias is None else out + bias
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def gelu(x, approximate: bool = False):
+    """The exact erf form by default, the tanh form with ``approximate``
+    (``jax.nn.gelu``'s two forms)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
 
 
 def _ref_attention(q, k, v, *, causal: bool, scale: Optional[float],

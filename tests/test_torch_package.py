@@ -44,7 +44,10 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.ops.hopper.flash_attention,"
             " paddle_tpu_torch.ops.hopper.decode_attention,"
             " paddle_tpu_torch.ops.hopper.fused_adamw,"
-            " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
+            " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit,"
+            " paddle_tpu_torch.inference, paddle_tpu_torch.quantization,"
+            " paddle_tpu_torch.nn.transformer,"
+            " paddle_tpu_torch.ops.hopper.int8_matmul\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')"
             " or m.startswith(('jax.', 'paddle_tpu.'))]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -79,6 +82,30 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model)
     assert ServingEngine(model, device="cpu").device.type == "cpu"
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.nn import transformer as tr
+
+    g = torch.Generator()
+    for make in (lambda **kw: pnn.Linear(4, 4, generator=g, **kw),
+                 lambda **kw: pnn.Embedding(4, 4, generator=g, **kw),
+                 lambda **kw: pnn.LayerNorm(4, **kw),
+                 lambda **kw: tr.MultiHeadAttention(8, 2, generator=g, **kw),
+                 lambda **kw: tr.TransformerEncoderLayer(8, 2, 16,
+                                                         generator=g, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        layer = make(device="cpu")
+        assert all(p.device.type == "cpu" for p in layer.parameters())
+    # a Predictor takes the device of its layer's parameters; a layer with
+    # none runs on the card, so without CUDA it is refused
+    from paddle_tpu_torch import inference
+
+    cfg = inference.Config()
+    cfg.set_layer(torch.nn.ReLU())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        inference.create_predictor(cfg)
+    cfg.set_layer(pnn.LayerNorm(4, device="cpu"))
+    assert inference.create_predictor(cfg)._device.type == "cpu"
 
 
 def test_generation_runs_on_the_model_device():
