@@ -12,16 +12,21 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
 Phases (each prints its seconds):
   1. environment: torch/CUDA versions, the card's name and power limit
      (nvidia-smi), compute capability 9.0, and the kernel build from
-     paddle_tpu_torch/csrc (nvcc, sm_90a);
+     paddle_tpu_torch/csrc (nvcc, sm_90a); cuobjdump -sass of the build must
+     show tensor-core (HGMMA) instructions in every bf16 B1 and B8
+     instance;
   2. each kernel against its plain PyTorch version on the same CUDA tensors,
      in bfloat16 and float32, at the shapes the paths give it (B9 over
      three steps from one state);
      then CUDA-event times (L2 flushed before each launch) of the kernel,
      the plain version and, where one exists, the one PyTorch call that
      computes the same function, beside the bound: the larger of bytes
-     moved over 3.35 TB/s and operations over the peak rate of the type;
+     moved over 3.35 TB/s and operations over the peak rate of the type,
+     and each row's TFLOP/s and share of its bound;
      a shape past a kernel's shared memory is refused with an error, and
-     B7 refuses a float16 x and an int32 weight;
+     B7 refuses a float16 x and an int32 weight; then (informative) B1 and
+     B8 in bf16 at every compiled tile pair (autotune.tune), B8's two GQA
+     modes, and whether two bf16 B8 runs agree bit for bit;
   3. Llama-2-7B geometry (32000 vocab, 4096 hidden, 11008 intermediate, 32
      layers, 32 heads) in bfloat16 with seeded random weights, served by
      ServingEngine(max_batch_size=8, max_seq_len=512, block_size=16,
@@ -191,7 +196,40 @@ def environment(torch):
     _build.build(force=True, verbose=True)
     _build.lib()
     print(f"build seconds: {time.perf_counter() - t:.3f}")
+    _sass_check(_build.LIB_PATH)
     return card
+
+
+# bf16 B1 and B8 run on the tensor cores: every instance of these kernels
+# must hold warpgroup MMA instructions (HGMMA) in its SASS
+TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
+
+
+def _sass_check(lib_path):
+    """cuobjdump -sass of the built library: count HGMMA instructions per
+    function; raise unless every instance of the bf16 B1 and B8 kernels has
+    some."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and "HGMMA" in line:
+            counts[cur] += 1
+    for tag in TENSOR_CORE_KERNELS:
+        found = {f: n for f, n in counts.items() if tag in f}
+        print(f"sass {tag}: {len(found)} instances, HGMMA per instance "
+              f"{sorted(found.values())}")
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"no HGMMA in the SASS of {tag}: "
+                                 f"{found}")
 
 
 # --------------------------------------------------------------- phase 2
@@ -470,7 +508,7 @@ def _training_cases(torch, rnd, es, g, dtype):
         off = Sk - Sq
         vis = (sum(min(Sk, max(0, i + off + 1)) for i in range(Sq))
                if causal else Sq * Sk)
-        if label.startswith("causal ["):
+        if label.startswith("causal [") or "head_dim 256" in label:
             cases.append((
                 "flash_attention", f"train {label}",
                 lambda q=q, k=kk, v=v: fa.flash_attention_fused(
@@ -766,7 +804,9 @@ def kernels_vs_plain(torch, iters=20):
             print(f"kernel {name} {dname} {label}: max_abs_err {err:.3e} "
                   f"[{limits}] ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)}"
-                  f" bound_ms {bound_ms:.4f} ({bound_by})", flush=True)
+                  f" bound_ms {bound_ms:.4f} ({bound_by}) TFLOP/s "
+                  f"{ops / ms / 1e9:.1f} of_bound {bound_ms / ms:.3f}",
+                  flush=True)
             for lab, val, lim in parts:
                 if not val <= lim:
                     raise AssertionError(
@@ -780,7 +820,66 @@ def kernels_vs_plain(torch, iters=20):
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=lib_ms))
     _refusals(torch)
+    _flash_tiles(torch)
     return rows
+
+
+def _flash_tiles(torch):
+    """Informative, for autotune's table (bf16, CUDA events): B1 and B8 at
+    every compiled tile pair, by autotune.tune (causal, 16 heads, ~8192
+    rows) and at the training shapes (L2 flushed); B8's two GQA modes at
+    four grid sizes beside the pair the selector picks; whether two B8 runs
+    agree bit for bit (dQ is summed with atomics)."""
+    from paddle_tpu_torch.ops.hopper import autotune
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    autotune.tune(seqs=(512, 2048), head_dims=(64, 128, 256))
+    autotune.clear_cache()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    timer = Timer(torch, 10)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    for B, S, H, D in ((8, 2048, 20, 128), (8, 2048, 10, 256)):
+        q, k, v, go = (rnd(B, S, H, D) for _ in range(4))
+        o, lse = fa.flash_attention_fused(q, k, v, True)
+        dc = autotune.head_dim_class(D)
+        for pair in autotune.INSTANCES[("fwd", dc)]:
+            ms = timer(lambda p=pair: fa.flash_attention_fused(
+                q, k, v, True, blocks=p))
+            print(f"tiles fwd causal [{B}, {S}, {H}, {D}] {pair}: {ms:.4f} ms")
+        for pair in autotune.INSTANCES[("bwd", dc)]:
+            ms = timer(lambda p=pair: fa.flash_attention_bwd_fused(
+                q, k, v, o, lse, go, True, blocks=p))
+            print(f"tiles bwd causal [{B}, {S}, {H}, {D}] {pair}: {ms:.4f} ms")
+    pick = fa._gqa_heads_per_block
+    try:
+        for B, S in ((1, 512), (2, 512), (4, 1024), (8, 2048)):
+            q, go = rnd(B, S, 32, 128), rnd(B, S, 32, 128)
+            k, v = rnd(B, S, 8, 128), rnd(B, S, 8, 128)
+            o, lse = fa.flash_attention_fused(q, k, v, True)
+            times = {}
+            for hpb in (1, 4):  # the two modes, the selector substituted
+                fa._gqa_heads_per_block = lambda *_, h=hpb: h
+                times[hpb] = timer(lambda: fa.flash_attention_bwd_fused(
+                    q, k, v, o, lse, go, True))
+            print(f"B8 GQA causal [{B}, {S}, 32 / 8, 128]: one head per "
+                  f"block {times[1]:.4f} ms, a block per group "
+                  f"{times[4]:.4f} ms; the selector picks "
+                  f"{pick(B, 8, S, 4)} head(s) per block")
+    finally:
+        fa._gqa_heads_per_block = pick
+    q, go = rnd(1, 512, 32, 128), rnd(1, 512, 32, 128)
+    k, v = rnd(1, 512, 8, 128), rnd(1, 512, 8, 128)
+    o, lse = fa.flash_attention_fused(q, k, v, True)
+    a = fa.flash_attention_bwd_fused(q, k, v, o, lse, go, True)
+    b = fa.flash_attention_bwd_fused(q, k, v, o, lse, go, True)
+    print("B8 bf16 GQA [1, 512] two runs bit for bit: " + ", ".join(
+        f"{n} {bool(torch.equal(x, y))}" for n, x, y in zip(
+            ("dq", "dk", "dv"), a, b)))
 
 
 def _refusals(torch):
@@ -813,6 +912,20 @@ def _refusals(torch):
             print(f"refused {label}: {e}")
         else:
             raise AssertionError(f"{label} was not refused")
+    # the C dispatch refuses a flash tile pair it has no instance for
+    # (cudaErrorInvalidValue, 1; the wrapper refuses it first, so the entry
+    # is called directly)
+    from paddle_tpu_torch.ops.hopper import _build
+    x = torch.zeros(1, 64, 1, 64, dtype=dt, device=dev)
+    lse = torch.zeros(1, 1, 64, device=dev)
+    err = _build.lib().ptt_flash_attention(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+        lse.data_ptr(), None, 1, 64, 64, 1, 1, 64, *x.stride()[:3],
+        *x.stride()[:3], *x.stride()[:3], 0, 0, 0.125, 32, 32, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 1:
+        raise AssertionError(f"flash tiles (32, 32) not refused: {err}")
+    print("refused flash_attention bf16 tiles (32, 32): cudaError_t 1")
     # B7 takes float32 or bfloat16 x and int8 weights, nothing else
     from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul
     q8 = torch.zeros(64, 32, dtype=torch.int8, device=dev)

@@ -64,15 +64,18 @@ _SIGNATURES = {
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, lse, q_off|NULL, B, Sq, Sk, H, KVH, D, q/k/v strides
-    # over (batch, seq, head), causal, q_off_host, scale, dtype, stream
+    # over (batch, seq, head), causal, q_off_host, scale, block_q, block_k,
+    # dtype, stream
     "ptt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            *[ctypes.c_longlong] * 9, _I, _I, _F, _I, _P],
-    # q, k, v, o, dout, lse, delta (workspace), dq, dk, dv, B, Sq, Sk, H,
-    # KVH, D, q/k/v strides over (batch, seq, head), causal, scale, dtype,
-    # stream
-    "ptt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I,
-                                *[ctypes.c_longlong] * 9, _I, _F, _I, _P],
+                            *[ctypes.c_longlong] * 9, _I, _I, _F, _I, _I, _I,
+                            _P],
+    # q, k, v, o, dout, lse, delta, dq_acc|NULL, dk/dv partials|NULL (bf16
+    # workspaces), dq, dk, dv, B, Sq, Sk, H, KVH, D, q/k/v strides over
+    # (batch, seq, head), causal, scale, block_q, block_k, heads per block,
+    # dtype, stream
+    "ptt_flash_attention_bwd": [_P] * 13 + [
+        _I, _I, _I, _I, _I, _I, *[ctypes.c_longlong] * 9, _I, _F, _I, _I,
+        _I, _I, _P],
     # p|NULL, w, m, v, g, t, n, lr, b1, b2, 1 - b1, 1 - b2, eps, wd,
     # p_dtype, g_dtype, stream
     "ptt_fused_adamw": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,

@@ -7,9 +7,12 @@ Port of ``paddle_tpu/ops/pallas/flash_attention.py``:
 ``_dkv_kernel``).  The forward computes tiled online-softmax attention
 with float32 accumulators and a per-row float32 logsumexp, causal with
 FlashAttention-2's bottom-right alignment, GQA by reading KV head
-``h // (H / KVH)``.  Bound on the H100 by operations at prefill lengths (the
-kernels are SIMT float32, see the sources' notes) and by bytes for a single
-query row.
+``h // (H / KVH)``.  bfloat16 runs on the tensor cores (wgmma, bf16
+products with float32 accumulation), float32 on the SIMT instances (the
+port pins TF32 off); the tile pair comes from the explicit (dtype, D, tile)
+table of ``autotune.py`` and a pair with no compiled instance raises.
+Bound on the H100 by operations at prefill lengths and by bytes for a
+single query row.
 
 Beside the reference it takes a query offset: causal row ``i`` sees the
 columns ``<= i + q_offset``, where ``q_offset`` is ``Sk - Sq`` by default
@@ -23,12 +26,15 @@ The backward recomputes the probabilities from the saved logsumexp
 (FlashAttention-2): dQ, dK and dV with float32 accumulation, the causal
 rule and the tile skipping of the forward, zero gradients for rows that see
 no key, and for GQA dK/dV summed over each KV head's group in float32
-before one cast (K and V are never repeated).
+before one cast (K and V are never repeated).  In bfloat16, dQ is summed
+with float32 atomics, so its rounding may vary from run to run; float32 is
+deterministic.
 
 ``flash_attention_fused`` and ``flash_attention_bwd_fused`` run their plain
 versions (``_ref_fwd_impl`` / ``_ref_bwd_impl``, the reference's jnp
 fallbacks transcribed, in float32) only for CPU tensors.  For CUDA tensors
-they launch the kernel or raise; ``launches`` counts kernel launches.
+they launch the kernels or raise; ``launches`` counts the calls that
+launch (a call may be several CUDA kernels).
 ``block_fwd`` / ``block_bwd`` and ``flash_attention_fwd`` are the
 reference's entries over them; ``flash_attention_fwd`` is differentiable
 (a ``torch.autograd.Function`` saving q, k, v, out and lse, as
@@ -41,7 +47,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from . import _build
+from . import _build, autotune
 
 __all__ = ["flash_attention_fused", "flash_attention_bwd_fused", "block_fwd",
            "block_bwd", "flash_attention_fwd"]
@@ -171,15 +177,42 @@ def _check(name, q, k, v, q_offset):
                          f"{q.device}")
 
 
+def _select_blocks(name: str, kind: str, dtype: torch.dtype, sq: int,
+                   sk: int, d: int, blocks: Optional[Tuple[int, int]] = None
+                   ) -> Tuple[int, int]:
+    """The compiled instance a launch takes, from the explicit (dtype, D,
+    tile) table: bfloat16 -> a tensor-core pair of ``autotune.INSTANCES``
+    (``blocks`` or ``autotune.get_flash_blocks``), float32 -> the SIMT
+    instance's one pair.  Anything else raises."""
+    if dtype == torch.float32:
+        pair = autotune.SIMT_TILES[kind](d)
+        if blocks is not None and tuple(blocks) != pair:
+            raise ValueError(f"{name}: the float32 instance takes tiles "
+                             f"{pair}, not {tuple(blocks)}")
+        return pair
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    pair = (tuple(blocks) if blocks is not None
+            else autotune.get_flash_blocks(kind, sq, sk, d))
+    if pair not in autotune.INSTANCES[(kind, autotune.head_dim_class(d))]:
+        raise ValueError(f"{name}: no bfloat16 {kind} instance with tiles "
+                         f"{pair} at head_dim {d}")
+    return pair
+
+
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False, scale: Optional[float] = None,
-                          q_offset: Offset = None
+                          q_offset: Offset = None,
+                          blocks: Optional[Tuple[int, int]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, Sq, H, D], k/v [B, Sk, KVH, D] (paddle's layout; any strides
     with contiguous 16-byte-aligned head rows) -> (out [B, Sq, H, D] in q's
     dtype, lse [B, H, Sq] float32).  ``scale`` defaults to 1/sqrt(D);
     ``q_offset`` (causal only) is an int or a 0-d int32 device tensor,
-    ``Sk - Sq`` when None."""
+    ``Sk - Sq`` when None.  ``blocks`` forces a (block_q, block_k) pair
+    (``autotune.tune`` times them); by default the tile table picks.
+    ``launches`` counts calls that launch (one CUDA kernel each)."""
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if q.device.type == "cpu":
@@ -189,6 +222,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dt, stream = _build.launch_args(name, q, k, v)
     B, Sq, H, _ = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
+    bq, bk = _select_blocks(name, "fwd", q.dtype, Sq, Sk, D, blocks)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     off_ptr, off = None, Sk - Sq
@@ -204,7 +238,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q.stride(0), q.stride(1), q.stride(2),
                 k.stride(0), k.stride(1), k.stride(2),
                 v.stride(0), v.stride(1), v.stride(2),
-                int(bool(causal)), off, scale, dt, stream), name)
+                int(bool(causal)), off, scale, bq, bk, dt, stream), name)
         flash_attention_fused.launches += 1
     return out, lse
 
@@ -213,14 +247,19 @@ def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               lse: torch.Tensor, g: torch.Tensor,
                               causal: bool = False,
-                              scale: Optional[float] = None
+                              scale: Optional[float] = None,
+                              blocks: Optional[Tuple[int, int]] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Kernel B8: the gradients of ``flash_attention_fused``'s output for
     the cotangent ``g`` [B, Sq, H, D], from its saved ``out`` and ``lse``
     [B, H, Sq] -> (dq [B, Sq, H, D], dk, dv [B, Sk, KVH, D]) in the inputs'
     dtype.  q/k/v as the forward takes them.  Causal is bottom-right
-    (``Sk - Sq``)."""
+    (``Sk - Sq``).  ``blocks`` forces a tile pair, as the forward's; for
+    GQA in bfloat16, ``_gqa_heads_per_block`` picks one query head per
+    block or a block per group.  ``launches`` counts calls that launch: in
+    bfloat16 a call is three or four CUDA kernels (pre-pass, main, dQ cast,
+    GQA sum), in float32 two."""
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if q.device.type == "cpu":
@@ -237,28 +276,56 @@ def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{name}: lse must be contiguous float32 "
                          f"[{B}, {H}, {Sq}]")
     dt, stream = _build.launch_args(name, q, k, v, out, g)
+    bq, bk = _select_blocks(name, "bwd", q.dtype, Sq, Sk, D, blocks)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Sk, KVH, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Sk, KVH, D), dtype=v.dtype, device=v.device)
-    # rowsum(g * out), written by the dQ kernel for the dK/dV kernel
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if B * H * Sq == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    # rowsum(g * out): the pre-pass (bf16) or the dQ kernel (float32)
+    # writes it for the kernels after it
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_acc = dkp = dvp = None
+    hpb = 1
+    if q.dtype == torch.bfloat16:
+        rep = H // KVH
+        hpb = _gqa_heads_per_block(B, KVH, Sk, rep)
+        dq_acc = torch.empty((B, Sq, H, D), **f32)
+        if hpb < rep:
+            dkp = torch.empty((B, Sk, H, D), **f32)
+            dvp = torch.empty((B, Sk, H, D), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with _build.device_guard(q):
         _build.check(_build.lib().ptt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KVH, D,
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), ptr(dq_acc),
+            ptr(dkp), ptr(dvp), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Sk, H, KVH, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), scale, dt, stream), name)
+            int(bool(causal)), scale, bq, bk, hpb, dt, stream), name)
     flash_attention_bwd_fused.launches += 1
     return dq, dk, dv
 
 
 flash_attention_fused.launches = 0
 flash_attention_bwd_fused.launches = 0
+
+
+def _gqa_heads_per_block(B: int, KVH: int, Sk: int, rep: int) -> int:
+    """B8's GQA mode: one query head per block (float32 dK/dV partials and
+    a sum pass; B * H * Sk / 64 blocks) while a block per KV head would
+    leave the card's 132 SMs short of two blocks each, else a block walks
+    its group's heads (no partials).  chip_smoke.py phase 2 times both
+    modes on either side of the threshold (PERF.md)."""
+    if rep == 1:
+        return 1
+    return rep if B * KVH * -(-Sk // 64) >= 264 else 1
 
 
 class _FlashAttention(torch.autograd.Function):

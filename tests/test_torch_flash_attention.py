@@ -58,6 +58,34 @@ def test_b1_plain_matches_pallas_interpret(causal, sq, sk, rep):
         assert not po.numpy()[:, :sq - sk].any()
 
 
+# the tile table's head-dim classes (the tensor-core instances take D 64,
+# 128 and 256) and a GQA group of 4 at D 128; rows 24 vs 40 keys make
+# ragged tiles and, causal with Sq > Sk, rows that see no key
+TILE_EDGE_CASES = [(d, c, 1, 16, 24) for d in (64, 128, 256)
+                   for c in (False, True)] + [(128, True, 4, 16, 16),
+                                              (128, True, 1, 24, 16)]
+
+
+@pytest.mark.parametrize("d,causal,rep,sq,sk", TILE_EDGE_CASES)
+def test_b1_plain_matches_pallas_at_the_tile_table_head_dims(d, causal, rep,
+                                                             sq, sk):
+    """The semantics the card's bf16 instances are held to (chip_smoke.py
+    compares each with this plain version): the plain B1 against
+    ``_pallas_fwd(interpret=True)`` at each head-dim class of
+    ``autotune.INSTANCES``."""
+    rng = np.random.default_rng(d + 10 * causal + rep + sq)
+    bhk = 2
+    q, k, v = _np(rng, bhk * rep, sq, d), _np(rng, bhk, sk, d), _np(
+        rng, bhk, sk, d)
+    scale = 1.0 / np.sqrt(d)
+    jo, jl = _pallas_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal, scale, 8, 8, interpret=True, kv_rep=rep)
+    po, pl = fa.block_fwd(torch.as_tensor(q), torch.as_tensor(k),
+                          torch.as_tensor(v), causal, scale, kv_rep=rep)
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), **TOL)
+
+
 @pytest.mark.parametrize("pos", [0, 5, 20])
 def test_query_offset_matches_the_static_ring_mask(pos):
     """The static prefill: queries at pos .. pos + s - 1 over a ring of L

@@ -77,6 +77,36 @@ def test_b8_plain_matches_pallas_interpret(sq, sk, rep, causal):
         assert not ours[0].numpy()[:, :sq - sk].any()
 
 
+# the tile table's head-dim classes and a GQA group of 4 at D 128 (see
+# tests/test_torch_flash_attention.py's TILE_EDGE_CASES)
+B8_TILE_CASES = [(d, c, 1, 16, 24) for d in (64, 128, 256)
+                 for c in (False, True)] + [(128, True, 4, 16, 16),
+                                            (128, True, 1, 24, 16)]
+
+
+@pytest.mark.parametrize("d,causal,rep,sq,sk", B8_TILE_CASES)
+def test_b8_plain_matches_pallas_at_the_tile_table_head_dims(d, causal, rep,
+                                                             sq, sk):
+    """block_bwd's plain version against _pallas_bwd (interpret) at each
+    head-dim class of ``autotune.INSTANCES``: the semantics the card's bf16
+    instances are held to."""
+    rng = np.random.default_rng(d + 10 * causal + rep + sq + 3)
+    bhk = 2
+    q, k, v = _np(rng, bhk * rep, sq, d), _np(rng, bhk, sk, d), _np(
+        rng, bhk, sk, d)
+    g = _np(rng, bhk * rep, sq, d)
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jo, jl = jfa._pallas_fwd(jq, jk, jv, causal, scale, 8, 8, True,
+                             kv_rep=rep)
+    ref = jfa._pallas_bwd(jq, jk, jv, jo, jl, jg, causal, scale, 8, 8, True,
+                          kv_rep=rep)
+    ours = fa.block_bwd(_t(q), _t(k), _t(v), _t(np.asarray(jo)),
+                        _t(np.asarray(jl)), _t(g), causal, scale, kv_rep=rep)
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), **B8_TOL)
+
+
 @pytest.mark.parametrize("kvh,causal", [(4, True), (2, True), (4, False)])
 def test_flash_attention_grads_match_jax_vjp(kvh, causal):
     """The autograd Function over B1/B8: out, dq, dk, dv against jax.vjp
