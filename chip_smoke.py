@@ -23,10 +23,19 @@ Phases (each prints its seconds):
      computes the same function, beside the bound: the larger of bytes
      moved over 3.35 TB/s and operations over the peak rate of the type,
      and each row's TFLOP/s and share of its bound;
-     a shape past a kernel's shared memory is refused with an error, and
-     B7 refuses a float16 x and an int32 weight; then (informative) B1 and
-     B8 in bf16 at every compiled tile pair (autotune.tune), B8's two GQA
-     modes, and whether two bf16 B8 runs agree bit for bit;
+     K4 at serving's shapes: decode (8 rows; 32 / 32 heads at D 128, 8 / 2
+     at D 256, 64 / 1), the single step's mixed batch (max_q_len 256), the
+     mixed loop's program (T 256, max_q_len 16) and a long-context decode
+     (2 rows of ~4000 keys), each with its GB/s, share of the bound and
+     plan (query tile, key tile, ring, splits) (with --k4-sweep, each K4
+     case also timed under other plans, informative); a shape past a
+     kernel's limits is refused with an error, and B7 refuses a float16 x
+     and an int32 weight; K4 at the edges its tiles and splits add (every
+     split count, ring depth and several query tiles forced, in both
+     types) against its plain version;
+     then (informative) B1 and B8 in bf16 at every compiled tile pair
+     (autotune.tune), B8's two GQA modes, and whether two bf16 B8 runs
+     agree bit for bit;
   3. Llama-2-7B geometry (32000 vocab, 4096 hidden, 11008 intermediate, 32
      layers, 32 heads) in bfloat16 with seeded random weights, served by
      ServingEngine(max_batch_size=8, max_seq_len=512, block_size=16,
@@ -34,9 +43,10 @@ Phases (each prints its seconds):
      two waves (the first holds a sampled request); the kernels' launch
      counters are zeroed just before and read just after, and the device
      loops run with CUDA sync debugging set to raise (no host sync inside a
-     megastep); then the cost of the seeded threefry draw per sampled step,
-     and two more waves, one timed and one under torch.profiler, give the
-     device's busy share;
+     megastep); then two more waves, one timed and one under
+     torch.profiler, give the device's busy share, and K4's device time
+     and kernel count in the traced wave (one kernel per wrapper call), and
+     the cost of the seeded threefry draw per sampled step;
   4. the same geometry at 2 layers in float32 served on cuda (kernels) and
      on the CPU (plain versions) from identical weights: first-step logits
      agree, greedy tokens agree up to the first position whose CPU top-2
@@ -356,9 +366,23 @@ def kernel_cases(torch, dtype):
              torch.tensor([300, 0, 200, 450, 0, 0, 20, 64], device=dev),
              [1, 100, 16, 1, 60, 0, 1, 76]),
             ("decode 8 rows, 8 heads / 2 KV, head_dim 256", 8, 2, 256,
+             torch.randint(64, 511, (B,), generator=g, device=dev), [1] * B),
+            # the former refusal: a 64-head group over one KV head
+            ("decode 8 rows, 64 heads / 1 KV", 64, 1, D,
              torch.randint(64, 511, (B,), generator=g, device=dev), [1] * B)):
         cases.append(_paged_case(torch, rnd, es, g, label, heads, kv_heads,
                                  hd, dec.to(torch.int32), now))
+    # the mixed loop's program: T = token_budget 256, max_q_len = the
+    # 16-token prefill chunk, decode tokens beside 16-token chunks
+    cases.append(_paged_case(
+        torch, rnd, es, g, "mixed loop T 256, max_q_len 16", Hq, Hq, D,
+        torch.tensor([310, 0, 48, 200, 16, 95, 0, 430], dtype=torch.int32,
+                     device=dev), [1, 16, 16, 1, 16, 1, 9, 1], mq=16, T=256))
+    # long-context decode: 2 rows of ~4000 visible keys (4096-key pool)
+    cases.append(_paged_case(
+        torch, rnd, es, g, "decode 2 rows, context ~4000", Hq, Hq, D,
+        torch.tensor([3990, 4011], dtype=torch.int32, device=dev), [1, 1],
+        P=256, NB=512))
     return cases
 
 
@@ -710,30 +734,47 @@ def _sdpa_b2(torch, q, kb, vb, pos):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
-def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now):
-    """One K4 case: a decode batch (one token per row, T = B) or a mixed
-    batch in the single-step program's [256] buffer (max_q_len 256)."""
+# K4's plan and arguments for each case, by (label, dtype name): the plan
+# is printed beside its time, the arguments serve the --k4-sweep
+_K4_PLANS = {}
+_K4_ARGS = {}
+
+
+def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
+                T=None, P=32, NB=256):
+    """One K4 case: a decode batch (one token per row, T = B), a mixed
+    batch in the single-step program's [256] buffer (max_q_len 256), or
+    the given ``mq`` and ``T`` (the mixed loop's program)."""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
-    NB, bs, P, B = 256, 16, 32, 8
+    bs, B = 16, len(now)
     dev = "cuda"
     kc, vc = rnd(NB, KV, bs, D), rnd(NB, KV, bs, D)
-    bt = torch.randperm(NB, generator=g, device=dev).view(B, P).to(
+    bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(B, P).to(
         torch.int32)
     now = torch.tensor(now, dtype=torch.int32, device=dev)
     cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
     cu[1:] = torch.cumsum(now, 0)
     decode = int(now.max()) == 1
-    T = int(cu[-1]) if decode else 256
-    mq = 1 if decode else 256
+    if mq is None:
+        T = int(cu[-1]) if decode else 256
+        mq = 1 if decode else 256
     q = rnd(T, H, D)
-    # bytes: q and the output once, each row's visible K/V once
-    ctx = int((dec + now).sum())
-    nbytes = (2 * T * H * D + 2 * ctx * KV * D) * es
-    # QK^T and PV, 2 operations per multiply-add, over each token's
-    # visible keys
-    vis = sum(d * n + n * (n + 1) // 2
-              for d, n in zip(dec.tolist(), now.tolist()))
+    dname = str(q.dtype).split(".")[1]
+    _K4_PLANS[(label, dname)] = pa.paged_plan(T, B, mq, P, bs, H, KV, D,
+                                              q.dtype)
+    _K4_ARGS[(label, dname)] = (q, kc, vc, dec, now, cu, bt, mq)
+    # the tokens that attend: a row's first min(now, max_q_len) (the rest,
+    # and the padding past cu[B], are written as zeros, their q unread)
+    live = [min(n, mq) for n in now.tolist()]
+    # bytes: the q of the tokens that attend, the whole output, and each
+    # row's visible K/V once (none for a row with no token that attends)
+    keys = sum(min(d + n, P * bs) for d, n in zip(dec.tolist(), live) if n)
+    nbytes = ((sum(live) + T) * H * D + 2 * keys * KV * D) * es
+    # QK^T and PV, 2 operations per multiply-add, over each attending
+    # token's visible keys
+    vis = sum(min(d + j + 1, P * bs)
+              for d, n in zip(dec.tolist(), live) for j in range(n))
     ops = 4 * vis * H * D
     return ("paged_attention", label,
             lambda: pa.paged_attention(q, kc, vc, dec, now, cu, bt, mq),
@@ -766,9 +807,10 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
         qp, k_all, v_all, attn_mask=mask, **gqa)
 
 
-def kernels_vs_plain(torch, iters=20):
+def kernels_vs_plain(torch, iters=20, k4_sweep=False):
     """Check every case in both types; time it; return the rows of the
-    kernels line (bfloat16, the type the paths run in)."""
+    kernels line (bfloat16, the type the paths run in).  ``k4_sweep`` also
+    times each K4 case under other plans (``_paged_sweep``)."""
     timer = Timer(torch, iters)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -807,11 +849,21 @@ def kernels_vs_plain(torch, iters=20):
                   f" bound_ms {bound_ms:.4f} ({bound_by}) TFLOP/s "
                   f"{ops / ms / 1e9:.1f} of_bound {bound_ms / ms:.3f}",
                   flush=True)
+            plan = _K4_PLANS.get((label, dname)) if name == \
+                "paged_attention" else None
+            if plan is not None:
+                print(f"k4 {dname} {label}: {nbytes / ms / 1e6:.1f} GB/s, "
+                      f"{bound_ms / ms:.3f} of the bound; qt {plan.qt} kt "
+                      f"{plan.kt} stages {plan.stages} splits {plan.splits} "
+                      f"chunk {plan.chunk} blocks {plan.blocks} smem "
+                      f"{plan.smem}", flush=True)
             for lab, val, lim in parts:
                 if not val <= lim:
                     raise AssertionError(
                         f"{name} {dname} {label}: kernel and plain differ "
                         f"{'in ' + lab + ' ' if lab else ''}by {val} > {lim}")
+            if plan is not None and k4_sweep:
+                _paged_sweep(torch, timer, label, dname)
             if dtype == torch.bfloat16:
                 rows.append(dict(
                     name=name, shape=label, dtype=dname, route="cuda",
@@ -820,8 +872,111 @@ def kernels_vs_plain(torch, iters=20):
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=lib_ms))
     _refusals(torch)
+    _paged_edges(torch)
     _flash_tiles(torch)
     return rows
+
+
+def _paged_edges(torch):
+    """K4 against its plain version (the `_tol` of phase 2) at the edges
+    its tiles and splits add, in bfloat16 and float32, under every split
+    count and several query tiles (the plan forced): visible key counts at
+    0, 1 and -1 mod 16 and mod the split chunk, a position past the pool
+    (clamped), a row with now = 0, now > max_q_len, block ids -1 and past
+    the pool, padding tokens; GQA groups 1, 4 and 8, head_dim 64, 128 and
+    256, and 80 (bf16: tensor cores on zero-padded columns) and 72 (bf16:
+    the SIMT instance).  A plan with a cluster must give the same bits in
+    five runs (the merge has no atomics)."""
+    import itertools
+
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    dev, bs, P, NB, B = "cuda", 16, 12, 128, 8
+    batches = (  # (max_q_len, dec, now)
+        (1, [0, 14, 15, 126, 127, 63, 200, 0], [1, 1, 1, 1, 1, 1, 1, 0]),
+        (16, [0, 17, 31, 5, 100, 0, 64, 150], [16, 1, 20, 0, 9, 3, 1, 16]))
+    n = worst = clusters = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for G, D in ((1, 64), (4, 128), (8, 256), (1, 128), (8, 64),
+                     (2, 80), (1, 72)):
+            KV, H = 2, 2 * G
+            kc = torch.randn(NB, KV, bs, D, generator=g, device=dev,
+                             dtype=dtype)
+            vc = torch.randn(NB, KV, bs, D, generator=g, device=dev,
+                             dtype=dtype)
+            bt = torch.randperm(NB, generator=g, device=dev)[:B * P]
+            bt = bt.view(B, P).to(torch.int32)
+            bt[2, 1], bt[5, 0] = -1, NB + 3
+            for mq, dec, now in batches:
+                dec_t = torch.tensor(dec, dtype=torch.int32, device=dev)
+                now_t = torch.tensor(now, dtype=torch.int32, device=dev)
+                cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+                cu[1:] = torch.cumsum(now_t, 0)
+                q = torch.randn(sum(now) + 5, H, D, generator=g, device=dev,
+                                dtype=dtype)
+                args = (q, kc, vc, dec_t, now_t, cu, bt, mq)
+                ref = pa._paged_attention_ref(*args)
+                tol = _tol(dname, ref)
+                T = q.shape[0]
+                for qt, splits, stages in itertools.product(
+                        (1, 5, 16) if mq > 1 else (1,),
+                        (1, 2, pa.SPLIT_CAP), pa.STAGES[pa._tc(dtype, D)]):
+                    kw = dict(qt=qt, splits=splits, stages=stages)
+                    try:
+                        p = pa._plan(T, B, mq, P, bs, H, KV, D, dtype, **kw)
+                    except ValueError:   # past the limits: refused
+                        continue
+                    got = pa._launch(*args, **kw)
+                    err = _err(torch, got, ref)
+                    n += 1
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"K4 edge {dname} G {G} D {D} mq {mq} {p}: "
+                            f"kernel and plain differ by {err} > {tol}")
+                    # the cluster merge has no atomics: a plan's runs agree
+                    # bit for bit, or blocks race
+                    for _ in range(4 if p.splits > 1 else 0):
+                        if not torch.equal(pa._launch(*args, **kw), got):
+                            raise AssertionError(
+                                f"K4 edge {dname} G {G} D {D} mq {mq} {p}: "
+                                "two runs differ")
+                    clusters += p.splits > 1
+    torch.cuda.synchronize()
+    print(f"k4 edges: {n} forced plans agree with the plain version "
+          f"(largest error {worst:.3f} of its tolerance); the {clusters} "
+          "with clusters gave the same bits in 5 runs each")
+
+
+def _paged_sweep(torch, timer, label, dname):
+    """Informative, for paged_plan's rules (``--k4-sweep``): one K4 case
+    timed under every split count, ring depth and, for prefill tiles,
+    several query tiles (bfloat16 on the tensor cores takes up to 64 query
+    rows a tile)."""
+    import itertools
+
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    base = _K4_PLANS[(label, dname)]
+    args = _K4_ARGS[(label, dname)]
+    tc = pa._tc(args[0].dtype, args[0].shape[2])
+    qts = ((base.qt,) if base.qt == 1 else (8, 16, 32, 64) if tc
+           else (1, 2, 4, 8, 16))
+    out = []
+    for qt, stages, splits in itertools.product(
+            qts, pa.STAGES[tc], (1, 2, pa.SPLIT_CAP)):
+        kw = dict(qt=qt, splits=splits, stages=stages)
+        try:
+            ms = f"{timer(lambda: pa._launch(*args, **kw)):.4f}"
+        except ValueError:          # past the limits: refused
+            ms = "refused"
+        out.append(f"qt {qt} stages {stages} splits {splits} {ms}")
+    print(f"k4 sweep {dname} {label} (plan qt {base.qt} stages "
+          f"{base.stages} splits {base.splits}): " + ", ".join(out) + " ms",
+          flush=True)
 
 
 def _flash_tiles(torch):
@@ -883,35 +1038,61 @@ def _flash_tiles(torch):
 
 
 def _refusals(torch):
-    """Shapes past a kernel's 48 KB of shared memory are refused by the
-    C entry (the one place the limit is stated) and raise, naming the
-    error: a 16384-wide RMSNorm row, a 64-head group over one KV head."""
+    """Shapes past a kernel's shared memory are refused and raise, naming
+    the limit: a 16384-wide RMSNorm row past K1's 48 KB (by the C entry),
+    a 128-head group over one KV head at head_dim 256 past the 64 query
+    rows of K4's bfloat16 tensor-core tile and, in float32, past the 227 KB
+    a K4 block may use (by its plan, before any launch); the K4 entry
+    refuses a plan it has no instance for."""
     from paddle_tpu_torch.ops.hopper import fused_norm
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     dev, dt = "cuda", torch.bfloat16
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     one = torch.ones(1, dtype=torch.int32, device=dev)
-    calls = {
-        "rms_norm [1, 16384]": lambda: fused_norm.rms_norm_fused(
-            torch.ones(1, 16384, dtype=dt, device=dev),
-            torch.ones(16384, dtype=dt, device=dev)),
-        "paged_attention 64 heads / 1 KV": lambda: pa.paged_attention(
-            torch.ones(1, 64, 128, dtype=dt, device=dev),
-            torch.ones(1, 1, 16, 128, dtype=dt, device=dev),
-            torch.ones(1, 1, 16, 128, dtype=dt, device=dev), z, one,
-            torch.tensor([0, 1], dtype=torch.int32, device=dev),
-            torch.zeros(1, 1, dtype=torch.int32, device=dev), 1),
-    }
-    for label, call in calls.items():
+    try:
+        fused_norm.rms_norm_fused(torch.ones(1, 16384, dtype=dt, device=dev),
+                                  torch.ones(16384, dtype=dt, device=dev))
+    except RuntimeError as e:
+        if "invalid configuration" not in str(e):
+            raise
+        print(f"refused rms_norm [1, 16384]: {e}")
+    else:
+        raise AssertionError("rms_norm [1, 16384] was not refused")
+    cu = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    bt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    for kdt, limit in ((dt, "64 query rows"), (torch.float32, "227 KB")):
+        big = torch.ones(1, 128, 256, dtype=kdt, device=dev)
+        kv = torch.ones(1, 1, 16, 256, dtype=kdt, device=dev)
         try:
-            call()
-        except RuntimeError as e:
-            if "invalid configuration" not in str(e):
+            pa.paged_attention(big, kv, kv, z, one, cu, bt, 1)
+        except ValueError as e:
+            if limit not in str(e):
                 raise
-            print(f"refused {label}: {e}")
+            print(f"refused paged_attention {kdt} 128 heads / 1 KV, "
+                  f"head_dim 256: {e}")
         else:
-            raise AssertionError(f"{label} was not refused")
+            raise AssertionError(f"paged_attention {kdt} 128 heads / 1 KV "
+                                 "was not refused")
+    from paddle_tpu_torch.ops.hopper import _build
+    q = torch.ones(1, 8, 128, dtype=dt, device=dev)
+    kv = torch.ones(1, 8, 16, 128, dtype=dt, device=dev)
+    bt = torch.zeros(1, 32, dtype=torch.int32, device=dev)
+    # (query tile, key tile, stages, splits, chunk, blocks of the row)
+    for what, (qt, kt, stages, splits, chunk, P) in {
+            "key tile 48": (1, 48, 2, 1, 48, 1),
+            "8 splits": (1, 64, 2, 8, 64, 32),
+            "a chunk short of the context": (1, 64, 2, 1, 0, 1),
+            "a ring of 3 on the tensor cores": (1, 64, 3, 1, 64, 1)}.items():
+        err = _build.lib().ptt_paged_attention(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
+            z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), 1, 1,
+            P, 1, 8, 8, 128, 16, 1, 0.1, qt, kt, stages, splits, chunk, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 1:
+            raise AssertionError(f"paged_attention {what} not refused: "
+                                 f"{err}")
+        print(f"refused paged_attention plan with {what}: cudaError_t 1")
     # the C dispatch refuses a flash tile pair it has no instance for
     # (cudaErrorInvalidValue, 1; the wrapper refuses it first, so the entry
     # is called directly)
@@ -1085,11 +1266,29 @@ def full_width_serving(torch, model):
     for o in outs:
         if any(not 0 <= t < cfg.vocab_size for t in o):
             raise AssertionError("token outside the vocabulary")
-    # a decode-heavy wave: 8 rows, 64-token prompts, 32 new tokens each
+    # a decode-heavy wave: 8 rows, 64-token prompts, 32 new tokens each;
+    # K4's kernels in the traced wave, against its wrapper's count there
+    # (one launch per call)
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
     waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(2)]
-    _profile(torch, "decode wave (8 rows, 64-token prompts, 32 new tokens)",
-             lambda: _serve_waves(eng, [waves[0]]),
-             lambda: _serve_waves(eng, [waves[1]]), top=15)
+    calls = []
+
+    def traced():
+        n0 = pa.paged_attention.launches
+        _serve_waves(eng, [waves[1]])
+        calls.append(pa.paged_attention.launches - n0)
+
+    evs = _profile(torch, "decode wave (8 rows, 64-token prompts, 32 new "
+                   "tokens)", lambda: _serve_waves(eng, [waves[0]]), traced,
+                   top=15)
+    k4 = [e for e in evs if "paged_attention" in e.key]
+    k4_n = sum(e.count for e in k4)
+    k4_ms = sum(e.self_device_time_total for e in k4) / 1e3
+    print(f"profile K4 in the decode wave: {k4_ms:.3f} ms device, {k4_n} "
+          f"kernels, {calls[0]} wrapper calls")
+    if k4_n != calls[0]:
+        raise AssertionError(f"K4: {k4_n} kernels for {calls[0]} calls")
     _draw_cost(torch, cfg.vocab_size)
     return launches
 
@@ -1146,6 +1345,7 @@ def _profile(torch, label, untraced, traced=None, top=12):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"profile kernel {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:6d}  {e.key[:90]}")
+    return evs
 
 
 # --------------------------------------------------------------- phase 4
@@ -1725,6 +1925,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="phases to run after phase 1 (always run)")
+    ap.add_argument("--k4-sweep", action="store_true",
+                    help="phase 2 also times each K4 case under other "
+                         "plans (informative)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1746,7 +1949,7 @@ def main(argv=None) -> int:
     rows = []
     if 2 in phases:
         t = _phase("2 kernels vs plain")
-        rows = kernels_vs_plain(torch)
+        rows = kernels_vs_plain(torch, k4_sweep=args.k4_sweep)
         _done("2", t)
     launches = {path: None for path in PATHS}
     model = full_width_model(torch) if phases & {3, 5} else None

@@ -12,8 +12,8 @@ constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
 // dynamic shared memory a block gets without an opt-in attribute; the K1
-// and K4 entries refuse a shape that needs more (cudaErrorInvalidConfiguration
-// before launching), B1 and B2 opt in through allow_smem
+// entry refuses a shape that needs more (cudaErrorInvalidConfiguration
+// before launching), K4, B1 and B2 opt in through allow_smem
 constexpr size_t kMaxDynamicSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }

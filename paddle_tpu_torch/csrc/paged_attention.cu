@@ -1,11 +1,11 @@
 // Paged-KV attention core of blha_attention (kernel K4).
 //
-// Not a TPU kernel: paddle_tpu/ops/paged_attention.py:blha_attention leaves
-// its attention (steps 6-8, :237-316) to XLA, gathering every sequence's
-// whole context into [B, KV, L, D] first.  This kernel reads the keys and
-// values in place through the block tables instead.  Its algorithm is that
-// of paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel and
-// decode_attention.py:_decode_kernel: online softmax with float32 state.
+// Replaces no Pallas kernel: paddle_tpu/ops/paged_attention.py:blha_attention
+// leaves its attention (steps 6-8, :237-316) to XLA, gathering every
+// sequence's whole context into [B, KV, L, D] first.  This kernel reads the
+// keys and values in place through the block tables.  Its algorithm is that
+// of paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel: online softmax
+// with float32 state.
 //
 // Semantics (those of blha_attention steps 6-8 with cache_quant="none"):
 // packed token i belongs to row b = searchsorted(cu, i, right) - 1, sits at
@@ -16,183 +16,969 @@
 // gather fills it.  Tokens past cu[B], past their row's now, or at local
 // index >= max_q_len give zeros.
 //
-// Bound on the H100: bytes, from reading the context (each key and value of
-// a row is needed once per query token; a decode step is pure streaming).
-// Design: one block per (token, KV head) covering the head group, so a key
-// row fetched for the group serves all its query heads.  The context is
-// walked in tiles of kTile keys, one key per thread for the scores: each
-// thread streams its key row in 16-byte loads, all independent, so a tile
-// keeps kTile * D * sizeof(T) bytes in flight.  The tile's probabilities
-// stay in shared memory; for P @ V, threads split into key groups of
-// D / VEC threads, each thread owning VEC consecutive dims of a value row
-// (16-byte loads again), and the groups' partial sums are added in shared
-// memory.  Nothing is staged through device memory.
+// Bound on the H100: bytes.  Every serving shape reads each visible key and
+// value row once and does ~4 operations per (query row, key, column) on it,
+// below the ~295 operations a byte the card needs before arithmetic bounds
+// (bf16 tensor cores).  What the design does about it:
+// * Query tiles.  A block takes one tile of up to QT consecutive tokens of
+//   one row and one KV head with its G query heads: QT * G query rows share
+//   every key and value row the block reads, so a prefill row of n tokens
+//   reads its context ceil(n / QT) times, not n times.  Decode (max_q_len
+//   1) has QT = 1 and the GQA group alone fills the rows.
+// * A ring of two key tiles.  KT keys of K and V arrive together by 16-byte
+//   cp.async through the block table (zero-filled, nothing read, for blocks
+//   outside the pool and keys past the block's range) while the previous
+//   tile is computed on; rows are padded to an odd number of 16-byte
+//   chunks, so neighbouring rows' 16-byte reads (and ldmatrix's) hit no
+//   bank twice.
+// * Tensor cores for bfloat16 (D a multiple of 16): mma.sync m16n8k16 on
+//   ldmatrix fragments; each warp takes 16 query rows and a quarter, half
+//   or all of every 64-key tile (tiles of <= 16, 32, 64 rows) with its own
+//   online softmax in registers, and the warps' (m, l, O) merge at the end.
+//   A SIMT instance of the same tiling serves float32 (and bf16 with D not
+//   a multiple of 16): per-tile arithmetic, not bytes, is what a first SIMT
+//   version of this design spent its time on.
+// * The context split across a thread-block cluster.  Where the grid would
+//   leave the card's block slots mostly empty (decode: 8 rows x KV heads),
+//   the `splits` blocks of one (tile, head) form a cluster, each walking a
+//   contiguous chunk of the keys; after cluster.sync() the leader merges
+//   the others' (m, l, acc) through distributed shared memory and writes
+//   the output.
+// * One launch per call, nothing in device memory but the output, and a
+//   grid from host-known sizes only (T, B, max_q_len, P, block_size, H, KV,
+//   D): it holds the most query tiles T tokens in B rows can fill, and a
+//   block finds its row and tile from the row lengths on the device (a
+//   prefix sum in shared memory), so the call needs no host sync and can
+//   be captured.  The first split of every tile also writes the zeros of
+//   its share of the tokens that no tile owns.
+// QT, KT, the number of splits and the chunk come from
+// ops/hopper/paged_attention.py:paged_plan; the entry refuses a KT without
+// an instance, more than 4 splits, a ring other than 2 stages on the tensor
+// cores (2 or 3 on SIMT), a chunk that is not a multiple of KT or does not
+// cover P * block_size keys, a tensor-core tile of more than 64 query rows,
+// and a block past the shared memory it may use (227 KB).
+#include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = kThreads;  // keys per tile: one per thread
+constexpr int kVec = 8;          // elements of a row a thread takes at once
+constexpr int kRowsPerPass = 4;  // query rows a SIMT thread carries
+constexpr int kMaxSplits = 4;    // blocks of a cluster (paged_plan's cap)
+constexpr int kTcKeys = 64;      // the tensor-core instance's key tile
+constexpr int kTcRows = 64;      // the most query rows it takes
+
+// 16-byte chunks of one K or V row in shared memory: `cols` elements,
+// padded to an odd count so that 8 threads reading chunk c of 8
+// neighbouring rows (or ldmatrix's 8 row addresses) hit 32 different banks
+__host__ __device__ inline int row_chunks(int cols, int es) {
+  const int c = cols * es / 16;
+  return c + !(c & 1);
+}
+
+// the tensor-core instance's head-dim class (columns past D are zeros)
+__host__ __device__ inline int tc_cols(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+// key groups of the tensor-core instance: 4 warps split a 64-key tile
+// four ways for a tile of <= 16 query rows, two ways for <= 32, and each
+// warp walks all 64 keys for 16 rows of its own up to 64 rows
+__host__ __device__ inline int tc_key_groups(int R) {
+  return R <= 16 ? 4 : R <= 32 ? 2 : 1;
+}
+
+// The shared-memory layout of one block, in bytes; mirrored by
+// ops/hopper/paged_attention.py:_smem_bytes, by which the plan picks its
+// tiles.  A launch whose layout needs more than the card grants is refused
+// (cudaErrorInvalidConfiguration, ptt::allow_smem).
+struct Layout {
+  int KG;       // key groups (partial accumulators)
+  int RP;       // query rows held (the tensor-core instance pads to 16)
+  int rstride;  // elements between two K (V) rows of a tile
+  // byte offsets: the K/V ring, query rows, SIMT scores, accumulators,
+  // row statistics, the key groups' (m, l), merge weights, row tables
+  size_t stage, q, s, acc, stats, part, ws, tables, total;
+};
+
+__host__ __device__ inline Layout layout(bool tc, int R, int D, int es,
+                                         int KT, int stages, int splits,
+                                         int B, int chunk, int bs) {
+  Layout L = {};
+  size_t off = 0;
+  if (tc) {
+    const int DP = tc_cols(D);
+    L.KG = tc_key_groups(R);
+    L.RP = 16 * (kWarps / L.KG);
+    L.rstride = row_chunks(DP, 2) * 8;
+    L.stage = off;  // `stages` x (K tile, V tile), bf16
+    off += (size_t)2 * stages * KT * L.rstride * 2;
+    L.acc = L.stage;  // KG x RP x DP float, after the walk (fits the ring)
+    L.q = off;  // RP x DP query rows, bf16, zero-padded
+    off += (size_t)L.RP * L.rstride * 2;
+    L.stats = off;  // m, l (float) and the last visible key (int) by row
+    off += (size_t)3 * L.RP * 4;
+    L.part = off;  // each key group's m and l by row
+    off += (size_t)2 * L.KG * L.RP * 4;
+  } else {
+    const int slots = kThreads / (D / kVec);  // threads on a column chunk
+    L.KG = 1;
+    while (L.KG * 2 * R <= slots) L.KG *= 2;
+    L.RP = R;
+    L.rstride = row_chunks(D, es) * 16 / es;
+    L.stage = off;  // `stages` x (K tile, V tile)
+    off += (size_t)2 * stages * KT * L.rstride * es;
+    L.q = off;  // R x D query rows, float, pre-scaled
+    off += (size_t)R * D * 4;
+    L.s = off;  // R x KT scores, then probabilities
+    off += (size_t)R * KT * 4;
+    L.acc = off;  // KG x R x D float accumulators
+    off += (size_t)L.KG * R * D * 4;
+    L.stats = off;  // m, l, corr (float) and the last visible key (int)
+    off += (size_t)4 * R * 4;
+  }
+  L.ws = off;  // the leader's merge weights: splits x RP, then 1 / L
+  off += (size_t)(splits + 1) * L.RP * 4;
+  L.tables = off;  // int: cu, len, pt, dec by row; a split's block ids
+  off += (size_t)(4 * B + 2 + chunk / bs + 2) * 4;
+  L.total = off;
+  return L;
+}
+
+// 8 consecutive elements of T (16-byte aligned) as floats
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* out) {
+  if constexpr (sizeof(T) == 2) {
+    ptt::Vec16<T>::load(p, out);
+  } else {
+    ptt::Vec16<T>::load(p, out);
+    ptt::Vec16<T>::load(p + 4, out + 4);
+  }
+}
+
+// What a block works on: query tile k of the grid is the (k - pt[b])-th
+// tile of row b, its tokens t_first .. t_first + nt - 1 (local indices);
+// split `rank` walks keys c0 .. c1 - 1 of the row's visible 0 .. n_max - 1.
+struct Tile {
+  int b, t_first, nt, nr, pos0, ctx, c0, c1, b0;
+  size_t qo;  // q / out offset of row 0 (token t_first, head kh * G)
+};
+
+// The row tables, the zeros of the tokens that no tile owns, and the
+// block's tile and key range; false for a spare tile (nothing to attend).
+// Leaves s_blk filled (the split's block ids, -1 outside the pool); the
+// caller synchronises before reading it.
+template <typename T>
+__device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
+                           const int* __restrict__ dec,
+                           const int* __restrict__ now,
+                           const int* __restrict__ cu,
+                           const int* __restrict__ bt, int T_, int B, int P,
+                           int NB, int H, int G, int D, int bs, int mq,
+                           int QT, int chunk) {
+  int* s_cu = tables;         // B + 1
+  int* s_len = s_cu + B + 1;  // tokens of a row that a tile owns
+  int* s_pt = s_len + B;      // B + 1: tiles before a row
+  int* s_dec = s_pt + B + 1;
+  int* s_blk = s_dec + B;
+  const int rank = blockIdx.x, k = blockIdx.y, kh = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // the row tables, all loads in flight together
+  for (int i = tid; i <= B; i += kThreads) {
+    s_cu[i] = cu[i];
+    if (i < B) {
+      s_len[i] = now[i];
+      s_dec[i] = dec[i];
+    }
+  }
+  __syncthreads();
+  // a row owns its tokens at local index < min(now, max_q_len) inside its
+  // cu range (and inside the buffer); pt by a scan of warp 0
+  if (warp == 0) {
+    int carry = 0;
+    for (int base = 0; base < B; base += 32) {
+      const int i = base + lane;
+      int n = 0;
+      if (i < B) {
+        const int span = min(s_cu[i + 1], T_) - s_cu[i];
+        n = max(0, min(min(s_len[i], mq), span));
+        s_len[i] = n;
+      }
+      const int tiles = (n + QT - 1) / QT;
+      int incl = tiles;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (i < B) s_pt[i] = carry + incl - tiles;
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) s_pt[B] = carry;
+  }
+  __syncthreads();
+
+  // the zeros of the tokens no tile owns (past cu[B], past their row's
+  // now, at a local index >= max_q_len): the first split of tile k takes
+  // tokens k, k + tiles, ...
+  if (rank == 0) {
+    const int total = s_cu[B];
+    for (int i = k; i < T_; i += gridDim.y) {
+      bool owned = false;
+      if (i < total) {
+        int lo = 0, hi = B - 1;  // the last row b with cu[b] <= i
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) / 2;
+          if (s_cu[mid] <= i)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        const int local = i - s_cu[lo];
+        owned = local >= 0 && local < s_len[lo];
+      }
+      if (!owned) {
+        T* o = out + ((size_t)i * H + (size_t)kh * G) * D;
+        for (int d = tid; d < G * D; d += kThreads)
+          o[d] = ptt::from_f<T>(0.f);
+      }
+    }
+  }
+  if (k >= s_pt[B]) return false;  // the same in the whole cluster
+
+  int b = 0, hi = B - 1;  // the last row with pt[b] <= k owns tile k
+  while (b < hi) {
+    const int mid = (b + hi + 1) / 2;
+    if (s_pt[mid] <= k)
+      b = mid;
+    else
+      hi = mid - 1;
+  }
+  t.b = b;
+  t.t_first = (k - s_pt[b]) * QT;
+  t.nt = min(QT, s_len[b] - t.t_first);
+  t.nr = t.nt * G;  // query rows: r = token * G + head
+  t.ctx = P * bs;
+  t.pos0 = s_dec[b] + t.t_first;
+  const int n_max = min(t.pos0 + t.nt - 1, t.ctx - 1) + 1;
+  t.c0 = rank * chunk;
+  t.c1 = min(t.c0 + chunk, n_max);
+  t.qo = (((size_t)s_cu[b] + t.t_first) * H + (size_t)kh * G) * D;
+  t.b0 = t.c0 / bs;
+  const int nblk = t.c1 > t.c0 ? (t.c1 - 1) / bs - t.b0 + 1 : 0;
+  for (int i = tid; i < nblk; i += kThreads) {
+    const int blk = bt[(size_t)b * P + t.b0 + i];
+    s_blk[i] = blk >= 0 && blk < NB ? blk : -1;
+  }
+  return true;
+}
+
+// How a thread copies K and V rows: the 16-byte chunk c of rows j0,
+// j0 + jstep, ... of every tile (the same chunk every tile, so the index
+// arithmetic is done once), through the block ids; block_size a power of
+// two is a shift.
+struct Copier {
+  int c, j0, jstep, bsh;
+  size_t head, blk_stride;  // element offsets of head kh, of one block
+};
 
 template <typename T>
+__device__ __forceinline__ Copier make_copier(int KV, int kh, int D, int bs) {
+  constexpr int kEl = 16 / sizeof(T);
+  const int cpr = D / kEl;  // 16-byte chunks of a row
+  Copier cp;
+  cp.jstep = kThreads / cpr;
+  cp.c = threadIdx.x % cpr;
+  // threads past jstep * cpr copy nothing
+  cp.j0 = (int)threadIdx.x < cp.jstep * cpr ? threadIdx.x / cpr : 1 << 30;
+  cp.bsh = (bs & (bs - 1)) == 0 ? __ffs(bs) - 1 : -1;
+  cp.head = (size_t)kh * bs * D + cp.c * kEl;
+  cp.blk_stride = (size_t)KV * bs * D;
+  return cp;
+}
+
+// K and V rows t0 .. t0 + KT - 1 of the split into a stage (rows `rs`
+// elements apart); keys past c1 and blocks outside the pool are
+// zero-filled without a read.  One commit group.
+template <typename T, int KT>
+__device__ __forceinline__ void issue_tile(T* ks, const T* kc, const T* vc,
+                                           const int* s_blk, const Tile& t,
+                                           const Copier& cp, int t0, int rs,
+                                           int D, int bs) {
+  constexpr int kEl = 16 / sizeof(T);
+  T* vs = ks + KT * rs;
+  for (int j = cp.j0; j < KT; j += cp.jstep) {
+    const int key = t0 + j;
+    size_t o = 0;
+    bool ok = false;
+    if (key < t.c1) {
+      const int kb = cp.bsh >= 0 ? key >> cp.bsh : key / bs;
+      const int blk = s_blk[kb - t.b0];
+      if (blk >= 0) {
+        o = blk * cp.blk_stride + cp.head + (size_t)(key - kb * bs) * D;
+        ok = true;
+      }
+    }
+    const int so = j * rs + cp.c * kEl;
+    ptt::tc::cp_async16(ptt::tc::smem_u32(ks + so), kc + o, ok);
+    ptt::tc::cp_async16(ptt::tc::smem_u32(vs + so), vc + o, ok);
+  }
+  ptt::tc::cp_async_commit();
+}
+
+// The ring of `stages` K/V tiles: before tile `it`, issue tile
+// it + stages - 1 into the stage that tile it - 1 left, then wait until
+// tile it has landed for every thread (the later ones stay in flight).
+// Returns tile it's stage.
+template <typename T, int KT>
+__device__ __forceinline__ const T* ring_wait(T* stage, int stages, int it,
+                                              int ntile, const T* kc,
+                                              const T* vc, const int* s_blk,
+                                              const Tile& t, const Copier& cp,
+                                              int rs, int D, int bs) {
+  const size_t step = (size_t)2 * KT * rs;
+  const int nx = it + stages - 1;
+  if (nx < ntile)
+    issue_tile<T, KT>(stage + (nx % stages) * step, kc, vc, s_blk, t, cp,
+                      t.c0 + nx * KT, rs, D, bs);
+  const int pending = min(stages - 1, ntile - 1 - it);
+  if (pending >= 2)
+    ptt::tc::cp_async_wait<2>();
+  else if (pending == 1)
+    ptt::tc::cp_async_wait<1>();
+  else
+    ptt::tc::cp_async_wait<0>();
+  __syncthreads();
+  return stage + (it % stages) * step;
+}
+
+// The output of a block's rows from its (m, l, acc) (acc rows `astride`
+// floats apart, unnormalised).  With one split, acc / l; with a cluster,
+// the leader weighs split s by exp2(m_s - M), M the largest m (a split
+// that saw no key, m = -inf, weighs 0), reading the others' shared memory.
+// The caller synchronises the block first.
+template <typename T>
+__device__ void finish(T* __restrict__ o, size_t hd, int G, int D, int nr,
+                       int astride, int RP, float* mrow, float* lrow,
+                       float* acc, float* ws) {
+  const int tid = threadIdx.x;
+  const int splits = gridDim.x;
+  if (splits == 1) {
+    for (int idx = tid; idx < nr * D; idx += kThreads) {
+      const int r = idx / D, d = idx - r * D;
+      const float l = lrow[r];
+      o[(size_t)(r / G) * hd + (r % G) * D + d] =
+          ptt::from_f<T>(l > 0.f ? acc[(size_t)r * astride + d] / l : 0.f);
+    }
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every split's (m, l, acc) is in its shared memory
+  if (blockIdx.x == 0) {
+    for (int r = tid; r < nr; r += kThreads) {
+      float M = -INFINITY;
+      for (int s = 0; s < splits; ++s)
+        M = fmaxf(M, cl.map_shared_rank(mrow, s)[r]);
+      float Lsum = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        const float ms = cl.map_shared_rank(mrow, s)[r];
+        const float w = ms == -INFINITY ? 0.f : exp2f(ms - M);
+        ws[s * RP + r] = w;
+        Lsum += w * cl.map_shared_rank(lrow, s)[r];
+      }
+      ws[splits * RP + r] = Lsum > 0.f ? 1.f / Lsum : 0.f;
+    }
+    __syncthreads();
+    for (int idx = tid * 4; idx < nr * D; idx += kThreads * 4) {
+      const int r = idx / D, d = idx - r * D;  // D % 8 == 0: one row
+      const size_t ai = (size_t)r * astride + d;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < splits; ++s) {
+        const float w = ws[s * RP + r];
+        if (w != 0.f) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              cl.map_shared_rank(acc, s) + ai);
+          sum.x += w * v.x;
+          sum.y += w * v.y;
+          sum.z += w * v.z;
+          sum.w += w * v.w;
+        }
+      }
+      const float inv = ws[splits * RP + r];
+      T* od = o + (size_t)(r / G) * hd + (r % G) * D + d;
+      od[0] = ptt::from_f<T>(sum.x * inv);
+      od[1] = ptt::from_f<T>(sum.y * inv);
+      od[2] = ptt::from_f<T>(sum.z * inv);
+      od[3] = ptt::from_f<T>(sum.w * inv);
+    }
+  }
+  cl.sync();  // no split leaves while the leader still reads it
+}
+
+// ---------------------------------------------------------------- SIMT
+// float32 (and bfloat16 with D not a multiple of 16).  Scores and
+// probabilities in shared memory; thread (rg, j) scores key j for rows
+// rg, rg + NRG, ...; thread (kg, rsl, dc) adds keys kg, kg + KG, ... into
+// columns [8 dc, 8 dc + 8) of rows rsl, rsl + RSL, ... of partial kg.
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, T* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, int B, int P,
-    int NB, int H, int KV, int D, int bs, int max_q_len, float scale) {
-  using V = ptt::Vec16<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
+    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    int stages, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
-  const int DC = D / V::N;        // threads per value row in P @ V
-  const int KG = kThreads / DC;   // key groups in P @ V
-  long long* koff = (long long*)smem_raw;  // kTile element offsets, -1 = zeros
-  float* qs = (float*)(koff + kTile);      // G * D
-  float* sc = qs + G * D;                  // G * kTile scores / probabilities
-  float* part = sc + G * kTile;            // KG * D partial P @ V of one head
-  float* acc = part + KG * D;              // G * D
-  float* m = acc + G * D;                  // G running max
-  float* l = m + G;                        // G running sum
-  float* corr = l + G;                     // G rescale of this tile
-
-  const int tok = blockIdx.x, kh = blockIdx.y;
+  const int R = QT * G;
+  const Layout L =
+      layout(false, R, D, sizeof(T), KT, stages, gridDim.x, B, chunk, bs);
+  T* stage = reinterpret_cast<T*>(smem + L.stage);
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* sc = reinterpret_cast<float*>(smem + L.s);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  float* mrow = reinterpret_cast<float*>(smem + L.stats);
+  float* lrow = mrow + R;
+  float* corr = lrow + R;
+  int* lim = reinterpret_cast<int*>(corr + R);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
+  int* tables = reinterpret_cast<int*>(smem + L.tables);
+  const int* s_blk = tables + 4 * B + 2;
+  const int kh = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t qo = ((size_t)tok * H + (size_t)kh * G) * D;
 
-  const int total = cu[B];
-  int b = 0;
-  for (int i = 1; i < B; ++i)
-    if (cu[i] <= tok) b = i;
-  const int local = tok - cu[b];
-  if (tok >= total || local >= now[b] || local >= max_q_len) {
-    for (int i = tid; i < G * D; i += kThreads)
-      out[qo + i] = ptt::from_f<T>(0.f);
+  Tile t;
+  if (!setup_tile<T>(t, tables, out, dec, now, cu, bt, T_, B, P, NB, H, G,
+                     D, bs, mq, QT, chunk))
     return;
+  const int nr = t.nr, c0 = t.c0, c1 = t.c1;
+  const size_t hd = (size_t)H * D;
+  for (int idx = tid; idx < nr * D; idx += kThreads) {
+    const int r = idx / D, d = idx - r * D;
+    qs[idx] =
+        ptt::to_f(q[t.qo + (size_t)(r / G) * hd + (r % G) * D + d]) *
+        scale_log2;
   }
-  const int n = min(dec[b] + local + 1, P * bs);  // visible keys 0 .. n-1
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = ptt::to_f(q[qo + i]);
-    acc[i] = 0.f;
+  for (int idx = tid; idx < L.KG * R * D; idx += kThreads) acc[idx] = 0.f;
+  for (int r = tid; r < nr; r += kThreads) {
+    lim[r] = min(t.pos0 + r / G, t.ctx - 1);
+    mrow[r] = -INFINITY;
+    lrow[r] = 0.f;
   }
-  if (tid < G) {
-    m[tid] = -INFINITY;
-    l[tid] = 0.f;
-  }
-  const int kg = tid / DC, dc = tid - kg * DC;
+  __syncthreads();  // s_blk before the first copies
 
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int cnt = min(kTile, n - t0);
-    long long off = -1;
-    if (tid < cnt) {
-      const int j = t0 + tid;
-      const int blk = bt[(size_t)b * P + j / bs];
-      if (blk >= 0 && blk < NB)
-        off = (((long long)blk * KV + kh) * bs + j % bs) * D;
-    }
-    koff[tid] = off;
-    __syncthreads();  // also orders the q/acc/m/l setup before first use
+  const int ntile = c1 > c0 ? (c1 - c0 + KT - 1) / KT : 0;
+  const int rs = L.rstride;
+  const int DC = D / kVec;
+  const int slots = kThreads / DC;
+  const int RSL = slots / L.KG;
+  const int dc = tid % DC, slot = tid / DC;
+  const int kg = slot % L.KG, rsl = slot / L.KG;
+  const bool pv = slot < RSL * L.KG;  // past that, a thread idles in P @ V
+  constexpr int NRG = kThreads / KT;
+  const int sj = tid % KT, rg = tid / KT;
 
-    // scores: thread tid scores key t0 + tid for every head of the group
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-      if (off >= 0) {
-        const float* qg = qs + g * D;
-        for (int c = 0; c < D; c += V::N) {
-          float kv[V::N];
-          V::load(kc + off + c, kv);
+  const Copier cp = make_copier<T>(KV, kh, D, bs);
+  for (int i = 0; i < stages - 1 && i < ntile; ++i)
+    issue_tile<T, KT>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t, cp,
+                      c0 + i * KT, rs, D, bs);
+  for (int it = 0; it < ntile; ++it) {
+    const T* ks = ring_wait<T, KT>(stage, stages, it, ntile, kc, vc, s_blk,
+                                   t, cp, rs, D, bs);
+    const T* vs = ks + KT * rs;
+    const int t0 = c0 + it * KT;
+    const int kcount = min(KT, c1 - t0);
+    // the mask only where a row's last visible key or the split's end
+    // falls inside this tile (lim grows with the row)
+    const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
+
+    {  // scores (log2 domain)
+      const T* krow = ks + sj * rs;
+      const int key = t0 + sj;
+      for (int r0 = rg; r0 < nr; r0 += NRG * kRowsPerPass) {
+        float s[kRowsPerPass];
 #pragma unroll
-          for (int e = 0; e < V::N; ++e) s += qg[c + e] * kv[e];
+        for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
+        for (int c = 0; c < D; c += kVec) {
+          float kf[kVec];
+          load8(krow + c, kf);
+#pragma unroll
+          for (int k = 0; k < kRowsPerPass; ++k) {
+            const int r = r0 + k * NRG;
+            if (r < nr) {
+              const float4 a =
+                  *reinterpret_cast<const float4*>(qs + r * D + c);
+              const float4 e =
+                  *reinterpret_cast<const float4*>(qs + r * D + c + 4);
+              s[k] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3] +
+                      e.x * kf[4] + e.y * kf[5] + e.z * kf[6] + e.w * kf[7];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * NRG;
+          if (r < nr)
+            sc[r * KT + sj] =
+                full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
         }
       }
-      sc[g * kTile + tid] = tid < cnt ? s * scale : -INFINITY;
     }
     __syncthreads();
 
-    // online softmax: warp w updates heads w, w + kWarps, ...
-    for (int g = warp; g < G; g += kWarps) {
-      float* row = sc + g * kTile;
+    // online softmax: warp w updates rows w, w + kWarps, ...
+    for (int r = warp; r < nr; r += kWarps) {
+      float* row = sc + r * KT;
       float mx = -INFINITY;
-      for (int jj = lane; jj < kTile; jj += 32) mx = fmaxf(mx, row[jj]);
+      for (int jj = lane; jj < KT; jj += 32) mx = fmaxf(mx, row[jj]);
       mx = ptt::warp_max(mx);
-      const float m_old = m[g];
-      const float m_new = fmaxf(m_old, mx);  // finite: cnt >= 1
+      const float m_old = mrow[r];
+      const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
-      for (int jj = lane; jj < kTile; jj += 32) {
-        const float p = expf(row[jj] - m_new);  // masked keys: exp(-inf) = 0
+      // a row with no visible key yet keeps m = -inf and p = 0
+      const bool none = m_new == -INFINITY;
+      for (int jj = lane; jj < KT; jj += 32) {
+        const float p = none ? 0.f : exp2f(row[jj] - m_new);
         row[jj] = p;
         sum += p;
       }
       sum = ptt::warp_sum(sum);
       if (lane == 0) {
-        const float c = expf(m_old - m_new);  // first tile: exp(-inf) = 0
-        corr[g] = c;
-        l[g] = l[g] * c + sum;
-        m[g] = m_new;
+        const float c = none ? 1.f : exp2f(m_old - m_new);  // -inf -> 0
+        corr[r] = c;
+        lrow[r] = lrow[r] * c + sum;
+        mrow[r] = m_new;
       }
     }
     __syncthreads();
 
-    // P @ V, one head at a time: key group kg sums keys kg, kg + KG, ...
-    // over dims [dc * N, dc * N + N); the groups then add up in `part`
-    for (int g = 0; g < G; ++g) {
-      if (kg < KG) {
-        float a[V::N];
+    if (pv) {  // P @ V
+      for (int r0 = rsl; r0 < nr; r0 += RSL * kRowsPerPass) {
+        float a[kRowsPerPass][kVec];
 #pragma unroll
-        for (int e = 0; e < V::N; ++e) a[e] = 0.f;
-        const float* p = sc + g * kTile;
-        for (int jj = kg; jj < cnt; jj += KG) {
-          const long long o = koff[jj];
-          if (o < 0) continue;
-          float vv[V::N];
-          V::load(vc + o + dc * V::N, vv);
-          const float pj = p[jj];
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * RSL;
 #pragma unroll
-          for (int e = 0; e < V::N; ++e) a[e] += pj * vv[e];
+          for (int e = 0; e < kVec; ++e) a[k][e] = 0.f;
+          if (r < nr) {
+            const float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+            const float cr = corr[r];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) a[k][e] = ap[e] * cr;
+          }
+        }
+        for (int jj = kg; jj < kcount; jj += L.KG) {
+          float vf[kVec];
+          load8(vs + jj * rs + dc * kVec, vf);
+#pragma unroll
+          for (int k = 0; k < kRowsPerPass; ++k) {
+            const int r = r0 + k * RSL;
+            if (r < nr) {
+              const float p = sc[r * KT + jj];
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) a[k][e] += p * vf[e];
+            }
+          }
         }
 #pragma unroll
-        for (int e = 0; e < V::N; ++e) part[kg * D + dc * V::N + e] = a[e];
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * RSL;
+          if (r < nr) {
+            float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) ap[e] = a[k][e];
+          }
+        }
       }
-      __syncthreads();
-      for (int d = tid; d < D; d += kThreads) {
-        float s = 0.f;
-        for (int k = 0; k < KG; ++k) s += part[k * D + d];
-        acc[g * D + d] = acc[g * D + d] * corr[g] + s;
-      }
-      __syncthreads();
     }
+    __syncthreads();  // stage it % stages and the probabilities are free
   }
 
-  for (int i = tid; i < G * D; i += kThreads)
-    out[qo + i] = ptt::from_f<T>(acc[i] / l[i / D]);
+  // the key groups' partials add up into partial 0
+  if (L.KG > 1) {
+    for (int idx = tid; idx < nr * D; idx += kThreads) {
+      float s = 0.f;
+      for (int g = 0; g < L.KG; ++g) s += acc[(size_t)g * R * D + idx];
+      acc[idx] = s;
+    }
+    __syncthreads();
+  }
+  finish<T>(out + t.qo, hd, G, D, nr, D, R, mrow, lrow, acc, ws);
 }
 
-// dynamic shared memory of one block
-template <typename T>
-size_t smem_bytes(int H, int KV, int D) {
+// -------------------------------------------------------- tensor cores
+// bfloat16 with D a multiple of 16: mma.sync.m16n8k16 (bf16 -> f32) on
+// ldmatrix fragments of the padded tiles.  Warp w takes 16 query rows
+// (slab w / KG) and keys [(w % KG) * 64 / KG, ...) of every 64-key tile,
+// with its own online softmax (float32 m, l and the output in registers);
+// the probabilities become the P @ V operand without leaving registers.
+// After the walk the KG key groups merge in shared memory.
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(ptt::tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(ptt::tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DP, int KG>
+__global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ out,
+    const int* __restrict__ dec, const int* __restrict__ now,
+    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
+    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    int stages, float scale_log2) {
+  using bf = __nv_bfloat16;
+  constexpr int KT = kTcKeys;
+  constexpr int KW = KT / KG;    // keys of a tile a warp takes
+  constexpr int NK = KW / 8;     // its score n-tiles
+  constexpr int ND = DP / 8;     // output n-tiles
+  constexpr int RP = 16 * (kWarps / KG);
+  extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
-  const int KG = kThreads / (D / ptt::Vec16<T>::N);
-  return kTile * sizeof(long long) +
-         (size_t)(2 * G * D + G * kTile + KG * D + 3 * G) * sizeof(float);
+  const Layout L =
+      layout(true, QT * G, D, 2, KT, stages, gridDim.x, B, chunk, bs);
+  const int rs = L.rstride;
+  bf* stage = reinterpret_cast<bf*>(smem + L.stage);
+  bf* qs = reinterpret_cast<bf*>(smem + L.q);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  float* mrow = reinterpret_cast<float*>(smem + L.stats);
+  float* lrow = mrow + RP;
+  int* lim = reinterpret_cast<int*>(lrow + RP);
+  float* mpart = reinterpret_cast<float*>(smem + L.part);  // KG x RP
+  float* lpart = mpart + KG * RP;
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
+  int* tables = reinterpret_cast<int*>(smem + L.tables);
+  const int* s_blk = tables + 4 * B + 2;
+  const int kh = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  Tile t;
+  if (!setup_tile<bf>(t, tables, out, dec, now, cu, bt, T_, B, P, NB, H, G,
+                      D, bs, mq, QT, chunk))
+    return;
+  const int nr = t.nr, c0 = t.c0, c1 = t.c1;
+  const size_t hd = (size_t)H * D;
+  // query rows as bf16, rows past nr and columns past D zero
+  for (int idx = tid; idx < RP * ND; idx += kThreads) {
+    const int r = idx / ND, c = (idx - r * ND) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nr && c < D)
+      v = *reinterpret_cast<const uint4*>(
+          q + t.qo + (size_t)(r / G) * hd + (r % G) * D + c);
+    *reinterpret_cast<uint4*>(qs + r * rs + c) = v;
+  }
+  for (int r = tid; r < RP; r += kThreads)
+    lim[r] = r < nr ? min(t.pos0 + r / G, t.ctx - 1) : -1;
+  if (D < DP) {  // the columns past D of both stages stay zero
+    const int pc = (DP - D) / 8;
+    for (int idx = tid; idx < 2 * stages * KT * pc; idx += kThreads) {
+      const int row = idx / pc, c = D + (idx - row * pc) * 8;
+      *reinterpret_cast<uint4*>(stage + row * rs + c) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();  // s_blk, q, lim
+
+  const int ntile = c1 > c0 ? (c1 - c0 + KT - 1) / KT : 0;
+  const int slab = warp / KG, kgrp = warp % KG;
+  const int kbase = kgrp * KW;
+  const int g = lane / 4, tig = lane % 4;
+  const int row0 = slab * 16 + g;  // this thread's rows: row0, row0 + 8
+  const bool active = slab * 16 < nr;
+  const int lim0 = lim[row0], lim1 = lim[row0 + 8];
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  const Copier cp = make_copier<bf>(KV, kh, D, bs);
+  for (int i = 0; i < stages - 1 && i < ntile; ++i)
+    issue_tile<bf, KT>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t, cp,
+                       c0 + i * KT, rs, D, bs);
+  for (int it = 0; it < ntile; ++it) {
+    const bf* ks = ring_wait<bf, KT>(stage, stages, it, ntile, kc, vc, s_blk,
+                                     t, cp, rs, D, bs);
+    const bf* vs = ks + KT * rs;
+    const int t0 = c0 + it * KT;
+    if (active) {
+      // S = Q K^T over this warp's KW keys
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + (slab * 16 + lane % 16) * rs + kk * 16 +
+                       (lane / 16) * 8);
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 2; ++n2) {
+          uint32_t bk[4];
+          const int key = kbase + n2 * 16 + lane % 8 + (lane / 16) * 8;
+          ldsm_x4(bk, ks + key * rs + kk * 16 + ((lane / 8) % 2) * 8);
+          mma_bf16(s[2 * n2], a, bk[0], bk[1]);
+          mma_bf16(s[2 * n2 + 1], a, bk[2], bk[3]);
+        }
+      }
+      // scale into the log2 domain; the mask only where a row's last
+      // visible key or the split's end falls inside this tile
+      const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = s[n][e] * scale_log2;
+          if (!full) {
+            const int key = t0 + kbase + n * 8 + 2 * tig + (e & 1);
+            if (!(key < c1 && key <= (e < 2 ? lim0 : lim1))) v = -INFINITY;
+          }
+          s[n][e] = v;
+        }
+      // online softmax of rows row0 and row0 + 8 (a quad holds a row)
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      // a row with no visible key yet keeps m = -inf and p = 0
+      const bool none0 = mn0 == -INFINITY, none1 = mn1 == -INFINITY;
+      const float cr0 = none0 ? 1.f : exp2f(m0 - mn0);  // -inf -> 0
+      const float cr1 = none1 ? 1.f : exp2f(m1 - mn1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        s[n][0] = none0 ? 0.f : exp2f(s[n][0] - mn0);
+        s[n][1] = none0 ? 0.f : exp2f(s[n][1] - mn0);
+        s[n][2] = none1 ? 0.f : exp2f(s[n][2] - mn1);
+        s[n][3] = none1 ? 0.f : exp2f(s[n][3] - mn1);
+        sum0 += s[n][0] + s[n][1];
+        sum1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * cr0 + sum0;  // this thread's share; the quad adds at the end
+      l1 = l1 * cr1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= cr0;
+        o[n][1] *= cr0;
+        o[n][2] *= cr1;
+        o[n][3] *= cr1;
+      }
+      // O += P V: the score accumulators of two n-tiles are one A operand
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        uint32_t a[4];
+        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vs + (kbase + kk * 16 + lane % 16) * rs + n2 * 16 +
+                            (lane / 16) * 8);
+          mma_bf16(o[2 * n2], a, bv[0], bv[1]);
+          mma_bf16(o[2 * n2 + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage it % stages is free again
+  }
+
+  // each key group's (m, l, O) into shared memory (O over the idle ring)
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (active) {
+    if (tig == 0) {
+      mpart[kgrp * RP + row0] = m0;
+      lpart[kgrp * RP + row0] = l0;
+      mpart[kgrp * RP + row0 + 8] = m1;
+      lpart[kgrp * RP + row0 + 8] = l1;
+    }
+    float* ap = acc + ((size_t)kgrp * RP + row0) * DP + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(ap + n * 8) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(ap + 8 * DP + n * 8) =
+          make_float2(o[n][2], o[n][3]);
+    }
+  }
+  __syncthreads();
+  // the key groups merge into (mrow, lrow, acc partial 0), weighed by
+  // exp2(m_g - M)
+  for (int r = tid; r < nr; r += kThreads) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) M = fmaxf(M, mpart[k * RP + r]);
+    float Lsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) {
+      const float mk = mpart[k * RP + r];
+      const float w = mk == -INFINITY ? 0.f : exp2f(mk - M);
+      mpart[k * RP + r] = w;  // now the weight
+      Lsum += w * lpart[k * RP + r];
+    }
+    mrow[r] = M;
+    lrow[r] = Lsum;
+  }
+  __syncthreads();
+  if (KG > 1) {
+    for (int idx = tid; idx < nr * D; idx += kThreads) {
+      const int r = idx / D, d = idx - r * D;
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < KG; ++k) {
+        const float w = mpart[k * RP + r];
+        if (w != 0.f) sum += w * acc[((size_t)k * RP + r) * DP + d];
+      }
+      acc[(size_t)r * DP + d] = sum;
+    }
+    __syncthreads();
+  }
+  finish<bf>(out + t.qo, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* out,
-                   const void* dec, const void* now, const void* cu,
-                   const void* bt, int T_, int B, int P, int NB, int H, int KV,
-                   int D, int bs, int max_q_len, float scale,
-                   cudaStream_t st) {
-  // a head group too large for the 48 KB default of one block is refused
-  const size_t smem = smem_bytes<T>(H, KV, D);
-  if (smem > ptt::kMaxDynamicSmem) return cudaErrorInvalidConfiguration;
-  paged_attention_kernel<T><<<dim3(T_, KV), kThreads, smem, st>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, (T*)out, (const int*)dec,
-      (const int*)now, (const int*)cu, (const int*)bt, B, P, NB, H, KV, D, bs,
-      max_q_len, scale);
+// query tiles in the grid: at most ceil(max_q_len / QT) a row, and at most
+// what T tokens can fill (each row's last tile may be partial); one at
+// least (max_q_len 0: a tile that owns nothing, every token is zeros)
+long long grid_tiles(int T_, int B, int mq, int QT) {
+  const long long by_rows = (long long)B * (((mq > 1 ? mq : 1) + QT - 1) / QT);
+  const long long by_tokens = ((long long)T_ + (long long)B * (QT - 1)) / QT;
+  const long long t = by_rows < by_tokens ? by_rows : by_tokens;
+  return t > 1 ? t : 1;
+}
+
+// which instance a call runs: tensor cores for bfloat16 with D a multiple
+// of 16 (and at most 64 query rows a tile), SIMT otherwise
+bool uses_tc(int dtype, int D) {
+  return dtype == ptt::kBFloat16 && D % 16 == 0;
+}
+
+template <typename K, typename T>
+cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
+                          int KV, cudaStream_t st, const void* q,
+                          const void* kc, const void* vc, void* out,
+                          const void* dec, const void* now, const void* cu,
+                          const void* bt, int T_, int B, int P, int NB, int H,
+                          int D, int bs, int mq, int QT, int chunk,
+                          int stages, float scale) {
+  if (tiles > 65535 || KV > 65535) return cudaErrorInvalidConfiguration;
+  cudaError_t e = ptt::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (unsigned)tiles, KV);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  // log2(e) / sqrt(D): the scores live in the log2 domain (exp2f)
+  const float scale_log2 = scale * 1.4426950408889634f;
+  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)kc, (const T*)vc,
+                         (T*)out, (const int*)dec, (const int*)now,
+                         (const int*)cu, (const int*)bt, T_, B, P, NB, H, KV,
+                         D, bs, mq, QT, chunk, stages, scale_log2);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
+                      int KV, cudaStream_t st, const void* q, const void* kc,
+                      const void* vc, void* out, const void* dec,
+                      const void* now, const void* cu, const void* bt, int T_,
+                      int B, int P, int NB, int H, int D, int bs, int mq,
+                      int QT, int chunk, int stages, float scale) {
+#define PTT_K4_TC(kg)                                                        \
+  if (KG == kg)                                                              \
+    return launch_kernel<decltype(&paged_attention_tc_kernel<DP, kg>),       \
+                         __nv_bfloat16>(                                     \
+        paged_attention_tc_kernel<DP, kg>, smem, splits, tiles, KV, st, q,   \
+        kc, vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, \
+        stages, scale);
+  PTT_K4_TC(4)
+  PTT_K4_TC(2)
+  PTT_K4_TC(1)
+#undef PTT_K4_TC
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int KT>
+cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
+                        cudaStream_t st, const void* q, const void* kc,
+                        const void* vc, void* out, const void* dec,
+                        const void* now, const void* cu, const void* bt,
+                        int T_, int B, int P, int NB, int H, int D, int bs,
+                        int mq, int QT, int chunk, int stages,
+                        float scale) {
+  return launch_kernel<decltype(&paged_attention_kernel<T, KT>), T>(
+      paged_attention_kernel<T, KT>, smem, splits, tiles, KV, st, q, kc, vc,
+      out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, stages,
+      scale);
+}
+
+bool valid_plan(int B, int P, int H, int KV, int D, int bs, int mq, int QT,
+                int KT, int stages, int splits, int chunk, int dtype) {
+  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && D % kVec == 0 &&
+        D <= 256 && bs > 0 && mq >= 0 && QT > 0 && splits >= 1 &&
+        splits <= kMaxSplits && chunk > 0 && chunk % KT == 0 &&
+        (long long)chunk * splits >= (long long)P * bs &&
+        (splits == 1 || (long long)chunk * (splits - 1) < (long long)P * bs)))
+    return false;
+  if (uses_tc(dtype, D))
+    return KT == kTcKeys && stages == 2 && QT * (H / KV) <= kTcRows;
+  return (KT == 64 || KT == 32) && (stages == 2 || stages == 3);
 }
 
 }  // namespace
@@ -202,15 +988,37 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
                                    const void* now, const void* cu,
                                    const void* bt, int T, int B, int P, int NB,
                                    int H, int KV, int D, int bs,
-                                   int max_q_len, float scale, int dtype,
-                                   void* stream) {
+                                   int max_q_len, float scale, int QT, int KT,
+                                   int stages, int splits, int chunk,
+                                   int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
+      !valid_plan(B, P, H, KV, D, bs, max_q_len, QT, KT, stages, splits,
+                  chunk, dtype))
+    return (int)cudaErrorInvalidValue;
+  const int es = dtype == ptt::kFloat32 ? 4 : 2;
+  const bool tc = uses_tc(dtype, D);
+  const int R = QT * (H / KV);
+  const size_t smem =
+      layout(tc, R, D, es, KT, stages, splits, B, chunk, bs).total;
+  const long long tiles = grid_tiles(T, B, max_q_len, QT);
+  if (tc) {
+    const int KG = tc_key_groups(R), DP = tc_cols(D);
+#define PTT_K4_ARGS                                                         \
+  smem, KG, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, \
+      P, NB, H, D, bs, max_q_len, QT, chunk, stages, scale
+    if (DP == 64) return (int)launch_tc<64>(PTT_K4_ARGS);
+    if (DP == 128) return (int)launch_tc<128>(PTT_K4_ARGS);
+    return (int)launch_tc<256>(PTT_K4_ARGS);
+#undef PTT_K4_ARGS
+  }
+#define PTT_K4_ARGS                                                          \
+  smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, \
+      H, D, bs, max_q_len, QT, chunk, stages, scale
   if (dtype == ptt::kFloat32)
-    return (int)launch<float>(q, kc, vc, out, dec, now, cu, bt, T, B, P, NB,
-                              H, KV, D, bs, max_q_len, scale, st);
-  if (dtype == ptt::kBFloat16)
-    return (int)launch<__nv_bfloat16>(q, kc, vc, out, dec, now, cu, bt, T, B,
-                                      P, NB, H, KV, D, bs, max_q_len, scale,
-                                      st);
-  return (int)cudaErrorInvalidValue;
+    return KT == 64 ? (int)launch_simt<float, 64>(PTT_K4_ARGS)
+                    : (int)launch_simt<float, 32>(PTT_K4_ARGS);
+  return KT == 64 ? (int)launch_simt<__nv_bfloat16, 64>(PTT_K4_ARGS)
+                  : (int)launch_simt<__nv_bfloat16, 32>(PTT_K4_ARGS);
+#undef PTT_K4_ARGS
 }

@@ -60,9 +60,11 @@ _SIGNATURES = {
     "ptt_swiglu_bwd": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     # q, key_cache, value_cache, out, seq_lens_decoder, seq_lens_this_time,
     # cu_seqlens_q, block_tables, T, B, P, NB, H, KV, D, block_size,
-    # max_q_len, scale, dtype, stream
+    # max_q_len, scale, query tile, key tile, stages, splits, chunk, dtype,
+    # stream
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _I, _P],
+                            _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                            _P],
     # q, k, v, out, lse, q_off|NULL, B, Sq, Sk, H, KVH, D, q/k/v strides
     # over (batch, seq, head), causal, q_off_host, scale, block_q, block_k,
     # dtype, stream
@@ -208,8 +210,8 @@ def device_guard(t: torch.Tensor):
 def check(err: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry.  An
     entry returns cudaErrorInvalidConfiguration for a shape whose block
-    would need more shared memory than it may use (48 KB for K1 and K4,
-    the device's opt-in limit for B1, B2 and B8)."""
+    would need more shared memory than it may use (48 KB for K1, the
+    device's opt-in limit for K4, B1, B2 and B8)."""
     if err != 0:
         what = lib().ptt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "

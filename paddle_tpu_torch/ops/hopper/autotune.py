@@ -23,6 +23,11 @@ What differs from the reference:
   SIMT instances, one tile pair each (``SIMT_TILES``).
 * ``_DEFAULT_TARGETS`` are this port's own H100 measurements (see the
   comment there); none of the reference's TPU-measured targets carry over.
+* A cache file that cannot be used is an error, where the reference
+  passes over it: a corrupt or unreadable file raises on every
+  ``get_flash_blocks`` call (the file counts as read only after a read
+  that succeeds), and ``_save_cache`` raises on a path it cannot write.
+  Both errors name the file.
 * The reference's on-line branch (``FLAGS_flash_autotune`` timing every
   candidate on first encounter of a shape) is not ported: the port has no
   flags module yet.
@@ -108,24 +113,38 @@ def _cache_path():
 
 
 def _load_cache():
+    """Read the cache file once.  The file counts as read only after a
+    read that succeeds: a corrupt or unreadable file raises on this call
+    and on every later one, naming the file."""
     global _cache_loaded
     if _cache_loaded:
         return
-    _cache_loaded = True
     p = _cache_path()
     if p and os.path.exists(p):
-        with open(p) as f:
-            for k, v in json.load(f).items():
-                _measured[tuple(json.loads(k))] = tuple(v)
+        try:
+            with open(p) as f:
+                entries = {tuple(json.loads(k)): tuple(v)
+                           for k, v in json.load(f).items()}
+        except (OSError, ValueError, TypeError, AttributeError) as e:
+            raise RuntimeError(f"flash tile cache {p!r} (named by "
+                               f"PADDLE_TPU_AUTOTUNE_CACHE) cannot be read: "
+                               f"{e}") from e
+        _measured.update(entries)
+    _cache_loaded = True
 
 
 def _save_cache():
     p = _cache_path()
     if not p:
         return
-    with open(p, "w") as f:
-        json.dump({json.dumps(list(k)): list(v)
-                   for k, v in _measured.items()}, f)
+    try:
+        with open(p, "w") as f:
+            json.dump({json.dumps(list(k)): list(v)
+                       for k, v in _measured.items()}, f)
+    except OSError as e:
+        raise RuntimeError(f"flash tile cache {p!r} (named by "
+                           f"PADDLE_TPU_AUTOTUNE_CACHE) cannot be written: "
+                           f"{e}") from e
 
 
 def clear_cache():

@@ -7,20 +7,218 @@ values through the block tables instead (online softmax, float32 state;
 see the source's note).  It is bound on the H100 by the bytes of context
 it reads.
 
+``paged_plan`` divides the work, from sizes the host knows (never the row
+lengths, which stay on the device): a block takes one row, a tile of up to
+``qt`` of its tokens and one KV head with its query heads, walks the keys
+``kt`` at a time, and the ``splits`` blocks of a cluster share the context
+where the grid alone would give fewer blocks than the card has SMs.
+
 ``paged_attention`` runs the plain version (``_paged_attention_ref``, the
 reference's gather + padded-batch attention transcribed) only for CPU
-tensors.  For CUDA tensors it launches the kernel or raises; ``launches``
-counts kernel launches.
+tensors.  For CUDA tensors it launches the kernel (one launch per call) or
+raises; ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-__all__ = ["paged_attention", "paged_gather_kv"]
+__all__ = ["paged_attention", "paged_gather_kv", "paged_plan", "PagedPlan"]
+
+# The card (an H100 SXM): streaming multiprocessors and the shared memory
+# one block may opt into.
+SMS = 132
+SMEM_PER_BLOCK = 232448
+THREADS = 128           # a block's threads (csrc kThreads)
+VEC = 8                 # elements a thread takes of a row (csrc kVec)
+KEY_TILES = (64, 32)    # the SIMT key tiles, the larger preferred
+TC_KEYS = 64            # the tensor-core instance's key tile
+TC_ROWS = 64            # the most query rows a tensor-core tile takes
+STAGE_BYTES = 140 * 1024  # the K/V ring a SIMT block may take
+# The plan's rules, from chip_smoke.py's sweep (--k4-sweep) on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, section 6):
+# * at most 4 splits: 4 beat 8 at every decode shape (8 / 2 heads at D 256:
+#   0.0196 against 0.0292 ms; 2 rows of ~4000 keys: 0.0770 against
+#   0.0832), and a grid of 256 blocks ran fastest unsplit (0.0374 against
+#   0.0471 at 2);
+# * tensor cores: 16 tokens (about 64 query rows) a tile, a ring of 2 (the
+#   single step's mixed batch: 0.0492 ms against 0.0609 at 8 tokens and
+#   0.0600 at 32; a ring of 3 gained nothing at decode, 0.0375 against
+#   0.0374);
+# * SIMT (float32): 8 query rows a tile and a ring of 3 (the mixed batch:
+#   0.2261 ms against 0.2603 at 16 tokens and a ring of 2; decode 0.0865
+#   against 0.1017).
+SPLIT_CAP = 4                       # blocks of a cluster (csrc kMaxSplits)
+TILE_ROWS = {True: 64, False: 8}    # query rows a tile aims at, by tc
+MAX_QT = 16                         # tokens of a query tile
+STAGES = {True: (2,), False: (3, 2)}  # ring depths tried, by tc
+
+
+class PagedPlan(NamedTuple):
+    """How one K4 call divides its work: ``qt`` tokens of a row per query
+    tile, ``kt`` keys per key tile in a ring of ``stages`` tiles,
+    ``splits`` blocks (a cluster) per (query tile, KV head), each walking
+    ``chunk`` keys; ``smem`` bytes of shared memory a block; ``blocks`` in
+    the grid."""
+    qt: int
+    kt: int
+    stages: int
+    splits: int
+    chunk: int
+    smem: int
+    blocks: int
+
+
+def _row_chunks(D: int, es: int) -> int:
+    c = D * es // 16
+    return c + (c % 2 == 0)
+
+
+def _tc(dtype: torch.dtype, D: int) -> bool:
+    """Whether a call runs the tensor-core instance (csrc ``uses_tc``):
+    bfloat16 with head_dim a multiple of 16."""
+    return dtype == torch.bfloat16 and D % 16 == 0
+
+
+def _tc_cols(D: int) -> int:
+    """The tensor-core instance's columns: D padded to 64, 128 or 256."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def _tc_key_groups(R: int) -> int:
+    return 4 if R <= 16 else 2 if R <= 32 else 1
+
+
+def _smem_bytes(tc: bool, R: int, D: int, es: int, kt: int, stages: int,
+                splits: int, B: int, chunk: int, bs: int) -> int:
+    """The kernel's shared-memory layout (csrc ``layout``): the K/V ring;
+    the query rows (bf16 zero-padded to 16-row slabs and 64/128/256
+    columns on the tensor cores; float32 on SIMT, with its scores and
+    accumulators); row statistics; the leader's merge weights; the row
+    tables and a split's block ids."""
+    if tc:
+        kg = _tc_key_groups(R)
+        rp = 16 * (4 // kg)
+        row = _row_chunks(_tc_cols(D), 2) * 16
+        body = (2 * stages * kt * row + rp * row + 3 * rp * 4
+                + 2 * kg * rp * 4)
+    else:
+        slots = THREADS // (D // VEC)
+        kg = 1
+        while kg * 2 * R <= slots:
+            kg *= 2
+        rp = R
+        row = _row_chunks(D, es) * 16
+        body = (2 * stages * kt * row + R * D * 4 + R * kt * 4
+                + kg * R * D * 4 + 4 * R * 4)
+    return body + (splits + 1) * rp * 4 + (4 * B + 2 + chunk // bs + 2) * 4
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _grid_tiles(T: int, B: int, max_q_len: int, qt: int) -> int:
+    """Query tiles in the grid (csrc ``grid_tiles``): at most
+    ceil(max_q_len / qt) a row and at most what T tokens can fill."""
+    by_rows = B * _ceil(max(max_q_len, 1), qt)
+    return max(1, min(by_rows, (T + B * (qt - 1)) // qt))
+
+
+def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
+               KV: int, D: int, dtype: torch.dtype) -> PagedPlan:
+    """The tile and split of a K4 call of T tokens in B rows, from
+    host-known sizes only.
+
+    * ``qt``: 1 at decode (``max_q_len`` 1); else up to ``MAX_QT`` tokens,
+      so that a tile holds about ``TILE_ROWS`` query rows of G heads each
+      (64 on the tensor cores, 8 on SIMT), and never more tokens than
+      ``max_q_len``.  The grid holds the most query tiles that T tokens
+      in B rows can fill; a block finds its row from the row lengths on
+      the device.
+    * The instance: tensor cores (``mma.sync``) for bfloat16 with D a
+      multiple of 16, at most ``TC_ROWS`` query rows a tile; SIMT
+      otherwise (float32).
+    * ``stages`` and ``kt``: a ring of 2 tiles of 64 keys on the tensor
+      cores; on SIMT a ring of 3, else 2, of 64 keys, else 32, the first
+      whose ring takes at most ``STAGE_BYTES`` and whose block fits.
+    * ``splits``: 1 where the grid of (query tile, KV head) blocks already
+      gives every SM of the card a block; else the power of two that does,
+      at most ``SPLIT_CAP`` and at most one key tile per split.  ``chunk``
+      is the keys of ``P * bs`` a split walks, a multiple of ``kt``.
+
+    Raises ValueError for a tensor-core tile of more than ``TC_ROWS``
+    query rows (a head group above 64) and for a shape whose block would
+    need more than the 227 KB of shared memory a block may use."""
+    return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
+          D: int, dtype: torch.dtype, qt: Optional[int] = None,
+          splits: Optional[int] = None,
+          stages: Optional[int] = None) -> PagedPlan:
+    """``paged_plan``, with ``qt``, ``splits`` and ``stages`` replacing its
+    choices when given (``chip_smoke.py`` holds the kernel to its plain
+    version under such forced plans; the wrapper never forces one).  A
+    forced ring depth the instance does not take, or more than
+    ``SPLIT_CAP`` splits, raises ValueError."""
+    if D % VEC or not 0 < D <= 256 or KV <= 0 or H % KV:
+        raise ValueError(f"paged_attention: no plan for H {H}, KV {KV}, "
+                         f"head_dim {D}")
+    es = dtype.itemsize
+    G = H // KV
+    ctx = P * bs
+    tc = _tc(dtype, D)
+    if stages is not None and stages not in STAGES[tc]:
+        raise ValueError(f"paged_attention: no ring of {stages} stages "
+                         f"(the instance takes {STAGES[tc]})")
+    if splits is not None and not 1 <= splits <= SPLIT_CAP:
+        raise ValueError(f"paged_attention: {splits} splits, past the "
+                         f"{SPLIT_CAP} blocks of a cluster")
+    if qt is None:
+        qt = 1 if max_q_len <= 1 else min(max_q_len, MAX_QT,
+                                          max(1, TILE_ROWS[tc] // G))
+    if tc and qt * G > TC_ROWS:
+        raise ValueError(
+            f"paged_attention: a tile of {qt * G} query rows ({H} heads "
+            f"over {KV} KV heads) is past the {TC_ROWS} query rows of the "
+            "tensor-core instance")
+    row = _row_chunks(_tc_cols(D) if tc else D, es) * 16
+
+    def smem(k, st, n, c):
+        return _smem_bytes(tc, qt * G, D, es, k, st, n, B, c, bs)
+
+    # the first ring depth, then key tile, whose block fits
+    fits = [(st, k) for st in ((stages,) if stages else STAGES[tc])
+            for k in ((TC_KEYS,) if tc else KEY_TILES)
+            if (tc or 2 * st * k * row <= STAGE_BYTES)
+            and smem(k, st, SPLIT_CAP, _ceil(ctx, k) * k) <= SMEM_PER_BLOCK]
+    if not fits:
+        kt = KEY_TILES[-1]
+        need = smem(kt, 2, 1, _ceil(ctx, kt) * kt)
+        raise ValueError(
+            f"paged_attention: a block of {qt * G} query rows at head_dim "
+            f"{D} ({H} heads over {KV} KV heads) needs {need} bytes of "
+            f"shared memory, past the {SMEM_PER_BLOCK} (227 KB) a block may "
+            "use")
+    stages, kt = fits[0]
+    base = _grid_tiles(T, B, max_q_len, qt) * KV
+    cap = max(1, min(SPLIT_CAP, _ceil(ctx, kt)))
+    if splits is None:
+        splits = 1
+        while splits < cap and base * splits < SMS:
+            splits *= 2
+    splits = min(splits, cap)
+    chunk = max(kt, _ceil(_ceil(ctx, splits), kt) * kt)
+    splits = max(1, _ceil(ctx, chunk))      # no split left without keys
+    return PagedPlan(qt, kt, stages, splits, chunk,
+                     smem(kt, stages, splits, chunk), base * splits)
 
 
 def paged_gather_kv(cache: torch.Tensor, block_tables: torch.Tensor
@@ -87,10 +285,11 @@ def _check(name, q, key_cache, value_cache, ints, block_tables):
     for t in (q, key_cache, value_cache, *ints, block_tables):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    for t in (key_cache, value_cache):
+    for t in (q, key_cache, value_cache):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: caches must be 16-byte aligned (the "
-                             "kernel reads them in 16-byte vectors)")
+            raise ValueError(f"{name}: q and the caches must be 16-byte "
+                             "aligned (the kernel reads them in 16-byte "
+                             "vectors)")
     for t in (*ints, block_tables):
         if t.dtype != torch.int32 or t.device != q.device:
             raise ValueError(f"{name}: lengths, cu_seqlens and block tables "
@@ -113,6 +312,14 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
         return _paged_attention_ref(q, key_cache, value_cache,
                                     seq_lens_decoder, seq_lens_this_time,
                                     cu_seqlens_q, block_tables, max_q_len)
+    return _launch(q, key_cache, value_cache, seq_lens_decoder,
+                   seq_lens_this_time, cu_seqlens_q, block_tables, max_q_len)
+
+
+def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
+            cu_seqlens_q, block_tables, max_q_len, **force):
+    """The kernel's launch for CUDA tensors, under ``paged_plan``'s plan or
+    one that ``force`` (``qt``, ``splits``, ``stages``) fixes in part."""
     name = "paged_attention"
     ints = (seq_lens_decoder, seq_lens_this_time, cu_seqlens_q)
     _check(name, q, key_cache, value_cache, ints, block_tables)
@@ -120,6 +327,9 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     T, H, D = q.shape
     NB, KV, bs, _ = key_cache.shape
     B, P = block_tables.shape
+    if not B:                   # no rows: every token gives zeros
+        return torch.zeros_like(q)
+    plan = _plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, **force)
     out = torch.empty_like(q)
     if T:
         with _build.device_guard(q):
@@ -128,7 +338,8 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                 out.data_ptr(), seq_lens_decoder.data_ptr(),
                 seq_lens_this_time.data_ptr(), cu_seqlens_q.data_ptr(),
                 block_tables.data_ptr(), T, B, P, NB, H, KV, D, bs,
-                int(max_q_len), 1.0 / math.sqrt(D), dt, stream), name)
+                int(max_q_len), 1.0 / math.sqrt(D), plan.qt, plan.kt,
+                plan.stages, plan.splits, plan.chunk, dt, stream), name)
         paged_attention.launches += 1
     return out
 

@@ -86,6 +86,29 @@ def test_measured_cache_round_trip_and_clear(fresh_cache):
         at._DEFAULT_TARGETS[("fwd", 128)]
 
 
+def test_a_corrupt_cache_raises_on_every_call(fresh_cache):
+    """A cache file that is not JSON raises, naming the file, on the first
+    call and again on the next: the file does not count as read until a
+    read succeeds, so the default table never stands in for it."""
+    fresh_cache.write_text("{not json")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="flash_tiles.json"):
+            at.get_flash_blocks("fwd", 2048, 2048, 128)
+    assert not at._cache_loaded and at._measured == {}
+    # once the file is repaired, it is read
+    fresh_cache.write_text(json.dumps(
+        {json.dumps(["fwd", 2048, 2048, 128]): [64, 64]}))
+    assert at.get_flash_blocks("fwd", 2048, 2048, 128) == (64, 64)
+
+
+def test_an_unwritable_cache_path_raises(fresh_cache, monkeypatch):
+    bad = fresh_cache.parent / "missing_dir" / "flash_tiles.json"
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE", str(bad))
+    at._measured[("fwd", 2048, 2048, 128)] = (64, 64)
+    with pytest.raises(RuntimeError, match="missing_dir"):
+        at._save_cache()
+
+
 def test_a_measured_pair_is_capped_at_the_sequence(fresh_cache):
     at._measured[("fwd", 64, 64, 128)] = (128, 128)
     assert at.get_flash_blocks("fwd", 64, 64, 128) == (64, 64)
