@@ -13,8 +13,8 @@ Phases (each prints its seconds):
   1. environment: torch/CUDA versions, the card's name and power limit
      (nvidia-smi), compute capability 9.0, and the kernel build from
      paddle_tpu_torch/csrc (nvcc, sm_90a); cuobjdump -sass of the build must
-     show tensor-core (HGMMA) instructions in every bf16 B1 and B8
-     instance;
+     show tensor-core instructions in every bf16 instance of B1 and B8
+     (HGMMA) and of B2 (HMMA);
   2. each kernel against its plain PyTorch version on the same CUDA tensors,
      in bfloat16 and float32, at the shapes the paths give it (B9 over
      three steps from one state);
@@ -28,11 +28,17 @@ Phases (each prints its seconds):
      mixed loop's program (T 256, max_q_len 16) and a long-context decode
      (2 rows of ~4000 keys), each with its GB/s, share of the bound and
      plan (query tile, key tile, ring, splits) (with --k4-sweep, each K4
-     case also timed under other plans, informative); a shape past a
-     kernel's limits is refused with an error, and B7 refuses a float16 x
-     and an int32 weight; K4 at the edges its tiles and splits add (every
-     split count, ring depth and several query tiles forced, in both
-     types) against its plain version;
+     case also timed under other plans, informative); B2 at generation's
+     shapes (8 rows over 512- and 4096-row rings, 32 / 32 and 32 / 8 heads,
+     greedy_decode's pos 150, one row of 32 / 8 heads at pos 4000), each
+     with its GB/s, share of the bound and plan (instance, key tile,
+     splits) (with --b2-sweep, each B2 case also timed under every split
+     count, informative); a shape past a kernel's limits is refused with an
+     error, and B7 refuses a float16 x and an int32 weight; K4 and B2 at
+     the edges their tiles and splits add (every split count forced, K4
+     also every ring depth and several query tiles, in both types) against
+     their plain versions, each cluster plan giving the same bits in five
+     runs;
      then (informative) B1 and B8 in bf16 at every compiled tile pair
      (autotune.tune), B8's two GQA modes, and whether two bf16 B8 runs
      agree bit for bit;
@@ -56,9 +62,10 @@ Phases (each prints its seconds):
      greedy_decode of ids [8, 128], 128 new tokens over a 512-row ring runs
      with CUDA sync debugging set to raise (tokens/s printed, informative;
      then a 32-token greedy_decode untraced and one under torch.profiler
-     give the device's busy share and time by kernel), (c) generate with
-     the static ring equals greedy_decode; generate with growing caches
-     (B1 for every step) gives greedy_decode's first
+     give the device's busy share and time by kernel, and B2's device time
+     and kernel count in the traced loop: one kernel per wrapper call), (c)
+     generate with the static ring equals greedy_decode; generate with
+     growing caches (B1 for every step) gives greedy_decode's first
      token (the same prefill), its logits on greedy_decode's tokens agree
      with the ring path's (B2) within 5% of the largest logit, and its
      tokens agree up to the first position whose top-2 gap is below the
@@ -211,14 +218,17 @@ def environment(torch):
 
 
 # bf16 B1 and B8 run on the tensor cores: every instance of these kernels
-# must hold warpgroup MMA instructions (HGMMA) in its SASS
-TENSOR_CORE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_tc_kernel")
+# must hold warpgroup MMA instructions (HGMMA) in its SASS; bf16 B2 runs
+# mma.sync, whose instructions are HMMA
+TENSOR_CORE_KERNELS = {"flash_fwd_tc_kernel": "HGMMA",
+                       "flash_bwd_tc_kernel": "HGMMA",
+                       "decode_tc_kernel": "HMMA"}
 
 
 def _sass_check(lib_path):
-    """cuobjdump -sass of the built library: count HGMMA instructions per
-    function; raise unless every instance of the bf16 B1 and B8 kernels has
-    some."""
+    """cuobjdump -sass of the built library: count tensor-core instructions
+    per function; raise unless every instance of the bf16 B1 and B8 kernels
+    has HGMMA and every instance of bf16 B2 has HMMA."""
     import re
     import shutil
 
@@ -230,16 +240,16 @@ def _sass_check(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and "HGMMA" in line:
-            counts[cur] += 1
-    for tag in TENSOR_CORE_KERNELS:
-        found = {f: n for f, n in counts.items() if tag in f}
-        print(f"sass {tag}: {len(found)} instances, HGMMA per instance "
+            counts[cur] = {"HGMMA": 0, "HMMA": 0}
+        elif cur is not None:
+            for op in counts[cur]:   # "HGMMA" does not hold "HMMA"
+                counts[cur][op] += op in line
+    for tag, op in TENSOR_CORE_KERNELS.items():
+        found = {f: n[op] for f, n in counts.items() if tag in f}
+        print(f"sass {tag}: {len(found)} instances, {op} per instance "
               f"{sorted(found.values())}")
         if not found or min(found.values()) == 0:
-            raise AssertionError(f"no HGMMA in the SASS of {tag}: "
-                                 f"{found}")
+            raise AssertionError(f"no {op} in the SASS of {tag}: {found}")
 
 
 # --------------------------------------------------------------- phase 2
@@ -433,13 +443,20 @@ def _generation_cases(torch, rnd, es, g, dtype):
                 fa._plain_bshd(q, k, v, c, s, o)),
             _sdpa_b1(torch, q, k, v, causal, off_i), nbytes,
             4 * B * H * vis * D))
-    # B2: one token per row against the ring, cols <= pos
+    # B2: one token per row against the ring, cols <= pos; greedy_decode's
+    # shape (phase 5: 8 rows, 512-row ring, positions 128-160) and a single
+    # user's long GQA generation (8 (row, KV head) pairs)
     for label, B, L, H, KVH, D, pos in (
             ("[8, L=512, 32, 128] pos 300", 8, 512, 32, 32, 128, 300),
             ("[8, L=4096, 32, 128] pos 4000", 8, 4096, 32, 32, 128, 4000),
-            ("GQA 32 / 8 [8, L=512] pos 300", 8, 512, 32, 8, 128, 300)):
+            ("GQA 32 / 8 [8, L=512] pos 300", 8, 512, 32, 8, 128, 300),
+            ("greedy_decode [8, L=512, 32, 128] pos 150", 8, 512, 32, 32,
+             128, 150),
+            ("GQA 32 / 8 [1, L=4096] pos 4000", 1, 4096, 32, 8, 128, 4000)):
         q, kb, vb = rnd(B, 1, H, D), rnd(B, L, KVH, D), rnd(B, L, KVH, D)
         p = torch.full((), pos, dtype=torch.int32, device=dev)
+        _B2_PLANS[(label, str(dtype).split(".")[1])] = (
+            da.decode_plan(B, L, H, KVH, D, dtype), (q, kb, vb, p))
         cases.append((
             "decode_attention", label,
             lambda q=q, kb=kb, vb=vb, p=p: da.decode_attention(q, kb, vb, p),
@@ -738,6 +755,9 @@ def _sdpa_b2(torch, q, kb, vb, pos):
 # is printed beside its time, the arguments serve the --k4-sweep
 _K4_PLANS = {}
 _K4_ARGS = {}
+# B2's (plan, arguments) for each case, by (label, dtype name): the plan is
+# printed beside its time, the arguments serve the --b2-sweep
+_B2_PLANS = {}
 
 
 def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
@@ -807,10 +827,11 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
         qp, k_all, v_all, attn_mask=mask, **gqa)
 
 
-def kernels_vs_plain(torch, iters=20, k4_sweep=False):
+def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False):
     """Check every case in both types; time it; return the rows of the
     kernels line (bfloat16, the type the paths run in).  ``k4_sweep`` also
-    times each K4 case under other plans (``_paged_sweep``)."""
+    times each K4 case under other plans (``_paged_sweep``), ``b2_sweep``
+    each B2 case (``_decode_sweep``)."""
     timer = Timer(torch, iters)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -857,6 +878,12 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False):
                       f"{plan.kt} stages {plan.stages} splits {plan.splits} "
                       f"chunk {plan.chunk} blocks {plan.blocks} smem "
                       f"{plan.smem}", flush=True)
+            if name == "decode_attention":
+                b2 = _B2_PLANS[(label, dname)][0]
+                print(f"b2 {dname} {label}: {nbytes / ms / 1e6:.1f} GB/s, "
+                      f"{bound_ms / ms:.3f} of the bound; tc {b2.tc} rows "
+                      f"{b2.rows} kt {b2.kt} splits {b2.splits} blocks "
+                      f"{b2.blocks} smem {b2.smem}", flush=True)
             for lab, val, lim in parts:
                 if not val <= lim:
                     raise AssertionError(
@@ -864,6 +891,8 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False):
                         f"{'in ' + lab + ' ' if lab else ''}by {val} > {lim}")
             if plan is not None and k4_sweep:
                 _paged_sweep(torch, timer, label, dname)
+            if name == "decode_attention" and b2_sweep:
+                _decode_sweep(torch, timer, label, dname)
             if dtype == torch.bfloat16:
                 rows.append(dict(
                     name=name, shape=label, dtype=dname, route="cuda",
@@ -873,8 +902,91 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False):
                     library_ms=lib_ms))
     _refusals(torch)
     _paged_edges(torch)
+    _decode_edges(torch)
     _flash_tiles(torch)
     return rows
+
+
+def _decode_edges(torch):
+    """B2 against its plain version (the `_tol` of phase 2) at the edges
+    its tiles and splits add, in bfloat16 and float32, under every split
+    count (forced): pos 0 (one key), pos 1 (empty shares under 4 and 8
+    splits), pos + 1 at and one past a multiple of the key tile, pos L - 1
+    and past it (clamped), a ring of 100 rows; groups of 1, 2, 4, 8, 16 and
+    64 heads
+    (a group past 16 takes several blocks), head_dim 48, 64, 80 and 144
+    (zero-padded columns on the tensor cores), 128 and 256.  A plan with a
+    cluster must give the same bits in five runs (the merge has no
+    atomics)."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    dev, B = "cuda", 3
+    n = worst = clusters = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for G, KVH, D, L in ((1, 2, 64, 100), (2, 2, 128, 300),
+                             (4, 2, 80, 100), (8, 1, 256, 100),
+                             (16, 1, 128, 200), (64, 1, 128, 100),
+                             (1, 1, 48, 64), (2, 1, 144, 100)):
+            H = G * KVH
+            q = torch.randn(B, 1, H, D, generator=g, device=dev, dtype=dtype)
+            kb = torch.randn(B, L, KVH, D, generator=g, device=dev,
+                             dtype=dtype)
+            vb = torch.randn(B, L, KVH, D, generator=g, device=dev,
+                             dtype=dtype)
+            for pos in sorted({0, 1, 15, 16, 63, 64, 127, 128, L - 1,
+                               L + 5}):
+                p = torch.full((), pos, dtype=torch.int32, device=dev)
+                ref = da.ref_decode_attention(q, kb, vb, p)
+                tol = _tol(dname, ref)
+                for splits in (1, 2, 4, da.SPLIT_CAP):
+                    kw = dict(splits=splits)
+                    try:
+                        plan = da._plan(B, L, H, KVH, D, dtype, **kw)
+                    except ValueError:   # past the limits: refused
+                        continue
+                    got = da._launch(q, kb, vb, p, **kw)
+                    err = _err(torch, got, ref)
+                    n += 1
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"B2 edge {dname} G {G} D {D} L {L} pos {pos} "
+                            f"{plan}: kernel and plain differ by {err} > "
+                            f"{tol}")
+                    # the cluster merge has no atomics: a plan's runs agree
+                    # bit for bit, or blocks race
+                    for _ in range(4 if plan.splits > 1 else 0):
+                        if not torch.equal(da._launch(q, kb, vb, p, **kw),
+                                           got):
+                            raise AssertionError(
+                                f"B2 edge {dname} G {G} D {D} L {L} pos "
+                                f"{pos} {plan}: two runs differ")
+                    clusters += plan.splits > 1
+    torch.cuda.synchronize()
+    print(f"b2 edges: {n} forced plans agree with the plain version "
+          f"(largest error {worst:.3f} of its tolerance); the {clusters} "
+          "with clusters gave the same bits in 5 runs each")
+
+
+def _decode_sweep(torch, timer, label, dname):
+    """Informative, for decode_plan's split rule (``--b2-sweep``): one B2
+    case timed under every split count."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+
+    base, (q, kb, vb, p) = _B2_PLANS[(label, dname)]
+    out = []
+    for splits in (1, 2, 4, da.SPLIT_CAP):
+        try:
+            ms = timer(lambda: da._launch(q, kb, vb, p, splits=splits))
+            ms = f"{ms:.4f}"
+        except ValueError:          # past the limits: refused
+            ms = "refused"
+        out.append(f"splits {splits} {ms}")
+    print(f"b2 sweep {dname} {label} (plan splits {base.splits}): "
+          + ", ".join(out) + " ms", flush=True)
 
 
 def _paged_edges(torch):
@@ -1093,6 +1205,34 @@ def _refusals(torch):
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")
         print(f"refused paged_attention plan with {what}: cudaError_t 1")
+    # B2: the wrapper refuses a head_dim it has no instance for; the C
+    # entry refuses a plan that decode_plan never gives (the forced plans
+    # of the edge check come through decode_attention._plan)
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+    ring = torch.ones(1, 64, 2, 72, dtype=dt, device=dev)
+    try:
+        da.decode_attention(torch.ones(1, 1, 2, 72, dtype=dt, device=dev),
+                            ring, ring, z[0])
+    except ValueError as e:
+        print(f"refused decode_attention head_dim 72: {e}")
+    else:
+        raise AssertionError("decode_attention head_dim 72 was not refused")
+    q = torch.ones(1, 1, 8, 128, dtype=dt, device=dev)
+    kv = torch.ones(1, 512, 8, 128, dtype=dt, device=dev)
+    # (splits, ring rows, dtype code)
+    for what, (splits, L, code) in {
+            "16 splits": (16, 512, 1),
+            "3 splits": (3, 512, 1),
+            "more splits than key tiles": (8, 448, 1),
+            "float16": (1, 512, 2)}.items():
+        err = _build.lib().ptt_decode_attention(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
+            z.data_ptr(), 1, L, 8, 8, 128, 0.1, splits, code,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 1:
+            raise AssertionError(f"decode_attention {what} not refused: "
+                                 f"{err}")
+        print(f"refused decode_attention plan with {what}: cudaError_t 1")
     # the C dispatch refuses a flash tile pair it has no instance for
     # (cudaErrorInvalidValue, 1; the wrapper refuses it first, so the entry
     # is called directly)
@@ -1537,9 +1677,28 @@ def full_width_generation(torch, model):
     print(f"(b) greedy_decode [8, 128] + 128 tokens, ring 512: {secs:.3f} s "
           f"({8 * 128 / secs:.1f} tokens/s, informative), no host sync "
           "inside the loop")
-    _profile(torch, "greedy_decode [8, 128] + 32 tokens",
-             lambda: greedy_decode(model, p8, max_new_tokens=32,
-                                   max_length=512))
+    # B2's kernels in the traced loop, against its wrapper's count there
+    # (one launch per call)
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+
+    calls = []
+
+    def traced():
+        n0 = da.decode_attention.launches
+        greedy_decode(model, p8, max_new_tokens=32, max_length=512)
+        calls.append(da.decode_attention.launches - n0)
+
+    evs = _profile(torch, "greedy_decode [8, 128] + 32 tokens",
+                   lambda: greedy_decode(model, p8, max_new_tokens=32,
+                                         max_length=512), traced)
+    b2 = [e for e in evs if "decode_tc_kernel" in e.key
+          or "decode_simt_kernel" in e.key]
+    b2_n = sum(e.count for e in b2)
+    b2_ms = sum(e.self_device_time_total for e in b2) / 1e3
+    print(f"profile B2 in greedy_decode: {b2_ms:.3f} ms device, {b2_n} "
+          f"kernels, {calls[0]} wrapper calls")
+    if b2_n != calls[0]:
+        raise AssertionError(f"B2: {b2_n} kernels for {calls[0]} calls")
     ref = greedy_decode(model, p4, max_new_tokens=32)
     ring = generate(model, p4, max_new_tokens=32, use_static_cache=True)
     grow = generate(model, p4, max_new_tokens=32)
@@ -1928,6 +2087,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
                          "plans (informative)")
+    ap.add_argument("--b2-sweep", action="store_true",
+                    help="phase 2 also times each B2 case under every "
+                         "split count (informative)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1949,7 +2111,8 @@ def main(argv=None) -> int:
     rows = []
     if 2 in phases:
         t = _phase("2 kernels vs plain")
-        rows = kernels_vs_plain(torch, k4_sweep=args.k4_sweep)
+        rows = kernels_vs_plain(torch, k4_sweep=args.k4_sweep,
+                                b2_sweep=args.b2_sweep)
         _done("2", t)
     launches = {path: None for path in PATHS}
     model = full_width_model(torch) if phases & {3, 5} else None

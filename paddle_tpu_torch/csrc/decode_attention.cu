@@ -6,25 +6,52 @@
 // the ring kbuf/vbuf [B, L, KVH, D] in its native layout, columns
 // 0 .. pos (pos read from device memory, clamped to [0, L - 1]), softmax in
 // float32 with scale 1/sqrt(D) by default; query head h reads KV head
-// h / (H / KVH).
+// h / (H / KVH); the output in q's dtype, rounded once.
 //
-// Bound on the H100: bytes.  Each visible key and value row is needed once
-// per (row, KV head), and a decode step does ~2 operations per byte read.
-// Design (flash-decoding): the ring is cut into chunks of `chunk` keys and
-// one block of 128 threads takes one (chunk, KV head, row), and with it all
-// query heads of the KV head's group (up to R of them, R in {1, 2, 4, 8}),
-// so every key and value row loaded serves the whole group.  That gives
-// B * KVH * ceil(L / chunk) blocks, enough to fill the card at small
-// batches, where one block per (row, KV head) would not.  Chunks past pos
-// exit at once, so the bytes read follow pos, not L.  Scores: each thread
-// takes one key of a 128-key step and streams its row in 16-byte loads, all
-// independent, for every head of the group; the chunk's max and sum per
-// head are one warp reduction per head (no per-key shuffle chain).  P @ V:
-// threads form key groups of D / VEC threads, each thread owning VEC dims of
-// a value row (16-byte loads again), and the groups' sums are added in
-// shared memory.  With more than one chunk each block writes its (max, sum,
-// unnormalised output) in float32, and a second small kernel combines the
-// chunks of each (row, head).
+// Bound on the H100: bytes, plus a fixed cost per launch at small contexts.
+// Every visible key and value row is needed once per (row, KV head), and a
+// step does ~2 operations per byte read (at most G = H / KVH times that),
+// far below the ~295 a byte the card needs before arithmetic bounds.  At
+// generation's contexts (a few hundred keys a row) a call moves a few tens
+// of MB, a handful of microseconds at 3.35 TB/s, so reading pos, the first
+// tile's latency and the merge weigh as much as the stream.  The design:
+// * One block takes one row, one KV head and up to 16 of its query heads
+//   (the rows of one m16 tile), so every key and value row loaded serves
+//   the whole group; a group of more than 16 heads takes several blocks,
+//   which re-read the context.
+// * The context is split by the device's own pos.  The grid,
+//   (splits, KVH * head chunks, B), comes from host sizes alone, so a
+//   decode loop needs no host sync and can be captured; each of the
+//   `splits` blocks of a (row, head chunk) reads pos and takes an even,
+//   key-tile-aligned share of keys 0 .. pos, so every split carries work
+//   whatever pos is (a split past the keys keeps m = -inf, l = 0).
+// * One launch per call: the splits of a (row, head chunk) form a thread
+//   block cluster, and after cluster.sync() the leader merges the others'
+//   (m, l, acc) through distributed shared memory, every remote load of a
+//   row in flight at once, and writes the output.  Nothing but the output
+//   goes to device memory.
+// * K and V tiles of KT keys (64 on the tensor cores, 32 on SIMT) arrive
+//   together by 16-byte cp.async (consecutive threads on consecutive 16
+//   bytes of a row: every load coalesced) in a ring of two tiles, the next
+//   in flight while one is computed on; only a share's last tile is
+//   masked; the online softmax keeps float32 (m, l, acc) per head across
+//   tiles.  The copies are evict-first in L2 (a step reads each row once:
+//   the lines it evicts are its own, not what the kernels around it keep
+//   there).  Rows are padded to an odd number of 16-byte chunks in shared
+//   memory, so neighbouring rows' 16-byte reads (and ldmatrix's) hit no
+//   bank twice.  Deeper rings, larger tiles and the copy engine (TMA)
+//   measured no faster at generation's contexts: a tile's critical path
+//   in the block, not its load, sets the pace there.
+// * bfloat16 runs on the tensor cores: the block's heads are the rows of
+//   mma.sync.m16n8k16 (padded to 16), each warp takes a quarter of every
+//   key tile with its own online softmax in registers, P goes to bf16 for
+//   P @ V without leaving registers, and the warps' (m, l, O) merge at the
+//   end.  float32 (TF32 stays off) runs a SIMT instance of the same walk:
+//   thread-per-key scores and column-chunk P @ V from shared memory.
+// The number of splits comes from ops/hopper/decode_attention.py:
+// decode_plan; the entry refuses any other (not 1, 2, 4 or 8, more splits
+// than the ring has key tiles) and a block past the shared memory it may
+// use.
 //
 // B3 replaces decode_attention.py:kv_ring_write: new [B, S, KVH, D] is
 // written into the ring at rows start .. start + S - 1, in place, with
@@ -32,234 +59,768 @@
 // of dynamic_update_slice, which the reference's S > 1 path uses).  One
 // launch writes the K and the V ring.  Bound by bytes; one block per (row,
 // token) copies its [KVH, D] rows of K and V in 16-byte vectors.
+#include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+using bf = __nv_bfloat16;
+
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
+constexpr int kRows = 16;        // query heads a block takes (an m16 tile)
+constexpr int kVec = 8;          // elements of a row a SIMT thread takes
+constexpr int kRowsPerPass = 4;  // query rows a SIMT thread carries
+constexpr int kMaxSplits = 8;    // blocks of a cluster (the portable size)
+constexpr int kStages = 2;       // tiles of the K/V ring
+constexpr int kTcKeys = 64;      // keys of a tile, tensor cores
+constexpr int kSimtKeys = 32;    // keys of a tile, SIMT
 
-template <typename T, int R>  // R: query heads per block
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ kbuf,
-    const T* __restrict__ vbuf, T* __restrict__ out,
-    float* __restrict__ part_acc, float* __restrict__ part_ml,
-    const int* __restrict__ pos_ptr, int L, int H, int KVH, int D, int chunk,
-    int n_split, int n_hc, float scale) {
-  using V = ptt::Vec16<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int TPR = D / V::N;            // threads per value row in P @ V
-  const int KG = kThreads / TPR;       // key groups in P @ V
-  float* qs = (float*)smem_raw;        // R * D, scaled queries
-  float* ps = qs + R * D;              // R * chunk scores, then probabilities
-  float* part = ps + R * chunk;        // KG * R * D partial P @ V
-  float* m_b = part + KG * R * D;      // R chunk max
-  float* l_b = m_b + R;                // R chunk sum
+// 16-byte chunks of one K or V row in shared memory: `cols` elements,
+// padded to an odd count so that 8 threads reading chunk c of 8
+// neighbouring rows (or ldmatrix's 8 row addresses) hit 32 different banks
+__host__ __device__ inline int row_chunks(int cols, int es) {
+  const int c = cols * es / 16;
+  return c + !(c & 1);
+}
 
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int kh = blockIdx.y / n_hc, hc = blockIdx.y - kh * n_hc;
-  const int rep = H / KVH;
-  const int h0 = kh * rep + hc * R;    // first query head of this block
-  const int nh = min(R, rep - hc * R);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int pos = max(0, min(*pos_ptr, L - 1));
-  const int start = split * chunk;
-  const int cnt = min(chunk, pos + 1 - start);  // visible keys of the chunk
-  const long long row_stride = (long long)KVH * D;
-  const long long bh0 = (long long)b * H + h0;
+// the tensor-core instance's head-dim class (columns past D are zeros)
+__host__ __device__ inline int tc_cols(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
 
-  if (cnt <= 0) {  // the whole chunk lies past pos
-    if (tid < nh) {
-      part_ml[((bh0 + tid) * n_split + split) * 2] = kNegInf;
-      part_ml[((bh0 + tid) * n_split + split) * 2 + 1] = 0.f;
+// query heads of a block: the whole group, at most one m16 tile
+__host__ __device__ inline int block_rows(int G) {
+  return G < kRows ? G : kRows;
+}
+
+// The shared-memory layout of one block, in bytes; mirrored by
+// ops/hopper/decode_attention.py:_smem_bytes, by which the plan picks its
+// tiles.  A launch whose layout needs more than the card grants is refused
+// (cudaErrorInvalidConfiguration, ptt::allow_smem).
+struct Layout {
+  int KG;       // key groups (partial accumulators)
+  int RP;       // query rows held (the tensor-core instance pads to 16)
+  int rstride;  // elements between two K (V) rows of a tile
+  // byte offsets: the K/V ring, query rows, SIMT scores, accumulators, row
+  // statistics, the key groups' (m, l), the leader's merge weights
+  size_t stage, q, s, acc, stats, part, ws, total;
+};
+
+__host__ __device__ inline Layout layout(bool tc, int R, int D, int es,
+                                         int splits) {
+  Layout L = {};
+  size_t off = 0;
+  const int KT = tc ? kTcKeys : kSimtKeys;
+  if (tc) {
+    const int DP = tc_cols(D);
+    L.KG = kWarps;
+    L.RP = kRows;
+    L.rstride = row_chunks(DP, 2) * 8;
+    L.stage = off;  // kStages x (K tile, V tile), bf16
+    off += (size_t)2 * kStages * KT * L.rstride * 2;
+    L.acc = L.stage;  // KG x RP x DP float, after the walk (fits the ring)
+    L.q = off;  // RP x DP query rows, bf16, zero-padded
+    off += (size_t)L.RP * L.rstride * 2;
+    L.stats = off;  // m, l (float) by row
+    off += (size_t)2 * L.RP * 4;
+    L.part = off;  // each key group's m and l by row
+    off += (size_t)2 * L.KG * L.RP * 4;
+  } else {
+    const int slots = kThreads / (D / kVec);  // threads on a column chunk
+    L.KG = 1;
+    while (L.KG * 2 * R <= slots) L.KG *= 2;
+    L.RP = R;
+    L.rstride = row_chunks(D, es) * 16 / es;
+    L.stage = off;  // kStages x (K tile, V tile)
+    off += (size_t)2 * kStages * KT * L.rstride * es;
+    L.q = off;  // R x D query rows, float, pre-scaled
+    off += (size_t)R * D * 4;
+    L.s = off;  // R x KT scores, then probabilities
+    off += (size_t)R * KT * 4;
+    L.acc = off;  // KG x R x D float accumulators
+    off += (size_t)L.KG * R * D * 4;
+    L.stats = off;  // m, l, corr (float) by row
+    off += (size_t)3 * R * 4;
+  }
+  L.ws = off;  // the leader's merge: splits x RP weights (first the
+  off += (size_t)(2 * splits + 1) * L.RP * 4;  // m), splits x RP l, 1 / L
+  L.total = off;
+  return L;
+}
+
+// What a block works on: row b, KV head kh, query heads h0 .. h0 + nr - 1
+// (from the grid), and keys c0 .. c1 - 1 of the visible 0 .. pos, its
+// split's share (from pos)
+struct Work {
+  int b, kh, h0, nr, c0, c1;
+};
+
+__device__ __forceinline__ Work block_heads(int H, int KVH, int n_hc) {
+  Work w;
+  const int G = H / KVH;
+  w.b = blockIdx.z;
+  w.kh = blockIdx.y / n_hc;
+  const int hc = blockIdx.y - w.kh * n_hc;
+  w.h0 = w.kh * G + hc * kRows;
+  w.nr = min(kRows, G - hc * kRows);
+  w.c0 = w.c1 = 0;
+  return w;
+}
+
+// The split's share: keys [s chunk, (s + 1) chunk) cut at pos + 1,
+// chunk = ceil(ceil((pos + 1) / splits) / KT) KT; mirrored by the tests'
+// split_ranges.  Returns the share's key tiles.
+__device__ __forceinline__ int block_keys(Work& w,
+                                          const int* __restrict__ pos_ptr,
+                                          int L, int KT) {
+  const int n = max(0, min(*pos_ptr, L - 1)) + 1;  // visible keys
+  const int splits = gridDim.x;
+  const int chunk = ((n + splits - 1) / splits + KT - 1) / KT * KT;
+  w.c0 = min((int)blockIdx.x * chunk, n);
+  w.c1 = min(w.c0 + chunk, n);
+  return (w.c1 - w.c0 + KT - 1) / KT;
+}
+
+// How a thread copies K and V rows: the 16-byte chunk c of rows j0,
+// j0 + jstep, ... of every tile (the same chunk every tile).  The copies
+// are marked evict-first in L2: a step reads each K/V row once, and what
+// the cache holds for the kernels around it stays.
+template <typename T>
+struct Copier {
+  int c, j0, jstep;
+  long long rstride;  // elements between two keys of the ring
+  const T* kb;        // key 0 of the block's (row, KV head)
+  const T* vb;
+  uint64_t policy;    // the L2 eviction policy of the copies
+};
+
+template <typename T>
+__device__ __forceinline__ Copier<T> make_copier(const T* kbuf, const T* vbuf,
+                                                 const Work& w, int L,
+                                                 int KVH, int D) {
+  constexpr int kEl = 16 / sizeof(T);
+  const int cpr = D / kEl;  // 16-byte chunks of a row
+  Copier<T> cp;
+  cp.jstep = kThreads / cpr;
+  cp.c = threadIdx.x % cpr;
+  // threads past jstep * cpr copy nothing
+  cp.j0 = (int)threadIdx.x < cp.jstep * cpr ? threadIdx.x / cpr : 1 << 30;
+  cp.rstride = (long long)KVH * D;
+  const long long o = (long long)w.b * L * KVH * D + (long long)w.kh * D;
+  cp.kb = kbuf + o;
+  cp.vb = vbuf + o;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(cp.policy));
+  return cp;
+}
+
+// 16 bytes global -> shared under an L2 policy, the L2 fetching the whole
+// 128-byte line; zero-filled (nothing read) when !valid
+__device__ __forceinline__ void cp_async16_hint(uint32_t dst, const void* src,
+                                                bool valid, uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint.L2::128B [%0], [%1], 16, %2, "
+      "%3;\n" ::
+          "r"(dst),
+      "l"(src), "r"(valid ? 16 : 0), "l"(policy)
+      : "memory");
+}
+
+// K and V rows t0 .. t0 + KT - 1 into a stage (rows `rs` elements apart);
+// keys at or past c1 are zero-filled without a read.  One commit group.
+template <typename T, int KT>
+__device__ __forceinline__ void issue_tile(T* ks, const Copier<T>& cp,
+                                           int t0, int c1, int rs) {
+  constexpr int kEl = 16 / sizeof(T);
+  T* vs = ks + KT * rs;
+  for (int j = cp.j0; j < KT; j += cp.jstep) {
+    const int key = t0 + j;
+    const bool ok = key < c1;
+    const long long o = (ok ? key * cp.rstride : 0) + cp.c * kEl;
+    const int so = j * rs + cp.c * kEl;
+    cp_async16_hint(ptt::tc::smem_u32(ks + so), cp.kb + o, ok, cp.policy);
+    cp_async16_hint(ptt::tc::smem_u32(vs + so), cp.vb + o, ok, cp.policy);
+  }
+  ptt::tc::cp_async_commit();
+}
+
+// Reads pos and issues the share's first tile; returns the share's tiles
+template <typename T, int KT>
+__device__ __forceinline__ int ring_open(T* stage, Work& w,
+                                         const Copier<T>& cp,
+                                         const int* __restrict__ pos_ptr,
+                                         int L, int rs) {
+  const int ntile = block_keys(w, pos_ptr, L, KT);
+  if (ntile > 0) issue_tile<T, KT>(stage, cp, w.c0, w.c1, rs);
+  return ntile;
+}
+
+// The ring of two K/V tiles: before tile `it`, issue tile it + 1 into the
+// stage that tile it - 1 left (the caller's barrier after tile it - 1 freed
+// it), then wait until tile it has landed for every thread (tile it + 1
+// stays in flight).  Returns tile it's stage.  The block's older cp.async
+// groups (its query rows) have landed too.
+template <typename T, int KT>
+__device__ __forceinline__ const T* ring_wait(T* stage, int it, int ntile,
+                                              const Copier<T>& cp,
+                                              const Work& w, int rs) {
+  const size_t step = (size_t)2 * KT * rs;
+  if (it + 1 < ntile) {
+    issue_tile<T, KT>(stage + ((it + 1) % kStages) * step, cp,
+                      w.c0 + (it + 1) * KT, w.c1, rs);
+    ptt::tc::cp_async_wait<1>();
+  } else {
+    ptt::tc::cp_async_wait<0>();
+  }
+  __syncthreads();
+  return stage + (it % kStages) * step;
+}
+
+// The output of a block's rows (o: row 0, rows D apart) from its (m, l,
+// acc) (acc rows `astride` floats apart, unnormalised).  With one split,
+// acc / l; with a cluster, the leader weighs split s by exp2(m_s - M), M
+// the largest m (a split that saw no key, m = -inf, weighs 0), reading the
+// others' shared memory.  Every block of a cluster reaches both syncs.
+// The caller synchronises the block first.
+template <typename T>
+__device__ void finish(T* __restrict__ o, int D, int nr, int astride, int RP,
+                       float* mrow, float* lrow, float* acc, float* ws) {
+  const int tid = threadIdx.x;
+  const int splits = gridDim.x;
+  if (splits == 1) {
+    for (int idx = tid; idx < nr * D; idx += kThreads) {
+      const int r = idx / D, d = idx - r * D;
+      const float l = lrow[r];
+      o[idx] = ptt::from_f<T>(l > 0.f ? acc[(size_t)r * astride + d] / l
+                                      : 0.f);
     }
     return;
   }
-
-  for (int i = tid; i < nh * D; i += kThreads)
-    qs[i] = ptt::to_f(q[bh0 * D + i]) * scale;
-  __syncthreads();
-
-  const T* kc = kbuf + ((long long)b * L + start) * row_stride +
-                (long long)kh * D;
-  const T* vc = vbuf + ((long long)b * L + start) * row_stride +
-                (long long)kh * D;
-
-  // scores: thread tid takes key j0 + tid of each 128-key step
-  for (int j0 = 0; j0 < chunk; j0 += kThreads) {
-    const int j = j0 + tid;
-    float s[R];
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();  // every split's (m, l, acc) is in its shared memory
+  if (blockIdx.x == 0) {
+    // every split's (m, l) of every row, all remote loads in flight at once
+    float* wl = ws + splits * RP;
+    for (int i = tid; i < splits * nr; i += kThreads) {
+      const int s = i / nr, r = i - s * nr;
+      ws[s * RP + r] = cl.map_shared_rank(mrow, s)[r];
+      wl[s * RP + r] = cl.map_shared_rank(lrow, s)[r];
+    }
+    __syncthreads();
+    for (int r = tid; r < nr; r += kThreads) {
+      float M = -INFINITY;
+      for (int s = 0; s < splits; ++s) M = fmaxf(M, ws[s * RP + r]);
+      float Lsum = 0.f;
+      for (int s = 0; s < splits; ++s) {
+        const float ms = ws[s * RP + r];
+        const float w = ms == -INFINITY ? 0.f : exp2f(ms - M);
+        ws[s * RP + r] = w;
+        Lsum += w * wl[s * RP + r];
+      }
+      wl[splits * RP + r] = Lsum > 0.f ? 1.f / Lsum : 0.f;
+    }
+    __syncthreads();
+    for (int idx = tid * 4; idx < nr * D; idx += kThreads * 4) {
+      const int r = idx / D, d = idx - r * D;  // D % 16 == 0: one row
+      const size_t ai = (size_t)r * astride + d;
+      // a split that saw no key holds finite zeros: it weighs 0
+      float4 v[kMaxSplits];
 #pragma unroll
-    for (int h = 0; h < R; ++h) s[h] = 0.f;
-    if (j < cnt) {
-      const T* kr = kc + j * row_stride;
-      for (int c = 0; c < D; c += V::N) {
-        float kv[V::N];
-        V::load(kr + c, kv);
+      for (int s = 0; s < kMaxSplits; ++s)
+        if (s < splits)
+          v[s] = *reinterpret_cast<const float4*>(
+              cl.map_shared_rank(acc, s) + ai);
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int h = 0; h < R; ++h) {
-          if (h < nh) {
+      for (int s = 0; s < kMaxSplits; ++s) {
+        if (s < splits) {
+          const float w = ws[s * RP + r];
+          sum.x += w * v[s].x;
+          sum.y += w * v[s].y;
+          sum.z += w * v[s].z;
+          sum.w += w * v[s].w;
+        }
+      }
+      const float inv = wl[splits * RP + r];
+      o[idx] = ptt::from_f<T>(sum.x * inv);
+      o[idx + 1] = ptt::from_f<T>(sum.y * inv);
+      o[idx + 2] = ptt::from_f<T>(sum.z * inv);
+      o[idx + 3] = ptt::from_f<T>(sum.w * inv);
+    }
+  }
+  cl.sync();  // no split leaves while the leader still reads it
+}
+
+// 8 consecutive elements of T (16-byte aligned) as floats
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float* out) {
+  if constexpr (sizeof(T) == 2) {
+    ptt::Vec16<T>::load(p, out);
+  } else {
+    ptt::Vec16<T>::load(p, out);
+    ptt::Vec16<T>::load(p + 4, out + 4);
+  }
+}
+
+// ---------------------------------------------------------------- SIMT
+// float32 (and bfloat16 where the plan asks).  Scores and probabilities in
+// shared memory; thread (rg, j) scores key j for rows rg, rg + NRG, ...;
+// thread (kg, rsl, dc) adds keys kg, kg + KG, ... into columns
+// [8 dc, 8 dc + 8) of rows rsl, rsl + RSL, ... of partial kg.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) decode_simt_kernel(
+    const T* __restrict__ q, const T* __restrict__ kbuf,
+    const T* __restrict__ vbuf, T* __restrict__ out,
+    const int* __restrict__ pos_ptr, int L, int H, int KVH, int D, int n_hc,
+    float scale_log2) {
+  constexpr int KT = kSimtKeys;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int R = block_rows(H / KVH);
+  const Layout Ly = layout(false, R, D, sizeof(T), gridDim.x);
+  T* stage = reinterpret_cast<T*>(smem + Ly.stage);
+  float* qs = reinterpret_cast<float*>(smem + Ly.q);
+  float* sc = reinterpret_cast<float*>(smem + Ly.s);
+  float* acc = reinterpret_cast<float*>(smem + Ly.acc);
+  float* mrow = reinterpret_cast<float*>(smem + Ly.stats);
+  float* lrow = mrow + R;
+  float* corr = lrow + R;
+  float* ws = reinterpret_cast<float*>(smem + Ly.ws);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  Work w = block_heads(H, KVH, n_hc);
+  const int nr = w.nr;
+  const int rs = Ly.rstride;
+  const Copier<T> cp = make_copier<T>(kbuf, vbuf, w, L, KVH, D);
+  const int ntile = ring_open<T, KT>(stage, w, cp, pos_ptr, L, rs);
+  const int c1 = w.c1;
+  // the query rows and the state while the first tile is in flight
+  const T* qb = q + ((size_t)w.b * H + w.h0) * D;
+  for (int idx = tid; idx < nr * D; idx += kThreads)
+    qs[idx] = ptt::to_f(qb[idx]) * scale_log2;
+  for (int idx = tid; idx < Ly.KG * R * D; idx += kThreads) acc[idx] = 0.f;
+  for (int r = tid; r < nr; r += kThreads) {
+    mrow[r] = -INFINITY;
+    lrow[r] = 0.f;
+  }
+
+  const int DC = D / kVec;
+  const int slots = kThreads / DC;
+  const int RSL = slots / Ly.KG;
+  const int dc = tid % DC, slot = tid / DC;
+  const int kg = slot % Ly.KG, rsl = slot / Ly.KG;
+  const bool pv = slot < RSL * Ly.KG;  // past that, a thread idles in P @ V
+  constexpr int NRG = kThreads / KT;
+  const int sj = tid % KT, rg = tid / KT;
+
+  for (int it = 0; it < ntile; ++it) {
+    const T* ks =
+        ring_wait<T, KT>(stage, it, ntile, cp, w, rs);
+    const T* vs = ks + KT * rs;
+    const int t0 = w.c0 + it * KT;
+    const int kcount = min(KT, c1 - t0);
+
+    {  // scores (log2 domain); keys past the share masked
+      const T* krow = ks + sj * rs;
+      const bool vis = sj < kcount;
+      for (int r0 = rg; r0 < nr; r0 += NRG * kRowsPerPass) {
+        float s[kRowsPerPass];
 #pragma unroll
-            for (int e = 0; e < V::N; ++e)
-              s[h] = fmaf(qs[h * D + c + e], kv[e], s[h]);
+        for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
+        for (int c = 0; c < D; c += kVec) {
+          float kf[kVec];
+          load8(krow + c, kf);
+#pragma unroll
+          for (int k = 0; k < kRowsPerPass; ++k) {
+            const int r = r0 + k * NRG;
+            if (r < nr) {
+              const float4 a =
+                  *reinterpret_cast<const float4*>(qs + r * D + c);
+              const float4 e =
+                  *reinterpret_cast<const float4*>(qs + r * D + c + 4);
+              s[k] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3] +
+                      e.x * kf[4] + e.y * kf[5] + e.z * kf[6] + e.w * kf[7];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * NRG;
+          if (r < nr) sc[r * KT + sj] = vis ? s[k] : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax: warp w updates rows w, w + kWarps, ...
+    for (int r = warp; r < nr; r += kWarps) {
+      float* row = sc + r * KT;
+      float mx = -INFINITY;
+      for (int jj = lane; jj < KT; jj += 32) mx = fmaxf(mx, row[jj]);
+      mx = ptt::warp_max(mx);  // finite: key t0 is visible
+      const float m_old = mrow[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int jj = lane; jj < KT; jj += 32) {
+        const float p = exp2f(row[jj] - m_new);  // masked: exp2(-inf) = 0
+        row[jj] = p;
+        sum += p;
+      }
+      sum = ptt::warp_sum(sum);
+      if (lane == 0) {
+        const float c = exp2f(m_old - m_new);  // m_old = -inf: 0
+        corr[r] = c;
+        lrow[r] = lrow[r] * c + sum;
+        mrow[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    if (pv) {  // P @ V
+      for (int r0 = rsl; r0 < nr; r0 += RSL * kRowsPerPass) {
+        float a[kRowsPerPass][kVec];
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * RSL;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) a[k][e] = 0.f;
+          if (r < nr) {
+            const float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+            const float cr = corr[r];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) a[k][e] = ap[e] * cr;
+          }
+        }
+        for (int jj = kg; jj < kcount; jj += Ly.KG) {
+          float vf[kVec];
+          load8(vs + jj * rs + dc * kVec, vf);
+#pragma unroll
+          for (int k = 0; k < kRowsPerPass; ++k) {
+            const int r = r0 + k * RSL;
+            if (r < nr) {
+              const float p = sc[r * KT + jj];
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) a[k][e] += p * vf[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * RSL;
+          if (r < nr) {
+            float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) ap[e] = a[k][e];
           }
         }
       }
     }
-    if (j < chunk) {
-#pragma unroll
-      for (int h = 0; h < R; ++h)
-        if (h < nh) ps[h * chunk + j] = j < cnt ? s[h] : -INFINITY;
+    __syncthreads();  // stage it % 2 and the probabilities are free
+  }
+
+  __syncthreads();  // with no tile, the state written above
+  // the key groups' partials add up into partial 0
+  if (Ly.KG > 1) {
+    for (int idx = tid; idx < nr * D; idx += kThreads) {
+      float s = 0.f;
+      for (int g = 0; g < Ly.KG; ++g) s += acc[(size_t)g * R * D + idx];
+      acc[idx] = s;
+    }
+    __syncthreads();
+  }
+  finish<T>(out + ((size_t)w.b * H + w.h0) * D, D, nr, D, R, mrow, lrow, acc,
+            ws);
+}
+
+// -------------------------------------------------------- tensor cores
+// bfloat16: mma.sync.m16n8k16 (bf16 -> f32) on ldmatrix fragments of the
+// padded tiles.  The block's heads are the 16 rows (zero past nr); warp w
+// takes keys [w KT / 4, (w + 1) KT / 4) of every tile with its own online
+// softmax (float32 m, l and the output in registers); the probabilities
+// become the P @ V operand without leaving registers.  After the walk the
+// 4 key groups merge in shared memory.  The fragment helpers are those of
+// paged_attention.cu's tensor-core instance.
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(ptt::tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(ptt::tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads) decode_tc_kernel(
+    const bf* __restrict__ q, const bf* __restrict__ kbuf,
+    const bf* __restrict__ vbuf, bf* __restrict__ out,
+    const int* __restrict__ pos_ptr, int L, int H, int KVH, int D, int n_hc,
+    float scale_log2) {
+  constexpr int KT = kTcKeys;
+  constexpr int KG = kWarps;
+  constexpr int KW = KT / KG;  // keys of a tile a warp takes
+  constexpr int NK = KW / 8;   // its score n-tiles
+  constexpr int ND = DP / 8;   // output n-tiles
+  constexpr int RP = kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout Ly = layout(true, RP, D, 2, gridDim.x);
+  const int rs = Ly.rstride;
+  bf* stage = reinterpret_cast<bf*>(smem + Ly.stage);
+  bf* qs = reinterpret_cast<bf*>(smem + Ly.q);
+  float* acc = reinterpret_cast<float*>(smem + Ly.acc);
+  float* mrow = reinterpret_cast<float*>(smem + Ly.stats);
+  float* lrow = mrow + RP;
+  float* mpart = reinterpret_cast<float*>(smem + Ly.part);  // KG x RP
+  float* lpart = mpart + KG * RP;
+  float* ws = reinterpret_cast<float*>(smem + Ly.ws);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  Work w = block_heads(H, KVH, n_hc);
+  const int nr = w.nr;
+  // query rows as bf16 (rows past nr and columns past D zero), in flight
+  // while pos is read
+  const bf* qb = q + ((size_t)w.b * H + w.h0) * D;
+  for (int idx = tid; idx < RP * ND; idx += kThreads) {
+    const int r = idx / ND, c = (idx - r * ND) * 8;
+    const bool ok = r < nr && c < D;
+    ptt::tc::cp_async16(ptt::tc::smem_u32(qs + r * rs + c),
+                        ok ? qb + (size_t)r * D + c : qb, ok);
+  }
+  ptt::tc::cp_async_commit();
+  if (D < DP) {  // the columns past D of every stage stay zero
+    const int pc = (DP - D) / 8;
+    for (int idx = tid; idx < 2 * kStages * KT * pc; idx += kThreads) {
+      const int row = idx / pc, c = D + (idx - row * pc) * 8;
+      *reinterpret_cast<uint4*>(stage + row * rs + c) =
+          make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  __syncthreads();
+  const Copier<bf> cp = make_copier<bf>(kbuf, vbuf, w, L, KVH, D);
+  const int ntile = ring_open<bf, KT>(stage, w, cp, pos_ptr, L, rs);
+  const int c1 = w.c1;
+  const int kbase = warp * KW;
+  const int g = lane / 4, tig = lane % 4;  // rows g and g + 8
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  // the chunk's softmax statistics: warp w takes heads w, w + 4, ...
-  for (int h = warp; h < nh; h += kWarps) {
-    float* row = ps + h * chunk;
-    float mx = -INFINITY;
-    for (int j = lane; j < chunk; j += 32) mx = fmaxf(mx, row[j]);
-    mx = ptt::warp_max(mx);  // finite: key `start` is visible
+  for (int it = 0; it < ntile; ++it) {
+    const bf* ks =
+        ring_wait<bf, KT>(stage, it, ntile, cp, w, rs);
+    const bf* vs = ks + KT * rs;
+    const int t0 = w.c0 + it * KT;
+    // S = Q K^T over this warp's KW keys
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, qs + (lane % 16) * rs + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int n2 = 0; n2 < NK / 2; ++n2) {
+        uint32_t bk[4];
+        const int key = kbase + n2 * 16 + lane % 8 + (lane / 16) * 8;
+        ldsm_x4(bk, ks + key * rs + kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * n2], a, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], a, bk[2], bk[3]);
+      }
+    }
+    // scale into the log2 domain; the mask only in a share's last tile
+    const bool full = t0 + KT <= c1;
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[n][e] * scale_log2;
+        if (!full && t0 + kbase + n * 8 + 2 * tig + (e & 1) >= c1)
+          v = -INFINITY;
+        s[n][e] = v;
+      }
+    // online softmax of rows g and g + 8 (a quad holds a row)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    // a warp whose keys are all past the share keeps m = -inf and p = 0
+    const bool none0 = mn0 == -INFINITY, none1 = mn1 == -INFINITY;
+    const float cr0 = none0 ? 1.f : exp2f(m0 - mn0);  // -inf -> 0
+    const float cr1 = none1 ? 1.f : exp2f(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      s[n][0] = none0 ? 0.f : exp2f(s[n][0] - mn0);
+      s[n][1] = none0 ? 0.f : exp2f(s[n][1] - mn0);
+      s[n][2] = none1 ? 0.f : exp2f(s[n][2] - mn1);
+      s[n][3] = none1 ? 0.f : exp2f(s[n][3] - mn1);
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * cr0 + sum0;  // this thread's share; the quad adds at the end
+    l1 = l1 * cr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= cr0;
+      o[n][1] *= cr0;
+      o[n][2] *= cr1;
+      o[n][3] *= cr1;
+    }
+    // O += P V: the score accumulators of two n-tiles are one A operand
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int n2 = 0; n2 < ND / 2; ++n2) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vs + (kbase + kk * 16 + lane % 16) * rs + n2 * 16 +
+                          (lane / 16) * 8);
+        mma_bf16(o[2 * n2], a, bv[0], bv[1]);
+        mma_bf16(o[2 * n2 + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // stage it % 2 is free again
+  }
+  ptt::tc::cp_async_wait<0>();  // the query rows, where no tile waited
+
+  // each key group's (m, l, O) into shared memory (O over the idle ring)
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (tig == 0) {
+    mpart[warp * RP + g] = m0;
+    lpart[warp * RP + g] = l0;
+    mpart[warp * RP + g + 8] = m1;
+    lpart[warp * RP + g + 8] = l1;
+  }
+  float* ap = acc + ((size_t)warp * RP + g) * DP + 2 * tig;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    *reinterpret_cast<float2*>(ap + n * 8) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(ap + 8 * DP + n * 8) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  __syncthreads();
+  // the key groups merge into (mrow, lrow, acc partial 0), weighed by
+  // exp2(m_g - M)
+  for (int r = tid; r < nr; r += kThreads) {
+    float M = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) M = fmaxf(M, mpart[k * RP + r]);
+    float Lsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) {
+      const float mk = mpart[k * RP + r];
+      const float wk = mk == -INFINITY ? 0.f : exp2f(mk - M);
+      mpart[k * RP + r] = wk;  // now the weight
+      Lsum += wk * lpart[k * RP + r];
+    }
+    mrow[r] = M;
+    lrow[r] = Lsum;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nr * D; idx += kThreads) {
+    const int r = idx / D, d = idx - r * D;
     float sum = 0.f;
-    for (int j = lane; j < chunk; j += 32) {
-      const float p = expf(row[j] - mx);  // masked: exp(-inf) = 0
-      row[j] = p;
-      sum += p;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) {
+      const float wk = mpart[k * RP + r];
+      if (wk != 0.f) sum += wk * acc[((size_t)k * RP + r) * DP + d];
     }
-    sum = ptt::warp_sum(sum);
-    if (lane == 0) {
-      m_b[h] = mx;
-      l_b[h] = sum;
-    }
+    acc[(size_t)r * DP + d] = sum;
   }
   __syncthreads();
-
-  // P @ V: key group kg sums keys kg, kg + KG, ... over dims
-  // [dc * VEC, dc * VEC + VEC) for every head of the group
-  const int kg = tid / TPR, dc = tid - kg * TPR;
-  if (kg < KG) {
-    float a[R][V::N];
-#pragma unroll
-    for (int h = 0; h < R; ++h)
-#pragma unroll
-      for (int e = 0; e < V::N; ++e) a[h][e] = 0.f;
-    for (int j = kg; j < cnt; j += KG) {
-      float vv[V::N];
-      V::load(vc + j * row_stride + dc * V::N, vv);
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        if (h < nh) {
-          const float p = ps[h * chunk + j];
-#pragma unroll
-          for (int e = 0; e < V::N; ++e) a[h][e] = fmaf(p, vv[e], a[h][e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < R; ++h)
-      if (h < nh) {
-#pragma unroll
-        for (int e = 0; e < V::N; ++e)
-          part[(kg * R + h) * D + dc * V::N + e] = a[h][e];
-      }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < nh * D; i += kThreads) {
-    const int h = i / D, d = i - h * D;
-    float s = 0.f;
-    for (int g = 0; g < KG; ++g) s += part[(g * R + h) * D + d];
-    if (n_split == 1)
-      out[(bh0 + h) * D + d] = ptt::from_f<T>(s / l_b[h]);
-    else
-      part_acc[((bh0 + h) * n_split + split) * D + d] = s;
-  }
-  if (n_split > 1 && tid < nh) {
-    part_ml[((bh0 + tid) * n_split + split) * 2] = m_b[tid];
-    part_ml[((bh0 + tid) * n_split + split) * 2 + 1] = l_b[tid];
-  }
+  finish<bf>(out + ((size_t)w.b * H + w.h0) * D, D, nr, DP, RP, mrow, lrow,
+             acc, ws);
 }
 
-// out[bh, d] = sum_s e^(m_s - M) acc_s[d] / sum_s e^(m_s - M) l_s over the
-// chunks s that saw a key (l_s > 0); one block per (row, head), D threads
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_ml,
-                                      T* __restrict__ out, int n_split,
-                                      int D) {
-  const long long bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = part_ml + bh * n_split * 2;
-  float M = kNegInf;
-  for (int s = 0; s < n_split; ++s)
-    if (ml[2 * s + 1] > 0.f) M = fmaxf(M, ml[2 * s]);
-  float num = 0.f, den = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    if (ml[2 * s + 1] > 0.f) {
-      const float w = expf(ml[2 * s] - M);
-      den += w * ml[2 * s + 1];
-      num += w * part_acc[(bh * n_split + s) * D + d];
-    }
-  }
-  out[bh * D + d] = ptt::from_f<T>(num / den);
-}
-
-template <typename T, int R>
-size_t split_smem(int D, int chunk) {
-  const int KG = kThreads / (D / ptt::Vec16<T>::N);
-  return (size_t)(R * D + R * chunk + KG * R * D + 2 * R) * sizeof(float);
-}
-
-template <typename T, int R>
-cudaError_t launch_split(const void* q, const void* kbuf, const void* vbuf,
-                         void* out, void* part_acc, void* part_ml,
-                         const void* pos, int B, int L, int H, int KVH, int D,
-                         int chunk, int n_split, float scale,
-                         cudaStream_t st) {
-  const int rep = H / KVH;
-  const int n_hc = (rep + R - 1) / R;
-  const size_t smem = split_smem<T, R>(D, chunk);
-  cudaError_t e = ptt::allow_smem(decode_split_kernel<T, R>, smem);
+// grid (splits, KVH x head chunks, B); the splits of a (row, head chunk)
+// form a cluster
+template <typename T, typename K>
+cudaError_t launch_kernel(K kern, size_t smem, int splits, int n_hc, int B,
+                          int KVH, cudaStream_t st, const void* q,
+                          const void* kbuf, const void* vbuf, void* out,
+                          const void* pos, int L, int H, int D, float scale) {
+  cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  decode_split_kernel<T, R><<<dim3(n_split, KVH * n_hc, B), kThreads, smem,
-                              st>>>(
-      (const T*)q, (const T*)kbuf, (const T*)vbuf, (T*)out, (float*)part_acc,
-      (float*)part_ml, (const int*)pos, L, H, KVH, D, chunk, n_split, n_hc,
-      scale);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, KVH * n_hc, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  // log2(e) * scale: the scores live in the log2 domain (exp2f)
+  const float scale_log2 = scale * 1.4426950408889634f;
+  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)kbuf,
+                         (const T*)vbuf, (T*)out, (const int*)pos, L, H, KVH,
+                         D, n_hc, scale_log2);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t decode(const void* q, const void* kbuf, const void* vbuf,
-                   void* out, void* part_acc, void* part_ml, const void* pos,
-                   int B, int L, int H, int KVH, int D, int chunk, float scale,
-                   cudaStream_t st) {
-  if (D % 16 || D > 256 || KVH <= 0 || H % KVH || chunk <= 0 || L <= 0)
-    return cudaErrorInvalidValue;
-  const int n_split = (L + chunk - 1) / chunk;
-  if (n_split > 1 && (part_acc == nullptr || part_ml == nullptr))
-    return cudaErrorInvalidValue;
-  const int rep = H / KVH;
-  cudaError_t e;
-  if (rep == 1)
-    e = launch_split<T, 1>(q, kbuf, vbuf, out, part_acc, part_ml, pos, B, L,
-                           H, KVH, D, chunk, n_split, scale, st);
-  else if (rep == 2)
-    e = launch_split<T, 2>(q, kbuf, vbuf, out, part_acc, part_ml, pos, B, L,
-                           H, KVH, D, chunk, n_split, scale, st);
-  else if (rep <= 4)
-    e = launch_split<T, 4>(q, kbuf, vbuf, out, part_acc, part_ml, pos, B, L,
-                           H, KVH, D, chunk, n_split, scale, st);
-  else
-    e = launch_split<T, 8>(q, kbuf, vbuf, out, part_acc, part_ml, pos, B, L,
-                           H, KVH, D, chunk, n_split, scale, st);
-  if (e != cudaSuccess || n_split == 1) return e;
-  decode_combine_kernel<T><<<B * H, D, 0, st>>>(
-      (const float*)part_acc, (const float*)part_ml, (T*)out, n_split, D);
-  return cudaGetLastError();
+// the plans the instances take: 1, 2, 4 or 8 splits, no more than the
+// ring has key tiles
+bool valid_plan(int dtype, int B, int L, int H, int KVH, int D, int splits) {
+  if (!(B > 0 && B <= 65535 && L > 0 && KVH > 0 && H % KVH == 0 && D > 0 &&
+        D % 16 == 0 && D <= 256 &&
+        (splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits)))
+    return false;
+  const int G = H / KVH;
+  const long long n_hc = (G + kRows - 1) / kRows;
+  if (KVH * n_hc > 65535) return false;
+  const int KT = dtype == ptt::kBFloat16 ? kTcKeys : kSimtKeys;
+  return (long long)(splits - 1) * KT < L;
 }
 
 __global__ void ring_write_kernel(uint4* __restrict__ kbuf,
@@ -281,20 +842,32 @@ __global__ void ring_write_kernel(uint4* __restrict__ kbuf,
 
 }  // namespace
 
+// splits: the plan's cluster size; bfloat16 runs the tensor-core instance,
+// float32 the SIMT one
 extern "C" int ptt_decode_attention(const void* q, const void* kbuf,
                                     const void* vbuf, void* out,
-                                    void* part_acc, void* part_ml,
                                     const void* pos, int B, int L, int H,
-                                    int KVH, int D, int chunk, float scale,
+                                    int KVH, int D, float scale, int splits,
                                     int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == ptt::kFloat32)
-    return (int)decode<float>(q, kbuf, vbuf, out, part_acc, part_ml, pos, B,
-                              L, H, KVH, D, chunk, scale, st);
-  if (dtype == ptt::kBFloat16)
-    return (int)decode<__nv_bfloat16>(q, kbuf, vbuf, out, part_acc, part_ml,
-                                      pos, B, L, H, KVH, D, chunk, scale, st);
-  return (int)cudaErrorInvalidValue;
+  if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
+      !valid_plan(dtype, B, L, H, KVH, D, splits))
+    return (int)cudaErrorInvalidValue;
+  const bool tc = dtype == ptt::kBFloat16;
+  const int G = H / KVH;
+  const int n_hc = (G + kRows - 1) / kRows;
+  const size_t smem =
+      layout(tc, block_rows(G), D, tc ? 2 : 4, splits).total;
+#define PTT_B2_ARGS                                                          \
+  smem, splits, n_hc, B, KVH, st, q, kbuf, vbuf, out, pos, L, H, D, scale
+  if (!tc)
+    return (int)launch_kernel<float>(decode_simt_kernel<float>, PTT_B2_ARGS);
+  const int DP = tc_cols(D);
+  return DP == 64 ? (int)launch_kernel<bf>(decode_tc_kernel<64>, PTT_B2_ARGS)
+         : DP == 128
+             ? (int)launch_kernel<bf>(decode_tc_kernel<128>, PTT_B2_ARGS)
+             : (int)launch_kernel<bf>(decode_tc_kernel<256>, PTT_B2_ARGS);
+#undef PTT_B2_ARGS
 }
 
 // row_bytes: one token's [KVH, D] row, a multiple of 16

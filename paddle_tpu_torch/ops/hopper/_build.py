@@ -82,10 +82,10 @@ _SIGNATURES = {
     # p_dtype, g_dtype, stream
     "ptt_fused_adamw": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                         *[_F] * 7, _I, _I, _P],
-    # q, kbuf, vbuf, out, part_acc|NULL, part_ml|NULL, pos, B, L, H, KVH,
-    # D, chunk, scale, dtype, stream
-    "ptt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _F, _I, _P],
+    # q, kbuf, vbuf, out, pos, B, L, H, KVH, D, scale, splits, dtype,
+    # stream
+    "ptt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                             _I, _P],
     # kbuf, vbuf, k_new, v_new, pos, B, L, S, row_bytes, stream
     "ptt_kv_ring_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, qw, scale, out, M, N, K, x row stride, dtype, stream

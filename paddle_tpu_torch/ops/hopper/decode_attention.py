@@ -9,6 +9,14 @@ the step's rows written into the ring in place.  Both read ``pos`` from
 device memory, so a decode loop needs no host sync.  Both are bound on the
 H100 by bytes (see the source's note).
 
+``decode_plan`` divides B2's work from sizes the host knows (never pos): a
+block takes one row, one KV head and up to 16 of its query heads, walks its
+share of the keys ``kt`` at a time through a ring of two tiles, and the
+``splits`` blocks of a thread-block cluster share keys ``0 .. pos`` (each
+reads pos on the device) where the grid alone would leave the card's SMs
+without a block.  One launch per call; nothing is allocated but the
+output.
+
 Beside the reference, ``kv_ring_write`` writes the K and the V ring in one
 launch and takes ``S >= 1`` rows at ``pos .. pos + S - 1`` (the static
 prefill), with the start clamped to ``[0, L - S]`` as
@@ -21,19 +29,146 @@ kernel or raises; ``launches`` counts wrapper calls that launched.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["ref_decode_attention", "decode_attention", "kv_ring_write"]
+__all__ = ["ref_decode_attention", "decode_attention", "kv_ring_write",
+           "decode_plan", "DecodePlan"]
 
 NEG_INF = -1e30
-# keys per block of the decode kernel (a chunk of the ring); the C entry
-# derives the same chunk count from it
-_CHUNK = 256
+# The card (an H100 SXM): streaming multiprocessors and the shared memory
+# one block may opt into.
+SMS = 132
+SMEM_PER_BLOCK = 232448
+THREADS = 128           # a block's threads (csrc kThreads)
+ROWS = 16               # query heads a block takes (csrc kRows)
+VEC = 8                 # elements a SIMT thread takes of a row (csrc kVec)
+SPLIT_CAP = 8           # blocks of a cluster (csrc kMaxSplits)
+# Keys of a tile by tc (tensor cores) (csrc kTcKeys, kSimtKeys), in a ring
+# of 2 tiles (csrc kStages).  The plan's rules, from chip_smoke.py's sweep
+# (--b2-sweep) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6):
+# larger tiles and deeper rings gained nothing at generation's contexts;
+# splits only where the grid leaves SMs without a block, and only while
+# each split keeps MIN_SPLIT_TILES key tiles of the ring (a cluster's merge
+# costs more than a split of a short ring saves).
+KEY_TILE = {True: 64, False: 32}
+STAGES = 2
+MIN_SPLIT_TILES = 4
+
+
+class DecodePlan(NamedTuple):
+    """How one B2 call divides its work: the tensor-core instance (``tc``,
+    bfloat16) or SIMT (float32); ``rows`` query heads a block; ``kt`` keys
+    a tile; ``splits`` blocks (a cluster) a (row, head chunk); ``smem``
+    bytes of shared memory a block; ``blocks`` in the grid."""
+    tc: bool
+    rows: int
+    kt: int
+    splits: int
+    smem: int
+    blocks: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _row_chunks(D: int, es: int) -> int:
+    c = D * es // 16
+    return c + (c % 2 == 0)
+
+
+def _tc_cols(D: int) -> int:
+    """The tensor-core instance's columns: D padded to 64, 128 or 256."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
+
+
+def _smem_bytes(tc: bool, R: int, D: int, es: int, splits: int) -> int:
+    """The kernel's shared-memory layout (csrc ``layout``): the K/V ring;
+    the query rows (bf16 zero-padded to 16 rows and 64/128/256 columns on
+    the tensor cores, with the warps' row statistics; float32 on SIMT, with
+    its scores and accumulators); the leader's merge (each split's weight
+    and l by row, 1 / L)."""
+    kt = KEY_TILE[tc]
+    if tc:
+        row = _row_chunks(_tc_cols(D), 2) * 16
+        body = (2 * STAGES * kt * row + ROWS * row + 2 * ROWS * 4
+                + 2 * (THREADS // 32) * ROWS * 4)
+        rp = ROWS
+    else:
+        slots = THREADS // (D // VEC)
+        kg = 1
+        while kg * 2 * R <= slots:
+            kg *= 2
+        row = _row_chunks(D, es) * 16
+        body = (2 * STAGES * kt * row + R * D * 4 + R * kt * 4
+                + kg * R * D * 4 + 3 * R * 4)
+        rp = R
+    return body + (2 * splits + 1) * rp * 4
+
+
+def decode_plan(B: int, L: int, H: int, KVH: int, D: int,
+                dtype: torch.dtype) -> DecodePlan:
+    """The tiles and split of a B2 call over a ring of L rows, from
+    host-known sizes only (never pos).
+
+    * ``rows``: a block takes one row, one KV head and up to 16 of its
+      G = H / KVH query heads; a larger group takes ceil(G / 16) blocks.
+    * ``tc``: bfloat16 runs on the tensor cores (``mma.sync``, the heads
+      padded to 16 rows, 64-key tiles), float32 on the SIMT instance
+      (32-key tiles).
+    * ``splits``: 1 where the grid of (row, KV head, head chunk) blocks
+      already gives every SM of the card a block; else the power of two
+      that does, at most ``SPLIT_CAP`` and at most one for each
+      ``MIN_SPLIT_TILES`` key tiles of the ring.  On the device each split
+      takes an even, tile-aligned share of keys 0 .. pos.
+
+    Raises ValueError for a shape the kernel does not take (head_dim not a
+    multiple of 16 or above 256, H not a multiple of KVH, a dtype other than
+    bfloat16 and float32)."""
+    return _plan(B, L, H, KVH, D, dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, L: int, H: int, KVH: int, D: int, dtype: torch.dtype,
+          splits: Optional[int] = None) -> DecodePlan:
+    """``decode_plan``, with ``splits`` replacing its choice when given
+    (``chip_smoke.py`` holds the kernel to its plain version under every
+    split count; the wrapper never forces one).  A forced count the kernel
+    does not take raises ValueError."""
+    name = "decode_attention"
+    if D % 16 or not 0 < D <= 256 or KVH <= 0 or H % KVH:
+        raise ValueError(f"{name}: no plan for H {H}, KVH {KVH}, head_dim "
+                         f"{D} (head_dim a multiple of 16 and <= 256, "
+                         "H % KVH == 0)")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: no instance for {dtype}")
+    tc = dtype == torch.bfloat16
+    kt = KEY_TILE[tc]
+    G = H // KVH
+    R = min(G, ROWS)
+    base = B * KVH * _ceil(G, ROWS)
+    cap = max(1, min(SPLIT_CAP, _ceil(L, kt)))
+    if splits is None:
+        splits = 1
+        while (splits < cap and base * splits < SMS
+               and L >= 2 * splits * MIN_SPLIT_TILES * kt):
+            splits *= 2
+    elif splits not in (1, 2, 4, SPLIT_CAP) or splits > cap:
+        raise ValueError(f"{name}: {splits} splits (a cluster takes 1, 2, 4 "
+                         f"or {SPLIT_CAP} blocks, at most the {cap} key "
+                         f"tiles of a ring of {L} rows)")
+    smem = _smem_bytes(tc, R, D, dtype.itemsize, splits)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: a block at head_dim {D} needs {smem} bytes "
+                         f"of shared memory, past the {SMEM_PER_BLOCK} "
+                         "(227 KB) a block may use")
+    return DecodePlan(tc, R, kt, splits, smem, base * splits)
 
 
 def ref_decode_attention(q, kbuf, vbuf, pos, scale: Optional[float] = None):
@@ -121,12 +256,18 @@ def decode_attention(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
     q [B, 1, H, D]; kbuf/vbuf [B, L, KVH, D] (native ring layout, no
     transposes); pos: attend to cols <= pos, a 0-d int32 tensor on the
     ring's device (an int on the CPU).  Returns [B, 1, H, D] in q's dtype."""
+    if q.device.type == "cpu":
+        return ref_decode_attention(q, kbuf, vbuf, pos, scale)
+    return _launch(q, kbuf, vbuf, pos, scale)
+
+
+def _launch(q, kbuf, vbuf, pos, scale=None, **force):
+    """The kernel's launch for CUDA tensors, under ``decode_plan``'s plan
+    or one whose ``splits`` is forced."""
+    name = "decode_attention"
     B, s, H, D = q.shape
     L, KVH = kbuf.shape[1], kbuf.shape[2]
     scale = scale or 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
-        return ref_decode_attention(q, kbuf, vbuf, pos, scale)
-    name = "decode_attention"
     if s != 1 or H % KVH or kbuf.shape[0] != B or kbuf.shape[3] != D:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit the ring "
                          f"{tuple(kbuf.shape)} (one token, H % KVH == 0)")
@@ -135,27 +276,18 @@ def decode_attention(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
                          "and <= 256")
     for t in (kbuf, vbuf):
         _check_ring(name, t, B, L, KVH, D)
-    if not q.is_contiguous():
-        raise ValueError(f"{name}: q must be contiguous")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError(f"{name}: q must be contiguous and 16-byte aligned")
     _check_pos(name, pos, q.device)
     dt, stream = _build.launch_args(name, q, kbuf, vbuf)
     out = torch.empty_like(q)
-    n_split = -(-L // _CHUNK)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((B * H * n_split * D,), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B * H * n_split * 2,), dtype=torch.float32,
-                              device=q.device)
     if B:
+        plan = _plan(B, L, H, KVH, D, q.dtype, **force)
         with _build.device_guard(q):
             _build.check(_build.lib().ptt_decode_attention(
                 q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
-                out.data_ptr(),
-                None if part_acc is None else part_acc.data_ptr(),
-                None if part_ml is None else part_ml.data_ptr(),
-                pos.data_ptr(), B, L, H, KVH, D, _CHUNK, float(scale), dt,
-                stream), name)
+                out.data_ptr(), pos.data_ptr(), B, L, H, KVH, D,
+                float(scale), plan.splits, dt, stream), name)
         decode_attention.launches += 1
     return out
 
