@@ -1,8 +1,8 @@
-// Hopper building blocks for the tensor-core attention kernels (B1 and B8
-// in bfloat16): 16-byte cp.async copies into the 128-byte swizzled shared
-// layout, wgmma shared-memory descriptors, and the warpgroup products
-// m64nNk16 (bf16 x bf16 -> f32) with both operands in shared memory (SS)
-// or A in registers (RS).  sm_90a only.
+// Hopper building blocks for the tensor-core kernels (B1 and B8 in
+// bfloat16, and B7's int8 GEMM): 16-byte cp.async copies into the 128-byte
+// swizzled shared layout, wgmma shared-memory descriptors, and the
+// warpgroup products m64nNk16 (bf16 x bf16 -> f32) with both operands in
+// shared memory (SS) or A in registers (RS).  sm_90a only.
 //
 // Shared tiles.  A [rows, DP] bf16 tile (DP a multiple of 64) is stored as
 // DP / 64 column blocks, each [rows, 64] with 128-byte rows, 1024-byte
@@ -189,6 +189,58 @@ struct SS<64, TA, TB> {
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+// the narrow RS instances serve B7 (int8_matmul.cu), whose wgmma N is the
+// token tile: 8, 16 or 32 tokens at a decode's or a short batch's rows
+template <int TB>
+struct RS<8, TB> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct RS<16, TB> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct RS<32, TB> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(TB));
   }
 };
 

@@ -88,9 +88,10 @@ _SIGNATURES = {
                              _I, _P],
     # kbuf, vbuf, k_new, v_new, pos, B, L, S, row_bytes, stream
     "ptt_kv_ring_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, qw, scale, out, M, N, K, x row stride, dtype, stream
-    "ptt_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I,
-                        _P],
+    # x, qw, scale, bias|NULL, out, M, N, K, x row stride, kind, token
+    # tile, weight rows, splits, dtype, stream
+    "ptt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong,
+                        _I, _I, _I, _I, _I, _P],
     # cudaError_t -> its name (returns a C string, not an error)
     "ptt_error_string": [_I],
 }

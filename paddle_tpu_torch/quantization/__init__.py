@@ -2,10 +2,10 @@
 ``paddle_tpu/quantization/__init__.py`` (``weight_quantize``,
 ``weight_dequantize``, ``weight_only_linear``).
 
-int8 weights run through kernel B7 (``ops/hopper/int8_matmul.py``); fp8
-(e4m3fn) weights are widened to the activation's dtype before one
-``torch.matmul``, as the reference does in jnp with no kernel.  QAT, PTQ
-and the observers are not ported yet.
+int8 weights run through kernel B7 (``ops/hopper/int8_matmul.py``, the
+bias in its epilogue); fp8 (e4m3fn) weights are widened to the
+activation's dtype before one ``torch.matmul``, as the reference does in
+jnp with no kernel.  QAT, PTQ and the observers are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.hopper.int8_matmul import int8_matmul
+from ..ops.hopper.int8_matmul import int8_linear
 
 __all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear"]
 
@@ -64,14 +64,15 @@ def weight_only_linear(x: torch.Tensor, qweight: torch.Tensor,
                        bias: Optional[torch.Tensor] = None,
                        weight_scale: Optional[torch.Tensor] = None,
                        weight_dtype: str = "int8") -> torch.Tensor:
-    """``x @ dequant(qweight) (+ bias)``.  int8 runs kernel B7; fp8 widens
-    ``qweight * weight_scale`` to x's dtype first and runs ``torch.matmul``.
-    The bias is added afterwards, in the output's dtype."""
-    if weight_dtype in _FP8_ALGOS:
-        w = qweight.to(x.dtype) * weight_scale.to(x.dtype)
-        out = x @ w
-    else:
-        out = int8_matmul(x, qweight, weight_scale)
+    """``x @ dequant(qweight) (+ bias)``.  int8 runs kernel B7 with the
+    bias in its epilogue (``int8_linear``: one launch, rounded as a
+    separate add in the output's dtype); fp8 widens ``qweight *
+    weight_scale`` to x's dtype first, runs ``torch.matmul`` and adds the
+    bias afterwards, in the output's dtype."""
+    if weight_dtype not in _FP8_ALGOS:
+        return int8_linear(x, qweight, weight_scale, bias)
+    w = qweight.to(x.dtype) * weight_scale.to(x.dtype)
+    out = x @ w
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
