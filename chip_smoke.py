@@ -8,6 +8,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py                  # all phases
     python3 chip_smoke.py --phases 1,2     # build + kernel checks only
     python3 chip_smoke.py --phases 2,9,10  # kernels + the int8 predictor
+    python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
 Phases (each prints its seconds):
   1. environment: torch/CUDA versions, the card's name and power limit
@@ -38,9 +39,20 @@ Phases (each prints its seconds):
      token tile, weight rows, splits) and, informative, the time of
      torch.matmul with the dequantized weight (with --b7-sweep, each bf16
      B7 case also timed under every plan the instances take); K3 also on
-     numel % 8 != 0 and at an odd storage offset; a shape past a kernel's
-     limits is refused with an error, and B7 refuses a float16 x and an
-     int32 weight; K4, B2 and B7 at the edges their tiles and splits add
+     numel % 8 != 0 and at an odd storage offset; K1 at [8, 4096], [1,
+     16384], [4, 16384], [2, 32768] and at an odd storage offset, each
+     with its plan (with --k1-sweep, each bf16 K1 case also timed under
+     every plan the instances take, informative); K2 at a decode step's
+     packed [1, 8] rows, at greedy_decode's [8, 1] with the ring's pos on
+     the device (32 / 32 and 32 / 8 heads) and at an offset the clamp
+     moves; K1 and K2 under every plan their instances take (both bodies,
+     rows past the registers, D 72 and 2, strided qkv columns, device
+     offsets) against their plain versions, the rope backward's sign flag
+     giving the bits of K2 with a -sin table, and apply_rotary_pos_emb
+     with a device offset dispatching one K2 launch and nothing else; a
+     shape past a kernel's limits is refused with an error, and B7 refuses
+     a float16 x and an int32 weight; K4, B2 and B7 at the edges their
+     tiles and splits add
      (every split count forced, K4 also every ring depth and several query
      tiles; B7 at M 1, 8, 9, 64, 65 and 4097, N 2 and 130, K 100 and 4096
      and the strided head, with and without a bias, the fused bias giving
@@ -57,9 +69,10 @@ Phases (each prints its seconds):
      counters are zeroed just before and read just after, and the device
      loops run with CUDA sync debugging set to raise (no host sync inside a
      megastep); then two more waves, one timed and one under
-     torch.profiler, give the device's busy share, and K4's device time
-     and kernel count in the traced wave (one kernel per wrapper call), and
-     the cost of the seeded threefry draw per sampled step;
+     torch.profiler, give the device's busy share, K4's device time and
+     kernel count in the traced wave (one kernel per wrapper call), K1's
+     and K2's device time, kernel count and time a launch, and the cost of
+     the seeded threefry draw per sampled step;
   4. the same geometry at 2 layers in float32 served on cuda (kernels) and
      on the CPU (plain versions) from identical weights: first-step logits
      agree, greedy tokens agree up to the first position whose CPU top-2
@@ -69,8 +82,10 @@ Phases (each prints its seconds):
      greedy_decode of ids [8, 128], 128 new tokens over a 512-row ring runs
      with CUDA sync debugging set to raise (tokens/s printed, informative;
      then a 32-token greedy_decode untraced and one under torch.profiler
-     give the device's busy share and time by kernel, and B2's device time
-     and kernel count in the traced loop: one kernel per wrapper call), (c)
+     give the device's busy share and time by kernel, the trace's kernel
+     count, K1's and K2's device time, count and time a launch, and B2's
+     device time and kernel count in the traced loop: one kernel per
+     wrapper call), (c)
      generate with the static ring equals greedy_decode; generate with
      growing caches (B1 for every step) gives greedy_decode's first
      token (the same prefill), its logits on greedy_decode's tokens agree
@@ -92,8 +107,9 @@ Phases (each prints its seconds):
      the last below the first; tokens/s, ms per step, peak memory and MFU
      against 989 TFLOP/s printed, informative), run_steps over a
      [4, 8, 2048] stack with CUDA sync debugging set to raise, one step
-     untraced and one under torch.profiler (busy share, time by kernel);
-     then every kernel of the path launched;
+     untraced and one under torch.profiler (busy share, time by kernel,
+     K1's and K2's time a launch); then every kernel of the path
+     launched;
   8. phase 4's float32 pair: one step's loss and every parameter's
      gradient, then the parameters after 3 AdamW(multi_precision) steps
      through TrainStep, kernels on cuda against the plain path on the CPU
@@ -336,17 +352,28 @@ def kernel_cases(torch, dtype):
         return torch.randn(*shape, generator=g, device=dev, dtype=dt)
 
     cases = []
-    for n in (256, 8):
-        H = 4096
-        x, r, w = rnd(n, H), rnd(n, H), rnd(H)
+    # K1 at prefill's and decode's rows, then widths past the registers of
+    # one block (16384 was refused before), and a view at an odd storage
+    # offset (no 16-byte packs: the scalar body)
+    for n, H, odd in ((256, 4096, False), (8, 4096, False),
+                      (1, 16384, False), (4, 16384, False),
+                      (2, 32768, False), (256, 4096, True)):
+        if odd:
+            x, r = (rnd(n * H + 1)[1:].view(n, H) for _ in range(2))
+        else:
+            x, r = rnd(n, H), rnd(n, H)
+        w = rnd(H)
+        label = f"[{n}, {H}]" + (" at an odd storage offset" if odd else "")
+        _K1_PLANS[(label, str(dtype).split(".")[1])] = (
+            fused_norm.rms_plan(n, H, dtype, not odd), (x, r, w))
         cases.append((
-            "rms_norm", f"[{n}, {H}]",
+            "rms_norm", label,
             lambda x=x, w=w: fused_norm.rms_norm_fused(x, w, 1e-6),
             lambda x=x, w=w: fused_norm._ref_rms(x, w, 1e-6),
             lambda x=x, w=w: F.rms_norm(x, (x.shape[-1],), w, 1e-6),
             (2 * n * H + H) * es, 4 * n * H))
         cases.append((
-            "rms_norm_residual", f"[{n}, {H}]",
+            "rms_norm_residual", label,
             lambda x=x, r=r, w=w: fused_norm.rms_norm_residual_fused(
                 x, r, w, 1e-6),
             lambda x=x, r=r, w=w: fused_norm._ref_rms_residual(x, r, w, 1e-6),
@@ -358,16 +385,42 @@ def kernel_cases(torch, dtype):
     inv = 1.0 / (10000.0 ** (torch.arange(0, D, 2, device=dev) / D))
     fr = pos[:, None].double() * inv[None, :].double()
     cos, sin = fr.cos().float().contiguous(), fr.sin().float().contiguous()
-    for Hk in (Hq, 8):
-        qkv = rnd(T, (Hq + 2 * Hk) * D)
-        q = qkv[:, :Hq * D].view(1, T, Hq, D)
-        k = qkv[:, Hq * D:(Hq + Hk) * D].view(1, T, Hk, D)
+    for Tn, Hk in ((T, Hq), (T, 8), (8, Hq)):
+        qkv = rnd(Tn, (Hq + 2 * Hk) * D)
+        q = qkv[:, :Hq * D].view(1, Tn, Hq, D)
+        k = qkv[:, Hq * D:(Hq + Hk) * D].view(1, Tn, Hk, D)
+        cs, sn = cos[:Tn], sin[:Tn]
+        label = (f"q [1, {Tn}, {Hq}, {D}], k [1, {Tn}, {Hk}, {D}]"
+                 + (" (a decode step)" if Tn == 8 else ""))
+        _K2_PLANS[(label, str(dtype).split(".")[1])] = fused_ops.rope_plan(
+            1, Tn, Hq, Hk, D, dtype, True)
         cases.append((
-            "rope", f"q [1, {T}, {Hq}, {D}], k [1, {T}, {Hk}, {D}]",
-            lambda q=q, k=k: fused_ops.rope_fused(q, k, cos, sin),
-            lambda q=q, k=k: fused_ops._rope_ref(q, k, cos, sin), None,
-            2 * T * (Hq + Hk) * D * es + 2 * T * (D // 2) * 4,
-            6 * T * (Hq + Hk) * D // 2))
+            "rope", label,
+            lambda q=q, k=k, c=cs, s=sn: fused_ops.rope_fused(q, k, c, s),
+            lambda q=q, k=k, c=cs, s=sn: fused_ops._rope_ref(q, k, c, s),
+            None, 2 * Tn * (Hq + Hk) * D * es + 2 * Tn * (D // 2) * 4,
+            6 * Tn * (Hq + Hk) * D // 2))
+    # generation's rope: the whole 4096-row table and the ring's pos on the
+    # device (greedy_decode's decode step, a 32 / 8 split, and an offset the
+    # clamp moves back to Smax - S)
+    fr = (torch.arange(4096, device=dev)[:, None].double()
+          * inv[None, :].double())
+    tc, ts = fr.cos().float().contiguous(), fr.sin().float().contiguous()
+    for B, S, Hk, off in ((8, 1, Hq, 150), (8, 1, 8, 150), (8, 4, Hq, 5000)):
+        q, k = rnd(B, S, Hq, D), rnd(B, S, Hk, D)
+        o = torch.full((), off, dtype=torch.int32, device=dev)
+        label = (f"q [{B}, {S}, {Hq}, {D}], k [{B}, {S}, {Hk}, {D}], "
+                 f"device offset {off}"
+                 + (" (clamped)" if off > 4096 - S else ""))
+        _K2_PLANS[(label, str(dtype).split(".")[1])] = fused_ops.rope_plan(
+            B, S, Hq, Hk, D, dtype, True)
+        cases.append((
+            "rope", label,
+            lambda q=q, k=k, o=o: fused_ops.rope_fused(q, k, tc, ts, o),
+            lambda q=q, k=k, o=o: fused_ops._rope_ref(
+                q, k, *fused_ops._window(tc, ts, q.shape[1], o)), None,
+            2 * B * S * (Hq + Hk) * D * es + 2 * S * (D // 2) * 4,
+            6 * B * S * (Hq + Hk) * D // 2))
     a, b = rnd(256, 11008), rnd(256, 11008)
     cases.append((
         "swiglu", "[256, 11008]",
@@ -525,6 +578,9 @@ def _training_cases(torch, rnd, es, g, dtype):
     N, E, I, S, H, D = 8 * 2048, 2560, 8192, 2048, 20, 128
     cases = []
     x, r, w = rnd(N, E), rnd(N, E), rnd(E)
+    dname = str(dtype).split(".")[1]
+    _K1_PLANS[(f"train [{N}, {E}]", dname)] = (
+        fused_norm.rms_plan(N, E, dtype, True), (x, r, w))
     cases.append((
         "rms_norm_residual", f"train [{N}, {E}]",
         lambda x=x, r=r, w=w: fused_norm.rms_norm_residual_fused(
@@ -535,6 +591,10 @@ def _training_cases(torch, rnd, es, g, dtype):
     fr = torch.arange(S, device=dev)[:, None].double() * inv[None].double()
     cos, sin = fr.cos().float().contiguous(), fr.sin().float().contiguous()
     q, k = rnd(8, S, H, D), rnd(8, S, H, D)
+    for label in (f"train q, k [8, {S}, {H}, {D}]",
+                  f"train gq, gk [8, {S}, {H}, {D}]"):
+        _K2_PLANS[(label, dname)] = fused_ops.rope_plan(8, S, H, H, D,
+                                                        dtype, True)
     rope_bytes = 4 * 8 * S * H * D * es + 2 * S * (D // 2) * 4
     cases.append((
         "rope", f"train q, k [8, {S}, {H}, {D}]",
@@ -801,6 +861,11 @@ _B2_PLANS = {}
 # name): the plan and the time of torch.matmul with the dequantized weight
 # are printed beside its time, the arguments serve the --b7-sweep
 _B7_PLANS = {}
+# K1's (plan, arguments) and K2's plan for each case, by (label, dtype
+# name): the plan is printed beside its time, K1's arguments serve the
+# --k1-sweep
+_K1_PLANS = {}
+_K2_PLANS = {}
 
 
 def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
@@ -871,12 +936,12 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
 
 
 def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
-                     b7_sweep=False):
+                     b7_sweep=False, k1_sweep=False):
     """Check every case in both types; time it; return the rows of the
     kernels line (bfloat16, the type the paths run in).  ``k4_sweep`` also
     times each K4 case under other plans (``_paged_sweep``), ``b2_sweep``
     each B2 case (``_decode_sweep``), ``b7_sweep`` each B7 case
-    (``_int8_sweep``)."""
+    (``_int8_sweep``), ``k1_sweep`` each K1 case (``_norm_sweep``)."""
     timer = Timer(torch, iters)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -931,6 +996,12 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                       f"blocks {b7.blocks} smem {b7.smem}; dense yardstick "
                       f"torch.matmul with the dequantized {dname} weight "
                       f"{timer(dense):.4f} ms (informative)", flush=True)
+            k12 = (_K1_PLANS[(label, dname)][0] if name.startswith("rms")
+                   else _K2_PLANS.get((label, dname)))
+            if k12 is not None:
+                print(f"{'k1' if name.startswith('rms') else 'k2'} {name} "
+                      f"{dname} {label}: {nbytes / ms / 1e6:.1f} GB/s, "
+                      f"{bound_ms / ms:.3f} of the bound; {k12}", flush=True)
             if name == "decode_attention":
                 b2 = _B2_PLANS[(label, dname)][0]
                 print(f"b2 {dname} {label}: {nbytes / ms / 1e6:.1f} GB/s, "
@@ -948,6 +1019,8 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                 _decode_sweep(torch, timer, label, dname)
             if name == "int8_matmul" and b7_sweep and dname == "bfloat16":
                 _int8_sweep(torch, timer, label, dname)
+            if name.startswith("rms") and k1_sweep and dname == "bfloat16":
+                _norm_sweep(torch, timer, name, label, dname)
             if dtype == torch.bfloat16:
                 rows.append(dict(
                     name=name, shape=label, dtype=dname, route="cuda",
@@ -956,11 +1029,225 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=lib_ms))
     _refusals(torch)
+    _norm_rope_edges(torch)
+    _rope_sign_bits(torch)
+    _rope_one_launch(torch)
     _paged_edges(torch)
     _decode_edges(torch)
     _int8_edges(torch)
     _flash_tiles(torch)
     return rows
+
+
+def _norm_sweep(torch, timer, name, label, dname):
+    """Informative, for rms_plan's rules (``--k1-sweep``): one K1 case
+    timed under every packs-a-thread instance at 32-1024 threads a row."""
+    from paddle_tpu_torch.ops.hopper import fused_norm
+
+    base, (x, r, w) = _K1_PLANS[(label, dname)]
+    fn = (fused_norm.rms_norm_residual_fused if name.endswith("residual")
+          else fused_norm.rms_norm_fused)
+    r = r if name.endswith("residual") else None
+    n, h = x.shape
+    out = []
+    for per in fused_norm.PERS:
+        for tpr in (None, 32, 64, 128, 256, 512, 1024):
+            kw = dict(per=per, tpr=tpr)
+            try:
+                plan = fused_norm.rms_plan(n, h, x.dtype,
+                                           x.data_ptr() % 16 == 0, **kw)
+            except ValueError:
+                continue
+            if tpr is not None and plan.tpr == base.tpr and \
+                    plan.per == base.per:
+                continue
+            ms = timer(lambda kw=kw: fused_norm._launch(fn, x, r, w, 1e-6,
+                                                        **kw))
+            out.append((ms, f"p{plan.per}/t{plan.tpr}/r{plan.rows}"
+                        + ("/wide" if plan.wide else "")))
+    out.sort()
+    print(f"k1 sweep {name} {dname} {label} (plan p{base.per}/t{base.tpr}/"
+          f"r{base.rows}): " + ", ".join(f"{p} {ms:.4f}" for ms, p in
+                                         out[:12])
+          + f" ms (fastest 12 of {len(out)})", flush=True)
+
+
+def _norm_rope_edges(torch):
+    """K1 and K2 against their plain versions (the `_tol` of phase 2) in
+    bfloat16 and float32 under every plan their instances take (forced).
+    K1: rows of 2, 64, 4096, 4100 (no 16-byte packs), 2560, 16384, 32768
+    and 65536 (past the registers: the rest of the row read twice), with
+    and without the residual, aligned and at an odd storage offset; each
+    packs-a-thread instance at its own threads and at 32 a row, both
+    bodies.  K2: D 128, 64, 72 (D / 2 % 8 != 0) and 2, q and k as the
+    columns of a packed qkv buffer, with and without the device offset
+    (at 0, inside, and past Smax - S), both bodies."""
+    from paddle_tpu_torch.ops.hopper import fused_norm, fused_ops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(41)
+    dev = "cuda"
+    n_k1 = n_k2 = worst = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+        for n, h in ((3, 2), (5, 64), (7, 4096), (6, 4100), (33, 2560),
+                     (2, 16384), (2, 32768), (1, 65536)):
+            for odd in (False, True):
+                if odd:
+                    x, r = (rnd(n * h + 1)[1:].view(n, h) for _ in range(2))
+                else:
+                    x, r = rnd(n, h), rnd(n, h)
+                w = rnd(h)
+                refs = {None: fused_norm._ref_rms(x, w, 1e-6),
+                        "res": fused_norm._ref_rms_residual(x, r, w, 1e-6)}
+                for vec in (True, False):
+                    for per in fused_norm.PERS:
+                        for tpr in (None, 32):
+                            kw = dict(vec=vec, per=per, tpr=tpr)
+                            try:
+                                plan = fused_norm.rms_plan(n, h, dtype,
+                                                           not odd, **kw)
+                            except ValueError:   # not an instance's plan
+                                continue
+                            for res, ref in refs.items():
+                                fn = (fused_norm.rms_norm_residual_fused
+                                      if res else fused_norm.rms_norm_fused)
+                                got = fused_norm._launch(
+                                    fn, x, r if res else None, w, 1e-6,
+                                    **kw)
+                                got = got if res else got[0]
+                                for a, b in zip(got if res else (got,),
+                                                ref if res else (ref,)):
+                                    err, tol = _err(torch, a, b), _tol(
+                                        dname, b)
+                                    worst = max(worst, err / tol)
+                                    if not err <= tol:
+                                        raise AssertionError(
+                                            f"K1 edge {dname} [{n}, {h}] "
+                                            f"odd {odd} residual {bool(res)}"
+                                            f" {plan}: kernel and plain "
+                                            f"differ by {err} > {tol}")
+                                n_k1 += 1
+        inv = 1.0 / (10000.0 ** (torch.arange(0, 128, 2, device=dev) / 128))
+        for B, S, H, KVH, D in ((2, 3, 4, 2, 128), (1, 5, 8, 8, 64),
+                                (3, 2, 4, 1, 72), (2, 4, 2, 2, 2)):
+            half = D // 2
+            fr = (torch.arange(64, device=dev)[:, None].double()
+                  * inv[None, :half].double())
+            tc, ts = fr.cos().float().contiguous(), fr.sin().float()\
+                .contiguous()
+            qkv = rnd(B, S, (H + 2 * KVH) * D)
+            q = qkv[..., :H * D].view(B, S, H, D)
+            k = qkv[..., H * D:(H + KVH) * D].view(B, S, KVH, D)
+            for off in (None, 0, 17, 63):
+                o = (None if off is None else
+                     torch.full((), off, dtype=torch.int64, device=dev))
+                c, s = ((tc[:S], ts[:S]) if o is None else (tc, ts))
+                ref = fused_ops._rope_ref(
+                    q, k, *fused_ops._window(c, s, S, o))
+                for vec in (True, False):
+                    try:
+                        plan = fused_ops.rope_plan(B, S, H, KVH, D, dtype,
+                                                   True, vec=vec)
+                    except ValueError:
+                        continue
+                    got = fused_ops._rope_launch(fused_ops.rope_fused, q, k,
+                                                 c, s, o, vec=vec)
+                    for a, b in zip(got, ref):
+                        err, tol = _err(torch, a, b), _tol(dname, b)
+                        worst = max(worst, err / tol)
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"K2 edge {dname} [{B}, {S}, {H} / {KVH}, "
+                                f"{D}] offset {off} {plan}: kernel and "
+                                f"plain differ by {err} > {tol}")
+                    n_k2 += 1
+    torch.cuda.synchronize()
+    print(f"k1/k2 edges: {n_k1} K1 plans and {n_k2} K2 plans agree with "
+          f"the plain versions (largest error {worst:.3f} of its "
+          "tolerance)")
+
+
+def _rope_sign_bits(torch):
+    """The rope backward's sign flag gives the bits of K2 launched with an
+    explicit -sin table, in both types and both bodies, at training's
+    [8, 2048, 20, 128] and with generation's device offset."""
+    from paddle_tpu_torch.ops.hopper import fused_ops
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(43)
+    dev, n = "cuda", 0
+    D = 128
+    inv = 1.0 / (10000.0 ** (torch.arange(0, D, 2, device=dev) / D))
+    fr = torch.arange(4096, device=dev)[:, None].double() * inv[None].double()
+    tc, ts = fr.cos().float().contiguous(), fr.sin().float().contiguous()
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, KVH, off in ((8, 2048, 20, 20, None),
+                                  (8, 1, 32, 8, 150)):
+            gq = torch.randn(B, S, H, D, generator=g, device=dev, dtype=dtype)
+            gk = torch.randn(B, S, KVH, D, generator=g, device=dev,
+                             dtype=dtype)
+            o = (None if off is None else
+                 torch.full((), off, dtype=torch.int32, device=dev))
+            c, s = (tc[:S], ts[:S]) if o is None else (tc, ts)
+            for vec in (True, False):
+                flag = fused_ops._rope_launch(fused_ops.rope_bwd_fused, gq,
+                                              gk, c, s, o, sign=-1.0, vec=vec)
+                table = fused_ops._rope_launch(fused_ops.rope_fused, gq, gk,
+                                               c, -s, o, vec=vec)
+                if not all(torch.equal(a, b) for a, b in zip(flag, table)):
+                    raise AssertionError(
+                        f"K2 sign flag {dtype} [{B}, {S}, {H} / {KVH}] "
+                        f"vec {vec}: not the bits of the -sin table")
+                n += 1
+    print(f"k2 sign flag: {n} backward launches give the bits of K2 with an "
+          "explicit -sin table")
+
+
+def _dispatches(torch, fn):
+    """The PyTorch operators ``fn()`` dispatches under no_grad, by name (a
+    ctypes kernel launch dispatches none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class _Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), _Log():
+        fn()
+    torch.cuda.synchronize()
+    return ops
+
+
+def _rope_one_launch(torch):
+    """apply_rotary_pos_emb with the ring's pos on the device is one K2
+    launch and dispatches nothing to PyTorch but the outputs' allocations
+    (the window's clamp, arange, add and gathers were six launches)."""
+    from paddle_tpu_torch.models.llama import apply_rotary_pos_emb
+    from paddle_tpu_torch.ops.hopper import fused_ops
+
+    dev, dt = "cuda", torch.bfloat16
+    q = torch.randn(8, 1, 32, 128, device=dev, dtype=dt)
+    k = torch.randn(8, 1, 32, 128, device=dev, dtype=dt)
+    tc = torch.randn(4096, 64, device=dev)
+    pos = torch.full((), 150, dtype=torch.int32, device=dev)
+    n0 = fused_ops.rope_fused.launches
+    ops = _dispatches(torch, lambda: apply_rotary_pos_emb(
+        q, k, tc, tc, position_offset=pos))
+    kernels = [op for op in ops if not op.startswith("aten.empty")]
+    print(f"apply_rotary_pos_emb with a device offset: "
+          f"{fused_ops.rope_fused.launches - n0} K2 launch, PyTorch "
+          f"dispatches {ops}")
+    if kernels or fused_ops.rope_fused.launches != n0 + 1:
+        raise AssertionError(f"apply_rotary_pos_emb dispatched {ops} "
+                             "beside one K2 launch")
 
 
 def _int8_edges(torch):
@@ -1310,26 +1597,17 @@ def _flash_tiles(torch):
 
 def _refusals(torch):
     """Shapes past a kernel's shared memory are refused and raise, naming
-    the limit: a 16384-wide RMSNorm row past K1's 48 KB (by the C entry),
-    a 128-head group over one KV head at head_dim 256 past the 64 query
-    rows of K4's bfloat16 tensor-core tile and, in float32, past the 227 KB
-    a K4 block may use (by its plan, before any launch); the K4 entry
-    refuses a plan it has no instance for."""
-    from paddle_tpu_torch.ops.hopper import fused_norm
+    the limit: a 128-head group over one KV head at head_dim 256 past the
+    64 query rows of K4's bfloat16 tensor-core tile and, in float32, past
+    the 227 KB a K4 block may use (by its plan, before any launch); the K4
+    entry refuses a plan it has no instance for.  (K1 refused a 16384-wide
+    row here before its rows moved to registers: phase 2 now holds [1,
+    16384] against the plain version.)"""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     dev, dt = "cuda", torch.bfloat16
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     one = torch.ones(1, dtype=torch.int32, device=dev)
-    try:
-        fused_norm.rms_norm_fused(torch.ones(1, 16384, dtype=dt, device=dev),
-                                  torch.ones(16384, dtype=dt, device=dev))
-    except RuntimeError as e:
-        if "invalid configuration" not in str(e):
-            raise
-        print(f"refused rms_norm [1, 16384]: {e}")
-    else:
-        raise AssertionError("rms_norm [1, 16384] was not refused")
     cu = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     bt = torch.zeros(1, 1, dtype=torch.int32, device=dev)
     for kdt, limit in ((dt, "64 query rows"), (torch.float32, "227 KB")):
@@ -1582,6 +1860,7 @@ def full_width_serving(torch, model):
     evs = _profile(torch, "decode wave (8 rows, 64-token prompts, 32 new "
                    "tokens)", lambda: _serve_waves(eng, [waves[0]]), traced,
                    top=15)
+    _k1_k2(evs, "the decode wave")
     k4 = [e for e in evs if "paged_attention" in e.key]
     k4_n = sum(e.count for e in k4)
     k4_ms = sum(e.self_device_time_total for e in k4) / 1e3
@@ -1680,6 +1959,17 @@ def _profile(torch, label, untraced, traced=None, top=12):
         print(f"profile kernel {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:6d}  {e.key[:90]}")
     return evs
+
+
+def _k1_k2(evs, where):
+    """K1's and K2's device time, kernel count and time a launch in a
+    profile, by kernel name (also where they miss the top of the list)."""
+    for name, kernel in (("K1", "rms_kernel"), ("K2", "rope_kernel")):
+        mine = [e for e in evs if kernel in e.key]
+        n = sum(e.count for e in mine)
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        print(f"profile {name} ({kernel}) in {where}: {ms:.3f} ms device, "
+              f"{n} kernels, {1e3 * ms / max(n, 1):.2f} us a launch")
 
 
 # --------------------------------------------------------------- phase 4
@@ -1885,6 +2175,9 @@ def full_width_generation(torch, model):
     evs = _profile(torch, "greedy_decode [8, 128] + 32 tokens",
                    lambda: greedy_decode(model, p8, max_new_tokens=32,
                                          max_length=512), traced)
+    print(f"profile greedy_decode: {sum(e.count for e in evs)} kernels in "
+          "the trace")
+    _k1_k2(evs, "greedy_decode")
     b2 = [e for e in evs if "decode_tc_kernel" in e.key
           or "decode_simt_kernel" in e.key]
     b2_n = sum(e.count for e in b2)
@@ -2030,7 +2323,8 @@ def full_width_training(torch):
         raise AssertionError(f"run_steps losses {l4}")
     print(f"run_steps [4, {B}, {S}]: {time.perf_counter() - t:.3f} s, "
           f"losses {[round(float(x), 4) for x in l4]}, no host sync inside")
-    _profile(torch, "train step", lambda: step(ids), top=20)
+    _k1_k2(_profile(torch, "train step", lambda: step(ids), top=20),
+           "the train step")
     n_steps = 12 + 4 + 2
     launches = _path_launches("train", counters)
     print("launches per train step: " + json.dumps(
@@ -2237,35 +2531,22 @@ def _no_bias_add(torch, q8, evs):
     layer) and the position embedding's (the parent's 73 bias adds ran as
     adds of their own).  CUPTI may drop a session's first records, so the
     profile's count is a ceiling check, not an exact one."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class _Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func))
-            return func(*args, **(kwargs or {}))
-
     lin = q8._layer.encoder.layers[0].linear1
     x = torch.randn(BERT["batch"], BERT["seq"], BERT["hidden"],
                     device="cuda", dtype=lin.bias.dtype)
     b7 = _counters()["int8_matmul"]
     n0, f0 = b7.launches, b7.bias_launches
-    with torch.no_grad(), _Ops() as mode:
-        lin(x)
-    torch.cuda.synchronize()
-    adds = [op for op in mode.ops if "add" in op]
+    ops = _dispatches(torch, lambda: lin(x))
+    adds = [op for op in ops if "add" in op]
     if adds or (b7.launches, b7.bias_launches) != (n0 + 1, f0 + 1):
-        raise AssertionError(f"one biased Int8Linear dispatched {mode.ops} "
+        raise AssertionError(f"one biased Int8Linear dispatched {ops} "
                              "beside one B7 launch with its bias")
     n_adds = sum(e.count for e in evs if "add" in e.key.lower()
                  and "int8" not in e.key)
     limit = 2 * BERT["layers"] + 1
     print(f"(e) a biased Int8Linear [{BERT['batch']}, {BERT['seq']}, "
           f"{BERT['hidden']}] is one B7 launch with its bias and dispatches "
-          f"no add ({', '.join(sorted(set(mode.ops))) or 'nothing else'}); "
+          f"no add ({', '.join(sorted(set(ops))) or 'nothing else'}); "
           f"the int8 run's profile holds {n_adds} elementwise add kernels "
           f"(residuals and the position embedding: at most {limit})")
     if n_adds > limit:
@@ -2338,6 +2619,9 @@ def main(argv=None) -> int:
     ap.add_argument("--b2-sweep", action="store_true",
                     help="phase 2 also times each B2 case under every "
                          "split count (informative)")
+    ap.add_argument("--k1-sweep", action="store_true",
+                    help="phase 2 also times each bf16 K1 case under every "
+                         "plan the instances take (informative)")
     ap.add_argument("--b7-sweep", action="store_true",
                     help="phase 2 also times each bf16 B7 case under every "
                          "plan the instances take (informative)")
@@ -2364,7 +2648,8 @@ def main(argv=None) -> int:
         t = _phase("2 kernels vs plain")
         rows = kernels_vs_plain(torch, k4_sweep=args.k4_sweep,
                                 b2_sweep=args.b2_sweep,
-                                b7_sweep=args.b7_sweep)
+                                b7_sweep=args.b7_sweep,
+                                k1_sweep=args.k1_sweep)
         _done("2", t)
     launches = {path: None for path in PATHS}
     model = full_width_model(torch) if phases & {3, 5} else None

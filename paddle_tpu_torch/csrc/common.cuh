@@ -11,9 +11,8 @@ namespace ptt {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
-// dynamic shared memory a block gets without an opt-in attribute; the K1
-// entry refuses a shape that needs more (cudaErrorInvalidConfiguration
-// before launching), K4, B1 and B2 opt in through allow_smem
+// dynamic shared memory a block gets without an opt-in attribute; K4, B1
+// and B2 opt in through allow_smem
 constexpr size_t kMaxDynamicSmem = 48 * 1024;
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -5,19 +5,33 @@
 // q [B, S, H, D] and k [B, S, KVH, D] by cos/sin [S, D/2].  The serving
 // engine passes B = 1, S = T packed tokens and the cos/sin rows gathered at
 // each token's absolute position.  One launch rotates q and k together.
+// The generation path passes the whole [Smax, D/2] table and its position
+// offset on the device instead: the kernel reads it and takes rows
+// clamp(off, 0, Smax - S) + s (a negative off first counts from the end),
+// the reference's lax.dynamic_slice_in_dim (fused_ops.py's caller,
+// models/llama.py:apply_rotary_pos_emb), so no window is gathered before
+// the launch.  The rope backward
+// (fused_ops.py:_rope_bwd) is K2 rotating by -theta: a sign flag negates
+// each sin value as it is read (exact), so the arithmetic, and its bits,
+// are those of K2 given an explicit -sin table.
 // K3 replaces fused_ops.py:_swiglu_pallas: silu(a) * b with float32 math.
 // B6b replaces fused_ops.py:_swiglu_bwd_pallas (kernel _swiglu_bwd_kernel):
 // da = g * b * (sig + silu * (1 - sig)), db = g * silu, with sig = sigmoid(a)
-// recomputed from a (no activation stash), float32 math.  The rope backward
-// is K2 itself, launched with -sin (fused_ops.py:_rope_bwd).
+// recomputed from a (no activation stash), float32 math.
 //
 // Bound on the H100: bytes for all three (a handful of flops per element).
-// Design: K2 gives one block to one token and walks all q and k heads of it,
-// so the token's cos/sin row is read once and each element once; q and k
-// may be strided views over the tokens (the columns of a packed qkv buffer),
-// and the outputs are contiguous.  K3 and B6b are one grid-stride pass each,
-// one read of each input and one write of each output; K3 moves 16 bytes of
-// each a thread per step where the three pointers allow it.
+// Design: K2 gives one thread to each (token, head, chunk of 16 / sizeof(T)
+// pairs): one 16-byte load of x1 and one of x2, the chunk's float32 cos and
+// sin rows in 16-byte loads, two 16-byte stores; the grid is flat over
+// tokens x (H + KVH) x chunks, decomposed once per thread, so a decode
+// step's 8 tokens x 64 heads x 8 chunks are 4096 threads in 32 blocks.
+// Where D / 2 is not a multiple of the chunk or a pointer or a stride is
+// not 16-byte aligned, a thread takes one pair with scalar accesses.  q and
+// k may be strided views over B and S (the columns of a packed qkv buffer;
+// each head's [D] contiguous), the outputs are contiguous.  K3 and B6b are
+// one grid-stride pass each, one read of each input and one write of each
+// output; K3 moves 16 bytes of each a thread per step where the three
+// pointers allow it.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -25,37 +39,97 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRopeThreads = 128;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                T* __restrict__ oq, T* __restrict__ ok,
-                const float* __restrict__ cos_t,
-                const float* __restrict__ sin_t, int S, int H, int KVH, int D,
-                long long qsb, long long qss, long long ksb, long long kss) {
-  const int tok = blockIdx.x;  // b * S + s
-  const int b = tok / S, s = tok % S;
-  const int half = D / 2;
-  const float* c = cos_t + (size_t)s * half;
-  const float* sn = sin_t + (size_t)s * half;
-  const int n = (H + KVH) * half;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const int head = idx / half, j = idx - head * half;
-    const T* src;
-    T* dst;
-    if (head < H) {
-      src = q + b * qsb + s * qss + (size_t)head * D;
-      dst = oq + ((size_t)tok * H + head) * D;
-    } else {
-      const int hk = head - H;
-      src = k + b * ksb + s * kss + (size_t)hk * D;
-      dst = ok + ((size_t)tok * KVH + hk) * D;
-    }
-    const float x1 = ptt::to_f(src[j]), x2 = ptt::to_f(src[j + half]);
-    const float cc = c[j], ss = sn[j];
-    dst[j] = ptt::from_f<T>(x1 * cc - x2 * ss);
-    dst[j + half] = ptt::from_f<T>(x2 * cc + x1 * ss);
+// CP consecutive elements of T (16 bytes, or one) as floats, and back
+template <typename T, int CP>
+__device__ __forceinline__ void load_f(const T* p, float* f) {
+  if constexpr (CP == 1) {
+    f[0] = ptt::to_f(*p);
+  } else {
+    ptt::Vec16<T>::load(p, f);
   }
+}
+
+template <typename T, int CP>
+__device__ __forceinline__ void store_f(T* p, const float* f) {
+  if constexpr (CP == 1) {
+    *p = ptt::from_f<T>(f[0]);
+  } else {
+    uint4 raw;
+    T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < CP; ++i) e[i] = ptt::from_f<T>(f[i]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+}
+
+// CP float32 values of a cos or sin row (CP / 4 16-byte loads)
+template <int CP>
+__device__ __forceinline__ void load_row(const float* p, float* f) {
+  if constexpr (CP == 1) {
+    f[0] = *p;
+  } else {
+#pragma unroll
+    for (int i = 0; i < CP; i += 4) ptt::Vec16<float>::load(p + i, f + i);
+  }
+}
+
+struct RopeArgs {
+  const void *q, *k;
+  void *oq, *ok;
+  const float *cos_t, *sin_t;
+  const void* off;  // the device's position offset, or null
+  int off_bytes;    // 4 (int32) or 8 (int64)
+  int smax;         // rows of the cos/sin table
+  int S, H, KVH, D, chunks;
+  unsigned items;   // B * S * (H + KVH) * chunks
+  long long qsb, qss, ksb, kss;
+  float sign;       // 1, or -1 for the backward
+};
+
+template <typename T, int CP>
+__global__ void __launch_bounds__(kRopeThreads) rope_kernel(RopeArgs a) {
+  const unsigned i = blockIdx.x * kRopeThreads + threadIdx.x;
+  if (i >= a.items) return;
+  // (token, head, chunk), the chunk fastest
+  const unsigned heads = a.H + a.KVH;
+  const unsigned rest = i / a.chunks, c = i - rest * a.chunks;
+  const unsigned tok = rest / heads, head = rest - tok * heads;
+  const unsigned b = tok / a.S, s = tok - b * a.S;
+  int row = s;
+  if (a.off != nullptr) {
+    long long o = a.off_bytes == 8 ? *(const long long*)a.off
+                                   : (long long)*(const int*)a.off;
+    if (o < 0) o += a.smax;  // a negative index counts from the end
+    o = o < 0 ? 0 : o > a.smax - a.S ? a.smax - a.S : o;
+    row += (int)o;
+  }
+  const int half = a.D / 2, j = c * CP;
+  const T* src;
+  T* dst;
+  if (head < (unsigned)a.H) {
+    src = (const T*)a.q + b * a.qsb + s * a.qss + (size_t)head * a.D;
+    dst = (T*)a.oq + ((size_t)tok * a.H + head) * a.D;
+  } else {
+    const unsigned hk = head - a.H;
+    src = (const T*)a.k + b * a.ksb + s * a.kss + (size_t)hk * a.D;
+    dst = (T*)a.ok + ((size_t)tok * a.KVH + hk) * a.D;
+  }
+  float x1[CP], x2[CP], cc[CP], sn[CP];
+  load_f<T, CP>(src + j, x1);
+  load_f<T, CP>(src + half + j, x2);
+  load_row<CP>(a.cos_t + (size_t)row * half + j, cc);
+  load_row<CP>(a.sin_t + (size_t)row * half + j, sn);
+  float o1[CP], o2[CP];
+#pragma unroll
+  for (int e = 0; e < CP; ++e) {
+    const float se = sn[e] * a.sign;  // exact: the bits of a -sin table
+    o1[e] = x1[e] * cc[e] - x2[e] * se;
+    o2[e] = x2[e] * cc[e] + x1[e] * se;
+  }
+  store_f<T, CP>(dst + j, o1);
+  store_f<T, CP>(dst + half + j, o2);
 }
 
 template <typename T>
@@ -129,28 +203,61 @@ int swiglu_grid(long long n, int vec, int V) {
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
+// vec: the 16-byte instance (the wrapper checks D and the alignment of
+// every pointer and stride; the entry checks them again)
+template <typename T>
+cudaError_t rope_launch(RopeArgs a, long long tokens, int vec,
+                        cudaStream_t st) {
+  constexpr int CP = 16 / sizeof(T);
+  const int half = a.D / 2;
+  if (vec) {
+    const long long es = sizeof(T);
+    const bool ok = half % CP == 0 && aligned16(a.q) && aligned16(a.k) &&
+                    aligned16(a.oq) && aligned16(a.ok) &&
+                    aligned16(a.cos_t) && aligned16(a.sin_t) &&
+                    (a.qsb * es) % 16 == 0 && (a.qss * es) % 16 == 0 &&
+                    (a.ksb * es) % 16 == 0 && (a.kss * es) % 16 == 0;
+    if (!ok) return cudaErrorInvalidValue;
+    a.chunks = half / CP;
+  } else {
+    a.chunks = half;
+  }
+  const long long items = tokens * (a.H + a.KVH) * a.chunks;
+  if (items <= 0) return cudaSuccess;
+  if (items >= (1ll << 31)) return cudaErrorInvalidValue;
+  a.items = (unsigned)items;
+  const int grid = (int)((items + kRopeThreads - 1) / kRopeThreads);
+  if (vec)
+    rope_kernel<T, CP><<<grid, kRopeThreads, 0, st>>>(a);
+  else
+    rope_kernel<T, 1><<<grid, kRopeThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ptt_rope(const void* q, const void* k, void* oq, void* ok,
-                        const void* cos_t, const void* sin_t, int B, int S,
-                        int H, int KVH, int D, long long qsb, long long qss,
-                        long long ksb, long long kss, int dtype,
-                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int grid = B * S;
-  if (dtype == ptt::kFloat32)
-    rope_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)q, (const float*)k, (float*)oq, (float*)ok,
-        (const float*)cos_t, (const float*)sin_t, S, H, KVH, D, qsb, qss, ksb,
-        kss);
-  else if (dtype == ptt::kBFloat16)
-    rope_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (__nv_bfloat16*)oq,
-        (__nv_bfloat16*)ok, (const float*)cos_t, (const float*)sin_t, S, H,
-        KVH, D, qsb, qss, ksb, kss);
-  else
+                        const void* cos_t, const void* sin_t,
+                        const void* off, int off_bytes, int smax, int B,
+                        int S, int H, int KVH, int D, long long qsb,
+                        long long qss, long long ksb, long long kss,
+                        float sign, int vec, int dtype, void* stream) {
+  if (D % 2 || S < 1 || smax < S || (off && off_bytes != 4 &&
+                                     off_bytes != 8))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  RopeArgs a;
+  a.q = q, a.k = k, a.oq = oq, a.ok = ok;
+  a.cos_t = (const float*)cos_t, a.sin_t = (const float*)sin_t;
+  a.off = off, a.off_bytes = off_bytes, a.smax = smax;
+  a.S = S, a.H = H, a.KVH = KVH, a.D = D, a.chunks = 0, a.items = 0;
+  a.qsb = qsb, a.qss = qss, a.ksb = ksb, a.kss = kss, a.sign = sign;
+  const long long tokens = (long long)B * S;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == ptt::kFloat32)
+    return (int)rope_launch<float>(a, tokens, vec, st);
+  if (dtype == ptt::kBFloat16)
+    return (int)rope_launch<__nv_bfloat16>(a, tokens, vec, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int ptt_swiglu(const void* a, const void* b, void* o, long long n,

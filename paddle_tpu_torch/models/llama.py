@@ -116,19 +116,16 @@ class _Init:
 
 def apply_rotary_pos_emb(q, k, cos, sin, position_offset=0):
     """q [B, S, H, D], k [B, S, KVH, D]; cos/sin [Smax, D/2] float32 ->
-    rotated (q, k) through kernel K2.  ``position_offset`` is an int or a
-    0-d integer tensor on the device: the rope window is then gathered
-    with ``index_select`` (no host sync), its start clamped to
-    ``[0, Smax - S]`` as ``lax.dynamic_slice`` clamps it."""
-    S = q.shape[1]
+    rotated (q, k) through kernel K2.  ``position_offset`` is an int (the
+    window is a view of the table) or a 0-d integer tensor on the device:
+    K2 then reads it and takes the rows ``lax.dynamic_slice`` takes
+    (``clamp(off, 0, Smax - S) + s``, a negative off counted from the end
+    first) in its one launch (no host sync)."""
     if isinstance(position_offset, torch.Tensor):
-        start = torch.clamp(position_offset, 0, cos.shape[0] - S).long()
-        rows = start + torch.arange(S, device=cos.device)
-        cw, sw = cos.index_select(0, rows), sin.index_select(0, rows)
-    else:
-        cw = cos[position_offset:position_offset + S]
-        sw = sin[position_offset:position_offset + S]
-    return rope_fused(q, k, cw, sw)
+        return rope_fused(q, k, cos, sin, position_offset=position_offset)
+    S = q.shape[1]
+    return rope_fused(q, k, cos[position_offset:position_offset + S],
+                      sin[position_offset:position_offset + S])
 
 
 class LlamaAttention(nn.Module):

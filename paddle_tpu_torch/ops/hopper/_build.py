@@ -47,13 +47,15 @@ _lib: Optional[ctypes.CDLL] = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argtypes; each returns the cudaError_t of its launch as int
 _SIGNATURES = {
-    # x, residual|NULL, w, out, residual_out|NULL, n, h, eps, dtype, stream
-    "ptt_rms_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    # q, k, out_q, out_k, cos, sin, B, S, H, KVH, D,
-    # q_stride_b, q_stride_s, k_stride_b, k_stride_s, dtype, stream
-    "ptt_rope": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                 ctypes.c_longlong, _I, _P],
+    # x, residual|NULL, w, out, residual_out|NULL, n, h, eps, 16-byte
+    # packs, packs a thread, threads a row, rows a block, dtype, stream
+    "ptt_rms_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
+                     _P],
+    # q, k, out_q, out_k, cos, sin, position offset|NULL, its bytes (4 or
+    # 8), table rows, B, S, H, KVH, D, q_stride_b, q_stride_s, k_stride_b,
+    # k_stride_s, sign of sin, 16-byte chunks, dtype, stream
+    "ptt_rope": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 *[ctypes.c_longlong] * 4, _F, _I, _I, _P],
     # a, b, out, n, dtype, stream
     "ptt_swiglu": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # a, b, g, da, db, n, dtype, stream
@@ -211,8 +213,8 @@ def device_guard(t: torch.Tensor):
 def check(err: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry.  An
     entry returns cudaErrorInvalidConfiguration for a shape whose block
-    would need more shared memory than it may use (48 KB for K1, the
-    device's opt-in limit for K4, B1, B2 and B8)."""
+    would need more shared memory than it may use (the device's opt-in
+    limit for K4, B1, B2 and B8)."""
     if err != 0:
         what = lib().ptt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "

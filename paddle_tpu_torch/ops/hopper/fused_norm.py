@@ -2,9 +2,19 @@
 
 Port of ``paddle_tpu/ops/pallas/fused_norm.py``: ``rms_norm_fused``
 replaces ``_pallas_rms`` and ``rms_norm_residual_fused`` replaces
-``_pallas_rms_residual``.  Bound on the H100 by bytes; one block per row
-keeps the float32 row in shared memory between its two passes (see the
-source's note).
+``_pallas_rms_residual``.  Bound on the H100 by bytes: one memory round
+trip, the row held in registers between the sum of squares and the scaling
+(see the source's note).
+
+``rms_plan(n, h, dtype, aligned)`` picks the launch from host sizes only:
+16-byte packs where H and every pointer allow them (else one element a
+pack), the packs a thread holds (1, 2, 4 or 8: the compiled instances), the
+threads sharing a row (an aligned lane group of 1-16, or whole warps up to
+1024) and the rows of a block.  The smallest holding that fits a row in one
+block's registers wins, so a decode row of 4096 bf16 takes 512 threads of
+one pack each; a row past every instance's registers keeps what fits and
+reads the rest twice.  Any H runs.  ``_launch(..., **force)`` forces a
+plan (``chip_smoke.py``'s edges and ``--k1-sweep``).
 
 A wrapper runs the plain version (``_ref_rms`` / ``_ref_rms_residual``, a
 transcription of the Pallas kernels) only for CPU tensors.  For CUDA tensors
@@ -19,11 +29,110 @@ reference has no Pallas kernel there, and XLA fuses its jnp.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import torch
 
 from . import _build
 
-__all__ = ["rms_norm_fused", "rms_norm_residual_fused"]
+__all__ = ["rms_norm_fused", "rms_norm_residual_fused", "rms_plan",
+           "RmsPlan"]
+
+SMS = 132              # the H100's streaming multiprocessors
+PERS = (1, 2, 4, 8)    # packs a thread holds: the compiled instances
+BLOCK = 256            # threads a block aims at where a row takes fewer
+
+
+def max_threads(held: int) -> int:
+    """A block's thread limit for an instance whose threads hold ``held``
+    floats (the source's ``__launch_bounds__``: 64 registers a thread at
+    1024 threads)."""
+    return 1024 if held <= 16 else 256
+
+
+def _row_threads(packs: int) -> int:
+    """Threads for ``packs`` packs of a row, one each: a power of two below
+    32 (an aligned lane group), else whole warps."""
+    if packs <= 16:
+        return 1 << max(0, packs - 1).bit_length()
+    return -(-packs // 32) * 32
+
+
+def _valid_tpr(tpr: int) -> bool:
+    return (0 < tpr < 32 and tpr & (tpr - 1) == 0) or (
+        32 <= tpr <= 1024 and tpr % 32 == 0)
+
+
+@dataclass(frozen=True)
+class RmsPlan:
+    """One K1 launch: ``vec`` 16-byte packs of ``pack`` elements (else one
+    element a pack), ``per`` packs a thread holds, ``tpr`` threads a row,
+    ``rows`` rows a block of ``threads`` threads, ``blocks`` in the grid;
+    ``wide``: the row has more packs than ``per * tpr``, and the others are
+    read twice."""
+
+    vec: bool
+    pack: int
+    per: int
+    tpr: int
+    rows: int
+    threads: int
+    blocks: int
+    wide: bool
+
+
+def rms_plan(n: int, h: int, dtype: torch.dtype, aligned: bool, *,
+             vec: Optional[bool] = None, per: Optional[int] = None,
+             tpr: Optional[int] = None) -> RmsPlan:
+    """The K1 launch for ``n`` rows of ``h`` in ``dtype``; ``aligned``:
+    every pointer of the call is 16-byte aligned.  The keywords force a
+    choice; a forced plan the instances do not take raises ``ValueError``.
+
+    Packs of 16 bytes where ``aligned`` and h is a multiple of them.  The
+    smallest ``per`` whose row threads (one pack each) stay within its
+    instance's block limit; past every limit, the holding of the most
+    packs (then the most threads), the rest of the row read twice.  Rows of
+    fewer than ``BLOCK`` threads share a block, fewer of them while the grid
+    is under ``SMS`` blocks."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rms_plan: float32 or bfloat16, got {dtype}")
+    if n < 1 or h < 1:
+        raise ValueError(f"rms_plan: n, h >= 1, got {n}, {h}")
+    v16 = 16 // dtype.itemsize
+    can = aligned and h % v16 == 0
+    if vec is None:
+        vec = can
+    elif vec and not can:
+        raise ValueError("rms_plan: 16-byte packs need aligned pointers and "
+                         f"h % {v16} == 0")
+    pack = v16 if vec else 1
+    nv = h // pack
+
+    def cap(p):
+        return max_threads(p * pack)
+
+    if per is None:
+        if tpr is not None:
+            raise ValueError("rms_plan: tpr is forced together with per")
+        per = next((p for p in PERS
+                    if _row_threads(-(-nv // p)) <= cap(p)), None)
+        if per is None:          # past every instance's registers
+            per = max(PERS, key=lambda p: (p * cap(p), -p))
+    if per not in PERS:
+        raise ValueError(f"rms_plan: per {per} not in {PERS}")
+    if tpr is None:
+        tpr = min(_row_threads(-(-nv // per)), cap(per))
+    if not _valid_tpr(tpr) or tpr > cap(per):
+        raise ValueError(f"rms_plan: {tpr} threads a row with {per} packs "
+                         "each")
+    low = max(1, 32 // tpr)             # a block of whole warps
+    rows = max(low, BLOCK // tpr)
+    while rows > low and -(-n // rows) < SMS:
+        rows //= 2
+    return RmsPlan(vec=vec, pack=pack, per=per, tpr=tpr, rows=rows,
+                   threads=tpr * rows, blocks=-(-n // rows),
+                   wide=per * tpr < nv)
 
 
 def _ref_rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -50,21 +159,28 @@ def _check(name, x, w, *others):
                              f"{tuple(x.shape)}")
 
 
-def _launch(fn, x, r, w, eps):
+def _launch(fn, x, r, w, eps, **force):
+    """K1 on CUDA tensors, counted on ``fn``; ``force``: ``rms_plan``'s
+    keywords."""
     name = fn.__name__
-    _check(name, x, w, *([] if r is None else [r]))
-    dt, stream = _build.launch_args(name, x, w, *([] if r is None else [r]))
+    others = [] if r is None else [r]
+    _check(name, x, w, *others)
+    dt, stream = _build.launch_args(name, x, w, *others)
     out = torch.empty_like(x)
     res_out = None if r is None else torch.empty_like(x)
     h = x.shape[-1]
-    n = x.numel() // h
+    n = x.numel() // h if h else 0
     if n:
+        ptrs = [x, w, out] + ([] if r is None else [r, res_out])
+        plan = rms_plan(n, h, x.dtype,
+                        all(t.data_ptr() % 16 == 0 for t in ptrs), **force)
         with _build.device_guard(x):
             _build.check(_build.lib().ptt_rms_norm(
                 x.data_ptr(), None if r is None else r.data_ptr(),
                 w.data_ptr(), out.data_ptr(),
                 None if res_out is None else res_out.data_ptr(),
-                n, h, float(eps), dt, stream), name)
+                n, h, float(eps), int(plan.vec), plan.per, plan.tpr,
+                plan.rows, dt, stream), name)
         fn.launches += 1
     return out, res_out
 

@@ -4,10 +4,19 @@
 Port of ``paddle_tpu/ops/pallas/fused_ops.py``: ``rope_fused`` replaces
 ``_rope_one_pallas`` (one launch rotates q and k), ``rope_bwd_fused`` is
 its backward ``_rope_bwd`` (the same kernel K2 rotating the cotangents by
--theta, i.e. with ``-sin``), ``swiglu_fused`` replaces ``_swiglu_pallas``
-and ``swiglu_bwd_fused`` (B6b) ``_swiglu_bwd_pallas``.  All are bound on the
+-theta: a sign flag negates sin as the kernel reads it, the bits of K2
+given a ``-sin`` table), ``swiglu_fused`` replaces ``_swiglu_pallas`` and
+``swiglu_bwd_fused`` (B6b) ``_swiglu_bwd_pallas``.  All are bound on the
 H100 by bytes and make one read of each input and one write of each output
 (see the source's note).
+
+``rope_plan`` gives K2's launch from host sizes: a thread per (token, head,
+chunk of 16 bytes of pairs) where D and every pointer and stride allow it,
+else a thread per pair.  ``rope_fused(..., position_offset=off)`` takes the
+whole [Smax, D/2] table and a 0-d integer tensor on q's device: the kernel
+reads the offset and rotates by rows ``clamp(off, 0, Smax - S) + s`` (a
+negative offset first counts from the end), the reference's
+``lax.dynamic_slice_in_dim``, so no window is gathered first.
 
 A wrapper runs the plain version (``_rope_ref`` / ``_swiglu_ref`` /
 ``_swiglu_bwd_ref``, the reference's jnp forms transcribed) only for CPU
@@ -15,19 +24,75 @@ tensors.  For CUDA tensors it launches the kernel or raises; ``launches``
 counts kernel launches.  ``rope_fused`` and ``swiglu_fused`` are
 differentiable: where a gradient is wanted they run inside a
 ``torch.autograd.Function`` whose backward is ``rope_bwd_fused`` (saving
-only the cos/sin windows, as ``_rope_fwd``) or ``swiglu_bwd_fused``
-(saving ``(a, b)``, as ``_swiglu_fwd``).
+only the cos/sin tables and the offset, as ``_rope_fwd``) or
+``swiglu_bwd_fused`` (saving ``(a, b)``, as ``_swiglu_fwd``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["rope_fused", "rope_bwd_fused", "swiglu_fused",
-           "swiglu_bwd_fused"]
+__all__ = ["rope_fused", "rope_bwd_fused", "rope_plan", "RopePlan",
+           "swiglu_fused", "swiglu_bwd_fused"]
+
+ROPE_THREADS = 128     # a K2 block's threads
+_OFFSET_BYTES = {torch.int32: 4, torch.int64: 8}
+
+
+@dataclass(frozen=True)
+class RopePlan:
+    """One K2 launch: ``vec`` 16-byte chunks of ``pairs`` pairs a thread
+    (else one pair a thread), ``chunks`` a head, ``items`` threads (B * S *
+    (H + KVH) * chunks, the chunk fastest) in ``blocks`` blocks."""
+
+    vec: bool
+    pairs: int
+    chunks: int
+    items: int
+    blocks: int
+
+
+def rope_plan(B: int, S: int, H: int, KVH: int, D: int, dtype: torch.dtype,
+              aligned: bool, *, vec: Optional[bool] = None) -> RopePlan:
+    """K2's launch from host sizes; ``aligned``: every pointer and every
+    stride of the call is 16-byte aligned.  ``vec=False`` forces the scalar
+    body (``chip_smoke.py``'s edges)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"rope_plan: float32 or bfloat16, got {dtype}")
+    cp = 16 // dtype.itemsize
+    can = aligned and D % 2 == 0 and (D // 2) % cp == 0
+    if vec is None:
+        vec = can
+    elif vec and not can:
+        raise ValueError("rope_plan: 16-byte chunks need aligned pointers "
+                         f"and strides and D / 2 % {cp} == 0")
+    pairs = cp if vec else 1
+    chunks = D // 2 // pairs
+    items = B * S * (H + KVH) * chunks
+    if items >= 1 << 31:
+        raise ValueError(f"rope_plan: {items} threads past the 32-bit index")
+    return RopePlan(vec=vec, pairs=pairs, chunks=chunks, items=items,
+                    blocks=-(-items // ROPE_THREADS))
+
+
+def _window(cos, sin, S, position_offset):
+    """The rows a rotation of S positions reads: all of cos/sin without an
+    offset, else rows clamp(off, 0, Smax - S) .. + S, a negative off
+    counted from the end first (the reference's ``dynamic_slice_in_dim``;
+    plain versions, CPU tensors)."""
+    if position_offset is None:
+        return cos, sin
+    if cos.shape[0] < S:
+        raise ValueError(f"rope: a table of {cos.shape[0]} rows for {S} "
+                         "positions")
+    start = int(position_offset)
+    start += cos.shape[0] if start < 0 else 0
+    start = min(max(start, 0), cos.shape[0] - S)
+    return cos[start:start + S], sin[start:start + S]
 
 
 def _rope_ref(q, k, cos, sin):
@@ -58,9 +123,11 @@ def _swiglu_bwd_ref(a, b, g):
     return da.to(a.dtype), db.to(b.dtype)
 
 
-def _rope_launch(fn, q, k, cos, sin):
+def _rope_launch(fn, q, k, cos, sin, position_offset=None, sign=1.0,
+                 **force):
     """K2 on CUDA tensors, counted on ``fn`` (the forward or the
-    backward wrapper)."""
+    backward wrapper); ``sign`` -1 rotates by -theta; ``force``:
+    ``rope_plan``'s keywords."""
     name = fn.__name__
     B, S, H, D = q.shape
     KVH = k.shape[2]
@@ -71,64 +138,96 @@ def _rope_launch(fn, q, k, cos, sin):
         if x.stride(3) != 1 or (x.shape[2] > 1 and x.stride(2) != D):
             raise ValueError(f"{name}: each token's [heads, D] must be "
                              "contiguous")
+    off = position_offset
+    rows = S if off is None else cos.shape[0]
     for t in (cos, sin):
-        if (t.shape != (S, D // 2) or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != q.device):
+        if (t.dim() != 2 or t.shape[1] != D // 2 or t.shape[0] != rows
+                or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != q.device):
             raise ValueError(f"{name}: cos/sin must be contiguous float32 "
-                             f"[{S}, {D // 2}] on {q.device}")
+                             f"[{S if off is None else 'Smax'}, {D // 2}] "
+                             f"on {q.device}")
+    if off is not None and (off.dim() != 0 or off.dtype not in _OFFSET_BYTES
+                            or off.device != q.device or rows < S):
+        raise ValueError(f"{name}: position_offset must be a 0-d int32 or "
+                         f"int64 tensor on {q.device} and the table at "
+                         f"least {S} rows, got {off.dtype} on {off.device}, "
+                         f"{rows} rows")
     dt, stream = _build.launch_args(name, q, k)
     oq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     ok = torch.empty((B, S, KVH, D), dtype=k.dtype, device=k.device)
     if B * S:
+        # a size-1 dimension's stride is never stepped
+        strides = [x.stride(i) if x.shape[i] > 1 else 0
+                   for x in (q, k) for i in (0, 1)]
+        es = q.element_size()
+        aligned = (all(t.data_ptr() % 16 == 0
+                       for t in (q, k, oq, ok, cos, sin))
+                   and all(st * es % 16 == 0 for st in strides))
+        plan = rope_plan(B, S, H, KVH, D, q.dtype, aligned, **force)
         with _build.device_guard(q):
             _build.check(_build.lib().ptt_rope(
                 q.data_ptr(), k.data_ptr(), oq.data_ptr(), ok.data_ptr(),
-                cos.data_ptr(), sin.data_ptr(), B, S, H, KVH, D,
-                q.stride(0), q.stride(1), k.stride(0), k.stride(1), dt,
+                cos.data_ptr(), sin.data_ptr(),
+                None if off is None else off.data_ptr(),
+                0 if off is None else _OFFSET_BYTES[off.dtype], rows, B, S,
+                H, KVH, D, *strides, float(sign), int(plan.vec), dt,
                 stream), name)
         fn.launches += 1
     return oq, ok
 
 
-def _rope_fwd(q, k, cos, sin):
+def _rope_fwd(q, k, cos, sin, position_offset=None):
     if q.device.type == "cpu":
-        return _rope_ref(q, k, cos, sin)
-    return _rope_launch(rope_fused, q, k, cos, sin)
+        return _rope_ref(q, k, *_window(cos, sin, q.shape[1],
+                                        position_offset))
+    return _rope_launch(rope_fused, q, k, cos, sin, position_offset)
 
 
 def rope_bwd_fused(gq: torch.Tensor, gk: torch.Tensor, cos: torch.Tensor,
-                   sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                   sin: torch.Tensor,
+                   position_offset: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The rope backward (``_rope_bwd``): the cotangents of the rotated
-    (q, k) rotated by -theta, i.e. K2 with ``-sin``; shapes as
+    (q, k) rotated by -theta, i.e. K2 with ``-sin`` (a sign flag: no
+    negated table is made); shapes and ``position_offset`` as
     ``rope_fused``."""
     if gq.device.type == "cpu":
-        return _rope_ref(gq, gk, cos, -sin)
+        c, s = _window(cos, sin, gq.shape[1], position_offset)
+        return _rope_ref(gq, gk, c, -s)
     return _rope_launch(rope_bwd_fused, gq.contiguous(), gk.contiguous(),
-                        cos, torch.neg(sin))
+                        cos, sin, position_offset, sign=-1.0)
 
 
 class _Rope(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, cos, sin):
+    def forward(ctx, q, k, cos, sin, position_offset):
         ctx.save_for_backward(cos, sin)
-        return _rope_fwd(q, k, cos, sin)
+        ctx.position_offset = position_offset
+        return _rope_fwd(q, k, cos, sin, position_offset)
 
     @staticmethod
     def backward(ctx, gq, gk):
         cos, sin = ctx.saved_tensors
-        dq, dk = rope_bwd_fused(gq, gk, cos, sin)
-        return dq, dk, None, None
+        dq, dk = rope_bwd_fused(gq, gk, cos, sin, ctx.position_offset)
+        return dq, dk, None, None, None
 
 
 def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-               sin: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               sin: torch.Tensor,
+               position_offset: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, S, H, D], k [B, S, KVH, D], cos/sin [S, D/2] float32 ->
-    rotated (q, k), neox half-split, float32 math, in q's dtype.  q and k
-    may be strided over B and S; each head's [D] must be contiguous.
+    rotated (q, k), neox half-split, float32 math, in q's dtype.  With
+    ``position_offset`` (a 0-d int32 or int64 tensor on q's device)
+    cos/sin are the whole [Smax, D/2] table and the rotation takes rows
+    ``clamp(off, 0, Smax - S) + s`` (a negative off counted from the end
+    first, as JAX indexes), read on the device.  q and k may be
+    strided over B and S; each head's [D] must be contiguous.
     Differentiable in q and k."""
     if _build.wants_grad(q, k):
-        return _Rope.apply(q, k, cos, sin)
-    return _rope_fwd(q, k, cos, sin)
+        return _Rope.apply(q, k, cos, sin, position_offset)
+    return _rope_fwd(q, k, cos, sin, position_offset)
 
 
 def _check_same(name, *tensors):
