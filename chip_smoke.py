@@ -45,14 +45,22 @@ Phases (each prints its seconds):
      every plan the instances take, informative); K2 at a decode step's
      packed [1, 8] rows, at greedy_decode's [8, 1] with the ring's pos on
      the device (32 / 32 and 32 / 8 heads) and at an offset the clamp
-     moves; K1 and K2 under every plan their instances take (both bodies,
-     rows past the registers, D 72 and 2, strided qkv columns, device
-     offsets) against their plain versions, the rope backward's sign flag
+     moves; K2's ring mode (B3 folded in) at greedy_decode's decode step
+     and [8, 128] prefill, held to the plain composition and, bit for bit,
+     to rope_fused then kv_ring_write; B3 at pos -3 (C7: the start counts
+     from the end, row 509), bit for bit against index_copy_ at
+     dynamic_update_slice's start; B1, B8, B2, B3, K4 and the ring mode at
+     head_dim 72, 100, 264 and 512 (8 / 2 heads), SDPA at the same shape
+     the library call; K1 and K2 under every plan their instances take
+     (both bodies, rows past the registers, D 72 and 2, strided qkv
+     columns, device offsets) against their plain versions, the rope backward's sign flag
      giving the bits of K2 with a -sin table, and apply_rotary_pos_emb
      with a device offset dispatching one K2 launch and nothing else; a
-     shape past a kernel's limits is refused with an error, and B7 refuses
-     a float16 x and an int32 weight; K4, B2 and B7 at the edges their
-     tiles and splits add
+     shape past a kernel's limits is refused with an error (a head dim
+     past 512 in B1, B8, B2 and K4, naming the limit), and B7 refuses a
+     float16 x and an int32 weight; K4, B2 and B7 at the edges their
+     tiles and splits add (K4 and B2 also at head_dim 72, 100, 264 and
+     512, B2 at a negative pos)
      (every split count forced, K4 also every ring depth and several query
      tiles; B7 at M 1, 8, 9, 64, 65 and 4097, N 2 and 130, K 100 and 4096
      and the strided head, with and without a bias, the fused bias giving
@@ -76,7 +84,9 @@ Phases (each prints its seconds):
   4. the same geometry at 2 layers in float32 served on cuda (kernels) and
      on the CPU (plain versions) from identical weights: first-step logits
      agree, greedy tokens agree up to the first position whose CPU top-2
-     logit gap is below 1e-3, and prefix cache on/off agree on cuda;
+     logit gap is below 1e-3, and prefix cache on/off agree on cuda; then
+     the same for 2-layer float32 Llamas at head_dim 72 (hidden 576, 8
+     heads) and 264 (1056, 4);
   5. generation at full width, on phase 3's model: the launch counters are
      zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b)
      greedy_decode of ids [8, 128], 128 new tokens over a 512-row ring runs
@@ -85,7 +95,8 @@ Phases (each prints its seconds):
      give the device's busy share and time by kernel, the trace's kernel
      count, K1's and K2's device time, count and time a launch, and B2's
      device time and kernel count in the traced loop: one kernel per
-     wrapper call), (c)
+     wrapper call; no B3 kernel, and as many K2 kernels as ring-mode calls,
+     the plain rope mode uncalled), (c)
      generate with the static ring equals greedy_decode; generate with
      growing caches (B1 for every step) gives greedy_decode's first
      token (the same prefill), its logits on greedy_decode's tokens agree
@@ -99,6 +110,7 @@ Phases (each prints its seconds):
   6. phase 4's two 2-layer float32 models: forward logits on cuda and on
      the CPU agree, and greedy_decode and generate (ring and growing) on
      cuda agree with greedy_decode on the CPU up to the top-2-gap stop;
+     then the same at head_dim 72, 100 (800 hidden, 8 heads) and 264;
   7. training at bench.py's honest geometry (32000 vocab, 2560 hidden,
      8192 intermediate, 9 layers, 20 heads of 128, bfloat16, recompute)
      with seeded random weights: AdamW(1e-4, multi_precision=True),
@@ -113,7 +125,8 @@ Phases (each prints its seconds):
   8. phase 4's float32 pair: one step's loss and every parameter's
      gradient, then the parameters after 3 AdamW(multi_precision) steps
      through TrainStep, kernels on cuda against the plain path on the CPU
-     (1e-4 of each tensor's largest |value|);
+     (1e-4 of each tensor's largest |value|); then the same at head_dim 72
+     and 264;
   9. bench_ladder.py's BERT-base classifier (vocab 30522, hidden 768, 12
      layers, 12 heads, FFN 3072, seq 128) in bfloat16 with seeded random
      weights, ids [32, 128]: (a) the float Predictor gives finite logits;
@@ -159,6 +172,9 @@ REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas/fused_norm.py:47",
     "rms_norm_residual": "paddle_tpu/ops/pallas/fused_norm.py:61",
     "rope": "paddle_tpu/ops/pallas/fused_ops.py:65",
+    # K2's ring mode: the rotation of fused_ops.py:65 with the ring write of
+    # decode_attention.py:70 (B3) folded into its launch
+    "rope_ring": "paddle_tpu/ops/pallas/fused_ops.py:65",
     # the same kernel rotating the cotangents by -theta
     "rope_bwd": "paddle_tpu/ops/pallas/fused_ops.py:121",
     "swiglu": "paddle_tpu/ops/pallas/fused_ops.py:164",
@@ -176,6 +192,7 @@ SOURCES = {
     "rms_norm": "paddle_tpu_torch/csrc/fused_norm.cu",
     "rms_norm_residual": "paddle_tpu_torch/csrc/fused_norm.cu",
     "rope": "paddle_tpu_torch/csrc/fused_ops.cu",
+    "rope_ring": "paddle_tpu_torch/csrc/fused_ops.cu",
     "rope_bwd": "paddle_tpu_torch/csrc/fused_ops.cu",
     "swiglu": "paddle_tpu_torch/csrc/fused_ops.cu",
     "swiglu_bwd": "paddle_tpu_torch/csrc/fused_ops.cu",
@@ -193,6 +210,7 @@ OUTPUTS = {
     "flash_attention_bwd": ("dq", "dk", "dv"),
     "rms_norm_residual": ("out", "residual"),
     "rope": ("q", "k"),
+    "rope_ring": ("q", "k ring", "v ring"),
     "rope_bwd": ("gq", "gk"),
     "swiglu_bwd": ("da", "db"),
     "kv_ring_write": ("k ring", "v ring"),
@@ -202,8 +220,8 @@ OUTPUTS = {
 PATHS = {
     "serving": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                 "paged_attention"),
-    "generate": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
-                 "flash_attention", "decode_attention", "kv_ring_write"),
+    "generate": ("rms_norm", "rms_norm_residual", "rope", "rope_ring",
+                 "swiglu", "flash_attention", "decode_attention"),
     "train": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd", "swiglu",
               "swiglu_bwd", "flash_attention", "flash_attention_bwd",
               "fused_adamw"),
@@ -441,6 +459,7 @@ def kernel_cases(torch, dtype):
             3 * x.numel() * es, 5 * x.numel()))
 
     cases += _generation_cases(torch, rnd, es, g, dtype)
+    cases += _head_dim_cases(torch, rnd, es, g, dtype)
     cases += _training_cases(torch, rnd, es, g, dtype)
     cases += _predict_cases(torch, rnd, es, dtype)
 
@@ -544,25 +563,178 @@ def _generation_cases(torch, rnd, es, g, dtype):
             _sdpa_b2(torch, q, kb, vb, pos),
             (2 * B * H * D + 2 * B * (pos + 1) * KVH * D) * es,
             4 * B * H * (pos + 1) * D))
-    # B3: rows written into [8, 512, 32, 128] rings in place
+    # B3: rows written into [8, 512, 32, 128] rings in place; at -3 the
+    # start counts from the end (C7: row 509)
     for label, S, pos in (("1 row into [8, 512, 32, 128] at 300", 1, 300),
                           ("128 rows into [8, 512, 32, 128] at 200", 128,
-                           200)):
-        B, L, KVH, D = 8, 512, 32, 128
-        kb, vb = rnd(B, L, KVH, D), rnd(B, L, KVH, D)
-        kb2, vb2 = kb.clone(), vb.clone()
-        kn, vn = rnd(B, S, KVH, D), rnd(B, S, KVH, D)
-        p = torch.full((), pos, dtype=torch.int32, device=dev)
-        rows = torch.arange(pos, pos + S, device=dev)
+                           200),
+                          ("1 row into [8, 512, 32, 128] at -3 (row 509)",
+                           1, -3)):
+        cases.append(_b3_case(torch, rnd, es, label, 8, 512, 32, 128, S,
+                              pos))
+    # K2's ring mode (B3 folded in): greedy_decode's decode step and its
+    # [8, 128] prefill over 512-row rings, a 32 / 8 split
+    for label, S, Hk, pos in (
+            ("greedy_decode step [8, 1, 32 / 32, 128] into [8, 512] rings "
+             "at pos 150", 1, 32, 150),
+            ("greedy_decode step [8, 1, 32 / 8, 128] into [8, 512] rings "
+             "at pos 150", 1, 8, 150),
+            ("prefill [8, 128, 32 / 32, 128] into [8, 512] rings at pos 0",
+             128, 32, 0)):
+        cases.append(_ring_case(torch, rnd, es, dtype, label, 8, S, 32, Hk,
+                                128, 512, pos))
+    return cases
+
+
+def _b3_case(torch, rnd, es, label, B, L, KVH, D, S, pos):
+    """One B3 case: the rings the kernel writes equal, bit for bit, the
+    plain version's and those of index_copy_ at dynamic_update_slice's
+    start (a negative pos counted from the end, then clamped to [0, L - S];
+    the library call, timed)."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+
+    kb, vb = rnd(B, L, KVH, D), rnd(B, L, KVH, D)
+    (k1, v1), (k2, v2), (k3, v3) = ((kb.clone(), vb.clone())
+                                    for _ in range(3))
+    kn, vn = rnd(B, S, KVH, D), rnd(B, S, KVH, D)
+    p = torch.full((), pos, dtype=torch.int32, device="cuda")
+    start = max(0, min(pos + L if pos < 0 else pos, L - S))
+    rows = torch.arange(start, start + S, device="cuda")
+
+    def kern():
+        return da.kv_ring_write(k1, v1, kn, vn, p)
+
+    def plain():
+        return da._ref_ring_write(k2, v2, kn, vn, p)
+
+    def lib():
+        return k3.index_copy_(1, rows, kn), v3.index_copy_(1, rows, vn)
+
+    def check():
+        got, ref, dus = kern(), plain(), lib()
+        torch.cuda.synchronize()
+        parts = [(f"{n} ring{w}", _err(torch, a, b), 0.0)
+                 for w, pair in (("", ref), (" vs the start's rows", dus))
+                 for n, a, b in zip("kv", got, pair)]
+        return max(e for _, e, _ in parts), parts
+
+    return ("kv_ring_write", label, kern, plain, lib,
+            4 * B * S * KVH * D * es, 0, check)
+
+
+def _ring_case(torch, rnd, es, dtype, label, B, S, H, KVH, D, L, pos,
+               smax=4096):
+    """One case of K2's ring mode: q rotated, k rotated into kbuf and v
+    copied into vbuf at the ring rows of the device's pos, one launch.
+    Held to the plain composition (_rope_ref then _ref_ring_write, the
+    `_tol` of phase 2 for each output) and, bit for bit, to the two
+    launches it replaces (rope_fused then kv_ring_write); no one PyTorch
+    call computes it."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+    from paddle_tpu_torch.ops.hopper import fused_ops as fo
+
+    dname = str(dtype).split(".")[1]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, D, 2, device="cuda") / D))
+    fr = (torch.arange(smax, device="cuda")[:, None].double()
+          * inv[None, :].double())
+    tc, ts = fr.cos().float().contiguous(), fr.sin().float().contiguous()
+    q, k, v = rnd(B, S, H, D), rnd(B, S, KVH, D), rnd(B, S, KVH, D)
+    kb, vb = rnd(B, L, KVH, D), rnd(B, L, KVH, D)
+    (k1, v1), (k2, v2), (k3, v3) = ((kb.clone(), vb.clone())
+                                    for _ in range(3))
+    p = torch.full((), pos, dtype=torch.int32, device="cuda")
+    _K2_PLANS[(label, dname)] = fo.rope_plan(B, S, H, 2 * KVH, D, dtype,
+                                             True)
+
+    def kern():
+        return fo.rope_ring_fused(q, k, v, tc, ts, k1, v1, p), k1, v1
+
+    def plain():
+        qr, kr = fo._rope_ref(q, k, *fo._window(tc, ts, S, p))
+        da._ref_ring_write(k2, v2, kr, v, p)
+        return qr, k2, v2
+
+    def two_launches():
+        qr, kr = fo.rope_fused(q, k, tc, ts, p)
+        da.kv_ring_write(k3, v3, kr, v, p)
+        return qr, k3, v3
+
+    def check():
+        got, ref, two = kern(), plain(), two_launches()
+        torch.cuda.synchronize()
+        parts = [(n, _err(torch, a, b), _tol(dname, b))
+                 for n, a, b in zip(OUTPUTS["rope_ring"], got, ref)]
+        parts.append(("elements off rope_fused + kv_ring_write", float(sum(
+            int((a != b).sum()) for a, b in zip(got, two))), 0.0))
+        return max(e for _, e, _ in parts[:3]), parts
+
+    return ("rope_ring", label, kern, plain, None,
+            (2 * B * S * (H + 2 * KVH) * D * es + 2 * S * (D // 2) * 4),
+            6 * B * S * (H + KVH) * D // 2, check)
+
+
+def _head_dim_cases(torch, rnd, es, g, dtype):
+    """B1, B8, B2, B3, K4 and K2's ring mode at head dims 72 (a multiple of
+    8: the tensor-core classes zero-padded), 100 (not one of 8: B1/B8 pad
+    in the wrapper, the others read rows in pieces), 264 and 512 (past the
+    tensor-core tiles: the SIMT instances), at 8 / 2 heads; SDPA at the
+    same shape as the library call."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+
+    dev = "cuda"
+    cases = []
+    dname = str(dtype).split(".")[1]
+    for D in (72, 100, 264, 512):
+        B, S, H, KVH = 2, 512, 8, 2
+        q, k, v = rnd(B, S, H, D), rnd(B, S, KVH, D), rnd(B, S, KVH, D)
+        scale = 1.0 / D ** 0.5
+        vis = S * (S + 1) // 2
+        label = f"causal head_dim {D} [{B}, {S}, {H} / {KVH}, {D}]"
         cases.append((
-            "kv_ring_write", label,
-            lambda kb=kb, vb=vb, kn=kn, vn=vn, p=p: da.kv_ring_write(
-                kb, vb, kn, vn, p),
-            lambda kb=kb2, vb=vb2, kn=kn, vn=vn, p=p: da._ref_ring_write(
-                kb, vb, kn, vn, p),
-            lambda kb=kb2, vb=vb2, kn=kn, vn=vn, r=rows: (
-                kb.index_copy_(1, r, kn), vb.index_copy_(1, r, vn)),
-            4 * B * S * KVH * D * es, 0))
+            "flash_attention", label,
+            lambda q=q, k=k, v=v: fa.flash_attention_fused(q, k, v, True),
+            lambda q=q, k=k, v=v, s=scale: fa._plain_bshd(q, k, v, True, s,
+                                                          None),
+            _sdpa_b1(torch, q, k, v, True, 0),
+            (2 * B * S * H * D + 2 * B * S * KVH * D) * es + B * H * S * 4,
+            4 * B * H * vis * D))
+        o, lse = fa.flash_attention_fused(q, k, v, True)
+        go = rnd(B, S, H, D)
+        cases.append((
+            "flash_attention_bwd", label,
+            lambda q=q, k=k, v=v, o=o, l=lse, go=go:
+                fa.flash_attention_bwd_fused(q, k, v, o, l, go, True),
+            lambda q=q, k=k, v=v, o=o, l=lse, go=go, s=scale:
+                fa._plain_bwd_bshd(q, k, v, o, l, go, True, s),
+            _sdpa_b8(torch, q, k, v, go, True),
+            (4 * B * S * H * D + 4 * B * S * KVH * D) * es + B * H * S * 4,
+            10 * B * H * vis * D))
+        Bd, L, pos = 8, 512, 300
+        q1, kb, vb = rnd(Bd, 1, H, D), rnd(Bd, L, KVH, D), rnd(Bd, L, KVH, D)
+        p = torch.full((), pos, dtype=torch.int32, device=dev)
+        label = f"head_dim {D} [{Bd}, L={L}, {H} / {KVH}, {D}] pos {pos}"
+        _B2_PLANS[(label, dname)] = (
+            da.decode_plan(Bd, L, H, KVH, D, dtype), (q1, kb, vb, p))
+        cases.append((
+            "decode_attention", label,
+            lambda q=q1, kb=kb, vb=vb, p=p: da.decode_attention(q, kb, vb, p),
+            lambda q=q1, kb=kb, vb=vb, p=p: da.ref_decode_attention(
+                q, kb, vb, p),
+            _sdpa_b2(torch, q1, kb, vb, pos),
+            (2 * Bd * H * D + 2 * Bd * (pos + 1) * KVH * D) * es,
+            4 * Bd * H * (pos + 1) * D))
+        cases.append(_b3_case(
+            torch, rnd, es, f"1 row into [8, 512, 8, {D}] at -3 (row 509)",
+            8, 512, 8, D, 1, -3))
+        cases.append(_paged_case(
+            torch, rnd, es, g, f"decode 8 rows, 8 heads / 2 KV, head_dim {D}",
+            H, KVH, D, torch.randint(64, 511, (8,), generator=g,
+                                     device=dev).to(torch.int32), [1] * 8))
+        cases.append(_ring_case(
+            torch, rnd, es, dtype,
+            f"[8, 1, 8 / 2, {D}] into [8, 512] rings at pos -3 (row 509)", 8,
+            1, H, KVH, D, 512, -3))
     return cases
 
 
@@ -653,7 +825,7 @@ def _training_cases(torch, rnd, es, g, dtype):
                 fa.flash_attention_bwd_fused(q, k, v, o, l, go, c),
             lambda q=q, k=kk, v=v, o=o, l=lse, go=go, c=causal, s=scale:
                 fa._plain_bwd_bshd(q, k, v, o, l, go, c, s),
-            None if Sq > Sk else _sdpa_b8(torch, q, kk, v, go, causal),
+            _sdpa_b8(torch, q, kk, v, go, causal),
             # q, k, v, o, dO and lse read once; dq, dk, dv written once
             (4 * B * Sq * Hq * Dh + 4 * B * Sk * KVH * Dh) * es
             + B * Hq * Sq * 4,
@@ -740,7 +912,9 @@ def _int8pack_lib(torch, x, qw, scale):
 def _sdpa_b8(torch, q, k, v, go, causal):
     """The backward of F.scaled_dot_product_attention alone: its forward
     runs here, once, and each call is torch.autograd.grad of that output
-    (graph retained) on [B, H, S, D] copies."""
+    (graph retained) on [B, H, S, D] copies; causal with Sq != Sk takes
+    the explicit bottom-right boolean mask (with Sq > Sk its first rows
+    see no key: SDPA gives them NaN, which the timing does not read)."""
     F = torch.nn.functional
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
@@ -1358,12 +1532,13 @@ def _decode_edges(torch):
     its tiles and splits add, in bfloat16 and float32, under every split
     count (forced): pos 0 (one key), pos 1 (empty shares under 4 and 8
     splits), pos + 1 at and one past a multiple of the key tile, pos L - 1
-    and past it (clamped), a ring of 100 rows; groups of 1, 2, 4, 8, 16 and
-    64 heads
-    (a group past 16 takes several blocks), head_dim 48, 64, 80 and 144
-    (zero-padded columns on the tensor cores), 128 and 256.  A plan with a
-    cluster must give the same bits in five runs (the merge has no
-    atomics)."""
+    and past it (clamped), a negative pos (no key: zeros), a ring of 100
+    rows; groups of 1, 2, 4, 8, 16 and 64 heads (a group past 16 takes
+    several blocks), head_dim 48, 64, 72, 80 and 144 (zero-padded columns
+    on the tensor cores), 128 and 256, and 100, 264 and 512 (the SIMT
+    instance in both types: rows read in pieces, 16-key tiles in float32
+    past 256).  A plan with a cluster must give the same bits in five runs
+    (the merge has no atomics)."""
     from paddle_tpu_torch.ops.hopper import decode_attention as da
 
     g = torch.Generator(device="cuda")
@@ -1375,14 +1550,16 @@ def _decode_edges(torch):
         for G, KVH, D, L in ((1, 2, 64, 100), (2, 2, 128, 300),
                              (4, 2, 80, 100), (8, 1, 256, 100),
                              (16, 1, 128, 200), (64, 1, 128, 100),
-                             (1, 1, 48, 64), (2, 1, 144, 100)):
+                             (1, 1, 48, 64), (2, 1, 144, 100),
+                             (4, 1, 72, 100), (2, 2, 100, 100),
+                             (16, 1, 264, 100), (1, 2, 512, 64)):
             H = G * KVH
             q = torch.randn(B, 1, H, D, generator=g, device=dev, dtype=dtype)
             kb = torch.randn(B, L, KVH, D, generator=g, device=dev,
                              dtype=dtype)
             vb = torch.randn(B, L, KVH, D, generator=g, device=dev,
                              dtype=dtype)
-            for pos in sorted({0, 1, 15, 16, 63, 64, 127, 128, L - 1,
+            for pos in sorted({-3, 0, 1, 15, 16, 63, 64, 127, 128, L - 1,
                                L + 5}):
                 p = torch.full((), pos, dtype=torch.int32, device=dev)
                 ref = da.ref_decode_attention(q, kb, vb, p)
@@ -1442,9 +1619,11 @@ def _paged_edges(torch):
     0, 1 and -1 mod 16 and mod the split chunk, a position past the pool
     (clamped), a row with now = 0, now > max_q_len, block ids -1 and past
     the pool, padding tokens; GQA groups 1, 4 and 8, head_dim 64, 128 and
-    256, and 80 (bf16: tensor cores on zero-padded columns) and 72 (bf16:
-    the SIMT instance).  A plan with a cluster must give the same bits in
-    five runs (the merge has no atomics)."""
+    256, 80 and 72 (bf16: tensor cores on zero-padded columns), and 100,
+    264 and 512 (the SIMT instance in both types: rows read in pieces,
+    16-key tiles past 256 where larger rings do not fit).  A plan with a
+    cluster must give the same bits in five runs (the merge has no
+    atomics)."""
     import itertools
 
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
@@ -1459,7 +1638,7 @@ def _paged_edges(torch):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         for G, D in ((1, 64), (4, 128), (8, 256), (1, 128), (8, 64),
-                     (2, 80), (1, 72)):
+                     (2, 80), (1, 72), (2, 100), (4, 264), (1, 512)):
             KV, H = 2, 2 * G
             kc = torch.randn(NB, KV, bs, D, generator=g, device=dev,
                              dtype=dtype)
@@ -1600,9 +1779,12 @@ def _refusals(torch):
     the limit: a 128-head group over one KV head at head_dim 256 past the
     64 query rows of K4's bfloat16 tensor-core tile and, in float32, past
     the 227 KB a K4 block may use (by its plan, before any launch); the K4
-    entry refuses a plan it has no instance for.  (K1 refused a 16384-wide
-    row here before its rows moved to registers: phase 2 now holds [1,
-    16384] against the plain version.)"""
+    entry refuses a plan it has no instance for; a head dim past 512 raises
+    naming that limit in B1, B8, B2 and K4 (Queue C8).  (K1 refused a
+    16384-wide row here before its rows moved to registers, and B2 a head
+    dim of 72 before every head dim up to 512 had an instance: phase 2 now
+    holds [1, 16384] and head dims 72, 100, 264 and 512 against the plain
+    versions.)"""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     dev, dt = "cuda", torch.bfloat16
@@ -1642,18 +1824,31 @@ def _refusals(torch):
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")
         print(f"refused paged_attention plan with {what}: cudaError_t 1")
-    # B2: the wrapper refuses a head_dim it has no instance for; the C
-    # entry refuses a plan that decode_plan never gives (the forced plans
-    # of the edge check come through decode_attention._plan)
+    # a head dim past 512 (C8): every attention kernel raises, naming the
+    # limit, before any launch
     from paddle_tpu_torch.ops.hopper import decode_attention as da
-    ring = torch.ones(1, 64, 2, 72, dtype=dt, device=dev)
-    try:
-        da.decode_attention(torch.ones(1, 1, 2, 72, dtype=dt, device=dev),
-                            ring, ring, z[0])
-    except ValueError as e:
-        print(f"refused decode_attention head_dim 72: {e}")
-    else:
-        raise AssertionError("decode_attention head_dim 72 was not refused")
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    wide = torch.ones(1, 16, 2, 520, dtype=dt, device=dev)
+    ring = torch.ones(1, 64, 2, 520, dtype=dt, device=dev)
+    pool = torch.ones(1, 2, 16, 520, dtype=dt, device=dev)
+    lse = torch.zeros(1, 2, 16, device=dev)
+    for label, call in {
+            "flash_attention": lambda: fa.flash_attention_fused(
+                wide, wide, wide, True),
+            "flash_attention_bwd": lambda: fa.flash_attention_bwd_fused(
+                wide, wide, wide, wide, lse, wide, True),
+            "decode_attention": lambda: da.decode_attention(
+                wide[:, :1], ring, ring, z[0]),
+            "paged_attention": lambda: pa.paged_attention(
+                wide[0, :1], pool, pool, z, one, cu, bt[:, :1], 1)}.items():
+        try:
+            call()
+        except ValueError as e:
+            if "512" not in str(e):
+                raise
+            print(f"refused {label} head_dim 520: {e}")
+        else:
+            raise AssertionError(f"{label} head_dim 520 was not refused")
     q = torch.ones(1, 1, 8, 128, dtype=dt, device=dev)
     kv = torch.ones(1, 512, 8, 128, dtype=dt, device=dev)
     # (splits, ring rows, dtype code)
@@ -1715,6 +1910,7 @@ def _counters():
     return {"rms_norm": fused_norm.rms_norm_fused,
             "rms_norm_residual": fused_norm.rms_norm_residual_fused,
             "rope": fused_ops.rope_fused,
+            "rope_ring": fused_ops.rope_ring_fused,
             "rope_bwd": fused_ops.rope_bwd_fused,
             "swiglu": fused_ops.swiglu_fused,
             "swiglu_bwd": fused_ops.swiglu_bwd_fused,
@@ -2030,16 +2226,33 @@ def _agree(a, b, gaps, what, thresh=1e-3):
                              f" {a[:stop]} vs {b[:stop]}")
 
 
-def two_layer_models(torch):
-    """The 7B geometry at 2 layers in float32, on cuda and on the CPU, with
-    identical weights (phases 4 and 6)."""
+# the head dims the tensor-core classes do not hold: head_dim -> (hidden,
+# heads, intermediate) of a 2-layer float32 Llama (phases 4, 6 and 8), with
+# a 4096-token vocabulary: random weights at these widths give logits
+# below 1, and over 32000 tokens the top-2 gaps fall under the 1e-3 at
+# which the token comparisons stop
+HEAD_DIM_LLAMAS = {72: (576, 8, 1536), 100: (800, 8, 2048),
+                   264: (1056, 4, 2816)}
+
+
+def two_layer_models(torch, head_dim=None):
+    """The 7B geometry at 2 layers in float32 (or, with ``head_dim``, the
+    2-layer Llama of ``HEAD_DIM_LLAMAS``), on cuda and on the CPU, with
+    identical weights (phases 4, 6 and 8)."""
     from paddle_tpu_torch.models.llama import (
         LlamaForCausalLM,
         llama_7b,
         load_numpy_state_dict,
     )
 
-    cfg = llama_7b(dtype="float32", num_hidden_layers=2)
+    if head_dim is None:
+        cfg = llama_7b(dtype="float32", num_hidden_layers=2)
+    else:
+        hidden, heads, inter = HEAD_DIM_LLAMAS[head_dim]
+        cfg = llama_7b(dtype="float32", num_hidden_layers=2,
+                       hidden_size=hidden, num_attention_heads=heads,
+                       intermediate_size=inter, vocab_size=4096)
+        assert cfg.head_dim == head_dim
     gpu_model = LlamaForCausalLM(cfg, seed=1)
     cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=1)
     load_numpy_state_dict(cpu_model, {k: v.cpu().numpy() for k, v in
@@ -2165,12 +2378,17 @@ def full_width_generation(torch, model):
     # (one launch per call)
     from paddle_tpu_torch.ops.hopper import decode_attention as da
 
+    from paddle_tpu_torch.ops.hopper import fused_ops as fo
+
     calls = []
 
     def traced():
-        n0 = da.decode_attention.launches
+        n0 = (da.decode_attention.launches, fo.rope_ring_fused.launches,
+              fo.rope_fused.launches, da.kv_ring_write.launches)
         greedy_decode(model, p8, max_new_tokens=32, max_length=512)
-        calls.append(da.decode_attention.launches - n0)
+        calls.append([n - m for n, m in zip(
+            (da.decode_attention.launches, fo.rope_ring_fused.launches,
+             fo.rope_fused.launches, da.kv_ring_write.launches), n0)])
 
     evs = _profile(torch, "greedy_decode [8, 128] + 32 tokens",
                    lambda: greedy_decode(model, p8, max_new_tokens=32,
@@ -2182,10 +2400,27 @@ def full_width_generation(torch, model):
           or "decode_simt_kernel" in e.key]
     b2_n = sum(e.count for e in b2)
     b2_ms = sum(e.self_device_time_total for e in b2) / 1e3
+    b2_calls, ring_calls, rope_calls, b3_calls = calls[-1]
     print(f"profile B2 in greedy_decode: {b2_ms:.3f} ms device, {b2_n} "
-          f"kernels, {calls[-1]} wrapper calls")
-    if b2_n != calls[-1]:
-        raise AssertionError(f"B2: {b2_n} kernels for {calls[-1]} calls")
+          f"kernels, {b2_calls} wrapper calls")
+    if b2_n != b2_calls:
+        raise AssertionError(f"B2: {b2_n} kernels for {b2_calls} calls")
+    # B3 is folded into K2's ring mode: no ring-write kernel, and every K2
+    # kernel of the loop is a ring-mode call (the plain mode is not called)
+    b3_n = sum(e.count for e in evs if "ring_write_kernel" in e.key)
+    k2 = [e for e in evs if "rope_kernel" in e.key]
+    k2_n = sum(e.count for e in k2)
+    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3
+    print(f"profile K2 ring mode in greedy_decode: {k2_ms:.3f} ms device, "
+          f"{k2_n} kernels, {ring_calls} ring-mode calls, {rope_calls} "
+          f"plain rope calls; B3: {b3_n} kernels, {b3_calls} calls")
+    if b3_n or b3_calls:
+        raise AssertionError(f"greedy_decode launched B3 ({b3_n} kernels, "
+                             f"{b3_calls} calls): it is folded into K2")
+    if rope_calls or k2_n != ring_calls:
+        raise AssertionError(f"K2 in greedy_decode: {k2_n} kernels for "
+                             f"{ring_calls} ring-mode and {rope_calls} "
+                             "plain calls")
     ref = greedy_decode(model, p4, max_new_tokens=32)
     ring = generate(model, p4, max_new_tokens=32, use_static_cache=True)
     grow = generate(model, p4, max_new_tokens=32)
@@ -2658,9 +2893,15 @@ def main(argv=None) -> int:
         launches["serving"] = full_width_serving(torch, model)
         _done("3", t)
     pair = two_layer_models(torch) if phases & {4, 6, 8} else None
+    # the 2-layer Llamas at head_dim 72, 100 and 264 (phases 4, 6, 8)
+    dims = ({d: two_layer_models(torch, d) for d in HEAD_DIM_LLAMAS}
+            if phases & {4, 6, 8} else None)
     if 4 in phases:
         t = _phase("4 kernel path vs plain path")
         kernels_vs_plain_path(torch, *pair)
+        for d in (72, 264):
+            print(f"-- head_dim {d}")
+            kernels_vs_plain_path(torch, *dims[d])
         _done("4", t)
     if 5 in phases:
         t = _phase("5 full-width generation")
@@ -2669,6 +2910,9 @@ def main(argv=None) -> int:
     if 6 in phases:
         t = _phase("6 generation: kernel path vs plain path")
         generation_kernels_vs_plain(torch, *pair)
+        for d in (72, 100, 264):
+            print(f"-- head_dim {d}")
+            generation_kernels_vs_plain(torch, *dims[d])
         _done("6", t)
     model = None                # the 7B weights: room for training
     torch.cuda.empty_cache()
@@ -2680,8 +2924,11 @@ def main(argv=None) -> int:
     if 8 in phases:
         t = _phase("8 training: kernel path vs plain path")
         training_kernels_vs_plain(torch, *pair)
+        for d in (72, 264):
+            print(f"-- head_dim {d}")
+            training_kernels_vs_plain(torch, *dims[d])
         _done("8", t)
-    pair = None
+    pair = dims = None
     torch.cuda.empty_cache()
     if 9 in phases:
         t = _phase("9 full-width predictor")

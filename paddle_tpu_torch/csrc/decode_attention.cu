@@ -48,6 +48,16 @@
 //   P @ V without leaving registers, and the warps' (m, l, O) merge at the
 //   end.  float32 (TF32 stays off) runs a SIMT instance of the same walk:
 //   thread-per-key scores and column-chunk P @ V from shared memory.
+// Head dims.  Every D up to 512.  The tensor-core instance takes bfloat16
+// with D a multiple of 8 up to 256 (columns past D zero to 64, 128 or 256).
+// The SIMT instance takes the rest: float32, and bfloat16 with D not a
+// multiple of 8 or past 256.  It holds D padded to a multiple of 8 (DA) in
+// shared memory, zero past D, and reads the ring in place in the largest
+// pieces a row's bytes allow (16, 8, 4 or 2; a per-call pad would copy
+// the whole ring); past 256 columns float32 takes 16-key tiles, so a block
+// stays within 227 KB (about 200 KB at D 512).
+// A negative pos sees no key: the output is zeros, as the Pallas kernel
+// gives (it skips every tile past pos, and its l stays 0).
 // The number of splits comes from ops/hopper/decode_attention.py:
 // decode_plan; the entry refuses any other (not 1, 2, 4 or 8, more splits
 // than the ring has key tiles) and a block past the shared memory it may
@@ -55,10 +65,15 @@
 //
 // B3 replaces decode_attention.py:kv_ring_write: new [B, S, KVH, D] is
 // written into the ring at rows start .. start + S - 1, in place, with
-// start = clamp(pos, 0, L - S) read from device memory (the clamp is that
-// of dynamic_update_slice, which the reference's S > 1 path uses).  One
-// launch writes the K and the V ring.  Bound by bytes; one block per (row,
-// token) copies its [KVH, D] rows of K and V in 16-byte vectors.
+// start read from device memory as dynamic_update_slice takes it (which
+// the reference's S > 1 path uses, and the Pallas kernel's index map
+// matches): a negative pos first counts from the end (pos + L), then the
+// start is clamped to [0, L - S].  One launch writes the K and the V ring.
+// Bound by bytes; one block per (row, token) copies its [KVH, D] rows of K
+// and V in the largest pieces (16, 8, 4 or 2 bytes) the row and the
+// pointers allow.  The generation path folds it into K2's launch
+// (fused_ops.cu, the ring mode); this entry serves kv_ring_write's own
+// callers.
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,6 +110,23 @@ __host__ __device__ inline int tc_cols(int D) {
   return D <= 64 ? 64 : D <= 128 ? 128 : 256;
 }
 
+// which instance a call runs: the tensor cores for bfloat16 with D a
+// multiple of 8 up to 256, SIMT otherwise
+__host__ __device__ inline bool uses_tc(int es, int D) {
+  return es == 2 && D % 8 == 0 && D <= 256;
+}
+
+// the SIMT instance's columns: D padded to a multiple of kVec (zeros past D)
+__host__ __device__ inline int simt_cols(int D) {
+  return (D + kVec - 1) / kVec * kVec;
+}
+
+// the SIMT instance's key tile: 16 keys for float32 past 256 columns (the
+// ring of two tiles stays within the block's shared memory), else 32
+__host__ __device__ inline int simt_keys(int es, int D) {
+  return es == 4 && D > 256 ? 16 : kSimtKeys;
+}
+
 // query heads of a block: the whole group, at most one m16 tile
 __host__ __device__ inline int block_rows(int G) {
   return G < kRows ? G : kRows;
@@ -117,7 +149,7 @@ __host__ __device__ inline Layout layout(bool tc, int R, int D, int es,
                                          int splits) {
   Layout L = {};
   size_t off = 0;
-  const int KT = tc ? kTcKeys : kSimtKeys;
+  const int KT = tc ? kTcKeys : simt_keys(es, D);
   if (tc) {
     const int DP = tc_cols(D);
     L.KG = kWarps;
@@ -133,19 +165,20 @@ __host__ __device__ inline Layout layout(bool tc, int R, int D, int es,
     L.part = off;  // each key group's m and l by row
     off += (size_t)2 * L.KG * L.RP * 4;
   } else {
-    const int slots = kThreads / (D / kVec);  // threads on a column chunk
+    const int DA = simt_cols(D);
+    const int slots = kThreads / (DA / kVec);  // threads on a column chunk
     L.KG = 1;
     while (L.KG * 2 * R <= slots) L.KG *= 2;
     L.RP = R;
-    L.rstride = row_chunks(D, es) * 16 / es;
+    L.rstride = row_chunks(DA, es) * 16 / es;
     L.stage = off;  // kStages x (K tile, V tile)
     off += (size_t)2 * kStages * KT * L.rstride * es;
-    L.q = off;  // R x D query rows, float, pre-scaled
-    off += (size_t)R * D * 4;
+    L.q = off;  // R x DA query rows, float, pre-scaled
+    off += (size_t)R * DA * 4;
     L.s = off;  // R x KT scores, then probabilities
     off += (size_t)R * KT * 4;
-    L.acc = off;  // KG x R x D float accumulators
-    off += (size_t)L.KG * R * D * 4;
+    L.acc = off;  // KG x R x DA float accumulators
+    off += (size_t)L.KG * R * DA * 4;
     L.stats = off;  // m, l, corr (float) by row
     off += (size_t)3 * R * 4;
   }
@@ -176,11 +209,11 @@ __device__ __forceinline__ Work block_heads(int H, int KVH, int n_hc) {
 
 // The split's share: keys [s chunk, (s + 1) chunk) cut at pos + 1,
 // chunk = ceil(ceil((pos + 1) / splits) / KT) KT; mirrored by the tests'
-// split_ranges.  Returns the share's key tiles.
+// split_ranges.  Returns the share's key tiles (none for a negative pos).
 __device__ __forceinline__ int block_keys(Work& w,
                                           const int* __restrict__ pos_ptr,
                                           int L, int KT) {
-  const int n = max(0, min(*pos_ptr, L - 1)) + 1;  // visible keys
+  const int n = max(0, min(*pos_ptr, L - 1) + 1);  // visible keys
   const int splits = gridDim.x;
   const int chunk = ((n + splits - 1) / splits + KT - 1) / KT * KT;
   w.c0 = min((int)blockIdx.x * chunk, n);
@@ -188,27 +221,33 @@ __device__ __forceinline__ int block_keys(Work& w,
   return (w.c1 - w.c0 + KT - 1) / KT;
 }
 
-// How a thread copies K and V rows: the 16-byte chunk c of rows j0,
-// j0 + jstep, ... of every tile (the same chunk every tile).  The copies
-// are marked evict-first in L2: a step reads each K/V row once, and what
-// the cache holds for the kernels around it stays.
+// How a thread copies K and V rows in pieces of `bytes` (16, 8, 4 or 2:
+// the largest a row's D * sizeof(T) bytes allow): where a row has at most
+// kThreads pieces, the piece c of rows j0, j0 + jstep, ... of every tile
+// (the same piece every tile); else (jstep 0) the block walks the tile's
+// pieces in order.  The copies of 16 bytes are marked evict-first in L2: a
+// step reads each K/V row once, and what the cache holds for the kernels
+// around it stays.
 template <typename T>
 struct Copier {
   int c, j0, jstep;
-  long long rstride;  // elements between two keys of the ring
-  const T* kb;        // key 0 of the block's (row, KV head)
+  int cpr, pe, bytes;  // pieces a row, elements and bytes a piece
+  long long rstride;   // elements between two keys of the ring
+  const T* kb;         // key 0 of the block's (row, KV head)
   const T* vb;
-  uint64_t policy;    // the L2 eviction policy of the copies
+  uint64_t policy;     // the L2 eviction policy of the copies
 };
 
 template <typename T>
 __device__ __forceinline__ Copier<T> make_copier(const T* kbuf, const T* vbuf,
                                                  const Work& w, int L,
                                                  int KVH, int D) {
-  constexpr int kEl = 16 / sizeof(T);
-  const int cpr = D / kEl;  // 16-byte chunks of a row
   Copier<T> cp;
-  cp.jstep = kThreads / cpr;
+  cp.bytes = ptt::tc::piece_bytes(D * (int)sizeof(T));
+  cp.pe = cp.bytes / (int)sizeof(T);
+  const int cpr = D / cp.pe;  // pieces of a row
+  cp.cpr = cpr;
+  cp.jstep = cpr <= kThreads ? kThreads / cpr : 0;
   cp.c = threadIdx.x % cpr;
   // threads past jstep * cpr copy nothing
   cp.j0 = (int)threadIdx.x < cp.jstep * cpr ? threadIdx.x / cpr : 1 << 30;
@@ -233,32 +272,55 @@ __device__ __forceinline__ void cp_async16_hint(uint32_t dst, const void* src,
       : "memory");
 }
 
-// K and V rows t0 .. t0 + KT - 1 into a stage (rows `rs` elements apart);
-// keys at or past c1 are zero-filled without a read.  One commit group.
-template <typename T, int KT>
-__device__ __forceinline__ void issue_tile(T* ks, const Copier<T>& cp,
-                                           int t0, int c1, int rs) {
-  constexpr int kEl = 16 / sizeof(T);
-  T* vs = ks + KT * rs;
-  for (int j = cp.j0; j < KT; j += cp.jstep) {
-    const int key = t0 + j;
-    const bool ok = key < c1;
-    const long long o = (ok ? key * cp.rstride : 0) + cp.c * kEl;
-    const int so = j * rs + cp.c * kEl;
+// piece c of K and V row j of a tile (key t0 + j) into its stage;
+// zero-filled without a read at or past c1.  P: the piece's bytes where
+// the instance fixes them (16 on the tensor cores), 0 to take the
+// copier's
+template <typename T, int P>
+__device__ __forceinline__ void copy_kv(T* ks, T* vs, const Copier<T>& cp,
+                                        int j, int c, int t0, int c1,
+                                        int rs) {
+  const int pe = P ? P / (int)sizeof(T) : cp.pe;
+  const int bytes = P ? P : cp.bytes;
+  const int key = t0 + j;
+  const bool ok = key < c1;
+  const long long o = (ok ? key * cp.rstride : 0) + c * pe;
+  const int so = j * rs + c * pe;
+  if (bytes == 16) {
     cp_async16_hint(ptt::tc::smem_u32(ks + so), cp.kb + o, ok, cp.policy);
     cp_async16_hint(ptt::tc::smem_u32(vs + so), cp.vb + o, ok, cp.policy);
+  } else {
+    ptt::tc::copy_piece(ptt::tc::smem_u32(ks + so), cp.kb + o, ok, bytes);
+    ptt::tc::copy_piece(ptt::tc::smem_u32(vs + so), cp.vb + o, ok, bytes);
+  }
+}
+
+// K and V rows t0 .. t0 + KT - 1 into a stage (rows `rs` elements apart);
+// keys at or past c1 are zero-filled without a read.  One commit group.
+template <typename T, int KT, int P>
+__device__ __forceinline__ void issue_tile(T* ks, const Copier<T>& cp,
+                                           int t0, int c1, int rs) {
+  T* vs = ks + KT * rs;
+  if (P == 16 || cp.jstep > 0) {
+    for (int j = cp.j0; j < KT; j += cp.jstep)
+      copy_kv<T, P>(ks, vs, cp, j, cp.c, t0, c1, rs);
+  } else {
+    for (int i = threadIdx.x; i < KT * cp.cpr; i += kThreads) {
+      const int j = i / cp.cpr;
+      copy_kv<T, P>(ks, vs, cp, j, i - j * cp.cpr, t0, c1, rs);
+    }
   }
   ptt::tc::cp_async_commit();
 }
 
 // Reads pos and issues the share's first tile; returns the share's tiles
-template <typename T, int KT>
+template <typename T, int KT, int P>
 __device__ __forceinline__ int ring_open(T* stage, Work& w,
                                          const Copier<T>& cp,
                                          const int* __restrict__ pos_ptr,
                                          int L, int rs) {
   const int ntile = block_keys(w, pos_ptr, L, KT);
-  if (ntile > 0) issue_tile<T, KT>(stage, cp, w.c0, w.c1, rs);
+  if (ntile > 0) issue_tile<T, KT, P>(stage, cp, w.c0, w.c1, rs);
   return ntile;
 }
 
@@ -267,13 +329,13 @@ __device__ __forceinline__ int ring_open(T* stage, Work& w,
 // it), then wait until tile it has landed for every thread (tile it + 1
 // stays in flight).  Returns tile it's stage.  The block's older cp.async
 // groups (its query rows) have landed too.
-template <typename T, int KT>
+template <typename T, int KT, int P>
 __device__ __forceinline__ const T* ring_wait(T* stage, int it, int ntile,
                                               const Copier<T>& cp,
                                               const Work& w, int rs) {
   const size_t step = (size_t)2 * KT * rs;
   if (it + 1 < ntile) {
-    issue_tile<T, KT>(stage + ((it + 1) % kStages) * step, cp,
+    issue_tile<T, KT, P>(stage + ((it + 1) % kStages) * step, cp,
                       w.c0 + (it + 1) * KT, w.c1, rs);
     ptt::tc::cp_async_wait<1>();
   } else {
@@ -327,8 +389,10 @@ __device__ void finish(T* __restrict__ o, int D, int nr, int astride, int RP,
       wl[splits * RP + r] = Lsum > 0.f ? 1.f / Lsum : 0.f;
     }
     __syncthreads();
-    for (int idx = tid * 4; idx < nr * D; idx += kThreads * 4) {
-      const int r = idx / D, d = idx - r * D;  // D % 16 == 0: one row
+    // 4 columns a thread (acc rows hold at least D rounded up to 4)
+    const int nq = (D + 3) / 4;
+    for (int idx = tid; idx < nr * nq; idx += kThreads) {
+      const int r = idx / nq, d = (idx - r * nq) * 4;
       const size_t ai = (size_t)r * astride + d;
       // a split that saw no key holds finite zeros: it weighs 0
       float4 v[kMaxSplits];
@@ -349,10 +413,10 @@ __device__ void finish(T* __restrict__ o, int D, int nr, int astride, int RP,
         }
       }
       const float inv = wl[splits * RP + r];
-      o[idx] = ptt::from_f<T>(sum.x * inv);
-      o[idx + 1] = ptt::from_f<T>(sum.y * inv);
-      o[idx + 2] = ptt::from_f<T>(sum.z * inv);
-      o[idx + 3] = ptt::from_f<T>(sum.w * inv);
+      const float x[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < D) o[(size_t)r * D + d + e] = ptt::from_f<T>(x[e] * inv);
     }
   }
   cl.sync();  // no split leaves while the leader still reads it
@@ -370,17 +434,19 @@ __device__ __forceinline__ void load8(const T* p, float* out) {
 }
 
 // ---------------------------------------------------------------- SIMT
-// float32 (and bfloat16 where the plan asks).  Scores and probabilities in
-// shared memory; thread (rg, j) scores key j for rows rg, rg + NRG, ...;
-// thread (kg, rsl, dc) adds keys kg, kg + KG, ... into columns
-// [8 dc, 8 dc + 8) of rows rsl, rsl + RSL, ... of partial kg.
-template <typename T>
+// float32, and bfloat16 with D not a multiple of 8 or past 256.  The
+// query rows, the K/V tiles' rows and the accumulators hold DA = D padded
+// to 8 columns, zero past D.  Scores and probabilities in shared memory;
+// thread (rg, j) scores key j for rows rg, rg + NRG, ...; thread (kg, rsl,
+// dc) adds keys kg, kg + KG, ... into columns [8 dc, 8 dc + 8) of rows rsl,
+// rsl + RSL, ... of partial kg.  P: 16 where a row is whole 16-byte
+// pieces (the copies' sizes fixed at compile time), else 0.
+template <typename T, int KT, int P>
 __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ kbuf,
     const T* __restrict__ vbuf, T* __restrict__ out,
     const int* __restrict__ pos_ptr, int L, int H, int KVH, int D, int n_hc,
     float scale_log2) {
-  constexpr int KT = kSimtKeys;
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = block_rows(H / KVH);
   const Layout Ly = layout(false, R, D, sizeof(T), gridDim.x);
@@ -397,20 +463,29 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
   Work w = block_heads(H, KVH, n_hc);
   const int nr = w.nr;
   const int rs = Ly.rstride;
+  const int DA = simt_cols(D);
+  // the columns D .. DA - 1 of every stage row stay zero (the copies write
+  // columns < D only; the first ring_wait's barrier publishes these)
+  for (int idx = tid; idx < 2 * kStages * KT * (DA - D); idx += kThreads) {
+    const int row = idx / (DA - D);
+    stage[row * rs + D + idx - row * (DA - D)] = ptt::from_f<T>(0.f);
+  }
   const Copier<T> cp = make_copier<T>(kbuf, vbuf, w, L, KVH, D);
-  const int ntile = ring_open<T, KT>(stage, w, cp, pos_ptr, L, rs);
+  const int ntile = ring_open<T, KT, P>(stage, w, cp, pos_ptr, L, rs);
   const int c1 = w.c1;
   // the query rows and the state while the first tile is in flight
   const T* qb = q + ((size_t)w.b * H + w.h0) * D;
-  for (int idx = tid; idx < nr * D; idx += kThreads)
-    qs[idx] = ptt::to_f(qb[idx]) * scale_log2;
-  for (int idx = tid; idx < Ly.KG * R * D; idx += kThreads) acc[idx] = 0.f;
+  for (int idx = tid; idx < nr * DA; idx += kThreads) {
+    const int r = idx / DA, d = idx - r * DA;
+    qs[idx] = d < D ? ptt::to_f(qb[r * D + d]) * scale_log2 : 0.f;
+  }
+  for (int idx = tid; idx < Ly.KG * R * DA; idx += kThreads) acc[idx] = 0.f;
   for (int r = tid; r < nr; r += kThreads) {
     mrow[r] = -INFINITY;
     lrow[r] = 0.f;
   }
 
-  const int DC = D / kVec;
+  const int DC = DA / kVec;
   const int slots = kThreads / DC;
   const int RSL = slots / Ly.KG;
   const int dc = tid % DC, slot = tid / DC;
@@ -421,7 +496,7 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
 
   for (int it = 0; it < ntile; ++it) {
     const T* ks =
-        ring_wait<T, KT>(stage, it, ntile, cp, w, rs);
+        ring_wait<T, KT, P>(stage, it, ntile, cp, w, rs);
     const T* vs = ks + KT * rs;
     const int t0 = w.c0 + it * KT;
     const int kcount = min(KT, c1 - t0);
@@ -433,7 +508,7 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
         float s[kRowsPerPass];
 #pragma unroll
         for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
-        for (int c = 0; c < D; c += kVec) {
+        for (int c = 0; c < DA; c += kVec) {
           float kf[kVec];
           load8(krow + c, kf);
 #pragma unroll
@@ -441,9 +516,9 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
             const int r = r0 + k * NRG;
             if (r < nr) {
               const float4 a =
-                  *reinterpret_cast<const float4*>(qs + r * D + c);
+                  *reinterpret_cast<const float4*>(qs + r * DA + c);
               const float4 e =
-                  *reinterpret_cast<const float4*>(qs + r * D + c + 4);
+                  *reinterpret_cast<const float4*>(qs + r * DA + c + 4);
               s[k] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3] +
                       e.x * kf[4] + e.y * kf[5] + e.z * kf[6] + e.w * kf[7];
             }
@@ -491,7 +566,7 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
 #pragma unroll
           for (int e = 0; e < kVec; ++e) a[k][e] = 0.f;
           if (r < nr) {
-            const float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+            const float* ap = acc + ((size_t)kg * R + r) * DA + dc * kVec;
             const float cr = corr[r];
 #pragma unroll
             for (int e = 0; e < kVec; ++e) a[k][e] = ap[e] * cr;
@@ -514,7 +589,7 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
         for (int k = 0; k < kRowsPerPass; ++k) {
           const int r = r0 + k * RSL;
           if (r < nr) {
-            float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+            float* ap = acc + ((size_t)kg * R + r) * DA + dc * kVec;
 #pragma unroll
             for (int e = 0; e < kVec; ++e) ap[e] = a[k][e];
           }
@@ -527,20 +602,21 @@ __global__ void __launch_bounds__(kThreads) decode_simt_kernel(
   __syncthreads();  // with no tile, the state written above
   // the key groups' partials add up into partial 0
   if (Ly.KG > 1) {
-    for (int idx = tid; idx < nr * D; idx += kThreads) {
+    for (int idx = tid; idx < nr * DA; idx += kThreads) {
       float s = 0.f;
-      for (int g = 0; g < Ly.KG; ++g) s += acc[(size_t)g * R * D + idx];
+      for (int g = 0; g < Ly.KG; ++g) s += acc[(size_t)g * R * DA + idx];
       acc[idx] = s;
     }
     __syncthreads();
   }
-  finish<T>(out + ((size_t)w.b * H + w.h0) * D, D, nr, D, R, mrow, lrow, acc,
-            ws);
+  finish<T>(out + ((size_t)w.b * H + w.h0) * D, D, nr, DA, R, mrow, lrow,
+            acc, ws);
 }
 
 // -------------------------------------------------------- tensor cores
-// bfloat16: mma.sync.m16n8k16 (bf16 -> f32) on ldmatrix fragments of the
-// padded tiles.  The block's heads are the 16 rows (zero past nr); warp w
+// bfloat16 with D a multiple of 8 up to 256: mma.sync.m16n8k16 (bf16 ->
+// f32) on ldmatrix fragments of the padded tiles.  The block's heads are
+// the 16 rows (zero past nr); warp w
 // takes keys [w KT / 4, (w + 1) KT / 4) of every tile with its own online
 // softmax (float32 m, l and the output in registers); the probabilities
 // become the P @ V operand without leaving registers.  After the walk the
@@ -632,7 +708,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(
     }
   }
   const Copier<bf> cp = make_copier<bf>(kbuf, vbuf, w, L, KVH, D);
-  const int ntile = ring_open<bf, KT>(stage, w, cp, pos_ptr, L, rs);
+  const int ntile = ring_open<bf, KT, 16>(stage, w, cp, pos_ptr, L, rs);
   const int c1 = w.c1;
   const int kbase = warp * KW;
   const int g = lane / 4, tig = lane % 4;  // rows g and g + 8
@@ -643,7 +719,7 @@ __global__ void __launch_bounds__(kThreads) decode_tc_kernel(
 
   for (int it = 0; it < ntile; ++it) {
     const bf* ks =
-        ring_wait<bf, KT>(stage, it, ntile, cp, w, rs);
+        ring_wait<bf, KT, 16>(stage, it, ntile, cp, w, rs);
     const bf* vs = ks + KT * rs;
     const int t0 = w.c0 + it * KT;
     // S = Q K^T over this warp's KW keys
@@ -811,27 +887,31 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, int n_hc, int B,
 
 // the plans the instances take: 1, 2, 4 or 8 splits, no more than the
 // ring has key tiles
-bool valid_plan(int dtype, int B, int L, int H, int KVH, int D, int splits) {
+bool valid_plan(int es, int B, int L, int H, int KVH, int D, int splits) {
   if (!(B > 0 && B <= 65535 && L > 0 && KVH > 0 && H % KVH == 0 && D > 0 &&
-        D % 16 == 0 && D <= 256 &&
+        D <= 512 &&
         (splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits)))
     return false;
   const int G = H / KVH;
   const long long n_hc = (G + kRows - 1) / kRows;
   if (KVH * n_hc > 65535) return false;
-  const int KT = dtype == ptt::kBFloat16 ? kTcKeys : kSimtKeys;
+  const int KT = uses_tc(es, D) ? kTcKeys : simt_keys(es, D);
   return (long long)(splits - 1) * KT < L;
 }
 
-__global__ void ring_write_kernel(uint4* __restrict__ kbuf,
-                                  uint4* __restrict__ vbuf,
-                                  const uint4* __restrict__ knew,
-                                  const uint4* __restrict__ vnew,
+// V: the piece a thread copies (uint4, uint2, uint32_t or uint16_t)
+template <typename V>
+__global__ void ring_write_kernel(V* __restrict__ kbuf, V* __restrict__ vbuf,
+                                  const V* __restrict__ knew,
+                                  const V* __restrict__ vnew,
                                   const int* __restrict__ pos_ptr, int L,
                                   int S, int row_vecs) {
   const int bs = blockIdx.x;  // b * S + s
   const int b = bs / S, s = bs - b * S;
-  const int start = max(0, min(*pos_ptr, L - S));
+  // dynamic_update_slice's start: a negative pos counts from the end
+  // first, then the start is clamped to [0, L - S]
+  const int p = *pos_ptr;
+  const int start = max(0, min(p < 0 ? p + L : p, L - S));
   const long long dst = ((long long)b * L + start + s) * row_vecs;
   const long long src = (long long)bs * row_vecs;
   for (int i = threadIdx.x; i < row_vecs; i += blockDim.x) {
@@ -850,18 +930,30 @@ extern "C" int ptt_decode_attention(const void* q, const void* kbuf,
                                     int KVH, int D, float scale, int splits,
                                     int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
-      !valid_plan(dtype, B, L, H, KVH, D, splits))
+  if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
     return (int)cudaErrorInvalidValue;
-  const bool tc = dtype == ptt::kBFloat16;
+  const int es = dtype == ptt::kFloat32 ? 4 : 2;
+  if (!valid_plan(es, B, L, H, KVH, D, splits))
+    return (int)cudaErrorInvalidValue;
+  const bool tc = uses_tc(es, D);
   const int G = H / KVH;
   const int n_hc = (G + kRows - 1) / kRows;
-  const size_t smem =
-      layout(tc, block_rows(G), D, tc ? 2 : 4, splits).total;
+  const size_t smem = layout(tc, block_rows(G), D, es, splits).total;
 #define PTT_B2_ARGS                                                          \
   smem, splits, n_hc, B, KVH, st, q, kbuf, vbuf, out, pos, L, H, D, scale
-  if (!tc)
-    return (int)launch_kernel<float>(decode_simt_kernel<float>, PTT_B2_ARGS);
+  if (!tc) {
+    // the SIMT instance by type, key tile and whether a row is whole
+    // 16-byte pieces
+    const bool p16 = ptt::tc::piece_bytes(D * es) == 16;
+#define PTT_B2_SIMT(T, kt)                                                 \
+  return p16 ? (int)launch_kernel<T>(decode_simt_kernel<T, kt, 16>,        \
+                                     PTT_B2_ARGS)                          \
+             : (int)launch_kernel<T>(decode_simt_kernel<T, kt, 0>, PTT_B2_ARGS)
+    if (es == 2) PTT_B2_SIMT(bf, kSimtKeys);
+    if (simt_keys(es, D) == 16) PTT_B2_SIMT(float, 16);
+    PTT_B2_SIMT(float, kSimtKeys);
+#undef PTT_B2_SIMT
+  }
   const int DP = tc_cols(D);
   return DP == 64 ? (int)launch_kernel<bf>(decode_tc_kernel<64>, PTT_B2_ARGS)
          : DP == 128
@@ -870,13 +962,45 @@ extern "C" int ptt_decode_attention(const void* q, const void* kbuf,
 #undef PTT_B2_ARGS
 }
 
-// row_bytes: one token's [KVH, D] row, a multiple of 16
+namespace {
+
+template <typename V>
+cudaError_t ring_write(void* kbuf, void* vbuf, const void* knew,
+                       const void* vnew, const void* pos, int B, int L, int S,
+                       int row_bytes, cudaStream_t st) {
+  ring_write_kernel<V><<<B * S, kThreads, 0, st>>>(
+      (V*)kbuf, (V*)vbuf, (const V*)knew, (const V*)vnew, (const int*)pos, L,
+      S, row_bytes / (int)sizeof(V));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// row_bytes: one token's [KVH, D] row, an even count; the pieces are the
+// largest that the row and every pointer allow
 extern "C" int ptt_kv_ring_write(void* kbuf, void* vbuf, const void* knew,
                                  const void* vnew, const void* pos, int B,
                                  int L, int S, int row_bytes, void* stream) {
-  if (row_bytes % 16 || S <= 0 || S > L) return (int)cudaErrorInvalidValue;
-  ring_write_kernel<<<B * S, kThreads, 0, (cudaStream_t)stream>>>(
-      (uint4*)kbuf, (uint4*)vbuf, (const uint4*)knew, (const uint4*)vnew,
-      (const int*)pos, L, S, row_bytes / 16);
-  return (int)cudaGetLastError();
+  if (row_bytes <= 0 || row_bytes % 2 || S <= 0 || S > L)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bits = (uintptr_t)kbuf | (uintptr_t)vbuf |
+                         (uintptr_t)knew | (uintptr_t)vnew;
+  int piece = ptt::tc::piece_bytes(row_bytes);
+  while (bits % piece) piece /= 2;
+  if (piece < 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (piece) {
+    case 16:
+      return (int)ring_write<uint4>(kbuf, vbuf, knew, vnew, pos, B, L, S,
+                                    row_bytes, st);
+    case 8:
+      return (int)ring_write<uint2>(kbuf, vbuf, knew, vnew, pos, B, L, S,
+                                    row_bytes, st);
+    case 4:
+      return (int)ring_write<uint32_t>(kbuf, vbuf, knew, vnew, pos, B, L, S,
+                                       row_bytes, st);
+    default:
+      return (int)ring_write<uint16_t>(kbuf, vbuf, knew, vnew, pos, B, L, S,
+                                       row_bytes, st);
+  }
 }

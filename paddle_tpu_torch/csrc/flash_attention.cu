@@ -52,6 +52,17 @@
 // causal bound of the query tile's last row are never loaded.  Shared memory
 // is 113 KB at D = 128 and 210 KB at D = 256, past the 48 KB default: the
 // entry opts the kernel in.
+//
+// Head dims.  The entry takes any D that is a multiple of 8 up to 512 (the
+// wrapper zero-pads q, k and v to the next multiple of 8 and slices the
+// output: exact, the padded columns add 0 to every score and give 0
+// outputs; the scale stays that of the true D).  Up to 256 the tensor-core
+// instances zero-fill the columns past D to their width (64, 128 or 256)
+// and store only columns < D; the SIMT instance's threads own the columns
+// tx + 16 j < D.  Past 256 the columns of a 64-row tile do not fit the
+// 227 KB a block may use (about 400 KB in float32 at D 512), so a SIMT
+// instance with 32-row query and key tiles (201 KB at D 512) serves both
+// float32 and bfloat16: simple and right, not fast.
 #include <math.h>
 
 #include "common.cuh"
@@ -59,13 +70,13 @@
 
 namespace {
 
-// ---------------------------------------------- float32: SIMT instance
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per tile
+// ------------------------------------- float32 (and D > 256): SIMT instances
 constexpr int kThreads = 256;  // 16 x 16: tx = column group, ty = row group
 constexpr float kNegInf = -1e30f;
 
-template <typename T, int DC>  // DC: the largest D / 16 this instance takes
+// DC: the largest ceil(D / 16) this instance takes; BQ query rows a block,
+// BK keys a tile (64 x 64 up to D 256, 32 x 32 past it)
+template <typename T, int DC, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
@@ -74,31 +85,36 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     long long ksh, long long vsb, long long vss, long long vsh, int causal,
     int q_off_host, float scale) {
   using V = ptt::Vec16<T>;
+  constexpr int RI = BQ / 16;          // score rows a thread owns
+  constexpr int CJ = BK / 16;          // score columns a thread owns
+  constexpr int LJ = BK / 32;          // a row's entries a lane takes
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int DP = D + 1;                // padded row of Q and K
-  const int SP = kBK + 1;              // padded row of the scores
-  float* qs = (float*)smem_raw;        // kBQ * DP, scaled queries
-  float* ks = qs + kBQ * DP;           // kBK * DP
-  float* vs = ks + kBK * DP;           // kBK * D
-  float* ss = vs + kBK * D;            // kBQ * SP scores, then probabilities
-  float* m_s = ss + kBQ * SP;          // kBQ running max
-  float* l_s = m_s + kBQ;              // kBQ running sum
-  float* c_s = l_s + kBQ;              // kBQ rescale of this tile
+  const int SP = BK + 1;               // padded row of the scores
+  float* qs = (float*)smem_raw;        // BQ * DP, scaled queries
+  float* ks = qs + BQ * DP;            // BK * DP
+  float* vs = ks + BK * DP;            // BK * D
+  float* ss = vs + BK * D;             // BQ * SP scores, then probabilities
+  float* m_s = ss + BQ * SP;           // BQ running max
+  float* l_s = m_s + BQ;               // BQ running sum
+  float* c_s = l_s + BQ;               // BQ rescale of this tile
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int r0 = blockIdx.x * kBQ;
+  const int r0 = blockIdx.x * BQ;
   const int kh = h / (H / KVH);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  // column groups in use, the same for every thread (a group past D reads
+  // shared memory past the row and is never stored)
+  const int nd = (D + 15) / 16;
   const int warp = tid / 32, lane = tid % 32;
-  const int nd = D / 16;               // accumulator columns in use
-  const int nv = D / V::N;             // 16-byte vectors per row
+  const int nv = D / V::N;             // 16-byte vectors per row (D % 8 == 0)
   const int off = q_off_ptr != nullptr ? *q_off_ptr : q_off_host;
 
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + kh * ksh;
   const T* vb = v + b * vsb + kh * vsh;
 
-  for (int i = tid; i < kBQ * nv; i += kThreads) {
+  for (int i = tid; i < BQ * nv; i += kThreads) {
     const int r = i / nv, c = (i - r * nv) * V::N;
     float x[V::N];
     if (r0 + r < Sq) {
@@ -110,31 +126,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int e = 0; e < V::N; ++e) qs[r * DP + c + e] = x[e] * scale;
   }
-  if (tid < kBQ) {
+  if (tid < BQ) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
 
   // key tiles any row of this query tile can see
-  int n_tiles = (Sk + kBK - 1) / kBK;
+  int n_tiles = (Sk + BK - 1) / BK;
   if (causal) {
-    const long long last = (long long)r0 + kBQ - 1 + off;
-    const long long lim = last < 0 ? 0 : last / kBK + 1;
+    const long long last = (long long)r0 + BQ - 1 + off;
+    const long long lim = last < 0 ? 0 : last / BK + 1;
     if (lim < n_tiles) n_tiles = (int)lim;
   }
 
-  float acc[4][DC];
+  float acc[RI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * kBK;
+    const int c0 = t * BK;
     // the previous tile's P @ V is done with ks/vs/ss (before the first
     // tile: the query tile and m/l are written)
     __syncthreads();
-    for (int i = tid; i < kBK * nv; i += kThreads) {
+    for (int i = tid; i < BK * nv; i += kThreads) {
       const int r = i / nv, c = (i - r * nv) * V::N;
       float kx[V::N], vx[V::N];
       if (c0 + r < Sk) {
@@ -153,27 +169,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     __syncthreads();
 
     // scores of rows ty + 16 i and keys tx + 16 j
-    float s[4][4];
+    float s[RI][CJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
+      float a[RI], kk[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
+      for (int i = 0; i < RI; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = ks[(tx + 16 * j) * DP + d];
+      for (int j = 0; j < CJ; ++j) kk[j] = ks[(tx + 16 * j) * DP + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int row = r0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         const int col = c0 + tx + 16 * j;
         const bool ok = row < Sq && col < Sk && (!causal || col <= row + off);
         ss[(ty + 16 * i) * SP + tx + 16 * j] = ok ? s[i][j] : -INFINITY;
@@ -181,20 +197,29 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     __syncthreads();
 
-    // online softmax: warp w updates rows 8w .. 8w + 7
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int r = warp * (kBQ / 8) + rr;
+    // online softmax: warp w updates rows w BQ / 8 .. (w + 1) BQ / 8 - 1
+    for (int rr = 0; rr < BQ / 8; ++rr) {
+      const int r = warp * (BQ / 8) + rr;
       float* row = ss + r * SP;
-      const float x0 = row[lane], x1 = row[lane + 32];
+      float x[LJ];
       // a masked score counts as -1e30 in the max, as the Pallas kernel's
-      const float mx = ptt::warp_max(fmaxf(fmaxf(x0, x1), kNegInf));
+      float mx = kNegInf;
+#pragma unroll
+      for (int e = 0; e < LJ; ++e) {
+        x[e] = row[lane + 32 * e];
+        mx = fmaxf(mx, x[e]);
+      }
+      mx = ptt::warp_max(mx);
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, mx);
-      const float p0 = x0 == -INFINITY ? 0.f : expf(x0 - m_new);
-      const float p1 = x1 == -INFINITY ? 0.f : expf(x1 - m_new);
-      const float sum = ptt::warp_sum(p0 + p1);
-      row[lane] = p0;
-      row[lane + 32] = p1;
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < LJ; ++e) {
+        const float p = x[e] == -INFINITY ? 0.f : expf(x[e] - m_new);
+        row[lane + 32 * e] = p;
+        part += p;
+      }
+      const float sum = ptt::warp_sum(part);
       __syncwarp();
       if (lane == 0) {
         const float c = expf(m_old - m_new);
@@ -205,23 +230,24 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     __syncthreads();
 
-    // acc = acc * c + P @ V over this tile's keys
+    // acc = acc * c + P @ V over this tile's keys; thread tx owns the
+    // columns tx + 16 j < D
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const float c = c_s[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < DC; ++j) acc[i][j] *= c;
     }
-    for (int jj = 0; jj < kBK; ++jj) {
-      float p[4];
+    for (int jj = 0; jj < BK; ++jj) {
+      float p[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty + 16 * i) * SP + jj];
+      for (int i = 0; i < RI; ++i) p[i] = ss[(ty + 16 * i) * SP + jj];
 #pragma unroll
       for (int j = 0; j < DC; ++j) {
         if (j < nd) {
           const float vv = vs[jj * D + tx + 16 * j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
+          for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
         }
       }
     }
@@ -229,37 +255,39 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   __syncthreads();  // m/l final (also when no tile was visible)
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i, row = r0 + r;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
     T* o = out + (((long long)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      if (j < nd) o[tx + 16 * j] = ptt::from_f<T>(acc[i][j] * inv);
+      if (tx + 16 * j < D)
+        o[tx + 16 * j] = ptt::from_f<T>(acc[i][j] * inv);
   }
-  if (tid < kBQ && r0 + tid < Sq)
+  if (tid < BQ && r0 + tid < Sq)
     lse[((long long)b * H + h) * Sq + r0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-size_t smem_bytes(int D) {
-  return (size_t)(2 * kBQ * (D + 1) + kBK * D + kBQ * (kBK + 1) + 3 * kBQ) *
+size_t smem_bytes(int D, int BQ, int BK) {
+  return (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) +
+                  3 * BQ) *
          sizeof(float);
 }
 
-template <typename T, int DC>
+template <typename T, int DC, int BQ, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, const void* q_off, int B, int Sq, int Sk, int H,
                    int KVH, int D, long long qsb, long long qss, long long qsh,
                    long long ksb, long long kss, long long ksh, long long vsb,
                    long long vss, long long vsh, int causal, int q_off_host,
                    float scale, cudaStream_t st) {
-  const size_t smem = smem_bytes(D);
-  cudaError_t e = ptt::allow_smem(flash_fwd_kernel<T, DC>, smem);
+  const size_t smem = smem_bytes(D, BQ, BK);
+  cudaError_t e = ptt::allow_smem(flash_fwd_kernel<T, DC, BQ, BK>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, DC><<<grid, kThreads, smem, st>>>(
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<T, DC, BQ, BK><<<grid, kThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse,
       (const int*)q_off, Sq, Sk, H, KVH, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
       vss, vsh, causal, q_off_host, scale);
@@ -527,30 +555,30 @@ extern "C" int ptt_flash_attention(
     int q_off_host, float scale, int block_q, int block_k, int dtype,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D % 16 || D > 256 || KVH <= 0 || H % KVH)
+  if (D <= 0 || D % 8 || D > 512 || KVH <= 0 || H % KVH)
     return (int)cudaErrorInvalidValue;
-  if (dtype == ptt::kFloat32) {
-    // the SIMT instance has one tile pair
-    if (block_q != kBQ || block_k != kBK) return (int)cudaErrorInvalidValue;
-    if (D <= 64)
-      return (int)launch<float, 4>(q, k, v, out, lse, q_off, B, Sq, Sk, H,
-                                   KVH, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                   vss, vsh, causal, q_off_host, scale, st);
-    if (D <= 128)
-      return (int)launch<float, 8>(q, k, v, out, lse, q_off, B, Sq, Sk, H,
-                                   KVH, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                   vss, vsh, causal, q_off_host, scale, st);
-    return (int)launch<float, 16>(q, k, v, out, lse, q_off, B, Sq, Sk, H,
-                                  KVH, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
-                                  vss, vsh, causal, q_off_host, scale, st);
+  if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == ptt::kFloat32 || D > 256) {
+    // the SIMT instances: one square tile pair each, 64 up to D 256, 32
+    // past it (the wide instance also serves bfloat16)
+    const int bt = D <= 256 ? 64 : 32;
+    if (block_q != bt || block_k != bt) return (int)cudaErrorInvalidValue;
+#define PTT_FWD_ARGS                                                        \
+  q, k, v, out, lse, q_off, B, Sq, Sk, H, KVH, D, qsb, qss, qsh, ksb, kss, \
+      ksh, vsb, vss, vsh, causal, q_off_host, scale, st
+    if (D > 256)
+      return dtype == ptt::kFloat32
+                 ? (int)launch<float, 32, 32, 32>(PTT_FWD_ARGS)
+                 : (int)launch<__nv_bfloat16, 32, 32, 32>(PTT_FWD_ARGS);
+    if (D <= 64) return (int)launch<float, 4, 64, 64>(PTT_FWD_ARGS);
+    if (D <= 128) return (int)launch<float, 8, 64, 64>(PTT_FWD_ARGS);
+    return (int)launch<float, 16, 64, 64>(PTT_FWD_ARGS);
+#undef PTT_FWD_ARGS
   }
-  if (dtype == ptt::kBFloat16) {
-    const FwdArgs a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-                    (const __nv_bfloat16*)v, (__nv_bfloat16*)out,
-                    (float*)lse, (const int*)q_off, Sq, Sk, H, KVH, D,
-                    qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal,
-                    q_off_host, scale};
-    return (int)dispatch_tc(a, B, block_q, block_k, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const FwdArgs a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                  (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)lse,
+                  (const int*)q_off, Sq, Sk, H, KVH, D, qsb, qss, qsh, ksb,
+                  kss, ksh, vsb, vss, vsh, causal, q_off_host, scale};
+  return (int)dispatch_tc(a, B, block_q, block_k, st);
 }

@@ -69,7 +69,14 @@
 // rows padded by one float; each thread owns R x R entries of a score tile
 // (R = BT / 16).  S and dP are computed in both kernels (14 D per pair).
 // Shared memory: dQ 149 KB and dK/dV 166 KB at D = 128 (BT 64); at D = 256
-// the tiles shrink to 32 rows (136 / 140 KB).
+// the tiles shrink to 32 rows (136 / 140 KB); past 256 to 16 rows (133 /
+// 134 KB at D 512), and this instance also serves bfloat16 (the
+// tensor-core tiles' float32 dK and dV end at 256 columns): simple and
+// right, not fast.  Any D that is a multiple of 8 up to 512 is taken (the
+// wrapper zero-pads others, exact: the padded columns of every gradient
+// are 0 and are sliced off); the tensor-core instances zero-fill columns
+// past D to their width and store only columns < D, the SIMT ones give
+// thread tx the columns tx + 16 j < D.
 #include <math.h>
 
 #include "common.cuh"
@@ -130,8 +137,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int h = blockIdx.y, b = blockIdx.z, r0 = blockIdx.x * BT;
   const int kh = h / (H / KVH);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  // column groups in use, the same for every thread (a group past D reads
+  // shared memory past the row and is never stored)
+  const int nd = (D + 15) / 16;
   const int warp = tid / 32, lane = tid % 32;
-  const int nd = D / 16;
   const int off = Sk - Sq;
   const long long rs = (long long)H * D;  // row stride of o, dO, dQ
   const long long bh = (long long)b * H + h;
@@ -244,7 +253,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     T* dst = dq + ((long long)b * Sq + row) * rs + (long long)h * D;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      if (j < nd) dst[tx + 16 * j] = ptt::from_f<T>(acc[i][j] * scale);
+      if (tx + 16 * j < D)
+        dst[tx + 16 * j] = ptt::from_f<T>(acc[i][j] * scale);
   }
 }
 
@@ -272,7 +282,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int kh = blockIdx.y, b = blockIdx.z, c0 = blockIdx.x * BT;
   const int rep = H / KVH;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int nd = D / 16;
+  // column groups in use, the same for every thread (a group past D reads
+  // shared memory past the row and is never stored)
+  const int nd = (D + 15) / 16;
   const int off = Sk - Sq;
   const long long rs = (long long)H * D;  // row stride of dO
 
@@ -381,7 +393,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const long long base = (((long long)b * Sk + col) * KVH + kh) * D;
 #pragma unroll
     for (int j = 0; j < DC; ++j)
-      if (j < nd) {
+      if (tx + 16 * j < D) {
         dk[base + tx + 16 * j] = ptt::from_f<T>(acc_k[i][j] * scale);
         dv[base + tx + 16 * j] = ptt::from_f<T>(acc_v[i][j]);
       }
@@ -894,35 +906,32 @@ extern "C" int ptt_flash_attention_bwd(
     long long vsh, int causal, float scale, int block_q, int block_k,
     int hpb, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D % 16 || D > 256 || KVH <= 0 || H % KVH)
+  if (D <= 0 || D % 8 || D > 512 || KVH <= 0 || H % KVH)
     return (int)cudaErrorInvalidValue;
-  if (dtype == ptt::kFloat32) {
-    // the SIMT instances: square tiles of 64 rows, 32 at D > 128
-    const int bt = D <= 128 ? 64 : 32;
+  if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == ptt::kFloat32 || D > 256) {
+    // the SIMT instances: square tiles of 64 rows, 32 at D > 128, 16 at
+    // D > 256 (the wide instance also serves bfloat16)
+    const int bt = D <= 128 ? 64 : D <= 256 ? 32 : 16;
     if (block_q != bt || block_k != bt) return (int)cudaErrorInvalidValue;
-    if (D <= 64)
-      return (int)launch<float, 64, 4>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, Sq, Sk, H, KVH, D, qsb, qss,
-                                       qsh, ksb, kss, ksh, vsb, vss, vsh,
-                                       causal, scale, st);
-    if (D <= 128)
-      return (int)launch<float, 64, 8>(q, k, v, o, dout, lse, delta, dq, dk,
-                                       dv, B, Sq, Sk, H, KVH, D, qsb, qss,
-                                       qsh, ksb, kss, ksh, vsb, vss, vsh,
-                                       causal, scale, st);
-    return (int)launch<float, 32, 16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                      dv, B, Sq, Sk, H, KVH, D, qsb, qss, qsh,
-                                      ksb, kss, ksh, vsb, vss, vsh, causal,
-                                      scale, st);
+#define PTT_BWD_ARGS                                                       \
+  q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, D, qsb, qss, \
+      qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale, st
+    if (D > 256)
+      return dtype == ptt::kFloat32
+                 ? (int)launch<float, 16, 32>(PTT_BWD_ARGS)
+                 : (int)launch<__nv_bfloat16, 16, 32>(PTT_BWD_ARGS);
+    if (D <= 64) return (int)launch<float, 64, 4>(PTT_BWD_ARGS);
+    if (D <= 128) return (int)launch<float, 64, 8>(PTT_BWD_ARGS);
+    return (int)launch<float, 32, 16>(PTT_BWD_ARGS);
+#undef PTT_BWD_ARGS
   }
-  if (dtype == ptt::kBFloat16) {
-    using bf = __nv_bfloat16;
-    const BwdArgs a{(const bf*)q, (const bf*)k, (const bf*)v,
-                    (const bf*)dout, (const float*)lse, (const float*)delta,
-                    (float*)dq_acc, (bf*)dq, (bf*)dk, (bf*)dv, (float*)dkp,
-                    (float*)dvp, Sq, Sk, H, KVH, D, hpb, qsb, qss, qsh, ksb,
-                    kss, ksh, vsb, vss, vsh, causal, scale};
-    return (int)bwd_tc(a, o, (float*)delta, B, block_q, block_k, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  const BwdArgs a{(const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout,
+                  (const float*)lse, (const float*)delta, (float*)dq_acc,
+                  (bf*)dq, (bf*)dk, (bf*)dv, (float*)dkp, (float*)dvp, Sq,
+                  Sk, H, KVH, D, hpb, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                  vsh, causal, scale};
+  return (int)bwd_tc(a, o, (float*)delta, B, block_q, block_k, st);
 }

@@ -14,6 +14,17 @@
 // (fused_ops.py:_rope_bwd) is K2 rotating by -theta: a sign flag negates
 // each sin value as it is read (exact), so the arithmetic, and its bits,
 // are those of K2 given an explicit -sin table.
+// K2's ring mode folds B3 (decode_attention.py:kv_ring_write) into the
+// same launch on the generation path: q is rotated into its output as
+// always, the rotated k rows go straight into the static KV ring kbuf
+// [B, L, KVH, D] and the v rows are copied into vbuf, at ring rows
+// start .. start + S - 1.  Both offsets come from the one device pos and
+// differ: the table row is clamp(wrap(pos, Smax), 0, Smax - S) + s, the
+// ring row clamp(wrap(pos, L), 0, L - S) + s (dynamic_update_slice's start
+// on the ring), wrap adding the length to a negative pos.  The ring's bits
+// are those of K2's rotation then B3's copy; no k output, no ring-write
+// launch.  v's rows are (token, head, chunk) items of the same flat grid,
+// moved through the float conversions unchanged (exact for both types).
 // K3 replaces fused_ops.py:_swiglu_pallas: silu(a) * b with float32 math.
 // B6b replaces fused_ops.py:_swiglu_bwd_pallas (kernel _swiglu_bwd_kernel):
 // da = g * b * (sig + silu * (1 - sig)), db = g * silu, with sig = sigmoid(a)
@@ -76,45 +87,65 @@ __device__ __forceinline__ void load_row(const float* p, float* f) {
 }
 
 struct RopeArgs {
-  const void *q, *k;
+  const void *q, *k, *v;  // v: ring mode only
   void *oq, *ok;
+  void *kbuf, *vbuf;      // ring mode: the [B, L, KVH, D] rings, else null
+  int L;                  // ring rows
   const float *cos_t, *sin_t;
   const void* off;  // the device's position offset, or null
   int off_bytes;    // 4 (int32) or 8 (int64)
   int smax;         // rows of the cos/sin table
   int S, H, KVH, D, chunks;
   unsigned items;   // B * S * (H + KVH) * chunks
-  long long qsb, qss, ksb, kss;
+  long long qsb, qss, ksb, kss, vsb, vss;
   float sign;       // 1, or -1 for the backward
 };
 
-template <typename T, int CP>
+// the device's offset, a negative one counted from the end of `len` rows,
+// clamped to [0, len - S]
+__device__ __forceinline__ int device_start(const RopeArgs& a, int len) {
+  long long o = a.off_bytes == 8 ? *(const long long*)a.off
+                                 : (long long)*(const int*)a.off;
+  if (o < 0) o += len;  // a negative index counts from the end
+  return (int)(o < 0 ? 0 : o > len - a.S ? len - a.S : o);
+}
+
+// RING: the ring mode (a.kbuf set)
+template <typename T, int CP, bool RING>
 __global__ void __launch_bounds__(kRopeThreads) rope_kernel(RopeArgs a) {
   const unsigned i = blockIdx.x * kRopeThreads + threadIdx.x;
   if (i >= a.items) return;
-  // (token, head, chunk), the chunk fastest
-  const unsigned heads = a.H + a.KVH;
+  // (token, head, chunk), the chunk fastest; heads: q's, k's, and in ring
+  // mode v's
+  const unsigned heads = a.H + a.KVH * (RING ? 2 : 1);
   const unsigned rest = i / a.chunks, c = i - rest * a.chunks;
   const unsigned tok = rest / heads, head = rest - tok * heads;
   const unsigned b = tok / a.S, s = tok - b * a.S;
   int row = s;
-  if (a.off != nullptr) {
-    long long o = a.off_bytes == 8 ? *(const long long*)a.off
-                                   : (long long)*(const int*)a.off;
-    if (o < 0) o += a.smax;  // a negative index counts from the end
-    o = o < 0 ? 0 : o > a.smax - a.S ? a.smax - a.S : o;
-    row += (int)o;
-  }
+  if (a.off != nullptr) row += device_start(a, a.smax);
+  // the token's row of the ring
+  const size_t rrow = RING ? (size_t)b * a.L + device_start(a, a.L) + s : 0;
   const int half = a.D / 2, j = c * CP;
   const T* src;
   T* dst;
   if (head < (unsigned)a.H) {
     src = (const T*)a.q + b * a.qsb + s * a.qss + (size_t)head * a.D;
     dst = (T*)a.oq + ((size_t)tok * a.H + head) * a.D;
-  } else {
+  } else if (!RING || head < (unsigned)(a.H + a.KVH)) {
     const unsigned hk = head - a.H;
     src = (const T*)a.k + b * a.ksb + s * a.kss + (size_t)hk * a.D;
-    dst = (T*)a.ok + ((size_t)tok * a.KVH + hk) * a.D;
+    dst = RING ? (T*)a.kbuf + (rrow * a.KVH + hk) * a.D
+               : (T*)a.ok + ((size_t)tok * a.KVH + hk) * a.D;
+  } else {  // the ring mode: v's row into vbuf, unrotated
+    const unsigned hv = head - a.H - a.KVH;
+    src = (const T*)a.v + b * a.vsb + s * a.vss + (size_t)hv * a.D;
+    dst = (T*)a.vbuf + (rrow * a.KVH + hv) * a.D;
+    float x[CP];
+    load_f<T, CP>(src + j, x);
+    store_f<T, CP>(dst + j, x);
+    load_f<T, CP>(src + half + j, x);
+    store_f<T, CP>(dst + half + j, x);
+    return;
   }
   float x1[CP], x2[CP], cc[CP], sn[CP];
   load_f<T, CP>(src + j, x1);
@@ -210,47 +241,67 @@ cudaError_t rope_launch(RopeArgs a, long long tokens, int vec,
                         cudaStream_t st) {
   constexpr int CP = 16 / sizeof(T);
   const int half = a.D / 2;
+  const bool ring = a.kbuf != nullptr;
   if (vec) {
     const long long es = sizeof(T);
     const bool ok = half % CP == 0 && aligned16(a.q) && aligned16(a.k) &&
-                    aligned16(a.oq) && aligned16(a.ok) &&
-                    aligned16(a.cos_t) && aligned16(a.sin_t) &&
-                    (a.qsb * es) % 16 == 0 && (a.qss * es) % 16 == 0 &&
-                    (a.ksb * es) % 16 == 0 && (a.kss * es) % 16 == 0;
+                    aligned16(a.oq) && aligned16(a.cos_t) &&
+                    aligned16(a.sin_t) && (a.qsb * es) % 16 == 0 &&
+                    (a.qss * es) % 16 == 0 && (a.ksb * es) % 16 == 0 &&
+                    (a.kss * es) % 16 == 0 &&
+                    (ring ? aligned16(a.v) && aligned16(a.kbuf) &&
+                                aligned16(a.vbuf) &&
+                                (a.vsb * es) % 16 == 0 &&
+                                (a.vss * es) % 16 == 0
+                          : aligned16(a.ok));
     if (!ok) return cudaErrorInvalidValue;
     a.chunks = half / CP;
   } else {
     a.chunks = half;
   }
-  const long long items = tokens * (a.H + a.KVH) * a.chunks;
+  const long long items =
+      tokens * (a.H + a.KVH * (ring ? 2 : 1)) * a.chunks;
   if (items <= 0) return cudaSuccess;
   if (items >= (1ll << 31)) return cudaErrorInvalidValue;
   a.items = (unsigned)items;
   const int grid = (int)((items + kRopeThreads - 1) / kRopeThreads);
-  if (vec)
-    rope_kernel<T, CP><<<grid, kRopeThreads, 0, st>>>(a);
+  if (vec && ring)
+    rope_kernel<T, CP, true><<<grid, kRopeThreads, 0, st>>>(a);
+  else if (vec)
+    rope_kernel<T, CP, false><<<grid, kRopeThreads, 0, st>>>(a);
+  else if (ring)
+    rope_kernel<T, 1, true><<<grid, kRopeThreads, 0, st>>>(a);
   else
-    rope_kernel<T, 1><<<grid, kRopeThreads, 0, st>>>(a);
+    rope_kernel<T, 1, false><<<grid, kRopeThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ptt_rope(const void* q, const void* k, void* oq, void* ok,
+// kbuf null: q and k rotated into oq and ok.  Else the ring mode: q
+// rotated into oq, k rotated and v copied into the rings kbuf/vbuf
+// [B, L, KVH, D] at rows clamp(wrap(off, L), 0, L - S) + s (ok unused).
+extern "C" int ptt_rope(const void* q, const void* k, const void* v,
+                        void* oq, void* ok, void* kbuf, void* vbuf,
                         const void* cos_t, const void* sin_t,
-                        const void* off, int off_bytes, int smax, int B,
-                        int S, int H, int KVH, int D, long long qsb,
+                        const void* off, int off_bytes, int smax, int L,
+                        int B, int S, int H, int KVH, int D, long long qsb,
                         long long qss, long long ksb, long long kss,
-                        float sign, int vec, int dtype, void* stream) {
-  if (D % 2 || S < 1 || smax < S || (off && off_bytes != 4 &&
-                                     off_bytes != 8))
+                        long long vsb, long long vss, float sign, int vec,
+                        int dtype, void* stream) {
+  const bool ring = kbuf != nullptr;
+  if (D % 2 || S < 1 || smax < S ||
+      (off && off_bytes != 4 && off_bytes != 8) ||
+      (ring && (!off || !v || !vbuf || L < S)))
     return (int)cudaErrorInvalidValue;
-  RopeArgs a;
-  a.q = q, a.k = k, a.oq = oq, a.ok = ok;
+  RopeArgs a = {};
+  a.q = q, a.k = k, a.v = v, a.oq = oq, a.ok = ok;
+  a.kbuf = kbuf, a.vbuf = vbuf, a.L = L;
   a.cos_t = (const float*)cos_t, a.sin_t = (const float*)sin_t;
   a.off = off, a.off_bytes = off_bytes, a.smax = smax;
-  a.S = S, a.H = H, a.KVH = KVH, a.D = D, a.chunks = 0, a.items = 0;
-  a.qsb = qsb, a.qss = qss, a.ksb = ksb, a.kss = kss, a.sign = sign;
+  a.S = S, a.H = H, a.KVH = KVH, a.D = D;
+  a.qsb = qsb, a.qss = qss, a.ksb = ksb, a.kss = kss, a.vsb = vsb,
+  a.vss = vss, a.sign = sign;
   const long long tokens = (long long)B * S;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ptt::kFloat32)

@@ -31,13 +31,19 @@
 //   tile is computed on; rows are padded to an odd number of 16-byte
 //   chunks, so neighbouring rows' 16-byte reads (and ldmatrix's) hit no
 //   bank twice.
-// * Tensor cores for bfloat16 (D a multiple of 16): mma.sync m16n8k16 on
-//   ldmatrix fragments; each warp takes 16 query rows and a quarter, half
-//   or all of every 64-key tile (tiles of <= 16, 32, 64 rows) with its own
-//   online softmax in registers, and the warps' (m, l, O) merge at the end.
-//   A SIMT instance of the same tiling serves float32 (and bf16 with D not
-//   a multiple of 16): per-tile arithmetic, not bytes, is what a first SIMT
-//   version of this design spent its time on.
+// * Tensor cores for bfloat16 (D a multiple of 8 up to 256, zero columns
+//   to 64, 128 or 256): mma.sync m16n8k16 on ldmatrix fragments; each warp
+//   takes 16 query rows and a quarter, half or all of every 64-key tile
+//   (tiles of <= 16, 32, 64 rows) with its own online softmax in
+//   registers, and the warps' (m, l, O) merge at the end.  A SIMT instance
+//   of the same tiling serves float32 and the other bf16 head dims:
+//   per-tile arithmetic, not bytes, is what a first SIMT version of this
+//   design spent its time on.
+// * Head dims up to 512, read in place (a per-call pad would copy the
+//   pool): the SIMT instance holds D padded to a multiple of 8 (DA) in
+//   shared memory, zero past D, and copies rows in the largest pieces
+//   their bytes allow (16, 8, 4 or 2); past 256 columns a ring of 16-key
+//   tiles keeps a block within 227 KB.
 // * The context split across a thread-block cluster.  Where the grid would
 //   leave the card's block slots mostly empty (decode: 8 rows x KV heads),
 //   the `splits` blocks of one (tile, head) form a cluster, each walking a
@@ -54,7 +60,8 @@
 // QT, KT, the number of splits and the chunk come from
 // ops/hopper/paged_attention.py:paged_plan; the entry refuses a KT without
 // an instance, more than 4 splits, a ring other than 2 stages on the tensor
-// cores (2 or 3 on SIMT), a chunk that is not a multiple of KT or does not
+// cores (2 or 3 on SIMT), 16-key tiles at 256 columns or fewer, a chunk
+// that is not a multiple of KT or does not
 // cover P * block_size keys, a tensor-core tile of more than 64 query rows,
 // and a block past the shared memory it may use (227 KB).
 #include <cooperative_groups.h>
@@ -87,6 +94,11 @@ __host__ __device__ inline int row_chunks(int cols, int es) {
 // the tensor-core instance's head-dim class (columns past D are zeros)
 __host__ __device__ inline int tc_cols(int D) {
   return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
+
+// the SIMT instance's columns: D padded to a multiple of kVec (zeros past D)
+__host__ __device__ inline int simt_cols(int D) {
+  return (D + kVec - 1) / kVec * kVec;
 }
 
 // key groups of the tensor-core instance: 4 warps split a 64-key tile
@@ -129,19 +141,20 @@ __host__ __device__ inline Layout layout(bool tc, int R, int D, int es,
     L.part = off;  // each key group's m and l by row
     off += (size_t)2 * L.KG * L.RP * 4;
   } else {
-    const int slots = kThreads / (D / kVec);  // threads on a column chunk
+    const int DA = simt_cols(D);
+    const int slots = kThreads / (DA / kVec);  // threads on a column chunk
     L.KG = 1;
     while (L.KG * 2 * R <= slots) L.KG *= 2;
     L.RP = R;
-    L.rstride = row_chunks(D, es) * 16 / es;
+    L.rstride = row_chunks(DA, es) * 16 / es;
     L.stage = off;  // `stages` x (K tile, V tile)
     off += (size_t)2 * stages * KT * L.rstride * es;
-    L.q = off;  // R x D query rows, float, pre-scaled
-    off += (size_t)R * D * 4;
+    L.q = off;  // R x DA query rows, float, pre-scaled
+    off += (size_t)R * DA * 4;
     L.s = off;  // R x KT scores, then probabilities
     off += (size_t)R * KT * 4;
-    L.acc = off;  // KG x R x D float accumulators
-    off += (size_t)L.KG * R * D * 4;
+    L.acc = off;  // KG x R x DA float accumulators
+    off += (size_t)L.KG * R * DA * 4;
     L.stats = off;  // m, l, corr (float) and the last visible key (int)
     off += (size_t)4 * R * 4;
   }
@@ -282,55 +295,82 @@ __device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
   return true;
 }
 
-// How a thread copies K and V rows: the 16-byte chunk c of rows j0,
-// j0 + jstep, ... of every tile (the same chunk every tile, so the index
-// arithmetic is done once), through the block ids; block_size a power of
-// two is a shift.
+// How a thread copies K and V rows, through the block ids, in pieces of
+// `bytes` (16, 8, 4 or 2: the largest a row's D * sizeof(T) bytes allow):
+// where a row has at most kThreads pieces, the piece c of rows j0,
+// j0 + jstep, ... of every tile (the same piece every tile, so the index
+// arithmetic is done once); else (jstep 0) the block walks the tile's
+// pieces in order.  block_size a power of two is a shift.
 struct Copier {
   int c, j0, jstep, bsh;
+  int cpr, pe, bytes;       // pieces a row, elements and bytes a piece
   size_t head, blk_stride;  // element offsets of head kh, of one block
 };
 
 template <typename T>
 __device__ __forceinline__ Copier make_copier(int KV, int kh, int D, int bs) {
-  constexpr int kEl = 16 / sizeof(T);
-  const int cpr = D / kEl;  // 16-byte chunks of a row
   Copier cp;
-  cp.jstep = kThreads / cpr;
+  cp.bytes = ptt::tc::piece_bytes(D * (int)sizeof(T));
+  cp.pe = cp.bytes / (int)sizeof(T);
+  const int cpr = D / cp.pe;  // pieces of a row
+  cp.cpr = cpr;
+  cp.jstep = cpr <= kThreads ? kThreads / cpr : 0;
   cp.c = threadIdx.x % cpr;
   // threads past jstep * cpr copy nothing
   cp.j0 = (int)threadIdx.x < cp.jstep * cpr ? threadIdx.x / cpr : 1 << 30;
   cp.bsh = (bs & (bs - 1)) == 0 ? __ffs(bs) - 1 : -1;
-  cp.head = (size_t)kh * bs * D + cp.c * kEl;
+  cp.head = (size_t)kh * bs * D;
   cp.blk_stride = (size_t)KV * bs * D;
   return cp;
+}
+
+// piece c of K and V row j of a tile (key t0 + j) into its stage; keys past
+// c1 and blocks outside the pool are zero-filled without a read.  PB: the
+// piece's bytes where the instance fixes them (16 on the tensor cores), 0
+// to take the copier's
+template <typename T, int PB>
+__device__ __forceinline__ void copy_kv(T* ks, T* vs, const T* kc,
+                                        const T* vc, const int* s_blk,
+                                        const Tile& t, const Copier& cp,
+                                        int j, int c, int t0, int rs, int D,
+                                        int bs) {
+  const int pe = PB ? PB / (int)sizeof(T) : cp.pe;
+  const int bytes = PB ? PB : cp.bytes;
+  const int key = t0 + j;
+  size_t o = 0;
+  bool ok = false;
+  if (key < t.c1) {
+    const int kb = cp.bsh >= 0 ? key >> cp.bsh : key / bs;
+    const int blk = s_blk[kb - t.b0];
+    if (blk >= 0) {
+      o = blk * cp.blk_stride + cp.head + (size_t)(key - kb * bs) * D +
+          (size_t)c * pe;
+      ok = true;
+    }
+  }
+  const int so = j * rs + c * pe;
+  ptt::tc::copy_piece(ptt::tc::smem_u32(ks + so), kc + o, ok, bytes);
+  ptt::tc::copy_piece(ptt::tc::smem_u32(vs + so), vc + o, ok, bytes);
 }
 
 // K and V rows t0 .. t0 + KT - 1 of the split into a stage (rows `rs`
 // elements apart); keys past c1 and blocks outside the pool are
 // zero-filled without a read.  One commit group.
-template <typename T, int KT>
+template <typename T, int KT, int PB>
 __device__ __forceinline__ void issue_tile(T* ks, const T* kc, const T* vc,
                                            const int* s_blk, const Tile& t,
                                            const Copier& cp, int t0, int rs,
                                            int D, int bs) {
-  constexpr int kEl = 16 / sizeof(T);
   T* vs = ks + KT * rs;
-  for (int j = cp.j0; j < KT; j += cp.jstep) {
-    const int key = t0 + j;
-    size_t o = 0;
-    bool ok = false;
-    if (key < t.c1) {
-      const int kb = cp.bsh >= 0 ? key >> cp.bsh : key / bs;
-      const int blk = s_blk[kb - t.b0];
-      if (blk >= 0) {
-        o = blk * cp.blk_stride + cp.head + (size_t)(key - kb * bs) * D;
-        ok = true;
-      }
+  if (PB == 16 || cp.jstep > 0) {
+    for (int j = cp.j0; j < KT; j += cp.jstep)
+      copy_kv<T, PB>(ks, vs, kc, vc, s_blk, t, cp, j, cp.c, t0, rs, D, bs);
+  } else {
+    for (int i = threadIdx.x; i < KT * cp.cpr; i += kThreads) {
+      const int j = i / cp.cpr;
+      copy_kv<T, PB>(ks, vs, kc, vc, s_blk, t, cp, j, i - j * cp.cpr, t0, rs,
+                    D, bs);
     }
-    const int so = j * rs + cp.c * kEl;
-    ptt::tc::cp_async16(ptt::tc::smem_u32(ks + so), kc + o, ok);
-    ptt::tc::cp_async16(ptt::tc::smem_u32(vs + so), vc + o, ok);
   }
   ptt::tc::cp_async_commit();
 }
@@ -339,7 +379,7 @@ __device__ __forceinline__ void issue_tile(T* ks, const T* kc, const T* vc,
 // it + stages - 1 into the stage that tile it - 1 left, then wait until
 // tile it has landed for every thread (the later ones stay in flight).
 // Returns tile it's stage.
-template <typename T, int KT>
+template <typename T, int KT, int PB>
 __device__ __forceinline__ const T* ring_wait(T* stage, int stages, int it,
                                               int ntile, const T* kc,
                                               const T* vc, const int* s_blk,
@@ -348,7 +388,7 @@ __device__ __forceinline__ const T* ring_wait(T* stage, int stages, int it,
   const size_t step = (size_t)2 * KT * rs;
   const int nx = it + stages - 1;
   if (nx < ntile)
-    issue_tile<T, KT>(stage + (nx % stages) * step, kc, vc, s_blk, t, cp,
+    issue_tile<T, KT, PB>(stage + (nx % stages) * step, kc, vc, s_blk, t, cp,
                       t.c0 + nx * KT, rs, D, bs);
   const int pending = min(stages - 1, ntile - 1 - it);
   if (pending >= 2)
@@ -398,8 +438,10 @@ __device__ void finish(T* __restrict__ o, size_t hd, int G, int D, int nr,
       ws[splits * RP + r] = Lsum > 0.f ? 1.f / Lsum : 0.f;
     }
     __syncthreads();
-    for (int idx = tid * 4; idx < nr * D; idx += kThreads * 4) {
-      const int r = idx / D, d = idx - r * D;  // D % 8 == 0: one row
+    // 4 columns a thread (acc rows hold at least D rounded up to 4)
+    const int nq = (D + 3) / 4;
+    for (int idx = tid; idx < nr * nq; idx += kThreads) {
+      const int r = idx / nq, d = (idx - r * nq) * 4;
       const size_t ai = (size_t)r * astride + d;
       float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int s = 0; s < splits; ++s) {
@@ -415,21 +457,24 @@ __device__ void finish(T* __restrict__ o, size_t hd, int G, int D, int nr,
       }
       const float inv = ws[splits * RP + r];
       T* od = o + (size_t)(r / G) * hd + (r % G) * D + d;
-      od[0] = ptt::from_f<T>(sum.x * inv);
-      od[1] = ptt::from_f<T>(sum.y * inv);
-      od[2] = ptt::from_f<T>(sum.z * inv);
-      od[3] = ptt::from_f<T>(sum.w * inv);
+      const float x[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < D) od[e] = ptt::from_f<T>(x[e] * inv);
     }
   }
   cl.sync();  // no split leaves while the leader still reads it
 }
 
 // ---------------------------------------------------------------- SIMT
-// float32 (and bfloat16 with D not a multiple of 16).  Scores and
-// probabilities in shared memory; thread (rg, j) scores key j for rows
-// rg, rg + NRG, ...; thread (kg, rsl, dc) adds keys kg, kg + KG, ... into
-// columns [8 dc, 8 dc + 8) of rows rsl, rsl + RSL, ... of partial kg.
-template <typename T, int KT>
+// float32, and bfloat16 with D not a multiple of 8 or past 256.  The
+// query rows, the K/V tiles' rows and the accumulators hold DA = D padded
+// to 8 columns, zero past D.  Scores and probabilities in shared memory;
+// thread (rg, j) scores key j for rows rg, rg + NRG, ...; thread (kg, rsl,
+// dc) adds keys kg, kg + KG, ... into columns [8 dc, 8 dc + 8) of rows rsl,
+// rsl + RSL, ... of partial kg.  PB: 16 where a row is whole 16-byte
+// pieces (the copies' sizes fixed at compile time), else 0.
+template <typename T, int KT, int PB>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, T* __restrict__ out,
@@ -462,23 +507,31 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
-  for (int idx = tid; idx < nr * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    qs[idx] =
-        ptt::to_f(q[t.qo + (size_t)(r / G) * hd + (r % G) * D + d]) *
-        scale_log2;
+  const int DA = simt_cols(D);
+  const int rs = L.rstride;
+  for (int idx = tid; idx < nr * DA; idx += kThreads) {
+    const int r = idx / DA, d = idx - r * DA;
+    qs[idx] = d < D ? ptt::to_f(q[t.qo + (size_t)(r / G) * hd + (r % G) * D +
+                                 d]) *
+                          scale_log2
+                    : 0.f;
   }
-  for (int idx = tid; idx < L.KG * R * D; idx += kThreads) acc[idx] = 0.f;
+  for (int idx = tid; idx < L.KG * R * DA; idx += kThreads) acc[idx] = 0.f;
   for (int r = tid; r < nr; r += kThreads) {
     lim[r] = min(t.pos0 + r / G, t.ctx - 1);
     mrow[r] = -INFINITY;
     lrow[r] = 0.f;
   }
+  // the columns D .. DA - 1 of every stage row stay zero (the copies write
+  // columns < D only)
+  for (int idx = tid; idx < 2 * stages * KT * (DA - D); idx += kThreads) {
+    const int row = idx / (DA - D);
+    stage[row * rs + D + idx - row * (DA - D)] = ptt::from_f<T>(0.f);
+  }
   __syncthreads();  // s_blk before the first copies
 
   const int ntile = c1 > c0 ? (c1 - c0 + KT - 1) / KT : 0;
-  const int rs = L.rstride;
-  const int DC = D / kVec;
+  const int DC = DA / kVec;
   const int slots = kThreads / DC;
   const int RSL = slots / L.KG;
   const int dc = tid % DC, slot = tid / DC;
@@ -489,11 +542,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   const Copier cp = make_copier<T>(KV, kh, D, bs);
   for (int i = 0; i < stages - 1 && i < ntile; ++i)
-    issue_tile<T, KT>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t, cp,
-                      c0 + i * KT, rs, D, bs);
+    issue_tile<T, KT, PB>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t,
+                         cp, c0 + i * KT, rs, D, bs);
   for (int it = 0; it < ntile; ++it) {
-    const T* ks = ring_wait<T, KT>(stage, stages, it, ntile, kc, vc, s_blk,
-                                   t, cp, rs, D, bs);
+    const T* ks = ring_wait<T, KT, PB>(stage, stages, it, ntile, kc, vc,
+                                      s_blk, t, cp, rs, D, bs);
     const T* vs = ks + KT * rs;
     const int t0 = c0 + it * KT;
     const int kcount = min(KT, c1 - t0);
@@ -508,7 +561,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         float s[kRowsPerPass];
 #pragma unroll
         for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
-        for (int c = 0; c < D; c += kVec) {
+        for (int c = 0; c < DA; c += kVec) {
           float kf[kVec];
           load8(krow + c, kf);
 #pragma unroll
@@ -516,9 +569,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
             const int r = r0 + k * NRG;
             if (r < nr) {
               const float4 a =
-                  *reinterpret_cast<const float4*>(qs + r * D + c);
+                  *reinterpret_cast<const float4*>(qs + r * DA + c);
               const float4 e =
-                  *reinterpret_cast<const float4*>(qs + r * D + c + 4);
+                  *reinterpret_cast<const float4*>(qs + r * DA + c + 4);
               s[k] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3] +
                       e.x * kf[4] + e.y * kf[5] + e.z * kf[6] + e.w * kf[7];
             }
@@ -570,7 +623,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
           for (int e = 0; e < kVec; ++e) a[k][e] = 0.f;
           if (r < nr) {
-            const float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+            const float* ap = acc + ((size_t)kg * R + r) * DA + dc * kVec;
             const float cr = corr[r];
 #pragma unroll
             for (int e = 0; e < kVec; ++e) a[k][e] = ap[e] * cr;
@@ -593,7 +646,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         for (int k = 0; k < kRowsPerPass; ++k) {
           const int r = r0 + k * RSL;
           if (r < nr) {
-            float* ap = acc + ((size_t)kg * R + r) * D + dc * kVec;
+            float* ap = acc + ((size_t)kg * R + r) * DA + dc * kVec;
 #pragma unroll
             for (int e = 0; e < kVec; ++e) ap[e] = a[k][e];
           }
@@ -605,18 +658,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   // the key groups' partials add up into partial 0
   if (L.KG > 1) {
-    for (int idx = tid; idx < nr * D; idx += kThreads) {
+    for (int idx = tid; idx < nr * DA; idx += kThreads) {
       float s = 0.f;
-      for (int g = 0; g < L.KG; ++g) s += acc[(size_t)g * R * D + idx];
+      for (int g = 0; g < L.KG; ++g) s += acc[(size_t)g * R * DA + idx];
       acc[idx] = s;
     }
     __syncthreads();
   }
-  finish<T>(out + t.qo, hd, G, D, nr, D, R, mrow, lrow, acc, ws);
+  finish<T>(out + t.qo, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
 }
 
 // -------------------------------------------------------- tensor cores
-// bfloat16 with D a multiple of 16: mma.sync.m16n8k16 (bf16 -> f32) on
+// bfloat16 with D a multiple of 8 up to 256: mma.sync.m16n8k16 (bf16 -> f32) on
 // ldmatrix fragments of the padded tiles.  Warp w takes 16 query rows
 // (slab w / KG) and keys [(w % KG) * 64 / KG, ...) of every 64-key tile,
 // with its own online softmax (float32 m, l and the output in registers);
@@ -736,11 +789,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
 
   const Copier cp = make_copier<bf>(KV, kh, D, bs);
   for (int i = 0; i < stages - 1 && i < ntile; ++i)
-    issue_tile<bf, KT>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t, cp,
-                       c0 + i * KT, rs, D, bs);
+    issue_tile<bf, KT, 16>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk,
+                           t, cp, c0 + i * KT, rs, D, bs);
   for (int it = 0; it < ntile; ++it) {
-    const bf* ks = ring_wait<bf, KT>(stage, stages, it, ntile, kc, vc, s_blk,
-                                     t, cp, rs, D, bs);
+    const bf* ks = ring_wait<bf, KT, 16>(stage, stages, it, ntile, kc, vc,
+                                         s_blk, t, cp, rs, D, bs);
     const bf* vs = ks + KT * rs;
     const int t0 = c0 + it * KT;
     if (active) {
@@ -895,9 +948,9 @@ long long grid_tiles(int T_, int B, int mq, int QT) {
 }
 
 // which instance a call runs: tensor cores for bfloat16 with D a multiple
-// of 16 (and at most 64 query rows a tile), SIMT otherwise
+// of 8 up to 256 (and at most 64 query rows a tile), SIMT otherwise
 bool uses_tc(int dtype, int D) {
-  return dtype == ptt::kBFloat16 && D % 16 == 0;
+  return dtype == ptt::kBFloat16 && D % 8 == 0 && D <= 256;
 }
 
 template <typename K, typename T>
@@ -954,6 +1007,8 @@ cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
   return cudaErrorInvalidValue;
 }
 
+// the SIMT instance whose copies are whole 16-byte pieces where a row is,
+// else the one that takes the row's pieces at run time
 template <typename T, int KT>
 cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         cudaStream_t st, const void* q, const void* kc,
@@ -962,23 +1017,30 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         int T_, int B, int P, int NB, int H, int D, int bs,
                         int mq, int QT, int chunk, int stages,
                         float scale) {
-  return launch_kernel<decltype(&paged_attention_kernel<T, KT>), T>(
-      paged_attention_kernel<T, KT>, smem, splits, tiles, KV, st, q, kc, vc,
-      out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, stages,
-      scale);
+  if (ptt::tc::piece_bytes(D * (int)sizeof(T)) == 16)
+    return launch_kernel<decltype(&paged_attention_kernel<T, KT, 16>), T>(
+        paged_attention_kernel<T, KT, 16>, smem, splits, tiles, KV, st, q,
+        kc, vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk,
+        stages, scale);
+  return launch_kernel<decltype(&paged_attention_kernel<T, KT, 0>), T>(
+      paged_attention_kernel<T, KT, 0>, smem, splits, tiles, KV, st, q, kc,
+      vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk,
+      stages, scale);
 }
 
 bool valid_plan(int B, int P, int H, int KV, int D, int bs, int mq, int QT,
                 int KT, int stages, int splits, int chunk, int dtype) {
-  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && D % kVec == 0 &&
-        D <= 256 && bs > 0 && mq >= 0 && QT > 0 && splits >= 1 &&
+  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && D <= 512 && bs > 0 &&
+        mq >= 0 && QT > 0 && splits >= 1 &&
         splits <= kMaxSplits && chunk > 0 && chunk % KT == 0 &&
         (long long)chunk * splits >= (long long)P * bs &&
         (splits == 1 || (long long)chunk * (splits - 1) < (long long)P * bs)))
     return false;
   if (uses_tc(dtype, D))
     return KT == kTcKeys && stages == 2 && QT * (H / KV) <= kTcRows;
-  return (KT == 64 || KT == 32) && (stages == 2 || stages == 3);
+  // 16-key tiles only past 256 columns, where the larger rings do not fit
+  return (KT == 64 || KT == 32 || (KT == 16 && D > 256)) &&
+         (stages == 2 || stages == 3);
 }
 
 }  // namespace
@@ -1016,9 +1078,11 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
   smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, \
       H, D, bs, max_q_len, QT, chunk, stages, scale
   if (dtype == ptt::kFloat32)
-    return KT == 64 ? (int)launch_simt<float, 64>(PTT_K4_ARGS)
-                    : (int)launch_simt<float, 32>(PTT_K4_ARGS);
-  return KT == 64 ? (int)launch_simt<__nv_bfloat16, 64>(PTT_K4_ARGS)
-                  : (int)launch_simt<__nv_bfloat16, 32>(PTT_K4_ARGS);
+    return KT == 64   ? (int)launch_simt<float, 64>(PTT_K4_ARGS)
+           : KT == 32 ? (int)launch_simt<float, 32>(PTT_K4_ARGS)
+                      : (int)launch_simt<float, 16>(PTT_K4_ARGS);
+  return KT == 64   ? (int)launch_simt<__nv_bfloat16, 64>(PTT_K4_ARGS)
+         : KT == 32 ? (int)launch_simt<__nv_bfloat16, 32>(PTT_K4_ARGS)
+                    : (int)launch_simt<__nv_bfloat16, 16>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
 }

@@ -47,6 +47,37 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 8 bytes global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// `bytes` (16, 8, 4 or 2) global -> shared, zero-filled (nothing read)
+// when !valid: cp.async for 4 to 16 bytes, a load and a store for 2 (no
+// cp.async that small; visible to the block after its next barrier)
+__device__ __forceinline__ void copy_piece(uint32_t dst, const void* src,
+                                           bool valid, int bytes) {
+  if (bytes == 16) {
+    cp_async16(dst, src, valid);
+  } else if (bytes == 8) {
+    cp_async8(dst, src, valid);
+  } else if (bytes == 4) {
+    cp_async4(dst, src, valid);
+  } else {
+    const unsigned short x =
+        valid ? *reinterpret_cast<const unsigned short*>(src) : 0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+  }
+}
+
+// the largest of 16, 8, 4 and 2 bytes that divides `bytes`
+__host__ __device__ inline int piece_bytes(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : 2;
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -10,8 +10,9 @@ modes:
 - a growing ``(k, v)`` cache per layer: the new keys are appended and the
   unmasked causal SDPA runs over them (B1, bottom-right, ``Sq`` may be 1);
 - the static KV ring ``(k_buf, v_buf, pos)`` per layer
-  (``_static_cache_attn``): a decode step writes its row with B3 and
-  attends with B2; a prefill writes its rows with B3 and runs B1 over the
+  (``_static_cache_attn``): rope's ring mode (K2 with B3 folded in) writes
+  the step's rotated k and its v rows into the ring in the launch that
+  rotates q; a decode step attends with B2, a prefill runs B1 over the
   ring with the query offset ``pos``.  The ring is updated IN PLACE (the
   reference returns new buffers); ``pos`` stays on the device.
 
@@ -42,10 +43,10 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..nn import Embedding, ParallelLinear, RMSNorm, load_numpy_state_dict
 from ..nn import functional as F
-from ..ops.hopper.decode_attention import decode_attention, kv_ring_write
+from ..ops.hopper.decode_attention import decode_attention
 from ..ops.hopper.flash_attention import flash_attention_fwd
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
-from ..ops.hopper.fused_ops import rope_fused, swiglu_fused
+from ..ops.hopper.fused_ops import rope_fused, rope_ring_fused, swiglu_fused
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM",
            "LlamaPretrainingCriterion", "llama_tiny", "llama_7b",
@@ -169,15 +170,16 @@ class LlamaAttention(nn.Module):
 
     def _static_cache_attn(self, q, k, v, cos, sin, cache, b, s):
         """The fixed-size KV ring: cache = (k_buf [B, L, KVH, D], v_buf,
-        pos), pos a 0-d int32 tensor on the device.  Writes this step's
-        rows at pos .. pos + s - 1 INTO the ring (kernel B3, in place: the
-        returned buffers are the given ones), then a decode step (s == 1)
-        attends with kernel B2 over cols <= pos, and a prefill with B1 over
-        the ring, row i seeing cols <= pos + i (the reference's mask).
-        Returns (out, (k_buf, v_buf, pos + s))."""
+        pos), pos a 0-d int32 tensor on the device.  Rope's ring mode
+        rotates q and k by the table rows at pos and writes this step's
+        rotated k and v rows at ring rows pos .. pos + s - 1 INTO the ring
+        (``dynamic_update_slice``'s start; one K2 launch, B3 folded in, in
+        place: the returned buffers are the given ones), then a decode step
+        (s == 1) attends with kernel B2 over cols <= pos, and a prefill with
+        B1 over the ring, row i seeing cols <= pos + i (the reference's
+        mask).  Returns (out, (k_buf, v_buf, pos + s))."""
         kbuf, vbuf, pos = cache
-        q, k = apply_rotary_pos_emb(q, k, cos, sin, position_offset=pos)
-        kv_ring_write(kbuf, vbuf, k, v, pos)
+        q = rope_ring_fused(q, k, v, cos, sin, kbuf, vbuf, pos)
         if s == 1:
             out = decode_attention(q, kbuf, vbuf, pos)
         else:

@@ -51,11 +51,13 @@ _SIGNATURES = {
     # packs, packs a thread, threads a row, rows a block, dtype, stream
     "ptt_rms_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I,
                      _P],
-    # q, k, out_q, out_k, cos, sin, position offset|NULL, its bytes (4 or
-    # 8), table rows, B, S, H, KVH, D, q_stride_b, q_stride_s, k_stride_b,
-    # k_stride_s, sign of sin, 16-byte chunks, dtype, stream
-    "ptt_rope": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                 *[ctypes.c_longlong] * 4, _F, _I, _I, _P],
+    # q, k, v|NULL, out_q, out_k|NULL, k ring|NULL, v ring|NULL (the ring
+    # mode), cos, sin, position offset|NULL, its bytes (4 or 8), table
+    # rows, ring rows, B, S, H, KVH, D, q_stride_b, q_stride_s,
+    # k_stride_b, k_stride_s, v_stride_b, v_stride_s, sign of sin, 16-byte
+    # chunks, dtype, stream
+    "ptt_rope": [_P] * 10 + [_I] * 8 + [ctypes.c_longlong] * 6 + [
+        _F, _I, _I, _P],
     # a, b, out, n, dtype, stream
     "ptt_swiglu": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # a, b, g, da, db, n, dtype, stream
@@ -88,7 +90,7 @@ _SIGNATURES = {
     # stream
     "ptt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                              _I, _P],
-    # kbuf, vbuf, k_new, v_new, pos, B, L, S, row_bytes, stream
+    # kbuf, vbuf, k_new, v_new, pos, B, L, S, row_bytes (even), stream
     "ptt_kv_ring_write": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, qw, scale, bias|NULL, out, M, N, K, x row stride, kind, token
     # tile, weight rows, splits, dtype, stream

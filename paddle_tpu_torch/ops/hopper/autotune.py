@@ -14,8 +14,11 @@ What differs from the reference:
   ``csrc/flash_attention_bwd.cu`` (backward), listed in ``INSTANCES``, the
   mirror of the C dispatch tables.  ``get_flash_blocks`` only ever returns a
   listed pair; the C side refuses any other.  The head-dim class is D
-  rounded up to 64, 128 or 256 (the tensor-core tiles are 64 columns wide;
-  columns past D are zero-filled).
+  rounded up to 64, 128, 256 or 512 (the tensor-core tiles are 64 columns
+  wide; columns past D are zero-filled).  Class 512 (256 < D <= 512) has
+  no tensor-core instance: the SIMT instance with the ``SIMT_TILES`` pair
+  serves bfloat16 there too, its pair listed here so the table covers every
+  class the reference's ``_DEFAULT_TARGETS`` has.
 * Ragged edges are masked in the kernels, so ``_pick_block`` caps a tile at
   the sequence's power-of-two bucket (never a tile taller than the
   sequence) instead of snapping to a divisor.
@@ -39,7 +42,7 @@ import os
 from typing import Dict, Iterable, Tuple
 
 __all__ = ["get_flash_blocks", "tune", "clear_cache", "INSTANCES",
-           "SIMT_TILES", "head_dim_class"]
+           "SIMT_TILES", "head_dim_class", "MAX_HEAD_DIM"]
 
 Pair = Tuple[int, int]
 
@@ -56,12 +59,16 @@ INSTANCES: Dict[Tuple[str, int], Tuple[Pair, ...]] = {
     ("bwd", 64): ((64, 64),),
     ("bwd", 128): ((64, 128), (64, 64)),
     ("bwd", 256): ((64, 64),),
+    # the SIMT instance, bfloat16 and float32 alike
+    ("fwd", 512): ((32, 32),),
+    ("bwd", 512): ((16, 16),),
 }
 
 # the float32 SIMT instances' single tile pair, by kind and head dim
 SIMT_TILES = {
-    "fwd": lambda d: (64, 64),
-    "bwd": lambda d: (64, 64) if d <= 128 else (32, 32),
+    "fwd": lambda d: (64, 64) if d <= 256 else (32, 32),
+    "bwd": lambda d: (64, 64) if d <= 128 else (32, 32) if d <= 256
+    else (16, 16),
 }
 
 # Targets by (kind, head-dim class): the fastest compiled pair in
@@ -77,7 +84,13 @@ _DEFAULT_TARGETS: Dict[Tuple[str, int], Pair] = {
     ("bwd", 64): (64, 64),
     ("bwd", 128): (64, 128),
     ("bwd", 256): (64, 64),
+    # the one SIMT pair of class 512 (not measured against others)
+    ("fwd", 512): (32, 32),
+    ("bwd", 512): (16, 16),
 }
+
+# the largest head dim any instance takes (C8: the reference takes more)
+MAX_HEAD_DIM = 512
 
 _MIN_TILE = 64  # a wgmma covers 64 rows
 
@@ -102,10 +115,12 @@ def _bucket_seq(s: int) -> int:
 
 
 def head_dim_class(d: int) -> int:
-    """The instance column width for head dim ``d`` (64, 128 or 256)."""
-    if d % 16 or not 0 < d <= 256:
-        raise ValueError(f"head_dim {d} must be a multiple of 16 and <= 256")
-    return 64 if d <= 64 else 128 if d <= 128 else 256
+    """The instance column width for head dim ``d`` (64, 128, 256 or 512);
+    a head dim past ``MAX_HEAD_DIM`` raises."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the flash kernels take head dims "
+                         f"1 to {MAX_HEAD_DIM}")
+    return 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
 
 
 def _cache_path():

@@ -19,8 +19,16 @@ output.
 
 Beside the reference, ``kv_ring_write`` writes the K and the V ring in one
 launch and takes ``S >= 1`` rows at ``pos .. pos + S - 1`` (the static
-prefill), with the start clamped to ``[0, L - S]`` as
-``dynamic_update_slice`` clamps it.
+prefill), with the start taken as ``dynamic_update_slice`` takes it: a
+negative pos counts from the end first, then the start is clamped to
+``[0, L - S]``.  The generation path folds this write into rope's launch
+(``fused_ops.rope_ring_fused``); B3 serves ``kv_ring_write``'s own callers.
+
+Head dims: every D up to ``MAX_HEAD_DIM`` (512), in place (a per-call pad
+would copy the ring).  bfloat16 with D a multiple of 8 up to 256 runs the
+tensor cores; the rest runs the SIMT instance, which reads rows in the
+largest pieces their bytes allow.  A negative pos sees no key: B2 gives
+zeros, as the Pallas kernel does.
 
 A wrapper runs the plain version (``ref_decode_attention``, the
 reference's jnp reference transcribed; ``_ref_ring_write``, an
@@ -49,6 +57,7 @@ THREADS = 128           # a block's threads (csrc kThreads)
 ROWS = 16               # query heads a block takes (csrc kRows)
 VEC = 8                 # elements a SIMT thread takes of a row (csrc kVec)
 SPLIT_CAP = 8           # blocks of a cluster (csrc kMaxSplits)
+MAX_HEAD_DIM = 512      # the widest head an instance takes (Queue C8)
 # Keys of a tile by tc (tensor cores) (csrc kTcKeys, kSimtKeys), in a ring
 # of 2 tiles (csrc kStages).  The plan's rules, from chip_smoke.py's sweep
 # (--b2-sweep) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6):
@@ -57,6 +66,7 @@ SPLIT_CAP = 8           # blocks of a cluster (csrc kMaxSplits)
 # each split keeps MIN_SPLIT_TILES key tiles of the ring (a cluster's merge
 # costs more than a split of a short ring saves).
 KEY_TILE = {True: 64, False: 32}
+WIDE_KEY_TILE = 16      # float32 SIMT past 256 columns (csrc simt_keys)
 STAGES = 2
 MIN_SPLIT_TILES = 4
 
@@ -88,26 +98,38 @@ def _tc_cols(D: int) -> int:
     return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
+def _tc(dtype: torch.dtype, D: int) -> bool:
+    """Whether a call runs the tensor-core instance (csrc ``uses_tc``):
+    bfloat16 with D a multiple of 8 up to 256."""
+    return dtype == torch.bfloat16 and D % 8 == 0 and D <= 256
+
+
+def _key_tile(tc: bool, es: int, D: int) -> int:
+    """Keys of a tile (csrc ``kTcKeys``, ``simt_keys``)."""
+    return KEY_TILE[tc] if tc or es == 2 or D <= 256 else WIDE_KEY_TILE
+
+
 def _smem_bytes(tc: bool, R: int, D: int, es: int, splits: int) -> int:
     """The kernel's shared-memory layout (csrc ``layout``): the K/V ring;
     the query rows (bf16 zero-padded to 16 rows and 64/128/256 columns on
-    the tensor cores, with the warps' row statistics; float32 on SIMT, with
-    its scores and accumulators); the leader's merge (each split's weight
-    and l by row, 1 / L)."""
-    kt = KEY_TILE[tc]
+    the tensor cores, with the warps' row statistics; float32 on SIMT, D
+    padded to 8 columns, with its scores and accumulators); the leader's
+    merge (each split's weight and l by row, 1 / L)."""
+    kt = _key_tile(tc, es, D)
     if tc:
         row = _row_chunks(_tc_cols(D), 2) * 16
         body = (2 * STAGES * kt * row + ROWS * row + 2 * ROWS * 4
                 + 2 * (THREADS // 32) * ROWS * 4)
         rp = ROWS
     else:
-        slots = THREADS // (D // VEC)
+        da = _ceil(D, VEC) * VEC
+        slots = THREADS // (da // VEC)
         kg = 1
         while kg * 2 * R <= slots:
             kg *= 2
-        row = _row_chunks(D, es) * 16
-        body = (2 * STAGES * kt * row + R * D * 4 + R * kt * 4
-                + kg * R * D * 4 + 3 * R * 4)
+        row = _row_chunks(da, es) * 16
+        body = (2 * STAGES * kt * row + R * da * 4 + R * kt * 4
+                + kg * R * da * 4 + 3 * R * 4)
         rp = R
     return body + (2 * splits + 1) * rp * 4
 
@@ -119,18 +141,19 @@ def decode_plan(B: int, L: int, H: int, KVH: int, D: int,
 
     * ``rows``: a block takes one row, one KV head and up to 16 of its
       G = H / KVH query heads; a larger group takes ceil(G / 16) blocks.
-    * ``tc``: bfloat16 runs on the tensor cores (``mma.sync``, the heads
-      padded to 16 rows, 64-key tiles), float32 on the SIMT instance
-      (32-key tiles).
+    * ``tc``: bfloat16 with D a multiple of 8 up to 256 runs on the
+      tensor cores (``mma.sync``, the heads padded to 16 rows, 64-key
+      tiles), the rest on the SIMT instance (32-key tiles; 16 in float32
+      past 256 columns).
     * ``splits``: 1 where the grid of (row, KV head, head chunk) blocks
       already gives every SM of the card a block; else the power of two
       that does, at most ``SPLIT_CAP`` and at most one for each
       ``MIN_SPLIT_TILES`` key tiles of the ring.  On the device each split
       takes an even, tile-aligned share of keys 0 .. pos.
 
-    Raises ValueError for a shape the kernel does not take (head_dim not a
-    multiple of 16 or above 256, H not a multiple of KVH, a dtype other than
-    bfloat16 and float32)."""
+    Raises ValueError for a shape the kernel does not take (head_dim above
+    ``MAX_HEAD_DIM``, H not a multiple of KVH, a dtype other than bfloat16
+    and float32)."""
     return _plan(B, L, H, KVH, D, dtype)
 
 
@@ -142,14 +165,13 @@ def _plan(B: int, L: int, H: int, KVH: int, D: int, dtype: torch.dtype,
     split count; the wrapper never forces one).  A forced count the kernel
     does not take raises ValueError."""
     name = "decode_attention"
-    if D % 16 or not 0 < D <= 256 or KVH <= 0 or H % KVH:
+    if not 0 < D <= MAX_HEAD_DIM or KVH <= 0 or H % KVH:
         raise ValueError(f"{name}: no plan for H {H}, KVH {KVH}, head_dim "
-                         f"{D} (head_dim a multiple of 16 and <= 256, "
-                         "H % KVH == 0)")
+                         f"{D} (head_dim 1 to {MAX_HEAD_DIM}, H % KVH == 0)")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: no instance for {dtype}")
-    tc = dtype == torch.bfloat16
-    kt = KEY_TILE[tc]
+    tc = _tc(dtype, D)
+    kt = _key_tile(tc, dtype.itemsize, D)
     G = H // KVH
     R = min(G, ROWS)
     base = B * KVH * _ceil(G, ROWS)
@@ -173,7 +195,9 @@ def _plan(B: int, L: int, H: int, KVH: int, D: int, dtype: torch.dtype,
 
 def ref_decode_attention(q, kbuf, vbuf, pos, scale: Optional[float] = None):
     """q [B, 1, H, D], kbuf/vbuf [B, L, KVH, D], pos (int or 0-d tensor):
-    attend to cols <= pos with a float32 softmax -> [B, 1, H, D]."""
+    attend to cols <= pos with a float32 softmax -> [B, 1, H, D]; a
+    negative pos sees no key and gives zeros, as the Pallas kernel (its
+    jnp reference averages every row there instead)."""
     b, _, h, d = q.shape
     l, kvh = kbuf.shape[1], kbuf.shape[2]
     scale = scale or 1.0 / math.sqrt(d)
@@ -189,14 +213,22 @@ def ref_decode_attention(q, kbuf, vbuf, pos, scale: Optional[float] = None):
     s = torch.where(cols[None, None, None, :] <= pos, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, vh)
+    o = torch.where(torch.as_tensor(pos, device=q.device) >= 0, o, 0.0)
     return o.transpose(1, 2).to(q.dtype)
+
+
+def _ring_start(pos, L: int, S: int):
+    """dynamic_update_slice's start of S rows in a ring of L: a negative
+    pos counts from the end first, then the start is clamped to [0, L - S]
+    (a 0-d int64 tensor on pos's device, or on the CPU for an int)."""
+    p = torch.as_tensor(pos).long()
+    return torch.clamp(torch.where(p < 0, p + L, p), 0, L - S)
 
 
 def _ref_ring_write(kbuf, vbuf, k, v, pos):
     S, L = k.shape[1], kbuf.shape[1]
-    # dynamic_update_slice's start: pos clamped to [0, L - S]
-    start = torch.clamp(torch.as_tensor(pos, device=kbuf.device), 0, L - S)
-    rows = start.long() + torch.arange(S, device=kbuf.device)
+    start = _ring_start(pos, L, S).to(kbuf.device)
+    rows = start + torch.arange(S, device=kbuf.device)
     kbuf.index_copy_(1, rows, k.to(kbuf.dtype))
     vbuf.index_copy_(1, rows, v.to(vbuf.dtype))
     return kbuf, vbuf
@@ -208,36 +240,38 @@ def _check_pos(name, pos, device):
         raise ValueError(f"{name}: pos must be one int32 on {device}")
 
 
-def _check_ring(name, t, B, L, KVH, D):
+def _check_ring(name, t, B, L, KVH, D, align=16):
     if (tuple(t.shape) != (B, L, KVH, D) or not t.is_contiguous()
-            or t.data_ptr() % 16):
-        raise ValueError(f"{name}: ring buffers must be contiguous, 16-byte "
-                         f"aligned [{B}, {L}, {KVH}, {D}], got "
+            or t.data_ptr() % align):
+        raise ValueError(f"{name}: ring buffers must be contiguous, "
+                         f"{align}-byte aligned [{B}, {L}, {KVH}, {D}], got "
                          f"{tuple(t.shape)}")
 
 
 def kv_ring_write(kbuf: torch.Tensor, vbuf: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, pos) -> Tuple[torch.Tensor, torch.Tensor]:
     """In-place ring write: ``kbuf[:, start + i] = k[:, i]`` and the same
-    for V, for i < S, ``start = clamp(pos, 0, L - S)``.  kbuf/vbuf
-    [B, L, KVH, D]; k/v [B, S, KVH, D] (cast to the ring's dtype); pos a
-    0-d int32 tensor on the ring's device.  Returns the rings."""
+    for V, for i < S, ``start`` as ``dynamic_update_slice`` takes it
+    (``pos + L`` for a negative pos, then clamped to ``[0, L - S]``).
+    kbuf/vbuf [B, L, KVH, D]; k/v [B, S, KVH, D] (cast to the ring's
+    dtype); pos a 0-d int32 tensor on the ring's device.  Returns the
+    rings."""
     if kbuf.device.type == "cpu":
         return _ref_ring_write(kbuf, vbuf, k, v, pos)
     name = "kv_ring_write"
     B, L, KVH, D = kbuf.shape
     S = k.shape[1]
+    es = kbuf.element_size()
     for t in (kbuf, vbuf):
-        _check_ring(name, t, B, L, KVH, D)
+        _check_ring(name, t, B, L, KVH, D, es)
     k, v = k.to(kbuf.dtype).contiguous(), v.to(kbuf.dtype).contiguous()
     for t in (k, v):
-        if tuple(t.shape) != (B, S, KVH, D) or t.data_ptr() % 16:
-            raise ValueError(f"{name}: new rows must be 16-byte aligned "
-                             f"[{B}, S, {KVH}, {D}], got {tuple(t.shape)}")
-    row_bytes = KVH * D * kbuf.element_size()
-    if not 1 <= S <= L or row_bytes % 16:
-        raise ValueError(f"{name}: {S} rows do not fit a ring of {L}, or a "
-                         "row is not a multiple of 16 bytes")
+        if tuple(t.shape) != (B, S, KVH, D) or t.data_ptr() % es:
+            raise ValueError(f"{name}: new rows must be [{B}, S, {KVH}, "
+                             f"{D}], got {tuple(t.shape)}")
+    row_bytes = KVH * D * es
+    if not 1 <= S <= L:
+        raise ValueError(f"{name}: {S} rows do not fit a ring of {L}")
     _check_pos(name, pos, kbuf.device)
     _, stream = _build.launch_args(name, kbuf, vbuf, k, v)
     if B:
@@ -271,9 +305,9 @@ def _launch(q, kbuf, vbuf, pos, scale=None, **force):
     if s != 1 or H % KVH or kbuf.shape[0] != B or kbuf.shape[3] != D:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit the ring "
                          f"{tuple(kbuf.shape)} (one token, H % KVH == 0)")
-    if D % 16 or D > 256:
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of 16 "
-                         "and <= 256")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} is past the kernel's limit "
+                         f"of {MAX_HEAD_DIM}")
     for t in (kbuf, vbuf):
         _check_ring(name, t, B, L, KVH, D)
     if not q.is_contiguous() or q.data_ptr() % 16:

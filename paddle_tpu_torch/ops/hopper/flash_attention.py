@@ -30,6 +30,15 @@ before one cast (K and V are never repeated).  In bfloat16, dQ is summed
 with float32 atomics, so its rounding may vary from run to run; float32 is
 deterministic.
 
+Head dims: any D up to ``autotune.MAX_HEAD_DIM`` (512).  On CUDA a D that
+is not a multiple of 8 is zero-padded to the next one in the wrapper (q,
+k, v, and for the backward out and g; exact: QK^T and the logsumexp do not
+change, the padded columns of out, dQ, dK and dV are 0 and are sliced
+off; the scale stays 1/sqrt of the true D).  Up to 256 bfloat16 runs the
+tensor-core instance of D's class (columns past D zero-filled); past 256
+both dtypes run the SIMT instance with the class-512 tiles.  A larger D
+raises, naming the limit.
+
 ``flash_attention_fused`` and ``flash_attention_bwd_fused`` run their plain
 versions (``_ref_fwd_impl`` / ``_ref_bwd_impl``, the reference's jnp
 fallbacks transcribed, in float32) only for CPU tensors.  For CUDA tensors
@@ -159,9 +168,9 @@ def _check(name, q, k, v, q_offset):
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}")
-    if D % 16 or D > 256:
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of 16 "
-                         "and <= 256")
+    if not 0 < D <= autotune.MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} is past the kernels' limit "
+                         f"of {autotune.MAX_HEAD_DIM}")
     es = q.element_size()
     for t in (q, k, v):
         # each row [D] contiguous and 16-byte aligned: the kernel reads
@@ -177,13 +186,23 @@ def _check(name, q, k, v, q_offset):
                          f"{q.device}")
 
 
+def _pad8(*tensors):
+    """The tensors zero-padded along D to the next multiple of 8 (the
+    instances' unit; unchanged where D already is one)."""
+    pad = -tensors[0].shape[-1] % 8
+    if not pad:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in tensors)
+
+
 def _select_blocks(name: str, kind: str, dtype: torch.dtype, sq: int,
                    sk: int, d: int, blocks: Optional[Tuple[int, int]] = None
                    ) -> Tuple[int, int]:
     """The compiled instance a launch takes, from the explicit (dtype, D,
-    tile) table: bfloat16 -> a tensor-core pair of ``autotune.INSTANCES``
-    (``blocks`` or ``autotune.get_flash_blocks``), float32 -> the SIMT
-    instance's one pair.  Anything else raises."""
+    tile) table: bfloat16 -> a pair of ``autotune.INSTANCES`` (``blocks``
+    or ``autotune.get_flash_blocks``; tensor cores up to D 256, the SIMT
+    instance's pair past it), float32 -> the SIMT instance's one pair.
+    Anything else raises."""
     if dtype == torch.float32:
         pair = autotune.SIMT_TILES[kind](d)
         if blocks is not None and tuple(blocks) != pair:
@@ -218,6 +237,10 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _plain_bshd(q, k, v, causal, scale, q_offset)
     name = "flash_attention_fused"
+    if D % 8 and D <= autotune.MAX_HEAD_DIM:
+        out, lse = flash_attention_fused(*_pad8(q, k, v), causal, scale,
+                                         q_offset, blocks)
+        return out[..., :D].contiguous(), lse
     _check(name, q, k, v, q_offset)
     dt, stream = _build.launch_args(name, q, k, v)
     B, Sq, H, _ = q.shape
@@ -265,6 +288,10 @@ def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return _plain_bwd_bshd(q, k, v, out, lse, g, causal, scale)
     name = "flash_attention_bwd_fused"
+    if D % 8 and D <= autotune.MAX_HEAD_DIM:
+        grads = flash_attention_bwd_fused(*_pad8(q, k, v, out), lse,
+                                          *_pad8(g), causal, scale, blocks)
+        return tuple(x[..., :D].contiguous() for x in grads)
     _check(name, q, k, v, None)
     out, g = out.contiguous(), g.contiguous()
     B, Sq, H, _ = q.shape
@@ -288,7 +315,7 @@ def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=q.device)
     dq_acc = dkp = dvp = None
     hpb = 1
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and D <= 256:   # the tensor cores
         rep = H // KVH
         hpb = _gqa_heads_per_block(B, KVH, Sk, rep)
         dq_acc = torch.empty((B, Sq, H, D), **f32)

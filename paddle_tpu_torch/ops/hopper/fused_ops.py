@@ -18,6 +18,15 @@ reads the offset and rotates by rows ``clamp(off, 0, Smax - S) + s`` (a
 negative offset first counts from the end), the reference's
 ``lax.dynamic_slice_in_dim``, so no window is gathered first.
 
+``rope_ring_fused(q, k, v, cos, sin, kbuf, vbuf, pos)`` is K2's ring mode,
+the generation path's static KV ring: one launch rotates q (returned),
+writes the rotated k rows into ``kbuf`` and copies the v rows into
+``vbuf`` at ring rows ``clamp(wrap(pos, L), 0, L - S) + s``
+(``dynamic_update_slice``'s start, as ``kv_ring_write`` takes it), the
+table rows taken from the same pos as ``rope_fused`` takes them.  It folds
+B3's launch into K2's; its plain version is ``_rope_ref`` then
+``_ref_ring_write``, and the ring gets the same bits.
+
 A wrapper runs the plain version (``_rope_ref`` / ``_swiglu_ref`` /
 ``_swiglu_bwd_ref``, the reference's jnp forms transcribed) only for CPU
 tensors.  For CUDA tensors it launches the kernel or raises; ``launches``
@@ -36,8 +45,8 @@ import torch
 
 from . import _build
 
-__all__ = ["rope_fused", "rope_bwd_fused", "rope_plan", "RopePlan",
-           "swiglu_fused", "swiglu_bwd_fused"]
+__all__ = ["rope_fused", "rope_bwd_fused", "rope_ring_fused", "rope_plan",
+           "RopePlan", "swiglu_fused", "swiglu_bwd_fused"]
 
 ROPE_THREADS = 128     # a K2 block's threads
 _OFFSET_BYTES = {torch.int32: 4, torch.int64: 8}
@@ -124,21 +133,35 @@ def _swiglu_bwd_ref(a, b, g):
 
 
 def _rope_launch(fn, q, k, cos, sin, position_offset=None, sign=1.0,
-                 **force):
-    """K2 on CUDA tensors, counted on ``fn`` (the forward or the
-    backward wrapper); ``sign`` -1 rotates by -theta; ``force``:
-    ``rope_plan``'s keywords."""
+                 ring=None, **force):
+    """K2 on CUDA tensors, counted on ``fn`` (the forward, the backward or
+    the ring-mode wrapper); ``sign`` -1 rotates by -theta; ``ring`` (v,
+    kbuf, vbuf): the ring mode (rotated k and v into the rings at the
+    rows of ``position_offset``; no k output: returns (q, None));
+    ``force``: ``rope_plan``'s keywords."""
     name = fn.__name__
     B, S, H, D = q.shape
     KVH = k.shape[2]
-    if k.shape[:2] != (B, S) or k.shape[3] != D or D % 2:
+    v, kbuf, vbuf = (None, None, None) if ring is None else ring
+    heads = (q, k) if v is None else (q, k, v)
+    if (k.shape[:2] != (B, S) or k.shape[3] != D or D % 2
+            or (v is not None and v.shape != k.shape)):
         raise ValueError(f"{name}: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} must share B, S and an even D")
-    for x in (q, k):
+                         f"{tuple(k.shape)} (and v) must share B, S and an "
+                         "even D")
+    for x in heads:
         if x.stride(3) != 1 or (x.shape[2] > 1 and x.stride(2) != D):
             raise ValueError(f"{name}: each token's [heads, D] must be "
                              "contiguous")
     off = position_offset
+    L = 0 if kbuf is None else kbuf.shape[1]
+    if ring is not None:
+        for t in (kbuf, vbuf):
+            if (tuple(t.shape) != (B, L, KVH, D) or not t.is_contiguous()
+                    or off is None or L < S):
+                raise ValueError(f"{name}: rings must be contiguous [{B}, "
+                                 f"L >= {S}, {KVH}, {D}] beside the device's "
+                                 f"pos, got {tuple(t.shape)}")
     rows = S if off is None else cos.shape[0]
     for t in (cos, sin):
         if (t.dim() != 2 or t.shape[1] != D // 2 or t.shape[0] != rows
@@ -153,26 +176,32 @@ def _rope_launch(fn, q, k, cos, sin, position_offset=None, sign=1.0,
                          f"int64 tensor on {q.device} and the table at "
                          f"least {S} rows, got {off.dtype} on {off.device}, "
                          f"{rows} rows")
-    dt, stream = _build.launch_args(name, q, k)
+    dt, stream = _build.launch_args(name, *heads, *(ring or ()))
     oq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    ok = torch.empty((B, S, KVH, D), dtype=k.dtype, device=k.device)
+    ok = (torch.empty((B, S, KVH, D), dtype=k.dtype, device=k.device)
+          if ring is None else None)
     if B * S:
         # a size-1 dimension's stride is never stepped
         strides = [x.stride(i) if x.shape[i] > 1 else 0
-                   for x in (q, k) for i in (0, 1)]
+                   for x in (q, k, v if v is not None else k) for i in (0, 1)]
         es = q.element_size()
-        aligned = (all(t.data_ptr() % 16 == 0
-                       for t in (q, k, oq, ok, cos, sin))
+        aligned = (all(t.data_ptr() % 16 == 0 for t in (
+            *heads, oq, cos, sin, *((ok,) if ring is None else ring[1:])))
                    and all(st * es % 16 == 0 for st in strides))
-        plan = rope_plan(B, S, H, KVH, D, q.dtype, aligned, **force)
+        # in the ring mode v's heads are items of the same grid
+        plan = rope_plan(B, S, H, KVH * (1 if ring is None else 2), D,
+                         q.dtype, aligned, **force)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         with _build.device_guard(q):
             _build.check(_build.lib().ptt_rope(
-                q.data_ptr(), k.data_ptr(), oq.data_ptr(), ok.data_ptr(),
-                cos.data_ptr(), sin.data_ptr(),
-                None if off is None else off.data_ptr(),
-                0 if off is None else _OFFSET_BYTES[off.dtype], rows, B, S,
-                H, KVH, D, *strides, float(sign), int(plan.vec), dt,
-                stream), name)
+                q.data_ptr(), k.data_ptr(), ptr(v), oq.data_ptr(), ptr(ok),
+                ptr(kbuf), ptr(vbuf), cos.data_ptr(), sin.data_ptr(),
+                ptr(off), 0 if off is None else _OFFSET_BYTES[off.dtype],
+                rows, L, B, S, H, KVH, D, *strides, float(sign),
+                int(plan.vec), dt, stream), name)
         fn.launches += 1
     return oq, ok
 
@@ -197,6 +226,30 @@ def rope_bwd_fused(gq: torch.Tensor, gk: torch.Tensor, cos: torch.Tensor,
         return _rope_ref(gq, gk, c, -s)
     return _rope_launch(rope_bwd_fused, gq.contiguous(), gk.contiguous(),
                         cos, sin, position_offset, sign=-1.0)
+
+
+def rope_ring_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cos: torch.Tensor, sin: torch.Tensor, kbuf: torch.Tensor,
+                    vbuf: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """K2's ring mode: q [B, S, H, D], k and v [B, S, KVH, D] (each head's
+    [D] contiguous), cos/sin the whole [Smax, D/2] float32 table, the rings
+    kbuf/vbuf [B, L, KVH, D] (contiguous, the dtype of q, k and v), pos a
+    0-d int32 or int64 tensor on q's device.  Returns rotated q (rows
+    ``clamp(wrap(pos, Smax), 0, Smax - S) + s`` of the table, as
+    ``rope_fused``); writes rotated k into kbuf and v into vbuf at rows
+    ``clamp(wrap(pos, L), 0, L - S) + s``, in place, in the same launch.
+    An inference path: on CUDA a call that wants a gradient raises."""
+    from .decode_attention import _ref_ring_write
+
+    if q.device.type == "cpu":
+        qr, kr = _rope_ref(q, k, *_window(cos, sin, q.shape[1], pos))
+        _ref_ring_write(kbuf, vbuf, kr, v, pos)
+        return qr
+    if _build.wants_grad(q, k, v):
+        raise NotImplementedError("rope_ring_fused: no backward (the static "
+                                  "KV ring is an inference path)")
+    return _rope_launch(rope_ring_fused, q, k, cos, sin, pos,
+                        ring=(v, kbuf, vbuf))[0]
 
 
 class _Rope(torch.autograd.Function):
@@ -297,5 +350,6 @@ def swiglu_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 rope_fused.launches = 0
 rope_bwd_fused.launches = 0
+rope_ring_fused.launches = 0
 swiglu_fused.launches = 0
 swiglu_bwd_fused.launches = 0

@@ -13,6 +13,13 @@ lengths, which stay on the device): a block takes one row, a tile of up to
 ``kt`` at a time, and the ``splits`` blocks of a cluster share the context
 where the grid alone would give fewer blocks than the card has SMs.
 
+Head dims: every D up to ``MAX_HEAD_DIM`` (512), read in place.  bfloat16
+with D a multiple of 8 up to 256 runs the tensor cores (columns past D
+zero-filled to 64, 128 or 256); the rest runs the SIMT instance, which
+holds D padded to 8 columns and copies rows in the largest pieces their
+bytes allow, with 16-key tiles past 256 columns where larger rings do not
+fit a block.
+
 ``paged_attention`` runs the plain version (``_paged_attention_ref``, the
 reference's gather + padded-batch attention transcribed) only for CPU
 tensors.  For CUDA tensors it launches the kernel (one launch per call) or
@@ -36,7 +43,9 @@ SMS = 132
 SMEM_PER_BLOCK = 232448
 THREADS = 128           # a block's threads (csrc kThreads)
 VEC = 8                 # elements a thread takes of a row (csrc kVec)
-KEY_TILES = (64, 32)    # the SIMT key tiles, the larger preferred
+KEY_TILES = (64, 32, 16)  # the SIMT key tiles, the larger preferred; 16
+                          # only past 256 columns (csrc valid_plan)
+MAX_HEAD_DIM = 512      # the widest head an instance takes (Queue C8)
 TC_KEYS = 64            # the tensor-core instance's key tile
 TC_ROWS = 64            # the most query rows a tensor-core tile takes
 STAGE_BYTES = 140 * 1024  # the K/V ring a SIMT block may take
@@ -81,8 +90,13 @@ def _row_chunks(D: int, es: int) -> int:
 
 def _tc(dtype: torch.dtype, D: int) -> bool:
     """Whether a call runs the tensor-core instance (csrc ``uses_tc``):
-    bfloat16 with head_dim a multiple of 16."""
-    return dtype == torch.bfloat16 and D % 16 == 0
+    bfloat16 with head_dim a multiple of 8 up to 256."""
+    return dtype == torch.bfloat16 and D % 8 == 0 and D <= 256
+
+
+def _simt_key_tiles(D: int):
+    """The SIMT key tiles a head dim may take, the larger first."""
+    return KEY_TILES if D > 256 else KEY_TILES[:-1]
 
 
 def _tc_cols(D: int) -> int:
@@ -108,14 +122,15 @@ def _smem_bytes(tc: bool, R: int, D: int, es: int, kt: int, stages: int,
         body = (2 * stages * kt * row + rp * row + 3 * rp * 4
                 + 2 * kg * rp * 4)
     else:
-        slots = THREADS // (D // VEC)
+        da = _ceil(D, VEC) * VEC
+        slots = THREADS // (da // VEC)
         kg = 1
         while kg * 2 * R <= slots:
             kg *= 2
         rp = R
-        row = _row_chunks(D, es) * 16
-        body = (2 * stages * kt * row + R * D * 4 + R * kt * 4
-                + kg * R * D * 4 + 4 * R * 4)
+        row = _row_chunks(da, es) * 16
+        body = (2 * stages * kt * row + R * da * 4 + R * kt * 4
+                + kg * R * da * 4 + 4 * R * 4)
     return body + (splits + 1) * rp * 4 + (4 * B + 2 + chunk // bs + 2) * 4
 
 
@@ -142,19 +157,21 @@ def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
       in B rows can fill; a block finds its row from the row lengths on
       the device.
     * The instance: tensor cores (``mma.sync``) for bfloat16 with D a
-      multiple of 16, at most ``TC_ROWS`` query rows a tile; SIMT
-      otherwise (float32).
+      multiple of 8 up to 256, at most ``TC_ROWS`` query rows a tile;
+      SIMT otherwise (float32, the other bfloat16 head dims).
     * ``stages`` and ``kt``: a ring of 2 tiles of 64 keys on the tensor
-      cores; on SIMT a ring of 3, else 2, of 64 keys, else 32, the first
-      whose ring takes at most ``STAGE_BYTES`` and whose block fits.
+      cores; on SIMT a ring of 3, else 2, of 64 keys, else 32 (else 16
+      past 256 columns), the first whose ring takes at most
+      ``STAGE_BYTES`` and whose block fits.
     * ``splits``: 1 where the grid of (query tile, KV head) blocks already
       gives every SM of the card a block; else the power of two that does,
       at most ``SPLIT_CAP`` and at most one key tile per split.  ``chunk``
       is the keys of ``P * bs`` a split walks, a multiple of ``kt``.
 
-    Raises ValueError for a tensor-core tile of more than ``TC_ROWS``
-    query rows (a head group above 64) and for a shape whose block would
-    need more than the 227 KB of shared memory a block may use."""
+    Raises ValueError for a head dim past ``MAX_HEAD_DIM``, a tensor-core
+    tile of more than ``TC_ROWS`` query rows (a head group above 64) and
+    a shape whose block would need more than the 227 KB of shared memory a
+    block may use."""
     return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype)
 
 
@@ -168,9 +185,9 @@ def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
     version under such forced plans; the wrapper never forces one).  A
     forced ring depth the instance does not take, or more than
     ``SPLIT_CAP`` splits, raises ValueError."""
-    if D % VEC or not 0 < D <= 256 or KV <= 0 or H % KV:
+    if not 0 < D <= MAX_HEAD_DIM or KV <= 0 or H % KV:
         raise ValueError(f"paged_attention: no plan for H {H}, KV {KV}, "
-                         f"head_dim {D}")
+                         f"head_dim {D} (head_dim 1 to {MAX_HEAD_DIM})")
     es = dtype.itemsize
     G = H // KV
     ctx = P * bs
@@ -189,18 +206,18 @@ def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
             f"paged_attention: a tile of {qt * G} query rows ({H} heads "
             f"over {KV} KV heads) is past the {TC_ROWS} query rows of the "
             "tensor-core instance")
-    row = _row_chunks(_tc_cols(D) if tc else D, es) * 16
+    row = _row_chunks(_tc_cols(D) if tc else _ceil(D, VEC) * VEC, es) * 16
 
     def smem(k, st, n, c):
         return _smem_bytes(tc, qt * G, D, es, k, st, n, B, c, bs)
 
     # the first ring depth, then key tile, whose block fits
     fits = [(st, k) for st in ((stages,) if stages else STAGES[tc])
-            for k in ((TC_KEYS,) if tc else KEY_TILES)
+            for k in ((TC_KEYS,) if tc else _simt_key_tiles(D))
             if (tc or 2 * st * k * row <= STAGE_BYTES)
             and smem(k, st, SPLIT_CAP, _ceil(ctx, k) * k) <= SMEM_PER_BLOCK]
     if not fits:
-        kt = KEY_TILES[-1]
+        kt = TC_KEYS if tc else _simt_key_tiles(D)[-1]
         need = smem(kt, 2, 1, _ceil(ctx, kt) * kt)
         raise ValueError(
             f"paged_attention: a block of {qt * G} query rows at head_dim "
@@ -279,9 +296,9 @@ def _check(name, q, key_cache, value_cache, ints, block_tables):
     if value_cache.shape != key_cache.shape or Dc != D or H % KV:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit caches "
                          f"{tuple(key_cache.shape)}/{tuple(value_cache.shape)}")
-    if D > 256 or D % 8:
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8 "
-                         "and <= 256")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} is past the kernel's limit "
+                         f"of {MAX_HEAD_DIM}")
     for t in (q, key_cache, value_cache, *ints, block_tables):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

@@ -56,10 +56,11 @@ def test_get_flash_blocks_returns_a_compiled_pair(fresh_cache, kind, d, sq):
 
 
 def test_head_dim_class_rounds_up_to_the_instances():
-    assert [at.head_dim_class(d) for d in (16, 64, 80, 128, 144, 256)] == [
-        64, 64, 128, 128, 256, 256]
-    for bad in (0, 24, 272):
-        with pytest.raises(ValueError):
+    assert [at.head_dim_class(d) for d in (16, 24, 64, 80, 128, 144, 256,
+                                           272, 512)] == [
+        64, 64, 64, 128, 128, 256, 256, 512, 512]
+    for bad in (0, 513, 1024):
+        with pytest.raises(ValueError, match="512"):
             at.head_dim_class(bad)
     # a D between the classes takes its class's instances
     assert at.get_flash_blocks("fwd", 2048, 2048, 80) in at.INSTANCES[
