@@ -50,15 +50,16 @@ Phases (each prints its seconds):
      to rope_fused then kv_ring_write; B3 at pos -3 (C7: the start counts
      from the end, row 509), bit for bit against index_copy_ at
      dynamic_update_slice's start; B1, B8, B2, B3, K4 and the ring mode at
-     head_dim 72, 100, 264 and 512 (8 / 2 heads), SDPA at the same shape
-     the library call; K1 and K2 under every plan their instances take
+     head_dim 72, 100, 264, 512, 516, 640 and 1024 (8 / 2 heads; past 512
+     the wide instances), SDPA at the same shape the library call; K1 and K2 under every plan their instances take
      (both bodies, rows past the registers, D 72 and 2, strided qkv
      columns, device offsets) against their plain versions, the rope backward's sign flag
      giving the bits of K2 with a -sin table, and apply_rotary_pos_emb
      with a device offset dispatching one K2 launch and nothing else; a
-     shape past a kernel's limits is refused with an error (a head dim
-     past 512 in B1, B8, B2 and K4, naming the limit), and B7 refuses a
-     float16 x and an int32 weight; K4, B2 and B7 at the edges their
+     shape past a kernel's limits is refused with an error, a head dim of
+     520 (refused before Queue C8) is computed by B1, B8, B2 and K4 and
+     held to the plain versions, and B7 refuses a float16 x and an int32
+     weight; K4, B2 and B7 at the edges their
      tiles and splits add (K4 and B2 also at head_dim 72, 100, 264 and
      512, B2 at a negative pos)
      (every split count forced, K4 also every ring depth and several query
@@ -73,20 +74,28 @@ Phases (each prints its seconds):
      layers, 32 heads) in bfloat16 with seeded random weights, served by
      ServingEngine(max_batch_size=8, max_seq_len=512, block_size=16,
      token_budget=256) with the default megastep_k=8 and prefix cache, in
-     two waves (the first holds a sampled request); the kernels' launch
+     two waves (the first holds a sampled request); the megastep loops run
+     as CUDA graphs (the engine's default on CUDA); the kernels' launch
      counters are zeroed just before and read just after, and the device
-     loops run with CUDA sync debugging set to raise (no host sync inside a
-     megastep); then two more waves, one timed and one under
-     torch.profiler, give the device's busy share, K4's device time and
-     kernel count in the traced wave (one kernel per wrapper call), K1's
-     and K2's device time, kernel count and time a launch, and the cost of
-     the seeded threefry draw per sampled step;
+     loops and every graph replay run with CUDA sync debugging set to
+     raise (no host sync inside a megastep); an eager engine
+     (_graphs = False) over the same weights serves the same waves:
+     tokens, logprobs and scheduling counters identical, compile_count the
+     graphs captured (each one's first-call and capture times printed);
+     then on each engine a decode wave (its captures), one timed and one
+     under torch.profiler give the wall, the device's busy share, memory,
+     K4's device time and kernel count in the traced wave (one kernel per
+     wrapper call; a replay adds its captured counts), K1's and K2's
+     device time, kernel count and time a launch; and the cost of the
+     seeded threefry draw per sampled step;
   4. the same geometry at 2 layers in float32 served on cuda (kernels) and
      on the CPU (plain versions) from identical weights: first-step logits
      agree, greedy tokens agree up to the first position whose CPU top-2
      logit gap is below 1e-3, and prefix cache on/off agree on cuda; then
      the same for 2-layer float32 Llamas at head_dim 72 (hidden 576, 8
-     heads) and 264 (1056, 4);
+     heads), 264 (1056, 4) and 640 (1280, 2); and a graph engine after
+     load_weights drops its graphs, captures again and serves the new
+     weights' tokens;
   5. generation at full width, on phase 3's model: the launch counters are
      zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b)
      greedy_decode of ids [8, 128], 128 new tokens over a 512-row ring runs
@@ -110,7 +119,7 @@ Phases (each prints its seconds):
   6. phase 4's two 2-layer float32 models: forward logits on cuda and on
      the CPU agree, and greedy_decode and generate (ring and growing) on
      cuda agree with greedy_decode on the CPU up to the top-2-gap stop;
-     then the same at head_dim 72, 100 (800 hidden, 8 heads) and 264;
+     then the same at head_dim 72, 100 (800 hidden, 8 heads), 264 and 640;
   7. training at bench.py's honest geometry (32000 vocab, 2560 hidden,
      8192 intermediate, 9 layers, 20 heads of 128, bfloat16, recompute)
      with seeded random weights: AdamW(1e-4, multi_precision=True),
@@ -125,8 +134,8 @@ Phases (each prints its seconds):
   8. phase 4's float32 pair: one step's loss and every parameter's
      gradient, then the parameters after 3 AdamW(multi_precision) steps
      through TrainStep, kernels on cuda against the plain path on the CPU
-     (1e-4 of each tensor's largest |value|); then the same at head_dim 72
-     and 264;
+     (1e-4 of each tensor's largest |value|); then the same at head_dim
+     72, 264 and 640;
   9. bench_ladder.py's BERT-base classifier (vocab 30522, hidden 768, 12
      layers, 12 heads, FFN 3072, seq 128) in bfloat16 with seeded random
      weights, ids [32, 128]: (a) the float Predictor gives finite logits;
@@ -168,6 +177,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor, fp32 SIMT
 _PROFILE_MARKS = 2048   # spin kernels on each side of a profiled call
 _PROFILE_TAKES = 3
+_REPLAYS = [0]          # CUDA graph replays of the run (main's wrapper)
 REPLACES = {
     "rms_norm": "paddle_tpu/ops/pallas/fused_norm.py:47",
     "rms_norm_residual": "paddle_tpu/ops/pallas/fused_norm.py:61",
@@ -227,6 +237,9 @@ PATHS = {
               "fused_adamw"),
     "predict": ("int8_matmul", "flash_attention"),
 }
+# phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
+# and past 512 (the wide instances, Queue C8)
+HEAD_DIMS = (72, 100, 264, 512, 516, 640, 1024)
 # bench_ladder.py's BERT-base classifier, accelerator branch (:103)
 BERT = dict(vocab=30522, hidden=768, layers=12, heads=12, seq=128, batch=32)
 
@@ -677,15 +690,16 @@ def _head_dim_cases(torch, rnd, es, g, dtype):
     """B1, B8, B2, B3, K4 and K2's ring mode at head dims 72 (a multiple of
     8: the tensor-core classes zero-padded), 100 (not one of 8: B1/B8 pad
     in the wrapper, the others read rows in pieces), 264 and 512 (past the
-    tensor-core tiles: the SIMT instances), at 8 / 2 heads; SDPA at the
-    same shape as the library call."""
+    tensor-core tiles: the SIMT instances), 516, 640 and 1024 (past 512:
+    the wide instances, Queue C8), at 8 / 2 heads; SDPA at the same shape
+    as the library call."""
     from paddle_tpu_torch.ops.hopper import decode_attention as da
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
 
     dev = "cuda"
     cases = []
     dname = str(dtype).split(".")[1]
-    for D in (72, 100, 264, 512):
+    for D in HEAD_DIMS:
         B, S, H, KVH = 2, 512, 8, 2
         q, k, v = rnd(B, S, H, D), rnd(B, S, KVH, D), rnd(B, S, KVH, D)
         scale = 1.0 / D ** 0.5
@@ -1779,12 +1793,12 @@ def _refusals(torch):
     the limit: a 128-head group over one KV head at head_dim 256 past the
     64 query rows of K4's bfloat16 tensor-core tile and, in float32, past
     the 227 KB a K4 block may use (by its plan, before any launch); the K4
-    entry refuses a plan it has no instance for; a head dim past 512 raises
-    naming that limit in B1, B8, B2 and K4 (Queue C8).  (K1 refused a
-    16384-wide row here before its rows moved to registers, and B2 a head
-    dim of 72 before every head dim up to 512 had an instance: phase 2 now
-    holds [1, 16384] and head dims 72, 100, 264 and 512 against the plain
-    versions.)"""
+    entry refuses a plan it has no instance for.  A head dim of 520, which
+    B1, B8, B2 and K4 refused here before (Queue C8), is computed and held
+    to the plain versions in both dtypes.  (K1 refused a 16384-wide row
+    here before its rows moved to registers, and B2 a head dim of 72
+    before every head dim up to 512 had an instance: phase 2 now holds
+    [1, 16384] and head dims 72 to 1024 against the plain versions.)"""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     dev, dt = "cuda", torch.bfloat16
@@ -1824,31 +1838,51 @@ def _refusals(torch):
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")
         print(f"refused paged_attention plan with {what}: cudaError_t 1")
-    # a head dim past 512 (C8): every attention kernel raises, naming the
-    # limit, before any launch
+    # a head dim past 512 (C8, closed): every attention kernel computes
+    # it (the wide instances), held to its plain version
     from paddle_tpu_torch.ops.hopper import decode_attention as da
     from paddle_tpu_torch.ops.hopper import flash_attention as fa
-    wide = torch.ones(1, 16, 2, 520, dtype=dt, device=dev)
-    ring = torch.ones(1, 64, 2, 520, dtype=dt, device=dev)
-    pool = torch.ones(1, 2, 16, 520, dtype=dt, device=dev)
-    lse = torch.zeros(1, 2, 16, device=dev)
-    for label, call in {
-            "flash_attention": lambda: fa.flash_attention_fused(
-                wide, wide, wide, True),
-            "flash_attention_bwd": lambda: fa.flash_attention_bwd_fused(
-                wide, wide, wide, wide, lse, wide, True),
-            "decode_attention": lambda: da.decode_attention(
-                wide[:, :1], ring, ring, z[0]),
-            "paged_attention": lambda: pa.paged_attention(
-                wide[0, :1], pool, pool, z, one, cu, bt[:, :1], 1)}.items():
-        try:
-            call()
-        except ValueError as e:
-            if "512" not in str(e):
-                raise
-            print(f"refused {label} head_dim 520: {e}")
-        else:
-            raise AssertionError(f"{label} head_dim 520 was not refused")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(520)
+    pos = torch.full((), 40, dtype=torch.int32, device=dev)
+    for kdt in (dt, torch.float32):
+        dname = str(kdt).split(".")[1]
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev, dtype=kdt)
+
+        wide, go = rnd(1, 16, 2, 520), rnd(1, 16, 2, 520)
+        ring, pool = rnd(1, 64, 2, 520), rnd(1, 2, 16, 520)
+        o, lse = fa.flash_attention_fused(wide, wide, wide, True)
+        s = 1.0 / 520 ** 0.5
+        paged = (wide[0, :1], pool, pool, z, one, cu, bt[:, :1], 1)
+        for label, kern, plain in (
+                ("flash_attention",
+                 lambda: fa.flash_attention_fused(wide, wide, wide, True),
+                 lambda: fa._plain_bshd(wide, wide, wide, True, s, None)),
+                ("flash_attention_bwd",
+                 lambda: fa.flash_attention_bwd_fused(wide, wide, wide, o,
+                                                      lse, go, True),
+                 lambda: fa._plain_bwd_bshd(wide, wide, wide, o, lse, go,
+                                            True, s)),
+                ("decode_attention",
+                 lambda: da.decode_attention(wide[:, :1], ring, ring, pos),
+                 lambda: da.ref_decode_attention(wide[:, :1], ring, ring,
+                                                 pos)),
+                ("paged_attention", lambda: pa.paged_attention(*paged),
+                 lambda: pa._paged_attention_ref(*paged))):
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            if not isinstance(ref, tuple):
+                got, ref = (got,), (ref,)
+            for a, b in zip(got, ref):
+                err, tol = _err(torch, a, b), _tol(dname, b)
+                if not err <= tol:
+                    raise AssertionError(f"{label} {dname} head_dim 520: "
+                                         f"kernel and plain differ by {err}"
+                                         f" > {tol}")
+            print(f"computed {label} {dname} head_dim 520 (refused before "
+                  "Queue C8): within the tolerance of the plain version")
     q = torch.ones(1, 1, 8, 128, dtype=dt, device=dev)
     kv = torch.ones(1, 512, 8, 128, dtype=dt, device=dev)
     # (splits, ring rows, dtype code)
@@ -1900,27 +1934,11 @@ def _refusals(torch):
 
 # --------------------------------------------------------------- phase 3
 def _counters():
-    from paddle_tpu_torch.ops.hopper import decode_attention as da
-    from paddle_tpu_torch.ops.hopper import flash_attention as fa
-    from paddle_tpu_torch.ops.hopper import fused_norm, fused_ops
-    from paddle_tpu_torch.ops.hopper import paged_attention as pa
-    from paddle_tpu_torch.ops.hopper.fused_adamw import fused_adamw
-    from paddle_tpu_torch.ops.hopper.int8_matmul import int8_matmul
+    """The kernel wrappers that count their launches, from the package (a
+    CUDA graph's replay adds its captured counts to the same ones)."""
+    from paddle_tpu_torch.ops.hopper import launch_counters
 
-    return {"rms_norm": fused_norm.rms_norm_fused,
-            "rms_norm_residual": fused_norm.rms_norm_residual_fused,
-            "rope": fused_ops.rope_fused,
-            "rope_ring": fused_ops.rope_ring_fused,
-            "rope_bwd": fused_ops.rope_bwd_fused,
-            "swiglu": fused_ops.swiglu_fused,
-            "swiglu_bwd": fused_ops.swiglu_bwd_fused,
-            "paged_attention": pa.paged_attention,
-            "flash_attention": fa.flash_attention_fused,
-            "decode_attention": da.decode_attention,
-            "kv_ring_write": da.kv_ring_write,
-            "flash_attention_bwd": fa.flash_attention_bwd_fused,
-            "fused_adamw": fused_adamw,
-            "int8_matmul": int8_matmul}
+    return launch_counters()
 
 
 def _zero_counters():
@@ -1943,20 +1961,24 @@ def _path_launches(path, counters):
     return launches
 
 
-def _serve_waves(eng, waves):
+def _serve_waves(eng, waves, logprobs=None):
     """Run each wave of (prompt, max_new_tokens, sampling) to completion;
-    check every request returned its token count."""
+    check every request returned its token count.  ``logprobs``, a list,
+    gets each request's logprobs (None where it asked for none)."""
     out = []
     for wave in waves:
         rids = [eng.add_request(p, max_new_tokens=n, sampling=s)
                 for p, n, s in wave]
         done = eng.run()
         eng.pop_finished()
+        lps = eng.pop_token_logprobs()
         for rid, (_, n, _) in zip(rids, wave):
             if len(done[rid]) != n:
                 raise AssertionError(f"request {rid} returned "
                                      f"{len(done[rid])} of {n} tokens")
             out.append(done[rid])
+            if logprobs is not None:
+                logprobs.append(lps.get(rid))
     return out
 
 
@@ -1988,38 +2010,53 @@ def full_width_model(torch):
 
 
 def full_width_serving(torch, model):
+    """Phase 3: the 7B geometry served through CUDA graphs (the engine's
+    default on CUDA) and, over the same model (the same weight tensors, a
+    KV pool of its own), through the eager loops (``_graphs = False``):
+    the same waves give identical tokens, logprobs and scheduling
+    counters; then the decode wave on each, untraced and profiled."""
     import numpy as np
 
     from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     cfg = model.config
-    eng = ServingEngine(model, max_batch_size=8, max_seq_len=512,
-                        block_size=16, token_budget=256)
+    kw = dict(max_batch_size=8, max_seq_len=512, block_size=16,
+              token_budget=256)
+    eng = ServingEngine(model, **kw)
+    eager = ServingEngine(model, **kw)
+    eager._graphs = False
     kv_gb = sum(c.numel() * c.element_size()
                 for c in eng.key_caches + eng.value_caches) / 1e9
-    print(f"KV pool {eng.blocks.num_blocks} blocks, {kv_gb:.2f} GB")
+    print(f"KV pool {eng.blocks.num_blocks} blocks, {kv_gb:.2f} GB (one "
+          "for each engine)")
     rng = np.random.default_rng(7)
 
     def prompt(n):
         return rng.integers(1, cfg.vocab_size, n).tolist()
 
-    sampled = dict(temperature=0.8, top_p=0.9, seed=7)
+    greedy = dict(logprobs=True)
+    sampled = dict(temperature=0.8, top_p=0.9, seed=7, logprobs=True)
     lens = [7, 40, 128, 200, 260, 33, 400, 90, 150]
     news = [48, 32, 64, 40, 56, 1, 36, 60, 44]
-    wave1 = [(prompt(n), m, sampled if i == 3 else None)
+    wave1 = [(prompt(n), m, sampled if i == 3 else greedy)
              for i, (n, m) in enumerate(zip(lens, news))]
-    wave2 = [(wave1[2][0], 32, None), (prompt(70), 40, None)]
-    # no host sync inside a megastep: the device loops raise on one
-    for name in ("_run_megastep", "_run_mixed"):
-        setattr(eng, name, _sync_free(torch, getattr(eng, name)))
+    wave2 = [(wave1[2][0], 32, greedy), (prompt(70), 40, greedy)]
+    # no host sync inside a megastep loop (the eager loops, a key's first
+    # call and its capture) or a replay (main): each raises on one
+    for e in (eng, eager):
+        for name in ("_run_megastep", "_run_mixed"):
+            setattr(e, name, _sync_free(torch, getattr(e, name)))
+    replays0 = _REPLAYS[0]
     counters = _zero_counters()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    outs = _serve_waves(eng, [wave1])
+    lps = []
+    outs = _serve_waves(eng, [wave1], lps)
     torch.cuda.synchronize()
     wave1_s = time.perf_counter() - t
-    outs += _serve_waves(eng, [wave2])
+    outs += _serve_waves(eng, [wave2], lps)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = _path_launches("serving", counters)
@@ -2027,7 +2064,8 @@ def full_width_serving(torch, model):
     n_tok = sum(len(o) for o in outs)
     print(f"served {len(outs)} requests, {n_tok} tokens in {secs:.3f} s "
           f"({n_tok / secs:.1f} tokens/s, informative); wave 1 (one "
-          f"sampled request) {wave1_s:.3f} s")
+          f"sampled request) {wave1_s:.3f} s; {_REPLAYS[0] - replays0} "
+          "graph replays, each under CUDA sync debugging set to raise")
     print(f"megastep {st['megastep']} prefill_tokens_computed "
           f"{eng.prefill_tokens_computed} prefix_hit_blocks "
           f"{eng.prefix_hit_blocks}")
@@ -2040,30 +2078,74 @@ def full_width_serving(torch, model):
     for o in outs:
         if any(not 0 <= t < cfg.vocab_size for t in o):
             raise AssertionError("token outside the vocabulary")
-    # a decode-heavy wave: 8 rows, 64-token prompts, 32 new tokens each;
-    # K4's kernels in the traced wave, against its wrapper's count there
-    # (one launch per call)
-    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+    cache = eng._graph_cache
+    for key, (first, cap) in cache.seconds.items():
+        print(f"graph {key}: first call (eager) {first * 1e3:.1f} ms, "
+              f"capture {cap * 1e3:.1f} ms")
+    if not (eng.compile_count == cache.captures == len(cache.seconds)
+            == len(cache.graphs) > 0 and eager.compile_count == 0):
+        raise AssertionError(f"compile_count {eng.compile_count} is not the "
+                             f"{len(cache.seconds)} graphs captured")
+    # the eager loops over the same waves: identical
+    e_lps = []
+    t = time.perf_counter()
+    e_outs = _serve_waves(eager, [wave1, wave2], e_lps)
+    torch.cuda.synchronize()
+    e_secs = time.perf_counter() - t
+    names = ("megasteps", "megasteps_mixed", "prefill_chunks",
+             "prefix_hit_blocks")
+    got = [getattr(eng, n) for n in names]
+    want = [getattr(eager, n) for n in names]
+    if outs != e_outs or lps != e_lps or got != want:
+        bad = [i for i, (a, b) in enumerate(zip(outs, e_outs)) if a != b]
+        raise AssertionError(f"graphs and eager loops differ: tokens of "
+                             f"requests {bad}, logprobs equal "
+                             f"{lps == e_lps}, {names} {got} vs {want}")
+    print(f"graphs == eager: tokens, logprobs and {names} {got} identical "
+          f"over {len(outs)} requests (the sampled one too); compile_count "
+          f"{eng.compile_count} (eager 0); served in {secs:.3f} s with "
+          f"graphs, {e_secs:.3f} s eager (informative)")
+    # the decode-heavy wave on each engine (8 rows, 64-token prompts, 32 new
+    # tokens each): a first wave captures the keys it adds (its wall
+    # printed), then the untraced wall of the next, then K4's kernels in
+    # the traced one against its wrapper's count there (one launch per
+    # call; a replay adds its captured count)
+    waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(3)]
+    for label, e in (("graphs", eng), ("eager", eager)):
+        calls = []
 
-    waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(2)]
-    calls = []
+        def traced(e=e):
+            n0 = pa.paged_attention.launches
+            _serve_waves(e, [waves[2]])
+            calls.append(pa.paged_attention.launches - n0)
 
-    def traced():
-        n0 = pa.paged_attention.launches
-        _serve_waves(eng, [waves[1]])
-        calls.append(pa.paged_attention.launches - n0)
-
-    evs = _profile(torch, "decode wave (8 rows, 64-token prompts, 32 new "
-                   "tokens)", lambda: _serve_waves(eng, [waves[0]]), traced,
-                   top=15)
-    _k1_k2(evs, "the decode wave")
-    k4 = [e for e in evs if "paged_attention" in e.key]
-    k4_n = sum(e.count for e in k4)
-    k4_ms = sum(e.self_device_time_total for e in k4) / 1e3
-    print(f"profile K4 in the decode wave: {k4_ms:.3f} ms device, {k4_n} "
-          f"kernels, {calls[-1]} wrapper calls")
-    if k4_n != calls[-1]:
-        raise AssertionError(f"K4: {k4_n} kernels for {calls[-1]} calls")
+        n_cap = e.compile_count
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _serve_waves(e, [waves[0]])
+        torch.cuda.synchronize()
+        print(f"decode wave, {label}, first: wall "
+              f"{(time.perf_counter() - t) * 1e3:.2f} ms, "
+              f"{e.compile_count - n_cap} graphs captured in it")
+        n_cap = e.compile_count
+        torch.cuda.reset_peak_memory_stats()
+        evs = _profile(torch, f"decode wave, {label} (8 rows, 64-token "
+                       "prompts, 32 new tokens)",
+                       lambda e=e: _serve_waves(e, [waves[1]]), traced,
+                       top=15)
+        print(f"memory decode wave, {label}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes, memory_reserved "
+              f"{torch.cuda.memory_reserved()} bytes; graphs captured in "
+              f"the measured waves {e.compile_count - n_cap}")
+        _k1_k2(evs, f"the decode wave, {label}")
+        k4 = [ev for ev in evs if "paged_attention" in ev.key]
+        k4_n = sum(ev.count for ev in k4)
+        k4_ms = sum(ev.self_device_time_total for ev in k4) / 1e3
+        print(f"profile K4 in the decode wave, {label}: {k4_ms:.3f} ms "
+              f"device, {k4_n} kernels, {calls[-1]} wrapper calls")
+        if k4_n != calls[-1]:
+            raise AssertionError(f"K4 ({label}): {k4_n} kernels for "
+                                 f"{calls[-1]} calls")
     _draw_cost(torch, cfg.vocab_size)
     return launches
 
@@ -2226,19 +2308,20 @@ def _agree(a, b, gaps, what, thresh=1e-3):
                              f" {a[:stop]} vs {b[:stop]}")
 
 
-# the head dims the tensor-core classes do not hold: head_dim -> (hidden,
-# heads, intermediate) of a 2-layer float32 Llama (phases 4, 6 and 8), with
+# the head dims the tensor-core classes do not hold (640: past 512, the
+# wide instances): head_dim -> (hidden, heads, intermediate) of a 2-layer
+# float32 Llama (phases 4, 6 and 8), with
 # a 4096-token vocabulary: random weights at these widths give logits
 # below 1, and over 32000 tokens the top-2 gaps fall under the 1e-3 at
 # which the token comparisons stop
 HEAD_DIM_LLAMAS = {72: (576, 8, 1536), 100: (800, 8, 2048),
-                   264: (1056, 4, 2816)}
+                   264: (1056, 4, 2816), 640: (1280, 2, 3456)}
 
 
-def two_layer_models(torch, head_dim=None):
+def two_layer_models(torch, head_dim=None, seed=1):
     """The 7B geometry at 2 layers in float32 (or, with ``head_dim``, the
     2-layer Llama of ``HEAD_DIM_LLAMAS``), on cuda and on the CPU, with
-    identical weights (phases 4, 6 and 8)."""
+    identical weights from ``seed`` (phases 4, 6 and 8)."""
     from paddle_tpu_torch.models.llama import (
         LlamaForCausalLM,
         llama_7b,
@@ -2253,8 +2336,8 @@ def two_layer_models(torch, head_dim=None):
                        hidden_size=hidden, num_attention_heads=heads,
                        intermediate_size=inter, vocab_size=4096)
         assert cfg.head_dim == head_dim
-    gpu_model = LlamaForCausalLM(cfg, seed=1)
-    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=1)
+    gpu_model = LlamaForCausalLM(cfg, seed=seed)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
     load_numpy_state_dict(cpu_model, {k: v.cpu().numpy() for k, v in
                                       gpu_model.state_dict().items()})
     return gpu_model, cpu_model
@@ -2301,6 +2384,42 @@ def kernels_vs_plain_path(torch, gpu_model, cpu_model):
                f"request {i} prefix cache on vs off")
     print(f"kernel path == plain path on {len(flat)} requests "
           f"(prefix hit blocks on cuda: repeat served)")
+
+
+def _load_weights_on_graphs(torch, gpu_model, other):
+    """A graph engine that served ``gpu_model``, after ``load_weights(other)``
+    (the same geometry, other weights): its graphs are dropped (they read
+    the old weights), it captures again, and it serves ``other``'s tokens,
+    those of a fresh graph engine over ``other`` (the same kernels on the
+    same card: identical)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    kw = dict(max_batch_size=4, max_seq_len=128, block_size=16,
+              token_budget=128)
+    rng = np.random.default_rng(23)
+    V = gpu_model.config.vocab_size
+    waves = [[(rng.integers(1, V, n).tolist(), 16, None)
+              for n in (9, 33, 48)], [(rng.integers(1, V, 5).tolist(), 16,
+                                       None)]]
+    eng = ServingEngine(gpu_model, **kw)
+    old = _serve_waves(eng, waves)
+    n = eng.compile_count
+    eng.load_weights(other, version="v1")
+    if eng._graph_cache.graphs or eng.compile_count != n or not n:
+        raise AssertionError(f"load_weights kept "
+                             f"{len(eng._graph_cache.graphs)} "
+                             f"graphs (compile_count {n} -> "
+                             f"{eng.compile_count})")
+    got = _serve_waves(eng, waves)
+    want = _serve_waves(ServingEngine(other, **kw), waves)
+    if got != want or got == old or eng.compile_count <= n:
+        raise AssertionError("after load_weights the graph engine does not "
+                             "serve the new weights' tokens")
+    print(f"load_weights: graphs dropped and captured again (compile_count "
+          f"{n} -> {eng.compile_count}); the new weights' tokens on "
+          f"{len(got)} requests")
 
 
 # --------------------------------------------------------------- phase 5
@@ -2874,6 +2993,17 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     import paddle_tpu_torch  # noqa: F401  (precision pin)
+    from paddle_tpu_torch.jit import graphs
+
+    # a CUDA graph's replay (the serving engines' megastep loops) waits for
+    # nothing on the host: every replay of the run raises on a sync
+    replay = _sync_free(torch, graphs.CapturedGraph.replay)
+
+    def counted_replay(self, arrays):
+        _REPLAYS[0] += 1
+        return replay(self, arrays)
+
+    graphs.CapturedGraph.replay = counted_replay
 
     t = _phase("1 environment")
     card = environment(torch)
@@ -2893,15 +3023,17 @@ def main(argv=None) -> int:
         launches["serving"] = full_width_serving(torch, model)
         _done("3", t)
     pair = two_layer_models(torch) if phases & {4, 6, 8} else None
-    # the 2-layer Llamas at head_dim 72, 100 and 264 (phases 4, 6, 8)
+    # the 2-layer Llamas at head_dim 72, 100, 264 and 640 (phases 4, 6, 8)
     dims = ({d: two_layer_models(torch, d) for d in HEAD_DIM_LLAMAS}
             if phases & {4, 6, 8} else None)
     if 4 in phases:
         t = _phase("4 kernel path vs plain path")
         kernels_vs_plain_path(torch, *pair)
-        for d in (72, 264):
+        for d in (72, 264, 640):
             print(f"-- head_dim {d}")
             kernels_vs_plain_path(torch, *dims[d])
+        _load_weights_on_graphs(torch, dims[72][0],
+                                two_layer_models(torch, 72, seed=2)[0])
         _done("4", t)
     if 5 in phases:
         t = _phase("5 full-width generation")
@@ -2910,7 +3042,7 @@ def main(argv=None) -> int:
     if 6 in phases:
         t = _phase("6 generation: kernel path vs plain path")
         generation_kernels_vs_plain(torch, *pair)
-        for d in (72, 100, 264):
+        for d in (72, 100, 264, 640):
             print(f"-- head_dim {d}")
             generation_kernels_vs_plain(torch, *dims[d])
         _done("6", t)
@@ -2924,7 +3056,7 @@ def main(argv=None) -> int:
     if 8 in phases:
         t = _phase("8 training: kernel path vs plain path")
         training_kernels_vs_plain(torch, *pair)
-        for d in (72, 264):
+        for d in (72, 264, 640):
             print(f"-- head_dim {d}")
             training_kernels_vs_plain(torch, *dims[d])
         _done("8", t)

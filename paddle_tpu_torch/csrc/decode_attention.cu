@@ -48,14 +48,19 @@
 //   P @ V without leaving registers, and the warps' (m, l, O) merge at the
 //   end.  float32 (TF32 stays off) runs a SIMT instance of the same walk:
 //   thread-per-key scores and column-chunk P @ V from shared memory.
-// Head dims.  Every D up to 512.  The tensor-core instance takes bfloat16
+// Head dims.  Every D.  The tensor-core instance takes bfloat16
 // with D a multiple of 8 up to 256 (columns past D zero to 64, 128 or 256).
 // The SIMT instance takes the rest: float32, and bfloat16 with D not a
 // multiple of 8 or past 256.  It holds D padded to a multiple of 8 (DA) in
 // shared memory, zero past D, and reads the ring in place in the largest
 // pieces a row's bytes allow (16, 8, 4 or 2; a per-call pad would copy
 // the whole ring); past 256 columns float32 takes 16-key tiles, so a block
-// stays within 227 KB (about 200 KB at D 512).
+// stays within 227 KB (about 200 KB at D 512).  Past 512 (Queue C8) a
+// row does not fit a block whole: the wide instance (decode_wide_kernel,
+// the walk of wide_attention.cuh, both dtypes, no cluster split) streams
+// the query rows and K through shared memory in 64-column chunks for the
+// scores, and each block writes one slice of at most 512 output columns
+// (a grid axis takes the slices; the scores are recomputed for each).
 // A negative pos sees no key: the output is zeros, as the Pallas kernel
 // gives (it skips every tile past pos, and its l stays 0).
 // The number of splits comes from ops/hopper/decode_attention.py:
@@ -80,6 +85,7 @@
 
 #include "common.cuh"
 #include "wgmma.cuh"
+#include "wide_attention.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -886,17 +892,74 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, int n_hc, int B,
 }
 
 // the plans the instances take: 1, 2, 4 or 8 splits, no more than the
-// ring has key tiles
+// ring has key tiles; past 512 columns one (the wide instance)
 bool valid_plan(int es, int B, int L, int H, int KVH, int D, int splits) {
   if (!(B > 0 && B <= 65535 && L > 0 && KVH > 0 && H % KVH == 0 && D > 0 &&
-        D <= 512 &&
         (splits == 1 || splits == 2 || splits == 4 || splits == kMaxSplits)))
     return false;
   const int G = H / KVH;
   const long long n_hc = (G + kRows - 1) / kRows;
   if (KVH * n_hc > 65535) return false;
+  if (D > 512) return splits == 1;
   const int KT = uses_tc(es, D) ? kTcKeys : simt_keys(es, D);
   return (long long)(splits - 1) * KT < L;
+}
+
+// ---------------------------------------------- past 512 columns (C8)
+// the rows of one block for the shared walk: the block's query heads of
+// row b (rows D apart) and its KV head's keys (rows KVH * D apart)
+template <typename T>
+struct DecodeRows {
+  const T *qb, *kb, *vb;
+  T* ob;
+  long long ks;
+  int D;
+  __device__ const T* q(int r) const { return qb + (long long)r * D; }
+  __device__ const T* k(int key) const { return kb + key * ks; }
+  __device__ const T* v(int key) const { return vb + key * ks; }
+  __device__ bool vis(int, int) const { return true; }
+  __device__ T* o(int r) const { return ob + (long long)r * D; }
+};
+
+// one block per (KV head x head chunk x slice, row): keys 0 .. pos
+template <typename T>
+__global__ void __launch_bounds__(ptt::wide::kThreads) decode_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ kbuf,
+    const T* __restrict__ vbuf, T* __restrict__ out,
+    const int* __restrict__ pos_ptr, int L, int H, int KVH, int D, int n_hc,
+    float scale_log2, int W, int NS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = H / KVH;
+  const int b = blockIdx.z, y = blockIdx.y / NS, sl = blockIdx.y % NS;
+  const int kh = y / n_hc, hc = y - kh * n_hc;
+  const int h0 = kh * G + hc * kRows;
+  const int nr = min(kRows, G - hc * kRows);
+  const int n = max(0, min(*pos_ptr, L - 1) + 1);  // visible keys
+  const long long o = (long long)b * L * KVH * D + (long long)kh * D;
+  const long long qo = ((long long)b * H + h0) * D;
+  const DecodeRows<T> src{q + qo, kbuf + o, vbuf + o, out + qo,
+                          (long long)KVH * D, D};
+  ptt::wide::attend<T>(src, nr, D, 0, n, sl * W, W, scale_log2, smem);
+}
+
+template <typename T>
+cudaError_t launch_wide(int B, int L, int H, int KVH, int D, int n_hc,
+                        cudaStream_t st, const void* q, const void* kbuf,
+                        const void* vbuf, void* out, const void* pos,
+                        float scale) {
+  const int R = block_rows(H / KVH);
+  const int W = ptt::wide::slice_cols(R, D);
+  const int NS = (D + W - 1) / W;
+  if ((long long)KVH * n_hc * NS > 65535)
+    return cudaErrorInvalidConfiguration;
+  const size_t smem = ptt::wide::smem_bytes(R, W);
+  cudaError_t e = ptt::allow_smem(decode_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  decode_wide_kernel<T><<<dim3(1, KVH * n_hc * NS, B), ptt::wide::kThreads,
+                          smem, st>>>(
+      (const T*)q, (const T*)kbuf, (const T*)vbuf, (T*)out, (const int*)pos,
+      L, H, KVH, D, n_hc, scale * 1.4426950408889634f, W, NS);
+  return cudaGetLastError();
 }
 
 // V: the piece a thread copies (uint4, uint2, uint32_t or uint16_t)
@@ -923,7 +986,7 @@ __global__ void ring_write_kernel(V* __restrict__ kbuf, V* __restrict__ vbuf,
 }  // namespace
 
 // splits: the plan's cluster size; bfloat16 runs the tensor-core instance,
-// float32 the SIMT one
+// float32 the SIMT one, a head dim past 512 the wide one
 extern "C" int ptt_decode_attention(const void* q, const void* kbuf,
                                     const void* vbuf, void* out,
                                     const void* pos, int B, int L, int H,
@@ -938,6 +1001,11 @@ extern "C" int ptt_decode_attention(const void* q, const void* kbuf,
   const bool tc = uses_tc(es, D);
   const int G = H / KVH;
   const int n_hc = (G + kRows - 1) / kRows;
+  if (D > 512)
+    return es == 4 ? (int)launch_wide<float>(B, L, H, KVH, D, n_hc, st, q,
+                                             kbuf, vbuf, out, pos, scale)
+                   : (int)launch_wide<bf>(B, L, H, KVH, D, n_hc, st, q, kbuf,
+                                          vbuf, out, pos, scale);
   const size_t smem = layout(tc, block_rows(G), D, es, splits).total;
 #define PTT_B2_ARGS                                                          \
   smem, splits, n_hc, B, KVH, st, q, kbuf, vbuf, out, pos, L, H, D, scale

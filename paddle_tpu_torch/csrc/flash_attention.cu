@@ -53,7 +53,7 @@
 // is 113 KB at D = 128 and 210 KB at D = 256, past the 48 KB default: the
 // entry opts the kernel in.
 //
-// Head dims.  The entry takes any D that is a multiple of 8 up to 512 (the
+// Head dims.  The entry takes any D that is a multiple of 8 (the
 // wrapper zero-pads q, k and v to the next multiple of 8 and slices the
 // output: exact, the padded columns add 0 to every score and give 0
 // outputs; the scale stays that of the true D).  Up to 256 the tensor-core
@@ -62,11 +62,18 @@
 // tx + 16 j < D.  Past 256 the columns of a 64-row tile do not fit the
 // 227 KB a block may use (about 400 KB in float32 at D 512), so a SIMT
 // instance with 32-row query and key tiles (201 KB at D 512) serves both
-// float32 and bfloat16: simple and right, not fast.
+// float32 and bfloat16: simple and right, not fast.  Past 512 (Queue C8)
+// a row does not fit at all: the wide instance (flash_fwd_wide_kernel,
+// the walk of wide_attention.cuh) streams Q and K through shared memory
+// in 64-column chunks for the scores, and each block writes one slice of
+// at most 512 output columns (a grid axis takes the slices; the scores
+// are recomputed for each), 32 query rows and 32-key tiles a block, in
+// both dtypes; the first slice writes the logsumexp.
 #include <math.h>
 
 #include "common.cuh"
 #include "wgmma.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -529,6 +536,83 @@ cudaError_t launch_tc(const FwdArgs& a, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ------------------------------- past 512 columns (Queue C8): both dtypes
+constexpr int kWideRows = 32;  // query rows a block (the (32, 32) pair)
+
+// the rows of one block for the shared walk: query rows r0 .. r0 + R - 1
+// of one head, its KV head's keys, causal rows seeing col <= row + off
+template <typename T>
+struct FwdRows {
+  const T *qb, *kb, *vb;
+  T* ob;  // output row r0 (rows H * D apart)
+  long long qss, kss, vss, ors;
+  int r0, Sq, off, causal;
+  __device__ const T* q(int r) const { return qb + (r0 + r) * qss; }
+  __device__ const T* k(int key) const { return kb + key * kss; }
+  __device__ const T* v(int key) const { return vb + key * vss; }
+  __device__ bool vis(int r, int key) const {
+    return !causal || key <= r0 + r + off;
+  }
+  __device__ T* o(int r) const { return ob + r * ors; }
+};
+
+// one block per (32-row query tile, head x slice, batch)
+template <typename T>
+__global__ void __launch_bounds__(ptt::wide::kThreads) flash_fwd_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    const int* __restrict__ q_off_ptr, int Sq, int Sk, int H, int KVH, int D,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int causal,
+    int q_off_host, float scale, int W, int NS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.y / NS, s = blockIdx.y - h * NS, b = blockIdx.z;
+  const int r0 = blockIdx.x * kWideRows;
+  const int R = min(kWideRows, Sq - r0);
+  const int kh = h / (H / KVH);
+  const int off = q_off_ptr != nullptr ? *q_off_ptr : q_off_host;
+  // the keys any row of this tile can see
+  int c1 = Sk;
+  if (causal) {
+    const long long last = (long long)r0 + R - 1 + off;
+    c1 = last < 0 ? 0 : (int)(last + 1 < Sk ? last + 1 : Sk);
+  }
+  const FwdRows<T> src{q + b * qsb + h * qsh,
+                       k + b * ksb + kh * ksh,
+                       v + b * vsb + kh * vsh,
+                       out + (((long long)b * Sq + r0) * H + h) * D,
+                       qss, kss, vss, (long long)H * D, r0, Sq, off,
+                       causal};
+  const ptt::wide::Stats st = ptt::wide::attend<T>(
+      src, R, D, 0, c1, s * W, W, scale * kLog2e, smem_raw);
+  if (s == 0)
+    for (int r = threadIdx.x; r < R; r += ptt::wide::kThreads)
+      lse[((long long)b * H + h) * Sq + r0 + r] =
+          st.l[r] > 0.f ? st.m[r] * kLn2 + logf(st.l[r]) : kNegInf;
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, void* lse, const void* q_off, int B,
+                        int Sq, int Sk, int H, int KVH, int D, long long qsb,
+                        long long qss, long long qsh, long long ksb,
+                        long long kss, long long ksh, long long vsb,
+                        long long vss, long long vsh, int causal,
+                        int q_off_host, float scale, cudaStream_t st) {
+  const int W = ptt::wide::slice_cols(kWideRows, D);
+  const int NS = (D + W - 1) / W;
+  if ((long long)H * NS > 65535) return cudaErrorInvalidConfiguration;
+  const size_t smem = ptt::wide::smem_bytes(kWideRows, W);
+  cudaError_t e = ptt::allow_smem(flash_fwd_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((Sq + kWideRows - 1) / kWideRows, H * NS, B);
+  flash_fwd_wide_kernel<T><<<grid, ptt::wide::kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse,
+      (const int*)q_off, Sq, Sk, H, KVH, D, qsb, qss, qsh, ksb, kss, ksh, vsb,
+      vss, vsh, causal, q_off_host, scale, W, NS);
+  return cudaGetLastError();
+}
+
 // the compiled (dtype, D, tile) table; the Python side mirrors it
 // (ops/hopper/autotune.py INSTANCES) and a pair missing here is refused
 cudaError_t dispatch_tc(const FwdArgs& a, int B, int bq, int bk,
@@ -555,18 +639,22 @@ extern "C" int ptt_flash_attention(
     int q_off_host, float scale, int block_q, int block_k, int dtype,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 0 || D % 8 || D > 512 || KVH <= 0 || H % KVH)
+  if (D <= 0 || D % 8 || KVH <= 0 || H % KVH)
     return (int)cudaErrorInvalidValue;
   if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
     return (int)cudaErrorInvalidValue;
   if (dtype == ptt::kFloat32 || D > 256) {
     // the SIMT instances: one square tile pair each, 64 up to D 256, 32
-    // past it (the wide instance also serves bfloat16)
+    // past it (those past 256 columns also serve bfloat16)
     const int bt = D <= 256 ? 64 : 32;
     if (block_q != bt || block_k != bt) return (int)cudaErrorInvalidValue;
 #define PTT_FWD_ARGS                                                        \
   q, k, v, out, lse, q_off, B, Sq, Sk, H, KVH, D, qsb, qss, qsh, ksb, kss, \
       ksh, vsb, vss, vsh, causal, q_off_host, scale, st
+    if (D > 512)
+      return dtype == ptt::kFloat32
+                 ? (int)launch_wide<float>(PTT_FWD_ARGS)
+                 : (int)launch_wide<__nv_bfloat16>(PTT_FWD_ARGS);
     if (D > 256)
       return dtype == ptt::kFloat32
                  ? (int)launch<float, 32, 32, 32>(PTT_FWD_ARGS)

@@ -72,15 +72,23 @@
 // the tiles shrink to 32 rows (136 / 140 KB); past 256 to 16 rows (133 /
 // 134 KB at D 512), and this instance also serves bfloat16 (the
 // tensor-core tiles' float32 dK and dV end at 256 columns): simple and
-// right, not fast.  Any D that is a multiple of 8 up to 512 is taken (the
+// right, not fast.  Any D that is a multiple of 8 is taken (the
 // wrapper zero-pads others, exact: the padded columns of every gradient
 // are 0 and are sliced off); the tensor-core instances zero-fill columns
 // past D to their width and store only columns < D, the SIMT ones give
-// thread tx the columns tx + 16 j < D.
+// thread tx the columns tx + 16 j < D.  Past 512 (Queue C8) a row does
+// not fit a block whole: the wide instances (flash_bwd_dq_wide_kernel,
+// flash_bwd_dkv_wide_kernel; both dtypes, 16 x 16 tiles, 128 threads)
+// compute S and dP over every column with Q, dO, K and V streamed
+// through shared memory in 64-column chunks, and each block writes one
+// slice of at most 512 columns of dQ (or of dK and dV), the slices on a
+// grid axis; S and dP are recomputed for each slice, and the first slice
+// of the dQ kernel writes delta.
 #include <math.h>
 
 #include "common.cuh"
 #include "wgmma.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -435,6 +443,294 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
       (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, H, KVH,
       D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale);
+  return cudaGetLastError();
+}
+
+
+// ------------------------------- past 512 columns (Queue C8): both dtypes
+constexpr int kWT = 16;          // query rows of a tile, keys of a key tile
+constexpr int kWThreads = 128;
+constexpr int kWChunk = 64;      // columns staged at a time for S and dP
+constexpr int kWCP = kWChunk + 1;  // a staged row, padded by one float
+constexpr int kWSP = kWT + 1;      // a row of P or dS
+constexpr int kWPer = kWT * kWT / kWThreads;  // entries a thread sums
+
+size_t wide_dq_smem(int W) {
+  return (size_t)(4 * kWT * kWCP + kWT * kWSP + 2 * kWT * W + 2 * kWT) *
+         sizeof(float);
+}
+
+size_t wide_dkv_smem(int W) {
+  return (size_t)(4 * kWT * kWCP + 2 * kWT * kWSP + 3 * kWT * W +
+                  2 * kWT) *
+         sizeof(float);
+}
+
+// S and dP of query rows r0 .. r0 + kWT - 1 and keys c0 .. c0 + kWT - 1
+// over every column, Q, dO, K and V staged kWChunk columns at a time;
+// entry t of a thread is row e / kWT, key e % kWT, e = tid + kWThreads t.
+// Starts with a barrier (what the block wrote before is visible after).
+template <typename T>
+__device__ void wide_scores(const T* qb, long long qss, const T* gb,
+                            long long gss, int r0, int Sq, const T* kb,
+                            long long kss, const T* vb, long long vss,
+                            int c0, int Sk, int D, float* qa,
+                            float (&s)[kWPer], float (&dp)[kWPer]) {
+  float* ga = qa + kWT * kWCP;
+  float* ka = ga + kWT * kWCP;
+  float* va = ka + kWT * kWCP;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int t = 0; t < kWPer; ++t) s[t] = dp[t] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += kWChunk) {
+    __syncthreads();  // the last chunk's products are done
+    for (int i = tid; i < kWT * kWChunk; i += kWThreads) {
+      const int r = i / kWChunk, c = i - r * kWChunk, d = d0 + c;
+      const int o = r * kWCP + c;
+      const bool qok = r0 + r < Sq && d < D, kok = c0 + r < Sk && d < D;
+      qa[o] = qok ? ptt::to_f(qb[(r0 + r) * qss + d]) : 0.f;
+      ga[o] = qok ? ptt::to_f(gb[(r0 + r) * gss + d]) : 0.f;
+      ka[o] = kok ? ptt::to_f(kb[(c0 + r) * kss + d]) : 0.f;
+      va[o] = kok ? ptt::to_f(vb[(c0 + r) * vss + d]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kWPer; ++t) {
+      const int e = tid + kWThreads * t;
+      const float* a = qa + (e / kWT) * kWCP;
+      const float* g = ga + (e / kWT) * kWCP;
+      const float* kk = ka + (e % kWT) * kWCP;
+      const float* vv = va + (e % kWT) * kWCP;
+#pragma unroll 16
+      for (int c = 0; c < kWChunk; ++c) {
+        s[t] = fmaf(a[c], kk[c], s[t]);
+        dp[t] = fmaf(g[c], vv[c], dp[t]);
+      }
+    }
+  }
+}
+
+// dQ: one block per (16-row query tile, head x slice, batch)
+template <typename T>
+__global__ void __launch_bounds__(kWThreads) flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ o,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H,
+    int KVH, int D, long long qsb, long long qss, long long qsh,
+    long long ksb, long long kss, long long ksh, long long vsb,
+    long long vss, long long vsh, int causal, float scale, int W, int NS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qa = (float*)smem_raw;     // 4 x kWT x kWCP: Q, dO, K, V chunks
+  float* ds = qa + 4 * kWT * kWCP;  // kWT x kWSP
+  float* xs = ds + kWT * kWSP;      // kWT x W: K's slice
+  float* acc = xs + kWT * W;        // kWT x W
+  float* lse_s = acc + kWT * W;     // kWT
+  float* dl_s = lse_s + kWT;        // kWT
+
+  const int h = blockIdx.y / NS, sl = blockIdx.y - h * NS, b = blockIdx.z;
+  const int r0 = blockIdx.x * kWT, cs = sl * W;
+  const int kh = h / (H / KVH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int off = Sk - Sq;
+  const long long rs = (long long)H * D;  // row stride of o, dO, dQ
+  const long long bh = (long long)b * H + h;
+  const T* qb = q + b * qsb + h * qsh;
+  const T* ob = o + (long long)b * Sq * rs + (long long)h * D;
+  const T* gb = dout + (long long)b * Sq * rs + (long long)h * D;
+  const T* kb = k + b * ksb + kh * ksh;
+  const T* vb = v + b * vsb + kh * vsh;
+
+  // delta = rowsum(dO * O) over every column: warp w takes rows w,
+  // w + 4, ...; the first slice writes it for the dK/dV kernel
+  for (int r = warp; r < kWT; r += kWThreads / 32) {
+    const int row = r0 + r;
+    float a = 0.f;
+    if (row < Sq)
+      for (int d = lane; d < D; d += 32)
+        a += ptt::to_f(gb[row * rs + d]) * ptt::to_f(ob[row * rs + d]);
+    a = ptt::warp_sum(a);
+    if (lane == 0) {
+      dl_s[r] = a;
+      lse_s[r] = row < Sq ? lse[bh * Sq + row] : 0.f;
+      if (sl == 0 && row < Sq) delta[bh * Sq + row] = a;
+    }
+  }
+  for (int i = tid; i < kWT * W; i += kWThreads) acc[i] = 0.f;
+
+  // the keys any row of this tile can see
+  int c_end = Sk;
+  if (causal) {
+    const long long last = (long long)r0 + kWT - 1 + off;
+    c_end = last < 0 ? 0 : (int)(last + 1 < Sk ? last + 1 : Sk);
+  }
+  for (int c0 = 0; c0 < c_end; c0 += kWT) {
+    float s[kWPer], dp[kWPer];
+    wide_scores<T>(qb, qss, gb, rs, r0, Sq, kb, kss, vb, vss, c0, Sk, D, qa,
+                   s, dp);
+#pragma unroll
+    for (int t = 0; t < kWPer; ++t) {
+      const int e = tid + kWThreads * t, i = e / kWT, j = e % kWT;
+      const int row = r0 + i, col = c0 + j;
+      const bool ok = row < Sq && col < Sk && (!causal || col <= row + off);
+      const float p = ok ? expf(s[t] * scale - lse_s[i]) : 0.f;
+      ds[i * kWSP + j] = p * (dp[t] - dl_s[i]);
+    }
+    for (int i = tid; i < kWT * W; i += kWThreads) {
+      const int j = i / W, d = cs + i - j * W;
+      xs[i] = c0 + j < Sk && d < D ? ptt::to_f(kb[(c0 + j) * kss + d]) : 0.f;
+    }
+    __syncthreads();
+    // dQ += dS K over the slice's columns
+    for (int c = tid; c < W; c += kWThreads)
+      for (int i = 0; i < kWT; ++i) {
+        float a = acc[i * W + c];
+#pragma unroll
+        for (int j = 0; j < kWT; ++j)
+          a = fmaf(ds[i * kWSP + j], xs[j * W + c], a);
+        acc[i * W + c] = a;
+      }
+  }
+  __syncthreads();
+  for (int i = tid; i < kWT * W; i += kWThreads) {
+    const int r = i / W, d = cs + i - r * W, row = r0 + r;
+    if (row < Sq && d < D)
+      dq[((long long)b * Sq + row) * rs + (long long)h * D + d] =
+          ptt::from_f<T>(acc[i] * scale);
+  }
+}
+
+// dK and dV: one block per (16-key tile, KV head x slice, batch), summed
+// over the KV head's group of query heads in float32 in shared memory,
+// cast once
+template <typename T>
+__global__ void __launch_bounds__(kWThreads) flash_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int KVH,
+    int D, long long qsb, long long qss, long long qsh, long long ksb,
+    long long kss, long long ksh, long long vsb, long long vss,
+    long long vsh, int causal, float scale, int W, int NS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qa = (float*)smem_raw;      // 4 x kWT x kWCP: Q, dO, K, V chunks
+  float* ps = qa + 4 * kWT * kWCP;   // kWT x kWSP: P (row, key)
+  float* dss = ps + kWT * kWSP;      // kWT x kWSP: dS
+  float* xs = dss + kWT * kWSP;      // kWT x W: dO's, then Q's slice
+  float* acc_k = xs + kWT * W;       // kWT x W
+  float* acc_v = acc_k + kWT * W;    // kWT x W
+  float* lse_s = acc_v + kWT * W;    // kWT
+  float* dl_s = lse_s + kWT;         // kWT
+
+  const int kh = blockIdx.y / NS, sl = blockIdx.y - kh * NS;
+  const int b = blockIdx.z, c0 = blockIdx.x * kWT, cs = sl * W;
+  const int rep = H / KVH;
+  const int tid = threadIdx.x;
+  const int off = Sk - Sq;
+  const long long rs = (long long)H * D;  // row stride of dO
+  const T* kb = k + b * ksb + kh * ksh;
+  const T* vb = v + b * vsb + kh * vsh;
+  for (int i = tid; i < kWT * W; i += kWThreads) acc_k[i] = acc_v[i] = 0.f;
+
+  // query tiles whose rows can see a key of this tile: rows >= c0 - off
+  const int nq = (Sq + kWT - 1) / kWT;
+  int lo = 0;
+  if (causal) {
+    const long long first = (long long)c0 - off;
+    lo = first <= 0 ? 0 : (int)(first / kWT < nq ? first / kWT : nq);
+  }
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = kh * rep + hh;
+    const long long bh = (long long)b * H + h;
+    const T* qb = q + b * qsb + h * qsh;
+    const T* gb = dout + (long long)b * Sq * rs + (long long)h * D;
+    for (int qt = lo; qt < nq; ++qt) {
+      const int r0 = qt * kWT;
+      __syncthreads();  // the last tile is done with lse_s, ps, dss, xs
+      if (tid < kWT) {
+        const int row = r0 + tid;
+        lse_s[tid] = row < Sq ? lse[bh * Sq + row] : 0.f;
+        dl_s[tid] = row < Sq ? delta[bh * Sq + row] : 0.f;
+      }
+      float s[kWPer], dp[kWPer];
+      wide_scores<T>(qb, qss, gb, rs, r0, Sq, kb, kss, vb, vss, c0, Sk, D,
+                     qa, s, dp);
+#pragma unroll
+      for (int t = 0; t < kWPer; ++t) {
+        const int e = tid + kWThreads * t, i = e / kWT, j = e % kWT;
+        const int row = r0 + i, col = c0 + j;
+        const bool ok =
+            row < Sq && col < Sk && (!causal || col <= row + off);
+        const float p = ok ? expf(s[t] * scale - lse_s[i]) : 0.f;
+        ps[i * kWSP + j] = p;
+        dss[i * kWSP + j] = p * (dp[t] - dl_s[i]);
+      }
+      // dV += P^T dO, then dK += dS^T Q, over the slice's columns
+      for (int pass = 0; pass < 2; ++pass) {
+        const T* xb = pass == 0 ? gb : qb;
+        const long long xss = pass == 0 ? rs : qss;
+        const float* pm = pass == 0 ? ps : dss;
+        float* acc = pass == 0 ? acc_v : acc_k;
+        if (pass) __syncthreads();  // dV's products are done with xs
+        for (int i = tid; i < kWT * W; i += kWThreads) {
+          const int r = i / W, d = cs + i - r * W;
+          xs[i] = r0 + r < Sq && d < D ? ptt::to_f(xb[(r0 + r) * xss + d])
+                                       : 0.f;
+        }
+        __syncthreads();
+        for (int c = tid; c < W; c += kWThreads)
+          for (int j = 0; j < kWT; ++j) {
+            float a = acc[j * W + c];
+#pragma unroll
+            for (int i = 0; i < kWT; ++i)
+              a = fmaf(pm[i * kWSP + j], xs[i * W + c], a);
+            acc[j * W + c] = a;
+          }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kWT * W; i += kWThreads) {
+    const int j = i / W, d = cs + i - j * W, col = c0 + j;
+    if (col < Sk && d < D) {
+      const long long o = (((long long)b * Sk + col) * KVH + kh) * D + d;
+      dk[o] = ptt::from_f<T>(acc_k[i] * scale);
+      dv[o] = ptt::from_f<T>(acc_v[i]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* delta, void* dq, void* dk, void* dv, int B,
+                        int Sq, int Sk, int H, int KVH, int D, long long qsb,
+                        long long qss, long long qsh, long long ksb,
+                        long long kss, long long ksh, long long vsb,
+                        long long vss, long long vsh, int causal, float scale,
+                        cudaStream_t st) {
+  // slices of at most 512 columns of a gradient
+  const int W = ptt::wide::even_slices(D, ptt::wide::kMaxCols);
+  const int NS = (D + W - 1) / W;
+  if ((long long)H * NS > 65535) return cudaErrorInvalidConfiguration;
+  const size_t s1 = wide_dq_smem(W), s2 = wide_dkv_smem(W);
+  cudaError_t e = ptt::allow_smem(flash_bwd_dq_wide_kernel<T>, s1);
+  if (e != cudaSuccess) return e;
+  e = ptt::allow_smem(flash_bwd_dkv_wide_kernel<T>, s2);
+  if (e != cudaSuccess) return e;
+  const dim3 g1((Sq + kWT - 1) / kWT, H * NS, B);
+  flash_bwd_dq_wide_kernel<T><<<g1, kWThreads, s1, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
+      (const float*)lse, (float*)delta, (T*)dq, Sq, Sk, H, KVH, D, qsb, qss,
+      qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale, W, NS);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 g2((Sk + kWT - 1) / kWT, KVH * NS, B);
+  flash_bwd_dkv_wide_kernel<T><<<g2, kWThreads, s2, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, H,
+      KVH, D, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale, W,
+      NS);
   return cudaGetLastError();
 }
 
@@ -906,18 +1202,22 @@ extern "C" int ptt_flash_attention_bwd(
     long long vsh, int causal, float scale, int block_q, int block_k,
     int hpb, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 0 || D % 8 || D > 512 || KVH <= 0 || H % KVH)
+  if (D <= 0 || D % 8 || KVH <= 0 || H % KVH)
     return (int)cudaErrorInvalidValue;
   if (dtype != ptt::kFloat32 && dtype != ptt::kBFloat16)
     return (int)cudaErrorInvalidValue;
   if (dtype == ptt::kFloat32 || D > 256) {
     // the SIMT instances: square tiles of 64 rows, 32 at D > 128, 16 at
-    // D > 256 (the wide instance also serves bfloat16)
+    // D > 256 (those past 256 columns also serve bfloat16)
     const int bt = D <= 128 ? 64 : D <= 256 ? 32 : 16;
     if (block_q != bt || block_k != bt) return (int)cudaErrorInvalidValue;
 #define PTT_BWD_ARGS                                                       \
   q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, D, qsb, qss, \
       qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale, st
+    if (D > 512)
+      return dtype == ptt::kFloat32
+                 ? (int)launch_wide<float>(PTT_BWD_ARGS)
+                 : (int)launch_wide<__nv_bfloat16>(PTT_BWD_ARGS);
     if (D > 256)
       return dtype == ptt::kFloat32
                  ? (int)launch<float, 16, 32>(PTT_BWD_ARGS)

@@ -39,11 +39,17 @@
 //   of the same tiling serves float32 and the other bf16 head dims:
 //   per-tile arithmetic, not bytes, is what a first SIMT version of this
 //   design spent its time on.
-// * Head dims up to 512, read in place (a per-call pad would copy the
-//   pool): the SIMT instance holds D padded to a multiple of 8 (DA) in
-//   shared memory, zero past D, and copies rows in the largest pieces
-//   their bytes allow (16, 8, 4 or 2); past 256 columns a ring of 16-key
-//   tiles keeps a block within 227 KB.
+// * Every head dim, read in place (a per-call pad would copy the pool):
+//   the SIMT instance holds D padded to a multiple of 8 (DA) in shared
+//   memory, zero past D, and copies rows in the largest pieces their
+//   bytes allow (16, 8, 4 or 2); past 256 columns a ring of 16-key tiles
+//   keeps a block within 227 KB.  Past 512 (Queue C8) a row does not fit
+//   a block whole: the wide instance (paged_attention_wide_kernel, the
+//   walk of wide_attention.cuh, both dtypes, no cluster split, 32-key
+//   tiles, "stages" 1) streams the query rows and K through shared
+//   memory in 64-column chunks for the scores, and each block writes one
+//   slice of at most 512 output columns (the grid's x takes the slices;
+//   the scores are recomputed for each).
 // * The context split across a thread-block cluster.  Where the grid would
 //   leave the card's block slots mostly empty (decode: 8 rows x KV heads),
 //   the `splits` blocks of one (tile, head) form a cluster, each walking a
@@ -60,7 +66,8 @@
 // QT, KT, the number of splits and the chunk come from
 // ops/hopper/paged_attention.py:paged_plan; the entry refuses a KT without
 // an instance, more than 4 splits, a ring other than 2 stages on the tensor
-// cores (2 or 3 on SIMT), 16-key tiles at 256 columns or fewer, a chunk
+// cores (2 or 3 on SIMT; past 512 columns 32-key tiles, 1 stage and 1
+// split), 16-key tiles at 256 columns or fewer, a chunk
 // that is not a multiple of KT or does not
 // cover P * block_size keys, a tensor-core tile of more than 64 query rows,
 // and a block past the shared memory it may use (227 KB).
@@ -70,6 +77,7 @@
 
 #include "common.cuh"
 #include "wgmma.cuh"
+#include "wide_attention.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -188,8 +196,10 @@ struct Tile {
 // The row tables, the zeros of the tokens that no tile owns, and the
 // block's tile and key range; false for a spare tile (nothing to attend).
 // Leaves s_blk filled (the split's block ids, -1 outside the pool); the
-// caller synchronises before reading it.
-template <typename T>
+// caller synchronises before reading it.  kSliced: the grid's x takes
+// output slices, not splits (the wide instance): every block walks the
+// whole context, and the first slice writes the zeros.
+template <typename T, bool kSliced = false>
 __device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
                            const int* __restrict__ dec,
                            const int* __restrict__ now,
@@ -202,7 +212,7 @@ __device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
   int* s_pt = s_len + B;      // B + 1: tiles before a row
   int* s_dec = s_pt + B + 1;
   int* s_blk = s_dec + B;
-  const int rank = blockIdx.x, k = blockIdx.y, kh = blockIdx.z;
+  const int rank = kSliced ? 0 : blockIdx.x, k = blockIdx.y, kh = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // the row tables, all loads in flight together
@@ -241,9 +251,9 @@ __device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
   __syncthreads();
 
   // the zeros of the tokens no tile owns (past cu[B], past their row's
-  // now, at a local index >= max_q_len): the first split of tile k takes
-  // tokens k, k + tiles, ...
-  if (rank == 0) {
+  // now, at a local index >= max_q_len): the first split (or slice) of
+  // tile k takes tokens k, k + tiles, ...
+  if (blockIdx.x == 0) {
     const int total = s_cu[B];
     for (int i = k; i < T_; i += gridDim.y) {
       bool owned = false;
@@ -1028,14 +1038,95 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
       stages, scale);
 }
 
+// ---------------------------------------------- past 512 columns (C8)
+// the rows of one block for the shared walk: query row r is token r / G,
+// head kh G + r % G of the tile; a key's rows come through the split's
+// block ids (none outside the pool: zeros); row r sees the keys up to its
+// position
+template <typename T>
+struct PagedRows {
+  const T *qb, *kc, *vc;
+  T* ob;  // q and out at the tile's row 0
+  const int* s_blk;
+  size_t hd, head, blk_stride;
+  int G, D, bs, b0, pos0, last;
+  __device__ size_t row(int r) const {
+    return (size_t)(r / G) * hd + (size_t)(r % G) * D;
+  }
+  __device__ const T* q(int r) const { return qb + row(r); }
+  __device__ const T* key_row(const T* c, int key) const {
+    const int kb = key / bs;
+    const int blk = s_blk[kb - b0];
+    return blk < 0 ? nullptr
+                   : c + blk * blk_stride + head + (size_t)(key - kb * bs) * D;
+  }
+  __device__ const T* k(int key) const { return key_row(kc, key); }
+  __device__ const T* v(int key) const { return key_row(vc, key); }
+  __device__ bool vis(int r, int key) const {
+    return key <= min(pos0 + r / G, last);
+  }
+  __device__ T* o(int r) const { return ob + row(r); }
+};
+
+// one block per (slice, query tile, KV head)
+template <typename T>
+__global__ void __launch_bounds__(ptt::wide::kThreads)
+    paged_attention_wide_kernel(
+        const T* __restrict__ q, const T* __restrict__ kc,
+        const T* __restrict__ vc, T* __restrict__ out,
+        const int* __restrict__ dec, const int* __restrict__ now,
+        const int* __restrict__ cu, const int* __restrict__ bt, int T_,
+        int B, int P, int NB, int H, int KV, int D, int bs, int mq, int QT,
+        int chunk, float scale_log2, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = H / KV, kh = blockIdx.z;
+  int* tables =
+      reinterpret_cast<int*>(smem + ptt::wide::smem_bytes(QT * G, W));
+  Tile t;
+  if (!setup_tile<T, true>(t, tables, out, dec, now, cu, bt, T_, B, P, NB,
+                           H, G, D, bs, mq, QT, chunk))
+    return;
+  // the walk's first barrier comes before its first read of s_blk
+  const PagedRows<T> src{q + t.qo, kc, vc, out + t.qo, tables + 4 * B + 2,
+                         (size_t)H * D, (size_t)kh * bs * D,
+                         (size_t)KV * bs * D, G, D, bs, t.b0, t.pos0,
+                         t.ctx - 1};
+  ptt::wide::attend<T>(src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W,
+                       scale_log2, smem);
+}
+
+template <typename T>
+cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
+                        const void* q, const void* kc, const void* vc,
+                        void* out, const void* dec, const void* now,
+                        const void* cu, const void* bt, int T_, int B, int P,
+                        int NB, int H, int D, int bs, int mq, int QT,
+                        int chunk, float scale) {
+  const int R = QT * (H / KV);
+  const int W = ptt::wide::slice_cols(R, D);
+  if (W == 0 || tiles > 65535 || KV > 65535)
+    return cudaErrorInvalidConfiguration;
+  const size_t smem = ptt::wide::smem_bytes(R, W) +
+                      (size_t)(4 * B + 2 + chunk / bs + 2) * sizeof(int);
+  cudaError_t e = ptt::allow_smem(paged_attention_wide_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((D + W - 1) / W, (unsigned)tiles, KV);
+  paged_attention_wide_kernel<T><<<grid, ptt::wide::kThreads, smem, st>>>(
+      (const T*)q, (const T*)kc, (const T*)vc, (T*)out, (const int*)dec,
+      (const int*)now, (const int*)cu, (const int*)bt, T_, B, P, NB, H, KV, D,
+      bs, mq, QT, chunk, scale * 1.4426950408889634f, W);
+  return cudaGetLastError();
+}
+
 bool valid_plan(int B, int P, int H, int KV, int D, int bs, int mq, int QT,
                 int KT, int stages, int splits, int chunk, int dtype) {
-  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && D <= 512 && bs > 0 &&
+  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && bs > 0 &&
         mq >= 0 && QT > 0 && splits >= 1 &&
         splits <= kMaxSplits && chunk > 0 && chunk % KT == 0 &&
         (long long)chunk * splits >= (long long)P * bs &&
         (splits == 1 || (long long)chunk * (splits - 1) < (long long)P * bs)))
     return false;
+  if (D > 512) return KT == ptt::wide::kKeys && stages == 1 && splits == 1;
   if (uses_tc(dtype, D))
     return KT == kTcKeys && stages == 2 && QT * (H / KV) <= kTcRows;
   // 16-key tiles only past 256 columns, where the larger rings do not fit
@@ -1061,9 +1152,18 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
   const int es = dtype == ptt::kFloat32 ? 4 : 2;
   const bool tc = uses_tc(dtype, D);
   const int R = QT * (H / KV);
+  const long long tiles = grid_tiles(T, B, max_q_len, QT);
+  if (D > 512) {
+#define PTT_K4_ARGS                                                        \
+  tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, H, D, bs, \
+      max_q_len, QT, chunk, scale
+    return dtype == ptt::kFloat32
+               ? (int)launch_wide<float>(PTT_K4_ARGS)
+               : (int)launch_wide<__nv_bfloat16>(PTT_K4_ARGS);
+#undef PTT_K4_ARGS
+  }
   const size_t smem =
       layout(tc, R, D, es, KT, stages, splits, B, chunk, bs).total;
-  const long long tiles = grid_tiles(T, B, max_q_len, QT);
   if (tc) {
     const int KG = tc_key_groups(R), DP = tc_cols(D);
 #define PTT_K4_ARGS                                                         \

@@ -27,7 +27,21 @@ reference is a plain function here:
   scan re-feeds the same token at the same position, so it rewrites the
   same KV bits, as in the reference.
 
-There is no program cache and nothing compiles: ``compile_count`` stays 0.
+The program cache: on CUDA the two megastep loops (``_run_megastep``,
+``_run_mixed``), sampling and its threefry draw included, run as CUDA
+graphs (``jit/graphs.py``), one per (program, K, ``all_greedy``), K
+bucketed to powers of two up to ``megastep_k`` for the pure-decode loop
+and ``megastep_k`` for the mixed one; ``capture_sample_probs`` is fixed
+per engine.  A key's first call runs eagerly (its results are returned)
+and is then captured; later calls copy the host arrays, block tables
+included, into the graph's static buffers and replay it.
+``compile_count`` counts the captures, as the reference counts its jit
+programs; ``load_weights`` drops the graphs, which read the old weights.
+The single-step program (prefill-only batches, ``megastep_k=1``) runs
+eagerly, and on the CPU nothing is captured (``compile_count`` stays 0).
+The private ``_graphs = False`` runs the loops eagerly on CUDA too, for
+comparison (the tests and ``chip_smoke.py``); there is no public switch,
+as the reference has none.
 Sampling draws on the device with JAX's threefry under the key
 ``fold_in(key(seed), sample index)`` (``framework/random.py``), so a seeded
 stream is the JAX engine's, and replays across K, rebuilds and preemption.
@@ -49,6 +63,8 @@ import torch
 
 from ..device import resolve_device
 from ..framework.random import categorical, fold_in, key
+from ..jit.graphs import GraphCache
+from ..ops.hopper import launch_counters
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
 from ..ops.hopper.fused_ops import swiglu_fused
 from ..ops.paged_attention import blha_attention, plan_step
@@ -542,8 +558,18 @@ class ServingEngine:
         # + batch marshalling, execute = device work + the one read-back,
         # harvest = token/unblocking bookkeeping)
         self.phase_seconds = {"schedule": 0.0, "execute": 0.0, "harvest": 0.0}
-        # nothing is traced or compiled: kept for the reference's surface
-        self.compile_count = 0
+        # the megastep loops as CUDA graphs, one per (program, K,
+        # all_greedy), counted in compile_count; never on the CPU.  Only the
+        # tests and chip_smoke.py set _graphs = False (the eager loops on
+        # CUDA, for comparison)
+        self._graphs = self.device.type == "cuda"
+        self._graph_cache = GraphCache(self.device, counters=launch_counters)
+
+    @property
+    def compile_count(self) -> int:
+        """CUDA graphs captured over the engine's life (the reference
+        counts its new jit programs); 0 on the CPU."""
+        return self._graph_cache.captures
 
     # ------------------------------------------------------------ weights
     def _extract_weights(self, model):
@@ -597,6 +623,8 @@ class ServingEngine:
                 "architecture")
         new = self._extract_weights(model)   # raises before any mutation
         self._weights = new
+        # the captured graphs read the old weights' memory
+        self._graph_cache.clear()
         self.blocks.drop_cached()
         if model_id is not None:
             self.model_id = str(model_id)
@@ -621,6 +649,17 @@ class ServingEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the engine's device."""
         return torch.as_tensor(a, device=self.device)
+
+    def _program(self, name: str, fn, arrays, K: int, all_greedy: bool):
+        """One megastep loop ``fn(*device arrays, K, all_greedy)``: through
+        the CUDA graph of (name, K, all_greedy) (captured on the key's
+        first call, which runs eagerly), or eagerly on the CPU and with
+        ``_graphs`` off."""
+        if not self._graphs:
+            return fn(*[self._dev(a) for a in arrays], K, all_greedy)
+        return self._graph_cache.run(
+            (name, K, all_greedy), lambda *ins: fn(*ins, K, all_greedy),
+            arrays)
 
     def _trunk(self, token_ids, enc, dec, now, cu, bt, mq):
         """embed -> layers -> final RMSNorm over the packed buffer
@@ -1351,12 +1390,10 @@ class ServingEngine:
         dl = self._deadline_budgets(by_slot)
         t1 = self._clock()
         self.phase_seconds["schedule"] += t1 - t0
-        toks_o, valid_o, lps_o, probs_o = self._run_megastep(
-            self._dev(toks), self._dev(dec), self._dev(now), self._dev(cu),
-            self._dev(occ_idx), self._dev(self.block_tables),
-            self._dev(active), self._dev(remaining), self._dev(dl),
-            self._dev(eos), self._dev(temps), self._dev(top_ks),
-            self._dev(top_ps), self._dev(seeds), self._dev(spos), K,
+        toks_o, valid_o, lps_o, probs_o = self._program(
+            "megastep", self._run_megastep,
+            (toks, dec, now, cu, occ_idx, self.block_tables, active,
+             remaining, dl, eos, temps, top_ks, top_ps, seeds, spos), K,
             bool((temps <= 0).all()))
         toks_o = toks_o.cpu().numpy()     # [K, B]
         valid_o = valid_o.cpu().numpy()
@@ -1460,13 +1497,11 @@ class ServingEngine:
         dl = self._deadline_budgets(by_slot)
         t1 = self._clock()
         self.phase_seconds["schedule"] += t1 - t0
-        pp_f, toks_o, emits_o, lps_o, probs_o = self._run_mixed(
-            self._dev(toks), self._dev(cached), self._dev(pp),
-            self._dev(pp0), self._dev(plen), self._dev(prompt_buf),
-            self._dev(self.block_tables), self._dev(active),
-            self._dev(remaining), self._dev(dl), self._dev(eos),
-            self._dev(temps), self._dev(top_ks), self._dev(top_ps),
-            self._dev(seeds), self._dev(spos), K, bool((temps <= 0).all()))
+        pp_f, toks_o, emits_o, lps_o, probs_o = self._program(
+            "mixed", self._run_mixed,
+            (toks, cached, pp, pp0, plen, prompt_buf, self.block_tables,
+             active, remaining, dl, eos, temps, top_ks, top_ps, seeds, spos),
+            K, bool((temps <= 0).all()))
         pp_f = pp_f.cpu().numpy()         # [B] final prefill positions
         toks_o = toks_o.cpu().numpy()     # [K, B]
         emits_o = emits_o.cpu().numpy()

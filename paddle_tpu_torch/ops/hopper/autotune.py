@@ -15,10 +15,12 @@ What differs from the reference:
   mirror of the C dispatch tables.  ``get_flash_blocks`` only ever returns a
   listed pair; the C side refuses any other.  The head-dim class is D
   rounded up to 64, 128, 256 or 512 (the tensor-core tiles are 64 columns
-  wide; columns past D are zero-filled).  Class 512 (256 < D <= 512) has
-  no tensor-core instance: the SIMT instance with the ``SIMT_TILES`` pair
-  serves bfloat16 there too, its pair listed here so the table covers every
-  class the reference's ``_DEFAULT_TARGETS`` has.
+  wide; columns past D are zero-filled).  Class 512 (every D past 256) has
+  no tensor-core instance: the SIMT instances with the ``SIMT_TILES`` pair
+  serve bfloat16 there too (rows held whole up to ``MAX_HEAD_DIM``, the
+  wide instances past it streaming the head dim in chunks), their pair
+  listed here so the table covers every class the reference's
+  ``_DEFAULT_TARGETS`` has.
 * Ragged edges are masked in the kernels, so ``_pick_block`` caps a tile at
   the sequence's power-of-two bucket (never a tile taller than the
   sequence) instead of snapping to a divisor.
@@ -59,7 +61,7 @@ INSTANCES: Dict[Tuple[str, int], Tuple[Pair, ...]] = {
     ("bwd", 64): ((64, 64),),
     ("bwd", 128): ((64, 128), (64, 64)),
     ("bwd", 256): ((64, 64),),
-    # the SIMT instance, bfloat16 and float32 alike
+    # the SIMT instances past 256 columns, bfloat16 and float32 alike
     ("fwd", 512): ((32, 32),),
     ("bwd", 512): ((16, 16),),
 }
@@ -89,7 +91,8 @@ _DEFAULT_TARGETS: Dict[Tuple[str, int], Pair] = {
     ("bwd", 512): (16, 16),
 }
 
-# the largest head dim any instance takes (C8: the reference takes more)
+# the widest head the SIMT instances hold whole; past it the wide
+# instances stream the head dim (the same tile pairs)
 MAX_HEAD_DIM = 512
 
 _MIN_TILE = 64  # a wgmma covers 64 rows
@@ -115,11 +118,11 @@ def _bucket_seq(s: int) -> int:
 
 
 def head_dim_class(d: int) -> int:
-    """The instance column width for head dim ``d`` (64, 128, 256 or 512);
-    a head dim past ``MAX_HEAD_DIM`` raises."""
-    if not 0 < d <= MAX_HEAD_DIM:
+    """The instance class of head dim ``d``: 64, 128 or 256 (the
+    tensor-core column widths), 512 for every D past 256."""
+    if d <= 0:
         raise ValueError(f"head_dim {d}: the flash kernels take head dims "
-                         f"1 to {MAX_HEAD_DIM}")
+                         "of 1 or more")
     return 64 if d <= 64 else 128 if d <= 128 else 256 if d <= 256 else 512
 
 

@@ -24,11 +24,14 @@ negative pos counts from the end first, then the start is clamped to
 ``[0, L - S]``.  The generation path folds this write into rope's launch
 (``fused_ops.rope_ring_fused``); B3 serves ``kv_ring_write``'s own callers.
 
-Head dims: every D up to ``MAX_HEAD_DIM`` (512), in place (a per-call pad
-would copy the ring).  bfloat16 with D a multiple of 8 up to 256 runs the
-tensor cores; the rest runs the SIMT instance, which reads rows in the
-largest pieces their bytes allow.  A negative pos sees no key: B2 gives
-zeros, as the Pallas kernel does.
+Head dims: every D, in place (a per-call pad would copy the ring).
+bfloat16 with D a multiple of 8 up to 256 runs the tensor cores; the rest
+up to ``MAX_HEAD_DIM`` (512) runs the SIMT instance, which reads rows in
+the largest pieces their bytes allow; past it the wide instance (both
+dtypes, one split; ``wide.py``) streams the head dim through shared
+memory in chunks, each block writing one slice of at most 512 output
+columns.  A negative pos sees no key: B2 gives zeros, as the Pallas kernel
+does.
 
 A wrapper runs the plain version (``ref_decode_attention``, the
 reference's jnp reference transcribed; ``_ref_ring_write``, an
@@ -43,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, wide
 
 __all__ = ["ref_decode_attention", "decode_attention", "kv_ring_write",
            "decode_plan", "DecodePlan"]
@@ -57,7 +60,7 @@ THREADS = 128           # a block's threads (csrc kThreads)
 ROWS = 16               # query heads a block takes (csrc kRows)
 VEC = 8                 # elements a SIMT thread takes of a row (csrc kVec)
 SPLIT_CAP = 8           # blocks of a cluster (csrc kMaxSplits)
-MAX_HEAD_DIM = 512      # the widest head an instance takes (Queue C8)
+MAX_HEAD_DIM = wide.MAX_HEAD_DIM  # past it, the wide instance
 # Keys of a tile by tc (tensor cores) (csrc kTcKeys, kSimtKeys), in a ring
 # of 2 tiles (csrc kStages).  The plan's rules, from chip_smoke.py's sweep
 # (--b2-sweep) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6):
@@ -150,10 +153,12 @@ def decode_plan(B: int, L: int, H: int, KVH: int, D: int,
       that does, at most ``SPLIT_CAP`` and at most one for each
       ``MIN_SPLIT_TILES`` key tiles of the ring.  On the device each split
       takes an even, tile-aligned share of keys 0 .. pos.
+    * Past ``MAX_HEAD_DIM`` columns: the wide instance, 32-key tiles, one
+      split, a block for each slice of the output's columns
+      (``wide.slice_cols``).
 
-    Raises ValueError for a shape the kernel does not take (head_dim above
-    ``MAX_HEAD_DIM``, H not a multiple of KVH, a dtype other than bfloat16
-    and float32)."""
+    Raises ValueError for a shape the kernel does not take (H not a
+    multiple of KVH, a dtype other than bfloat16 and float32)."""
     return _plan(B, L, H, KVH, D, dtype)
 
 
@@ -165,16 +170,24 @@ def _plan(B: int, L: int, H: int, KVH: int, D: int, dtype: torch.dtype,
     split count; the wrapper never forces one).  A forced count the kernel
     does not take raises ValueError."""
     name = "decode_attention"
-    if not 0 < D <= MAX_HEAD_DIM or KVH <= 0 or H % KVH:
+    if D <= 0 or KVH <= 0 or H % KVH:
         raise ValueError(f"{name}: no plan for H {H}, KVH {KVH}, head_dim "
-                         f"{D} (head_dim 1 to {MAX_HEAD_DIM}, H % KVH == 0)")
+                         f"{D} (head_dim >= 1, H % KVH == 0)")
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: no instance for {dtype}")
-    tc = _tc(dtype, D)
-    kt = _key_tile(tc, dtype.itemsize, D)
     G = H // KVH
     R = min(G, ROWS)
     base = B * KVH * _ceil(G, ROWS)
+    if D > MAX_HEAD_DIM:
+        if splits not in (None, 1):
+            raise ValueError(f"{name}: the wide instance (head_dim past "
+                             f"{MAX_HEAD_DIM}) takes one split, not "
+                             f"{splits}")
+        W = wide.slice_cols(R, D)
+        return DecodePlan(False, R, wide.KEYS, 1, wide.smem_bytes(R, W),
+                          base * _ceil(D, W))
+    tc = _tc(dtype, D)
+    kt = _key_tile(tc, dtype.itemsize, D)
     cap = max(1, min(SPLIT_CAP, _ceil(L, kt)))
     if splits is None:
         splits = 1
@@ -305,9 +318,6 @@ def _launch(q, kbuf, vbuf, pos, scale=None, **force):
     if s != 1 or H % KVH or kbuf.shape[0] != B or kbuf.shape[3] != D:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit the ring "
                          f"{tuple(kbuf.shape)} (one token, H % KVH == 0)")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} is past the kernel's limit "
-                         f"of {MAX_HEAD_DIM}")
     for t in (kbuf, vbuf):
         _check_ring(name, t, B, L, KVH, D)
     if not q.is_contiguous() or q.data_ptr() % 16:

@@ -30,14 +30,16 @@ before one cast (K and V are never repeated).  In bfloat16, dQ is summed
 with float32 atomics, so its rounding may vary from run to run; float32 is
 deterministic.
 
-Head dims: any D up to ``autotune.MAX_HEAD_DIM`` (512).  On CUDA a D that
-is not a multiple of 8 is zero-padded to the next one in the wrapper (q,
-k, v, and for the backward out and g; exact: QK^T and the logsumexp do not
-change, the padded columns of out, dQ, dK and dV are 0 and are sliced
-off; the scale stays 1/sqrt of the true D).  Up to 256 bfloat16 runs the
-tensor-core instance of D's class (columns past D zero-filled); past 256
-both dtypes run the SIMT instance with the class-512 tiles.  A larger D
-raises, naming the limit.
+Head dims: any D.  On CUDA a D that is not a multiple of 8 is zero-padded
+to the next one in the wrapper (q, k, v, and for the backward out and g;
+exact: QK^T and the logsumexp do not change, the padded columns of out,
+dQ, dK and dV are 0 and are sliced off; the scale stays 1/sqrt of the true
+D).  Up to 256 bfloat16 runs the tensor-core instance of D's class
+(columns past D zero-filled); past 256 both dtypes run the SIMT instances
+with the class-512 tiles, which hold rows whole up to
+``autotune.MAX_HEAD_DIM`` (512) and past it stream the head dim through
+shared memory in chunks, each block writing one slice of at most 512
+output columns (Queue C8).
 
 ``flash_attention_fused`` and ``flash_attention_bwd_fused`` run their plain
 versions (``_ref_fwd_impl`` / ``_ref_bwd_impl``, the reference's jnp
@@ -168,9 +170,8 @@ def _check(name, q, k, v, q_offset):
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k.shape)}")
-    if not 0 < D <= autotune.MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} is past the kernels' limit "
-                         f"of {autotune.MAX_HEAD_DIM}")
+    if D <= 0:
+        raise ValueError(f"{name}: head_dim {D}")
     es = q.element_size()
     for t in (q, k, v):
         # each row [D] contiguous and 16-byte aligned: the kernel reads
@@ -237,7 +238,7 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _plain_bshd(q, k, v, causal, scale, q_offset)
     name = "flash_attention_fused"
-    if D % 8 and D <= autotune.MAX_HEAD_DIM:
+    if D % 8:
         out, lse = flash_attention_fused(*_pad8(q, k, v), causal, scale,
                                          q_offset, blocks)
         return out[..., :D].contiguous(), lse
@@ -288,7 +289,7 @@ def flash_attention_bwd_fused(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return _plain_bwd_bshd(q, k, v, out, lse, g, causal, scale)
     name = "flash_attention_bwd_fused"
-    if D % 8 and D <= autotune.MAX_HEAD_DIM:
+    if D % 8:
         grads = flash_attention_bwd_fused(*_pad8(q, k, v, out), lse,
                                           *_pad8(g), causal, scale, blocks)
         return tuple(x[..., :D].contiguous() for x in grads)

@@ -13,12 +13,14 @@ lengths, which stay on the device): a block takes one row, a tile of up to
 ``kt`` at a time, and the ``splits`` blocks of a cluster share the context
 where the grid alone would give fewer blocks than the card has SMs.
 
-Head dims: every D up to ``MAX_HEAD_DIM`` (512), read in place.  bfloat16
-with D a multiple of 8 up to 256 runs the tensor cores (columns past D
-zero-filled to 64, 128 or 256); the rest runs the SIMT instance, which
+Head dims: every D, read in place.  bfloat16 with D a multiple of 8 up
+to 256 runs the tensor cores (columns past D zero-filled to 64, 128 or
+256); the rest up to ``MAX_HEAD_DIM`` (512) runs the SIMT instance, which
 holds D padded to 8 columns and copies rows in the largest pieces their
 bytes allow, with 16-key tiles past 256 columns where larger rings do not
-fit a block.
+fit a block; past 512 the wide instance (both dtypes, one split;
+``wide.py``) streams the head dim through shared memory in chunks, each
+block writing one slice of at most 512 output columns.
 
 ``paged_attention`` runs the plain version (``_paged_attention_ref``, the
 reference's gather + padded-batch attention transcribed) only for CPU
@@ -33,7 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, wide
 
 __all__ = ["paged_attention", "paged_gather_kv", "paged_plan", "PagedPlan"]
 
@@ -45,7 +47,7 @@ THREADS = 128           # a block's threads (csrc kThreads)
 VEC = 8                 # elements a thread takes of a row (csrc kVec)
 KEY_TILES = (64, 32, 16)  # the SIMT key tiles, the larger preferred; 16
                           # only past 256 columns (csrc valid_plan)
-MAX_HEAD_DIM = 512      # the widest head an instance takes (Queue C8)
+MAX_HEAD_DIM = wide.MAX_HEAD_DIM  # past it, the wide instance
 TC_KEYS = 64            # the tensor-core instance's key tile
 TC_ROWS = 64            # the most query rows a tensor-core tile takes
 STAGE_BYTES = 140 * 1024  # the K/V ring a SIMT block may take
@@ -65,6 +67,7 @@ STAGE_BYTES = 140 * 1024  # the K/V ring a SIMT block may take
 SPLIT_CAP = 4                       # blocks of a cluster (csrc kMaxSplits)
 TILE_ROWS = {True: 64, False: 8}    # query rows a tile aims at, by tc
 MAX_QT = 16                         # tokens of a query tile
+WIDE_ROWS = 16                      # query rows a wide tile aims at
 STAGES = {True: (2,), False: (3, 2)}  # ring depths tried, by tc
 
 
@@ -167,11 +170,15 @@ def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
       gives every SM of the card a block; else the power of two that does,
       at most ``SPLIT_CAP`` and at most one key tile per split.  ``chunk``
       is the keys of ``P * bs`` a split walks, a multiple of ``kt``.
+    * Past ``MAX_HEAD_DIM`` columns: the wide instance, up to
+      ``WIDE_ROWS`` query rows a tile (a larger group takes one token),
+      32-key tiles, one split walking the whole context (``stages`` 1),
+      a block for each slice of the output's columns
+      (``wide.slice_cols``).
 
-    Raises ValueError for a head dim past ``MAX_HEAD_DIM``, a tensor-core
-    tile of more than ``TC_ROWS`` query rows (a head group above 64) and
-    a shape whose block would need more than the 227 KB of shared memory a
-    block may use."""
+    Raises ValueError for a tensor-core tile of more than ``TC_ROWS``
+    query rows (a head group above 64) and a shape whose block would need
+    more than the 227 KB of shared memory a block may use."""
     return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype)
 
 
@@ -185,12 +192,15 @@ def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
     version under such forced plans; the wrapper never forces one).  A
     forced ring depth the instance does not take, or more than
     ``SPLIT_CAP`` splits, raises ValueError."""
-    if not 0 < D <= MAX_HEAD_DIM or KV <= 0 or H % KV:
+    if D <= 0 or KV <= 0 or H % KV:
         raise ValueError(f"paged_attention: no plan for H {H}, KV {KV}, "
-                         f"head_dim {D} (head_dim 1 to {MAX_HEAD_DIM})")
+                         f"head_dim {D} (head_dim >= 1, H % KV == 0)")
     es = dtype.itemsize
     G = H // KV
     ctx = P * bs
+    if D > MAX_HEAD_DIM:
+        return _wide_plan(T, B, max_q_len, bs, G, KV, D, ctx, qt, splits,
+                          stages)
     tc = _tc(dtype, D)
     if stages is not None and stages not in STAGES[tc]:
         raise ValueError(f"paged_attention: no ring of {stages} stages "
@@ -236,6 +246,31 @@ def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
     splits = max(1, _ceil(ctx, chunk))      # no split left without keys
     return PagedPlan(qt, kt, stages, splits, chunk,
                      smem(kt, stages, splits, chunk), base * splits)
+
+
+def _wide_plan(T: int, B: int, max_q_len: int, bs: int, G: int, KV: int,
+               D: int, ctx: int, qt: Optional[int], splits: Optional[int],
+               stages: Optional[int]) -> PagedPlan:
+    """``paged_plan`` past ``MAX_HEAD_DIM`` columns: the wide instance
+    (csrc ``paged_attention_wide_kernel``)."""
+    if splits not in (None, 1) or stages not in (None, 1):
+        raise ValueError(f"paged_attention: the wide instance (head_dim "
+                         f"past {MAX_HEAD_DIM}) takes one split and no "
+                         f"ring, not {splits} splits, {stages} stages")
+    if qt is None:
+        qt = 1 if max_q_len <= 1 else min(max_q_len, MAX_QT,
+                                          max(1, WIDE_ROWS // G))
+    R = qt * G
+    W = wide.slice_cols(R, D)
+    if not W:
+        raise ValueError(f"paged_attention: a block of {R} query rows at "
+                         f"head_dim {D} does not fit the {SMEM_PER_BLOCK} "
+                         "bytes (227 KB) a block may use")
+    kt = wide.KEYS
+    chunk = _ceil(ctx, kt) * kt
+    smem = wide.smem_bytes(R, W) + (4 * B + 2 + chunk // bs + 2) * 4
+    blocks = _grid_tiles(T, B, max_q_len, qt) * KV * _ceil(D, W)
+    return PagedPlan(qt, kt, 1, 1, chunk, smem, blocks)
 
 
 def paged_gather_kv(cache: torch.Tensor, block_tables: torch.Tensor
@@ -296,9 +331,6 @@ def _check(name, q, key_cache, value_cache, ints, block_tables):
     if value_cache.shape != key_cache.shape or Dc != D or H % KV:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit caches "
                          f"{tuple(key_cache.shape)}/{tuple(value_cache.shape)}")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} is past the kernel's limit "
-                         f"of {MAX_HEAD_DIM}")
     for t in (q, key_cache, value_cache, *ints, block_tables):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")

@@ -56,11 +56,13 @@ def test_get_flash_blocks_returns_a_compiled_pair(fresh_cache, kind, d, sq):
 
 
 def test_head_dim_class_rounds_up_to_the_instances():
+    # class 512 is every D past 256: past 512 the wide instances take its
+    # tile pairs (Queue C8)
     assert [at.head_dim_class(d) for d in (16, 24, 64, 80, 128, 144, 256,
-                                           272, 512)] == [
-        64, 64, 64, 128, 128, 256, 256, 512, 512]
-    for bad in (0, 513, 1024):
-        with pytest.raises(ValueError, match="512"):
+                                           272, 512, 513, 1024)] == [
+        64, 64, 64, 128, 128, 256, 256, 512, 512, 512, 512]
+    for bad in (0, -8):
+        with pytest.raises(ValueError, match="1 or more"):
             at.head_dim_class(bad)
     # a D between the classes takes its class's instances
     assert at.get_flash_blocks("fwd", 2048, 2048, 80) in at.INSTANCES[

@@ -101,13 +101,13 @@ def test_shared_memory_fits_every_shape_the_wrapper_takes(dtype):
 
 def test_forced_plans_are_private_and_checked():
     """decode_plan takes no overrides; the private _plan refuses what the
-    kernel has no instance for, and the shapes the wrapper refuses (head
-    dims past 512: every head dim up to it has an instance)."""
+    kernel has no instance for (past 512 columns the wide instance takes
+    one split only: every head dim has an instance)."""
     import inspect
 
     assert list(inspect.signature(da.decode_plan).parameters) == [
         "B", "L", "H", "KVH", "D", "dtype"]
-    for bad in (dict(splits=3), dict(splits=16), dict(D=0), dict(D=520),
+    for bad in (dict(splits=3), dict(splits=16), dict(D=0), dict(D=520, splits=2),
                 dict(KVH=3), dict(dtype=torch.float16)):
         kw = dict(B=1, L=512, H=8, KVH=2, D=128, dtype=BF)
         kw.update(bad)

@@ -1,21 +1,23 @@
-"""Head dims past the tensor-core classes (72, 100, 264, 512) and the ring
-write at a negative position, on the CPU.
+"""Head dims past the tensor-core classes (72, 100, 264, 512, and past 512:
+516, 640, 1024) and the ring write at a negative position, on the CPU.
 
-The port's kernels B1, B8, B2, B3 and K4 take every head dim up to 512 on
-the card: the plain versions, which the kernels are held to there
-(``chip_smoke.py`` phase 2), against the Pallas functions in
-``interpret=True`` at D 72 (a multiple of 8, not of 16), 100 (not of 8),
-264 and 512 (past the 256-column tensor-core tiles); the plans
-(``_select_blocks``, ``autotune.head_dim_class``, ``decode_plan``,
-``paged_plan``) pick the instance each D runs and raise past 512.  The ring
-write takes ``dynamic_update_slice``'s start, a negative pos counted from
-the end first (Queue C7), and B2 gives zeros where no key is visible, as
-the Pallas kernel; rope's ring mode (K2 with B3 folded in) gives the ring
-the bits of ``rope_fused`` then ``kv_ring_write``.  Then a 2-layer Llama at
-head_dim 72 (hidden 576, 8 heads), 100 (800, 8) and 264 (1056, 4) against
-the JAX package: forward logits, ``generate`` and ``greedy_decode``
-tokens over the ring, one criterion backward, and served tokens.  Inputs
-and weights come from a numpy seed or the JAX model's state_dict.
+The port's kernels B1, B8, B2, B3 and K4 take every head dim on the card:
+the plain versions, which the kernels are held to there (``chip_smoke.py``
+phase 2), against the Pallas functions in ``interpret=True`` (K4 against
+the JAX ``blha_attention``) at D 72 (a multiple of 8, not of 16), 100 (not
+of 8), 264 and 512 (past the 256-column tensor-core tiles), 516, 640 and
+1024 (past 512, the wide instances that stream the head dim: Queue C8);
+the plans (``_select_blocks``, ``autotune.head_dim_class``,
+``decode_plan``, ``paged_plan``) pick the instance each D runs, and every
+D up to 2048 has one.  The ring write takes ``dynamic_update_slice``'s
+start, a negative pos counted from the end first (Queue C7), and B2 gives
+zeros where no key is visible, as the Pallas kernel; rope's ring mode (K2
+with B3 folded in) gives the ring the bits of ``rope_fused`` then
+``kv_ring_write``.  Then a 2-layer Llama at head_dim 72 (hidden 576, 8
+heads), 100 (800, 8), 264 (1056, 4) and 640 (1280, 2) against the JAX
+package: forward logits, ``generate`` and ``greedy_decode`` tokens over
+the ring, one criterion backward, and served tokens.  Inputs and weights
+come from a numpy seed or the JAX model's state_dict.
 
 Tolerances (float32): kernels rtol 1e-5 / atol 1e-5 (B8 rtol 1e-4 / atol
 2e-5), as test_torch_flash_attention.py and test_torch_training_kernels.py
@@ -42,6 +44,7 @@ from paddle_tpu.models.llama import LlamaPretrainingCriterion as JaxCriterion
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu.ops.pallas.decode_attention import decode_attention as jdec
 from paddle_tpu.ops.pallas.decode_attention import kv_ring_write as jring
+from paddle_tpu.ops.paged_attention import blha_attention as jax_blha
 from paddle_tpu_torch.inference.serving import ServingEngine as PortEngine
 from paddle_tpu_torch.models.generation import generate, greedy_decode
 from paddle_tpu_torch.models.llama import LlamaConfig as PortConfig
@@ -55,10 +58,12 @@ from paddle_tpu_torch.ops.hopper import decode_attention as da
 from paddle_tpu_torch.ops.hopper import flash_attention as fa
 from paddle_tpu_torch.ops.hopper import fused_ops as fo
 from paddle_tpu_torch.ops.hopper import paged_attention as pa
+from paddle_tpu_torch.ops.hopper import wide
 
 torch.set_num_threads(2)
 
 HEAD_DIMS = (72, 100, 264, 512)
+WIDE_DIMS = (516, 640, 1024)            # past 512: the wide instances
 TOL = dict(rtol=1e-5, atol=1e-5)
 B8_TOL = dict(rtol=1e-4, atol=2e-5)
 BF = torch.bfloat16
@@ -73,7 +78,7 @@ def _t(a):
 
 
 # ------------------------------------------------------------ kernels B1/B8
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + WIDE_DIMS)
 @pytest.mark.parametrize("causal", [False, True])
 def test_b1_b8_plain_match_pallas_at_the_new_head_dims(d, causal):
     """block_fwd / block_bwd's plain versions against _pallas_fwd /
@@ -118,13 +123,53 @@ def test_b2_plain_matches_pallas_at_the_new_head_dims(d, pos):
         assert not ours.numpy().any()
 
 
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("pos", [40, -3])
+def test_b2_plain_matches_pallas_past_512(d, pos):
+    """The same past 512 columns, inside the ring and at a negative pos."""
+    test_b2_plain_matches_pallas_at_the_new_head_dims(d, pos)
+
+
+# --------------------------------------------------------------- kernel K4
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_k4_plain_matches_jax_blha_past_512(d):
+    """JAX blha_attention (writes the step's K/V, then attends) against
+    the port's plain K4 on the caches it left: 8 / 2 heads, three decode
+    rows (one whose block id is -1) and a 5-token prefill chunk of
+    max_q_len 8 over 16-key blocks."""
+    rng = np.random.default_rng(d + 60)
+    H, KV, bs, P = 8, 2, 16, 4
+    dec = np.array([20, 0, 47, 3], np.int32)
+    now = np.array([1, 5, 1, 1], np.int32)
+    B = len(now)
+    cu = np.concatenate([[0], np.cumsum(now)]).astype(np.int32)
+    T = int(cu[-1]) + 2
+    NB = B * P + 2
+    bt = rng.permutation(NB)[:B * P].reshape(B, P).astype(np.int32)
+    bt[3, 0] = -1
+    qkv = _np(rng, T, (H + 2 * KV) * d)
+    kc, vc = _np(rng, NB, KV, bs, d), _np(rng, NB, KV, bs, d)
+    enc = np.where(dec == 0, now, 0).astype(np.int32)
+    out, kc2, vc2, *_ = jax_blha(
+        *(jnp.asarray(a) for a in (qkv, kc, vc, enc, dec, now, cu, bt)),
+        num_heads=H, kv_num_heads=KV, head_dim=d, block_size=bs,
+        max_q_len=8, use_neox_style=True)
+    q = torch.as_tensor(qkv[:, :H * d].reshape(T, H, d))
+    ours = pa.paged_attention(q, _t(kc2), _t(vc2),
+                              *(torch.as_tensor(a) for a in (dec, now, cu,
+                                                             bt)), 8)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(out).reshape(
+        T, H, d), rtol=2e-5, atol=2e-5)
+    assert not ours[int(cu[-1]):].any()
+
+
 # ---------------------------------------------------- kernel B3 and C7
 def _dus(buf, new, pos):
     return np.asarray(jax.lax.dynamic_update_slice(
         jnp.asarray(buf), jnp.asarray(new), (0, jnp.int32(pos), 0, 0)))
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + WIDE_DIMS)
 @pytest.mark.parametrize("pos", [0, 5, 14, -1, -3, -16])
 def test_b3_ring_write_matches_dynamic_update_slice(d, pos):
     """One row against the Pallas kv_ring_write (interpret) and
@@ -180,8 +225,19 @@ def test_ring_mode_is_rope_then_ring_write_bit_for_bit(dtype, pos):
     table's row).  The rings equal dynamic_update_slice of the rotated k
     and of v (and, for one row, the Pallas kv_ring_write), the table rows
     dynamic_slice's: each offset wraps by its own length."""
-    rng = np.random.default_rng(abs(pos) + 50)
-    B, H, KVH, D, L = 2, 6, 2, 72, 16
+    _ring_mode_check(dtype, pos, 72, np.random.default_rng(abs(pos) + 50))
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+def test_ring_mode_past_512_is_rope_then_ring_write(dtype, d):
+    """The same past 512 columns, at pos 5 and -3."""
+    for pos in (5, -3):
+        _ring_mode_check(dtype, pos, d, np.random.default_rng(d + pos))
+
+
+def _ring_mode_check(dtype, pos, D, rng):
+    B, H, KVH, L = 2, 6, 2, 16
     cos, sin = _table(40, D)
     for S in (4, 1):
         q, k, v = (_t(_np(rng, B, S, h, D)).to(dtype) for h in (H, KVH, KVH))
@@ -210,30 +266,34 @@ def test_ring_mode_is_rope_then_ring_write_bit_for_bit(dtype, pos):
 
 
 # --------------------------------------------------------------- the plans
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + WIDE_DIMS)
 def test_plans_pick_the_instance_of_each_head_dim(d):
     """D 72: the tensor-core instances of class 128 (columns past D zero);
     D 100: the same after the wrapper pads B1/B8 to 104, while B2 and K4
     read the rows in place on their SIMT instances; 264 and 512: the SIMT
     instances of class 512 in both dtypes (B1 32 x 32 tiles, B8 16 x 16;
     B2 16-key tiles in float32; K4 16-key tiles where larger rings do not
-    fit)."""
+    fit); past 512 the wide instances, class 512's tile pairs in B1/B8,
+    32-key tiles, one split and a block for each slice of at most 512
+    output columns in B2 and K4."""
     dp = d + (-d % 8)
-    wide = d > 256
+    wide_d = d > 256
+    if d > wide.MAX_HEAD_DIM:
+        return _check_wide_plans(d)
     assert at.head_dim_class(d) == at.head_dim_class(dp) == (
-        512 if wide else 128)
+        512 if wide_d else 128)
     for kind in ("fwd", "bwd"):
         bf = fa._select_blocks("f", kind, BF, 512, 512, dp)
         f32 = fa._select_blocks("f", kind, torch.float32, 512, 512, dp)
         assert bf in at.INSTANCES[(kind, at.head_dim_class(dp))]
         assert f32 == at.SIMT_TILES[kind](dp)
-        if wide:
+        if wide_d:
             assert bf == f32 == ((32, 32) if kind == "fwd" else (16, 16))
     for dtype in (BF, torch.float32):
         p = da.decode_plan(8, 512, 32, 8, d, dtype)
         assert p.tc == (dtype == BF and d == 72)
-        assert p.kt == (64 if p.tc else 16 if dtype == torch.float32 and wide
-                        else 32)
+        assert p.kt == (64 if p.tc else 16 if dtype == torch.float32
+                        and wide_d else 32)
         assert p.smem <= da.SMEM_PER_BLOCK
         for mq in (1, 16):
             k = pa.paged_plan(64, 8, mq, 32, 16, 8, 2, d, dtype)
@@ -243,33 +303,81 @@ def test_plans_pick_the_instance_of_each_head_dim(d):
                             else pa._simt_key_tiles(d))
 
 
-def test_every_head_dim_up_to_512_has_a_plan_and_past_it_raises():
-    """Every even D up to 512 (and the odd 99, 255, 511) in both dtypes:
-    B2 and K4 plans fit 227 KB at the serving and generation groups; a D
-    past 512 raises naming the limit in every plan and wrapper check."""
+def _check_wide_plans(d):
+    """Past 512: class 512's tile pairs in B1/B8 (the wide instances take
+    them), and B2/K4 plans on the wide instance: 32-key tiles, one split,
+    no ring, slices of at most 512 columns covering D, within 227 KB."""
+    dp = d + (-d % 8)
+    assert at.head_dim_class(d) == 512
+    for kind in ("fwd", "bwd"):
+        pair = (32, 32) if kind == "fwd" else (16, 16)
+        for dtype in (BF, torch.float32):
+            assert fa._select_blocks("f", kind, dtype, 512, 512, dp) == pair
     for dtype in (BF, torch.float32):
-        for d in list(range(2, 513, 2)) + [99, 255, 511]:
+        for G in (1, 4, 16, 32):
+            p = da.decode_plan(8, 512, 2 * G, 2, d, dtype)
+            R = min(G, da.ROWS)
+            W = wide.slice_cols(R, d)
+            assert (p.tc, p.rows, p.kt, p.splits) == (False, R, 32, 1)
+            assert 8 <= W <= 512 and W % 8 == 0 and -(-d // W) * W >= d
+            assert p.blocks == 8 * 2 * -(-G // da.ROWS) * -(-d // W)
+            assert p.smem == wide.smem_bytes(R, W) <= da.SMEM_PER_BLOCK
+        for G, mq in ((1, 1), (4, 1), (8, 16), (64, 1), (64, 16)):
+            k = pa.paged_plan(64, 8, mq, 32, 16, 2 * G, 2, d, dtype)
+            assert (k.kt, k.stages, k.splits) == (32, 1, 1)
+            assert k.chunk >= 32 * 16 and k.smem <= pa.SMEM_PER_BLOCK
+            assert k.qt * G <= max(G, pa.WIDE_ROWS)
+    with pytest.raises(ValueError, match="one split"):
+        da._plan(8, 512, 8, 2, d, BF, splits=2)
+    with pytest.raises(ValueError, match="one split"):
+        pa._plan(64, 8, 1, 32, 16, 8, 2, d, BF, splits=2)
+
+
+def test_every_head_dim_up_to_2048_has_a_plan_and_computes():
+    """Queue C8, closed: every even D up to 2048 (and the odd 99, 255,
+    511, 513, 1023, 2047) in both dtypes has a B1/B8 tile pair, and B2 and
+    K4 plans within 227 KB at the serving and generation head groups
+    (past 512 on the wide instances); before, a D past 512 raised naming
+    the limit.  At D 513, 1000 and 2048 the plain versions of B1, B8, B2
+    and K4 compute finite outputs of their shapes."""
+    for dtype in (BF, torch.float32):
+        for d in list(range(2, 2049, 2)) + [99, 255, 511, 513, 1023, 2047]:
+            dp = d + (-d % 8)
+            for kind in ("fwd", "bwd"):
+                pair = fa._select_blocks("f", kind, dtype, 256, 256, dp)
+                assert pair in at.INSTANCES[(kind, at.head_dim_class(dp))] \
+                    or pair == at.SIMT_TILES[kind](dp)
             for G in (1, 4, 16):
                 assert da.decode_plan(4, 1024, 2 * G, 2, d,
                                       dtype).smem <= da.SMEM_PER_BLOCK
             for G, mq in ((1, 1), (4, 1), (8, 16)):
                 assert pa.paged_plan(64, 8, mq, 32, 16, 2 * G, 2, d,
                                      dtype).smem <= pa.SMEM_PER_BLOCK
-    for bad in (513, 520, 1024):
-        with pytest.raises(ValueError, match="512"):
-            at.head_dim_class(bad)
-        with pytest.raises(ValueError, match="512"):
-            da.decode_plan(1, 64, 2, 2, bad, BF)
-        with pytest.raises(ValueError, match="512"):
-            pa.paged_plan(8, 8, 1, 4, 16, 2, 2, bad, BF)
-        x = torch.zeros(1, 4, 2, bad)
-        with pytest.raises(ValueError, match="512"):
-            fa._check("flash_attention_fused", x, x, x, None)
+    rng = np.random.default_rng(9)
+    for d in (513, 1000, 2048):
+        q, k, v = (_t(_np(rng, 1, 8, h, d)) for h in (2, 1, 1))
+        o, lse = fa.flash_attention_fused(q, k, v, True)
+        grads = fa.flash_attention_bwd_fused(q, k, v, o, lse, q, True)
+        kb, vb = _t(_np(rng, 1, 16, 1, d)), _t(_np(rng, 1, 16, 1, d))
+        dec = da.decode_attention(q[:, :1], kb, vb,
+                                  torch.tensor(9, dtype=torch.int32))
+        pool = _t(_np(rng, 3, 1, 16, d))
+        i32 = dict(dtype=torch.int32)
+        paged = pa.paged_attention(
+            q[0, :2], pool, pool, torch.tensor([4], **i32),
+            torch.tensor([2], **i32), torch.tensor([0, 2], **i32),
+            torch.tensor([[2, 0]], **i32), 2)
+        for x, shape in ((o, (1, 8, 2, d)), (lse, (1, 2, 8)),
+                         (dec, (1, 1, 2, d)), (paged, (2, 2, d)),
+                         *((g, t.shape) for g, t in zip(grads, (q, k, v)))):
+            assert tuple(x.shape) == tuple(shape)
+            assert torch.isfinite(x).all() and x.abs().sum() > 0
 
 
 # ------------------------------------------------- a Llama at these dims
-# hidden / heads -> head_dim 72, 100, 264 (the reference's config rule)
-LLAMAS = {72: (576, 8), 100: (800, 8), 264: (1056, 4)}
+# hidden / heads -> head_dim 72, 100, 264, 640 (the reference's config
+# rule)
+LLAMAS = {72: (576, 8), 100: (800, 8), 264: (1056, 4), 640: (1280, 2)}
 
 
 @pytest.fixture(scope="module")
