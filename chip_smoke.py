@@ -97,7 +97,10 @@ Phases (each prints its seconds):
      load_weights drops its graphs, captures again and serves the new
      weights' tokens;
   5. generation at full width, on phase 3's model: the launch counters are
-     zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b)
+     zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b) on the
+     eager loop (_graphs = False), then on CUDA graphs (the default on
+     CUDA: one decode step captured per (B, L), after a short call that
+     warms the (8, 512) key, its first-call and capture times printed):
      greedy_decode of ids [8, 128], 128 new tokens over a 512-row ring runs
      with CUDA sync debugging set to raise (tokens/s printed, informative;
      then a 32-token greedy_decode untraced and one under torch.profiler
@@ -105,7 +108,10 @@ Phases (each prints its seconds):
      count, K1's and K2's device time, count and time a launch, and B2's
      device time and kernel count in the traced loop: one kernel per
      wrapper call; no B3 kernel, and as many K2 kernels as ring-mode calls,
-     the plain rope mode uncalled), (c)
+     the plain rope mode uncalled; max_memory_allocated); the graph loop's
+     tokens at + 128 and + 32, its counters and its trace's kernels by name
+     and count equal the eager loop's, but for the fills (the eager loop
+     zeroes fresh rings each call: 2 a layer and 1 more), (c)
      generate with the static ring equals greedy_decode; generate with
      growing caches (B1 for every step) gives greedy_decode's first
      token (the same prefill), its logits on greedy_decode's tokens agree
@@ -118,7 +124,8 @@ Phases (each prints its seconds):
      then the counters are read: every kernel of the path launched;
   6. phase 4's two 2-layer float32 models: forward logits on cuda and on
      the CPU agree, and greedy_decode and generate (ring and growing) on
-     cuda agree with greedy_decode on the CPU up to the top-2-gap stop;
+     cuda agree with greedy_decode on the CPU up to the top-2-gap stop,
+     greedy_decode on graphs bit for bit with the eager loop on cuda;
      then the same at head_dim 72, 100 (800 hidden, 8 heads), 264 and 640;
   7. training at bench.py's honest geometry (32000 vocab, 2560 hidden,
      8192 intermediate, 9 layers, 20 heads of 128, bfloat16, recompute)
@@ -139,15 +146,18 @@ Phases (each prints its seconds):
   9. bench_ladder.py's BERT-base classifier (vocab 30522, hidden 768, 12
      layers, 12 heads, FFN 3072, seq 128) in bfloat16 with seeded random
      weights, ids [32, 128]: (a) the float Predictor gives finite logits;
-     (b) the weight-only int8 Predictor, with the counters zeroed just
-     before one run and read just after, launches B7 exactly 73 times and
+     (b) the weight-only int8 Predictor (a CUDA graph per input signature,
+     the default on CUDA), with the counters zeroed just before one
+     replayed run and read just after, launches B7 exactly 73 times and
      B1 12 times, adds every biased Int8Linear's bias in B7's epilogue (a
      counter) and gives finite logits (their distance from (a) printed,
      informative); (c) a full-width bf16 weight quantizes to the same int8
-     values and scales on cuda and on the CPU; (d) ms per run and
-     sequences/s of both predictors at [32, 128] and [1, 128], and one int8
-     run untraced and one under torch.profiler (busy share, time by
-     kernel), informative; (e) one biased Int8Linear's forward is one B7
+     values and scales on cuda and on the CPU; (d) at [32, 128] and [1,
+     128], each predictor on graphs gives the eager predictor's
+     (_graphs = False) outputs bit for bit, and ms per run, sequences/s
+     and one run untraced and one under torch.profiler (busy share, time
+     by kernel) of both predictors in both modes, informative; (e) one
+     biased Int8Linear's forward is one B7
      launch with its bias and dispatches no add to PyTorch, and the int8
      run's profile holds no add kernels beyond the residual and
      position-embedding adds;
@@ -166,6 +176,7 @@ imports nothing of JAX or paddle_tpu.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -2427,25 +2438,31 @@ def _forced_logits(torch, model, ids, toks, static):
     """Last-position logits [B, n, V] (float32) of the prefill and of each
     decode step fed ``toks[:, :-1]``: the logits from which a decode loop
     picked ``toks``, through the ring (static) or growing caches."""
-    from paddle_tpu_torch.models.generation import _make_static_caches
+    from paddle_tpu_torch.models.generation import _ring_length, _Rings
 
     B, S = ids.shape
     n = toks.shape[1]
     cfg = model.config
     if static:
-        _, caches = _make_static_caches(model, B, S, n, None)
+        rings = _Rings(model, B, _ring_length(model, S, n, None))
+
+        def fwd(x):
+            return rings.forward(model, x)
     else:
         dt = model.llama.embed_tokens.weight.dtype
         z = torch.zeros((B, 0, cfg.num_key_value_heads, cfg.head_dim),
                         dtype=dt, device=ids.device)
         caches = [(z, z) for _ in range(cfg.num_hidden_layers)]
+
+        def fwd(x):
+            nonlocal caches
+            logits, caches = model(x, caches=caches)
+            return logits
     out = []
     with torch.no_grad():
-        logits, caches = model(ids, caches=caches)
-        out.append(logits[:, -1].float())
+        out.append(fwd(ids)[:, -1].float())
         for i in range(n - 1):
-            logits, caches = model(toks[:, i:i + 1], caches=caches)
-            out.append(logits[:, -1].float())
+            out.append(fwd(toks[:, i:i + 1])[:, -1].float())
     return torch.stack(out, dim=1)
 
 
@@ -2483,63 +2500,116 @@ def full_width_generation(torch, model):
     print(f"(a) forward [2, 1024]: {time.perf_counter() - t:.3f} s, "
           f"logits finite")
     del logits
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    toks = _sync_free(torch, greedy_decode)(model, p8, max_new_tokens=128,
-                                           max_length=512)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t
-    in_vocab(toks, "greedy_decode")
-    print(f"(b) greedy_decode [8, 128] + 128 tokens, ring 512: {secs:.3f} s "
-          f"({8 * 128 / secs:.1f} tokens/s, informative), no host sync "
-          "inside the loop")
     # B2's kernels in the traced loop, against its wrapper's count there
-    # (one launch per call)
+    # (one launch per call; a replay adds its captured count)
     from paddle_tpu_torch.ops.hopper import decode_attention as da
-
     from paddle_tpu_torch.ops.hopper import fused_ops as fo
 
-    calls = []
+    runs = {}
+    for mode in ("eager", "graphs"):
+        model._graphs = mode == "graphs"
+        # earlier phases' objects held in reference cycles go now, not
+        # during the loop (the peak is measured from here)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if model._graphs:
+            # the key's first call synchronises and captures: warm it
+            # before the sync-free loop and the untraced timing
+            t = time.perf_counter()
+            greedy_decode(model, p8, max_new_tokens=2, max_length=512)
+            torch.cuda.synchronize()
+            first, cap = model._decode_graphs.seconds[("decode", 8, 512)]
+            print(f"(b) graphs: key (8, 512) warmed in "
+                  f"{time.perf_counter() - t:.3f} s: first call (eager "
+                  f"step) {first * 1e3:.1f} ms, capture {cap * 1e3:.1f} ms")
+        t = time.perf_counter()
+        toks = _sync_free(torch, greedy_decode)(model, p8,
+                                               max_new_tokens=128,
+                                               max_length=512)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        in_vocab(toks, "greedy_decode")
+        print(f"(b) {mode}: greedy_decode [8, 128] + 128 tokens, ring 512: "
+              f"{secs:.3f} s ({8 * 128 / secs:.1f} tokens/s, informative), "
+              "no host sync inside the loop")
+        calls = []
 
-    def traced():
-        n0 = (da.decode_attention.launches, fo.rope_ring_fused.launches,
-              fo.rope_fused.launches, da.kv_ring_write.launches)
-        greedy_decode(model, p8, max_new_tokens=32, max_length=512)
-        calls.append([n - m for n, m in zip(
-            (da.decode_attention.launches, fo.rope_ring_fused.launches,
-             fo.rope_fused.launches, da.kv_ring_write.launches), n0)])
+        def traced():
+            n0 = (da.decode_attention.launches, fo.rope_ring_fused.launches,
+                  fo.rope_fused.launches, da.kv_ring_write.launches)
+            out = greedy_decode(model, p8, max_new_tokens=32, max_length=512)
+            calls.append([n - m for n, m in zip(
+                (da.decode_attention.launches, fo.rope_ring_fused.launches,
+                 fo.rope_fused.launches, da.kv_ring_write.launches), n0)]
+                + [out])
 
-    evs = _profile(torch, "greedy_decode [8, 128] + 32 tokens",
-                   lambda: greedy_decode(model, p8, max_new_tokens=32,
-                                         max_length=512), traced)
-    print(f"profile greedy_decode: {sum(e.count for e in evs)} kernels in "
-          "the trace")
-    _k1_k2(evs, "greedy_decode")
-    b2 = [e for e in evs if "decode_tc_kernel" in e.key
-          or "decode_simt_kernel" in e.key]
-    b2_n = sum(e.count for e in b2)
-    b2_ms = sum(e.self_device_time_total for e in b2) / 1e3
-    b2_calls, ring_calls, rope_calls, b3_calls = calls[-1]
-    print(f"profile B2 in greedy_decode: {b2_ms:.3f} ms device, {b2_n} "
-          f"kernels, {b2_calls} wrapper calls")
-    if b2_n != b2_calls:
-        raise AssertionError(f"B2: {b2_n} kernels for {b2_calls} calls")
-    # B3 is folded into K2's ring mode: no ring-write kernel, and every K2
-    # kernel of the loop is a ring-mode call (the plain mode is not called)
-    b3_n = sum(e.count for e in evs if "ring_write_kernel" in e.key)
-    k2 = [e for e in evs if "rope_kernel" in e.key]
-    k2_n = sum(e.count for e in k2)
-    k2_ms = sum(e.self_device_time_total for e in k2) / 1e3
-    print(f"profile K2 ring mode in greedy_decode: {k2_ms:.3f} ms device, "
-          f"{k2_n} kernels, {ring_calls} ring-mode calls, {rope_calls} "
-          f"plain rope calls; B3: {b3_n} kernels, {b3_calls} calls")
-    if b3_n or b3_calls:
-        raise AssertionError(f"greedy_decode launched B3 ({b3_n} kernels, "
-                             f"{b3_calls} calls): it is folded into K2")
-    if rope_calls or k2_n != ring_calls:
-        raise AssertionError(f"K2 in greedy_decode: {k2_n} kernels for "
-                             f"{ring_calls} ring-mode and {rope_calls} "
-                             "plain calls")
+        evs = _profile(torch, f"greedy_decode [8, 128] + 32 tokens, {mode}",
+                       lambda: greedy_decode(model, p8, max_new_tokens=32,
+                                             max_length=512), traced)
+        n_kernels = sum(e.count for e in evs)
+        print(f"profile greedy_decode, {mode}: {n_kernels} kernels in the "
+              f"trace; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} bytes, memory_allocated "
+              f"after {torch.cuda.memory_allocated()} bytes")
+        _k1_k2(evs, f"greedy_decode, {mode}")
+        b2 = [e for e in evs if "decode_tc_kernel" in e.key
+              or "decode_simt_kernel" in e.key]
+        b2_n = sum(e.count for e in b2)
+        b2_ms = sum(e.self_device_time_total for e in b2) / 1e3
+        b2_calls, ring_calls, rope_calls, b3_calls, toks32 = calls[-1]
+        print(f"profile B2 in greedy_decode, {mode}: {b2_ms:.3f} ms device, "
+              f"{b2_n} kernels, {b2_calls} wrapper calls")
+        if b2_n != b2_calls:
+            raise AssertionError(f"B2 ({mode}): {b2_n} kernels for "
+                                 f"{b2_calls} calls")
+        # B3 is folded into K2's ring mode: no ring-write kernel, and every
+        # K2 kernel of the loop is a ring-mode call (the plain mode is not
+        # called)
+        b3_n = sum(e.count for e in evs if "ring_write_kernel" in e.key)
+        k2 = [e for e in evs if "rope_kernel" in e.key]
+        k2_n = sum(e.count for e in k2)
+        k2_ms = sum(e.self_device_time_total for e in k2) / 1e3
+        print(f"profile K2 ring mode in greedy_decode, {mode}: {k2_ms:.3f} "
+              f"ms device, {k2_n} kernels, {ring_calls} ring-mode calls, "
+              f"{rope_calls} plain rope calls; B3: {b3_n} kernels, "
+              f"{b3_calls} calls")
+        if b3_n or b3_calls:
+            raise AssertionError(f"greedy_decode launched B3 ({b3_n} "
+                                 f"kernels, {b3_calls} calls): it is "
+                                 "folded into K2")
+        if rope_calls or k2_n != ring_calls:
+            raise AssertionError(f"K2 in greedy_decode ({mode}): {k2_n} "
+                                 f"kernels for {ring_calls} ring-mode and "
+                                 f"{rope_calls} plain calls")
+        runs[mode] = (toks, toks32, calls[-1][:4],
+                      {e.key: e.count for e in evs})
+    model._graphs = True
+    (e128, e32, e_calls, e_n), (g128, g32, g_calls, g_n) = (runs["eager"],
+                                                            runs["graphs"])
+    cache = model._decode_graphs
+    if not (torch.equal(g128, e128) and torch.equal(g32, e32)):
+        raise AssertionError(
+            f"greedy_decode on graphs differs from the eager loop: "
+            f"{int((g128 != e128).sum())} of {g128.numel()} tokens at + 128, "
+            f"{int((g32 != e32).sum())} of {g32.numel()} at + 32")
+    # the same kernels by name and count, but for the fills: the eager
+    # loop zeroes fresh rings each call (2 a layer, pos and the token
+    # buffer), the graph loop only resets its key's pos
+    fills = [sum(n for k, n in d.items() if "FillFunctor" in k)
+             for d in (e_n, g_n)]
+    differ = {k for k in set(e_n) | set(g_n) if "FillFunctor" not in k
+              and e_n.get(k) != g_n.get(k)}
+    layers = model.config.num_hidden_layers
+    if (differ or e_calls != g_calls or fills[0] - fills[1] != 2 * layers + 1
+            or cache.captures != 1):
+        raise AssertionError(f"greedy_decode's traces differ: {sorted(differ)}"
+                             f", counters {e_calls} / {g_calls}, fills "
+                             f"{fills}; {cache.captures} captures")
+    print(f"(b) greedy_decode graphs == eager: tokens at + 128 and + 32 bit "
+          f"for bit; kernels by name and count equal ({sum(g_n.values())} "
+          f"on graphs, {sum(e_n.values())} eager: fill kernels {fills[1]} / "
+          f"{fills[0]}, the eager loop's fresh rings), 1 capture")
     ref = greedy_decode(model, p4, max_new_tokens=32)
     ring = generate(model, p4, max_new_tokens=32, use_static_cache=True)
     grow = generate(model, p4, max_new_tokens=32)
@@ -2573,6 +2643,15 @@ def full_width_generation(torch, model):
     print(f"(d) sampled {tuple(sampled.shape)} tokens, "
           f"{int((sampled != ref).sum())} of {sampled.numel()} differ from "
           "greedy")
+    # greedy_decode, generate and the sampled generate on [4, 200] share
+    # the (4, 232) key: one more capture
+    for key, (first, cap) in cache.seconds.items():
+        print(f"graph {key}: first call (eager step) {first * 1e3:.1f} ms, "
+              f"capture {cap * 1e3:.1f} ms")
+    if cache.captures != 2 or set(cache.graphs) != {("decode", 8, 512),
+                                                    ("decode", 4, 232)}:
+        raise AssertionError(f"{cache.captures} captures, keys "
+                             f"{sorted(cache.graphs)}")
     return _path_launches("generate", counters)
 
 
@@ -2607,8 +2686,18 @@ def generation_kernels_vs_plain(torch, gpu_model, cpu_model):
         for r in range(p.shape[0]):
             _agree(got[r].tolist(), cpu[r].tolist(), gaps[r],
                    f"{what} row {r} cuda vs cpu")
+    # the same call on the eager loop: the graph path's bits
+    gpu_model._graphs = False
+    eager = greedy_decode(gpu_model, p.cuda(), 16, max_length=64)
+    gpu_model._graphs = True
+    graph = greedy_decode(gpu_model, p.cuda(), 16, max_length=64)
+    if not torch.equal(graph, eager):
+        raise AssertionError("greedy_decode on graphs differs from the eager "
+                             "loop on cuda")
     print("generation kernel path == plain path (greedy_decode, generate "
-          "ring and growing)")
+          "ring and growing); greedy_decode on graphs == the eager loop on "
+          f"cuda, bit for bit ({gpu_model._decode_graphs.captures} "
+          "captures)")
 
 
 # --------------------------------------------------------------- phase 7
@@ -2827,15 +2916,22 @@ def full_width_predictor(torch, card):
     fp = _predictor(model, int8=False)
     q8 = _predictor(model, int8=True)
     torch.cuda.synchronize()
-    print(f"bert_base: {n_params} parameters, bf16; both predictors built "
-          f"in {time.perf_counter() - t:.3f} s")
+    # the same predictors on the eager path, for the comparison
+    fp_e = _predictor(model, int8=False)
+    q8_e = _predictor(model, int8=True)
+    fp_e._graphs = q8_e._graphs = False
+    torch.cuda.synchronize()
+    print(f"bert_base: {n_params} parameters, bf16; four predictors (float "
+          f"and int8, graphs and eager) built in "
+          f"{time.perf_counter() - t:.3f} s")
     ref = fp.run([ids])[0]
     if ref.shape != (BERT["batch"], 2) or not np.isfinite(ref).all():
         raise AssertionError(f"float logits {ref.shape} not finite [32, 2]")
     print(f"(a) float predictor: logits {ref.shape} {ref.dtype}, finite")
+    q8.run([ids])           # the signature's first run: eager, captured
     torch.cuda.synchronize()
     counters = _zero_counters()
-    got = q8.run([ids])[0]
+    got = q8.run([ids])[0]  # a replay
     launches = _path_launches("predict", counters)
     want = {"int8_matmul": 6 * BERT["layers"] + 1,
             "flash_attention": BERT["layers"]}
@@ -2852,11 +2948,12 @@ def full_width_predictor(torch, card):
         raise AssertionError(f"{fused} B7 launches fused a bias, the run "
                              f"has {biased} biased Int8Linears")
     rel = float(np.abs(got - ref).max() / np.abs(ref).max())
-    print(f"(b) int8 predictor: B7 {launches['int8_matmul']} and B1 "
-          f"{launches['flash_attention']} launches in one run, all "
-          f"{fused} biased Int8Linears with the bias in B7's epilogue, "
-          f"logits finite; largest difference from (a) {rel:.4f} of the "
-          f"largest |logit| {float(np.abs(ref).max()):.4f} (informative)")
+    print(f"(b) int8 predictor, a replayed run: B7 "
+          f"{launches['int8_matmul']} and B1 {launches['flash_attention']} "
+          f"launches, all {fused} biased Int8Linears with the bias in B7's "
+          f"epilogue, logits finite; largest difference from (a) {rel:.4f} "
+          f"of the largest |logit| {float(np.abs(ref).max()):.4f} "
+          "(informative)")
     w = model.encoder.layers[0].linear1.weight
     qg, sg = weight_quantize(w)
     qc, sc = weight_quantize(w.detach().cpu())
@@ -2865,15 +2962,36 @@ def full_width_predictor(torch, card):
         raise AssertionError("weight_quantize differs between cuda and cpu")
     print(f"(c) weight_quantize of a bf16 {list(w.shape)} weight: int8 "
           f"values and scales identical on cuda and the CPU")
+    q8_evs = None
     for x in (ids, ids1):
-        for name, pred in (("float", fp), ("int8", q8)):
-            ms = _ms_per_run(torch, pred, x)
-            print(f"(d) {name} predictor [{x.shape[0]}, {x.shape[1]}]: "
-                  f"{ms:.3f} ms per run, {x.shape[0] / ms * 1e3:.1f} "
-                  f"sequences/s ({card}; informative)")
-    evs = _profile(torch, f"int8 predictor [{ids.shape[0]}, "
-                          f"{ids.shape[1]}]", lambda: q8.run([ids]))
-    _no_bias_add(torch, q8, evs)
+        shape = f"[{x.shape[0]}, {x.shape[1]}]"
+        for name, pred, eager in (("float", fp, fp_e), ("int8", q8, q8_e)):
+            pred.run([x])               # [1, 128]: eager, captured
+            a, b = pred.run([x])[0], eager.run([x])[0]   # a replay
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"{name} predictor {shape}: graphs differ from eager by "
+                    f"{float(np.abs(a - b).max())}")
+            for mode, p in (("graphs", pred), ("eager", eager)):
+                ms = _ms_per_run(torch, p, x)
+                print(f"(d) {name} predictor {shape}, {mode}: {ms:.3f} ms "
+                      f"per run, {x.shape[0] / ms * 1e3:.1f} sequences/s "
+                      f"({card}; informative)")
+                evs = _profile(torch, f"{name} predictor {shape}, {mode}",
+                               lambda p=p: p.run([x]))
+                if name == "int8" and mode == "graphs" and x is ids:
+                    q8_evs = evs
+        print(f"(d) predictors {shape}: graphs == eager, bit for bit (float "
+              "and int8)")
+    for name, pred in (("float", fp), ("int8", q8)):
+        cache = pred._graph_cache
+        for key, (first, cap) in cache.seconds.items():
+            print(f"graph {name} {key}: first run (eager) "
+                  f"{first * 1e3:.1f} ms, capture {cap * 1e3:.1f} ms")
+        if cache.captures != 2:
+            raise AssertionError(f"{name} predictor: {cache.captures} "
+                                 "captures for 2 input signatures")
+    _no_bias_add(torch, q8, q8_evs)
     return launches
 
 
@@ -2999,7 +3117,7 @@ def main(argv=None) -> int:
     # nothing on the host: every replay of the run raises on a sync
     replay = _sync_free(torch, graphs.CapturedGraph.replay)
 
-    def counted_replay(self, arrays):
+    def counted_replay(self, arrays=()):
         _REPLAYS[0] += 1
         return replay(self, arrays)
 

@@ -11,10 +11,25 @@ every ``nn.Linear`` for an ``Int8Linear`` whose product is kernel B7
 projections) is not a ``Linear`` and is left as it is, as the reference's
 rewrite leaves its mp layers.
 
+The reference keeps one ``jax.jit`` per input signature, keyed
+``tuple((shape, dtype))``.  On CUDA each ``Predictor`` owns a
+``jit.graphs.GraphCache`` (its own memory pool; a ``PredictorPool``'s
+predictors each have theirs) under the same key: a signature's first run
+is eager, then the layer's forward is captured into a CUDA graph; later
+runs copy the inputs into the graph's static buffers (numpy and CPU
+tensors through pinned staging, device tensors device to device), replay,
+and copy the outputs to numpy, the run's one wait.  The handles API takes
+the same route.  The cache is unbounded, as the reference's.  The graphs
+read the layer's parameters in place: a parameter or buffer replaced by
+another tensor (``Module.to``, ``load_state_dict(..., assign=True)``)
+drops them at the next run (``GraphCache.watch``), and they are captured
+again; a submodule swapped in after the predictor was made is not seen
+(the reference's compiled programs keep the weights of their first run).
+A layer on the CPU runs eagerly; the private ``_graphs = False`` runs it
+eagerly on CUDA too (the tests and ``chip_smoke.py``).
+
 Not ported: predictors over a saved artifact (``Config(model_path)``, the
-reference's ``.jaxexport``; a ``torch.export`` counterpart is ROADMAP A9),
-and the reference's per-shape compile cache (``jax.jit`` per input shape;
-its counterpart, a CUDA graph per shape, is queued in ROADMAP).
+reference's ``.jaxexport``; a ``torch.export`` counterpart is ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -26,7 +41,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..jit.graphs import GraphCache, module_tensors
 from ..nn import Linear, _tensor_from_numpy
+from ..ops.hopper import launch_counters
 from ..quantization import weight_only_linear, weight_quantize
 
 __all__ = ["Config", "create_predictor", "Predictor", "PredictorPool",
@@ -145,6 +162,9 @@ class Predictor:
         self._inputs: Dict[str, _Handle] = {}
         self._outputs: List[np.ndarray] = []
         self._input_names: List[str] = []
+        self._graphs = self._device.type == "cuda"
+        self._graph_cache = GraphCache(self._device, counters=launch_counters,
+                                       weights=module_tensors(self._layer))
 
     # ----------------------------------------------------------- handles API
     def get_input_names(self):
@@ -172,13 +192,22 @@ class Predictor:
             ) -> List[np.ndarray]:
         if inputs is None:
             inputs = [self._inputs[n]._val for n in self._input_names]
-        vals = [(v if isinstance(v, torch.Tensor)
-                 else _tensor_from_numpy(np.asarray(v))).to(self._device)
-                for v in inputs]
+        vals = [v if isinstance(v, torch.Tensor)
+                else _tensor_from_numpy(np.asarray(v)) for v in inputs]
         layer = self._layer
-        layer.eval()
+
+        def forward(*xs):
+            layer.eval()
+            return _flatten(layer(*xs))
+
         with torch.no_grad():
-            outs = _flatten(layer(*vals))
+            if self._graphs:
+                cache = self._graph_cache
+                cache.watch()
+                key = tuple((tuple(v.shape), v.dtype) for v in vals)
+                outs = cache.run(key, forward, vals)
+            else:
+                outs = forward(*[v.to(self._device) for v in vals])
         self._outputs = [_to_numpy(o) for o in outs]
         return self._outputs
 

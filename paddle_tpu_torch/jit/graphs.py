@@ -8,9 +8,22 @@ each static signature and hands over a function of device tensors and
 its inputs as numpy arrays.
 
 * **Static inputs.**  A graph reads fixed device buffers.  Each key owns
-  one device buffer per input, refilled before every call from pinned
-  host staging with ``copy_(..., non_blocking=True)``, so filling waits
-  for nothing.
+  one device buffer per input, refilled before every call: a numpy array
+  or a CPU tensor through host staging (pinned on CUDA) with
+  ``copy_(..., non_blocking=True)``, a tensor on the device by a
+  device-to-device copy, so filling waits for nothing.  A key with no
+  inputs replays with no fill (its function reads state it owns).
+* **State a key owns.**  ``state(key, make)`` keeps what a key's graph
+  reads and writes besides its inputs (a KV ring, a token buffer), made on
+  the key's first use; it lives and is dropped with the key's graph.  With
+  ``max_keys`` set, a new key's state beyond it first drops the oldest
+  key that holds state (its graph too), as the reference bounds its
+  program caches.
+* **Weights.**  ``weights``, where given, lists the tensors the graphs
+  read but do not own (``module_tensors``: a module's parameters and
+  buffers); ``watch()`` drops every graph and state when one of them is
+  not at the address of the last call (a parameter replaced, not written
+  in place), and each key warms up and captures again.
 * **Warm-up, then capture.**  The first call of a key runs the function
   eagerly on its buffers; that call's outputs are the real results, and
   the lazy first-use work (the kernel library's build and load, the
@@ -32,22 +45,36 @@ its inputs as numpy arrays.
 * **No fallback.**  A capture or a replay that fails raises.
 
 ``captures`` counts the graphs captured over the cache's life;
-``clear()`` drops every graph (the caller's weights moved), and the next
-call of each key warms up and captures again.  ``seconds`` holds each
+``clear()`` drops every graph and state (the caller's weights moved),
+``drop(key)`` one key's, and the next call of a key warms up and captures
+again.  ``seconds`` holds each
 key's first call and capture times (host clock, the first call
 synchronised).  The module knows nothing of what it captures.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Hashable, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
-__all__ = ["GraphCache", "CapturedGraph", "StaticInputs"]
+__all__ = ["GraphCache", "CapturedGraph", "StaticInputs", "module_tensors"]
 
 Counters = Callable[[], Dict[str, Any]]
+
+
+def module_tensors(module: torch.nn.Module
+                   ) -> Callable[[], List[torch.Tensor]]:
+    """A function listing ``module``'s parameters and buffers as they stand,
+    read from the slots the module tree has now (cheaper on every call than
+    a walk of the tree): a slot's tensor replaced
+    (``Module.to``, ``load_state_dict(..., assign=True)``, a new
+    ``Parameter``) shows; a submodule added later does not."""
+    slots = [(d, n) for m in module.modules()
+             for d in (m._parameters, m._buffers) for n in d]
+    return lambda: [d[n] for d, n in slots if d[n] is not None]
 
 
 def _snapshot(counters: Dict[str, Any]) -> Dict[Tuple[str, str], int]:
@@ -56,28 +83,40 @@ def _snapshot(counters: Dict[str, Any]) -> Dict[Tuple[str, str], int]:
             if attr.endswith("launches") and isinstance(v, int)}
 
 
+def _as_tensor(a) -> torch.Tensor:
+    return (a if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(a)))
+
+
 class StaticInputs:
-    """One device buffer per input array (its shape and dtype), filled from
-    host staging (pinned on CUDA) without waiting."""
+    """One device buffer per input (its shape and dtype), filled without
+    waiting: numpy arrays and CPU tensors through host staging (pinned on
+    CUDA, made on a slot's first host fill), tensors already on the device
+    by a device-to-device copy."""
 
-    def __init__(self, arrays: Sequence[np.ndarray], device: torch.device):
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-        pin = device.type == "cuda"
-        self.host = [torch.empty(h.shape, dtype=h.dtype, pin_memory=pin)
-                     for h in host]
-        self.tensors = [torch.empty(h.shape, dtype=h.dtype, device=device)
-                        for h in host]
+    def __init__(self, arrays: Sequence, device: torch.device):
+        srcs = [_as_tensor(a) for a in arrays]
+        self.host = [None] * len(srcs)
+        self.tensors = [torch.empty(s.shape, dtype=s.dtype, device=device)
+                        for s in srcs]
 
-    def fill(self, arrays: Sequence[np.ndarray]):
+    def fill(self, arrays: Sequence):
         if len(arrays) != len(self.tensors):
             raise ValueError(f"{len(arrays)} inputs for a graph of "
                              f"{len(self.tensors)}")
-        for h, d, a in zip(self.host, self.tensors, arrays):
-            src = torch.from_numpy(np.ascontiguousarray(a))
-            if src.shape != h.shape or src.dtype != h.dtype:
+        for i, (d, a) in enumerate(zip(self.tensors, arrays)):
+            src = _as_tensor(a)
+            if src.shape != d.shape or src.dtype != d.dtype:
                 raise ValueError(f"graph input {tuple(src.shape)} "
                                  f"{src.dtype}: its buffer is "
-                                 f"{tuple(h.shape)} {h.dtype}")
+                                 f"{tuple(d.shape)} {d.dtype}")
+            if src.device.type != "cpu" or d.device.type == "cpu":
+                d.copy_(src)
+                continue
+            h = self.host[i]
+            if h is None:
+                h = self.host[i] = torch.empty(d.shape, dtype=d.dtype,
+                                               pin_memory=True)
             h.copy_(src)
             d.copy_(h, non_blocking=True)
         return self.tensors
@@ -104,7 +143,7 @@ class CapturedGraph:
         self.deltas = deltas
         self.counters = counters
 
-    def replay(self, arrays: Sequence[np.ndarray]):
+    def replay(self, arrays: Sequence = ()):
         """Fill the inputs, replay, count the launches; -> the outputs (the
         same tensors at every replay)."""
         self.inputs.fill(arrays)
@@ -120,27 +159,62 @@ class GraphCache:
 
     ``counters`` returns the kernel wrappers whose ``*launches`` counts a
     replay must advance; ``capture(fn, pool) -> (graph, outputs)`` captures
-    a call (CUDA graphs by default; the tests pass a stand-in)."""
+    a call (CUDA graphs by default; the tests pass a stand-in);
+    ``max_keys`` bounds the keys that hold state (None: unbounded);
+    ``weights`` lists
+    the tensors ``watch()`` checks."""
 
     def __init__(self, device, counters: Optional[Counters] = None,
-                 capture: Optional[Callable] = None):
+                 capture: Optional[Callable] = None,
+                 max_keys: Optional[int] = None,
+                 weights: Optional[Callable[[], Sequence]] = None):
         self.device = torch.device(device)
         self.counters = counters or dict
         self._capture = capture or _cuda_capture
+        self.max_keys = max_keys
+        self.weights = weights or list
         self.pool = None
         self.graphs: Dict[Hashable, CapturedGraph] = {}
+        self.states: Dict[Hashable, Any] = {}
+        self._watched: Optional[Tuple[int, ...]] = None
         self.captures = 0
         self.seconds: Dict[Hashable, Tuple[float, float]] = {}
 
     def clear(self):
-        """Drop every graph (their inputs, outputs and pool memory go with
-        the last reference)."""
+        """Drop every graph and state (their inputs, outputs and pool
+        memory go with the last reference)."""
         self.graphs.clear()
+        self.states.clear()
 
-    def run(self, key: Hashable, fn: Callable, arrays: Sequence[np.ndarray]):
-        """``fn(*device inputs)`` for ``arrays``: a replay of ``key``'s
-        graph, or on the key's first call an eager run (the returned
-        results) followed by the capture."""
+    def drop(self, key: Hashable):
+        """Drop ``key``'s graph and state."""
+        self.graphs.pop(key, None)
+        self.states.pop(key, None)
+
+    def watch(self):
+        """Drop every graph and state when the ``weights`` (read by the
+        graphs, owned by the caller) are not at the addresses of the last
+        call."""
+        ptrs = tuple(t.data_ptr() for t in self.weights())
+        if ptrs != self._watched:
+            self.clear()
+            self._watched = ptrs
+
+    def state(self, key: Hashable, make: Callable[[], Any]):
+        """The state ``key`` owns, ``make()`` on the key's first use (after
+        dropping the oldest keys that hold state, as ``max_keys`` asks)."""
+        st = self.states.get(key)
+        if st is None:
+            while (self.max_keys is not None
+                   and len(self.states) >= self.max_keys):
+                self.drop(next(iter(self.states)))
+            st = self.states[key] = make()
+        return st
+
+    def run(self, key: Hashable, fn: Callable, arrays: Sequence = ()):
+        """``fn(*device inputs)`` for ``arrays`` (numpy arrays or tensors):
+        a replay of ``key``'s graph, or on the key's first call an eager run
+        (the returned results) followed by the capture."""
         graph = self.graphs.get(key)
         if graph is not None:
             return graph.replay(arrays)
