@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's four paths — Llama serving through the paged
-ServingEngine, Llama generation (forward, generate, greedy_decode) over the
+ServingEngine (with speculative decoding and KV block transfer), Llama
+generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
 — on one NVIDIA H100, and check every Hopper kernel on them.
@@ -26,8 +27,10 @@ Phases (each prints its seconds):
      and each row's TFLOP/s and share of its bound;
      K4 at serving's shapes: decode (8 rows; 32 / 32 heads at D 128, 8 / 2
      at D 256, 64 / 1), the single step's mixed batch (max_q_len 256), the
-     mixed loop's program (T 256, max_q_len 16) and a long-context decode
-     (2 rows of ~4000 keys), each with its GB/s, share of the bound and
+     mixed loop's program (T 256, max_q_len 16), a long-context decode
+     (2 rows of ~4000 keys) and the speculative verify (8 rows of up to 9
+     tokens, T 72, max_q_len 9, context <= 512, 32 / 32 and 32 / 8 heads),
+     each with its GB/s, share of the bound and
      plan (query tile, key tile, ring, splits) (with --k4-sweep, each K4
      case also timed under other plans, informative); B2 at generation's
      shapes (8 rows over 512- and 4096-row rings, 32 / 32 and 32 / 8 heads,
@@ -95,7 +98,10 @@ Phases (each prints its seconds):
      the same for 2-layer float32 Llamas at head_dim 72 (hidden 576, 8
      heads), 264 (1056, 4) and 640 (1280, 2); and a graph engine after
      load_weights drops its graphs, captures again and serves the new
-     weights' tokens;
+     weights' tokens; the 2-layer pair also serves repetitive prompts
+     with spec_k 8 on cuda and on the CPU (the same top-2-gap rule), and
+     a packed block export made on cuda, imported into a CPU engine,
+     serves wave 2 with the CPU engine's tokens (the same rule);
   5. generation at full width, on phase 3's model: the launch counters are
      zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b) on the
      eager loop (_graphs = False), then on CUDA graphs (the default on
@@ -165,10 +171,32 @@ Phases (each prints its seconds):
      and on the CPU, ids [4, 128], through int8 Predictors (identical
      quantized weights) and float ones: logits within 1e-4 of the largest
      |logit|;
+ 11. speculative serving and block transfer on phase 3's model (run
+     before the model is dropped for phase 7), phase 3's engine geometry:
+     (a) engines with spec_k 8 (on CUDA graphs, and eager with
+     _graphs = False) and spec_k 0 over the same weights serve 8 requests
+     of repetitive 64-token prompts, 64 new tokens each, one seeded; the
+     counters are zeroed just before the spec engine's wave and read just
+     after (the "spec" path); the verify and every loop run under CUDA
+     sync debugging set to raise; graphs == eager bit for bit (tokens,
+     logprobs, spec and scheduling counters); spec-on == spec-off, or
+     at the first position that differs spec-off's choice (teacher-forced)
+     was within bfloat16's step, 2^-7 of the largest |logit|: its top-two
+     logits, or for the seeded row the top two of its filtered, scaled
+     logits plus its Gumbel noise (the margin printed); verify forwards, drafted, accepted, tokens per
+     verify, each graph's first-call and capture ms; then for each mode a
+     wave untraced and one under torch.profiler (wall, busy share, K1/K2),
+     K4's kernels equal to its wrapper calls, and K4's device time per
+     launch by the program that launched it (the verify, megasteps, the
+     single step); (b) engine A prefills 8 prompts of 256 tokens and
+     exports their chains (bytes, ms, GB/s), a fresh engine B imports
+     them (ms, GB/s) and exports the same bytes, then serves the prompts
+     on the imported prefix (hits = blocks imported) with the tokens of
+     engine C, which warmed the same prompts itself, bit for bit;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
-  "generate", "train", "predict"}, null for a path whose phase did not
-  run), then the card line, then {"ok": true, "device": {...}} as the last
-  line.
+  "spec", "generate", "train", "predict"}, null for a path whose phase did
+  not run), then the card line, then {"ok": true, "device": {...}} as the
+  last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
 imports nothing of JAX or paddle_tpu.
@@ -237,10 +265,13 @@ OUTPUTS = {
     "kv_ring_write": ("k ring", "v ring"),
 }
 # the kernels each path runs (phase 3 serving, phase 5 generation, phase 7
-# training, phase 9 the int8 predictor)
+# training, phase 9 the int8 predictor, phase 11 speculative serving: the
+# verify runs the serving trunk at max_q_len spec_k + 1)
 PATHS = {
     "serving": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                 "paged_attention"),
+    "spec": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+             "paged_attention"),
     "generate": ("rms_norm", "rms_norm_residual", "rope", "rope_ring",
                  "swiglu", "flash_attention", "decode_attention"),
     "train": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd", "swiglu",
@@ -251,6 +282,11 @@ PATHS = {
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
 HEAD_DIMS = (72, 100, 264, 512, 516, 640, 1024)
+# the serving engine at full width (phases 3 and 11), and phase 11's and
+# phase 4's speculation depth
+SERVE_KW = dict(max_batch_size=8, max_seq_len=512, block_size=16,
+                token_budget=256)
+SPEC_K = 8
 # bench_ladder.py's BERT-base classifier, accelerator branch (:103)
 BERT = dict(vocab=30522, hidden=768, layers=12, heads=12, seq=128, batch=32)
 
@@ -515,6 +551,14 @@ def kernel_cases(torch, dtype):
         torch, rnd, es, g, "decode 2 rows, context ~4000", Hq, Hq, D,
         torch.tensor([3990, 4011], dtype=torch.int32, device=dev), [1, 1],
         P=256, NB=512))
+    # the speculative verify (spec_k 8): 8 rows of [last token] + a draft
+    # of up to 8 tokens packed into T = 8 * 9, max_q_len 9, context <= 512
+    for heads, kv_heads in ((Hq, Hq), (Hq, 8)):
+        cases.append(_paged_case(
+            torch, rnd, es, g, f"verify 8 rows x 9 tokens, context <= 512, "
+            f"{heads} heads / {kv_heads} KV", heads, kv_heads, D,
+            torch.randint(64, 503, (B,), generator=g, device=dev).to(
+                torch.int32), [9, 9, 5, 9, 1, 9, 3, 9], mq=9, T=8 * 9))
     return cases
 
 
@@ -2032,10 +2076,8 @@ def full_width_serving(torch, model):
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     cfg = model.config
-    kw = dict(max_batch_size=8, max_seq_len=512, block_size=16,
-              token_budget=256)
-    eng = ServingEngine(model, **kw)
-    eager = ServingEngine(model, **kw)
+    eng = ServingEngine(model, **SERVE_KW)
+    eager = ServingEngine(model, **SERVE_KW)
     eager._graphs = False
     kv_gb = sum(c.numel() * c.element_size()
                 for c in eng.key_caches + eng.value_caches) / 1e9
@@ -2188,7 +2230,7 @@ def _draw_cost(torch, V):
           f"greedy {greedy:.4f} ms, threefry draw alone {draw:.4f} ms")
 
 
-def _profile(torch, label, untraced, traced=None, top=12):
+def _profile(torch, label, untraced, traced=None, top=12, trace=None):
     """Run ``untraced()`` on the host clock (wall time), then ``traced()``
     (the same call by default) under torch.profiler: the device's busy share
     of the untraced wall time (one stream, so kernel times do not overlap;
@@ -2202,7 +2244,9 @@ def _profile(torch, label, untraced, traced=None, top=12):
     traced call sits between ``_PROFILE_MARKS`` spin kernels on each side,
     synchronized, and a trace counts only when some of the markers on each
     side were recorded: then no kernel of the call was lost at an end.
-    Otherwise the trace is taken again, ``_PROFILE_TAKES`` times at most."""
+    Otherwise the trace is taken again, ``_PROFILE_TAKES`` times at most.
+    ``trace``, a list, gets the kept trace's device kernels (markers
+    excluded) in the order they started."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -2238,6 +2282,11 @@ def _profile(torch, label, untraced, traced=None, top=12):
     else:
         raise AssertionError(f"profile {label}: the profiler lost the "
                              f"markers at an end of {_PROFILE_TAKES} traces")
+    if trace is not None:
+        trace.extend(sorted((e for e in prof.events()
+                               if e.device_type == cuda
+                               and "spin_kernel" not in e.name),
+                              key=lambda e: e.time_range.start))
     evs = [e for e in prof.key_averages()
            if e.device_type == cuda and "spin_kernel" not in e.key]
     dev_us = sum(e.self_device_time_total for e in evs)
@@ -2285,12 +2334,11 @@ def _first_step_logits(torch, eng, prompts):
                             eng.T).float().cpu()
 
 
-def _top2_gaps(torch, eng, prompt, gen):
-    """CPU teacher-forced logits of prompt + gen[:-1] on a fresh engine ->
-    the top-2 logit gap at each generated position."""
+def _forced_trunk(torch, eng, seq):
+    """The trunk's output [T, E] with ``seq`` prefilled from position 0 on
+    a fresh engine (teacher forcing)."""
     import numpy as np
 
-    seq = list(prompt) + list(gen[:-1])
     eng.add_request(seq, max_new_tokens=1)
     eng._try_admit()
     n = len(seq)
@@ -2301,11 +2349,27 @@ def _top2_gaps(torch, eng, prompt, gen):
     tokens = np.zeros(eng.T, np.int32)
     tokens[:n] = seq
     d = eng._dev
-    h = eng._trunk(d(tokens), d(now), d(z), d(now), d(cu),
-                   d(eng.block_tables), eng.T)
-    lg = (h[len(prompt) - 1:n] @ eng._weights["head"]).float()
+    return eng._trunk(d(tokens), d(now), d(z), d(now), d(cu),
+                      d(eng.block_tables), eng.T)
+
+
+def _top2_gaps(torch, eng, prompt, gen):
+    """CPU teacher-forced logits of prompt + gen[:-1] on a fresh engine ->
+    the top-2 logit gap at each generated position."""
+    seq = list(prompt) + list(gen[:-1])
+    h = _forced_trunk(torch, eng, seq)
+    lg = (h[len(prompt) - 1:len(seq)] @ eng._weights["head"]).float()
     top2 = torch.topk(lg, 2, dim=-1).values
     return (top2[:, 0] - top2[:, 1]).tolist()
+
+
+def _logits_at(torch, eng, prompt, gen):
+    """The float32 logits [V] after prompt + gen, teacher-forced on a fresh
+    engine: the row from which the next token is chosen."""
+    seq = list(prompt) + list(gen)
+    with torch.no_grad():
+        h = _forced_trunk(torch, eng, seq)
+        return (h[len(seq) - 1] @ eng._weights["head"]).float().cpu()
 
 
 def _agree(a, b, gaps, what, thresh=1e-3):
@@ -3081,9 +3145,321 @@ def predictor_kernels_vs_plain(torch):
 
 
 # ------------------------------------------------------------------ main
+# -------------------------------------------------------------- phase 11
+def _repetitive_prompts(rng, V, n, length, period=8):
+    """``n`` prompts of ``length`` tokens, each a random ``period``-token
+    pattern repeated: n-gram drafting finds their tails in the history."""
+    out = []
+    for _ in range(n):
+        pat = rng.integers(1, V, period).tolist()
+        out.append((pat * (length // period + 1))[:length])
+    return out
+
+
+def _drafting_prompts(eng, prompts, rounds=6):
+    """``prompts`` changed so that each one's greedy next token (served by
+    ``eng``, a spec-off engine) is already one of its tokens: n-gram
+    drafting then proposes a draft at the first decode step (random
+    weights rarely repeat a token of the history on their own).  Each
+    round writes a prompt's prediction over its next leading token, far
+    from the end, until the prediction is in the prompt."""
+    prompts = [list(p) for p in prompts]
+    for r in range(rounds):
+        nxt = _serve_waves(eng, [[(p, 1, None) for p in prompts]])
+        todo = [(p, g) for p, (g,) in zip(prompts, nxt) if g not in p]
+        if not todo:
+            break
+        for p, g in todo:
+            p[r] = g
+    print(f"drafting prompts: {len(prompts) - len(todo)} of {len(prompts)} "
+          f"hold their next token after {r + 1} rounds")
+    return prompts
+
+
+def _spec_counts(eng):
+    st = eng.state_summary()["spec"]
+    vf = st["verify_forwards"]
+    return (f"verify forwards (rows scored) {vf}, drafted {st['drafted']}, "
+            f"accepted {st['accepted']}, tokens per verify "
+            f"{(vf + st['accepted']) / max(vf, 1):.3f}")
+
+
+def _logged_programs(eng, log):
+    """Log each device program ``eng`` runs as (name, iterations): the
+    single step, a megastep loop of K, the verify (K4 launches one kernel
+    per layer per iteration)."""
+    graphed, step = eng._graphed, eng._run_step
+
+    def run_graphed(key, fn, arrays):
+        log.append(("spec", 1) if key[0] == "spec" else (key[0], key[1]))
+        return graphed(key, fn, arrays)
+
+    def run_step(*args):
+        log.append(("step", 1))
+        return step(*args)
+
+    eng._graphed, eng._run_step = run_graphed, run_step
+
+
+def _draw_margin(torch, lg, sampling, pos):
+    """(margin, bfloat16 step) of the choice at sample index ``pos`` from
+    the logits row ``lg`` [V]: the top-two logits of a greedy row, the
+    top-two of the filtered, scaled logits plus the row's threefry Gumbel
+    noise for a sampled one (the draw's argmax); the step is 2^-7 of the
+    largest |logit|, scaled as the logits are."""
+    from paddle_tpu_torch.framework.random import fold_in, gumbel, key
+    from paddle_tpu_torch.inference.serving import _filtered
+
+    step = 2.0 ** -7 * float(lg.abs().max())
+    t = (sampling or {}).get("temperature", 0.0)
+    score = lg
+    if t > 0:
+        filt = _filtered(lg[None] / t, torch.zeros(1, dtype=torch.int32),
+                         torch.tensor([sampling.get("top_p", 1.0)]))[0]
+        g = gumbel(fold_in(key(sampling["seed"]), pos), (lg.shape[0],))
+        score, step = filt + g, step / t
+    top2 = torch.topk(score, 2).values
+    return float(top2[0] - top2[1]), step
+
+
+def _spec_vs_off(torch, model, on, off, reqs):
+    """Spec-on tokens against spec-off's: equal, or, from the first
+    position where they differ, spec-off's choice there within
+    bfloat16's step (``_draw_margin`` over spec-off's logits,
+    teacher-forced on a fresh spec-off engine)."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    for i, ((prompt, _, sampling), a, b) in enumerate(zip(reqs, on, off)):
+        if a == b:
+            continue
+        pos = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg = _logits_at(torch, ServingEngine(model, **SERVE_KW), prompt,
+                        b[:pos])
+        margin, step = _draw_margin(torch, lg, sampling, pos)
+        print(f"spec on vs off, request {i}: first differ at generated "
+              f"position {pos} ({a[pos]} vs {b[pos]}); spec-off's margin "
+              f"{margin:.4e}, bf16 step {step:.4e}")
+        if not margin <= step:
+            raise AssertionError(f"spec on and off differ at request {i} "
+                                 f"position {pos} with a margin {margin} "
+                                 f"past bf16's step {step}")
+
+
+def full_width_spec(torch, model):
+    """Phase 11a: speculative serving at 7B width (module docstring);
+    returns the spec path's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(11)
+    probe = ServingEngine(model, prefix_cache=False, **SERVE_KW)
+
+    def wave():
+        sampled = dict(temperature=0.8, top_p=0.9, seed=5, logprobs=True)
+        prompts = _drafting_prompts(probe, _repetitive_prompts(
+            rng, cfg.vocab_size, 8, 64))
+        return [(p, 64, sampled if i == 5 else dict(logprobs=True))
+                for i, p in enumerate(prompts)]
+
+    # checked, two warm waves (the keys they add captured), untraced,
+    # traced
+    waves = [wave() for _ in range(5)]
+    probe = None
+    on = ServingEngine(model, spec_k=SPEC_K, **SERVE_KW)
+    eager = ServingEngine(model, spec_k=SPEC_K, **SERVE_KW)
+    eager._graphs = False
+    off = ServingEngine(model, **SERVE_KW)
+    # no host sync inside a device program (the eager programs, a key's
+    # first call and its capture) or a replay (main)
+    for e in (on, eager, off):
+        for name in ("_run_megastep", "_run_mixed", "_run_spec_verify"):
+            setattr(e, name, _sync_free(torch, getattr(e, name)))
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lps = []
+    outs = _serve_waves(on, waves[:1], lps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = _path_launches("spec", counters)
+    if not on.spec_verify_forwards:
+        raise AssertionError("the spec engine never ran its verify")
+    print(f"spec_k {SPEC_K}, on graphs: {_spec_counts(on)}; wave of 8 x 64 "
+          f"tokens in {secs:.3f} s (its captures included)")
+    for key, (first, cap) in on._graph_cache.seconds.items():
+        print(f"graph {key}: first call (eager) {first * 1e3:.1f} ms, "
+              f"capture {cap * 1e3:.1f} ms")
+    if not {("spec", True), ("spec", False)} & set(on._graph_cache.graphs):
+        raise AssertionError("the verify was not captured")
+    e_lps = []
+    e_outs = _serve_waves(eager, waves[:1], e_lps)
+    names = ("spec_verify_forwards", "spec_draft_tokens",
+             "spec_accepted_tokens", "megasteps", "prefill_chunks")
+    got = [getattr(on, n) for n in names]
+    want = [getattr(eager, n) for n in names]
+    if outs != e_outs or lps != e_lps or got != want:
+        bad = [i for i, (a, b) in enumerate(zip(outs, e_outs)) if a != b]
+        raise AssertionError(f"spec graphs and eager differ: tokens of "
+                             f"requests {bad}, logprobs equal "
+                             f"{lps == e_lps}, {names} {got} vs {want}")
+    print(f"spec graphs == eager: tokens, logprobs and {names} {got} "
+          "identical over 8 requests (the seeded one too)")
+    off_outs = _serve_waves(off, waves[:1])
+    _spec_vs_off(torch, model, outs, off_outs, waves[0])
+    same = sum(a == b for a, b in zip(outs, off_outs))
+    print(f"spec on vs off: {same} of 8 requests token for token equal")
+    # the decode-heavy waves: a warm one (the keys it adds captured), then
+    # the untraced wall and busy share in each mode, and K4 in each trace:
+    # kernels against wrapper calls, and each program's K4 kernels (tagged
+    # by the order the programs ran)
+    for label, e in (("spec on", on), ("spec off", off)):
+        calls, log, kernels, caps = [], [], [], []
+        _serve_waves(e, waves[1:3])
+
+        def untraced(e=e, caps=caps):
+            n_cap = e.compile_count
+            _serve_waves(e, [waves[3]])
+            caps.append(e.compile_count - n_cap)
+
+        def traced(e=e, calls=calls, log=log):
+            log.clear()             # a trace taken again logs again
+            n0 = pa.paged_attention.launches
+            _logged_programs(e, log)
+            try:
+                _serve_waves(e, [waves[4]])
+            finally:
+                del e._graphed, e._run_step
+            calls.append(pa.paged_attention.launches - n0)
+
+        evs = _profile(torch, f"decode wave, {label} (8 rows, repetitive "
+                       "64-token prompts, 64 new tokens)", untraced, traced,
+                       top=10, trace=kernels)
+        print(f"{label}, over its 5 waves: {_spec_counts(e)}; megasteps "
+              f"{e.megasteps}; "
+              f"graphs captured in the untraced wave {caps[0]}")
+        _k1_k2(evs, f"the decode wave, {label}")
+        k4 = [k for k in kernels if "paged_attention" in k.name]
+        if len(k4) != calls[-1]:
+            raise AssertionError(f"K4 ({label}): {len(k4)} kernels for "
+                                 f"{calls[-1]} calls")
+        tags = [name for name, n in log for _ in range(n * L)]
+        if len(tags) != len(k4):
+            raise AssertionError(f"K4 ({label}): {len(k4)} kernels for "
+                                 f"{len(tags)} by the programs run")
+        for name in sorted(set(tags)):
+            us = [k.time_range.end - k.time_range.start
+                  for k, tag in zip(k4, tags) if tag == name]
+            print(f"profile K4 in the decode wave, {label}, {name}: "
+                  f"{len(us)} kernels, {sum(us) / 1e3:.3f} ms, "
+                  f"{sum(us) / len(us):.2f} us a launch")
+    return launches
+
+
+def full_width_transfer(torch, model):
+    """Phase 11b: block transfer at 7B width (module docstring)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import (ServingEngine,
+                                                     prompt_block_hashes)
+
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, model.config.vocab_size, 256).tolist()
+               for _ in range(8)]
+    chains = [prompt_block_hashes(p, SERVE_KW["block_size"])
+              for p in prompts]
+    warm = [[(p, 1, None) for p in prompts]]
+    a = ServingEngine(model, **SERVE_KW)
+    _serve_waves(a, warm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    payloads = [a.export_blocks_packed(c) for c in chains]
+    export_s = time.perf_counter() - t
+    nbytes = sum(len(raw) for _, raw in payloads)
+    if any(h["hashes"] != c for (h, _), c in zip(payloads, chains)):
+        raise AssertionError("an export stopped short of its chain")
+    a = None
+    b = ServingEngine(model, **SERVE_KW)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = sum(b.import_blocks_packed(h, raw) for h, raw in payloads)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t
+    print(f"block transfer: 8 chains of {len(chains[0])} blocks, {nbytes} "
+          f"bytes; export {export_s * 1e3:.2f} ms "
+          f"({nbytes / export_s / 1e9:.2f} GB/s), import {n} blocks "
+          f"{import_s * 1e3:.2f} ms ({nbytes / import_s / 1e9:.2f} GB/s)")
+    if n != sum(len(c) for c in chains):
+        raise AssertionError(f"imported {n} blocks")
+    if [b.export_blocks_packed(c) for c in chains] != payloads:
+        raise AssertionError("the importer's export differs from the "
+                             "exported bytes")
+    c = ServingEngine(model, **SERVE_KW)
+    _serve_waves(c, warm)
+    wave = [[(p, 32, None) for p in prompts]]
+    got, want = _serve_waves(b, wave), _serve_waves(c, wave)
+    if b.prefix_hit_blocks != n or c.prefix_hit_blocks != n:
+        raise AssertionError(f"prefix hits {b.prefix_hit_blocks} on the "
+                             f"imported blocks, {c.prefix_hit_blocks} warm")
+    if got != want:
+        raise AssertionError("serving on imported blocks differs from "
+                             "serving on locally warmed ones")
+    print(f"block transfer: the importer's export is the exported bytes; "
+          f"served on {n} imported blocks (prefix hits {n}) == served on "
+          "locally warmed ones, bit for bit, 8 x 32 tokens")
+
+
+def spec_and_transfer_vs_plain(torch, gpu_model, cpu_model):
+    """Phase 4's float32 pair: speculative serving (spec_k 8) on cuda
+    against the CPU plain path, then a packed export made on the card
+    imported into a CPU engine, serving wave 2 on it."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import (ServingEngine,
+                                                     prompt_block_hashes)
+
+    kw = dict(max_batch_size=4, max_seq_len=128, block_size=16,
+              token_budget=128)
+    rng = np.random.default_rng(17)
+    prompts = _drafting_prompts(
+        ServingEngine(gpu_model, prefix_cache=False, **kw),
+        _repetitive_prompts(rng, gpu_model.config.vocab_size, 4, 40))
+    waves = [[(p, 16, None) for p in prompts], [(prompts[1], 16, None)]]
+    gpu_eng = ServingEngine(gpu_model, spec_k=SPEC_K, **kw)
+    gpu = _serve_waves(gpu_eng, waves)
+    cpu_eng = ServingEngine(cpu_model, spec_k=SPEC_K, device="cpu", **kw)
+    cpu = _serve_waves(cpu_eng, waves)
+    if not gpu_eng.spec_verify_forwards:
+        raise AssertionError("the spec engine never ran its verify")
+    flat = [p for w in waves for p, _, _ in w]
+    gaps = [_top2_gaps(torch, ServingEngine(cpu_model, device="cpu", **kw),
+                       p, cpu[i]) for i, p in enumerate(flat)]
+    for i in range(len(flat)):
+        _agree(gpu[i], cpu[i], gaps[i], f"spec request {i} cuda vs cpu")
+    print(f"spec_k {SPEC_K}: kernel path == plain path on {len(flat)} "
+          f"requests; cuda {_spec_counts(gpu_eng)}; cpu "
+          f"{_spec_counts(cpu_eng)}")
+    src = ServingEngine(gpu_model, **kw)
+    _serve_waves(src, waves[:1])
+    hashes = prompt_block_hashes(prompts[1], kw["block_size"])
+    header, raw = src.export_blocks_packed(hashes)
+    dst = ServingEngine(cpu_model, device="cpu", **kw)
+    n = dst.import_blocks_packed(header, raw)
+    got = _serve_waves(dst, waves[1:])
+    if n != len(hashes) or dst.prefix_hit_blocks != n:
+        raise AssertionError(f"imported {n} of {len(hashes)} blocks, "
+                             f"prefix hits {dst.prefix_hit_blocks}")
+    _agree(got[0], cpu[-1], gaps[-1], "wave 2 on blocks from cuda vs cpu")
+    print(f"block transfer cuda -> cpu: {n} blocks, {len(raw)} bytes; "
+          "wave 2 on them == the CPU engine's wave 2")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -3135,7 +3511,7 @@ def main(argv=None) -> int:
                                 k1_sweep=args.k1_sweep)
         _done("2", t)
     launches = {path: None for path in PATHS}
-    model = full_width_model(torch) if phases & {3, 5} else None
+    model = full_width_model(torch) if phases & {3, 5, 11} else None
     if 3 in phases:
         t = _phase("3 full-width serving")
         launches["serving"] = full_width_serving(torch, model)
@@ -3147,6 +3523,7 @@ def main(argv=None) -> int:
     if 4 in phases:
         t = _phase("4 kernel path vs plain path")
         kernels_vs_plain_path(torch, *pair)
+        spec_and_transfer_vs_plain(torch, *pair)
         for d in (72, 264, 640):
             print(f"-- head_dim {d}")
             kernels_vs_plain_path(torch, *dims[d])
@@ -3164,6 +3541,14 @@ def main(argv=None) -> int:
             print(f"-- head_dim {d}")
             generation_kernels_vs_plain(torch, *dims[d])
         _done("6", t)
+    if 11 in phases:
+        t = _phase("11 full-width speculative serving and block transfer")
+        launches["spec"] = full_width_spec(torch, model)
+        gc.collect()
+        full_width_transfer(torch, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("11", t)
     model = None                # the 7B weights: room for training
     torch.cuda.empty_cache()
     if 7 in phases:

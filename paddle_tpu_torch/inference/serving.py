@@ -27,14 +27,24 @@ reference is a plain function here:
   scan re-feeds the same token at the same position, so it rewrites the
   same KV bits, as in the reference.
 
+Speculative decoding (``spec_k > 0``): a pure-decode batch drafts up to
+``spec_k`` tokens a row on the host (``ngram_draft``) and one verify
+forward (``_run_spec_verify``) scores ``[last token] + draft`` for every
+row, redraws each position under the non-spec key stream and commits the
+longest draft prefix the redraw reproduces, plus one token.  Rejected
+positions wrote K/V that the next feed overwrites before any read, so
+spec-on gives spec-off's tokens.
+
 The program cache: on CUDA the two megastep loops (``_run_megastep``,
-``_run_mixed``), sampling and its threefry draw included, run as CUDA
-graphs (``jit/graphs.py``), one per (program, K, ``all_greedy``), K
-bucketed to powers of two up to ``megastep_k`` for the pure-decode loop
-and ``megastep_k`` for the mixed one; ``capture_sample_probs`` is fixed
-per engine.  A key's first call runs eagerly (its results are returned)
-and is then captured; later calls copy the host arrays, block tables
-included, into the graph's static buffers and replay it.
+``_run_mixed``) and the verify, sampling and its threefry draw included,
+run as CUDA graphs (``jit/graphs.py``), one per (program, K,
+``all_greedy``), K bucketed to powers of two up to ``megastep_k`` for
+the pure-decode loop and ``megastep_k`` for the mixed one, and one per
+("spec", ``all_greedy``) for the verify (its shapes are fixed by the
+batch and ``spec_k``); ``capture_sample_probs`` is fixed per engine.  A
+key's first call runs eagerly (its results are returned) and is then
+captured; later calls copy the host arrays, block tables included, into
+the graph's static buffers and replay it.
 ``compile_count`` counts the captures, as the reference counts its jit
 programs; ``load_weights`` drops the graphs, which read the old weights.
 The single-step program (prefill-only batches, ``megastep_k=1``) runs
@@ -45,7 +55,11 @@ as the reference has none.
 Sampling draws on the device with JAX's threefry under the key
 ``fold_in(key(seed), sample index)`` (``framework/random.py``), so a seeded
 stream is the JAX engine's, and replays across K, rebuilds and preemption.
-``spec_k > 0`` and ``cache_quant="int8"`` are not ported yet and raise.
+
+Block transfer (``export_blocks[_packed]``, ``import_blocks[_packed]``)
+moves published KV blocks between engines as bit-exact payloads keyed by
+chain hash, with the reference's headers.  ``cache_quant="int8"`` and
+``pull_blocks`` are not ported yet and raise.
 
 ``ServingEngine(model, ..., device=None)`` runs on CUDA and raises
 without it; ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -56,7 +70,7 @@ import hashlib
 import time
 from collections import Counter, OrderedDict
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Set
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -68,14 +82,23 @@ from ..ops.hopper import launch_counters
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
 from ..ops.hopper.fused_ops import swiglu_fused
 from ..ops.paged_attention import blha_attention, plan_step
-from .faults import register_failpoint
+from .faults import (InjectedDrop, InjectedFault, InjectedTimeout,
+                     register_failpoint)
 
 __all__ = ["BlockManager", "ServingRequest", "ServingEngine",
-           "SamplingParams", "prefix_block_hash", "prompt_block_hashes"]
+           "SamplingParams", "prefix_block_hash", "prompt_block_hashes",
+           "ngram_draft"]
 
 # fired at the top of load_weights, BEFORE any state is touched, so an
 # injected swap fault leaves the old weights fully serving
 WEIGHTS_SWAP = register_failpoint("weights.swap")
+# speculative decoding: both sites DEGRADE, never corrupt — a drafting
+# fault empties that row's draft (the verify still commits its one
+# non-spec token), a verify fault sends the whole step down the non-spec
+# path.  Either way the tokens are spec-off's.
+SPEC_DRAFT = register_failpoint("engine.spec_draft")
+SPEC_VERIFY = register_failpoint("engine.spec_verify")
+_INJECTED = (InjectedFault, InjectedTimeout, InjectedDrop)
 
 
 @dataclass
@@ -100,9 +123,9 @@ class SamplingParams:
     top_p: float = 1.0      # 1.0 = no nucleus filter
     seed: int = 0
     logprobs: bool = False
-    # opt OUT of speculative decoding for this request (kept in the wire
-    # form; speculative decoding is not ported yet, so it changes nothing
-    # here)
+    # opt OUT of speculative decoding for this request (only meaningful
+    # on a spec_k > 0 engine; the verify then never arms for its batch
+    # unless another row speculates, and this row is never drafted)
     spec: bool = True
 
     def __post_init__(self):
@@ -201,6 +224,28 @@ def _sample_tokens(logits, temps, top_ks, top_ps, seeds, sample_pos,
     logprob = torch.log_softmax(lg, dim=-1).gather(
         1, nxt.long()[:, None])[:, 0]
     return nxt, logprob, probs
+
+
+def ngram_draft(history: Sequence[int], k: int,
+                max_ngram: int = 3) -> List[int]:
+    """Model-free n-gram / prompt-lookup drafting: find the most recent
+    EARLIER occurrence of the history's longest matching tail n-gram (n =
+    ``max_ngram`` down to 1) and propose up to ``k`` tokens of its
+    continuation.  Pure Python over ints — deterministic, seed-free, and
+    identical across processes, so a resumed or replayed request re-drafts
+    the same proposals.  Reads ONE request's ``prompt + generated`` only.
+    Returns ``[]`` when the history is too short or no tail n-gram recurs:
+    drafting is best-effort, the verify commits >= 1 token either way."""
+    h = [int(t) for t in history]
+    n_hist = len(h)
+    if k <= 0 or n_hist < 2:
+        return []
+    for n in range(min(int(max_ngram), n_hist - 1), 0, -1):
+        pat = h[-n:]
+        for i in range(n_hist - n - 1, -1, -1):
+            if h[i:i + n] == pat:
+                return h[i + n:i + n + k]
+    return []
 
 
 def prefix_block_hash(parent: Optional[str], tokens: Sequence[int]) -> str:
@@ -430,6 +475,55 @@ class ServingRequest:
 
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A cache dtype as the reference's headers name it ("bfloat16",
+    "float32")."""
+    return str(dtype).split(".")[1]
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a cache's bytes travel as: int16 for bfloat16 (numpy
+    has no bfloat16 of its own), else the dtype's own."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy array of ``_host_dtype`` (a view)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16
+            else t).numpy()
+
+
+def _block_tensor(a, dtype: torch.dtype, shape) -> torch.Tensor:
+    """One layer's K or V of an imported block as a CPU tensor of the
+    cache's ``dtype`` and ``shape``: a tensor, or a numpy array — a
+    bfloat16 one (``ml_dtypes``, the reference's export) read through a
+    16-bit integer view, without importing ``ml_dtypes``.  Anything else
+    is a ValueError."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu()
+    elif isinstance(a, np.ndarray):
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(np.array(a).view(np.int16)).view(
+                torch.bfloat16)
+        elif a.dtype.name == _dtype_name(dtype):
+            t = torch.from_numpy(np.array(a))
+        else:
+            t = None
+    else:
+        raise ValueError(f"import_blocks: a block entry is "
+                         f"{type(a).__name__}, not a tensor or an array")
+    if t is None or t.dtype != dtype:
+        raise ValueError(f"import_blocks: a block entry of dtype "
+                         f"{a.dtype}, the cache's is {_dtype_name(dtype)}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"import_blocks: a block entry of shape "
+                         f"{tuple(t.shape)}, the cache's blocks are "
+                         f"{tuple(shape)}")
+    return t
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
@@ -467,10 +561,7 @@ class ServingEngine:
                 "port: the int8 paged cache and its scan-carried scales)")
         if int(spec_k) < 0:
             raise ValueError("spec_k must be >= 0")
-        if int(spec_k) > 0:
-            raise NotImplementedError(
-                "spec_k > 0 is not ported yet (a later slice of the port: "
-                "n-gram drafting and the batched verify program)")
+        self.cache_quant = cache_quant
         # seeded failpoint registry (faults.py): None (the default, unless
         # PADDLE_TPU_FAULTS is set) keeps the step loop at a single
         # attribute test of cost
@@ -542,6 +633,13 @@ class ServingEngine:
                 f"prefill_chunk_tokens={pc} must be in [1, block_size="
                 f"{self.bs}]")
         self.pc = pc
+        # speculative decoding: n-gram drafts of up to spec_k tokens per
+        # pure-decode row, verified (and committed) by ONE batched
+        # forward.  0 (default) disarms the path entirely.
+        self.spec_k = int(spec_k)
+        self.spec_accepted_tokens = 0   # draft tokens committed (monotone)
+        self.spec_draft_tokens = 0      # draft tokens proposed (monotone)
+        self.spec_verify_forwards = 0   # rows scored by verify launches
         # in-graph deadline budgets: seconds one loop iteration costs.  An
         # explicit deadline_token_seconds pins it; None lets the engine
         # learn an EWMA from measured megastep execute time.
@@ -558,10 +656,11 @@ class ServingEngine:
         # + batch marshalling, execute = device work + the one read-back,
         # harvest = token/unblocking bookkeeping)
         self.phase_seconds = {"schedule": 0.0, "execute": 0.0, "harvest": 0.0}
-        # the megastep loops as CUDA graphs, one per (program, K,
-        # all_greedy), counted in compile_count; never on the CPU.  Only the
-        # tests and chip_smoke.py set _graphs = False (the eager loops on
-        # CUDA, for comparison)
+        # the megastep loops and the verify as CUDA graphs, one per
+        # (program, K, all_greedy) or ("spec", all_greedy), counted in
+        # compile_count; never on the CPU.  Only the tests and
+        # chip_smoke.py set _graphs = False (the eager loops on CUDA, for
+        # comparison)
         self._graphs = self.device.type == "cuda"
         self._graph_cache = GraphCache(self.device, counters=launch_counters)
 
@@ -655,11 +754,15 @@ class ServingEngine:
         the CUDA graph of (name, K, all_greedy) (captured on the key's
         first call, which runs eagerly), or eagerly on the CPU and with
         ``_graphs`` off."""
+        return self._graphed((name, K, all_greedy),
+                             lambda *ins: fn(*ins, K, all_greedy), arrays)
+
+    def _graphed(self, key, fn, arrays):
+        """``fn(*device arrays)`` through the CUDA graph of ``key``, or
+        eagerly on the CPU and with ``_graphs`` off."""
         if not self._graphs:
-            return fn(*[self._dev(a) for a in arrays], K, all_greedy)
-        return self._graph_cache.run(
-            (name, K, all_greedy), lambda *ins: fn(*ins, K, all_greedy),
-            arrays)
+            return fn(*[self._dev(a) for a in arrays])
+        return self._graph_cache.run(key, fn, arrays)
 
     def _trunk(self, token_ids, enc, dec, now, cu, bt, mq):
         """embed -> layers -> final RMSNorm over the packed buffer
@@ -797,6 +900,53 @@ class ServingEngine:
             active = active & ~fin
             outs.append((nxt, emits, lps, probs))
         return (pp,) + self._stack(outs)
+
+    def _run_spec_verify(self, tokens, dec, now, cu, bt, dlen, draft, temps,
+                         top_ks, top_ps, seeds, spos, all_greedy):
+        """The verify program (the reference's ``_build_spec_verify``):
+        score all ``spec_k + 1`` positions of every row's ``[last token,
+        draft_0 .. draft_{d-1}]`` feed in ONE forward over the packed
+        [B * (spec_k + 1)] buffer (``mq = spec_k + 1``), and redraw each
+        position with the key stream the non-spec path would use (sample
+        index ``spos + j``).  The redraw is deterministic, so the accept
+        rule is prefix matching: position j accepts iff its redraw equals
+        the draft, and the committed tokens are the redraw's first
+        ``accepted + 1`` columns.
+
+        Draft tokens write K/V at ``dec .. dec + d``; the host advances
+        ``dec`` only by the committed count, and a cache write is a
+        function of (token, position, weights), so rejected positions are
+        overwritten by the next feed before any read reaches them.  Rows
+        and positions sample independently, so all B * (spec_k + 1) rows
+        go through ``_sample_tokens`` at once.  Returns ([B, 2 * (spec_k
+        + 1) + 1] int32: the redraws, the float32 bits of their logprobs,
+        the accepted count — one device-to-host copy), and the [B, spec_k
+        + 1, V] probs or None."""
+        B, sk = self.B, self.spec_k
+        Kp1 = sk + 1
+        h = self._trunk(tokens, torch.zeros_like(dec), dec, now, cu, bt, Kp1)
+        # position j of row b is packed token cu[b] + j; a row whose draft
+        # is shorter than spec_k clamps to its last fed token (masked out
+        # of the accept below, so the garbage never commits)
+        j = torch.arange(Kp1, dtype=torch.int32, device=dec.device)[None, :]
+        idx = torch.clamp(cu[:-1, None] + torch.minimum(j, dlen[:, None]),
+                          0, tokens.shape[0] - 1)
+        lg = h[idx.reshape(-1).long()] @ self._weights["head"]
+        def rep(a):
+            return a.repeat_interleave(Kp1)
+
+        nxt, lps, probs = _sample_tokens(
+            lg, rep(temps), rep(top_ks), rep(top_ps), rep(seeds),
+            (spos[:, None] + j).reshape(-1),
+            return_probs=self.capture_sample_probs, all_greedy=all_greedy)
+        nxt, lps = nxt.view(B, Kp1), lps.view(B, Kp1)
+        # accepted = the longest draft prefix the redraw reproduces
+        jk = j[:, :sk]
+        match = (nxt[:, :sk] == draft) & (jk < dlen[:, None])
+        acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        out = torch.cat([nxt, lps.view(torch.int32),
+                         acc.to(torch.int32)[:, None]], dim=1)
+        return out, (probs.view(B, Kp1, -1) if probs is not None else None)
 
     @staticmethod
     def _stack(outs):
@@ -1022,6 +1172,14 @@ class ServingEngine:
                 "mixed": self.megasteps_mixed,
                 "prefill_chunks": self.prefill_chunks,
             },
+            # speculative-decode counters (the same monotone delta-fold
+            # contract as the megastep block above)
+            "spec": {
+                "k": self.spec_k,
+                "accepted": self.spec_accepted_tokens,
+                "drafted": self.spec_draft_tokens,
+                "verify_forwards": self.spec_verify_forwards,
+            },
             # cumulative host seconds per step phase — megastep cost
             # attribution without a profiler
             "phase_seconds": dict(self.phase_seconds),
@@ -1171,6 +1329,34 @@ class ServingEngine:
         # carrying prefill chunks run the [T]-token program (mq=T) — decide
         # first, allocate the one token buffer the program actually takes
         decode_only = all(not r.in_prefill for r, _, _ in sched)
+        # SPECULATIVE arming: pure-decode batches on a spec_k > 0 engine
+        # try n-gram drafting first; one verify forward then commits
+        # accepted + 1 tokens per row.  int8 is excluded (a speculative
+        # rewind would need a scale rewind), and a launch with NO
+        # non-empty draft falls through — the megastep is strictly better
+        # when there is nothing to verify.
+        if (decode_only and self.spec_k > 0 and self.cache_quant != "int8"
+                and any(r.sampling.spec for r, _, _ in sched)):
+            spec_rows = [r for r, _, _ in sched]
+            drafts = self._draft(spec_rows)
+            if any(drafts.values()):
+                armed = True
+                if self._faults is not None:
+                    from .faults import prompt_signature
+
+                    try:
+                        self._faults.fire(
+                            SPEC_VERIFY,
+                            detail=" ".join(prompt_signature(r.prompt)
+                                            for r in spec_rows))
+                    except _INJECTED:
+                        # degrade: a verify fault sends this step down the
+                        # non-spec megastep/single-step path — the same
+                        # tokens, never a wrong one
+                        armed = False
+                if armed:
+                    self.phase_seconds["schedule"] += self._clock() - t0
+                    return self._spec_step(spec_rows, drafts)
         if (decode_only and self.megastep_k > 1
                 and max(r.max_new_tokens - len(r.generated)
                         for r, _, _ in sched) > 1):
@@ -1331,6 +1517,129 @@ class ServingEngine:
                 freed = True
         if freed:
             self._try_admit()
+
+    def _draft(self, reqs: List[ServingRequest]) -> Dict[int, List[int]]:
+        """Host-side n-gram drafts for one spec launch, {rid: [tok, ..]}.
+        Each row drafts from its own ``prompt + generated`` only, at most
+        ``min(spec_k, remaining - 1)`` tokens, so (a) speculative K/V
+        writes stay inside the blocks ``_try_admit`` allocated for
+        ``prompt + max_new_tokens`` and (b) a full accept commits at most
+        ``remaining`` tokens.  An ``engine.spec_draft`` fault degrades
+        that ROW to an empty draft: it rides the verify and commits
+        exactly its one non-spec token."""
+        drafts: Dict[int, List[int]] = {}
+        for r in reqs:
+            d: List[int] = []
+            cap = min(self.spec_k, r.max_new_tokens - len(r.generated) - 1)
+            if r.sampling.spec and cap > 0:
+                try:
+                    if self._faults is not None:
+                        from .faults import prompt_signature
+
+                        self._faults.fire(SPEC_DRAFT,
+                                          detail=prompt_signature(r.prompt))
+                    d = ngram_draft(r.prompt + r.generated, cap)
+                except _INJECTED:
+                    d = []   # degrade: this row rides undrafted
+            drafts[r.rid] = d
+        return drafts
+
+    def _spec_step(self, reqs: List[ServingRequest],
+                   drafts: Dict[int, List[int]]) -> Dict[int, List[int]]:
+        """ONE batched verify over ``[last token] + draft`` per row
+        (``_run_spec_verify``, a CUDA graph on CUDA); the host commits
+        the redraw's first ``accepted + 1`` columns, truncated at EOS as
+        the non-spec harvest stops.  Counters: ``spec_verify_forwards``
+        counts ROWS scored (forwards ÷ committed tokens is 1.0 when
+        nothing accepts and < 1.0 iff speculation pays),
+        ``spec_draft_tokens`` the proposals, ``spec_accepted_tokens`` the
+        committed draft tokens."""
+        t0 = self._clock()
+        B, sk = self.B, self.spec_k
+        Kp1 = sk + 1
+        tokens = np.zeros((B * Kp1,), np.int32)
+        dec = np.zeros((B,), np.int32)
+        now = np.zeros((B,), np.int32)
+        cu = np.zeros((B + 1,), np.int32)
+        dlen = np.zeros((B,), np.int32)
+        draft_a = np.zeros((B, sk), np.int32)
+        temps = np.zeros((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        top_ps = np.ones((B,), np.float32)
+        seeds = np.zeros((B,), np.int32)
+        spos = np.zeros((B,), np.int32)
+        reqs = sorted(reqs, key=lambda r: r.slot)
+        by_slot = {r.slot: r for r in reqs}
+        pos = 0
+        for slot in range(B):
+            cu[slot + 1] = pos
+            req = by_slot.get(slot)
+            if req is None:
+                continue
+            d = drafts.get(req.rid, [])
+            row = [req.generated[-1] if req.generated else req.prompt[-1]]
+            row.extend(int(t) for t in d)
+            tokens[pos:pos + len(row)] = row
+            dec[slot] = req.context_len - 1
+            # now bounds the row's writes: the padding past a short draft
+            # lands in the drop block
+            now[slot] = len(row)
+            dlen[slot] = len(d)
+            draft_a[slot, :len(d)] = d
+            self._fill_sampling(req, slot, temps, top_ks, top_ps, seeds,
+                                spos)
+            pos += len(row)
+            cu[slot + 1] = pos
+        all_greedy = bool((temps <= 0).all())
+        t1 = self._clock()
+        self.phase_seconds["schedule"] += t1 - t0
+        out, probs = self._graphed(
+            ("spec", all_greedy),
+            lambda *ins: self._run_spec_verify(*ins, all_greedy),
+            (tokens, dec, now, cu, self.block_tables, dlen, draft_a, temps,
+             top_ks, top_ps, seeds, spos))
+        out = out.cpu().numpy()      # the step's one device-to-host copy
+        nxt = out[:, :Kp1]           # [B, spec_k + 1] redraws
+        lps = out[:, Kp1:2 * Kp1].view(np.float32)
+        acc = out[:, -1]             # [B] accepted draft-prefix lengths
+        probs = probs.cpu().numpy() if probs is not None else None
+        t2 = self._clock()
+        self.phase_seconds["execute"] += t2 - t1
+
+        emitted: Dict[int, List[int]] = {}
+        for req in reqs:
+            s = req.slot
+            new = [int(t) for t in nxt[s, :int(acc[s]) + 1]]
+            if req.eos_token_id is not None and req.eos_token_id in new:
+                # the non-spec engine stops AT the EOS: accepted draft
+                # tokens past it were never going to be generated
+                new = new[:new.index(req.eos_token_id) + 1]
+            d = int(dlen[s])
+            req.generated.extend(new)
+            if req.sampling.logprobs:
+                row_lps = [float(v) for v in lps[s, :len(new)]]
+                req.logprob_values.extend(row_lps)
+                self._emitted_logprobs.setdefault(req.rid, []).extend(
+                    row_lps)
+            if probs is not None:
+                self._emitted_sample_probs.setdefault(req.rid, []).extend(
+                    probs[s, j].copy() for j in range(len(new)))
+            emitted[req.rid] = new
+            self.spec_verify_forwards += 1
+            self.spec_draft_tokens += d
+            self.spec_accepted_tokens += len(new) - 1
+            if self.trace_recorder is not None and req.trace is not None:
+                self.trace_recorder.record(
+                    req.trace["trace"], req.trace["span"],
+                    req.trace.get("parent"), "spec_verify",
+                    rid=req.trace.get("rid"), drafted=d,
+                    accepted=len(new) - 1, tokens=len(new))
+            hit_eos = (req.eos_token_id is not None
+                       and new[-1] == req.eos_token_id)
+            if hit_eos or len(req.generated) >= req.max_new_tokens:
+                self._retire(req)
+        self.phase_seconds["harvest"] += self._clock() - t2
+        return emitted
 
     def _megastep(self, reqs: List[ServingRequest]) -> Dict[int, List[int]]:
         """Run up to ``megastep_k`` decode iterations in one device loop
@@ -1618,3 +1927,204 @@ class ServingEngine:
         if not self.prefix_cache_enabled:
             return set()
         return self.blocks.cached_hashes()
+
+    # ------------------------------------------------- block transfer
+    # (disaggregated prefill/decode moves KV between engines as bit-exact
+    # payloads keyed by chain hash)
+
+    def _check_transferable(self, op: str):
+        if self.cache_quant == "int8":
+            raise ValueError(
+                f"{op} cannot be used with cache_quant='int8': the int8 "
+                "cache dequantizes through per-(slot, kv-head) DYNAMIC "
+                "scales frozen at each sequence's own prefill, so a "
+                "block's uint8 payload is only meaningful under its "
+                "writer's scales. Disaggregated transfer requires the "
+                "unquantized cache")
+
+    def _geometry(self):
+        """(block_size, layers, kv_heads, head_dim, dtype name): what a
+        payload must match, the dtype as the reference writes it."""
+        return (self.bs, self.L, self.KV, self.D,
+                _dtype_name(self.key_caches[0].dtype))
+
+    def _check_geometry(self, op: str, got):
+        if tuple(got) != self._geometry():
+            raise ValueError(
+                f"{op}: payload geometry {tuple(got)} does not match this "
+                f"engine's cache geometry {self._geometry()} (block_size, "
+                "layers, kv_heads, head_dim, dtype) — transfers require "
+                "identical cache layouts")
+
+    def _held(self, hashes: Sequence[str]):
+        """The chain's hashes up to the first one this pool no longer
+        holds, and their block ids."""
+        held: List[str] = []
+        ids: List[int] = []
+        for h in hashes:
+            b = self.blocks.lookup(h)
+            if b is None:
+                break
+            held.append(h)
+            ids.append(int(b))
+        return held, ids
+
+    def _gather(self, ids: List[int]) -> torch.Tensor:
+        """The blocks ``ids`` of every layer's K and V cache, stacked
+        [2, L, n, KV, bs, D] on the device (one gather per cache), then
+        brought to the host in one copy."""
+        bids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        return torch.stack([
+            torch.stack([c.index_select(0, bids) for c in caches])
+            for caches in (self.key_caches, self.value_caches)]).cpu()
+
+    def export_blocks_packed(self, hashes: Sequence[str]
+                             ) -> Tuple[Dict, bytes]:
+        """Bit-exact KV payload for a chain of published block hashes
+        (parent-first order) as ONE contiguous packed buffer.  Stops at
+        the first hash this pool no longer holds — a chain is only usable
+        up to its first gap.  Returns ``(header, raw)``: the reference's
+        self-describing header (``shape`` = ``[2, layers, nblocks,
+        kv_heads, block_size, head_dim]``, K/V stacked over the per-block
+        cache slice; ``dtype`` "bfloat16" or "float32") and the raw bytes
+        of one device gather and one device-to-host copy (bfloat16 leaves
+        through an int16 view)."""
+        self._check_transferable("export_blocks_packed")
+        held, ids = self._held(hashes)
+        header = {"block_size": self.bs, "layers": self.L,
+                  "kv_heads": self.KV, "head_dim": self.D,
+                  "dtype": self._geometry()[4], "hashes": held,
+                  "shape": [2, self.L, len(held), self.KV, self.bs, self.D]}
+        if not held:
+            return header, b""
+        return header, _host_array(self._gather(ids)).tobytes()
+
+    def export_blocks(self, hashes: Sequence[str]) -> Dict:
+        """The chain's payload in the dict form: ``{"block_size",
+        "layers", "kv_heads", "head_dim", "dtype", "blocks": {hash: {"k":
+        [per layer], "v": [per layer]}}}``, each entry a CPU tensor
+        [KV, bs, D] of the cache's dtype (views into the one gathered
+        buffer ``export_blocks_packed`` also reads)."""
+        self._check_transferable("export_blocks")
+        held, ids = self._held(hashes)
+        blocks: Dict[str, Dict[str, list]] = {}
+        if held:
+            arr = self._gather(ids)
+            for i, h in enumerate(held):
+                blocks[h] = {"k": [arr[0, li, i] for li in range(self.L)],
+                             "v": [arr[1, li, i] for li in range(self.L)]}
+        return {"block_size": self.bs, "layers": self.L, "kv_heads": self.KV,
+                "head_dim": self.D, "dtype": self._geometry()[4],
+                "blocks": blocks}
+
+    def import_blocks(self, payload: Dict) -> int:
+        """Install an ``export_blocks`` payload (this engine's or the
+        reference's: CPU tensors or numpy arrays, bfloat16 ones included)
+        into this pool: allocate a block, ``publish`` it under its chain
+        hash while live, then ``free`` it — which parks it in the reuse
+        LRU, content-addressable exactly like a locally prefilled block —
+        and write the bits on the device.  Already-cached hashes are
+        skipped (first publisher wins); allocation pressure stops the
+        import early (partial chains are still useful from the root).
+        Every entry is checked before the pool or the cache changes.
+        Returns the number of blocks imported."""
+        self._check_transferable("import_blocks")
+        self._check_geometry("import_blocks", (
+            payload.get("block_size"), payload.get("layers"),
+            payload.get("kv_heads"), payload.get("head_dim"),
+            payload.get("dtype")))
+        dt = self.key_caches[0].dtype
+        shape = (self.KV, self.bs, self.D)
+        items = []
+        for h, kv in payload.get("blocks", {}).items():
+            parts = []
+            for side in ("k", "v"):
+                layers = list(kv[side])
+                if len(layers) != self.L:
+                    raise ValueError(
+                        f"import_blocks: block {h} holds {len(layers)} "
+                        f"{side} layers, the engine {self.L}")
+                parts.append([_block_tensor(a, dt, shape) for a in layers])
+            items.append((h, torch.stack([torch.stack(p) for p in parts])))
+        return self._install([h for h, _ in items],
+                             lambda sel: torch.stack(
+                                 [items[i][1] for i in sel], dim=2))
+
+    def import_blocks_packed(self, header: Dict, raw: bytes) -> int:
+        """Install an ``export_blocks_packed`` chain segment: the header's
+        geometry, its shape and the byte count the geometry implies are
+        checked BEFORE the cache is touched — a torn or truncated buffer
+        is a typed ValueError, never a wrong or half-imported block — then
+        allocate/publish/free/write as :meth:`import_blocks`.  Returns the
+        imported count."""
+        self._check_transferable("import_blocks_packed")
+        self._check_geometry("import_blocks_packed", (
+            header.get("block_size"), header.get("layers"),
+            header.get("kv_heads"), header.get("head_dim"),
+            header.get("dtype")))
+        hashes = [str(h) for h in header.get("hashes") or ()]
+        shape = [2, self.L, len(hashes), self.KV, self.bs, self.D]
+        if list(header.get("shape") or ()) != shape:
+            raise ValueError(
+                f"import_blocks_packed: header shape {header.get('shape')} "
+                f"does not match the geometry-implied {shape}")
+        dt = self.key_caches[0].dtype
+        host = _host_dtype(dt)
+        expect = int(np.prod(shape)) * host.itemsize
+        if len(raw) != expect:
+            raise ValueError(
+                f"import_blocks_packed: payload is {len(raw)} bytes but the "
+                f"geometry implies {expect} — truncated or padded buffer "
+                "rejected whole")
+        arr = np.frombuffer(raw, dtype=host).reshape(shape)
+        # fancy indexing copies the chosen blocks out of the read-only
+        # buffer
+        return self._install(
+            hashes, lambda sel: torch.from_numpy(arr[:, :, sel]).view(dt))
+
+    def _install(self, hashes: List[str], blocks_of) -> int:
+        """The host half of an import, in the reference's order (skip a
+        cached hash, stop when nothing can be allocated, else allocate,
+        publish, free), then one write of the chosen payload blocks,
+        ``blocks_of(payload indices)`` -> [2, L, n, KV, bs, D] on the
+        host.  Returns the blocks imported."""
+        dst: Dict[int, int] = {}     # block id -> payload index
+        imported = 0
+        for i, h in enumerate(hashes):
+            if self.blocks.lookup(h) is not None:
+                continue
+            if not self.blocks.can_allocate(1):
+                break
+            (b,) = self.blocks.allocate(1)
+            # an allocation may evict (and reuse) a block this import
+            # parked earlier: the later write wins, as in the reference
+            dst[b] = i
+            self.blocks.publish(b, h)
+            self.blocks.free([b])   # park published: reusable, evictable
+            imported += 1
+        if dst:
+            self._write_blocks(list(dst), blocks_of(list(dst.values())))
+        return imported
+
+    def _write_blocks(self, ids: List[int], src: torch.Tensor):
+        """Write ``src`` [2, L, n, KV, bs, D] (host) into blocks ``ids`` of
+        every layer's caches, in place (the captured graphs read the
+        caches by address): staged in pinned memory on CUDA, one
+        host-to-device copy, then one ``index_copy_`` per cache."""
+        if self.device.type == "cuda":
+            staged = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            src = staged.copy_(src).to(self.device, non_blocking=True)
+        bids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        for li in range(self.L):
+            self.key_caches[li].index_copy_(0, bids, src[0, li])
+            self.value_caches[li].index_copy_(0, bids, src[1, li])
+
+    def pull_blocks(self, peer_endpoint: str, hashes: Sequence[str], *,
+                    epoch: Optional[int] = None,
+                    timeout: float = 60.0) -> Tuple[int, int]:
+        """Pull a chain segment off a peer's data-plane listener: not
+        ported yet."""
+        raise NotImplementedError(
+            "pull_blocks is not ported yet (a later slice of the port: "
+            "Queue A6, the binary data plane inference/blockwire.py); move "
+            "blocks with export_blocks_packed / import_blocks_packed")

@@ -241,8 +241,6 @@ def test_seeded_stream_replays_across_rebuild(mha):
 def test_unported_options_raise(mha):
     _, pm = mha
     with pytest.raises(NotImplementedError, match="later slice"):
-        PortEngine(pm, spec_k=2, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="later slice"):
         PortEngine(pm, cache_quant="int8", device="cpu", **ENGINE)
 
 
