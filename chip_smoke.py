@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's four paths — Llama serving through the paged
-ServingEngine (with speculative decoding and KV block transfer), Llama
+ServingEngine (with speculative decoding, KV block transfer and the int8
+KV cache), Llama
 generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
@@ -70,6 +71,13 @@ Phases (each prints its seconds):
      and the strided head, with and without a bias, the fused bias giving
      the two-step bits; in both types) against their plain versions, each
      cluster plan giving the same bits in five runs;
+     K4-int8 over uint8 pools of random codes with random per-(row, KV
+     head) scales: decode (8 rows, context <= 512, 32 / 32 and 32 / 8
+     heads), the single step's mixed batch of 255 tokens with an
+     out-of-pool block in a decode row's visible range, and decode at 8 /
+     2 heads, head_dim 72, 100, 264, 512 and 640, each with its plan and,
+     informative, K4's time over a cache of q's dtype at the same shape;
+     K2's interleaved pairs at the serving step's [1, 256] rows;
      then (informative) B1 and B8 in bf16 at every compiled tile pair
      (autotune.tune), B8's two GQA modes, and whether two bf16 B8 runs
      agree bit for bit;
@@ -101,7 +109,11 @@ Phases (each prints its seconds):
      weights' tokens; the 2-layer pair also serves repetitive prompts
      with spec_k 8 on cuda and on the CPU (the same top-2-gap rule), and
      a packed block export made on cuda, imported into a CPU engine,
-     serves wave 2 with the CPU engine's tokens (the same rule);
+     serves wave 2 with the CPU engine's tokens (the same rule); and the
+     int8 cache (cache_quant="int8", K4-int8) on cuda against the CPU at
+     head_dim 128, 72 and 640: greedy tokens equal up to the first top-2
+     gap below 1e-3 of the CPU engine's own int8 decode, logprobs within
+     1e-3 of the largest |logprob| + 1e-3 there;
   5. generation at full width, on phase 3's model: the launch counters are
      zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b) on the
      eager loop (_graphs = False), then on CUDA graphs (the default on
@@ -193,9 +205,21 @@ Phases (each prints its seconds):
      them (ms, GB/s) and exports the same bytes, then serves the prompts
      on the imported prefix (hits = blocks imported) with the tokens of
      engine C, which warmed the same prompts itself, bit for bit;
+ 12. int8-cache serving on phase 3's model (run before the model is
+     dropped for phase 7), phase 3's engine geometry with megastep_k 8 and
+     cache_quant="int8": the KV bytes (pools and scales) against the bf16
+     cache's; two waves of prompts up to token_budget (one sampled) on
+     CUDA graphs, the counters zeroed just before and read just after (the
+     "int8" path: K4-int8 launched, K4 over a bf16 cache not), every
+     replay under CUDA sync debugging set to raise; an eager engine
+     (_graphs = False) over the same weights gives identical tokens,
+     logprobs and counters; the share of tokens equal to a bf16-cache
+     engine's (printed); then phase 3's decode wave on each engine, one
+     untraced and one under torch.profiler (wall, busy share, K1/K2,
+     K4-int8's device time and kernels, equal to its wrapper calls);
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
-  "spec", "generate", "train", "predict"}, null for a path whose phase did
-  not run), then the card line, then {"ok": true, "device": {...}} as the
+  "int8", "spec", "generate", "train", "predict"}, null for a path whose
+  phase did not run), then the card line, then {"ok": true, "device": {...}} as the
   last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
@@ -230,6 +254,9 @@ REPLACES = {
     "swiglu_bwd": "paddle_tpu/ops/pallas/fused_ops.py:178",
     # not a Pallas kernel: the jnp attention core XLA compiles
     "paged_attention": "paddle_tpu/ops/paged_attention.py:262",
+    # not a Pallas kernel: the int8 cache's dequantization and
+    # full-precision overlay (:239-254) before the same core
+    "paged_attention_int8": "paddle_tpu/ops/paged_attention.py:239",
     "flash_attention": "paddle_tpu/ops/pallas/flash_attention.py:148",
     "decode_attention": "paddle_tpu/ops/pallas/decode_attention.py:155",
     "kv_ring_write": "paddle_tpu/ops/pallas/decode_attention.py:70",
@@ -246,6 +273,7 @@ SOURCES = {
     "swiglu": "paddle_tpu_torch/csrc/fused_ops.cu",
     "swiglu_bwd": "paddle_tpu_torch/csrc/fused_ops.cu",
     "paged_attention": "paddle_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention_int8": "paddle_tpu_torch/csrc/paged_attention.cu",
     "flash_attention": "paddle_tpu_torch/csrc/flash_attention.cu",
     "decode_attention": "paddle_tpu_torch/csrc/decode_attention.cu",
     "kv_ring_write": "paddle_tpu_torch/csrc/decode_attention.cu",
@@ -266,10 +294,13 @@ OUTPUTS = {
 }
 # the kernels each path runs (phase 3 serving, phase 5 generation, phase 7
 # training, phase 9 the int8 predictor, phase 11 speculative serving: the
-# verify runs the serving trunk at max_q_len spec_k + 1)
+# verify runs the serving trunk at max_q_len spec_k + 1; phase 12 serving
+# over the int8 KV cache)
 PATHS = {
     "serving": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                 "paged_attention"),
+    "int8": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+             "paged_attention_int8"),
     "spec": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
              "paged_attention"),
     "generate": ("rms_norm", "rms_norm_residual", "rope", "rope_ring",
@@ -478,6 +509,21 @@ def kernel_cases(torch, dtype):
             lambda q=q, k=k, c=cs, s=sn: fused_ops._rope_ref(q, k, c, s),
             None, 2 * Tn * (Hq + Hk) * D * es + 2 * Tn * (D // 2) * 4,
             6 * Tn * (Hq + Hk) * D // 2))
+    # K2's interleaved pairs (blha_attention's use_neox_style=False) at the
+    # serving step's [1, 256] packed rows
+    qkv = rnd(T, 3 * Hq * D)
+    q = qkv[:, :Hq * D].view(1, T, Hq, D)
+    k = qkv[:, Hq * D:2 * Hq * D].view(1, T, Hq, D)
+    label = f"interleaved q, k [1, {T}, {Hq}, {D}]"
+    _K2_PLANS[(label, str(dtype).split(".")[1])] = fused_ops.rope_plan(
+        1, T, Hq, Hq, D, dtype, True)
+    cases.append((
+        "rope", label,
+        lambda q=q, k=k: fused_ops.rope_fused(q, k, cos, sin,
+                                              interleaved=True),
+        lambda q=q, k=k: fused_ops._rope_ref(q, k, cos, sin, True),
+        None, 4 * T * Hq * D * es + 2 * T * (D // 2) * 4,
+        6 * T * 2 * Hq * D // 2))
     # generation's rope: the whole 4096-row table and the ring's pos on the
     # device (greedy_decode's decode step, a 32 / 8 split, and an offset the
     # clamp moves back to Smax - S)
@@ -559,6 +605,26 @@ def kernel_cases(torch, dtype):
             f"{heads} heads / {kv_heads} KV", heads, kv_heads, D,
             torch.randint(64, 503, (B,), generator=g, device=dev).to(
                 torch.int32), [9, 9, 5, 9, 1, 9, 3, 9], mq=9, T=8 * 9))
+    # K4-int8 (the int8 cache): decode over 512-token contexts at 32 / 32
+    # and 32 / 8 heads, the single step's mixed batch with an out-of-pool
+    # block in a decode row's visible range, and the head dims past the
+    # tensor-core classes (8 / 2 heads)
+    for label, heads, kv_heads, hd, dec, now, oob in (
+            ("decode 8 rows, context <= 512", Hq, Hq, D,
+             torch.randint(64, 511, (B,), generator=g, device=dev), [1] * B,
+             False),
+            ("decode 8 rows, context <= 512, 32 heads / 8 KV", Hq, 8, D,
+             torch.randint(64, 511, (B,), generator=g, device=dev), [1] * B,
+             False),
+            ("mixed 255 tokens, an out-of-pool block", Hq, Hq, D,
+             torch.tensor([300, 0, 200, 450, 0, 0, 20, 64], device=dev),
+             [1, 100, 16, 1, 60, 0, 1, 76], True),
+            *((f"decode 8 rows, 8 heads / 2 KV, head_dim {d}", 8, 2, d,
+               torch.randint(64, 511, (B,), generator=g, device=dev),
+               [1] * B, False) for d in (72, 100, 264, 512, 640))):
+        cases.append(_paged_int8_case(torch, rnd, es, g, label, heads,
+                                      kv_heads, hd, dec.to(torch.int32), now,
+                                      oob))
     return cases
 
 
@@ -1153,6 +1219,67 @@ def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
             _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq), nbytes, ops)
 
 
+# K4-int8's plan and the K4 call over a cache of q's dtype at the same
+# shape, for each case, by (label, dtype name): printed beside its time
+_K4I_PLANS = {}
+_K4I_K4 = {}
+
+
+def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
+                     P=32, NB=256):
+    """One K4-int8 case over uint8 pools of random codes and random
+    per-(row, KV head) scales: a decode batch (T = B) or a mixed batch in
+    the single step's [256] buffer (max_q_len 256); ``oob``: row 0's first
+    block-table entry, visible, is outside the pool (uint8 0)."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    bs, B = 16, len(now)
+    dev = "cuda"
+
+    def codes():
+        return torch.randint(0, 256, (NB, KV, bs, D), generator=g,
+                             device=dev, dtype=torch.uint8)
+
+    kc, vc = codes(), codes()
+    bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(B, P).to(
+        torch.int32)
+    if oob:
+        bt[0, 0] = -1
+    now = torch.tensor(now, dtype=torch.int32, device=dev)
+    cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+    cu[1:] = torch.cumsum(now, 0)
+    decode = int(now.max()) == 1
+    T = int(cu[-1]) if decode else 256
+    mq = 1 if decode else 256
+    q, k, v = rnd(T, H, D), rnd(T, KV, D), rnd(T, KV, D)
+    kd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+    vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+    dname = str(q.dtype).split(".")[1]
+    _K4I_PLANS[(label, dname)] = pa.paged_int8_plan(T, B, mq, P, bs, H, KV,
+                                                    D)
+    kcf, vcf = rnd(NB, KV, bs, D), rnd(NB, KV, bs, D)
+    _K4I_K4[(label, dname)] = lambda: pa.paged_attention(
+        q, kcf, vcf, dec, now, cu, bt, mq)
+    ctx = P * bs
+    live = [min(n, mq) for n in now.tolist()]
+    rows = [(d, n) for d, n in zip(dec.tolist(), live) if n]
+    # bytes: the q of the tokens that attend, the whole output, each row's
+    # cached keys and values (one byte an element) and its fresh ones (of
+    # q's dtype) once, the scales; operations: QK^T and PV over each
+    # attending token's visible keys, and the dequantization (a subtract
+    # and a multiply) of every cached element read
+    cached = sum(min(d, ctx) for d, _ in rows)
+    fresh = sum(min(d + n, ctx) - min(d, ctx) for d, n in rows)
+    nbytes = ((sum(live) + T) * H * D * es + 2 * cached * KV * D
+              + 2 * fresh * KV * D * es + 2 * B * KV * 4)
+    vis = sum(min(d + j + 1, ctx) for d, n in rows for j in range(n))
+    ops = 4 * vis * H * D + 4 * cached * KV * D
+    args = (q, k, v, kc, vc, kd, vd, dec, now, cu, bt, mq)
+    return ("paged_attention_int8", label,
+            lambda: pa.paged_attention_int8(*args),
+            lambda: pa._paged_attention_int8_ref(*args), None, nbytes, ops)
+
+
 def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
     """F.scaled_dot_product_attention over the gathered, padded context
     (the library yardstick for K4; timed alone, gather excluded)."""
@@ -1231,6 +1358,14 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                       f"{plan.kt} stages {plan.stages} splits {plan.splits} "
                       f"chunk {plan.chunk} blocks {plan.blocks} smem "
                       f"{plan.smem}", flush=True)
+            if name == "paged_attention_int8":
+                p8 = _K4I_PLANS[(label, dname)]
+                print(f"k4-int8 {dname} {label}: {nbytes / ms / 1e6:.1f} "
+                      f"GB/s, {bound_ms / ms:.3f} of the bound; qt {p8.qt} "
+                      f"kt {p8.kt} blocks {p8.blocks} smem {p8.smem}; K4 "
+                      f"over a {dname} cache at the same shape "
+                      f"{timer(_K4I_K4[(label, dname)]):.4f} ms "
+                      "(informative)", flush=True)
             if name == "int8_matmul":
                 b7, _, dense = _B7_PLANS[(label, dname)]
                 print(f"b7 {dname} {label}: {ops / ms / 1e9:.1f} TFLOP/s, "
@@ -3457,9 +3592,196 @@ def spec_and_transfer_vs_plain(torch, gpu_model, cpu_model):
           "wave 2 on them == the CPU engine's wave 2")
 
 
+# --------------------------------------------------------- phases 4, 12
+def _int8_gaps(torch, cpu_model, kw, prompt, n):
+    """The top-2 logit gap at each of the ``n`` greedy tokens a CPU int8
+    engine (``kw``) gives ``prompt`` served alone: its own quantized
+    decode, read off each logits row it samples from (slot 0; the frozen
+    iterations after the last token come after these)."""
+    from paddle_tpu_torch.inference import serving
+
+    eng = serving.ServingEngine(cpu_model, device="cpu", **kw)
+    gaps = []
+    sample = serving._sample_tokens
+
+    def recording(logits, *args, **kwargs):
+        top2 = torch.topk(logits[0].float(), 2).values
+        gaps.append(float(top2[0] - top2[1]))
+        return sample(logits, *args, **kwargs)
+
+    serving._sample_tokens = recording
+    try:
+        rid = eng.add_request(prompt, max_new_tokens=n)
+        eng.run()[rid]
+    finally:
+        serving._sample_tokens = sample
+    return gaps[:n]
+
+
+def int8_kernels_vs_plain(torch, gpu_model, cpu_model):
+    """Phase 4: the int8 engine (K4-int8) on cuda against the CPU plain
+    path from identical weights: greedy tokens equal up to the first
+    position whose top-2 gap on the CPU (its own int8 decode) is below
+    1e-3, logprobs there within 1e-3 of the largest |logprob| + 1e-3."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg = gpu_model.config
+    kw = dict(max_batch_size=4, max_seq_len=128, block_size=16,
+              token_budget=128, cache_quant="int8")
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (9, 33, 48, 20)]
+    lp = dict(logprobs=True)
+    waves = [[(p, 16, lp) for p in prompts], [(prompts[1], 16, lp)]]
+    g_lps, c_lps = [], []
+    gpu_eng = ServingEngine(gpu_model, **kw)
+    gpu = _serve_waves(gpu_eng, waves, g_lps)
+    cpu = _serve_waves(ServingEngine(cpu_model, device="cpu", **kw), waves,
+                       c_lps)
+    if gpu_eng.megasteps_mixed or not gpu_eng.megasteps:
+        raise AssertionError("the int8 engine ran a mixed loop or no "
+                             "megastep")
+    worst = 0.0
+    flat = [p for w in waves for p, _, _ in w]
+    for i, p in enumerate(flat):
+        gaps = _int8_gaps(torch, cpu_model, kw, p, len(cpu[i]))
+        _agree(gpu[i], cpu[i], gaps, f"int8 request {i} cuda vs cpu")
+        stop = next((j for j, g_ in enumerate(gaps) if g_ < 1e-3),
+                    len(gaps))
+        a, b = np.array(g_lps[i][:stop]), np.array(c_lps[i][:stop])
+        err = float(np.abs(a - b).max()) if stop else 0.0
+        tol = 1e-3 * float(np.abs(b).max()) + 1e-3 if stop else 0.0
+        worst = max(worst, err)
+        if not err <= tol:
+            raise AssertionError(f"int8 request {i}: logprobs differ by "
+                                 f"{err} > {tol}")
+    print(f"int8 cache: kernel path == plain path on {len(flat)} requests "
+          f"(logprobs max_abs_err {worst:.3e}); megasteps "
+          f"{gpu_eng.megasteps}, mixed 0, prefill chunks "
+          f"{gpu_eng.prefill_chunks}")
+
+
+def _cache_bytes(eng):
+    """The bytes of an engine's KV pools (drop block included) and, for
+    the int8 cache, its scales."""
+    n = sum(c.numel() * c.element_size()
+            for c in eng.key_caches + eng.value_caches)
+    for sc in eng.cache_scales or ():
+        n += sum(t.numel() * t.element_size() for t in sc.values())
+    return n
+
+
+def full_width_int8(torch, model):
+    """Phase 12: the 7B geometry served over the int8 KV cache on CUDA
+    graphs and on the eager loops (identical tokens, logprobs and
+    counters), its tokens beside a bf16-cache engine's (printed), cache
+    bytes, and the decode wave profiled on each with K4-int8's kernels
+    against its wrapper's count."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    cfg = model.config
+    eng = ServingEngine(model, cache_quant="int8", megastep_k=8, **SERVE_KW)
+    eager = ServingEngine(model, cache_quant="int8", megastep_k=8,
+                          **SERVE_KW)
+    eager._graphs = False
+    bf16 = ServingEngine(model, megastep_k=8, **SERVE_KW)
+    print(f"KV cache bytes: int8 {_cache_bytes(eng)} (pools and scales), "
+          f"bf16 {_cache_bytes(bf16)}, ratio "
+          f"{_cache_bytes(eng) / _cache_bytes(bf16):.4f}")
+    rng = np.random.default_rng(7)
+
+    def prompt(n):
+        return rng.integers(1, cfg.vocab_size, n).tolist()
+
+    greedy = dict(logprobs=True)
+    sampled = dict(temperature=0.8, top_p=0.9, seed=7, logprobs=True)
+    # prompts up to token_budget (int8 prefills in one step)
+    lens = [7, 40, 128, 200, 256, 33, 250, 90, 150]
+    news = [48, 32, 64, 40, 56, 1, 36, 60, 44]
+    wave1 = [(prompt(n), m, sampled if i == 3 else greedy)
+             for i, (n, m) in enumerate(zip(lens, news))]
+    wave2 = [(wave1[2][0], 32, greedy), (prompt(70), 40, greedy)]
+    for e in (eng, eager):
+        e._run_megastep = _sync_free(torch, e._run_megastep)
+    replays0 = _REPLAYS[0]
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lps = []
+    outs = _serve_waves(eng, [wave1, wave2], lps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = _path_launches("int8", counters)
+    if launches["paged_attention"]:
+        raise AssertionError("the int8 engine launched K4 over a bf16 cache")
+    n_tok = sum(len(o) for o in outs)
+    print(f"int8 served {len(outs)} requests, {n_tok} tokens in {secs:.3f} "
+          f"s ({n_tok / secs:.1f} tokens/s, informative); "
+          f"{_REPLAYS[0] - replays0} graph replays under CUDA sync "
+          f"debugging set to raise; megasteps {eng.megasteps}, mixed "
+          f"{eng.megasteps_mixed}, prefill chunks {eng.prefill_chunks}")
+    if not eng.megasteps or eng.megasteps_mixed or eng.prefix_hit_blocks:
+        raise AssertionError("the int8 run did not arm the megastep, or "
+                             "armed the mixed loop or the prefix cache")
+    kd = eng.cache_scales[0]["kd"]
+    if not bool(torch.isfinite(kd).all()):
+        raise AssertionError("non-finite int8 cache scales")
+    e_lps = []
+    e_outs = _serve_waves(eager, [wave1, wave2], e_lps)
+    names = ("megasteps", "megasteps_mixed", "prefill_chunks")
+    got = [getattr(eng, n) for n in names]
+    want = [getattr(eager, n) for n in names]
+    if outs != e_outs or lps != e_lps or got != want:
+        bad = [i for i, (a, b) in enumerate(zip(outs, e_outs)) if a != b]
+        raise AssertionError(f"int8 graphs and eager loops differ: tokens "
+                             f"of requests {bad}, logprobs equal "
+                             f"{lps == e_lps}, {names} {got} vs {want}")
+    print(f"int8 graphs == eager: tokens, logprobs and {names} {got} "
+          f"identical over {len(outs)} requests (the sampled one too); "
+          f"compile_count {eng.compile_count}")
+    b_outs = _serve_waves(bf16, [wave1, wave2])
+    same = sum(a == b for o, r in zip(outs, b_outs) for a, b in zip(o, r))
+    first = [next((j for j, (a, b) in enumerate(zip(o, r)) if a != b),
+                  len(o)) for o, r in zip(outs, b_outs)]
+    print(f"int8 vs bf16 cache: {same} of {n_tok} tokens agree by position "
+          f"({same / n_tok:.4f}); first difference per request {first} "
+          "(informative)")
+    waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(3)]
+    for label, e in (("graphs", eng), ("eager", eager)):
+        calls = []
+
+        def traced(e=e):
+            n0 = pa.paged_attention_int8.launches
+            _serve_waves(e, [waves[2]])
+            calls.append(pa.paged_attention_int8.launches - n0)
+
+        _serve_waves(e, [waves[0]])
+        evs = _profile(torch, f"int8 decode wave, {label} (8 rows, 64-token "
+                       "prompts, 32 new tokens)",
+                       lambda e=e: _serve_waves(e, [waves[1]]), traced,
+                       top=15)
+        _k1_k2(evs, f"the int8 decode wave, {label}")
+        k4 = [ev for ev in evs if "paged_attention_int8" in ev.key]
+        k4_n = sum(ev.count for ev in k4)
+        k4_ms = sum(ev.self_device_time_total for ev in k4) / 1e3
+        print(f"profile K4-int8 in the int8 decode wave, {label}: "
+              f"{k4_ms:.3f} ms device, {k4_n} kernels "
+              f"({1e3 * k4_ms / max(k4_n, 1):.2f} us a launch), "
+              f"{calls[-1]} wrapper calls")
+        if k4_n != calls[-1] or not k4_n:
+            raise AssertionError(f"K4-int8 ({label}): {k4_n} kernels for "
+                                 f"{calls[-1]} calls")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -3511,7 +3833,7 @@ def main(argv=None) -> int:
                                 k1_sweep=args.k1_sweep)
         _done("2", t)
     launches = {path: None for path in PATHS}
-    model = full_width_model(torch) if phases & {3, 5, 11} else None
+    model = full_width_model(torch) if phases & {3, 5, 11, 12} else None
     if 3 in phases:
         t = _phase("3 full-width serving")
         launches["serving"] = full_width_serving(torch, model)
@@ -3529,6 +3851,9 @@ def main(argv=None) -> int:
             kernels_vs_plain_path(torch, *dims[d])
         _load_weights_on_graphs(torch, dims[72][0],
                                 two_layer_models(torch, 72, seed=2)[0])
+        for d in (None, 72, 640):
+            print(f"-- int8 cache, head_dim {d or 128}")
+            int8_kernels_vs_plain(torch, *(dims[d] if d else pair))
         _done("4", t)
     if 5 in phases:
         t = _phase("5 full-width generation")
@@ -3549,6 +3874,12 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _done("11", t)
+    if 12 in phases:
+        t = _phase("12 full-width int8-cache serving")
+        launches["int8"] = full_width_int8(torch, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("12", t)
     model = None                # the 7B weights: room for training
     torch.cuda.empty_cache()
     if 7 in phases:

@@ -2,7 +2,11 @@
 //
 // K2 replaces paddle_tpu/ops/pallas/fused_ops.py:_rope_one_pallas (forward):
 // the neox half-split rotation [x1*c - x2*s, x2*c + x1*s] in float32 of
-// q [B, S, H, D] and k [B, S, KVH, D] by cos/sin [S, D/2].  The serving
+// q [B, S, H, D] and k [B, S, KVH, D] by cos/sin [S, D/2].  With the
+// interleaved flag it rotates the pairs (2j, 2j + 1) by cos/sin[j] instead,
+// the other style of paddle_tpu/ops/paged_attention.py:rope_rotate (:52-56,
+// blha_attention's use_neox_style=False): a thread loads the 2 CP elements
+// of its CP pairs as two 16-byte pieces.  The serving
 // engine passes B = 1, S = T packed tokens and the cos/sin rows gathered at
 // each token's absolute position.  One launch rotates q and k together.
 // The generation path passes the whole [Smax, D/2] table and its position
@@ -99,6 +103,7 @@ struct RopeArgs {
   unsigned items;   // B * S * (H + KVH) * chunks
   long long qsb, qss, ksb, kss, vsb, vss;
   float sign;       // 1, or -1 for the backward
+  int interleaved;  // pairs (2j, 2j + 1), else the neox halves (j, j + D/2)
 };
 
 // the device's offset, a negative one counted from the end of `len` rows,
@@ -148,8 +153,19 @@ __global__ void __launch_bounds__(kRopeThreads) rope_kernel(RopeArgs a) {
     return;
   }
   float x1[CP], x2[CP], cc[CP], sn[CP];
-  load_f<T, CP>(src + j, x1);
-  load_f<T, CP>(src + half + j, x2);
+  if (a.interleaved) {  // elements 2j .. 2j + 2 CP - 1, pairs side by side
+    float w[2 * CP];
+    load_f<T, CP>(src + 2 * j, w);
+    load_f<T, CP>(src + 2 * j + CP, w + CP);
+#pragma unroll
+    for (int e = 0; e < CP; ++e) {
+      x1[e] = w[2 * e];
+      x2[e] = w[2 * e + 1];
+    }
+  } else {
+    load_f<T, CP>(src + j, x1);
+    load_f<T, CP>(src + half + j, x2);
+  }
   load_row<CP>(a.cos_t + (size_t)row * half + j, cc);
   load_row<CP>(a.sin_t + (size_t)row * half + j, sn);
   float o1[CP], o2[CP];
@@ -159,8 +175,19 @@ __global__ void __launch_bounds__(kRopeThreads) rope_kernel(RopeArgs a) {
     o1[e] = x1[e] * cc[e] - x2[e] * se;
     o2[e] = x2[e] * cc[e] + x1[e] * se;
   }
-  store_f<T, CP>(dst + j, o1);
-  store_f<T, CP>(dst + half + j, o2);
+  if (a.interleaved) {
+    float w[2 * CP];
+#pragma unroll
+    for (int e = 0; e < CP; ++e) {
+      w[2 * e] = o1[e];
+      w[2 * e + 1] = o2[e];
+    }
+    store_f<T, CP>(dst + 2 * j, w);
+    store_f<T, CP>(dst + 2 * j + CP, w + CP);
+  } else {
+    store_f<T, CP>(dst + j, o1);
+    store_f<T, CP>(dst + half + j, o2);
+  }
 }
 
 template <typename T>
@@ -288,7 +315,7 @@ extern "C" int ptt_rope(const void* q, const void* k, const void* v,
                         int B, int S, int H, int KVH, int D, long long qsb,
                         long long qss, long long ksb, long long kss,
                         long long vsb, long long vss, float sign, int vec,
-                        int dtype, void* stream) {
+                        int interleaved, int dtype, void* stream) {
   const bool ring = kbuf != nullptr;
   if (D % 2 || S < 1 || smax < S ||
       (off && off_bytes != 4 && off_bytes != 8) ||
@@ -301,7 +328,7 @@ extern "C" int ptt_rope(const void* q, const void* k, const void* v,
   a.off = off, a.off_bytes = off_bytes, a.smax = smax;
   a.S = S, a.H = H, a.KVH = KVH, a.D = D;
   a.qsb = qsb, a.qss = qss, a.ksb = ksb, a.kss = kss, a.vsb = vsb,
-  a.vss = vss, a.sign = sign;
+  a.vss = vss, a.sign = sign, a.interleaved = interleaved;
   const long long tokens = (long long)B * S;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == ptt::kFloat32)

@@ -1134,6 +1134,524 @@ bool valid_plan(int B, int P, int H, int KV, int D, int bs, int mq, int QT,
          (stages == 2 || stages == 3);
 }
 
+// ------------------------------------------------------------ K4-int8
+// The attention of blha_attention over the int8 cache (cache_quant
+// "static" or "dynamic"; paddle_tpu/ops/paged_attention.py:237-254 with
+// :262-316), which the JAX package leaves to XLA: gather the uint8 blocks,
+// dequantize them as (u8 - 128) * d[b, kv], overlay this step's keys and
+// values at full precision, then the padded-batch attention.  Here, per
+// block of one query tile and one KV head (the tiling of K4's SIMT
+// instance, one split): key tiles of KT keys are read through the block
+// table and dequantized into float32 in shared memory on the way in.  A
+// row's keys 0 .. dec - 1 come from its uint8 blocks with its scales
+// d[b, kh]; its keys dec .. dec + now - 1, the last of its context, come
+// from the fresh k and v [T, KV, D] at token cu[b] + (key - dec), never
+// from the cache (the reference's overlay, which keeps prefill outputs
+// exact and is attended even where the cache write was dropped).  A block
+// id outside the pool reads as uint8 0, i.e. -128 * d, as the reference's
+// gather fills it.  Float32 online softmax with scale 1/sqrt(D), as K4.
+//
+// Bound on the H100: bytes (one byte a cached element, the fresh rows in
+// their dtype), as K4.  This first version is simple: 16-byte (8-byte for
+// uint8) loads, a thread's next four issued together and then converted in
+// registers, no ring; K4's cluster split of the
+// context where the grid leaves SMs idle (the leader merges through
+// distributed shared memory, finish()); every D (the rows padded to 8
+// columns, key tiles of 64 down to 8 keys as D grows, query tiles that
+// shrink until the block fits 227 KB).  The
+// exact-integer bf16 mma.sync (u8 - 128 is exact in bf16 and d factors out
+// of q.k and of p.v) and the quantized write folded into the launch are
+// later work (ROADMAP K4-int8-fast).
+
+// key groups of the P @ V step: the 8-column pieces of a row take
+// DA / 8 threads, and the rest of the block's threads split the keys
+// (as K4's SIMT instance)
+__host__ __device__ inline int int8_key_groups(int R, int D) {
+  const int DC = simt_cols(D) / kVec;
+  const int slots = DC >= kThreads ? 1 : kThreads / DC;
+  int KG = 1;
+  while (KG * 2 * R <= slots) KG *= 2;
+  return KG;
+}
+
+// The shared-memory layout of a K4-int8 block, in bytes; mirrored by
+// ops/hopper/paged_attention.py:_int8_smem_bytes
+struct Int8Layout {
+  int KG;       // key groups (partial accumulators of P @ V)
+  int rstride;  // floats between two K (V) rows of a tile
+  size_t k, v, q, s, acc, stats, ws, tables, total;
+};
+
+__host__ __device__ inline Int8Layout int8_layout(int R, int D, int KT,
+                                                  int splits, int B,
+                                                  int chunk, int bs) {
+  Int8Layout L = {};
+  const int DA = simt_cols(D);
+  L.KG = int8_key_groups(R, D);
+  L.rstride = row_chunks(DA, 4) * 4;
+  size_t off = 0;
+  L.k = off;  // KT x DA float, dequantized keys
+  off += (size_t)KT * L.rstride * 4;
+  L.v = off;  // KT x DA float, dequantized values
+  off += (size_t)KT * L.rstride * 4;
+  L.q = off;  // R x DA float, pre-scaled
+  off += (size_t)R * DA * 4;
+  L.s = off;  // R x KT scores, then probabilities
+  off += (size_t)R * KT * 4;
+  L.acc = off;  // KG x R x DA float accumulators
+  off += (size_t)L.KG * R * DA * 4;
+  L.stats = off;  // m, l, corr (float) and the last visible key (int)
+  off += (size_t)4 * R * 4;
+  L.ws = off;  // the leader's merge weights: splits x R, then 1 / L
+  off += (size_t)(splits + 1) * R * 4;
+  L.tables = off;  // int: cu, len, pt, dec by row; a split's block ids
+  off += (size_t)(4 * B + 2 + chunk / bs + 2) * 4;
+  L.total = off;
+  return L;
+}
+
+// Where one row's keys come from: the uint8 pools at KV head kh through
+// the block ids, the fresh k / v rows (token tok0 + key, head kh) for
+// keys >= dec, and the row's dequantization scales.
+template <typename T>
+struct Int8Rows {
+  const uint8_t *kc, *vc;
+  const T *kf, *vf;
+  const int* s_blk;
+  size_t blk_stride, head;    // bytes of one block, of head kh's offset
+  long long kstride, vstride; // elements between two tokens of k, v
+  int D, bs, b0, dec, tok0;
+  float kd, vd;
+};
+
+// 8 uint8 values of the cache as (u8 - 128) * d; columns past D as 0
+__device__ __forceinline__ void deq8(const uint8_t* p, float d, int left,
+                                     float* out) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e)
+    out[e] = e < left ? ((float)p[e] - 128.f) * d : 0.f;
+}
+
+// 8 values of a fresh row; past D as 0
+template <typename T>
+__device__ __forceinline__ void fresh8(const T* p, int left, float* out) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) out[e] = e < left ? ptt::to_f(p[e]) : 0.f;
+}
+
+// The raw bytes of one 8-column piece of a K or V row: 8 uint8 codes (a.x,
+// a.y) or 8 fresh values of T (a, and b for float32)
+struct Piece8 {
+  uint4 a, b;
+};
+
+template <typename T>
+__device__ __forceinline__ Piece8 load_piece(const T* p) {
+  Piece8 r;
+  r.a = *reinterpret_cast<const uint4*>(p);
+  if constexpr (sizeof(T) == 4) r.b = *reinterpret_cast<const uint4*>(p + 4);
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack_fresh(const Piece8& r, float* out) {
+  if constexpr (sizeof(T) == 4) {
+    const uint32_t w[8] = {r.a.x, r.a.y, r.a.z, r.a.w,
+                           r.b.x, r.b.y, r.b.z, r.b.w};
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) out[e] = __uint_as_float(w[e]);
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.a);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      out[2 * e] = f.x;
+      out[2 * e + 1] = f.y;
+    }
+  }
+}
+
+__device__ __forceinline__ void unpack_codes(const Piece8& r, float d,
+                                             float* out) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const uint32_t w = e < 4 ? r.a.x : r.a.y;
+    out[e] = ((float)((w >> (8 * (e & 3))) & 0xffu) - 128.f) * d;
+  }
+}
+
+__device__ __forceinline__ void store8(float* dst, const float* x) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// K and V rows t0 .. t0 + KT - 1 into ks / vs as float32 (rows `rs` floats
+// apart, DA columns, zeros past D and for keys >= c1).  kAligned (D % 8 ==
+// 0, 16-byte fresh rows, 8-byte cache rows): a thread first issues the
+// loads of kBatch pieces, then converts and stores them, so their latencies
+// overlap; else element by element.
+template <typename T, int KT, bool kAligned>
+__device__ void int8_tile(float* ks, float* vs, const Int8Rows<T>& s,
+                          int t0, int c1, int rs, int DA) {
+  const int DC = DA / kVec, n = KT * DC;
+  if constexpr (kAligned) {
+    constexpr int kBatch = 4;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kBatch * kThreads) {
+      Piece8 rk[kBatch], rv[kBatch];
+      int kind[kBatch];  // 0 zeros, 1 fresh, 2 cached, 3 outside the pool
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        const int j = i / DC, c = (i - j * DC) * kVec, key = t0 + j;
+        kind[u] = 0;
+        if (i < n && key < c1) {
+          if (key >= s.dec) {  // this step's own key: full precision
+            const long long tok = (long long)s.tok0 + key;
+            rk[u] = load_piece(s.kf + tok * s.kstride + c);
+            rv[u] = load_piece(s.vf + tok * s.vstride + c);
+            kind[u] = 1;
+          } else {
+            const int kb = key / s.bs;
+            const int blk = s.s_blk[kb - s.b0];
+            kind[u] = 3;
+            if (blk >= 0) {
+              const size_t o = blk * s.blk_stride + s.head +
+                               (size_t)(key - kb * s.bs) * s.D + c;
+              const uint2 a = *reinterpret_cast<const uint2*>(s.kc + o);
+              const uint2 b = *reinterpret_cast<const uint2*>(s.vc + o);
+              rk[u].a.x = a.x, rk[u].a.y = a.y;
+              rv[u].a.x = b.x, rv[u].a.y = b.y;
+              kind[u] = 2;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < n) {
+          const int j = i / DC, c = (i - j * DC) * kVec;
+          float kx[kVec], vx[kVec];
+          if (kind[u] == 1) {
+            unpack_fresh<T>(rk[u], kx);
+            unpack_fresh<T>(rv[u], vx);
+          } else if (kind[u] == 2) {
+            unpack_codes(rk[u], s.kd, kx);
+            unpack_codes(rv[u], s.vd, vx);
+          } else {  // uint8 0 outside the pool, zeros past c1
+            const float kz = kind[u] == 3 ? -128.f * s.kd : 0.f;
+            const float vz = kind[u] == 3 ? -128.f * s.vd : 0.f;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) kx[e] = kz, vx[e] = vz;
+          }
+          store8(ks + j * rs + c, kx);
+          store8(vs + j * rs + c, vx);
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int j = i / DC, c = (i - j * DC) * kVec;
+      const int key = t0 + j, left = s.D - c;
+      float kx[kVec], vx[kVec];
+      if (key >= c1) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) kx[e] = vx[e] = 0.f;
+      } else if (key >= s.dec) {  // this step's own key: full precision
+        const long long tok = (long long)s.tok0 + key;
+        fresh8<T>(s.kf + tok * s.kstride + c, left, kx);
+        fresh8<T>(s.vf + tok * s.vstride + c, left, vx);
+      } else {
+        const int kb = key / s.bs;
+        const int blk = s.s_blk[kb - s.b0];
+        if (blk < 0) {  // outside the pool: uint8 0
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            kx[e] = e < left ? -128.f * s.kd : 0.f;
+            vx[e] = e < left ? -128.f * s.vd : 0.f;
+          }
+        } else {
+          const size_t o = blk * s.blk_stride + s.head +
+                           (size_t)(key - kb * s.bs) * s.D + c;
+          deq8(s.kc + o, s.kd, left, kx);
+          deq8(s.vc + o, s.vd, left, vx);
+        }
+      }
+      store8(ks + j * rs + c, kx);
+      store8(vs + j * rs + c, vx);
+    }
+  }
+}
+
+// One block per (split, query tile, KV head).  Scores: thread (rg, sj) takes key
+// sj for rows rg, rg + NRG, ...; P @ V: work item (kg, rsl, dc) adds keys
+// kg, kg + KG, ... into columns [8 dc, 8 dc + 8) of rows rsl, rsl + RSL,
+// ... of partial kg (a grid-stride loop over the items: past 1024 columns
+// a thread takes several).  kAligned: D % 8 == 0 with 16-byte aligned
+// fresh rows and 8-byte aligned cache rows.
+template <typename T, int KT, bool kAligned>
+__global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
+    const T* __restrict__ q, const T* __restrict__ kf,
+    const T* __restrict__ vf, const uint8_t* __restrict__ kc,
+    const uint8_t* __restrict__ vc, const float* __restrict__ kdq,
+    const float* __restrict__ vdq, T* __restrict__ out,
+    const int* __restrict__ dec, const int* __restrict__ now,
+    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
+    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    long long kstride, long long vstride, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = H / KV;
+  const int R = QT * G;
+  const Int8Layout L = int8_layout(R, D, KT, gridDim.x, B, chunk, bs);
+  float* ks = reinterpret_cast<float*>(smem + L.k);
+  float* vs = reinterpret_cast<float*>(smem + L.v);
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* sc = reinterpret_cast<float*>(smem + L.s);
+  float* acc = reinterpret_cast<float*>(smem + L.acc);
+  float* mrow = reinterpret_cast<float*>(smem + L.stats);
+  float* lrow = mrow + R;
+  float* corr = lrow + R;
+  int* lim = reinterpret_cast<int*>(corr + R);
+  float* ws = reinterpret_cast<float*>(smem + L.ws);
+  int* tables = reinterpret_cast<int*>(smem + L.tables);
+  const int kh = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  Tile t;
+  if (!setup_tile<T>(t, tables, out, dec, now, cu, bt, T_, B, P, NB, H, G,
+                     D, bs, mq, QT, chunk))
+    return;
+  const int nr = t.nr, c0 = t.c0, c1 = t.c1;
+  const size_t hd = (size_t)H * D;
+  const int DA = simt_cols(D);
+  const int rs = L.rstride;
+  const int row_dec = t.pos0 - t.t_first;
+  Int8Rows<T> src;
+  src.kc = kc;
+  src.vc = vc;
+  src.kf = kf + (size_t)kh * D;
+  src.vf = vf + (size_t)kh * D;
+  src.s_blk = tables + 4 * B + 2;
+  src.blk_stride = (size_t)KV * bs * D;
+  src.head = (size_t)kh * bs * D;
+  src.kstride = kstride;
+  src.vstride = vstride;
+  src.D = D;
+  src.bs = bs;
+  src.b0 = t.b0;
+  src.dec = row_dec;
+  src.tok0 = tables[t.b] - row_dec;  // s_cu[b]: token of key dec
+  src.kd = kdq[(size_t)t.b * KV + kh];
+  src.vd = vdq[(size_t)t.b * KV + kh];
+  for (int idx = tid; idx < nr * DA; idx += kThreads) {
+    const int r = idx / DA, d = idx - r * DA;
+    qs[idx] = d < D ? ptt::to_f(q[t.qo + (size_t)(r / G) * hd +
+                                  (r % G) * D + d]) *
+                          scale_log2
+                    : 0.f;
+  }
+  for (int idx = tid; idx < L.KG * R * DA; idx += kThreads) acc[idx] = 0.f;
+  for (int r = tid; r < nr; r += kThreads) {
+    lim[r] = min(t.pos0 + r / G, t.ctx - 1);
+    mrow[r] = -INFINITY;
+    lrow[r] = 0.f;
+  }
+  __syncthreads();  // s_blk, q, lim
+
+  const int ntile = c1 > c0 ? (c1 - c0 + KT - 1) / KT : 0;
+  const int DC = DA / kVec;
+  const int slots = DC >= kThreads ? 1 : kThreads / DC;
+  const int RSL = slots / L.KG;
+  const int items = RSL * L.KG * DC;
+  constexpr int NRG = kThreads / KT;
+  const int sj = tid % KT, rg = tid / KT;
+
+  for (int it = 0; it < ntile; ++it) {
+    const int t0 = c0 + it * KT;
+    int8_tile<T, KT, kAligned>(ks, vs, src, t0, c1, rs, DA);
+    __syncthreads();
+    const int kcount = min(KT, c1 - t0);
+    const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
+
+    {  // scores (log2 domain)
+      const float* krow = ks + sj * rs;
+      const int key = t0 + sj;
+      for (int r0 = rg; r0 < nr; r0 += NRG * kRowsPerPass) {
+        float s[kRowsPerPass];
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
+        for (int c = 0; c < DA; c += kVec) {
+          float kx[kVec];
+          load8(krow + c, kx);
+#pragma unroll
+          for (int k = 0; k < kRowsPerPass; ++k) {
+            const int r = r0 + k * NRG;
+            if (r < nr) {
+              const float4 a =
+                  *reinterpret_cast<const float4*>(qs + r * DA + c);
+              const float4 e =
+                  *reinterpret_cast<const float4*>(qs + r * DA + c + 4);
+              s[k] += a.x * kx[0] + a.y * kx[1] + a.z * kx[2] + a.w * kx[3] +
+                      e.x * kx[4] + e.y * kx[5] + e.z * kx[6] + e.w * kx[7];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * NRG;
+          if (r < nr)
+            sc[r * KT + sj] =
+                full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax: warp w updates rows w, w + kWarps, ...
+    for (int r = warp; r < nr; r += kWarps) {
+      float* row = sc + r * KT;
+      float mx = -INFINITY;
+      for (int jj = lane; jj < KT; jj += 32) mx = fmaxf(mx, row[jj]);
+      mx = ptt::warp_max(mx);
+      const float m_old = mrow[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      // a row with no visible key yet keeps m = -inf and p = 0
+      const bool none = m_new == -INFINITY;
+      for (int jj = lane; jj < KT; jj += 32) {
+        const float p = none ? 0.f : exp2f(row[jj] - m_new);
+        row[jj] = p;
+        sum += p;
+      }
+      sum = ptt::warp_sum(sum);
+      if (lane == 0) {
+        const float cr = none ? 1.f : exp2f(m_old - m_new);  // -inf -> 0
+        corr[r] = cr;
+        lrow[r] = lrow[r] * cr + sum;
+        mrow[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // P @ V
+    for (int item = tid; item < items; item += kThreads) {
+      const int dc = item % DC, slot = item / DC;
+      const int kg = slot % L.KG, rsl = slot / L.KG;
+      for (int r0 = rsl; r0 < nr; r0 += RSL * kRowsPerPass) {
+        float a[kRowsPerPass][kVec];
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * RSL;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) a[k][e] = 0.f;
+          if (r < nr) {
+            const float* ap = acc + ((size_t)kg * R + r) * DA + dc * kVec;
+            const float cr = corr[r];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) a[k][e] = ap[e] * cr;
+          }
+        }
+        for (int jj = kg; jj < kcount; jj += L.KG) {
+          float vx[kVec];
+          load8(vs + jj * rs + dc * kVec, vx);
+#pragma unroll
+          for (int k = 0; k < kRowsPerPass; ++k) {
+            const int r = r0 + k * RSL;
+            if (r < nr) {
+              const float p = sc[r * KT + jj];
+#pragma unroll
+              for (int e = 0; e < kVec; ++e) a[k][e] += p * vx[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kRowsPerPass; ++k) {
+          const int r = r0 + k * RSL;
+          if (r < nr) {
+            float* ap = acc + ((size_t)kg * R + r) * DA + dc * kVec;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) ap[e] = a[k][e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tiles and the probabilities are free
+  }
+
+  // the key groups' partials add up into partial 0
+  if (L.KG > 1) {
+    for (int idx = tid; idx < nr * DA; idx += kThreads) {
+      float s = 0.f;
+      for (int g = 0; g < L.KG; ++g) s += acc[(size_t)g * R * DA + idx];
+      acc[idx] = s;
+    }
+    __syncthreads();
+  }
+  finish<T>(out + t.qo, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
+}
+
+template <typename T, int KT>
+cudaError_t launch_int8(bool aligned, size_t smem, int splits,
+                        long long tiles, int KV, cudaStream_t st,
+                        const void* q, const void* k, const void* v,
+                        const void* kc, const void* vc, const void* kd,
+                        const void* vd, void* out, const void* dec,
+                        const void* now, const void* cu, const void* bt,
+                        int T_, int B, int P, int NB, int H, int D, int bs,
+                        int mq, int QT, int chunk, long long kstride,
+                        long long vstride, float scale) {
+  auto kern = aligned ? paged_attention_int8_kernel<T, KT, true>
+                      : paged_attention_int8_kernel<T, KT, false>;
+  cudaError_t e = ptt::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (unsigned)tiles, KV);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(
+      &cfg, kern, (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kc,
+      (const uint8_t*)vc, (const float*)kd, (const float*)vd, (T*)out,
+      (const int*)dec, (const int*)now, (const int*)cu, (const int*)bt, T_, B,
+      P, NB, H, KV, D, bs, mq, QT, chunk, kstride, vstride,
+      scale * 1.4426950408889634f);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_int8_kt(int KT, bool aligned, size_t smem, int splits,
+                           long long tiles, int KV, cudaStream_t st,
+                           const void* q, const void* k, const void* v,
+                           const void* kc, const void* vc, const void* kd,
+                           const void* vd, void* out, const void* dec,
+                           const void* now, const void* cu, const void* bt,
+                           int T_, int B, int P, int NB, int H, int D, int bs,
+                           int mq, int QT, int chunk, long long kstride,
+                           long long vstride, float scale) {
+#define PTT_K4I_ARGS                                                        \
+  aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,  \
+      now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, kstride, vstride, \
+      scale
+  switch (KT) {
+    case 64: return launch_int8<T, 64>(PTT_K4I_ARGS);
+    case 32: return launch_int8<T, 32>(PTT_K4I_ARGS);
+    case 16: return launch_int8<T, 16>(PTT_K4I_ARGS);
+    case 8: return launch_int8<T, 8>(PTT_K4I_ARGS);
+  }
+#undef PTT_K4I_ARGS
+  return cudaErrorInvalidValue;
+}
+
+bool aligned_to(const void* p, int n) { return (uintptr_t)p % n == 0; }
+
 }  // namespace
 
 extern "C" int ptt_paged_attention(const void* q, const void* kc,
@@ -1185,4 +1703,48 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
          : KT == 32 ? (int)launch_simt<__nv_bfloat16, 32>(PTT_K4_ARGS)
                     : (int)launch_simt<__nv_bfloat16, 16>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
+}
+
+// K4-int8: q [T, H, D] and the fresh k / v [T, KV, D] (token strides
+// k_stride / v_stride elements, each head's row contiguous) in `dtype`;
+// uint8 pools kc / vc [NB, KV, bs, D]; float32 dequantization scales kd /
+// vd [B, KV]; out [T, H, D]; `splits` blocks of a cluster, each walking
+// `chunk` keys.  The entry refuses a key tile without an instance, more
+// than 4 splits, a chunk that is not a multiple of KT or does not cover
+// P * block_size keys (or leaves a split without keys), a grid past 65535
+// tiles or KV heads, and a block past the shared memory it may use (227
+// KB).
+extern "C" int ptt_paged_attention_int8(
+    const void* q, const void* k, const void* v, const void* kc,
+    const void* vc, const void* kd, const void* vd, void* out,
+    const void* dec, const void* now, const void* cu, const void* bt, int T,
+    int B, int P, int NB, int H, int KV, int D, int bs, int max_q_len,
+    long long k_stride, long long v_stride, float scale, int QT, int KT,
+    int splits, int chunk, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long ctx = (long long)P * bs;
+  if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) || B <= 0 ||
+      KV <= 0 || H % KV || D <= 0 || bs <= 0 || P <= 0 || max_q_len < 0 ||
+      QT <= 0 || (KT != 64 && KT != 32 && KT != 16 && KT != 8) ||
+      splits < 1 || splits > kMaxSplits || chunk <= 0 || chunk % KT ||
+      (long long)chunk * splits < ctx ||
+      (long long)chunk * (splits - 1) >= ctx)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = grid_tiles(T, B, max_q_len, QT);
+  if (tiles > 65535 || KV > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int es = dtype == ptt::kFloat32 ? 4 : 2;
+  const bool aligned = D % kVec == 0 && aligned_to(k, 16) &&
+                       aligned_to(v, 16) && (k_stride * es) % 16 == 0 &&
+                       (v_stride * es) % 16 == 0 && aligned_to(kc, 8) &&
+                       aligned_to(vc, 8);
+  const size_t smem =
+      int8_layout(QT * (H / KV), D, KT, splits, B, chunk, bs).total;
+#define PTT_K4I_ARGS                                                         \
+  KT, aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out,    \
+      dec, now, cu, bt, T, B, P, NB, H, D, bs, max_q_len, QT, chunk,         \
+      k_stride, v_stride, scale
+  if (dtype == ptt::kFloat32)
+    return (int)launch_int8_kt<float>(PTT_K4I_ARGS);
+  return (int)launch_int8_kt<__nv_bfloat16>(PTT_K4I_ARGS);
+#undef PTT_K4I_ARGS
 }

@@ -58,8 +58,19 @@ stream is the JAX engine's, and replays across K, rebuilds and preemption.
 
 Block transfer (``export_blocks[_packed]``, ``import_blocks[_packed]``)
 moves published KV blocks between engines as bit-exact payloads keyed by
-chain hash, with the reference's headers.  ``cache_quant="int8"`` and
-``pull_blocks`` are not ported yet and raise.
+chain hash, with the reference's headers.  ``pull_blocks`` is not ported
+yet and raises.
+
+The int8 paged cache (``cache_quant="int8"``, the reference's dynamic
+cache-quant serving mode): uint8 blocks with float32 per-(slot, KV head)
+scales (``cache_scales``, a dict of ``kq``, ``vq``, ``kd``, ``vd`` [B, KV]
+per layer) that a row's one-shot prefill sets and every later step reads,
+refreshed in place by ``blha_attention`` in the single-step program and
+read at fixed addresses by the pure-decode loop's CUDA graph; attention
+through K4-int8.  Its scheduling contract is the reference's: a prompt
+must prefill in one step (longer than ``token_budget`` is a ValueError at
+``add_request``, and a prefill waits for budget rather than chunk), no
+mixed-phase loop, no speculation, no prefix cache, no block transfer.
 
 ``ServingEngine(model, ..., device=None)`` runs on CUDA and raises
 without it; ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -555,10 +566,6 @@ class ServingEngine:
         self.device = resolve_device(device)
         if cache_quant not in ("none", "int8"):
             raise ValueError("cache_quant must be 'none' or 'int8'")
-        if cache_quant == "int8":
-            raise NotImplementedError(
-                "cache_quant='int8' is not ported yet (a later slice of the "
-                "port: the int8 paged cache and its scan-carried scales)")
         if int(spec_k) < 0:
             raise ValueError("spec_k must be >= 0")
         self.cache_quant = cache_quant
@@ -583,14 +590,33 @@ class ServingEngine:
         self.L = cfg.num_hidden_layers
         if prefix_cache not in ("auto", True, False):
             raise ValueError("prefix_cache must be 'auto', True, or False")
-        self.prefix_cache_enabled = prefix_cache in ("auto", True)
+        if cache_quant == "int8" and prefix_cache is True:
+            raise ValueError(
+                "prefix_cache cannot be combined with cache_quant='int8': "
+                "the int8 cache dequantizes through per-(slot, kv-head) "
+                "DYNAMIC scales frozen at each sequence's own prefill, so a "
+                "block's uint8 payload is only meaningful under its writer's "
+                "scales — a second sequence sharing the block would "
+                "dequantize garbage. Use the unquantized cache with the "
+                "prefix cache, or pass prefix_cache=False")
+        # 'auto' = on wherever it is sound (everything but int8)
+        self.prefix_cache_enabled = (cache_quant != "int8"
+                                     and prefix_cache in ("auto", True))
         self.prefix_hit_blocks = 0      # full blocks reused from the cache
         self.prefix_miss_blocks = 0     # full prompt blocks that missed
         self.prefill_tokens_computed = 0  # prompt tokens actually fed
+        if cache_quant == "int8" and cache_dtype is not None:
+            raise ValueError(
+                "cache_quant='int8' fixes the cache dtype to uint8 — don't "
+                "pass cache_dtype with it")
         self._compute_dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                                else torch.float32)
-        cache_dtype = (self._compute_dtype if cache_dtype is None
-                       else _torch_dtype(cache_dtype))
+        if cache_quant == "int8":
+            cache_dtype = torch.uint8
+        elif cache_dtype is None:
+            cache_dtype = self._compute_dtype
+        else:
+            cache_dtype = _torch_dtype(cache_dtype)
 
         self._weights = self._extract_weights(model)
         self.weights_version = "v0"
@@ -603,6 +629,22 @@ class ServingEngine:
                            for _ in range(self.L)]
         self.value_caches = [torch.zeros_like(self.key_caches[0])
                              for _ in range(self.L)]
+        # int8: each layer's per-(slot, kv-head) scales, set by a row's
+        # prefill (blha_attention refreshes them in place) and read by its
+        # decode steps; the megastep graph reads them at these addresses
+        self.cache_scales = ([
+            {k: torch.zeros((self.B, self.KV), dtype=torch.float32,
+                            device=self.device)
+             for k in ("kq", "vq", "kd", "vd")} for _ in range(self.L)]
+            if cache_quant == "int8" else None)
+        # blha_attention's quantization arguments, by layer
+        self._layer_quant = [
+            {} if sc is None else dict(
+                cache_quant="dynamic", cache_k_quant_scales=sc["kq"],
+                cache_v_quant_scales=sc["vq"],
+                cache_k_dequant_scales=sc["kd"],
+                cache_v_dequant_scales=sc["vd"])
+            for sc in (self.cache_scales or [None] * self.L)]
         self.block_tables = np.full((self.B, self.P), -1, np.int32)
 
         # capture the renormalized post-top-k/top-p distribution each
@@ -770,7 +812,9 @@ class ServingEngine:
         ``mq`` is the padded per-row query length (1 for pure decode).  The
         norms are K1: layer 0's ``ln1`` alone, then each residual add fused
         with the norm after it (``ln2``, the next ``ln1``, the final
-        ``norm``), 2L+1 launches."""
+        ``norm``), 2L+1 launches.  With the int8 cache the attention is
+        blha_attention's dynamic mode over the layer's ``cache_scales``
+        (``enc`` None: no row prefills, the scales pass through)."""
         w = self._weights
         eps = self.cfg.rms_norm_eps
         layers = w["layers"]
@@ -785,7 +829,8 @@ class ServingEngine:
                 qkv, self.key_caches[li], self.value_caches[li], enc, dec,
                 now, cu, bt, num_heads=self.H, kv_num_heads=self.KV,
                 head_dim=self.D, block_size=self.bs, max_q_len=mq,
-                use_neox_style=True, compute_dtype=hidden.dtype, plan=plan)
+                use_neox_style=True, compute_dtype=hidden.dtype, plan=plan,
+                **self._layer_quant[li])
             h2, hidden = rms_norm_residual_fused(out @ lw["wo"], hidden,
                                                  lw["ln2"], eps)
             mlp = swiglu_fused(h2 @ lw["wg"], h2 @ lw["wu"]) @ lw["wd"]
@@ -817,9 +862,11 @@ class ServingEngine:
         its token, position and sample index, so every later iteration
         re-feeds the same token at the same position and rewrites the SAME
         KV bits, while its outputs are marked invalid.  Rows with ``now=0``
-        (empty slots) never write.  Returns stacked [K, B] (tokens, valid,
+        (empty slots) never write.  No row prefills (``enc`` None), so the
+        int8 cache's scales pass through unchanged, as the reference's
+        scan carries them.  Returns stacked [K, B] (tokens, valid,
         logprobs) and [K, B, V] probs or None."""
-        enc = torch.zeros_like(dec)
+        enc = None
         outs = []
         for _ in range(K):
             packed = toks[occ_idx.long()]     # slot-order -> packed layout
@@ -987,6 +1034,15 @@ class ServingEngine:
         if total > self.max_seq_len:
             raise ValueError(f"prompt+max_new_tokens={total} exceeds "
                              f"max_seq_len={self.max_seq_len}")
+        if self.cache_quant == "int8" and len(prompt) > self.T:
+            # dynamic per-sequence scales are frozen by the (one-shot)
+            # prefill — chunked prefills would quantize chunks under
+            # different scales than the final dequant (the reference's
+            # dynamic cache-quant mode has the same one-shot contract)
+            raise ValueError(
+                f"cache_quant='int8' needs the prompt ({len(prompt)} tokens) "
+                f"to prefill in one step (token_budget={self.T}); raise the "
+                "budget or use the unquantized cache")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(ServingRequest(
@@ -1312,6 +1368,11 @@ class ServingEngine:
                 continue
             if req.in_prefill and budget > 0:
                 need = len(req.prompt) - req.prefill_pos
+                if self.cache_quant == "int8" and need > budget:
+                    # int8 dynamic scales freeze at prefill: the prefill must
+                    # land in ONE step, so wait for enough budget (bounded
+                    # wait — decoding slots retire and free it)
+                    continue
                 n = min(need, budget)
                 sched.append((req, n, req.prefill_pos + n >= len(req.prompt)))
                 budget -= n
@@ -1364,9 +1425,10 @@ class ServingEngine:
             return self._megastep([s[0] for s in sched])
         # MIXED-PHASE arming: any decoding row + any prefilling row -> run
         # both phases inside one device loop instead of falling back to
-        # per-token host stepping.  bs > T cannot exact-pack a full chunk
-        # into the token buffer.
-        if (self.megastep_k > 1
+        # per-token host stepping.  int8 keeps one-shot prefill (dynamic
+        # scales freeze at prefill, chunking would violate it); bs > T
+        # cannot exact-pack a full chunk into the token buffer.
+        if (self.megastep_k > 1 and self.cache_quant != "int8"
                 and self.pc <= self.T and not decode_only
                 and any(not r.in_prefill for r, _, _ in sched)):
             dec_rows = [r for r, _, _ in sched if not r.in_prefill]

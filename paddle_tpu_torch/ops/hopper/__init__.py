@@ -29,6 +29,7 @@ def launch_counters() -> Dict[str, Callable]:
             "swiglu": fused_ops.swiglu_fused,
             "swiglu_bwd": fused_ops.swiglu_bwd_fused,
             "paged_attention": pa.paged_attention,
+            "paged_attention_int8": pa.paged_attention_int8,
             "flash_attention": fa.flash_attention_fused,
             "decode_attention": da.decode_attention,
             "kv_ring_write": da.kv_ring_write,

@@ -55,9 +55,9 @@ _SIGNATURES = {
     # mode), cos, sin, position offset|NULL, its bytes (4 or 8), table
     # rows, ring rows, B, S, H, KVH, D, q_stride_b, q_stride_s,
     # k_stride_b, k_stride_s, v_stride_b, v_stride_s, sign of sin, 16-byte
-    # chunks, dtype, stream
+    # chunks, interleaved pairs, dtype, stream
     "ptt_rope": [_P] * 10 + [_I] * 8 + [ctypes.c_longlong] * 6 + [
-        _F, _I, _I, _P],
+        _F, _I, _I, _I, _P],
     # a, b, out, n, dtype, stream
     "ptt_swiglu": [_P, _P, _P, ctypes.c_longlong, _I, _P],
     # a, b, g, da, db, n, dtype, stream
@@ -69,6 +69,13 @@ _SIGNATURES = {
     "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
                             _P],
+    # q, k, v (this step's, full precision), key_cache, value_cache
+    # (uint8), k/v dequant scales [B, KV] float32, out, seq_lens_decoder,
+    # seq_lens_this_time, cu_seqlens_q, block_tables, T, B, P, NB, H, KV,
+    # D, block_size, max_q_len, k and v token strides, scale, query tile,
+    # key tile, splits, chunk, dtype, stream
+    "ptt_paged_attention_int8": [_P] * 12 + [_I] * 9 + [
+        ctypes.c_longlong] * 2 + [_F, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, q_off|NULL, B, Sq, Sk, H, KVH, D, q/k/v strides
     # over (batch, seq, head), causal, q_off_host, scale, block_q, block_k,
     # dtype, stream

@@ -17,6 +17,11 @@ whole [Smax, D/2] table and a 0-d integer tensor on q's device: the kernel
 reads the offset and rotates by rows ``clamp(off, 0, Smax - S) + s`` (a
 negative offset first counts from the end), the reference's
 ``lax.dynamic_slice_in_dim``, so no window is gathered first.
+``rope_fused(..., interleaved=True)`` rotates the pairs (2j, 2j + 1) by
+cos/sin[j] in the same one launch, ``rope_rotate``'s other style
+(``paddle_tpu/ops/paged_attention.py:52-56``, blha_attention's
+``use_neox_style=False``); the backward takes the same flag, the ring
+mode does not.
 
 ``rope_ring_fused(q, k, v, cos, sin, kbuf, vbuf, pos)`` is K2's ring mode,
 the generation path's static KV ring: one launch rotates q (returned),
@@ -104,13 +109,20 @@ def _window(cos, sin, S, position_offset):
     return cos[start:start + S], sin[start:start + S]
 
 
-def _rope_ref(q, k, cos, sin):
+def _rope_ref(q, k, cos, sin, interleaved=False):
+    """The neox half-split rotation, or with ``interleaved`` the pairs
+    (2j, 2j + 1) (``paddle_tpu/ops/paged_attention.py:rope_rotate``'s two
+    styles), float32 math, in x's dtype."""
     def rot(x):
         xf = x.float()
-        half = xf.shape[-1] // 2
-        x1, x2 = xf[..., :half], xf[..., half:]
         c = cos.float()[None, :, None, :]
         s = sin.float()[None, :, None, :]
+        if interleaved:
+            x1, x2 = xf[..., 0::2], xf[..., 1::2]
+            return torch.stack([x1 * c - x2 * s, x2 * c + x1 * s],
+                               dim=-1).reshape(xf.shape).to(x.dtype)
+        half = xf.shape[-1] // 2
+        x1, x2 = xf[..., :half], xf[..., half:]
         return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
                          dim=-1).to(x.dtype)
 
@@ -133,12 +145,13 @@ def _swiglu_bwd_ref(a, b, g):
 
 
 def _rope_launch(fn, q, k, cos, sin, position_offset=None, sign=1.0,
-                 ring=None, **force):
+                 ring=None, interleaved=False, **force):
     """K2 on CUDA tensors, counted on ``fn`` (the forward, the backward or
     the ring-mode wrapper); ``sign`` -1 rotates by -theta; ``ring`` (v,
     kbuf, vbuf): the ring mode (rotated k and v into the rings at the
     rows of ``position_offset``; no k output: returns (q, None));
-    ``force``: ``rope_plan``'s keywords."""
+    ``interleaved``: the pairs (2j, 2j + 1); ``force``: ``rope_plan``'s
+    keywords."""
     name = fn.__name__
     B, S, H, D = q.shape
     KVH = k.shape[2]
@@ -201,31 +214,34 @@ def _rope_launch(fn, q, k, cos, sin, position_offset=None, sign=1.0,
                 ptr(kbuf), ptr(vbuf), cos.data_ptr(), sin.data_ptr(),
                 ptr(off), 0 if off is None else _OFFSET_BYTES[off.dtype],
                 rows, L, B, S, H, KVH, D, *strides, float(sign),
-                int(plan.vec), dt, stream), name)
+                int(plan.vec), int(interleaved), dt, stream), name)
         fn.launches += 1
     return oq, ok
 
 
-def _rope_fwd(q, k, cos, sin, position_offset=None):
+def _rope_fwd(q, k, cos, sin, position_offset=None, interleaved=False):
     if q.device.type == "cpu":
         return _rope_ref(q, k, *_window(cos, sin, q.shape[1],
-                                        position_offset))
-    return _rope_launch(rope_fused, q, k, cos, sin, position_offset)
+                                        position_offset), interleaved)
+    return _rope_launch(rope_fused, q, k, cos, sin, position_offset,
+                        interleaved=interleaved)
 
 
 def rope_bwd_fused(gq: torch.Tensor, gk: torch.Tensor, cos: torch.Tensor,
                    sin: torch.Tensor,
-                   position_offset: Optional[torch.Tensor] = None
+                   position_offset: Optional[torch.Tensor] = None,
+                   interleaved: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The rope backward (``_rope_bwd``): the cotangents of the rotated
     (q, k) rotated by -theta, i.e. K2 with ``-sin`` (a sign flag: no
-    negated table is made); shapes and ``position_offset`` as
-    ``rope_fused``."""
+    negated table is made); shapes, ``position_offset`` and
+    ``interleaved`` as ``rope_fused``."""
     if gq.device.type == "cpu":
         c, s = _window(cos, sin, gq.shape[1], position_offset)
-        return _rope_ref(gq, gk, c, -s)
+        return _rope_ref(gq, gk, c, -s, interleaved)
     return _rope_launch(rope_bwd_fused, gq.contiguous(), gk.contiguous(),
-                        cos, sin, position_offset, sign=-1.0)
+                        cos, sin, position_offset, sign=-1.0,
+                        interleaved=interleaved)
 
 
 def rope_ring_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -254,24 +270,29 @@ def rope_ring_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 class _Rope(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, cos, sin, position_offset):
+    def forward(ctx, q, k, cos, sin, position_offset, interleaved):
         ctx.save_for_backward(cos, sin)
         ctx.position_offset = position_offset
-        return _rope_fwd(q, k, cos, sin, position_offset)
+        ctx.interleaved = interleaved
+        return _rope_fwd(q, k, cos, sin, position_offset, interleaved)
 
     @staticmethod
     def backward(ctx, gq, gk):
         cos, sin = ctx.saved_tensors
-        dq, dk = rope_bwd_fused(gq, gk, cos, sin, ctx.position_offset)
-        return dq, dk, None, None, None
+        dq, dk = rope_bwd_fused(gq, gk, cos, sin, ctx.position_offset,
+                                ctx.interleaved)
+        return dq, dk, None, None, None, None
 
 
 def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor,
-               position_offset: Optional[torch.Tensor] = None
+               position_offset: Optional[torch.Tensor] = None,
+               interleaved: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, S, H, D], k [B, S, KVH, D], cos/sin [S, D/2] float32 ->
-    rotated (q, k), neox half-split, float32 math, in q's dtype.  With
+    rotated (q, k), neox half-split (``interleaved``: the pairs (2j,
+    2j + 1), blha_attention's ``use_neox_style=False``), float32 math, in
+    q's dtype.  With
     ``position_offset`` (a 0-d int32 or int64 tensor on q's device)
     cos/sin are the whole [Smax, D/2] table and the rotation takes rows
     ``clamp(off, 0, Smax - S) + s`` (a negative off counted from the end
@@ -279,8 +300,8 @@ def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     strided over B and S; each head's [D] must be contiguous.
     Differentiable in q and k."""
     if _build.wants_grad(q, k):
-        return _Rope.apply(q, k, cos, sin, position_offset)
-    return _rope_fwd(q, k, cos, sin, position_offset)
+        return _Rope.apply(q, k, cos, sin, position_offset, interleaved)
+    return _rope_fwd(q, k, cos, sin, position_offset, interleaved)
 
 
 def _check_same(name, *tensors):

@@ -26,6 +26,18 @@ block writing one slice of at most 512 output columns.
 reference's gather + padded-batch attention transcribed) only for CPU
 tensors.  For CUDA tensors it launches the kernel (one launch per call) or
 raises; ``launches`` counts kernel launches.
+
+``paged_attention_int8`` is K4-int8 (``csrc/paged_attention.cu``'s second
+entry), the same attention over the int8 cache of ``cache_quant`` "static"
+and "dynamic" (``blha_attention`` ``:237-254``): uint8 blocks dequantized
+as (u8 - 128) * d[b, kv] on their way into shared memory, and each row's
+last ``now`` keys, this step's own, read at full precision from the fresh
+k and v instead of the cache (the reference's overlay).  A SIMT kernel
+with K4's split of the context across a cluster where the grid is small;
+``paged_int8_plan`` picks its query and key tiles and the split from host
+sizes.  Its plain version is ``_paged_attention_int8_ref`` (CPU
+tensors only; no fallback on CUDA); ``paged_attention_int8.launches``
+counts its launches.
 """
 from __future__ import annotations
 
@@ -37,7 +49,8 @@ import torch
 
 from . import _build, wide
 
-__all__ = ["paged_attention", "paged_gather_kv", "paged_plan", "PagedPlan"]
+__all__ = ["paged_attention", "paged_gather_kv", "paged_plan", "PagedPlan",
+           "paged_attention_int8", "paged_int8_plan", "Int8Plan"]
 
 # The card (an H100 SXM): streaming multiprocessors and the shared memory
 # one block may opt into.
@@ -287,23 +300,26 @@ def paged_gather_kv(cache: torch.Tensor, block_tables: torch.Tensor
     return g.permute(0, 2, 1, 3, 4).reshape(B, KV, P * bs, D)
 
 
-def _paged_attention_ref(q, key_cache, value_cache, seq_lens_decoder,
-                         seq_lens_this_time, cu_seqlens_q, block_tables,
-                         max_q_len):
-    """blha_attention steps 6-8: gather each row's context, padded-batch
-    attention with float32 softmax, gather back to the packed buffer."""
-    T, H, D = q.shape
-    KV = key_cache.shape[1]
-    B = block_tables.shape[0]
-    dev = q.device
+def _token_rows(cu_seqlens_q, seq_lens_this_time, T, B):
+    """Each packed token's row, local index and validity (blha_attention
+    step 2): token t belongs to row searchsorted(cu, t, right) - 1 and is
+    valid while t < cu[-1] and its local index < its row's length."""
     cu = cu_seqlens_q.long()
-    tok = torch.arange(T, device=dev)
+    tok = torch.arange(T, device=cu.device)
     b_idx = (torch.searchsorted(cu, tok, right=True) - 1).clamp(0, B - 1)
     local = tok - cu[b_idx]
     valid = (tok < cu[-1]) & (local < seq_lens_this_time.long()[b_idx])
-    k_all = paged_gather_kv(key_cache, block_tables)     # [B, KV, L, D]
-    v_all = paged_gather_kv(value_cache, block_tables)
-    L = k_all.shape[2]
+    return b_idx, local, valid
+
+
+def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len):
+    """blha_attention steps 7-8 over the gathered context k_all / v_all
+    [B, KV, L, D]: padded-batch attention with float32 softmax, gathered
+    back to the packed buffer; ``rows`` is ``_token_rows``'s."""
+    T, H, D = q.shape
+    B, KV, L = k_all.shape[:3]
+    dev = q.device
+    b_idx, local, valid = rows
     S = int(max_q_len)
     # row B / column S are the drop targets of the reference's mode="drop"
     bs_idx = torch.where(valid, b_idx, B)
@@ -323,6 +339,50 @@ def _paged_attention_ref(q, key_cache, value_cache, seq_lens_decoder,
                            device=dev)
     out_full[:B, :S] = out_pad.reshape(B, S, H, D)
     return out_full[bs_idx, lc_idx].to(q.dtype)          # [T, H, D]
+
+
+def _paged_attention_ref(q, key_cache, value_cache, seq_lens_decoder,
+                         seq_lens_this_time, cu_seqlens_q, block_tables,
+                         max_q_len):
+    """blha_attention steps 6-8: gather each row's context, padded-batch
+    attention with float32 softmax, gather back to the packed buffer."""
+    rows = _token_rows(cu_seqlens_q, seq_lens_this_time, q.shape[0],
+                       block_tables.shape[0])
+    return _attend_ref(q, paged_gather_kv(key_cache, block_tables),
+                       paged_gather_kv(value_cache, block_tables),
+                       seq_lens_decoder, rows, max_q_len)
+
+
+def _row_scales(scales, B):
+    """Dequantization scales as [B, KV] float32: static [KV] scales are the
+    same for every row."""
+    return scales.float().expand(B, -1) if scales.dim() == 1 else scales
+
+
+def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
+                              k_dequant_scales, v_dequant_scales,
+                              seq_lens_decoder, seq_lens_this_time,
+                              cu_seqlens_q, block_tables, max_q_len):
+    """blha_attention steps 6-8 over the int8 cache (``:237-254``, then
+    ``:262-316``): gather the uint8 blocks (a block id outside the pool
+    gathers uint8 0), dequantize as (u8 - 128) * d[b, kv], overlay this
+    step's full-precision k / v at each valid token's position, attend."""
+    B = block_tables.shape[0]
+    T, KV = q.shape[0], key_cache.shape[1]
+    rows = _token_rows(cu_seqlens_q, seq_lens_this_time, T, B)
+    b_idx, local, valid = rows
+    ctx = []
+    for cache, scales, new in ((key_cache, k_dequant_scales, k),
+                               (value_cache, v_dequant_scales, v)):
+        d = _row_scales(scales, B)[:, :, None, None]
+        full = (paged_gather_kv(cache, block_tables).float() - 128.0) * d
+        pos = seq_lens_decoder.long()[b_idx] + local
+        ok = valid & (pos < full.shape[2])
+        heads = torch.arange(KV, device=q.device)[None, :]
+        full.index_put_((b_idx[ok][:, None], heads, pos[ok][:, None]),
+                        new[ok].float())
+        ctx.append(full)
+    return _attend_ref(q, ctx[0], ctx[1], seq_lens_decoder, rows, max_q_len)
 
 
 def _check(name, q, key_cache, value_cache, ints, block_tables):
@@ -393,4 +453,175 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
     return out
 
 
+# K4-int8 (csrc ``paged_attention_int8_kernel``): key tiles whose two
+# float32 K/V tiles stay within INT8_TILE_BYTES, the larger first
+INT8_KEY_TILES = (64, 32, 16, 8)
+INT8_TILE_BYTES = 72 * 1024
+
+
+class Int8Plan(NamedTuple):
+    """One K4-int8 launch: ``qt`` tokens of a row per query tile, ``kt``
+    keys a tile, ``splits`` blocks (a cluster) per (query tile, KV head),
+    each walking ``chunk`` keys; ``smem`` bytes of shared memory a block,
+    ``blocks`` in the grid."""
+    qt: int
+    kt: int
+    splits: int
+    chunk: int
+    smem: int
+    blocks: int
+
+
+def _int8_smem_bytes(R: int, D: int, kt: int, splits: int, B: int,
+                     chunk: int, bs: int) -> int:
+    """K4-int8's shared-memory layout (csrc ``int8_layout``): the float32 K
+    and V tiles, the query rows, scores, the key groups' accumulators, row
+    statistics and the row tables with the row's block ids."""
+    da = _ceil(D, VEC) * VEC
+    dc = da // VEC
+    slots = 1 if dc >= THREADS else THREADS // dc
+    kg = 1
+    while kg * 2 * R <= slots:
+        kg *= 2
+    rs = _row_chunks(da, 4) * 4
+    return 4 * (2 * kt * rs + R * da + R * kt + kg * R * da + 4 * R
+                + (splits + 1) * R + 4 * B + 2 + chunk // bs + 2)
+
+
+@functools.lru_cache(maxsize=256)
+def paged_int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int,
+                    H: int, KV: int, D: int) -> Int8Plan:
+    """K4-int8's tiles, from host-known sizes only: ``qt`` as K4's SIMT
+    instance (1 at decode, else up to ``MAX_QT`` tokens of about 8 query
+    rows); ``kt`` the largest of ``INT8_KEY_TILES`` whose K/V tiles take at
+    most ``INT8_TILE_BYTES`` (64 keys at D 128, 32 at 256, 16 at 512, 8
+    past); then ``qt`` halves, and past that ``kt``, until the block fits
+    the 227 KB a block may use; ``splits`` as K4's (1 where the grid gives
+    every SM a block, else the power of two that does, at most
+    ``SPLIT_CAP``).  Raises ValueError where one token's query rows do not
+    fit at 8 keys."""
+    if D <= 0 or KV <= 0 or H % KV:
+        raise ValueError(f"paged_attention_int8: no plan for H {H}, KV {KV}, "
+                         f"head_dim {D} (head_dim >= 1, H % KV == 0)")
+    G = H // KV
+    ctx = P * bs
+    rs = _row_chunks(_ceil(D, VEC) * VEC, 4) * 4
+    tiles = [k for k in INT8_KEY_TILES if 2 * k * rs * 4 <= INT8_TILE_BYTES]
+    qt0 = 1 if max_q_len <= 1 else min(max_q_len, MAX_QT,
+                                       max(1, TILE_ROWS[False] // G))
+
+    def smem(qt, kt, splits, chunk):
+        return _int8_smem_bytes(qt * G, D, kt, splits, B, chunk, bs)
+
+    for kt in tiles or INT8_KEY_TILES[-1:]:
+        # fitted at the most splits and the whole context's block ids
+        qt, whole = qt0, _ceil(ctx, kt) * kt
+        while qt > 1 and smem(qt, kt, SPLIT_CAP, whole) > SMEM_PER_BLOCK:
+            qt //= 2
+        if smem(qt, kt, SPLIT_CAP, whole) > SMEM_PER_BLOCK:
+            continue
+        base = _grid_tiles(T, B, max_q_len, qt) * KV
+        cap = max(1, min(SPLIT_CAP, _ceil(ctx, kt)))
+        splits = 1
+        while splits < cap and base * splits < SMS:
+            splits *= 2
+        splits = min(splits, cap)
+        chunk = max(kt, _ceil(_ceil(ctx, splits), kt) * kt)
+        splits = max(1, _ceil(ctx, chunk))  # no split left without keys
+        return Int8Plan(qt, kt, splits, chunk,
+                        smem(qt, kt, splits, chunk), base * splits)
+    raise ValueError(
+        f"paged_attention_int8: a block of {G} query rows at head_dim {D} "
+        f"needs {smem(1, 8, SPLIT_CAP, _ceil(ctx, 8) * 8)} bytes of shared "
+        f"memory, past the {SMEM_PER_BLOCK} (227 KB) a block may use")
+
+
+def paged_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_cache: torch.Tensor, value_cache: torch.Tensor,
+                         k_dequant_scales: torch.Tensor,
+                         v_dequant_scales: torch.Tensor,
+                         seq_lens_decoder: torch.Tensor,
+                         seq_lens_this_time: torch.Tensor,
+                         cu_seqlens_q: torch.Tensor,
+                         block_tables: torch.Tensor,
+                         max_q_len: int) -> torch.Tensor:
+    """K4-int8: q [T, H, D] (after rope), this step's full-precision k and v
+    [T, KV, D] (q's dtype; each head's row contiguous, any token stride),
+    uint8 caches [NB, KV, bs, D] already holding this step's quantized
+    keys and values, float32 dequantization scales [B, KV] (dynamic) or
+    [KV] (static), lengths as ``paged_attention`` -> [T, H, D] in q's
+    dtype.  Row b's keys before ``seq_lens_decoder[b]`` read (u8 - 128) *
+    d[b, kv] (uint8 0 for a block id outside the pool); its keys from
+    there on are this step's, read from k and v at token ``cu[b] + (key -
+    dec[b])``, not from the cache."""
+    if q.device.type == "cpu":
+        return _paged_attention_int8_ref(
+            q, k, v, key_cache, value_cache, k_dequant_scales,
+            v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
+            cu_seqlens_q, block_tables, max_q_len)
+    return _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
+                        v_dequant_scales, seq_lens_decoder,
+                        seq_lens_this_time, cu_seqlens_q, block_tables,
+                        max_q_len)
+
+
+def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
+                 v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
+                 cu_seqlens_q, block_tables, max_q_len):
+    """K4-int8's launch for CUDA tensors, under ``paged_int8_plan``."""
+    name = "paged_attention_int8"
+    T, H, D = q.shape
+    NB, KV, bs, Dc = key_cache.shape
+    B, P = block_tables.shape
+    for t in (k, v):
+        if (tuple(t.shape) != (T, KV, D) or t.stride(2) != 1
+                or (KV > 1 and t.stride(1) != D)):
+            raise ValueError(f"{name}: k and v must be [{T}, {KV}, {D}] with "
+                             f"each head's row contiguous, got "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    for t in (key_cache, value_cache):
+        if (t.dtype != torch.uint8 or tuple(t.shape) != (NB, KV, bs, D)
+                or not t.is_contiguous() or t.device != q.device
+                or H % KV or Dc != D):
+            raise ValueError(f"{name}: caches must be contiguous uint8 "
+                             f"[NB, KV, bs, {D}] on {q.device} for q "
+                             f"{tuple(q.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    scales = []
+    for t in (k_dequant_scales, v_dequant_scales):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or tuple(t.shape) not in ((KV,), (B, KV))):
+            raise ValueError(f"{name}: dequantization scales must be float32 "
+                             f"[{KV}] or [{B}, {KV}] on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        scales.append(_row_scales(t, B).contiguous())
+    ints = (seq_lens_decoder, seq_lens_this_time, cu_seqlens_q)
+    for t in (*ints, block_tables):
+        if (t.dtype != torch.int32 or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: lengths, cu_seqlens and block tables "
+                             f"must be contiguous int32 on {q.device}")
+    if not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous")
+    dt, stream = _build.launch_args(name, q, k, v)
+    if not B:                   # no rows: every token gives zeros
+        return torch.zeros_like(q)
+    plan = paged_int8_plan(T, B, int(max_q_len), P, bs, H, KV, D)
+    out = torch.empty_like(q)
+    if T:
+        with _build.device_guard(q):
+            _build.check(_build.lib().ptt_paged_attention_int8(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                key_cache.data_ptr(), value_cache.data_ptr(),
+                scales[0].data_ptr(), scales[1].data_ptr(), out.data_ptr(),
+                seq_lens_decoder.data_ptr(), seq_lens_this_time.data_ptr(),
+                cu_seqlens_q.data_ptr(), block_tables.data_ptr(), T, B, P,
+                NB, H, KV, D, bs, int(max_q_len), k.stride(0), v.stride(0),
+                1.0 / math.sqrt(D), plan.qt, plan.kt, plan.splits,
+                plan.chunk, dt, stream), name)
+        paged_attention_int8.launches += 1
+    return out
+
+
 paged_attention.launches = 0
+paged_attention_int8.launches = 0

@@ -168,12 +168,17 @@ def test_helpers_match_jax():
 
 
 def test_unported_surface_raises():
+    """What the port's blha_attention does not take yet (ROADMAP A4b):
+    the pre-caches and the encoder/decoder masks raise, naming A4b."""
     rng = np.random.default_rng(9)
     m = _mixed_batch(rng)
     args = _port_args(m)
     kw = dict(num_heads=m["H"], kv_num_heads=m["KV"], head_dim=m["D"],
               block_size=m["bs"], max_q_len=5)
-    with pytest.raises(NotImplementedError):
-        blha_attention(*args, cache_quant="dynamic", **kw)
-    with pytest.raises(NotImplementedError):
-        blha_attention(*args, use_neox_style=False, **kw)
+    B, KV, D = len(m["now"]), m["KV"], m["D"]
+    pre = torch.zeros(B, KV, 2, D)
+    for extra in (dict(pre_key_cache=pre, pre_value_cache=pre),
+                  dict(mask=torch.zeros(B, 1, 5, 24)),
+                  dict(tgt_mask=torch.zeros(B, 1, 1, 24))):
+        with pytest.raises(NotImplementedError, match="A4b"):
+            blha_attention(*args, **extra, **kw)

@@ -239,9 +239,15 @@ def test_seeded_stream_replays_across_rebuild(mha):
 
 
 def test_unported_options_raise(mha):
+    """What the port's engine does not take yet: ``pull_blocks`` (Queue
+    A6, the binary data plane) raises; ``cache_quant`` past "none" and
+    "int8" is refused as the reference refuses it."""
     _, pm = mha
+    eng = PortEngine(pm, device="cpu", **ENGINE)
     with pytest.raises(NotImplementedError, match="later slice"):
-        PortEngine(pm, cache_quant="int8", device="cpu", **ENGINE)
+        eng.pull_blocks("localhost:1", [])
+    with pytest.raises(ValueError, match="cache_quant"):
+        PortEngine(pm, cache_quant="fp8", device="cpu", **ENGINE)
 
 
 def test_preempt_resume_across_megastep_boundary(mha):
