@@ -357,17 +357,20 @@ def environment(torch):
 
 # bf16 B1, B8 and B7 run on the tensor cores: every instance of these
 # kernels must hold warpgroup MMA instructions (HGMMA) in its SASS; bf16 B2
-# runs mma.sync, whose instructions are HMMA
+# and K4-int8's tensor-core instance run mma.sync, whose instructions are
+# HMMA (the tags match by substring: "int8_tc_kernel" is B7's)
 TENSOR_CORE_KERNELS = {"flash_fwd_tc_kernel": "HGMMA",
                        "flash_bwd_tc_kernel": "HGMMA",
                        "decode_tc_kernel": "HMMA",
-                       "int8_tc_kernel": "HGMMA"}
+                       "int8_tc_kernel": "HGMMA",
+                       "paged_attention_int8_mma_kernel": "HMMA"}
 
 
 def _sass_check(lib_path):
     """cuobjdump -sass of the built library: count tensor-core instructions
     per function; raise unless every instance of the bf16 B1, B8 and B7
-    kernels has HGMMA and every instance of bf16 B2 has HMMA."""
+    kernels has HGMMA and every instance of bf16 B2 and of K4-int8's
+    tensor-core kernel has HMMA."""
     import re
     import shutil
 
@@ -1219,10 +1222,13 @@ def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
             _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq), nbytes, ops)
 
 
-# K4-int8's plan and the K4 call over a cache of q's dtype at the same
-# shape, for each case, by (label, dtype name): printed beside its time
+# K4-int8's plan, the K4 call over a cache of q's dtype at the same shape
+# and the call's arguments (the SIMT instance forced beside the tensor
+# cores), for each case, by (label, dtype name): printed
+# beside its time
 _K4I_PLANS = {}
 _K4I_K4 = {}
+_K4I_ARGS = {}
 
 
 def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
@@ -1256,7 +1262,7 @@ def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
     vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
     dname = str(q.dtype).split(".")[1]
     _K4I_PLANS[(label, dname)] = pa.paged_int8_plan(T, B, mq, P, bs, H, KV,
-                                                    D)
+                                                    D, q.dtype)
     kcf, vcf = rnd(NB, KV, bs, D), rnd(NB, KV, bs, D)
     _K4I_K4[(label, dname)] = lambda: pa.paged_attention(
         q, kcf, vcf, dec, now, cu, bt, mq)
@@ -1275,6 +1281,7 @@ def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
     vis = sum(min(d + j + 1, ctx) for d, n in rows for j in range(n))
     ops = 4 * vis * H * D + 4 * cached * KV * D
     args = (q, k, v, kc, vc, kd, vd, dec, now, cu, bt, mq)
+    _K4I_ARGS[(label, dname)] = args
     return ("paged_attention_int8", label,
             lambda: pa.paged_attention_int8(*args),
             lambda: pa._paged_attention_int8_ref(*args), None, nbytes, ops)
@@ -1312,6 +1319,8 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
     times each K4 case under other plans (``_paged_sweep``), ``b2_sweep``
     each B2 case (``_decode_sweep``), ``b7_sweep`` each B7 case
     (``_int8_sweep``), ``k1_sweep`` each K1 case (``_norm_sweep``)."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
     timer = Timer(torch, iters)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1360,11 +1369,18 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                       f"{plan.smem}", flush=True)
             if name == "paged_attention_int8":
                 p8 = _K4I_PLANS[(label, dname)]
+                simt = ""
+                if p8.tc:   # the SIMT instance forced at the same shape
+                    a8 = _K4I_ARGS[(label, dname)]
+                    s_ms = timer(lambda: pa._launch_int8(*a8, tc=False))
+                    simt = (f"; SIMT forced {s_ms:.4f} ms (tensor cores "
+                            f"{'faster' if ms < s_ms else 'NOT faster'})")
                 print(f"k4-int8 {dname} {label}: {nbytes / ms / 1e6:.1f} "
-                      f"GB/s, {bound_ms / ms:.3f} of the bound; qt {p8.qt} "
-                      f"kt {p8.kt} blocks {p8.blocks} smem {p8.smem}; K4 "
-                      f"over a {dname} cache at the same shape "
-                      f"{timer(_K4I_K4[(label, dname)]):.4f} ms "
+                      f"GB/s, {bound_ms / ms:.3f} of the bound; "
+                      f"{'tensor cores' if p8.tc else 'SIMT'} qt {p8.qt} "
+                      f"kt {p8.kt} splits {p8.splits} blocks {p8.blocks} "
+                      f"smem {p8.smem}{simt}; K4 over a {dname} cache at the "
+                      f"same shape {timer(_K4I_K4[(label, dname)]):.4f} ms "
                       "(informative)", flush=True)
             if name == "int8_matmul":
                 b7, _, dense = _B7_PLANS[(label, dname)]
@@ -1411,6 +1427,7 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
     _rope_sign_bits(torch)
     _rope_one_launch(torch)
     _paged_edges(torch)
+    _paged_int8_edges(torch)
     _decode_edges(torch)
     _int8_edges(torch)
     _flash_tiles(torch)
@@ -1892,6 +1909,169 @@ def _paged_edges(torch):
           "with clusters gave the same bits in 5 runs each")
 
 
+def _paged_int8_edges(torch):
+    """K4-int8 against its plain version (the `_tol` of phase 2) at the
+    edges of its two instances, in bfloat16 (the tensor cores where the
+    shape allows, and SIMT forced) and float32 (SIMT), under every split
+    count 1-4: head_dim 8, 64, 72 (8-byte code pieces), 128 and 256 at 1,
+    4, 8, 16 and 64 query heads a KV head; a decode batch (visible key
+    counts at 0, 1 and -1 mod 64, a position past the pool, a row with now
+    0) and a prefill batch (dec 0 rows, tiles straddling cached and fresh
+    keys, now > max_q_len); block ids -1 and past the pool inside the
+    visible range; block size 16 and, at some shapes, 48 (a split's chunk
+    of 64 keys then starts inside a block); k and v as views of a packed
+    qkv buffer.  A plan with a cluster must give the same bits in three
+    runs.  float32 outputs (``out_dtype``) of both K4-int8 instances and
+    of K4's three (tensor cores, SIMT, wide) against the plain versions'."""
+    import itertools
+
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    dev, B, f32 = "cuda", 8, torch.float32
+    batches = (  # (max_q_len, dec, now)
+        (1, [0, 63, 64, 127, 128, 200, 500, 0], [1, 1, 1, 1, 1, 1, 1, 0]),
+        (16, [0, 17, 60, 5, 100, 0, 64, 150], [16, 1, 20, 0, 9, 3, 1, 16]))
+    n = worst = clusters = wides = 0
+    for dtype in (torch.bfloat16, f32):
+        dname = str(dtype).split(".")[1]
+        for G, D in itertools.product((1, 4, 8, 16, 64),
+                                      (8, 64, 72, 128, 256)):
+            KV, H = 2, 2 * G
+            for bs in ((16, 48) if (G, D) in ((4, 128), (1, 72), (16, 256))
+                       else (16,)):
+                P = -(-192 // bs)
+                NB = B * P + 4
+                kc, vc = (torch.randint(0, 256, (NB, KV, bs, D), generator=g,
+                                        device=dev, dtype=torch.uint8)
+                          for _ in range(2))
+                bt = torch.randperm(NB, generator=g, device=dev)[:B * P]
+                bt = bt.view(B, P).to(torch.int32)
+                bt[1, 1], bt[4, 0] = -1, NB + 3
+                kd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+                vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+                for mq, dec, now in batches:
+                    dec_t = torch.tensor(dec, dtype=torch.int32, device=dev)
+                    now_t = torch.tensor(now, dtype=torch.int32, device=dev)
+                    cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+                    cu[1:] = torch.cumsum(now_t, 0)
+                    T = sum(now) + 5
+                    qkv = torch.randn(T, (H + 2 * KV) * D, generator=g,
+                                      device=dev, dtype=dtype)
+                    q = qkv[:, :H * D].reshape(T, H, D).contiguous()
+                    k = qkv[:, H * D:(H + KV) * D].view(T, KV, D)
+                    v = qkv[:, (H + KV) * D:].view(T, KV, D)
+                    args = (q, k, v, kc, vc, kd, vd, dec_t, now_t, cu, bt, mq)
+                    ref = pa._paged_attention_int8_ref(*args)
+                    ref32 = pa._paged_attention_int8_ref(*args,
+                                                         out_dtype=f32)
+                    tol = _tol(dname, ref)
+                    can_tc = pa._tc(dtype, D) and G <= pa.TC_ROWS
+                    for tc in ((True, False) if can_tc else (False,)):
+                        for splits in (1, 2, 3, 4):
+                            try:
+                                p = pa._int8_plan(T, B, mq, P, bs, H, KV, D,
+                                                  dtype, tc, splits)
+                            except ValueError:   # past the limits: refused
+                                continue
+                            got = pa._launch_int8(*args, tc=tc,
+                                                  splits=splits)
+                            err = _err(torch, got, ref)
+                            n += 1
+                            worst = max(worst, err / tol)
+                            if not err <= tol:
+                                raise AssertionError(
+                                    f"K4-int8 edge {dname} G {G} D {D} bs "
+                                    f"{bs} mq {mq} {p}: kernel and plain "
+                                    f"differ by {err} > {tol}")
+                            for _ in range(2 if p.splits > 1 else 0):
+                                if not torch.equal(pa._launch_int8(
+                                        *args, tc=tc, splits=splits), got):
+                                    raise AssertionError(
+                                        f"K4-int8 edge {dname} G {G} D {D} "
+                                        f"mq {mq} {p}: two runs differ")
+                            clusters += p.splits > 1
+                        try:
+                            got = pa._launch_int8(*args, out_dtype=f32,
+                                                  tc=tc)
+                        except ValueError:
+                            continue
+                        err = _err(torch, got, ref32)
+                        if got.dtype != f32 or not err <= _tol(dname, ref32):
+                            raise AssertionError(
+                                f"K4-int8 edge {dname} G {G} D {D} tc {tc}: "
+                                f"float32 output {got.dtype} differs by "
+                                f"{err}")
+                        wides += 1
+    # bf16 k and v one element past 16-byte alignment: the launch's own
+    # plan takes SIMT, gives the forced SIMT instance's bits and agrees
+    # with the plain version
+    KV, H, D, bs, P = 2, 8, 128, 16, 12
+    NB = B * P
+    kc, vc = (torch.randint(0, 256, (NB, KV, bs, D), generator=g,
+                            device=dev, dtype=torch.uint8) for _ in range(2))
+    bt = torch.randperm(NB, generator=g, device=dev).view(B, P).to(
+        torch.int32)
+    kd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+    vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+    misaligned = 0
+    for mq, dec, now in batches:
+        dec_t = torch.tensor(dec, dtype=torch.int32, device=dev)
+        now_t = torch.tensor(now, dtype=torch.int32, device=dev)
+        cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+        cu[1:] = torch.cumsum(now_t, 0)
+        T = sum(now) + 5
+        qkv = torch.randn(T, (H + 2 * KV) * D + 1, generator=g, device=dev,
+                          dtype=torch.bfloat16)[:, 1:]
+        q = qkv[:, :H * D].reshape(T, H, D).contiguous()
+        k = qkv[:, H * D:(H + KV) * D].view(T, KV, D)
+        v = qkv[:, (H + KV) * D:].view(T, KV, D)
+        args = (q, k, v, kc, vc, kd, vd, dec_t, now_t, cu, bt, mq)
+        plan = pa._int8_launch_plan(q, k, v, kc, vc, bt, mq)
+        ref = pa._paged_attention_int8_ref(*args)
+        got = pa._launch_int8(*args)
+        err = _err(torch, got, ref)
+        if (plan.tc or not torch.equal(got, pa._launch_int8(*args, tc=False))
+                or not err <= _tol("bfloat16", ref)):
+            raise AssertionError(f"K4-int8 misaligned k/v mq {mq}: {plan}, "
+                                 f"error {err}")
+        misaligned += 1
+    # K4's three instances with a float32 output
+    k4 = 0
+    for dtype, D in ((torch.bfloat16, 128), (torch.bfloat16, 100),
+                     (f32, 64), (torch.bfloat16, 640)):
+        dname = str(dtype).split(".")[1]
+        bs, P, KV, H = 16, 12, 2, 8
+        NB = B * P
+        kc, vc = (torch.randn(NB, KV, bs, D, generator=g, device=dev,
+                              dtype=dtype) for _ in range(2))
+        bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(
+            B, P).to(torch.int32)
+        for mq, dec, now in batches:
+            dec_t = torch.tensor(dec, dtype=torch.int32, device=dev)
+            now_t = torch.tensor(now, dtype=torch.int32, device=dev)
+            cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+            cu[1:] = torch.cumsum(now_t, 0)
+            q = torch.randn(sum(now) + 5, H, D, generator=g, device=dev,
+                            dtype=dtype)
+            args = (q, kc, vc, dec_t, now_t, cu, bt, mq)
+            ref32 = pa._paged_attention_ref(*args, out_dtype=f32)
+            got = pa.paged_attention(*args, out_dtype=f32)
+            err = _err(torch, got, ref32)
+            if got.dtype != f32 or not err <= _tol(dname, ref32):
+                raise AssertionError(f"K4 {dname} D {D} mq {mq}: float32 "
+                                     f"output {got.dtype} differs by {err}")
+            k4 += 1
+    torch.cuda.synchronize()
+    print(f"k4-int8 edges: {n} forced plans agree with the plain version "
+          f"(largest error {worst:.3f} of its tolerance); the {clusters} "
+          f"with clusters gave the same bits in 3 runs each; {wides} "
+          f"float32 outputs of K4-int8 and {k4} of K4 (tensor cores, SIMT, "
+          f"wide) agree with the plain versions'; {misaligned} misaligned "
+          "bf16 k/v calls took SIMT")
+
+
 def _paged_sweep(torch, timer, label, dname):
     """Informative, for paged_plan's rules (``--k4-sweep``): one K4 case
     timed under every split count, ring depth and, for prefill tiles,
@@ -2022,8 +2202,8 @@ def _refusals(torch):
         err = _build.lib().ptt_paged_attention(
             q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
             z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), 1, 1,
-            P, 1, 8, 8, 128, 16, 1, 0.1, qt, kt, stages, splits, chunk, 1,
-            torch.cuda.current_stream().cuda_stream)
+            P, 1, 8, 8, 128, 16, 1, 0.1, qt, kt, stages, splits, chunk, 0,
+            1, torch.cuda.current_stream().cuda_stream)
         if err != 1:
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")

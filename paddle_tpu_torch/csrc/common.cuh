@@ -29,6 +29,17 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as a dtype cast
 }
 
+// element i of an output of T, or of float32 where `f32` (K4's float32
+// output, which blha_attention's epilogue reads before it rounds once)
+template <typename T>
+__device__ __forceinline__ void put_out(void* out, size_t i, float x,
+                                        bool f32) {
+  if (f32)
+    reinterpret_cast<float*>(out)[i] = x;
+  else
+    reinterpret_cast<T*>(out)[i] = from_f<T>(x);
+}
+
 // 16 bytes of T as floats: 8 bfloat16 or 4 float32 values
 template <typename T>
 struct Vec16;

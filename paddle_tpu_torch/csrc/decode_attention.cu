@@ -918,7 +918,9 @@ struct DecodeRows {
   __device__ const T* k(int key) const { return kb + key * ks; }
   __device__ const T* v(int key) const { return vb + key * ks; }
   __device__ bool vis(int, int) const { return true; }
-  __device__ T* o(int r) const { return ob + (long long)r * D; }
+  __device__ void put(int r, int d, float x) const {
+    ob[(long long)r * D + d] = ptt::from_f<T>(x);
+  }
 };
 
 // one block per (KV head x head chunk x slice, row): keys 0 .. pos

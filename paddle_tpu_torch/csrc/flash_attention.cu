@@ -553,7 +553,9 @@ struct FwdRows {
   __device__ bool vis(int r, int key) const {
     return !causal || key <= r0 + r + off;
   }
-  __device__ T* o(int r) const { return ob + r * ors; }
+  __device__ void put(int r, int d, float x) const {
+    ob[r * ors + d] = ptt::from_f<T>(x);
+  }
 };
 
 // one block per (32-row query tile, head x slice, batch)

@@ -14,7 +14,9 @@
 // scale 1/sqrt(D); query head h reads KV head h / (H / KV).  A key whose
 // block-table entry is out of the pool reads as zeros, as the reference's
 // gather fills it.  Tokens past cu[B], past their row's now, or at local
-// index >= max_q_len give zeros.
+// index >= max_q_len give zeros.  The output is q's dtype, or float32
+// where the entry's out_f32 asks (blha_attention's shift/smooth epilogue
+// and output quantization read the float32 value and round once).
 //
 // Bound on the H100: bytes.  Every serving shape reads each visible key and
 // value row once and does ~4 operations per (query row, key, column) on it,
@@ -200,7 +202,8 @@ struct Tile {
 // output slices, not splits (the wide instance): every block walks the
 // whole context, and the first slice writes the zeros.
 template <typename T, bool kSliced = false>
-__device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
+__device__ bool setup_tile(Tile& t, int* tables, void* __restrict__ out,
+                           bool f32,
                            const int* __restrict__ dec,
                            const int* __restrict__ now,
                            const int* __restrict__ cu,
@@ -270,9 +273,9 @@ __device__ bool setup_tile(Tile& t, int* tables, T* __restrict__ out,
         owned = local >= 0 && local < s_len[lo];
       }
       if (!owned) {
-        T* o = out + ((size_t)i * H + (size_t)kh * G) * D;
+        const size_t o = ((size_t)i * H + (size_t)kh * G) * D;
         for (int d = tid; d < G * D; d += kThreads)
-          o[d] = ptt::from_f<T>(0.f);
+          ptt::put_out<T>(out, o + d, 0.f, f32);
       }
     }
   }
@@ -385,6 +388,19 @@ __device__ __forceinline__ void issue_tile(T* ks, const T* kc, const T* vc,
   ptt::tc::cp_async_commit();
 }
 
+// Wait until tile `it` of a ring of `stages` has landed for every thread
+// (the later ones stay in flight).
+__device__ __forceinline__ void ring_land(int stages, int it, int ntile) {
+  const int pending = min(stages - 1, ntile - 1 - it);
+  if (pending >= 2)
+    ptt::tc::cp_async_wait<2>();
+  else if (pending == 1)
+    ptt::tc::cp_async_wait<1>();
+  else
+    ptt::tc::cp_async_wait<0>();
+  __syncthreads();
+}
+
 // The ring of `stages` K/V tiles: before tile `it`, issue tile
 // it + stages - 1 into the stage that tile it - 1 left, then wait until
 // tile it has landed for every thread (the later ones stay in flight).
@@ -400,34 +416,28 @@ __device__ __forceinline__ const T* ring_wait(T* stage, int stages, int it,
   if (nx < ntile)
     issue_tile<T, KT, PB>(stage + (nx % stages) * step, kc, vc, s_blk, t, cp,
                       t.c0 + nx * KT, rs, D, bs);
-  const int pending = min(stages - 1, ntile - 1 - it);
-  if (pending >= 2)
-    ptt::tc::cp_async_wait<2>();
-  else if (pending == 1)
-    ptt::tc::cp_async_wait<1>();
-  else
-    ptt::tc::cp_async_wait<0>();
-  __syncthreads();
+  ring_land(stages, it, ntile);
   return stage + (it % stages) * step;
 }
 
 // The output of a block's rows from its (m, l, acc) (acc rows `astride`
-// floats apart, unnormalised).  With one split, acc / l; with a cluster,
-// the leader weighs split s by exp2(m_s - M), M the largest m (a split
-// that saw no key, m = -inf, weighs 0), reading the others' shared memory.
-// The caller synchronises the block first.
+// floats apart, unnormalised), row 0 at element qo of out (T, or float32
+// where f32).  With one split, acc / l; with a cluster, the leader weighs
+// split s by exp2(m_s - M), M the largest m (a split that saw no key, m =
+// -inf, weighs 0), reading the others' shared memory.  The caller
+// synchronises the block first.
 template <typename T>
-__device__ void finish(T* __restrict__ o, size_t hd, int G, int D, int nr,
-                       int astride, int RP, float* mrow, float* lrow,
-                       float* acc, float* ws) {
+__device__ void finish(void* __restrict__ out, size_t qo, bool f32,
+                       size_t hd, int G, int D, int nr, int astride, int RP,
+                       float* mrow, float* lrow, float* acc, float* ws) {
   const int tid = threadIdx.x;
   const int splits = gridDim.x;
   if (splits == 1) {
     for (int idx = tid; idx < nr * D; idx += kThreads) {
       const int r = idx / D, d = idx - r * D;
       const float l = lrow[r];
-      o[(size_t)(r / G) * hd + (r % G) * D + d] =
-          ptt::from_f<T>(l > 0.f ? acc[(size_t)r * astride + d] / l : 0.f);
+      ptt::put_out<T>(out, qo + (size_t)(r / G) * hd + (r % G) * D + d,
+                      l > 0.f ? acc[(size_t)r * astride + d] / l : 0.f, f32);
     }
     return;
   }
@@ -466,11 +476,11 @@ __device__ void finish(T* __restrict__ o, size_t hd, int G, int D, int nr,
         }
       }
       const float inv = ws[splits * RP + r];
-      T* od = o + (size_t)(r / G) * hd + (r % G) * D + d;
+      const size_t od = qo + (size_t)(r / G) * hd + (r % G) * D + d;
       const float x[4] = {sum.x, sum.y, sum.z, sum.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (d + e < D) od[e] = ptt::from_f<T>(x[e] * inv);
+        if (d + e < D) ptt::put_out<T>(out, od + e, x[e] * inv, f32);
     }
   }
   cl.sync();  // no split leaves while the leader still reads it
@@ -487,11 +497,11 @@ __device__ void finish(T* __restrict__ o, size_t hd, int G, int D, int nr,
 template <typename T, int KT, int PB>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, T* __restrict__ out,
+    const T* __restrict__ vc, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
     const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
     int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
-    int stages, float scale_log2) {
+    int stages, float scale_log2, int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
@@ -512,8 +522,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<T>(t, tables, out, dec, now, cu, bt, T_, B, P, NB, H, G,
-                     D, bs, mq, QT, chunk))
+  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, T_, B, P, NB,
+                     H, G, D, bs, mq, QT, chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
@@ -675,7 +685,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     }
     __syncthreads();
   }
-  finish<T>(out + t.qo, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
+  finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
 }
 
 // -------------------------------------------------------- tensor cores
@@ -725,14 +735,154 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int DP, int KG>
-__global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
+// What K4-int8's tensor-core instance reads beside K4's operands (the
+// K4-int8 section below): its uint8 pools, this step's k / v rows and the
+// row's dequantization scales
+struct Int8Src {
+  const uint8_t *kc, *vc;              // the uint8 pools
+  const __nv_bfloat16 *kf, *vf;        // this step's k / v at head kh
+  long long kstride, vstride;          // elements between two tokens
+  int dec, tok0;  // the row's first fresh key; key k's token is tok0 + k
+  float kd, vd;   // the row's dequantization scales
+};
+
+// K4-int8's copier: pieces of 16 columns where D % 16 == 0, else 8 (a
+// cached key's piece is that many uint8 codes, a fresh key's twice as
+// many bytes of bf16); piece c of rows j0, j0 + jstep, ... of every tile
+__device__ __forceinline__ Copier make_copier_int8(int KV, int kh, int D,
+                                                   int bs) {
+  Copier cp;
+  cp.pe = D % 16 == 0 ? 16 : 8;
+  cp.bytes = cp.pe;
+  cp.cpr = D / cp.pe;  // at most 32 (D <= 256)
+  cp.jstep = kThreads / cp.cpr;
+  cp.c = threadIdx.x % cp.cpr;
+  cp.j0 = (int)threadIdx.x < cp.jstep * cp.cpr ? threadIdx.x / cp.cpr
+                                                : 1 << 30;
+  cp.bsh = (bs & (bs - 1)) == 0 ? __ffs(bs) - 1 : -1;
+  cp.head = (size_t)kh * bs * D;
+  cp.blk_stride = (size_t)KV * bs * D;
+  return cp;
+}
+
+// K and V rows t0 .. t0 + 63 of the split into a stage of bf16-sized rows
+// (`rs` elements apart): a cached key's (key < dec) codes into the first D
+// bytes of its rows, zeros (uint8 0) for a block outside the pool, to be
+// expanded in place once they land (expand_codes); a fresh key's bf16 rows
+// whole from k / v; zeros for a key past c1.  One commit group.
+__device__ __forceinline__ void issue_tile_int8(
+    __nv_bfloat16* ks, const Int8Src& s8, const int* s_blk, const Tile& t,
+    const Copier& cp, int t0, int rs, int D, int bs) {
+  __nv_bfloat16* vs = ks + kTcKeys * rs;
+  for (int j = cp.j0; j < kTcKeys; j += cp.jstep) {
+    const int key = t0 + j;
+    const int so = j * rs + cp.c * cp.pe;  // the piece's first element
+    if (key < t.c1 && key < s8.dec) {
+      const int kb = cp.bsh >= 0 ? key >> cp.bsh : key / bs;
+      const int blk = s_blk[kb - t.b0];
+      size_t o = 0;
+      if (blk >= 0)
+        o = blk * cp.blk_stride + cp.head + (size_t)(key - kb * bs) * D +
+            (size_t)cp.c * cp.pe;
+      // code c * pe of the row at its byte c * pe
+      const uint32_t kd = ptt::tc::smem_u32(ks + j * rs) + cp.c * cp.pe;
+      const uint32_t vd = ptt::tc::smem_u32(vs + j * rs) + cp.c * cp.pe;
+      ptt::tc::copy_piece(kd, s8.kc + o, blk >= 0, cp.pe);
+      ptt::tc::copy_piece(vd, s8.vc + o, blk >= 0, cp.pe);
+    } else {
+      const bool fresh = key < t.c1;
+      const long long tok = fresh ? (long long)s8.tok0 + key : 0;
+      const __nv_bfloat16* kp = s8.kf + tok * s8.kstride + cp.c * cp.pe;
+      const __nv_bfloat16* vp = s8.vf + tok * s8.vstride + cp.c * cp.pe;
+      for (int h = 0; h < cp.pe; h += 8) {
+        ptt::tc::cp_async16(ptt::tc::smem_u32(ks + so + h), kp + h, fresh);
+        ptt::tc::cp_async16(ptt::tc::smem_u32(vs + so + h), vp + h, fresh);
+      }
+    }
+  }
+  ptt::tc::cp_async_commit();
+}
+
+// 8 codes u (the bytes of w) as the bf16 values u - 128, exactly: a byte
+// in the low mantissa of 2^23 is the float 2^23 + u, and less 2^23 + 128
+// it is u - 128, a float whose low 16 bits are zero, so that its high
+// half is its bf16
+__device__ __forceinline__ uint4 codes8_bf16(uint2 w) {
+  constexpr uint32_t kMagic = 0x4B000000u;  // 2^23
+  constexpr float kBias = 8388736.f;        // 2^23 + 128
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t x = i < 2 ? w.x : w.y;
+    const uint32_t sel = 0x7650u + 2 * (i & 1);
+    const float lo = __uint_as_float(__byte_perm(x, kMagic, sel)) - kBias;
+    const float hi =
+        __uint_as_float(__byte_perm(x, kMagic, sel + 1)) - kBias;
+    r[i] = __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// One row's D codes, in its first D bytes, as bf16 u - 128 over its first
+// 2 D bytes, in place: from the last codes to the first (8 where D % 16 ==
+// 8, then 16 at a time), so that no code is overwritten before it is read
+__device__ __forceinline__ void expand_row(unsigned char* p, int D) {
+  if (D % 16)
+    *reinterpret_cast<uint4*>(p + 2 * (D - 8)) =
+        codes8_bf16(*reinterpret_cast<const uint2*>(p + D - 8));
+  for (int c = D / 16 - 1; c >= 0; --c) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p + 16 * c);
+    const uint4 lo = codes8_bf16(make_uint2(w.x, w.y));
+    const uint4 hi = codes8_bf16(make_uint2(w.z, w.w));
+    *reinterpret_cast<uint4*>(p + 32 * c) = lo;
+    *reinterpret_cast<uint4*>(p + 32 * c + 16) = hi;
+  }
+}
+
+// The codes of a landed stage's cached keys (key < clim = min(dec, c1))
+// that key group kgrp reads, expanded in place by the group itself: its
+// 64 / KG keys' K and V rows, one row a thread of its 4 / KG warps; then
+// the group's warps wait for each other only (one warp at 4 key groups,
+// a named barrier at 2, the block at 1).
+template <int KG>
+__device__ __forceinline__ void expand_codes(__nv_bfloat16* ks, int t0,
+                                             int clim, int rs, int D,
+                                             int warp, int lane) {
+  constexpr int KW = kTcKeys / KG;
+  const int kgrp = warp % KG;
+  const int li = (warp / KG) * 32 + lane;  // 0 .. 2 KW - 1
+  const int j = kgrp * KW + li % KW;
+  if (t0 + j < clim)
+    expand_row(reinterpret_cast<unsigned char*>(
+                   ks + ((li < KW ? 0 : kTcKeys) + j) * rs),
+               D);
+  if (KG == 4)
+    __syncwarp();
+  else if (KG == 2)
+    ptt::tc::named_sync(1 + kgrp, 64);
+  else
+    __syncthreads();
+}
+
+// The tensor-core walk of K4 (kInt8 false: bf16 pools kc / vc) and of
+// K4-int8 (kInt8: uint8 pools k8 / v8 with the row's scales, this step's
+// keys from kf / vf).  K4-int8's stage rows take a cached key's codes,
+// expanded in place to bf16 u - 128 once they land, or a fresh key's bf16
+// row; a cached key's score is kd (q . code) and its probability is
+// weighed by vd before the P V product packs it to bf16, a fresh key's by
+// 1, so that (m, l, O) are in value units throughout.
+template <int DP, int KG, bool kInt8>
+__device__ __forceinline__ void tc_attend(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ out,
-    const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
-    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
-    int stages, float scale_log2) {
+    const __nv_bfloat16* __restrict__ vc, const uint8_t* __restrict__ k8,
+    const uint8_t* __restrict__ v8, const __nv_bfloat16* __restrict__ kf,
+    const __nv_bfloat16* __restrict__ vf, const float* __restrict__ kdq,
+    const float* __restrict__ vdq, long long kstride, long long vstride,
+    void* __restrict__ out, const int* __restrict__ dec,
+    const int* __restrict__ now, const int* __restrict__ cu,
+    const int* __restrict__ bt, int T_, int B, int P, int NB, int H, int KV,
+    int D, int bs, int mq, int QT, int chunk, int stages, float scale_log2,
+    bool f32) {
   using bf = __nv_bfloat16;
   constexpr int KT = kTcKeys;
   constexpr int KW = KT / KG;    // keys of a tile a warp takes
@@ -759,11 +909,27 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<bf>(t, tables, out, dec, now, cu, bt, T_, B, P, NB, H, G,
-                      D, bs, mq, QT, chunk))
+  if (!setup_tile<bf>(t, tables, out, f32, dec, now, cu, bt, T_, B, P, NB,
+                      H, G, D, bs, mq, QT, chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
+  Int8Src s8 = {};
+  if constexpr (kInt8) {
+    s8.kc = k8;
+    s8.vc = v8;
+    s8.kf = kf + (size_t)kh * D;
+    s8.vf = vf + (size_t)kh * D;
+    s8.kstride = kstride;
+    s8.vstride = vstride;
+    s8.dec = t.pos0 - t.t_first;
+    s8.tok0 = tables[t.b] - s8.dec;  // s_cu[b]: the token of key dec
+    s8.kd = kdq[(size_t)t.b * KV + kh];
+    s8.vd = vdq[(size_t)t.b * KV + kh];
+  }
+  // keys below clim read codes; a cached key's scores take kd too
+  const int clim = kInt8 ? min(s8.dec, c1) : 0;
+  const float scale_kd = scale_log2 * s8.kd;
   // query rows as bf16, rows past nr and columns past D zero
   for (int idx = tid; idx < RP * ND; idx += kThreads) {
     const int r = idx / ND, c = (idx - r * ND) * 8;
@@ -797,15 +963,36 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const Copier cp = make_copier<bf>(KV, kh, D, bs);
-  for (int i = 0; i < stages - 1 && i < ntile; ++i)
-    issue_tile<bf, KT, 16>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk,
-                           t, cp, c0 + i * KT, rs, D, bs);
+  const size_t step = (size_t)2 * KT * rs;
+  const Copier cp = kInt8 ? make_copier_int8(KV, kh, D, bs)
+                          : make_copier<bf>(KV, kh, D, bs);
+  for (int i = 0; i < stages - 1 && i < ntile; ++i) {
+    if constexpr (kInt8)
+      issue_tile_int8(stage + i * step, s8, s_blk, t, cp, c0 + i * KT, rs, D,
+                      bs);
+    else
+      issue_tile<bf, KT, 16>(stage + i * step, kc, vc, s_blk, t, cp,
+                             c0 + i * KT, rs, D, bs);
+  }
   for (int it = 0; it < ntile; ++it) {
-    const bf* ks = ring_wait<bf, KT, 16>(stage, stages, it, ntile, kc, vc,
-                                         s_blk, t, cp, rs, D, bs);
-    const bf* vs = ks + KT * rs;
     const int t0 = c0 + it * KT;
+    const bf* ks;
+    if constexpr (kInt8) {
+      const int nx = it + stages - 1;
+      if (nx < ntile)
+        issue_tile_int8(stage + (nx % stages) * step, s8, s_blk, t, cp,
+                        c0 + nx * KT, rs, D, bs);
+      ring_land(stages, it, ntile);
+      bf* st = stage + (it % stages) * step;
+      // the same in the whole block
+      if (t0 < clim)
+        expand_codes<KG>(st, t0, clim, rs, D, warp, lane);
+      ks = st;
+    } else {
+      ks = ring_wait<bf, KT, 16>(stage, stages, it, ntile, kc, vc, s_blk, t,
+                                 cp, rs, D, bs);
+    }
+    const bf* vs = ks + KT * rs;
     if (active) {
       // S = Q K^T over this warp's KW keys
       float s[NK][4];
@@ -825,16 +1012,17 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
           mma_bf16(s[2 * n2 + 1], a, bk[2], bk[3]);
         }
       }
-      // scale into the log2 domain; the mask only where a row's last
-      // visible key or the split's end falls inside this tile
+      // scale into the log2 domain (a cached key's by kd too); the mask
+      // only where a row's last visible key or the split's end falls
+      // inside this tile
       const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float v = s[n][e] * scale_log2;
+          const int key = t0 + kbase + n * 8 + 2 * tig + (e & 1);
+          float v = s[n][e] * (kInt8 && key < clim ? scale_kd : scale_log2);
           if (!full) {
-            const int key = t0 + kbase + n * 8 + 2 * tig + (e & 1);
             if (!(key < c1 && key <= (e < 2 ? lim0 : lim1))) v = -INFINITY;
           }
           s[n][e] = v;
@@ -874,13 +1062,22 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
         o[n][3] *= cr1;
       }
       // O += P V: the score accumulators of two n-tiles are one A operand
+      // (K4-int8: a cached key's probability weighed by vd first)
 #pragma unroll
       for (int kk = 0; kk < NK / 2; ++kk) {
+        float w[4] = {1.f, 1.f, 1.f, 1.f};  // keys k0, k0 + 1, +8, +9
+        if constexpr (kInt8) {
+          const int k0 = t0 + kbase + 16 * kk + 2 * tig;
+          w[0] = k0 < clim ? s8.vd : 1.f;
+          w[1] = k0 + 1 < clim ? s8.vd : 1.f;
+          w[2] = k0 + 8 < clim ? s8.vd : 1.f;
+          w[3] = k0 + 9 < clim ? s8.vd : 1.f;
+        }
         uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        a[0] = pack_bf16(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]);
+        a[1] = pack_bf16(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1]);
+        a[2] = pack_bf16(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3]);
+        a[3] = pack_bf16(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3]);
 #pragma unroll
         for (int n2 = 0; n2 < ND / 2; ++n2) {
           uint32_t bv[4];
@@ -907,7 +1104,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
     float* ap = acc + ((size_t)kgrp * RP + row0) * DP + 2 * tig;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(ap + n * 8) = make_float2(o[n][0], o[n][1]);
+      *reinterpret_cast<float2*>(ap + n * 8) =
+          make_float2(o[n][0], o[n][1]);
       *reinterpret_cast<float2*>(ap + 8 * DP + n * 8) =
           make_float2(o[n][2], o[n][3]);
     }
@@ -944,7 +1142,21 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
     }
     __syncthreads();
   }
-  finish<bf>(out + t.qo, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws);
+  finish<bf>(out, t.qo, f32, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws);
+}
+
+template <int DP, int KG>
+__global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, void* __restrict__ out,
+    const int* __restrict__ dec, const int* __restrict__ now,
+    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
+    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    int stages, float scale_log2, int out_f32) {
+  tc_attend<DP, KG, false>(q, kc, vc, nullptr, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, 0, 0, out, dec, now, cu, bt, T_,
+                           B, P, NB, H, KV, D, bs, mq, QT, chunk, stages,
+                           scale_log2, out_f32);
 }
 
 // query tiles in the grid: at most ceil(max_q_len / QT) a row, and at most
@@ -970,7 +1182,7 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
                           const void* dec, const void* now, const void* cu,
                           const void* bt, int T_, int B, int P, int NB, int H,
                           int D, int bs, int mq, int QT, int chunk,
-                          int stages, float scale) {
+                          int stages, float scale, int out_f32) {
   if (tiles > 65535 || KV > 65535) return cudaErrorInvalidConfiguration;
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -989,9 +1201,9 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
   // log2(e) / sqrt(D): the scores live in the log2 domain (exp2f)
   const float scale_log2 = scale * 1.4426950408889634f;
   e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)kc, (const T*)vc,
-                         (T*)out, (const int*)dec, (const int*)now,
+                         out, (const int*)dec, (const int*)now,
                          (const int*)cu, (const int*)bt, T_, B, P, NB, H, KV,
-                         D, bs, mq, QT, chunk, stages, scale_log2);
+                         D, bs, mq, QT, chunk, stages, scale_log2, out_f32);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1002,14 +1214,15 @@ cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
                       const void* vc, void* out, const void* dec,
                       const void* now, const void* cu, const void* bt, int T_,
                       int B, int P, int NB, int H, int D, int bs, int mq,
-                      int QT, int chunk, int stages, float scale) {
+                      int QT, int chunk, int stages, float scale,
+                      int out_f32) {
 #define PTT_K4_TC(kg)                                                        \
   if (KG == kg)                                                              \
     return launch_kernel<decltype(&paged_attention_tc_kernel<DP, kg>),       \
                          __nv_bfloat16>(                                     \
         paged_attention_tc_kernel<DP, kg>, smem, splits, tiles, KV, st, q,   \
         kc, vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, \
-        stages, scale);
+        stages, scale, out_f32);
   PTT_K4_TC(4)
   PTT_K4_TC(2)
   PTT_K4_TC(1)
@@ -1025,17 +1238,17 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         const void* vc, void* out, const void* dec,
                         const void* now, const void* cu, const void* bt,
                         int T_, int B, int P, int NB, int H, int D, int bs,
-                        int mq, int QT, int chunk, int stages,
-                        float scale) {
+                        int mq, int QT, int chunk, int stages, float scale,
+                        int out_f32) {
   if (ptt::tc::piece_bytes(D * (int)sizeof(T)) == 16)
     return launch_kernel<decltype(&paged_attention_kernel<T, KT, 16>), T>(
         paged_attention_kernel<T, KT, 16>, smem, splits, tiles, KV, st, q,
         kc, vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk,
-        stages, scale);
+        stages, scale, out_f32);
   return launch_kernel<decltype(&paged_attention_kernel<T, KT, 0>), T>(
       paged_attention_kernel<T, KT, 0>, smem, splits, tiles, KV, st, q, kc,
       vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk,
-      stages, scale);
+      stages, scale, out_f32);
 }
 
 // ---------------------------------------------- past 512 columns (C8)
@@ -1046,7 +1259,9 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
 template <typename T>
 struct PagedRows {
   const T *qb, *kc, *vc;
-  T* ob;  // q and out at the tile's row 0
+  void* out;
+  size_t qo;  // q's and out's element of the tile's row 0
+  bool f32;   // out is float32 (else T)
   const int* s_blk;
   size_t hd, head, blk_stride;
   int G, D, bs, b0, pos0, last;
@@ -1065,7 +1280,9 @@ struct PagedRows {
   __device__ bool vis(int r, int key) const {
     return key <= min(pos0 + r / G, last);
   }
-  __device__ T* o(int r) const { return ob + row(r); }
+  __device__ void put(int r, int d, float x) const {
+    ptt::put_out<T>(out, qo + row(r) + d, x, f32);
+  }
 };
 
 // one block per (slice, query tile, KV head)
@@ -1073,24 +1290,24 @@ template <typename T>
 __global__ void __launch_bounds__(ptt::wide::kThreads)
     paged_attention_wide_kernel(
         const T* __restrict__ q, const T* __restrict__ kc,
-        const T* __restrict__ vc, T* __restrict__ out,
+        const T* __restrict__ vc, void* __restrict__ out,
         const int* __restrict__ dec, const int* __restrict__ now,
         const int* __restrict__ cu, const int* __restrict__ bt, int T_,
         int B, int P, int NB, int H, int KV, int D, int bs, int mq, int QT,
-        int chunk, float scale_log2, int W) {
+        int chunk, float scale_log2, int W, int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV, kh = blockIdx.z;
   int* tables =
       reinterpret_cast<int*>(smem + ptt::wide::smem_bytes(QT * G, W));
   Tile t;
-  if (!setup_tile<T, true>(t, tables, out, dec, now, cu, bt, T_, B, P, NB,
-                           H, G, D, bs, mq, QT, chunk))
+  if (!setup_tile<T, true>(t, tables, out, out_f32, dec, now, cu, bt, T_, B,
+                           P, NB, H, G, D, bs, mq, QT, chunk))
     return;
   // the walk's first barrier comes before its first read of s_blk
-  const PagedRows<T> src{q + t.qo, kc, vc, out + t.qo, tables + 4 * B + 2,
-                         (size_t)H * D, (size_t)kh * bs * D,
-                         (size_t)KV * bs * D, G, D, bs, t.b0, t.pos0,
-                         t.ctx - 1};
+  const PagedRows<T> src{q + t.qo, kc, vc, out, t.qo, out_f32 != 0,
+                         tables + 4 * B + 2, (size_t)H * D,
+                         (size_t)kh * bs * D, (size_t)KV * bs * D, G, D, bs,
+                         t.b0, t.pos0, t.ctx - 1};
   ptt::wide::attend<T>(src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W,
                        scale_log2, smem);
 }
@@ -1101,7 +1318,7 @@ cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
                         void* out, const void* dec, const void* now,
                         const void* cu, const void* bt, int T_, int B, int P,
                         int NB, int H, int D, int bs, int mq, int QT,
-                        int chunk, float scale) {
+                        int chunk, float scale, int out_f32) {
   const int R = QT * (H / KV);
   const int W = ptt::wide::slice_cols(R, D);
   if (W == 0 || tiles > 65535 || KV > 65535)
@@ -1112,9 +1329,9 @@ cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
   if (e != cudaSuccess) return e;
   const dim3 grid((D + W - 1) / W, (unsigned)tiles, KV);
   paged_attention_wide_kernel<T><<<grid, ptt::wide::kThreads, smem, st>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, (T*)out, (const int*)dec,
+      (const T*)q, (const T*)kc, (const T*)vc, out, (const int*)dec,
       (const int*)now, (const int*)cu, (const int*)bt, T_, B, P, NB, H, KV, D,
-      bs, mq, QT, chunk, scale * 1.4426950408889634f, W);
+      bs, mq, QT, chunk, scale * 1.4426950408889634f, W, out_f32);
   return cudaGetLastError();
 }
 
@@ -1152,16 +1369,27 @@ bool valid_plan(int B, int P, int H, int KV, int D, int bs, int mq, int QT,
 // gather fills it.  Float32 online softmax with scale 1/sqrt(D), as K4.
 //
 // Bound on the H100: bytes (one byte a cached element, the fresh rows in
-// their dtype), as K4.  This first version is simple: 16-byte (8-byte for
-// uint8) loads, a thread's next four issued together and then converted in
-// registers, no ring; K4's cluster split of the
-// context where the grid leaves SMs idle (the leader merges through
-// distributed shared memory, finish()); every D (the rows padded to 8
-// columns, key tiles of 64 down to 8 keys as D grows, query tiles that
-// shrink until the block fits 227 KB).  The
-// exact-integer bf16 mma.sync (u8 - 128 is exact in bf16 and d factors out
-// of q.k and of p.v) and the quantized write folded into the launch are
-// later work (ROADMAP K4-int8-fast).
+// their dtype), as K4.  Two instances:
+// * Tensor cores (paged_attention_int8_mma_kernel, tc_attend above), for
+//   bfloat16 where K4 runs its own (D a multiple of 8 up to 256, at most 64
+//   query rows a tile): K4's tiles, warps, cluster split and merge over a
+//   cp.async ring whose rows take a cached key's D uint8 codes (half K4's
+//   bytes; 16-byte pieces where D % 16 == 0, else 8) or a fresh key's bf16
+//   row.  Once a stage lands each thread expands one row's codes in place
+//   to bf16 u - 128, an integer in [-128, 127] that bf16 holds exactly, so
+//   q . code on mma.sync (bf16 in, float32 sums) is exact products; the
+//   row's d factors out: kd scales a cached key's score, vd its
+//   probability before P V packs it to bf16 (fresh keys: 1).
+// * SIMT (paged_attention_int8_kernel), for float32, the other bf16 head
+//   dims and groups past 64 query rows: 16-byte (8-byte for uint8) loads,
+//   a thread's next four issued together and then converted into float32
+//   tiles in registers, no ring; K4's cluster split of the context where
+//   the grid leaves SMs idle (the leader merges through distributed shared
+//   memory, finish()); every D (the rows padded to 8 columns, key tiles of
+//   64 down to 8 keys as D grows, query tiles that shrink until the block
+//   fits 227 KB).
+// The quantized write folded into the launch is later work (ROADMAP
+// Paged-write).
 
 // key groups of the P @ V step: the 8-column pieces of a row take
 // DA / 8 threads, and the rest of the block's threads split the keys
@@ -1394,11 +1622,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     const T* __restrict__ q, const T* __restrict__ kf,
     const T* __restrict__ vf, const uint8_t* __restrict__ kc,
     const uint8_t* __restrict__ vc, const float* __restrict__ kdq,
-    const float* __restrict__ vdq, T* __restrict__ out,
+    const float* __restrict__ vdq, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
     const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
     int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
-    long long kstride, long long vstride, float scale_log2) {
+    long long kstride, long long vstride, float scale_log2, int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
@@ -1418,8 +1646,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<T>(t, tables, out, dec, now, cu, bt, T_, B, P, NB, H, G,
-                     D, bs, mq, QT, chunk))
+  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, T_, B, P, NB,
+                     H, G, D, bs, mq, QT, chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
@@ -1473,36 +1701,35 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     const int kcount = min(KT, c1 - t0);
     const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
 
-    {  // scores (log2 domain)
-      const float* krow = ks + sj * rs;
-      const int key = t0 + sj;
-      for (int r0 = rg; r0 < nr; r0 += NRG * kRowsPerPass) {
-        float s[kRowsPerPass];
+    // scores (log2 domain)
+    const float* krow = ks + sj * rs;
+    const int key = t0 + sj;
+    for (int r0 = rg; r0 < nr; r0 += NRG * kRowsPerPass) {
+      float s[kRowsPerPass];
 #pragma unroll
-        for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
-        for (int c = 0; c < DA; c += kVec) {
-          float kx[kVec];
-          load8(krow + c, kx);
-#pragma unroll
-          for (int k = 0; k < kRowsPerPass; ++k) {
-            const int r = r0 + k * NRG;
-            if (r < nr) {
-              const float4 a =
-                  *reinterpret_cast<const float4*>(qs + r * DA + c);
-              const float4 e =
-                  *reinterpret_cast<const float4*>(qs + r * DA + c + 4);
-              s[k] += a.x * kx[0] + a.y * kx[1] + a.z * kx[2] + a.w * kx[3] +
-                      e.x * kx[4] + e.y * kx[5] + e.z * kx[6] + e.w * kx[7];
-            }
-          }
-        }
+      for (int k = 0; k < kRowsPerPass; ++k) s[k] = 0.f;
+      for (int c = 0; c < DA; c += kVec) {
+        float kx[kVec];
+        load8(krow + c, kx);
 #pragma unroll
         for (int k = 0; k < kRowsPerPass; ++k) {
           const int r = r0 + k * NRG;
-          if (r < nr)
-            sc[r * KT + sj] =
-                full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
+          if (r < nr) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(qs + r * DA + c);
+            const float4 e =
+                *reinterpret_cast<const float4*>(qs + r * DA + c + 4);
+            s[k] += a.x * kx[0] + a.y * kx[1] + a.z * kx[2] + a.w * kx[3] +
+                    e.x * kx[4] + e.y * kx[5] + e.z * kx[6] + e.w * kx[7];
+          }
         }
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsPerPass; ++k) {
+        const int r = r0 + k * NRG;
+        if (r < nr)
+          sc[r * KT + sj] =
+              full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
       }
     }
     __syncthreads();
@@ -1587,21 +1814,42 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     }
     __syncthreads();
   }
-  finish<T>(out + t.qo, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
+  finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
 }
 
-template <typename T, int KT>
-cudaError_t launch_int8(bool aligned, size_t smem, int splits,
-                        long long tiles, int KV, cudaStream_t st,
-                        const void* q, const void* k, const void* v,
-                        const void* kc, const void* vc, const void* kd,
-                        const void* vd, void* out, const void* dec,
-                        const void* now, const void* cu, const void* bt,
-                        int T_, int B, int P, int NB, int H, int D, int bs,
-                        int mq, int QT, int chunk, long long kstride,
-                        long long vstride, float scale) {
-  auto kern = aligned ? paged_attention_int8_kernel<T, KT, true>
-                      : paged_attention_int8_kernel<T, KT, false>;
+// The tensor-core instance (tc_attend with kInt8): one block per (split,
+// query tile, KV head), a ring of kInt8Stages; bfloat16 only
+constexpr int kInt8Stages = 2;
+
+template <int DP, int KG>
+__global__ void __launch_bounds__(kThreads) paged_attention_int8_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kf,
+    const __nv_bfloat16* __restrict__ vf, const uint8_t* __restrict__ kc,
+    const uint8_t* __restrict__ vc, const float* __restrict__ kdq,
+    const float* __restrict__ vdq, void* __restrict__ out,
+    const int* __restrict__ dec, const int* __restrict__ now,
+    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
+    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    long long kstride, long long vstride, float scale_log2, int out_f32) {
+  tc_attend<DP, KG, true>(q, nullptr, nullptr, kc, vc, kf, vf, kdq, vdq,
+                          kstride, vstride, out, dec, now, cu, bt, T_, B, P,
+                          NB, H, KV, D, bs, mq, QT, chunk, kInt8Stages,
+                          scale_log2, out_f32);
+}
+
+// either K4-int8 kernel over a grid of (splits, tiles, KV), a cluster of
+// the splits
+template <typename K, typename T>
+cudaError_t launch_int8_kernel(K kern, size_t smem, int splits,
+                               long long tiles, int KV, cudaStream_t st,
+                               const void* q, const void* k, const void* v,
+                               const void* kc, const void* vc,
+                               const void* kd, const void* vd, void* out,
+                               const void* dec, const void* now,
+                               const void* cu, const void* bt, int T_, int B,
+                               int P, int NB, int H, int D, int bs, int mq,
+                               int QT, int chunk, long long kstride,
+                               long long vstride, float scale, int out_f32) {
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -1618,12 +1866,54 @@ cudaError_t launch_int8(bool aligned, size_t smem, int splits,
   cfg.numAttrs = splits > 1 ? 1 : 0;
   e = cudaLaunchKernelEx(
       &cfg, kern, (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kc,
-      (const uint8_t*)vc, (const float*)kd, (const float*)vd, (T*)out,
+      (const uint8_t*)vc, (const float*)kd, (const float*)vd, out,
       (const int*)dec, (const int*)now, (const int*)cu, (const int*)bt, T_, B,
       P, NB, H, KV, D, bs, mq, QT, chunk, kstride, vstride,
-      scale * 1.4426950408889634f);
+      scale * 1.4426950408889634f, out_f32);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_int8_mma(int KG, size_t smem, int splits, long long tiles,
+                            int KV, cudaStream_t st, const void* q,
+                            const void* k, const void* v, const void* kc,
+                            const void* vc, const void* kd, const void* vd,
+                            void* out, const void* dec, const void* now,
+                            const void* cu, const void* bt, int T_, int B,
+                            int P, int NB, int H, int D, int bs, int mq,
+                            int QT, int chunk, long long kstride,
+                            long long vstride, float scale, int out_f32) {
+#define PTT_K4I_MMA(kg)                                                      \
+  if (KG == kg)                                                              \
+    return launch_int8_kernel<                                               \
+        decltype(&paged_attention_int8_mma_kernel<DP, kg>), __nv_bfloat16>(  \
+        paged_attention_int8_mma_kernel<DP, kg>, smem, splits, tiles, KV, st, \
+        q, k, v, kc, vc, kd, vd, out, dec, now, cu, bt, T_, B, P, NB, H, D,  \
+        bs, mq, QT, chunk, kstride, vstride, scale, out_f32);
+  PTT_K4I_MMA(4)
+  PTT_K4I_MMA(2)
+  PTT_K4I_MMA(1)
+#undef PTT_K4I_MMA
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int KT>
+cudaError_t launch_int8(bool aligned, size_t smem, int splits,
+                        long long tiles, int KV, cudaStream_t st,
+                        const void* q, const void* k, const void* v,
+                        const void* kc, const void* vc, const void* kd,
+                        const void* vd, void* out, const void* dec,
+                        const void* now, const void* cu, const void* bt,
+                        int T_, int B, int P, int NB, int H, int D, int bs,
+                        int mq, int QT, int chunk, long long kstride,
+                        long long vstride, float scale, int out_f32) {
+  auto kern = aligned ? paged_attention_int8_kernel<T, KT, true>
+                      : paged_attention_int8_kernel<T, KT, false>;
+  return launch_int8_kernel<decltype(kern), T>(
+      kern, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,
+      now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, kstride, vstride,
+      scale, out_f32);
 }
 
 template <typename T>
@@ -1635,11 +1925,11 @@ cudaError_t launch_int8_kt(int KT, bool aligned, size_t smem, int splits,
                            const void* now, const void* cu, const void* bt,
                            int T_, int B, int P, int NB, int H, int D, int bs,
                            int mq, int QT, int chunk, long long kstride,
-                           long long vstride, float scale) {
+                           long long vstride, float scale, int out_f32) {
 #define PTT_K4I_ARGS                                                        \
   aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,  \
       now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, kstride, vstride, \
-      scale
+      scale, out_f32
   switch (KT) {
     case 64: return launch_int8<T, 64>(PTT_K4I_ARGS);
     case 32: return launch_int8<T, 32>(PTT_K4I_ARGS);
@@ -1661,7 +1951,7 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
                                    int H, int KV, int D, int bs,
                                    int max_q_len, float scale, int QT, int KT,
                                    int stages, int splits, int chunk,
-                                   int dtype, void* stream) {
+                                   int out_f32, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
       !valid_plan(B, P, H, KV, D, bs, max_q_len, QT, KT, stages, splits,
@@ -1674,7 +1964,7 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
   if (D > 512) {
 #define PTT_K4_ARGS                                                        \
   tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, H, D, bs, \
-      max_q_len, QT, chunk, scale
+      max_q_len, QT, chunk, scale, out_f32
     return dtype == ptt::kFloat32
                ? (int)launch_wide<float>(PTT_K4_ARGS)
                : (int)launch_wide<__nv_bfloat16>(PTT_K4_ARGS);
@@ -1686,7 +1976,7 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
     const int KG = tc_key_groups(R), DP = tc_cols(D);
 #define PTT_K4_ARGS                                                         \
   smem, KG, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, \
-      P, NB, H, D, bs, max_q_len, QT, chunk, stages, scale
+      P, NB, H, D, bs, max_q_len, QT, chunk, stages, scale, out_f32
     if (DP == 64) return (int)launch_tc<64>(PTT_K4_ARGS);
     if (DP == 128) return (int)launch_tc<128>(PTT_K4_ARGS);
     return (int)launch_tc<256>(PTT_K4_ARGS);
@@ -1694,7 +1984,7 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
   }
 #define PTT_K4_ARGS                                                          \
   smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, \
-      H, D, bs, max_q_len, QT, chunk, stages, scale
+      H, D, bs, max_q_len, QT, chunk, stages, scale, out_f32
   if (dtype == ptt::kFloat32)
     return KT == 64   ? (int)launch_simt<float, 64>(PTT_K4_ARGS)
            : KT == 32 ? (int)launch_simt<float, 32>(PTT_K4_ARGS)
@@ -1708,10 +1998,15 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
 // K4-int8: q [T, H, D] and the fresh k / v [T, KV, D] (token strides
 // k_stride / v_stride elements, each head's row contiguous) in `dtype`;
 // uint8 pools kc / vc [NB, KV, bs, D]; float32 dequantization scales kd /
-// vd [B, KV]; out [T, H, D]; `splits` blocks of a cluster, each walking
-// `chunk` keys.  The entry refuses a key tile without an instance, more
-// than 4 splits, a chunk that is not a multiple of KT or does not cover
-// P * block_size keys (or leaves a split without keys), a grid past 65535
+// vd [B, KV]; out [T, H, D], in `dtype` or (out_f32) float32; `splits`
+// blocks of a cluster, each walking `chunk` keys.  `tc` runs the
+// tensor-core instance: bfloat16, D a multiple of 8 up to 256, at most 64
+// query rows a tile, 64-key tiles, k and v 16-byte aligned with token
+// strides of whole 16 bytes and the pools aligned to their rows' pieces (16
+// bytes where D % 16 == 0, else 8); else the SIMT instance.  The entry
+// refuses a plan outside these, a key tile without an instance, more than
+// 4 splits, a chunk that is not a multiple of KT or does not cover P *
+// block_size keys (or leaves a split without keys), a grid past 65535
 // tiles or KV heads, and a block past the shared memory it may use (227
 // KB).
 extern "C" int ptt_paged_attention_int8(
@@ -1720,7 +2015,7 @@ extern "C" int ptt_paged_attention_int8(
     const void* dec, const void* now, const void* cu, const void* bt, int T,
     int B, int P, int NB, int H, int KV, int D, int bs, int max_q_len,
     long long k_stride, long long v_stride, float scale, int QT, int KT,
-    int splits, int chunk, int dtype, void* stream) {
+    int splits, int chunk, int tc, int out_f32, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long ctx = (long long)P * bs;
   if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) || B <= 0 ||
@@ -1732,17 +2027,36 @@ extern "C" int ptt_paged_attention_int8(
     return (int)cudaErrorInvalidValue;
   const long long tiles = grid_tiles(T, B, max_q_len, QT);
   if (tiles > 65535 || KV > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int R = QT * (H / KV);
+  if (tc) {
+    const int piece = D % 16 == 0 ? 16 : 8;
+    if (!uses_tc(dtype, D) || R > kTcRows || KT != kTcKeys ||
+        !aligned_to(k, 16) || !aligned_to(v, 16) || (k_stride * 2) % 16 ||
+        (v_stride * 2) % 16 || !aligned_to(kc, piece) ||
+        !aligned_to(vc, piece))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        layout(true, R, D, 2, KT, kInt8Stages, splits, B, chunk, bs).total;
+    const int KG = tc_key_groups(R), DP = tc_cols(D);
+#define PTT_K4I_ARGS                                                       \
+  KG, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec, now,  \
+      cu, bt, T, B, P, NB, H, D, bs, max_q_len, QT, chunk, k_stride,       \
+      v_stride, scale, out_f32
+    if (DP == 64) return (int)launch_int8_mma<64>(PTT_K4I_ARGS);
+    if (DP == 128) return (int)launch_int8_mma<128>(PTT_K4I_ARGS);
+    return (int)launch_int8_mma<256>(PTT_K4I_ARGS);
+#undef PTT_K4I_ARGS
+  }
   const int es = dtype == ptt::kFloat32 ? 4 : 2;
   const bool aligned = D % kVec == 0 && aligned_to(k, 16) &&
                        aligned_to(v, 16) && (k_stride * es) % 16 == 0 &&
                        (v_stride * es) % 16 == 0 && aligned_to(kc, 8) &&
                        aligned_to(vc, 8);
-  const size_t smem =
-      int8_layout(QT * (H / KV), D, KT, splits, B, chunk, bs).total;
+  const size_t smem = int8_layout(R, D, KT, splits, B, chunk, bs).total;
 #define PTT_K4I_ARGS                                                         \
   KT, aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out,    \
       dec, now, cu, bt, T, B, P, NB, H, D, bs, max_q_len, QT, chunk,         \
-      k_stride, v_stride, scale
+      k_stride, v_stride, scale, out_f32
   if (dtype == ptt::kFloat32)
     return (int)launch_int8_kt<float>(PTT_K4I_ARGS);
   return (int)launch_int8_kt<__nv_bfloat16>(PTT_K4I_ARGS);

@@ -68,7 +68,7 @@ __host__ __device__ inline int slice_cols(int R, int D) {
 // columns [cs, cs + W) of each row.  Src gives the rows:
 //   const T* q(int r), k(int key), v(int key)  (nullptr reads as zeros)
 //   bool vis(int r, int key)                    (key < c1 is given)
-//   T* o(int r)                                 (nullptr: not written)
+//   void put(int r, int d, float x)             (output row r, column d)
 // Leaves each row's m (log2 domain) and l in the returned pointers.
 struct Stats {
   const float* m;
@@ -177,9 +177,7 @@ __device__ Stats attend(const Src& src, int R, int D, int c0, int c1,
 
   for (int i = tid; i < R * W; i += kThreads) {
     const int r = i / W, d = cs + i - r * W;
-    T* o = d < D ? src.o(r) : nullptr;
-    if (o != nullptr)
-      o[d] = from_f<T>(l[r] > 0.f ? acc[i] / l[r] : 0.f);
+    if (d < D) src.put(r, d, l[r] > 0.f ? acc[i] / l[r] : 0.f);
   }
   return Stats{m, l};
 }

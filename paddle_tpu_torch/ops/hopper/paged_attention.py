@@ -29,15 +29,22 @@ raises; ``launches`` counts kernel launches.
 
 ``paged_attention_int8`` is K4-int8 (``csrc/paged_attention.cu``'s second
 entry), the same attention over the int8 cache of ``cache_quant`` "static"
-and "dynamic" (``blha_attention`` ``:237-254``): uint8 blocks dequantized
-as (u8 - 128) * d[b, kv] on their way into shared memory, and each row's
-last ``now`` keys, this step's own, read at full precision from the fresh
-k and v instead of the cache (the reference's overlay).  A SIMT kernel
-with K4's split of the context across a cluster where the grid is small;
-``paged_int8_plan`` picks its query and key tiles and the split from host
-sizes.  Its plain version is ``_paged_attention_int8_ref`` (CPU
-tensors only; no fallback on CUDA); ``paged_attention_int8.launches``
-counts its launches.
+and "dynamic" (``blha_attention`` ``:237-254``): uint8 blocks read as
+(u8 - 128) * d[b, kv], and each row's last ``now`` keys, this step's own,
+read at full precision from the fresh k and v instead of the cache (the
+reference's overlay).  Two instances, both with K4's split of the context
+across a cluster where the grid is small: for bfloat16 where K4 runs its
+tensor cores, K4's ``mma.sync`` walk over a ``cp.async`` ring of the uint8
+codes, expanded in shared memory to bf16 u - 128 (exact), with d applied
+to the scores and the probabilities; else a SIMT kernel over float32
+tiles.  ``paged_int8_plan`` picks the instance, the query and key tiles
+and the split from host sizes.  Its plain version is
+``_paged_attention_int8_ref`` (CPU tensors only; no fallback on CUDA);
+``paged_attention_int8.launches`` counts its launches.
+
+Both wrappers take ``out_dtype``: None or q's dtype (the output rounded to
+it once), or float32, which ``blha_attention`` asks for where its
+epilogue reads the attention's float32 value.
 """
 from __future__ import annotations
 
@@ -312,10 +319,12 @@ def _token_rows(cu_seqlens_q, seq_lens_this_time, T, B):
     return b_idx, local, valid
 
 
-def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len):
+def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len,
+                out_dtype=None):
     """blha_attention steps 7-8 over the gathered context k_all / v_all
     [B, KV, L, D]: padded-batch attention with float32 softmax, gathered
-    back to the packed buffer; ``rows`` is ``_token_rows``'s."""
+    back to the packed buffer and rounded once to ``out_dtype`` (q's dtype
+    when None); ``rows`` is ``_token_rows``'s."""
     T, H, D = q.shape
     B, KV, L = k_all.shape[:3]
     dev = q.device
@@ -338,19 +347,19 @@ def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len):
     out_full = torch.zeros((B + 1, S + 1, H, D), dtype=torch.float32,
                            device=dev)
     out_full[:B, :S] = out_pad.reshape(B, S, H, D)
-    return out_full[bs_idx, lc_idx].to(q.dtype)          # [T, H, D]
+    return out_full[bs_idx, lc_idx].to(out_dtype or q.dtype)  # [T, H, D]
 
 
 def _paged_attention_ref(q, key_cache, value_cache, seq_lens_decoder,
                          seq_lens_this_time, cu_seqlens_q, block_tables,
-                         max_q_len):
+                         max_q_len, out_dtype=None):
     """blha_attention steps 6-8: gather each row's context, padded-batch
     attention with float32 softmax, gather back to the packed buffer."""
     rows = _token_rows(cu_seqlens_q, seq_lens_this_time, q.shape[0],
                        block_tables.shape[0])
     return _attend_ref(q, paged_gather_kv(key_cache, block_tables),
                        paged_gather_kv(value_cache, block_tables),
-                       seq_lens_decoder, rows, max_q_len)
+                       seq_lens_decoder, rows, max_q_len, out_dtype)
 
 
 def _row_scales(scales, B):
@@ -362,7 +371,8 @@ def _row_scales(scales, B):
 def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
                               k_dequant_scales, v_dequant_scales,
                               seq_lens_decoder, seq_lens_this_time,
-                              cu_seqlens_q, block_tables, max_q_len):
+                              cu_seqlens_q, block_tables, max_q_len,
+                              out_dtype=None):
     """blha_attention steps 6-8 over the int8 cache (``:237-254``, then
     ``:262-316``): gather the uint8 blocks (a block id outside the pool
     gathers uint8 0), dequantize as (u8 - 128) * d[b, kv], overlay this
@@ -382,7 +392,19 @@ def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
         full.index_put_((b_idx[ok][:, None], heads, pos[ok][:, None]),
                         new[ok].float())
         ctx.append(full)
-    return _attend_ref(q, ctx[0], ctx[1], seq_lens_decoder, rows, max_q_len)
+    return _attend_ref(q, ctx[0], ctx[1], seq_lens_decoder, rows, max_q_len,
+                       out_dtype)
+
+
+def _out_dtype(name, q, out_dtype):
+    """The output dtype a call asks for: None or q's dtype (q's), or
+    float32; anything else raises ValueError."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype
+    if out_dtype != torch.float32:
+        raise ValueError(f"{name}: out_dtype must be None, q's dtype "
+                         f"({q.dtype}) or torch.float32, got {out_dtype}")
+    return out_dtype
 
 
 def _check(name, q, key_cache, value_cache, ints, block_tables):
@@ -410,26 +432,32 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                     seq_lens_decoder: torch.Tensor,
                     seq_lens_this_time: torch.Tensor,
                     cu_seqlens_q: torch.Tensor, block_tables: torch.Tensor,
-                    max_q_len: int) -> torch.Tensor:
+                    max_q_len: int,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """q [T, H, D] (after rope), caches [NB, KV, bs, D] already holding this
     step's keys and values, seq_lens_decoder/this_time [B], cu_seqlens_q
-    [B+1], block_tables [B, P] -> attention output [T, H, D] in q's dtype.
-    Token i of row b sits at ``dec_b + (i - cu_b)`` and attends its row's
-    keys up to that position; tokens past ``cu[-1]``, past their row's
-    length, or at a local index >= ``max_q_len`` give zeros."""
+    [B+1], block_tables [B, P] -> attention output [T, H, D] in q's dtype,
+    or float32 with ``out_dtype=torch.float32`` (the float32 value,
+    unrounded).  Token i of row b sits at ``dec_b + (i - cu_b)`` and attends
+    its row's keys up to that position; tokens past ``cu[-1]``, past their
+    row's length, or at a local index >= ``max_q_len`` give zeros."""
+    od = _out_dtype("paged_attention", q, out_dtype)
     if q.device.type == "cpu":
         return _paged_attention_ref(q, key_cache, value_cache,
                                     seq_lens_decoder, seq_lens_this_time,
-                                    cu_seqlens_q, block_tables, max_q_len)
+                                    cu_seqlens_q, block_tables, max_q_len,
+                                    od)
     return _launch(q, key_cache, value_cache, seq_lens_decoder,
-                   seq_lens_this_time, cu_seqlens_q, block_tables, max_q_len)
+                   seq_lens_this_time, cu_seqlens_q, block_tables, max_q_len,
+                   od)
 
 
 def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len, **force):
+            cu_seqlens_q, block_tables, max_q_len, out_dtype=None, **force):
     """The kernel's launch for CUDA tensors, under ``paged_plan``'s plan or
     one that ``force`` (``qt``, ``splits``, ``stages``) fixes in part."""
     name = "paged_attention"
+    od = _out_dtype(name, q, out_dtype)
     ints = (seq_lens_decoder, seq_lens_this_time, cu_seqlens_q)
     _check(name, q, key_cache, value_cache, ints, block_tables)
     dt, stream = _build.launch_args(name, q, key_cache, value_cache)
@@ -437,9 +465,9 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
     NB, KV, bs, _ = key_cache.shape
     B, P = block_tables.shape
     if not B:                   # no rows: every token gives zeros
-        return torch.zeros_like(q)
+        return torch.zeros_like(q, dtype=od)
     plan = _plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, **force)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=od)
     if T:
         with _build.device_guard(q):
             _build.check(_build.lib().ptt_paged_attention(
@@ -448,13 +476,14 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
                 seq_lens_this_time.data_ptr(), cu_seqlens_q.data_ptr(),
                 block_tables.data_ptr(), T, B, P, NB, H, KV, D, bs,
                 int(max_q_len), 1.0 / math.sqrt(D), plan.qt, plan.kt,
-                plan.stages, plan.splits, plan.chunk, dt, stream), name)
+                plan.stages, plan.splits, plan.chunk,
+                int(od == torch.float32), dt, stream), name)
         paged_attention.launches += 1
     return out
 
 
-# K4-int8 (csrc ``paged_attention_int8_kernel``): key tiles whose two
-# float32 K/V tiles stay within INT8_TILE_BYTES, the larger first
+# K4-int8's SIMT instance (csrc ``paged_attention_int8_kernel``): key tiles
+# whose two float32 K/V tiles stay within INT8_TILE_BYTES, the larger first
 INT8_KEY_TILES = (64, 32, 16, 8)
 INT8_TILE_BYTES = 72 * 1024
 
@@ -463,20 +492,27 @@ class Int8Plan(NamedTuple):
     """One K4-int8 launch: ``qt`` tokens of a row per query tile, ``kt``
     keys a tile, ``splits`` blocks (a cluster) per (query tile, KV head),
     each walking ``chunk`` keys; ``smem`` bytes of shared memory a block,
-    ``blocks`` in the grid."""
+    ``blocks`` in the grid; ``tc``: the tensor-core instance (csrc
+    ``paged_attention_int8_mma_kernel``), else the SIMT one."""
     qt: int
     kt: int
     splits: int
     chunk: int
     smem: int
     blocks: int
+    tc: bool = False
 
 
 def _int8_smem_bytes(R: int, D: int, kt: int, splits: int, B: int,
-                     chunk: int, bs: int) -> int:
-    """K4-int8's shared-memory layout (csrc ``int8_layout``): the float32 K
-    and V tiles, the query rows, scores, the key groups' accumulators, row
-    statistics and the row tables with the row's block ids."""
+                     chunk: int, bs: int, tc: bool = False) -> int:
+    """K4-int8's shared-memory layout.  SIMT (csrc ``int8_layout``): the
+    float32 K and V tiles, the query rows, scores, the key groups'
+    accumulators, row statistics and the row tables with the row's block
+    ids.  Tensor cores: K4's own (``_smem_bytes``), its ring of two
+    stages of bf16-sized rows holding the codes until they are expanded."""
+    if tc:
+        return _smem_bytes(True, R, D, 2, kt, STAGES[True][0], splits, B,
+                           chunk, bs)
     da = _ceil(D, VEC) * VEC
     dc = da // VEC
     slots = 1 if dc >= THREADS else THREADS // dc
@@ -488,23 +524,56 @@ def _int8_smem_bytes(R: int, D: int, kt: int, splits: int, B: int,
                 + (splits + 1) * R + 4 * B + 2 + chunk // bs + 2)
 
 
-@functools.lru_cache(maxsize=256)
 def paged_int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int,
-                    H: int, KV: int, D: int) -> Int8Plan:
-    """K4-int8's tiles, from host-known sizes only: ``qt`` as K4's SIMT
-    instance (1 at decode, else up to ``MAX_QT`` tokens of about 8 query
-    rows); ``kt`` the largest of ``INT8_KEY_TILES`` whose K/V tiles take at
-    most ``INT8_TILE_BYTES`` (64 keys at D 128, 32 at 256, 16 at 512, 8
-    past); then ``qt`` halves, and past that ``kt``, until the block fits
-    the 227 KB a block may use; ``splits`` as K4's (1 where the grid gives
-    every SM a block, else the power of two that does, at most
-    ``SPLIT_CAP``).  Raises ValueError where one token's query rows do not
-    fit at 8 keys."""
+                    H: int, KV: int, D: int,
+                    dtype: torch.dtype = torch.float32) -> Int8Plan:
+    """K4-int8's instance and tiles, from host-known sizes only.
+
+    * Tensor cores (``tc``) for bfloat16 where K4 runs its own (D a
+      multiple of 8 up to 256) and a tile of one token holds at most
+      ``TC_ROWS`` query rows: K4's plan (``paged_plan``) as it is.
+    * SIMT otherwise: ``qt`` as K4's SIMT instance (1 at decode, else up to
+      ``MAX_QT`` tokens of about 8 query rows); ``kt`` the largest of
+      ``INT8_KEY_TILES`` whose K/V tiles take at most ``INT8_TILE_BYTES``
+      (64 keys at D 128, 32 at 256, 16 at 512, 8 past); then ``qt`` halves,
+      and past that ``kt``, until the block fits the 227 KB a block may
+      use; ``splits`` as K4's (1 where the grid gives every SM a block,
+      else the power of two that does, at most ``SPLIT_CAP``).
+
+    Raises ValueError where one token's query rows do not fit at 8 keys."""
+    return _int8_plan(T, B, max_q_len, P, bs, H, KV, D, dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
+               KV: int, D: int, dtype: torch.dtype,
+               tc: Optional[bool] = None,
+               splits: Optional[int] = None) -> Int8Plan:
+    """``paged_int8_plan``, with ``tc`` (the instance) and ``splits``
+    replacing its choices when given (``chip_smoke.py`` times the SIMT
+    instance on bfloat16 beside the tensor cores and holds both to the
+    plain version under forced splits; the wrapper forces SIMT only for
+    inputs whose alignment the tensor-core copies cannot take).  A forced
+    ``tc`` the shape does not allow, or more than ``SPLIT_CAP`` splits,
+    raises ValueError."""
     if D <= 0 or KV <= 0 or H % KV:
         raise ValueError(f"paged_attention_int8: no plan for H {H}, KV {KV}, "
                          f"head_dim {D} (head_dim >= 1, H % KV == 0)")
     G = H // KV
     ctx = P * bs
+    can_tc = _tc(dtype, D) and G <= TC_ROWS
+    if tc and not can_tc:
+        raise ValueError(f"paged_attention_int8: no tensor-core instance for "
+                         f"{dtype} at head_dim {D} with {G} query heads a KV "
+                         "head")
+    if splits is not None and not 1 <= splits <= SPLIT_CAP:
+        raise ValueError(f"paged_attention_int8: {splits} splits, past the "
+                         f"{SPLIT_CAP} blocks of a cluster")
+    if can_tc if tc is None else tc:
+        p = _plan(T, B, max_q_len, P, bs, H, KV, D, torch.bfloat16,
+                  splits=splits)
+        return Int8Plan(p.qt, p.kt, p.splits, p.chunk, p.smem, p.blocks,
+                        True)
     rs = _row_chunks(_ceil(D, VEC) * VEC, 4) * 4
     tiles = [k for k in INT8_KEY_TILES if 2 * k * rs * 4 <= INT8_TILE_BYTES]
     qt0 = 1 if max_q_len <= 1 else min(max_q_len, MAX_QT,
@@ -522,14 +591,15 @@ def paged_int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int,
             continue
         base = _grid_tiles(T, B, max_q_len, qt) * KV
         cap = max(1, min(SPLIT_CAP, _ceil(ctx, kt)))
-        splits = 1
-        while splits < cap and base * splits < SMS:
-            splits *= 2
-        splits = min(splits, cap)
-        chunk = max(kt, _ceil(_ceil(ctx, splits), kt) * kt)
-        splits = max(1, _ceil(ctx, chunk))  # no split left without keys
-        return Int8Plan(qt, kt, splits, chunk,
-                        smem(qt, kt, splits, chunk), base * splits)
+        n = splits
+        if n is None:
+            n = 1
+            while n < cap and base * n < SMS:
+                n *= 2
+        n = min(n, cap)
+        chunk = max(kt, _ceil(_ceil(ctx, n), kt) * kt)
+        n = max(1, _ceil(ctx, chunk))       # no split left without keys
+        return Int8Plan(qt, kt, n, chunk, smem(qt, kt, n, chunk), base * n)
     raise ValueError(
         f"paged_attention_int8: a block of {G} query rows at head_dim {D} "
         f"needs {smem(1, 8, SPLIT_CAP, _ceil(ctx, 8) * 8)} bytes of shared "
@@ -543,33 +613,68 @@ def paged_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          seq_lens_decoder: torch.Tensor,
                          seq_lens_this_time: torch.Tensor,
                          cu_seqlens_q: torch.Tensor,
-                         block_tables: torch.Tensor,
-                         max_q_len: int) -> torch.Tensor:
+                         block_tables: torch.Tensor, max_q_len: int,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """K4-int8: q [T, H, D] (after rope), this step's full-precision k and v
     [T, KV, D] (q's dtype; each head's row contiguous, any token stride),
     uint8 caches [NB, KV, bs, D] already holding this step's quantized
     keys and values, float32 dequantization scales [B, KV] (dynamic) or
     [KV] (static), lengths as ``paged_attention`` -> [T, H, D] in q's
-    dtype.  Row b's keys before ``seq_lens_decoder[b]`` read (u8 - 128) *
-    d[b, kv] (uint8 0 for a block id outside the pool); its keys from
-    there on are this step's, read from k and v at token ``cu[b] + (key -
-    dec[b])``, not from the cache."""
+    dtype, or float32 with ``out_dtype=torch.float32``.  Row b's keys
+    before ``seq_lens_decoder[b]`` read (u8 - 128) * d[b, kv] (uint8 0 for
+    a block id outside the pool); its keys from there on are this step's,
+    read from k and v at token ``cu[b] + (key - dec[b])``, not from the
+    cache."""
+    od = _out_dtype("paged_attention_int8", q, out_dtype)
     if q.device.type == "cpu":
         return _paged_attention_int8_ref(
             q, k, v, key_cache, value_cache, k_dequant_scales,
             v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len)
+            cu_seqlens_q, block_tables, max_q_len, od)
     return _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                         v_dequant_scales, seq_lens_decoder,
                         seq_lens_this_time, cu_seqlens_q, block_tables,
-                        max_q_len)
+                        max_q_len, od)
+
+
+def _tc_aligned(k, v, key_cache, value_cache) -> bool:
+    """Whether the tensor-core instance's copies take these inputs: k and v
+    16-byte aligned with token strides of whole 16 bytes, the pools
+    aligned to their rows' pieces (16 bytes where D % 16 == 0, else 8)."""
+    piece = 16 if key_cache.shape[3] % 16 == 0 else 8
+    return (all(t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size()
+                % 16 == 0 for t in (k, v))
+            and all(t.data_ptr() % piece == 0
+                    for t in (key_cache, value_cache)))
+
+
+def _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
+                      max_q_len, tc=None, splits=None) -> Int8Plan:
+    """The plan ``_launch_int8`` launches for these inputs:
+    ``paged_int8_plan``'s, or its instance and split count forced by ``tc``
+    and ``splits``; SIMT where the plan takes the tensor cores unforced but
+    their copies do not take k, v or the pools (``_tc_aligned``)."""
+    T, H, D = q.shape
+    _, KV, bs, _ = key_cache.shape
+    B, P = block_tables.shape
+    plan = _int8_plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, tc,
+                      splits)
+    if plan.tc and tc is None and not _tc_aligned(k, v, key_cache,
+                                                  value_cache):
+        plan = _int8_plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype,
+                          False, splits)
+    return plan
 
 
 def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                  v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
-                 cu_seqlens_q, block_tables, max_q_len):
-    """K4-int8's launch for CUDA tensors, under ``paged_int8_plan``."""
+                 cu_seqlens_q, block_tables, max_q_len, out_dtype=None,
+                 tc=None, splits=None):
+    """K4-int8's launch for CUDA tensors, under ``paged_int8_plan`` (or its
+    instance and split count forced by ``tc`` and ``splits``)."""
     name = "paged_attention_int8"
+    od = _out_dtype(name, q, out_dtype)
     T, H, D = q.shape
     NB, KV, bs, Dc = key_cache.shape
     B, P = block_tables.shape
@@ -605,9 +710,10 @@ def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
         raise ValueError(f"{name}: q must be contiguous")
     dt, stream = _build.launch_args(name, q, k, v)
     if not B:                   # no rows: every token gives zeros
-        return torch.zeros_like(q)
-    plan = paged_int8_plan(T, B, int(max_q_len), P, bs, H, KV, D)
-    out = torch.empty_like(q)
+        return torch.zeros_like(q, dtype=od)
+    plan = _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
+                             max_q_len, tc, splits)
+    out = torch.empty_like(q, dtype=od)
     if T:
         with _build.device_guard(q):
             _build.check(_build.lib().ptt_paged_attention_int8(
@@ -618,7 +724,8 @@ def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                 cu_seqlens_q.data_ptr(), block_tables.data_ptr(), T, B, P,
                 NB, H, KV, D, bs, int(max_q_len), k.stride(0), v.stride(0),
                 1.0 / math.sqrt(D), plan.qt, plan.kt, plan.splits,
-                plan.chunk, dt, stream), name)
+                plan.chunk, int(plan.tc), int(od == torch.float32), dt,
+                stream), name)
         paged_attention_int8.launches += 1
     return out
 

@@ -216,9 +216,9 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
     step's ``plan_step`` (built from ``rope_emb`` when None): a caller
     running several layers over one step builds it once.  Returns (out
     [T, H*D] in ``compute_dtype``, or int8 with ``has_out_quant``,
-    key_cache, value_cache).  In bfloat16 the attention output is rounded
-    to bfloat16 before the shift/smooth epilogue and the output
-    quantization, which the reference applies to its float32 value."""
+    key_cache, value_cache).  With ``out_shift``, ``out_smooth`` or
+    ``has_out_quant`` the attention hands its float32 output to the
+    epilogue, which rounds (or quantizes) once, as the reference does."""
     if (pre_key_cache is not None or pre_value_cache is not None
             or mask is not None or tgt_mask is not None):
         raise NotImplementedError(
@@ -254,12 +254,17 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
         q4, k4 = rope_fused(q[None], k[None], plan.cos, plan.sin,
                             interleaved=not use_neox_style)
         q, k = q4[0], k4[0]
+    # the epilogue reads the attention's float32 value (:317-329); without
+    # one the kernels round to q's dtype themselves
+    epilogue = (out_shift is not None or out_smooth is not None
+                or has_out_quant)
+    od = torch.float32 if epilogue else None
     if not quant:
         _scatter_kv(key_cache, value_cache, k, v, plan)
         out = paged_attention(q.contiguous(), key_cache[:nb],
                               value_cache[:nb], seq_lens_decoder,
                               seq_lens_this_time, cu_seqlens_q,
-                              block_tables, max_q_len)
+                              block_tables, max_q_len, out_dtype=od)
     else:
         if cache_quant == "dynamic" and seq_lens_encoder is not None:
             # before the write: this step's tokens take the new scales
@@ -278,7 +283,7 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
         out = paged_attention_int8(
             q.contiguous(), k, v, key_cache[:nb], value_cache[:nb],
             scales[2], scales[3], seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len)
+            cu_seqlens_q, block_tables, max_q_len, out_dtype=od)
     out = out.reshape(T, H * D)
     # the elementwise epilogue (:317-329): shift, then smooth, then the
     # int8 output quantization

@@ -18,7 +18,8 @@ float32 division of the same absmax (rtol 1e-6); the prefill output reads
 only this step's full-precision keys (2e-4, the reference's own bound); the
 decode output reads the dequantized caches, where one code is ~1% of a
 scale (1e-3); engine logprobs as tests/test_torch_serving.py (rtol 1e-4,
-atol 1e-5).
+atol 1e-5).  The bfloat16 epilogue test (Queue C9) holds bf16 outputs to
+one bf16 step and 99.9% equal: both packages round one float32 value once.
 """
 import dataclasses
 
@@ -42,9 +43,14 @@ from paddle_tpu_torch.models.llama import LlamaForCausalLM as PortLlama
 from paddle_tpu_torch.models.llama import load_numpy_state_dict
 from paddle_tpu_torch.ops.hopper import fused_ops
 from paddle_tpu_torch.ops.hopper.paged_attention import (
+    _int8_launch_plan,
+    _int8_plan,
+    _int8_smem_bytes,
     _paged_attention_int8_ref,
+    paged_attention,
     paged_attention_int8,
     paged_int8_plan,
+    paged_plan,
 )
 from paddle_tpu_torch.ops.paged_attention import (
     blha_attention,
@@ -344,6 +350,82 @@ def test_shift_smooth_and_out_quant_match_jax(ties_away):
             np.testing.assert_allclose(p[0], want, rtol=2e-5, atol=2e-5)
 
 
+def _bf16_steps_close(ours, ref):
+    """bfloat16 outputs (as float32): none more than one bf16 step (of the
+    larger magnitude) apart, at least 99.9% equal."""
+    diff = np.abs(ours - ref)
+    big = np.maximum(np.abs(ours), np.abs(ref))
+    step = np.exp2(np.floor(np.log2(np.maximum(big, 1e-30))) - 7)
+    assert (diff <= step).all(), float((diff / step).max())
+    assert (diff == 0).mean() >= 0.999, float((diff == 0).mean())
+
+
+@pytest.mark.parametrize("what, cache", [
+    ("epilogue", "bf16"), ("out_quant", "bf16"), ("both", "bf16"),
+    ("both", "uint8")])
+@pytest.mark.parametrize("ties_away", [True, False])
+def test_shift_smooth_and_out_quant_match_jax_bf16(what, cache, ties_away):
+    """Queue C9: the inputs of test_shift_smooth_and_out_quant_match_jax
+    (seed 26) with qkv, caches and compute_dtype in bfloat16 in both
+    packages.  The epilogue (shift then smooth), the int8 output
+    quantization, or both, read the attention's float32 value and round
+    once, as the reference does; ``cache`` "uint8" runs the same over a
+    static int8 cache (K4-int8's plain version).  bf16 outputs at most one
+    bf16 step apart and at least 99.9% equal (a float32 value within ~1e-7
+    of a bf16 rounding boundary may round either way); int8 codes as the
+    float32 test."""
+    rng = np.random.default_rng(26)
+    m = _mixed(rng)
+    m["kc"] = rng.standard_normal(m["kc"].shape).astype(np.float32)
+    m["vc"] = rng.standard_normal(m["vc"].shape).astype(np.float32)
+    shift = rng.standard_normal(4 * 32).astype(np.float32) * 0.1
+    smooth = rng.uniform(0.5, 1.5, 4 * 32).astype(np.float32)
+    kw = dict(num_heads=4, kv_num_heads=2, head_dim=32, block_size=4,
+              max_q_len=5, use_neox_style=True, round_ties_away=ties_away)
+    extra = {}
+    if what != "out_quant":
+        extra.update(out_shift=shift, out_smooth=smooth)
+    if what != "epilogue":
+        extra.update(has_out_quant=True, out_scale=1.3)
+    sc = {}
+    if cache == "uint8":
+        m["kc"] = rng.integers(0, 256, m["kc"].shape).astype(np.uint8)
+        m["vc"] = rng.integers(0, 256, m["vc"].shape).astype(np.uint8)
+        kq = rng.uniform(60, 120, 2).astype(np.float32)
+        vq = rng.uniform(60, 120, 2).astype(np.float32)
+        sc = dict(cache_k_quant_scales=kq, cache_v_quant_scales=vq,
+                  cache_k_dequant_scales=(1 / kq).astype(np.float32),
+                  cache_v_dequant_scales=(1 / vq).astype(np.float32))
+        kw["cache_quant"] = "static"
+    bf16 = [n for n in ("qkv", "kc", "vc") if m[n].dtype == np.float32]
+    j = jax_blha(*(jnp.asarray(m[n], dtype=jnp.bfloat16) if n in bf16
+                   else jnp.asarray(m[n]) for n in NAMES),
+                 compute_dtype=jnp.bfloat16,
+                 **{n: jnp.asarray(v) for n, v in {**extra, **sc}.items()
+                    if isinstance(v, np.ndarray)},
+                 **{n: v for n, v in extra.items()
+                    if not isinstance(v, np.ndarray)}, **kw)
+    args = [torch.as_tensor(np.array(m[n])) for n in NAMES]
+    for i, n in enumerate(NAMES):
+        if n in bf16:
+            args[i] = args[i].to(torch.bfloat16)
+    for i in (1, 2):
+        args[i] = torch.cat([args[i], torch.zeros_like(args[i][:1])])
+    p, _, _ = blha_attention(
+        *args, compute_dtype=torch.bfloat16,
+        **{n: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+           for n, v in {**extra, **sc}.items()}, **kw)
+    want = np.asarray(j[0])
+    if what != "epilogue":
+        assert p.dtype == torch.int8 and want.dtype == np.int8
+        diff = np.abs(p.numpy().astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+        assert np.abs(want).max() > 10            # the codes are not all 0
+    else:
+        assert p.dtype == torch.bfloat16
+        _bf16_steps_close(p.float().numpy(), want.astype(np.float32))
+
+
 def test_build_padding_metadata_matches_jax():
     for lens in ([3, 0, 5, 1], [4], [2, 2]):
         for ours, ref in zip(build_padding_metadata(lens), jax_padding(lens)):
@@ -568,7 +650,8 @@ def test_int8_plan_rules():
     """K4-int8's plan from host sizes: no split where the grid fills the
     card's 132 SMs, up to 4 where it does not; key tiles shrink with D; a
     block never past 227 KB, for every D up to 2048 at 1, 4 and 16 query
-    heads a KV head (or a ValueError)."""
+    heads a KV head (or a ValueError); the tensor-core instance where
+    bfloat16 allows it, on K4's plan."""
     decode = paged_int8_plan(8, 8, 1, 32, 16, 32, 32, 128)
     assert (decode.qt, decode.kt, decode.splits) == (1, 64, 1)
     assert decode.blocks == 256
@@ -586,3 +669,92 @@ def test_int8_plan_rules():
                 continue
             assert p.smem <= 232448 and p.chunk % p.kt == 0
             assert p.chunk * p.splits >= 512 > p.chunk * (p.splits - 1)
+    # the tensor-core instance: bfloat16 at D a multiple of 8 up to 256
+    # with at most 64 query rows a tile, on K4's tiles and shared memory;
+    # float32, D 100 or 264 and a group of 128 heads run SIMT
+    bf = torch.bfloat16
+    assert not any(p.tc for p in (decode, small, mixed))
+    for D in range(8, 257, 8):
+        for G in (1, 4, 8, 16, 64):
+            for T, mq in ((8, 1), (256, 256), (72, 9)):
+                p = paged_int8_plan(T, 8, mq, 32, 16, 2 * G, 2, D, bf)
+                assert p.tc and p.kt == 64 and p.qt * G <= 64
+                assert p.smem == _int8_smem_bytes(p.qt * G, D, p.kt,
+                                                  p.splits, 8, p.chunk, 16,
+                                                  tc=True) <= 232448
+                assert p[:6] == tuple(paged_plan(T, 8, mq, 32, 16, 2 * G, 2,
+                                                 D, bf))[:2] + tuple(
+                    paged_plan(T, 8, mq, 32, 16, 2 * G, 2, D, bf))[3:]
+    for args in ((8, 8, 1, 32, 16, 32, 32, 128, torch.float32),
+                 (8, 8, 1, 32, 16, 8, 2, 100, bf),
+                 (8, 8, 1, 32, 16, 8, 2, 264, bf),
+                 (8, 1, 1, 32, 16, 128, 1, 128, bf)):
+        assert not paged_int8_plan(*args).tc
+    assert paged_int8_plan(8, 8, 1, 32, 16, 32, 32, 128, bf).tc
+    with pytest.raises(ValueError, match="tensor-core"):
+        _int8_plan(8, 1, 1, 32, 16, 128, 1, 128, bf, True)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_int8_launch_plan_simt_for_misaligned_kv(offset):
+    """The launch's plan: bfloat16 k and v as 16-byte aligned views of a
+    packed qkv buffer take the tensor cores; the same views one element
+    further on (2-byte aligned) take SIMT unforced, and a forced
+    instance stays forced."""
+    T, H, KV, D, bs, B, P_ = 4, 8, 2, 64, 16, 2, 4
+    qkv = torch.zeros(T, (H + 2 * KV) * D + offset, dtype=torch.bfloat16)
+    base = qkv[:, offset:]
+    q = base[:, :H * D].reshape(T, H, D).contiguous()
+    k = base[:, H * D:(H + KV) * D].view(T, KV, D)
+    v = base[:, (H + KV) * D:].view(T, KV, D)
+    caches = [torch.zeros(B * P_, KV, bs, D, dtype=torch.uint8)
+              for _ in range(2)]
+    bt = torch.zeros(B, P_, dtype=torch.int32)
+    assert (k.data_ptr() % 16 == 0) == (offset == 0)
+    plan = _int8_launch_plan(q, k, v, *caches, bt, 1)
+    assert plan.tc == (offset == 0)
+    assert plan == _int8_plan(T, B, 1, P_, bs, H, KV, D, torch.bfloat16,
+                              offset == 0)
+    assert not _int8_launch_plan(q, k, v, *caches, bt, 1, tc=False).tc
+    assert _int8_launch_plan(q, k, v, *caches, bt, 1, tc=True).tc
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_out_dtype_only_q_dtype_or_float32(int8):
+    """K4's and K4-int8's ``out_dtype``: None or q's dtype give q's dtype,
+    float32 the unrounded float32 output, anything else raises."""
+    rng = np.random.default_rng(27)
+    T, H, KV, D, bs, B, P_ = 3, 4, 2, 16, 4, 2, 3
+    q = torch.as_tensor(rng.standard_normal((T, H, D)),
+                        dtype=torch.float32).to(torch.bfloat16)
+    kv = torch.as_tensor(rng.standard_normal((T, KV, D)),
+                         dtype=torch.float32).to(torch.bfloat16)
+    ints = (torch.tensor([5, 0], dtype=torch.int32),
+            torch.tensor([1, 2], dtype=torch.int32),
+            torch.tensor([0, 1, 3], dtype=torch.int32),
+            torch.arange(B * P_, dtype=torch.int32).view(B, P_))
+    if int8:
+        caches = [torch.as_tensor(rng.integers(0, 256, (B * P_, KV, bs, D)),
+                                  dtype=torch.uint8) for _ in range(2)]
+        d = torch.full((KV,), 0.01)
+
+        def call(od):
+            return paged_attention_int8(q, kv, kv, *caches, d, d, *ints, 2,
+                                        out_dtype=od)
+    else:
+        caches = [torch.as_tensor(rng.standard_normal((B * P_, KV, bs, D)),
+                                  dtype=torch.float32).to(torch.bfloat16)
+                  for _ in range(2)]
+
+        def call(od):
+            return paged_attention(q, *caches, *ints, 2, out_dtype=od)
+    f32 = call(torch.float32)
+    assert f32.dtype == torch.float32
+    for od in (None, torch.bfloat16):
+        got = call(od)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, f32.to(torch.bfloat16), rtol=0,
+                                   atol=0)
+    for od in (torch.float16, torch.int8, torch.float64):
+        with pytest.raises(ValueError, match="out_dtype"):
+            call(od)
