@@ -77,6 +77,12 @@ Phases (each prints its seconds):
      out-of-pool block in a decode row's visible range, and decode at 8 /
      2 heads, head_dim 72, 100, 264, 512 and 640, each with its plan and,
      informative, K4's time over a cache of q's dtype at the same shape;
+     the pre-caches (A4b): K4 and K4-int8 at decode with a 64-key prefix
+     (8 rows, context <= 512, 32 / 32 and 32 / 8 heads; K4's library time
+     SDPA over the concatenated context), and every K4 instance (tensor
+     cores, SIMT, wide) and both K4-int8 ones with prefixes of 1, 64 and
+     130 keys at decode and at the mixed 255-token step, one and four
+     splits forced, against their plain versions;
      K2's interleaved pairs at the serving step's [1, 256] rows;
      then (informative) B1 and B8 in bf16 at every compiled tile pair
      (autotune.tune), B8's two GQA modes, and whether two bf16 B8 runs
@@ -85,8 +91,9 @@ Phases (each prints its seconds):
      layers, 32 heads) in bfloat16 with seeded random weights, served by
      ServingEngine(max_batch_size=8, max_seq_len=512, block_size=16,
      token_budget=256) with the default megastep_k=8 and prefix cache, in
-     two waves (the first holds a sampled request); the megastep loops run
-     as CUDA graphs (the engine's default on CUDA); the kernels' launch
+     two waves (the first holds a sampled request); the megastep loops and
+     the single step run as CUDA graphs (the engine's default on CUDA);
+     the kernels' launch
      counters are zeroed just before and read just after, and the device
      loops and every graph replay run with CUDA sync debugging set to
      raise (no host sync inside a megastep); an eager engine
@@ -97,8 +104,10 @@ Phases (each prints its seconds):
      under torch.profiler give the wall, the device's busy share, memory,
      K4's device time and kernel count in the traced wave (one kernel per
      wrapper call; a replay adds its captured counts), K1's and K2's
-     device time, kernel count and time a launch; and the cost of the
-     seeded threefry draw per sampled step;
+     device time, kernel count and time a launch, and each wave's single
+     steps (their count, execute ms and eager runs: none in a timed wave
+     on graphs); and the cost of the seeded threefry draw per sampled
+     step;
   4. the same geometry at 2 layers in float32 served on cuda (kernels) and
      on the CPU (plain versions) from identical weights: first-step logits
      agree, greedy tokens agree up to the first position whose CPU top-2
@@ -213,10 +222,12 @@ Phases (each prints its seconds):
      "int8" path: K4-int8 launched, K4 over a bf16 cache not), every
      replay under CUDA sync debugging set to raise; an eager engine
      (_graphs = False) over the same weights gives identical tokens,
-     logprobs and counters; the share of tokens equal to a bf16-cache
-     engine's (printed); then phase 3's decode wave on each engine, one
-     untraced and one under torch.profiler (wall, busy share, K1/K2,
-     K4-int8's device time and kernels, equal to its wrapper calls);
+     logprobs, counters and every layer's cache_scales (each prefill a
+     single step, on its graph); the share of tokens equal to a
+     bf16-cache engine's (printed); then phase 3's decode wave on each
+     engine, one untraced and one under torch.profiler (wall, busy share,
+     K1/K2, K4-int8's device time and kernels, equal to its wrapper calls,
+     each wave's single steps as phase 3's);
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict"}, null for a path whose
   phase did not run), then the card line, then {"ok": true, "device": {...}} as the
@@ -608,6 +619,14 @@ def kernel_cases(torch, dtype):
             f"{heads} heads / {kv_heads} KV", heads, kv_heads, D,
             torch.randint(64, 503, (B,), generator=g, device=dev).to(
                 torch.int32), [9, 9, 5, 9, 1, 9, 3, 9], mq=9, T=8 * 9))
+    # the pre-caches (A4b): 64 prefix keys before each row's context of up
+    # to 512 at decode, 32 / 32 and 32 / 8 heads (K4-int8's below)
+    for heads, kv_heads in ((Hq, Hq), (Hq, 8)):
+        cases.append(_paged_case(
+            torch, rnd, es, g, f"decode 8 rows, context <= 512, prefix 64, "
+            f"{heads} heads / {kv_heads} KV", heads, kv_heads, D,
+            torch.randint(64, 511, (B,), generator=g, device=dev).to(
+                torch.int32), [1] * B, Lp=64))
     # K4-int8 (the int8 cache): decode over 512-token contexts at 32 / 32
     # and 32 / 8 heads, the single step's mixed batch with an out-of-pool
     # block in a decode row's visible range, and the head dims past the
@@ -628,6 +647,12 @@ def kernel_cases(torch, dtype):
         cases.append(_paged_int8_case(torch, rnd, es, g, label, heads,
                                       kv_heads, hd, dec.to(torch.int32), now,
                                       oob))
+    for heads, kv_heads in ((Hq, Hq), (Hq, 8)):
+        cases.append(_paged_int8_case(
+            torch, rnd, es, g, f"decode 8 rows, context <= 512, prefix 64, "
+            f"{heads} heads / {kv_heads} KV", heads, kv_heads, D,
+            torch.randint(64, 511, (B,), generator=g, device=dev).to(
+                torch.int32), [1] * B, False, Lp=64))
     return cases
 
 
@@ -1162,10 +1187,12 @@ def _sdpa_b2(torch, q, kb, vb, pos):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
-# K4's plan and arguments for each case, by (label, dtype name): the plan
-# is printed beside its time, the arguments serve the --k4-sweep
+# K4's plan, arguments and pre-caches for each case, by (label, dtype
+# name): the plan is printed beside its time, the arguments serve the
+# --k4-sweep
 _K4_PLANS = {}
 _K4_ARGS = {}
+_K4_PRE = {}
 # B2's (plan, arguments) for each case, by (label, dtype name): the plan is
 # printed beside its time, the arguments serve the --b2-sweep
 _B2_PLANS = {}
@@ -1181,15 +1208,18 @@ _K2_PLANS = {}
 
 
 def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
-                T=None, P=32, NB=256):
+                T=None, P=32, NB=256, Lp=0):
     """One K4 case: a decode batch (one token per row, T = B), a mixed
     batch in the single-step program's [256] buffer (max_q_len 256), or
-    the given ``mq`` and ``T`` (the mixed loop's program)."""
+    the given ``mq`` and ``T`` (the mixed loop's program); ``Lp`` > 0
+    puts pre-caches [B, KV, Lp, D] in front of every row's context."""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     bs, B = 16, len(now)
     dev = "cuda"
     kc, vc = rnd(NB, KV, bs, D), rnd(NB, KV, bs, D)
+    pre = (dict(pre_key=rnd(B, KV, Lp, D), pre_value=rnd(B, KV, Lp, D))
+           if Lp else {})
     bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(B, P).to(
         torch.int32)
     now = torch.tensor(now, dtype=torch.int32, device=dev)
@@ -1202,24 +1232,30 @@ def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
     q = rnd(T, H, D)
     dname = str(q.dtype).split(".")[1]
     _K4_PLANS[(label, dname)] = pa.paged_plan(T, B, mq, P, bs, H, KV, D,
-                                              q.dtype)
+                                              q.dtype, pre_len=Lp)
     _K4_ARGS[(label, dname)] = (q, kc, vc, dec, now, cu, bt, mq)
+    _K4_PRE[(label, dname)] = pre
     # the tokens that attend: a row's first min(now, max_q_len) (the rest,
     # and the padding past cu[B], are written as zeros, their q unread)
     live = [min(n, mq) for n in now.tolist()]
     # bytes: the q of the tokens that attend, the whole output, and each
-    # row's visible K/V once (none for a row with no token that attends)
-    keys = sum(min(d + n, P * bs) for d, n in zip(dec.tolist(), live) if n)
+    # row's visible K/V once, its prefix included (none for a row with no
+    # token that attends)
+    keys = sum(Lp + min(d + n, P * bs)
+               for d, n in zip(dec.tolist(), live) if n)
     nbytes = ((sum(live) + T) * H * D + 2 * keys * KV * D) * es
     # QK^T and PV, 2 operations per multiply-add, over each attending
-    # token's visible keys
-    vis = sum(min(d + j + 1, P * bs)
+    # token's visible keys (the whole prefix, then its paged keys)
+    vis = sum(Lp + min(d + j + 1, P * bs)
               for d, n in zip(dec.tolist(), live) for j in range(n))
     ops = 4 * vis * H * D
     return ("paged_attention", label,
-            lambda: pa.paged_attention(q, kc, vc, dec, now, cu, bt, mq),
-            lambda: pa._paged_attention_ref(q, kc, vc, dec, now, cu, bt, mq),
-            _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq), nbytes, ops)
+            lambda: pa.paged_attention(q, kc, vc, dec, now, cu, bt, mq,
+                                       **pre),
+            lambda: pa._paged_attention_ref(q, kc, vc, dec, now, cu, bt, mq,
+                                            **pre),
+            _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq, **pre),
+            nbytes, ops)
 
 
 # K4-int8's plan, the K4 call over a cache of q's dtype at the same shape
@@ -1232,11 +1268,13 @@ _K4I_ARGS = {}
 
 
 def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
-                     P=32, NB=256):
+                     P=32, NB=256, Lp=0):
     """One K4-int8 case over uint8 pools of random codes and random
     per-(row, KV head) scales: a decode batch (T = B) or a mixed batch in
     the single step's [256] buffer (max_q_len 256); ``oob``: row 0's first
-    block-table entry, visible, is outside the pool (uint8 0)."""
+    block-table entry, visible, is outside the pool (uint8 0); ``Lp`` > 0
+    puts full-precision pre-caches [B, KV, Lp, D] in front of every
+    row's context."""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     bs, B = 16, len(now)
@@ -1260,36 +1298,41 @@ def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
     q, k, v = rnd(T, H, D), rnd(T, KV, D), rnd(T, KV, D)
     kd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
     vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+    pre = (dict(pre_key=rnd(B, KV, Lp, D), pre_value=rnd(B, KV, Lp, D))
+           if Lp else {})
     dname = str(q.dtype).split(".")[1]
     _K4I_PLANS[(label, dname)] = pa.paged_int8_plan(T, B, mq, P, bs, H, KV,
-                                                    D, q.dtype)
+                                                    D, q.dtype, pre_len=Lp)
     kcf, vcf = rnd(NB, KV, bs, D), rnd(NB, KV, bs, D)
     _K4I_K4[(label, dname)] = lambda: pa.paged_attention(
-        q, kcf, vcf, dec, now, cu, bt, mq)
+        q, kcf, vcf, dec, now, cu, bt, mq, **pre)
     ctx = P * bs
     live = [min(n, mq) for n in now.tolist()]
     rows = [(d, n) for d, n in zip(dec.tolist(), live) if n]
     # bytes: the q of the tokens that attend, the whole output, each row's
-    # cached keys and values (one byte an element) and its fresh ones (of
-    # q's dtype) once, the scales; operations: QK^T and PV over each
-    # attending token's visible keys, and the dequantization (a subtract
-    # and a multiply) of every cached element read
+    # cached keys and values (one byte an element) and its fresh and
+    # prefix ones (of q's dtype) once, the scales; operations: QK^T and PV
+    # over each attending token's visible keys, and the dequantization (a
+    # subtract and a multiply) of every cached element read
     cached = sum(min(d, ctx) for d, _ in rows)
-    fresh = sum(min(d + n, ctx) - min(d, ctx) for d, n in rows)
+    fresh = sum(Lp + min(d + n, ctx) - min(d, ctx) for d, n in rows)
     nbytes = ((sum(live) + T) * H * D * es + 2 * cached * KV * D
               + 2 * fresh * KV * D * es + 2 * B * KV * 4)
-    vis = sum(min(d + j + 1, ctx) for d, n in rows for j in range(n))
+    vis = sum(Lp + min(d + j + 1, ctx) for d, n in rows for j in range(n))
     ops = 4 * vis * H * D + 4 * cached * KV * D
     args = (q, k, v, kc, vc, kd, vd, dec, now, cu, bt, mq)
-    _K4I_ARGS[(label, dname)] = args
+    _K4I_ARGS[(label, dname)] = (args, pre)
     return ("paged_attention_int8", label,
-            lambda: pa.paged_attention_int8(*args),
-            lambda: pa._paged_attention_int8_ref(*args), None, nbytes, ops)
+            lambda: pa.paged_attention_int8(*args, **pre),
+            lambda: pa._paged_attention_int8_ref(*args, **pre), None, nbytes,
+            ops)
 
 
-def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
-    """F.scaled_dot_product_attention over the gathered, padded context
-    (the library yardstick for K4; timed alone, gather excluded)."""
+def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq, pre_key=None,
+               pre_value=None):
+    """F.scaled_dot_product_attention over the gathered, padded context,
+    after the pre-caches where given (the library yardstick for K4; timed
+    alone, gather and concatenation excluded)."""
     from paddle_tpu_torch.ops.hopper.paged_attention import paged_gather_kv
 
     B = bt.shape[0]
@@ -1297,6 +1340,11 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
     S = int(now.max())
     k_all = paged_gather_kv(kc, bt)              # [B, KV, L, D]
     v_all = paged_gather_kv(vc, bt)
+    Lp = 0
+    if pre_key is not None:
+        Lp = pre_key.shape[2]
+        k_all = torch.cat([pre_key, k_all], 2)
+        v_all = torch.cat([pre_value, v_all], 2)
     L = k_all.shape[2]
     qp = torch.zeros(B, H, S, D, dtype=q.dtype, device=q.device)
     for b in range(B):
@@ -1304,7 +1352,7 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq):
         if n:
             qp[b, :, :n] = q[int(cu[b]):int(cu[b]) + n].transpose(0, 1)
     qpos = dec.long()[:, None] + torch.arange(S, device=q.device)[None, :]
-    mask = (torch.arange(L, device=q.device)[None, None, :]
+    mask = (torch.arange(L, device=q.device)[None, None, :] - Lp
             <= qpos[:, :, None])[:, None]        # [B, 1, S, L]
     F = torch.nn.functional
     gqa = {"enable_gqa": True} if k_all.shape[1] != H else {}
@@ -1371,8 +1419,9 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                 p8 = _K4I_PLANS[(label, dname)]
                 simt = ""
                 if p8.tc:   # the SIMT instance forced at the same shape
-                    a8 = _K4I_ARGS[(label, dname)]
-                    s_ms = timer(lambda: pa._launch_int8(*a8, tc=False))
+                    a8, pre8 = _K4I_ARGS[(label, dname)]
+                    s_ms = timer(lambda: pa._launch_int8(*a8, tc=False,
+                                                         **pre8))
                     simt = (f"; SIMT forced {s_ms:.4f} ms (tensor cores "
                             f"{'faster' if ms < s_ms else 'NOT faster'})")
                 print(f"k4-int8 {dname} {label}: {nbytes / ms / 1e6:.1f} "
@@ -1428,6 +1477,7 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
     _rope_one_launch(torch)
     _paged_edges(torch)
     _paged_int8_edges(torch)
+    _pre_edges(torch)
     _decode_edges(torch)
     _int8_edges(torch)
     _flash_tiles(torch)
@@ -2072,6 +2122,118 @@ def _paged_int8_edges(torch):
           "bf16 k/v calls took SIMT")
 
 
+def _pre_edges(torch):
+    """The pre-caches (A4b) in every K4 and K4-int8 instance against the
+    plain versions (the `_tol` of phase 2): K4's tensor cores (bf16 D 128),
+    its SIMT instance (float32 D 128, bf16 D 100) and its wide one (bf16
+    and float32 D 640), K4-int8's tensor cores (bf16 D 128) and SIMT
+    (forced on bf16 D 128, float32 D 128, bf16 D 100); prefixes of 1, 64
+    and 130 keys (within a tile, one whole tile, straddling three); at
+    decode (8 rows, context <= 512, a row with now 0, an out-of-pool block)
+    and at the single step's mixed batch of 255 tokens (max_q_len 256);
+    32 / 8 heads (16 / 2 past 512 columns); the plan's own split and one
+    and four splits forced where the instance takes them.  Each plan with
+    a cluster gives the same bits in three runs.  No instance refuses a
+    prefix: the unforced call of each case must run."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    dev, bs, P, B = "cuda", 16, 32, 8
+    NB = B * P + 4
+    batches = (  # (max_q_len, T, dec, now)
+        (1, B, [300, 0, 200, 450, 17, 63, 511, 64], [1, 1, 1, 1, 1, 1, 0, 1]),
+        (256, 256, [300, 0, 200, 450, 0, 0, 20, 64],
+         [1, 100, 16, 1, 60, 0, 1, 76]))
+    instances = (  # (kernel, dtype, D, tensor cores forced)
+        ("k4", torch.bfloat16, 128, None), ("k4", torch.float32, 128, None),
+        ("k4", torch.bfloat16, 100, None), ("k4", torch.bfloat16, 640, None),
+        ("k4", torch.float32, 640, None),
+        ("k4-int8", torch.bfloat16, 128, None),
+        ("k4-int8", torch.bfloat16, 128, False),
+        ("k4-int8", torch.float32, 128, None),
+        ("k4-int8", torch.bfloat16, 100, None))
+    n = worst = clusters = 0
+    for kern, dtype, D, tc in instances:
+        dname = str(dtype).split(".")[1]
+        KV, H = (2, 16) if D > 512 else (8, 32)
+        int8 = kern == "k4-int8"
+        if int8:
+            kc, vc = (torch.randint(0, 256, (NB, KV, bs, D), generator=g,
+                                    device=dev, dtype=torch.uint8)
+                      for _ in range(2))
+            kd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+            vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+        else:
+            kc, vc = (torch.randn(NB, KV, bs, D, generator=g, device=dev,
+                                  dtype=dtype) for _ in range(2))
+        bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(
+            B, P).to(torch.int32)
+        bt[3, 2] = -1                   # visible to row 3, outside the pool
+        for Lp in (1, 64, 130):
+            pre = dict(pre_key=torch.randn(B, KV, Lp, D, generator=g,
+                                           device=dev, dtype=dtype),
+                       pre_value=torch.randn(B, KV, Lp, D, generator=g,
+                                             device=dev, dtype=dtype))
+            for mq, T, dec, now in batches:
+                dec_t = torch.tensor(dec, dtype=torch.int32, device=dev)
+                now_t = torch.tensor(now, dtype=torch.int32, device=dev)
+                cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+                cu[1:] = torch.cumsum(now_t, 0)
+                q = torch.randn(T, H, D, generator=g, device=dev,
+                                dtype=dtype)
+                if int8:
+                    k, v = (torch.randn(T, KV, D, generator=g, device=dev,
+                                        dtype=dtype) for _ in range(2))
+                    args = (q, k, v, kc, vc, kd, vd, dec_t, now_t, cu, bt,
+                            mq)
+                    ref = pa._paged_attention_int8_ref(*args, **pre)
+                    own = pa.paged_attention_int8(*args, **pre)
+                else:
+                    args = (q, kc, vc, dec_t, now_t, cu, bt, mq)
+                    ref = pa._paged_attention_ref(*args, **pre)
+                    own = pa.paged_attention(*args, **pre)
+                tol = _tol(dname, ref)
+                outs = [("plan", own, None)]
+                for splits in (1, pa.SPLIT_CAP):
+                    try:
+                        if int8:
+                            p = pa._int8_plan(T, B, mq, P, bs, H, KV, D,
+                                              dtype, tc, splits, Lp)
+                            run = (lambda s=splits: pa._launch_int8(
+                                *args, tc=tc, splits=s, **pre))
+                        else:
+                            p = pa._plan(T, B, mq, P, bs, H, KV, D, dtype,
+                                         splits=splits, pre_len=Lp)
+                            run = (lambda s=splits: pa._launch(
+                                *args, splits=s, **pre))
+                    except ValueError:   # the wide instance: one split
+                        continue
+                    got = run()
+                    outs.append((p, got, run))
+                for p, got, run in outs:
+                    err = _err(torch, got, ref)
+                    n += 1
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"{kern} prefix {Lp} {dname} D {D} tc {tc} mq "
+                            f"{mq} {p}: kernel and plain differ by {err} > "
+                            f"{tol}")
+                    if run is not None and p.splits > 1:
+                        clusters += 1
+                        for _ in range(2):
+                            if not torch.equal(run(), got):
+                                raise AssertionError(
+                                    f"{kern} prefix {Lp} {dname} D {D} mq "
+                                    f"{mq} {p}: two runs differ")
+    torch.cuda.synchronize()
+    print(f"prefix edges: {n} calls of K4 and K4-int8 with pre-caches agree "
+          f"with the plain versions (largest error {worst:.3f} of its "
+          f"tolerance); the {clusters} with clusters gave the same bits in 3 "
+          "runs each")
+
+
 def _paged_sweep(torch, timer, label, dname):
     """Informative, for paged_plan's rules (``--k4-sweep``): one K4 case
     timed under every split count, ring depth and, for prefill tiles,
@@ -2083,13 +2245,14 @@ def _paged_sweep(torch, timer, label, dname):
 
     base = _K4_PLANS[(label, dname)]
     args = _K4_ARGS[(label, dname)]
+    pre = _K4_PRE[(label, dname)]
     tc = pa._tc(args[0].dtype, args[0].shape[2])
     qts = ((base.qt,) if base.qt == 1 else (8, 16, 32, 64) if tc
            else (1, 2, 4, 8, 16))
     out = []
     for qt, stages, splits in itertools.product(
             qts, pa.STAGES[tc], (1, 2, pa.SPLIT_CAP)):
-        kw = dict(qt=qt, splits=splits, stages=stages)
+        kw = dict(qt=qt, splits=splits, stages=stages, **pre)
         try:
             ms = f"{timer(lambda: pa._launch(*args, **kw)):.4f}"
         except ValueError:          # past the limits: refused
@@ -2163,7 +2326,9 @@ def _refusals(torch):
     the limit: a 128-head group over one KV head at head_dim 256 past the
     64 query rows of K4's bfloat16 tensor-core tile and, in float32, past
     the 227 KB a K4 block may use (by its plan, before any launch); the K4
-    entry refuses a plan it has no instance for.  A head dim of 520, which
+    entry refuses a plan it has no instance for, a chunk short of the
+    prefix and the context, and a prefix without its rows or off 16-byte
+    alignment.  A head dim of 520, which
     B1, B8, B2 and K4 refused here before (Queue C8), is computed and held
     to the plain versions in both dtypes.  (K1 refused a 16384-wide row
     here before its rows moved to registers, and B2 a head dim of 72
@@ -2193,17 +2358,24 @@ def _refusals(torch):
     q = torch.ones(1, 8, 128, dtype=dt, device=dev)
     kv = torch.ones(1, 8, 16, 128, dtype=dt, device=dev)
     bt = torch.zeros(1, 32, dtype=torch.int32, device=dev)
-    # (query tile, key tile, stages, splits, chunk, blocks of the row)
-    for what, (qt, kt, stages, splits, chunk, P) in {
-            "key tile 48": (1, 48, 2, 1, 48, 1),
-            "8 splits": (1, 64, 2, 8, 64, 32),
-            "a chunk short of the context": (1, 64, 2, 1, 0, 1),
-            "a ring of 3 on the tensor cores": (1, 64, 3, 1, 64, 1)}.items():
+    # (query tile, key tile, stages, splits, chunk, blocks of the row,
+    # prefix keys, the prefix's pointers)
+    pre = kv.data_ptr()
+    for what, (qt, kt, stages, splits, chunk, P, Lp, pk) in {
+            "key tile 48": (1, 48, 2, 1, 48, 1, 0, None),
+            "8 splits": (1, 64, 2, 8, 64, 32, 0, None),
+            "a chunk short of the context": (1, 64, 2, 1, 0, 1, 0, None),
+            "a ring of 3 on the tensor cores": (1, 64, 3, 1, 64, 1, 0, None),
+            "a chunk short of the prefix and the context": (
+                1, 64, 2, 1, 64, 4, 16, pre),
+            "a prefix without its rows": (1, 64, 2, 1, 128, 4, 16, None),
+            "a prefix off 16-byte alignment": (1, 64, 2, 1, 128, 4, 16,
+                                               pre + 2)}.items():
         err = _build.lib().ptt_paged_attention(
             q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
-            z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), 1, 1,
-            P, 1, 8, 8, 128, 16, 1, 0.1, qt, kt, stages, splits, chunk, 0,
-            1, torch.cuda.current_stream().cuda_stream)
+            z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), pk,
+            pk, 1, 1, P, 1, 8, 8, 128, 16, Lp, 1, 0.1, qt, kt, stages,
+            splits, chunk, 0, 1, torch.cuda.current_stream().cuda_stream)
         if err != 1:
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")
@@ -2352,6 +2524,63 @@ def _serve_waves(eng, waves, logprobs=None):
     return out
 
 
+def _step_meter(torch, eng):
+    """Meter ``eng``'s single steps: a dict that counts the ``step()``
+    calls that ran the single-step program (``steps``), their
+    ``phase_seconds["execute"]`` (``execute``, seconds: the program and
+    its one read-back) and the runs of ``_run_step`` outside a CUDA graph
+    capture (``eager``: on graphs only a key's first call; on the eager
+    loops every step)."""
+    meter = {"steps": 0, "execute": 0.0, "eager": 0}
+    step, graphed, run_step = eng.step, eng._graphed, eng._run_step
+    ran = [False]
+
+    def graphed_(key, fn, arrays):
+        ran[0] = ran[0] or key[0] == "step"
+        return graphed(key, fn, arrays)
+
+    def run_step_(*args):
+        if not torch.cuda.is_current_stream_capturing():
+            meter["eager"] += 1
+        return run_step(*args)
+
+    def step_():
+        ran[0] = False
+        t0 = eng.phase_seconds["execute"]
+        out = step()
+        if ran[0]:
+            meter["steps"] += 1
+            meter["execute"] += eng.phase_seconds["execute"] - t0
+        return out
+
+    eng.step, eng._graphed, eng._run_step = step_, graphed_, run_step_
+    return meter
+
+
+def _metered(meter, fn, out):
+    """``fn`` wrapped: each call leaves in ``out`` how far ``meter`` moved
+    over it."""
+    def run():
+        m0 = dict(meter)
+        fn()
+        out.update({k: meter[k] - m0[k] for k in meter})
+    return run
+
+
+def _step_report(where, label, waves, graphs):
+    """Print each wave's single steps (their count, execute ms, eager runs
+    of ``_run_step``); on graphs a timed wave must run none eagerly (every
+    step key was captured in an earlier wave)."""
+    for name, d in waves.items():
+        print(f"single steps in the {name} {where}, {label}: {d['steps']} "
+              f"steps, execute {d['execute'] * 1e3:.2f} ms "
+              f"({d['execute'] * 1e3 / max(d['steps'], 1):.2f} ms a step), "
+              f"{d['eager']} eager runs of the step program")
+        if graphs and name != "first" and d["eager"]:
+            raise AssertionError(f"{where}, {label}: {d['eager']} eager "
+                                 f"single steps in the {name} wave")
+
+
 def _sync_free(torch, loop):
     """Run ``loop`` with CUDA sync debugging set to raise: any operation
     that waits for the device inside it (``.item()``, a device-to-host
@@ -2410,10 +2639,11 @@ def full_width_serving(torch, model):
     wave1 = [(prompt(n), m, sampled if i == 3 else greedy)
              for i, (n, m) in enumerate(zip(lens, news))]
     wave2 = [(wave1[2][0], 32, greedy), (prompt(70), 40, greedy)]
-    # no host sync inside a megastep loop (the eager loops, a key's first
-    # call and its capture) or a replay (main): each raises on one
+    # no host sync inside a device program (the eager loops and steps, a
+    # key's first call and its capture) or a replay (main): each raises on
+    # one
     for e in (eng, eager):
-        for name in ("_run_megastep", "_run_mixed"):
+        for name in ("_run_megastep", "_run_mixed", "_run_step"):
             setattr(e, name, _sync_free(torch, getattr(e, name)))
     replays0 = _REPLAYS[0]
     counters = _zero_counters()
@@ -2481,6 +2711,8 @@ def full_width_serving(torch, model):
     waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(3)]
     for label, e in (("graphs", eng), ("eager", eager)):
         calls = []
+        meter = _step_meter(torch, e)
+        stepped = {"first": {}, "untraced": {}, "traced": {}}
 
         def traced(e=e):
             n0 = pa.paged_attention.launches
@@ -2490,7 +2722,8 @@ def full_width_serving(torch, model):
         n_cap = e.compile_count
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _serve_waves(e, [waves[0]])
+        _metered(meter, lambda e=e: _serve_waves(e, [waves[0]]),
+                 stepped["first"])()
         torch.cuda.synchronize()
         print(f"decode wave, {label}, first: wall "
               f"{(time.perf_counter() - t) * 1e3:.2f} ms, "
@@ -2499,8 +2732,10 @@ def full_width_serving(torch, model):
         torch.cuda.reset_peak_memory_stats()
         evs = _profile(torch, f"decode wave, {label} (8 rows, 64-token "
                        "prompts, 32 new tokens)",
-                       lambda e=e: _serve_waves(e, [waves[1]]), traced,
-                       top=15)
+                       _metered(meter, lambda e=e: _serve_waves(e, [waves[1]]),
+                                stepped["untraced"]),
+                       _metered(meter, traced, stepped["traced"]), top=15)
+        _step_report("decode wave", label, stepped, e is eng)
         print(f"memory decode wave, {label}: max_memory_allocated "
               f"{torch.cuda.max_memory_allocated()} bytes, memory_reserved "
               f"{torch.cuda.memory_reserved()} bytes; graphs captured in "
@@ -3502,18 +3737,16 @@ def _spec_counts(eng):
 def _logged_programs(eng, log):
     """Log each device program ``eng`` runs as (name, iterations): the
     single step, a megastep loop of K, the verify (K4 launches one kernel
-    per layer per iteration)."""
-    graphed, step = eng._graphed, eng._run_step
+    per layer per iteration); all go through ``_graphed``, on graphs and
+    eagerly."""
+    graphed = eng._graphed
 
     def run_graphed(key, fn, arrays):
-        log.append(("spec", 1) if key[0] == "spec" else (key[0], key[1]))
+        log.append((key[0], 1) if key[0] in ("spec", "step")
+                   else (key[0], key[1]))
         return graphed(key, fn, arrays)
 
-    def run_step(*args):
-        log.append(("step", 1))
-        return step(*args)
-
-    eng._graphed, eng._run_step = run_graphed, run_step
+    eng._graphed = run_graphed
 
 
 def _draw_margin(torch, lg, sampling, pos):
@@ -3647,7 +3880,7 @@ def full_width_spec(torch, model):
             try:
                 _serve_waves(e, [waves[4]])
             finally:
-                del e._graphed, e._run_step
+                del e._graphed
             calls.append(pa.paged_attention.launches - n0)
 
         evs = _profile(torch, f"decode wave, {label} (8 rows, repetitive "
@@ -3887,7 +4120,8 @@ def full_width_int8(torch, model):
              for i, (n, m) in enumerate(zip(lens, news))]
     wave2 = [(wave1[2][0], 32, greedy), (prompt(70), 40, greedy)]
     for e in (eng, eager):
-        e._run_megastep = _sync_free(torch, e._run_megastep)
+        for name in ("_run_megastep", "_run_step"):
+            setattr(e, name, _sync_free(torch, getattr(e, name)))
     replays0 = _REPLAYS[0]
     counters = _zero_counters()
     torch.cuda.synchronize()
@@ -3916,14 +4150,27 @@ def full_width_int8(torch, model):
     names = ("megasteps", "megasteps_mixed", "prefill_chunks")
     got = [getattr(eng, n) for n in names]
     want = [getattr(eager, n) for n in names]
-    if outs != e_outs or lps != e_lps or got != want:
+    # every layer's dynamic scales, refreshed in place by the steps'
+    # graphs on one engine and eagerly on the other
+    scales = all(torch.equal(a[n], b[n]) for a, b in
+                 zip(eng.cache_scales, eager.cache_scales) for n in a)
+    if outs != e_outs or lps != e_lps or got != want or not scales:
         bad = [i for i, (a, b) in enumerate(zip(outs, e_outs)) if a != b]
         raise AssertionError(f"int8 graphs and eager loops differ: tokens "
                              f"of requests {bad}, logprobs equal "
-                             f"{lps == e_lps}, {names} {got} vs {want}")
-    print(f"int8 graphs == eager: tokens, logprobs and {names} {got} "
-          f"identical over {len(outs)} requests (the sampled one too); "
-          f"compile_count {eng.compile_count}")
+                             f"{lps == e_lps}, {names} {got} vs {want}, "
+                             f"cache_scales equal {scales}")
+    cache = eng._graph_cache
+    for key, (first, cap) in cache.seconds.items():
+        print(f"graph {key}: first call (eager) {first * 1e3:.1f} ms, "
+              f"capture {cap * 1e3:.1f} ms")
+    if not any(k[0] == "step" for k in cache.graphs):
+        raise AssertionError("the int8 single step was not captured")
+    print(f"int8 graphs == eager: tokens, logprobs, {names} {got} and the "
+          f"{len(eng.cache_scales)} layers' cache_scales identical over "
+          f"{len(outs)} requests (the sampled one too); compile_count "
+          f"{eng.compile_count}, step keys "
+          f"{sorted(k for k in cache.graphs if k[0] == 'step')}")
     b_outs = _serve_waves(bf16, [wave1, wave2])
     same = sum(a == b for o, r in zip(outs, b_outs) for a, b in zip(o, r))
     first = [next((j for j, (a, b) in enumerate(zip(o, r)) if a != b),
@@ -3934,17 +4181,28 @@ def full_width_int8(torch, model):
     waves = [[(prompt(64), 32, None) for _ in range(8)] for _ in range(3)]
     for label, e in (("graphs", eng), ("eager", eager)):
         calls = []
+        meter = _step_meter(torch, e)
+        stepped = {"first": {}, "untraced": {}, "traced": {}}
 
         def traced(e=e):
             n0 = pa.paged_attention_int8.launches
             _serve_waves(e, [waves[2]])
             calls.append(pa.paged_attention_int8.launches - n0)
 
-        _serve_waves(e, [waves[0]])
+        n_cap = e.compile_count
+        _metered(meter, lambda e=e: _serve_waves(e, [waves[0]]),
+                 stepped["first"])()
+        print(f"int8 decode wave, {label}, first: "
+              f"{e.compile_count - n_cap} graphs captured in it")
+        n_cap = e.compile_count
         evs = _profile(torch, f"int8 decode wave, {label} (8 rows, 64-token "
                        "prompts, 32 new tokens)",
-                       lambda e=e: _serve_waves(e, [waves[1]]), traced,
-                       top=15)
+                       _metered(meter, lambda e=e: _serve_waves(e, [waves[1]]),
+                                stepped["untraced"]),
+                       _metered(meter, traced, stepped["traced"]), top=15)
+        _step_report("int8 decode wave", label, stepped, e is eng)
+        print(f"int8 decode wave, {label}: graphs captured in the measured "
+              f"waves {e.compile_count - n_cap}")
         _k1_k2(evs, f"the int8 decode wave, {label}")
         k4 = [ev for ev in evs if "paged_attention_int8" in ev.key]
         k4_n = sum(ev.count for ev in k4)

@@ -17,6 +17,16 @@
 // index >= max_q_len give zeros.  The output is q's dtype, or float32
 // where the entry's out_f32 asks (blha_attention's shift/smooth epilogue
 // and output quantization read the float32 value and round once).
+// The pre-caches (blha_attention's pre_key_cache / pre_value_cache,
+// :255-260 and :274-279): with pre_len Lp > 0 the keys of row b are Lp
+// prefix rows pk / pv [B, KV, Lp, D] (q's dtype, contiguous), seen by
+// every query, followed by its paged context: key j >= Lp is paged key j -
+// Lp, visible at positions >= j - Lp.  The prefix is a second source of
+// key rows in the copier (a key below Lp reads pre[b, kh, key, :]; a tile
+// may straddle Lp, so the source is chosen row by row); the split, the
+// masks and the block window run over the combined axis of Lp + P *
+// block_size keys, the window covering only its paged part.  Nothing is
+// written for the prefix.
 //
 // Bound on the H100: bytes.  Every serving shape reads each visible key and
 // value row once and does ~4 operations per (query row, key, column) on it,
@@ -193,23 +203,30 @@ __device__ __forceinline__ void load8(const T* p, float* out) {
 struct Tile {
   int b, t_first, nt, nr, pos0, ctx, c0, c1, b0;
   size_t qo;  // q / out offset of row 0 (token t_first, head kh * G)
+  // keys 0 .. Lp - 1 are the prefix rows pk / pv (at row b, head kh, of
+  // the caller's element type); key j >= Lp is paged key j - Lp, whose
+  // blocks from b0 on are the split's s_blk
+  int Lp;
+  const void *pk, *pv;
 };
 
 // The row tables, the zeros of the tokens that no tile owns, and the
-// block's tile and key range; false for a spare tile (nothing to attend).
-// Leaves s_blk filled (the split's block ids, -1 outside the pool); the
-// caller synchronises before reading it.  kSliced: the grid's x takes
-// output slices, not splits (the wide instance): every block walks the
-// whole context, and the first slice writes the zeros.
+// block's tile and key range over the combined axis (Lp prefix keys, then
+// the paged context); false for a spare tile (nothing to attend).  Leaves
+// s_blk filled (the split's block ids of its paged keys, -1 outside the
+// pool); the caller synchronises before reading it.  kSliced: the grid's
+// x takes output slices, not splits (the wide instance): every block
+// walks the whole context, and the first slice writes the zeros.
 template <typename T, bool kSliced = false>
 __device__ bool setup_tile(Tile& t, int* tables, void* __restrict__ out,
                            bool f32,
                            const int* __restrict__ dec,
                            const int* __restrict__ now,
                            const int* __restrict__ cu,
-                           const int* __restrict__ bt, int T_, int B, int P,
-                           int NB, int H, int G, int D, int bs, int mq,
-                           int QT, int chunk) {
+                           const int* __restrict__ bt, const T* pk,
+                           const T* pv, int T_, int B, int P, int NB, int H,
+                           int G, int D, int bs, int Lp, int mq, int QT,
+                           int chunk) {
   int* s_cu = tables;         // B + 1
   int* s_len = s_cu + B + 1;  // tokens of a row that a tile owns
   int* s_pt = s_len + B;      // B + 1: tiles before a row
@@ -295,12 +312,19 @@ __device__ bool setup_tile(Tile& t, int* tables, void* __restrict__ out,
   t.nr = t.nt * G;  // query rows: r = token * G + head
   t.ctx = P * bs;
   t.pos0 = s_dec[b] + t.t_first;
-  const int n_max = min(t.pos0 + t.nt - 1, t.ctx - 1) + 1;
+  t.Lp = Lp;
+  const size_t pre = ((size_t)b * (H / G) + kh) * Lp * D;
+  t.pk = Lp > 0 ? pk + pre : nullptr;
+  t.pv = Lp > 0 ? pv + pre : nullptr;
+  // the whole prefix, then paged keys up to the tile's last position
+  const int n_max = Lp + min(t.pos0 + t.nt - 1, t.ctx - 1) + 1;
   t.c0 = rank * chunk;
   t.c1 = min(t.c0 + chunk, n_max);
   t.qo = (((size_t)s_cu[b] + t.t_first) * H + (size_t)kh * G) * D;
-  t.b0 = t.c0 / bs;
-  const int nblk = t.c1 > t.c0 ? (t.c1 - 1) / bs - t.b0 + 1 : 0;
+  // the paged part of [c0, c1): paged keys p0 .. p1 - 1
+  const int p0 = max(t.c0 - Lp, 0), p1 = t.c1 - Lp;
+  t.b0 = p0 / bs;
+  const int nblk = p1 > p0 ? (p1 - 1) / bs - t.b0 + 1 : 0;
   for (int i = tid; i < nblk; i += kThreads) {
     const int blk = bt[(size_t)b * P + t.b0 + i];
     s_blk[i] = blk >= 0 && blk < NB ? blk : -1;
@@ -337,10 +361,11 @@ __device__ __forceinline__ Copier make_copier(int KV, int kh, int D, int bs) {
   return cp;
 }
 
-// piece c of K and V row j of a tile (key t0 + j) into its stage; keys past
-// c1 and blocks outside the pool are zero-filled without a read.  PB: the
-// piece's bytes where the instance fixes them (16 on the tensor cores), 0
-// to take the copier's
+// piece c of K and V row j of a tile (key t0 + j) into its stage: a prefix
+// key's from its row of pk / pv, a paged key's through its block id; keys
+// past c1 and blocks outside the pool are zero-filled without a read.  PB:
+// the piece's bytes where the instance fixes them (16 on the tensor
+// cores), 0 to take the copier's
 template <typename T, int PB>
 __device__ __forceinline__ void copy_kv(T* ks, T* vs, const T* kc,
                                         const T* vc, const int* s_blk,
@@ -353,12 +378,20 @@ __device__ __forceinline__ void copy_kv(T* ks, T* vs, const T* kc,
   size_t o = 0;
   bool ok = false;
   if (key < t.c1) {
-    const int kb = cp.bsh >= 0 ? key >> cp.bsh : key / bs;
-    const int blk = s_blk[kb - t.b0];
-    if (blk >= 0) {
-      o = blk * cp.blk_stride + cp.head + (size_t)(key - kb * bs) * D +
-          (size_t)c * pe;
+    if (key < t.Lp) {  // a prefix row (contiguous)
+      kc = static_cast<const T*>(t.pk);
+      vc = static_cast<const T*>(t.pv);
+      o = (size_t)key * D + (size_t)c * pe;
       ok = true;
+    } else {
+      const int pk = key - t.Lp;  // the paged key
+      const int kb = cp.bsh >= 0 ? pk >> cp.bsh : pk / bs;
+      const int blk = s_blk[kb - t.b0];
+      if (blk >= 0) {
+        o = blk * cp.blk_stride + cp.head + (size_t)(pk - kb * bs) * D +
+            (size_t)c * pe;
+        ok = true;
+      }
     }
   }
   const int so = j * rs + c * pe;
@@ -499,9 +532,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
-    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
-    int stages, float scale_log2, int out_f32) {
+    const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
+    const T* pv, int T_, int B, int P, int NB, int H, int KV, int D, int bs,
+    int Lp, int mq, int QT, int chunk, int stages, float scale_log2,
+    int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
@@ -522,8 +556,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, T_, B, P, NB,
-                     H, G, D, bs, mq, QT, chunk))
+  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, pk, pv, T_,
+                     B, P, NB, H, G, D, bs, Lp, mq, QT, chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
@@ -538,7 +572,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
   for (int idx = tid; idx < L.KG * R * DA; idx += kThreads) acc[idx] = 0.f;
   for (int r = tid; r < nr; r += kThreads) {
-    lim[r] = min(t.pos0 + r / G, t.ctx - 1);
+    // the last visible key on the combined axis: the prefix, then the
+    // row's paged keys up to its position
+    lim[r] = Lp + min(t.pos0 + r / G, t.ctx - 1);
     mrow[r] = -INFINITY;
     lrow[r] = 0.f;
   }
@@ -556,7 +592,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int RSL = slots / L.KG;
   const int dc = tid % DC, slot = tid / DC;
   const int kg = slot % L.KG, rsl = slot / L.KG;
-  const bool pv = slot < RSL * L.KG;  // past that, a thread idles in P @ V
+  const bool in_pv = slot < RSL * L.KG;  // past that, a thread idles in P @ V
   constexpr int NRG = kThreads / KT;
   const int sj = tid % KT, rg = tid / KT;
 
@@ -634,7 +670,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     }
     __syncthreads();
 
-    if (pv) {  // P @ V
+    if (in_pv) {  // P @ V
       for (int r0 = rsl; r0 < nr; r0 += RSL * kRowsPerPass) {
         float a[kRowsPerPass][kVec];
 #pragma unroll
@@ -742,7 +778,9 @@ struct Int8Src {
   const uint8_t *kc, *vc;              // the uint8 pools
   const __nv_bfloat16 *kf, *vf;        // this step's k / v at head kh
   long long kstride, vstride;          // elements between two tokens
-  int dec, tok0;  // the row's first fresh key; key k's token is tok0 + k
+  // the row's first fresh key on the combined axis (Lp + its dec); a
+  // fresh key k's token is tok0 + k; keys Lp .. dec - 1 are cached
+  int dec, tok0;
   float kd, vd;   // the row's dequantization scales
 };
 
@@ -766,37 +804,48 @@ __device__ __forceinline__ Copier make_copier_int8(int KV, int kh, int D,
 }
 
 // K and V rows t0 .. t0 + 63 of the split into a stage of bf16-sized rows
-// (`rs` elements apart): a cached key's (key < dec) codes into the first D
-// bytes of its rows, zeros (uint8 0) for a block outside the pool, to be
-// expanded in place once they land (expand_codes); a fresh key's bf16 rows
-// whole from k / v; zeros for a key past c1.  One commit group.
+// (`rs` elements apart): a cached key's (Lp <= key < dec) codes into the
+// first D bytes of its rows, zeros (uint8 0) for a block outside the pool,
+// to be expanded in place once they land (expand_codes); a prefix key's
+// (key < Lp) bf16 rows whole from pk / pv, a fresh key's from k / v; zeros
+// for a key past c1.  One commit group.
 __device__ __forceinline__ void issue_tile_int8(
     __nv_bfloat16* ks, const Int8Src& s8, const int* s_blk, const Tile& t,
     const Copier& cp, int t0, int rs, int D, int bs) {
-  __nv_bfloat16* vs = ks + kTcKeys * rs;
+  using bf = __nv_bfloat16;
+  bf* vs = ks + kTcKeys * rs;
   for (int j = cp.j0; j < kTcKeys; j += cp.jstep) {
     const int key = t0 + j;
     const int so = j * rs + cp.c * cp.pe;  // the piece's first element
-    if (key < t.c1 && key < s8.dec) {
-      const int kb = cp.bsh >= 0 ? key >> cp.bsh : key / bs;
+    if (key < t.c1 && key >= t.Lp && key < s8.dec) {
+      const int pk = key - t.Lp;  // the paged key
+      const int kb = cp.bsh >= 0 ? pk >> cp.bsh : pk / bs;
       const int blk = s_blk[kb - t.b0];
       size_t o = 0;
       if (blk >= 0)
-        o = blk * cp.blk_stride + cp.head + (size_t)(key - kb * bs) * D +
+        o = blk * cp.blk_stride + cp.head + (size_t)(pk - kb * bs) * D +
             (size_t)cp.c * cp.pe;
       // code c * pe of the row at its byte c * pe
       const uint32_t kd = ptt::tc::smem_u32(ks + j * rs) + cp.c * cp.pe;
       const uint32_t vd = ptt::tc::smem_u32(vs + j * rs) + cp.c * cp.pe;
       ptt::tc::copy_piece(kd, s8.kc + o, blk >= 0, cp.pe);
       ptt::tc::copy_piece(vd, s8.vc + o, blk >= 0, cp.pe);
-    } else {
-      const bool fresh = key < t.c1;
-      const long long tok = fresh ? (long long)s8.tok0 + key : 0;
-      const __nv_bfloat16* kp = s8.kf + tok * s8.kstride + cp.c * cp.pe;
-      const __nv_bfloat16* vp = s8.vf + tok * s8.vstride + cp.c * cp.pe;
+    } else {  // a prefix or fresh key's full-precision row, or zeros
+      const bool ok = key < t.c1;
+      const bf *kp, *vp;
+      if (ok && key < t.Lp) {
+        kp = static_cast<const bf*>(t.pk) + (size_t)key * D;
+        vp = static_cast<const bf*>(t.pv) + (size_t)key * D;
+      } else {
+        const long long tok = ok ? (long long)s8.tok0 + key : 0;
+        kp = s8.kf + tok * s8.kstride;
+        vp = s8.vf + tok * s8.vstride;
+      }
+      kp += cp.c * cp.pe;
+      vp += cp.c * cp.pe;
       for (int h = 0; h < cp.pe; h += 8) {
-        ptt::tc::cp_async16(ptt::tc::smem_u32(ks + so + h), kp + h, fresh);
-        ptt::tc::cp_async16(ptt::tc::smem_u32(vs + so + h), vp + h, fresh);
+        ptt::tc::cp_async16(ptt::tc::smem_u32(ks + so + h), kp + h, ok);
+        ptt::tc::cp_async16(ptt::tc::smem_u32(vs + so + h), vp + h, ok);
       }
     }
   }
@@ -839,20 +888,21 @@ __device__ __forceinline__ void expand_row(unsigned char* p, int D) {
   }
 }
 
-// The codes of a landed stage's cached keys (key < clim = min(dec, c1))
-// that key group kgrp reads, expanded in place by the group itself: its
-// 64 / KG keys' K and V rows, one row a thread of its 4 / KG warps; then
-// the group's warps wait for each other only (one warp at 4 key groups,
-// a named barrier at 2, the block at 1).
+// The codes of a landed stage's cached keys (lo <= key < clim, lo the
+// prefix's length and clim = min(dec, c1)) that key group kgrp reads,
+// expanded in place by the group itself: its 64 / KG keys' K and V rows,
+// one row a thread of its 4 / KG warps; then the group's warps wait for
+// each other only (one warp at 4 key groups, a named barrier at 2, the
+// block at 1).
 template <int KG>
 __device__ __forceinline__ void expand_codes(__nv_bfloat16* ks, int t0,
-                                             int clim, int rs, int D,
+                                             int lo, int clim, int rs, int D,
                                              int warp, int lane) {
   constexpr int KW = kTcKeys / KG;
   const int kgrp = warp % KG;
   const int li = (warp / KG) * 32 + lane;  // 0 .. 2 KW - 1
   const int j = kgrp * KW + li % KW;
-  if (t0 + j < clim)
+  if (t0 + j >= lo && t0 + j < clim)
     expand_row(reinterpret_cast<unsigned char*>(
                    ks + ((li < KW ? 0 : kTcKeys) + j) * rs),
                D);
@@ -866,11 +916,12 @@ __device__ __forceinline__ void expand_codes(__nv_bfloat16* ks, int t0,
 
 // The tensor-core walk of K4 (kInt8 false: bf16 pools kc / vc) and of
 // K4-int8 (kInt8: uint8 pools k8 / v8 with the row's scales, this step's
-// keys from kf / vf).  K4-int8's stage rows take a cached key's codes,
-// expanded in place to bf16 u - 128 once they land, or a fresh key's bf16
-// row; a cached key's score is kd (q . code) and its probability is
-// weighed by vd before the P V product packs it to bf16, a fresh key's by
-// 1, so that (m, l, O) are in value units throughout.
+// keys from kf / vf), both after the prefix pk / pv where Lp > 0.
+// K4-int8's stage rows take a cached key's codes, expanded in place to
+// bf16 u - 128 once they land, or a prefix or fresh key's bf16 row; a
+// cached key's score is kd (q . code) and its probability is weighed by vd
+// before the P V product packs it to bf16, the others' by 1, so that (m,
+// l, O) are in value units throughout.
 template <int DP, int KG, bool kInt8>
 __device__ __forceinline__ void tc_attend(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
@@ -880,9 +931,10 @@ __device__ __forceinline__ void tc_attend(
     const float* __restrict__ vdq, long long kstride, long long vstride,
     void* __restrict__ out, const int* __restrict__ dec,
     const int* __restrict__ now, const int* __restrict__ cu,
-    const int* __restrict__ bt, int T_, int B, int P, int NB, int H, int KV,
-    int D, int bs, int mq, int QT, int chunk, int stages, float scale_log2,
-    bool f32) {
+    const int* __restrict__ bt, const __nv_bfloat16* pk,
+    const __nv_bfloat16* pv, int T_, int B, int P, int NB, int H, int KV,
+    int D, int bs, int Lp, int mq, int QT, int chunk, int stages,
+    float scale_log2, bool f32) {
   using bf = __nv_bfloat16;
   constexpr int KT = kTcKeys;
   constexpr int KW = KT / KG;    // keys of a tile a warp takes
@@ -909,8 +961,8 @@ __device__ __forceinline__ void tc_attend(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<bf>(t, tables, out, f32, dec, now, cu, bt, T_, B, P, NB,
-                      H, G, D, bs, mq, QT, chunk))
+  if (!setup_tile<bf>(t, tables, out, f32, dec, now, cu, bt, pk, pv, T_, B,
+                      P, NB, H, G, D, bs, Lp, mq, QT, chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
@@ -922,12 +974,12 @@ __device__ __forceinline__ void tc_attend(
     s8.vf = vf + (size_t)kh * D;
     s8.kstride = kstride;
     s8.vstride = vstride;
-    s8.dec = t.pos0 - t.t_first;
+    s8.dec = Lp + t.pos0 - t.t_first;
     s8.tok0 = tables[t.b] - s8.dec;  // s_cu[b]: the token of key dec
     s8.kd = kdq[(size_t)t.b * KV + kh];
     s8.vd = vdq[(size_t)t.b * KV + kh];
   }
-  // keys below clim read codes; a cached key's scores take kd too
+  // keys Lp .. clim - 1 read codes; a cached key's scores take kd too
   const int clim = kInt8 ? min(s8.dec, c1) : 0;
   const float scale_kd = scale_log2 * s8.kd;
   // query rows as bf16, rows past nr and columns past D zero
@@ -940,7 +992,7 @@ __device__ __forceinline__ void tc_attend(
     *reinterpret_cast<uint4*>(qs + r * rs + c) = v;
   }
   for (int r = tid; r < RP; r += kThreads)
-    lim[r] = r < nr ? min(t.pos0 + r / G, t.ctx - 1) : -1;
+    lim[r] = r < nr ? Lp + min(t.pos0 + r / G, t.ctx - 1) : -1;
   if (D < DP) {  // the columns past D of both stages stay zero
     const int pc = (DP - D) / 8;
     for (int idx = tid; idx < 2 * stages * KT * pc; idx += kThreads) {
@@ -985,8 +1037,8 @@ __device__ __forceinline__ void tc_attend(
       ring_land(stages, it, ntile);
       bf* st = stage + (it % stages) * step;
       // the same in the whole block
-      if (t0 < clim)
-        expand_codes<KG>(st, t0, clim, rs, D, warp, lane);
+      if (t0 < clim && t0 + KT > Lp)
+        expand_codes<KG>(st, t0, Lp, clim, rs, D, warp, lane);
       ks = st;
     } else {
       ks = ring_wait<bf, KT, 16>(stage, stages, it, ntile, kc, vc, s_blk, t,
@@ -1021,7 +1073,8 @@ __device__ __forceinline__ void tc_attend(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = t0 + kbase + n * 8 + 2 * tig + (e & 1);
-          float v = s[n][e] * (kInt8 && key < clim ? scale_kd : scale_log2);
+          float v = s[n][e] * (kInt8 && key >= Lp && key < clim ? scale_kd
+                                                                : scale_log2);
           if (!full) {
             if (!(key < c1 && key <= (e < 2 ? lim0 : lim1))) v = -INFINITY;
           }
@@ -1068,10 +1121,10 @@ __device__ __forceinline__ void tc_attend(
         float w[4] = {1.f, 1.f, 1.f, 1.f};  // keys k0, k0 + 1, +8, +9
         if constexpr (kInt8) {
           const int k0 = t0 + kbase + 16 * kk + 2 * tig;
-          w[0] = k0 < clim ? s8.vd : 1.f;
-          w[1] = k0 + 1 < clim ? s8.vd : 1.f;
-          w[2] = k0 + 8 < clim ? s8.vd : 1.f;
-          w[3] = k0 + 9 < clim ? s8.vd : 1.f;
+          const int off[4] = {0, 1, 8, 9};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = k0 + off[i] >= Lp && k0 + off[i] < clim ? s8.vd : 1.f;
         }
         uint32_t a[4];
         a[0] = pack_bf16(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]);
@@ -1150,13 +1203,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
-    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    const int* __restrict__ cu, const int* __restrict__ bt,
+    const __nv_bfloat16* pk, const __nv_bfloat16* pv, int T_, int B, int P,
+    int NB, int H, int KV, int D, int bs, int Lp, int mq, int QT, int chunk,
     int stages, float scale_log2, int out_f32) {
   tc_attend<DP, KG, false>(q, kc, vc, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, 0, 0, out, dec, now, cu, bt, T_,
-                           B, P, NB, H, KV, D, bs, mq, QT, chunk, stages,
-                           scale_log2, out_f32);
+                           nullptr, nullptr, 0, 0, out, dec, now, cu, bt, pk,
+                           pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
+                           stages, scale_log2, out_f32);
 }
 
 // query tiles in the grid: at most ceil(max_q_len / QT) a row, and at most
@@ -1180,9 +1234,10 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
                           int KV, cudaStream_t st, const void* q,
                           const void* kc, const void* vc, void* out,
                           const void* dec, const void* now, const void* cu,
-                          const void* bt, int T_, int B, int P, int NB, int H,
-                          int D, int bs, int mq, int QT, int chunk,
-                          int stages, float scale, int out_f32) {
+                          const void* bt, const void* pk, const void* pv,
+                          int T_, int B, int P, int NB, int H, int D, int bs,
+                          int Lp, int mq, int QT, int chunk, int stages,
+                          float scale, int out_f32) {
   if (tiles > 65535 || KV > 65535) return cudaErrorInvalidConfiguration;
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -1202,8 +1257,9 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
   const float scale_log2 = scale * 1.4426950408889634f;
   e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)kc, (const T*)vc,
                          out, (const int*)dec, (const int*)now,
-                         (const int*)cu, (const int*)bt, T_, B, P, NB, H, KV,
-                         D, bs, mq, QT, chunk, stages, scale_log2, out_f32);
+                         (const int*)cu, (const int*)bt, (const T*)pk,
+                         (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
+                         chunk, stages, scale_log2, out_f32);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1212,17 +1268,17 @@ template <int DP>
 cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
                       int KV, cudaStream_t st, const void* q, const void* kc,
                       const void* vc, void* out, const void* dec,
-                      const void* now, const void* cu, const void* bt, int T_,
-                      int B, int P, int NB, int H, int D, int bs, int mq,
-                      int QT, int chunk, int stages, float scale,
-                      int out_f32) {
+                      const void* now, const void* cu, const void* bt,
+                      const void* pk, const void* pv, int T_, int B, int P,
+                      int NB, int H, int D, int bs, int Lp, int mq, int QT,
+                      int chunk, int stages, float scale, int out_f32) {
 #define PTT_K4_TC(kg)                                                        \
   if (KG == kg)                                                              \
     return launch_kernel<decltype(&paged_attention_tc_kernel<DP, kg>),       \
                          __nv_bfloat16>(                                     \
         paged_attention_tc_kernel<DP, kg>, smem, splits, tiles, KV, st, q,   \
-        kc, vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, \
-        stages, scale, out_f32);
+        kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp,   \
+        mq, QT, chunk, stages, scale, out_f32);
   PTT_K4_TC(4)
   PTT_K4_TC(2)
   PTT_K4_TC(1)
@@ -1237,48 +1293,51 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         cudaStream_t st, const void* q, const void* kc,
                         const void* vc, void* out, const void* dec,
                         const void* now, const void* cu, const void* bt,
-                        int T_, int B, int P, int NB, int H, int D, int bs,
-                        int mq, int QT, int chunk, int stages, float scale,
-                        int out_f32) {
+                        const void* pk, const void* pv, int T_, int B, int P,
+                        int NB, int H, int D, int bs, int Lp, int mq, int QT,
+                        int chunk, int stages, float scale, int out_f32) {
   if (ptt::tc::piece_bytes(D * (int)sizeof(T)) == 16)
     return launch_kernel<decltype(&paged_attention_kernel<T, KT, 16>), T>(
         paged_attention_kernel<T, KT, 16>, smem, splits, tiles, KV, st, q,
-        kc, vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk,
-        stages, scale, out_f32);
+        kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp,
+        mq, QT, chunk, stages, scale, out_f32);
   return launch_kernel<decltype(&paged_attention_kernel<T, KT, 0>), T>(
       paged_attention_kernel<T, KT, 0>, smem, splits, tiles, KV, st, q, kc,
-      vc, out, dec, now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk,
-      stages, scale, out_f32);
+      vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp, mq, QT,
+      chunk, stages, scale, out_f32);
 }
 
 // ---------------------------------------------- past 512 columns (C8)
 // the rows of one block for the shared walk: query row r is token r / G,
-// head kh G + r % G of the tile; a key's rows come through the split's
-// block ids (none outside the pool: zeros); row r sees the keys up to its
+// head kh G + r % G of the tile; a key below Lp is a prefix row of pk /
+// pv, the others come through the split's block ids (none outside the
+// pool: zeros); row r sees the prefix and the paged keys up to its
 // position
 template <typename T>
 struct PagedRows {
-  const T *qb, *kc, *vc;
+  const T *qb, *kc, *vc, *pk, *pv;
   void* out;
   size_t qo;  // q's and out's element of the tile's row 0
   bool f32;   // out is float32 (else T)
   const int* s_blk;
   size_t hd, head, blk_stride;
-  int G, D, bs, b0, pos0, last;
+  int G, D, bs, b0, pos0, last, Lp;
   __device__ size_t row(int r) const {
     return (size_t)(r / G) * hd + (size_t)(r % G) * D;
   }
   __device__ const T* q(int r) const { return qb + row(r); }
-  __device__ const T* key_row(const T* c, int key) const {
+  __device__ const T* key_row(const T* c, const T* pre, int key) const {
+    if (key < Lp) return pre + (size_t)key * D;
+    key -= Lp;
     const int kb = key / bs;
     const int blk = s_blk[kb - b0];
     return blk < 0 ? nullptr
                    : c + blk * blk_stride + head + (size_t)(key - kb * bs) * D;
   }
-  __device__ const T* k(int key) const { return key_row(kc, key); }
-  __device__ const T* v(int key) const { return key_row(vc, key); }
+  __device__ const T* k(int key) const { return key_row(kc, pk, key); }
+  __device__ const T* v(int key) const { return key_row(vc, pv, key); }
   __device__ bool vis(int r, int key) const {
-    return key <= min(pos0 + r / G, last);
+    return key <= Lp + min(pos0 + r / G, last);
   }
   __device__ void put(int r, int d, float x) const {
     ptt::put_out<T>(out, qo + row(r) + d, x, f32);
@@ -1292,22 +1351,25 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
         const T* __restrict__ q, const T* __restrict__ kc,
         const T* __restrict__ vc, void* __restrict__ out,
         const int* __restrict__ dec, const int* __restrict__ now,
-        const int* __restrict__ cu, const int* __restrict__ bt, int T_,
-        int B, int P, int NB, int H, int KV, int D, int bs, int mq, int QT,
-        int chunk, float scale_log2, int W, int out_f32) {
+        const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
+        const T* pv, int T_, int B, int P, int NB, int H, int KV, int D,
+        int bs, int Lp, int mq, int QT, int chunk, float scale_log2, int W,
+        int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV, kh = blockIdx.z;
   int* tables =
       reinterpret_cast<int*>(smem + ptt::wide::smem_bytes(QT * G, W));
   Tile t;
-  if (!setup_tile<T, true>(t, tables, out, out_f32, dec, now, cu, bt, T_, B,
-                           P, NB, H, G, D, bs, mq, QT, chunk))
+  if (!setup_tile<T, true>(t, tables, out, out_f32, dec, now, cu, bt, pk, pv,
+                           T_, B, P, NB, H, G, D, bs, Lp, mq, QT, chunk))
     return;
   // the walk's first barrier comes before its first read of s_blk
-  const PagedRows<T> src{q + t.qo, kc, vc, out, t.qo, out_f32 != 0,
-                         tables + 4 * B + 2, (size_t)H * D,
+  const PagedRows<T> src{q + t.qo, kc, vc,
+                         static_cast<const T*>(t.pk),
+                         static_cast<const T*>(t.pv), out, t.qo,
+                         out_f32 != 0, tables + 4 * B + 2, (size_t)H * D,
                          (size_t)kh * bs * D, (size_t)KV * bs * D, G, D, bs,
-                         t.b0, t.pos0, t.ctx - 1};
+                         t.b0, t.pos0, t.ctx - 1, Lp};
   ptt::wide::attend<T>(src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W,
                        scale_log2, smem);
 }
@@ -1316,9 +1378,10 @@ template <typename T>
 cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
                         const void* q, const void* kc, const void* vc,
                         void* out, const void* dec, const void* now,
-                        const void* cu, const void* bt, int T_, int B, int P,
-                        int NB, int H, int D, int bs, int mq, int QT,
-                        int chunk, float scale, int out_f32) {
+                        const void* cu, const void* bt, const void* pk,
+                        const void* pv, int T_, int B, int P, int NB, int H,
+                        int D, int bs, int Lp, int mq, int QT, int chunk,
+                        float scale, int out_f32) {
   const int R = QT * (H / KV);
   const int W = ptt::wide::slice_cols(R, D);
   if (W == 0 || tiles > 65535 || KV > 65535)
@@ -1330,18 +1393,21 @@ cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
   const dim3 grid((D + W - 1) / W, (unsigned)tiles, KV);
   paged_attention_wide_kernel<T><<<grid, ptt::wide::kThreads, smem, st>>>(
       (const T*)q, (const T*)kc, (const T*)vc, out, (const int*)dec,
-      (const int*)now, (const int*)cu, (const int*)bt, T_, B, P, NB, H, KV, D,
-      bs, mq, QT, chunk, scale * 1.4426950408889634f, W, out_f32);
+      (const int*)now, (const int*)cu, (const int*)bt, (const T*)pk,
+      (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
+      scale * 1.4426950408889634f, W, out_f32);
   return cudaGetLastError();
 }
 
-bool valid_plan(int B, int P, int H, int KV, int D, int bs, int mq, int QT,
-                int KT, int stages, int splits, int chunk, int dtype) {
-  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && bs > 0 &&
+bool valid_plan(int B, int P, int H, int KV, int D, int bs, int Lp, int mq,
+                int QT, int KT, int stages, int splits, int chunk,
+                int dtype) {
+  const long long ctx = (long long)P * bs + Lp;  // the combined key axis
+  if (!(B > 0 && KV > 0 && H % KV == 0 && D > 0 && bs > 0 && Lp >= 0 &&
         mq >= 0 && QT > 0 && splits >= 1 &&
         splits <= kMaxSplits && chunk > 0 && chunk % KT == 0 &&
-        (long long)chunk * splits >= (long long)P * bs &&
-        (splits == 1 || (long long)chunk * (splits - 1) < (long long)P * bs)))
+        (long long)chunk * splits >= ctx &&
+        (splits == 1 || (long long)chunk * (splits - 1) < ctx)))
     return false;
   if (D > 512) return KT == ptt::wide::kKeys && stages == 1 && splits == 1;
   if (uses_tc(dtype, D))
@@ -1438,17 +1504,19 @@ __host__ __device__ inline Int8Layout int8_layout(int R, int D, int KT,
   return L;
 }
 
-// Where one row's keys come from: the uint8 pools at KV head kh through
-// the block ids, the fresh k / v rows (token tok0 + key, head kh) for
-// keys >= dec, and the row's dequantization scales.
+// Where one row's keys come from, on the combined axis: the prefix rows
+// pk / pv for keys < Lp, the uint8 pools at KV head kh through the block
+// ids for keys Lp .. dec - 1 (paged key key - Lp), the fresh k / v rows
+// (token tok0 + key, head kh) for keys >= dec, and the row's
+// dequantization scales.
 template <typename T>
 struct Int8Rows {
   const uint8_t *kc, *vc;
-  const T *kf, *vf;
+  const T *kf, *vf, *pk, *pv;
   const int* s_blk;
   size_t blk_stride, head;    // bytes of one block, of head kh's offset
   long long kstride, vstride; // elements between two tokens of k, v
-  int D, bs, b0, dec, tok0;
+  int D, bs, b0, dec, tok0, Lp;
   float kd, vd;
 };
 
@@ -1515,9 +1583,9 @@ __device__ __forceinline__ void store8(float* dst, const float* x) {
 
 // K and V rows t0 .. t0 + KT - 1 into ks / vs as float32 (rows `rs` floats
 // apart, DA columns, zeros past D and for keys >= c1).  kAligned (D % 8 ==
-// 0, 16-byte fresh rows, 8-byte cache rows): a thread first issues the
-// loads of kBatch pieces, then converts and stores them, so their latencies
-// overlap; else element by element.
+// 0, 16-byte fresh and prefix rows, 8-byte cache rows): a thread first
+// issues the loads of kBatch pieces, then converts and stores them, so
+// their latencies overlap; else element by element.
 template <typename T, int KT, bool kAligned>
 __device__ void int8_tile(float* ks, float* vs, const Int8Rows<T>& s,
                           int t0, int c1, int rs, int DA) {
@@ -1533,18 +1601,23 @@ __device__ void int8_tile(float* ks, float* vs, const Int8Rows<T>& s,
         const int j = i / DC, c = (i - j * DC) * kVec, key = t0 + j;
         kind[u] = 0;
         if (i < n && key < c1) {
-          if (key >= s.dec) {  // this step's own key: full precision
+          if (key < s.Lp) {  // a prefix row: full precision
+            rk[u] = load_piece(s.pk + (size_t)key * s.D + c);
+            rv[u] = load_piece(s.pv + (size_t)key * s.D + c);
+            kind[u] = 1;
+          } else if (key >= s.dec) {  // this step's own key: full precision
             const long long tok = (long long)s.tok0 + key;
             rk[u] = load_piece(s.kf + tok * s.kstride + c);
             rv[u] = load_piece(s.vf + tok * s.vstride + c);
             kind[u] = 1;
           } else {
-            const int kb = key / s.bs;
+            const int pk = key - s.Lp;  // the paged key
+            const int kb = pk / s.bs;
             const int blk = s.s_blk[kb - s.b0];
             kind[u] = 3;
             if (blk >= 0) {
               const size_t o = blk * s.blk_stride + s.head +
-                               (size_t)(key - kb * s.bs) * s.D + c;
+                               (size_t)(pk - kb * s.bs) * s.D + c;
               const uint2 a = *reinterpret_cast<const uint2*>(s.kc + o);
               const uint2 b = *reinterpret_cast<const uint2*>(s.vc + o);
               rk[u].a.x = a.x, rk[u].a.y = a.y;
@@ -1585,12 +1658,16 @@ __device__ void int8_tile(float* ks, float* vs, const Int8Rows<T>& s,
       if (key >= c1) {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) kx[e] = vx[e] = 0.f;
+      } else if (key < s.Lp) {  // a prefix row: full precision
+        fresh8<T>(s.pk + (size_t)key * s.D + c, left, kx);
+        fresh8<T>(s.pv + (size_t)key * s.D + c, left, vx);
       } else if (key >= s.dec) {  // this step's own key: full precision
         const long long tok = (long long)s.tok0 + key;
         fresh8<T>(s.kf + tok * s.kstride + c, left, kx);
         fresh8<T>(s.vf + tok * s.vstride + c, left, vx);
       } else {
-        const int kb = key / s.bs;
+        const int pk = key - s.Lp;  // the paged key
+        const int kb = pk / s.bs;
         const int blk = s.s_blk[kb - s.b0];
         if (blk < 0) {  // outside the pool: uint8 0
 #pragma unroll
@@ -1600,7 +1677,7 @@ __device__ void int8_tile(float* ks, float* vs, const Int8Rows<T>& s,
           }
         } else {
           const size_t o = blk * s.blk_stride + s.head +
-                           (size_t)(key - kb * s.bs) * s.D + c;
+                           (size_t)(pk - kb * s.bs) * s.D + c;
           deq8(s.kc + o, s.kd, left, kx);
           deq8(s.vc + o, s.vd, left, vx);
         }
@@ -1624,9 +1701,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     const uint8_t* __restrict__ vc, const float* __restrict__ kdq,
     const float* __restrict__ vdq, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
-    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
-    long long kstride, long long vstride, float scale_log2, int out_f32) {
+    const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
+    const T* pv, int T_, int B, int P, int NB, int H, int KV, int D, int bs,
+    int Lp, int mq, int QT, int chunk, long long kstride, long long vstride,
+    float scale_log2, int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
@@ -1646,19 +1724,22 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, T_, B, P, NB,
-                     H, G, D, bs, mq, QT, chunk))
+  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, pk, pv, T_,
+                     B, P, NB, H, G, D, bs, Lp, mq, QT, chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
   const int DA = simt_cols(D);
   const int rs = L.rstride;
-  const int row_dec = t.pos0 - t.t_first;
+  const int row_dec = Lp + t.pos0 - t.t_first;  // on the combined axis
   Int8Rows<T> src;
   src.kc = kc;
   src.vc = vc;
   src.kf = kf + (size_t)kh * D;
   src.vf = vf + (size_t)kh * D;
+  src.pk = static_cast<const T*>(t.pk);
+  src.pv = static_cast<const T*>(t.pv);
+  src.Lp = Lp;
   src.s_blk = tables + 4 * B + 2;
   src.blk_stride = (size_t)KV * bs * D;
   src.head = (size_t)kh * bs * D;
@@ -1680,7 +1761,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
   }
   for (int idx = tid; idx < L.KG * R * DA; idx += kThreads) acc[idx] = 0.f;
   for (int r = tid; r < nr; r += kThreads) {
-    lim[r] = min(t.pos0 + r / G, t.ctx - 1);
+    lim[r] = Lp + min(t.pos0 + r / G, t.ctx - 1);
     mrow[r] = -INFINITY;
     lrow[r] = 0.f;
   }
@@ -1828,13 +1909,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_mma_kernel(
     const uint8_t* __restrict__ vc, const float* __restrict__ kdq,
     const float* __restrict__ vdq, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, int T_, int B,
-    int P, int NB, int H, int KV, int D, int bs, int mq, int QT, int chunk,
+    const int* __restrict__ cu, const int* __restrict__ bt,
+    const __nv_bfloat16* pk, const __nv_bfloat16* pv, int T_, int B, int P,
+    int NB, int H, int KV, int D, int bs, int Lp, int mq, int QT, int chunk,
     long long kstride, long long vstride, float scale_log2, int out_f32) {
   tc_attend<DP, KG, true>(q, nullptr, nullptr, kc, vc, kf, vf, kdq, vdq,
-                          kstride, vstride, out, dec, now, cu, bt, T_, B, P,
-                          NB, H, KV, D, bs, mq, QT, chunk, kInt8Stages,
-                          scale_log2, out_f32);
+                          kstride, vstride, out, dec, now, cu, bt, pk, pv, T_,
+                          B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
+                          kInt8Stages, scale_log2, out_f32);
 }
 
 // either K4-int8 kernel over a grid of (splits, tiles, KV), a cluster of
@@ -1846,9 +1928,10 @@ cudaError_t launch_int8_kernel(K kern, size_t smem, int splits,
                                const void* kc, const void* vc,
                                const void* kd, const void* vd, void* out,
                                const void* dec, const void* now,
-                               const void* cu, const void* bt, int T_, int B,
-                               int P, int NB, int H, int D, int bs, int mq,
-                               int QT, int chunk, long long kstride,
+                               const void* cu, const void* bt, const void* pk,
+                               const void* pv, int T_, int B, int P, int NB,
+                               int H, int D, int bs, int Lp, int mq, int QT,
+                               int chunk, long long kstride,
                                long long vstride, float scale, int out_f32) {
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -1867,9 +1950,9 @@ cudaError_t launch_int8_kernel(K kern, size_t smem, int splits,
   e = cudaLaunchKernelEx(
       &cfg, kern, (const T*)q, (const T*)k, (const T*)v, (const uint8_t*)kc,
       (const uint8_t*)vc, (const float*)kd, (const float*)vd, out,
-      (const int*)dec, (const int*)now, (const int*)cu, (const int*)bt, T_, B,
-      P, NB, H, KV, D, bs, mq, QT, chunk, kstride, vstride,
-      scale * 1.4426950408889634f, out_f32);
+      (const int*)dec, (const int*)now, (const int*)cu, (const int*)bt,
+      (const T*)pk, (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
+      chunk, kstride, vstride, scale * 1.4426950408889634f, out_f32);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1880,17 +1963,18 @@ cudaError_t launch_int8_mma(int KG, size_t smem, int splits, long long tiles,
                             const void* k, const void* v, const void* kc,
                             const void* vc, const void* kd, const void* vd,
                             void* out, const void* dec, const void* now,
-                            const void* cu, const void* bt, int T_, int B,
-                            int P, int NB, int H, int D, int bs, int mq,
-                            int QT, int chunk, long long kstride,
-                            long long vstride, float scale, int out_f32) {
+                            const void* cu, const void* bt, const void* pk,
+                            const void* pv, int T_, int B, int P, int NB,
+                            int H, int D, int bs, int Lp, int mq, int QT,
+                            int chunk, long long kstride, long long vstride,
+                            float scale, int out_f32) {
 #define PTT_K4I_MMA(kg)                                                      \
   if (KG == kg)                                                              \
     return launch_int8_kernel<                                               \
         decltype(&paged_attention_int8_mma_kernel<DP, kg>), __nv_bfloat16>(  \
         paged_attention_int8_mma_kernel<DP, kg>, smem, splits, tiles, KV, st, \
-        q, k, v, kc, vc, kd, vd, out, dec, now, cu, bt, T_, B, P, NB, H, D,  \
-        bs, mq, QT, chunk, kstride, vstride, scale, out_f32);
+        q, k, v, kc, vc, kd, vd, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, \
+        H, D, bs, Lp, mq, QT, chunk, kstride, vstride, scale, out_f32);
   PTT_K4I_MMA(4)
   PTT_K4I_MMA(2)
   PTT_K4I_MMA(1)
@@ -1905,15 +1989,16 @@ cudaError_t launch_int8(bool aligned, size_t smem, int splits,
                         const void* kc, const void* vc, const void* kd,
                         const void* vd, void* out, const void* dec,
                         const void* now, const void* cu, const void* bt,
-                        int T_, int B, int P, int NB, int H, int D, int bs,
-                        int mq, int QT, int chunk, long long kstride,
-                        long long vstride, float scale, int out_f32) {
+                        const void* pk, const void* pv, int T_, int B, int P,
+                        int NB, int H, int D, int bs, int Lp, int mq, int QT,
+                        int chunk, long long kstride, long long vstride,
+                        float scale, int out_f32) {
   auto kern = aligned ? paged_attention_int8_kernel<T, KT, true>
                       : paged_attention_int8_kernel<T, KT, false>;
   return launch_int8_kernel<decltype(kern), T>(
       kern, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,
-      now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, kstride, vstride,
-      scale, out_f32);
+      now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp, mq, QT, chunk,
+      kstride, vstride, scale, out_f32);
 }
 
 template <typename T>
@@ -1923,13 +2008,14 @@ cudaError_t launch_int8_kt(int KT, bool aligned, size_t smem, int splits,
                            const void* kc, const void* vc, const void* kd,
                            const void* vd, void* out, const void* dec,
                            const void* now, const void* cu, const void* bt,
-                           int T_, int B, int P, int NB, int H, int D, int bs,
+                           const void* pk, const void* pv, int T_, int B,
+                           int P, int NB, int H, int D, int bs, int Lp,
                            int mq, int QT, int chunk, long long kstride,
                            long long vstride, float scale, int out_f32) {
 #define PTT_K4I_ARGS                                                        \
   aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,  \
-      now, cu, bt, T_, B, P, NB, H, D, bs, mq, QT, chunk, kstride, vstride, \
-      scale, out_f32
+      now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp, mq, QT, chunk,       \
+      kstride, vstride, scale, out_f32
   switch (KT) {
     case 64: return launch_int8<T, 64>(PTT_K4I_ARGS);
     case 32: return launch_int8<T, 32>(PTT_K4I_ARGS);
@@ -1942,19 +2028,32 @@ cudaError_t launch_int8_kt(int KT, bool aligned, size_t smem, int splits,
 
 bool aligned_to(const void* p, int n) { return (uintptr_t)p % n == 0; }
 
+// the pre-caches: none (Lp 0), or both, 16-byte aligned (their rows are
+// read in the pieces of q's)
+bool valid_pre(const void* pk, const void* pv, int Lp) {
+  return Lp == 0 ||
+         (Lp > 0 && pk && pv && aligned_to(pk, 16) && aligned_to(pv, 16));
+}
+
 }  // namespace
 
+// K4: q [T, H, D]; pools kc / vc [NB, KV, bs, D] of q's dtype; the
+// pre-caches pk / pv [B, KV, Lp, D] of q's dtype (NULL with Lp 0); out
+// [T, H, D], in q's dtype or (out_f32) float32.  The plan (QT, KT,
+// stages, splits, chunk) is paged_plan's over Lp + P * bs keys.
 extern "C" int ptt_paged_attention(const void* q, const void* kc,
                                    const void* vc, void* out, const void* dec,
                                    const void* now, const void* cu,
-                                   const void* bt, int T, int B, int P, int NB,
-                                   int H, int KV, int D, int bs,
+                                   const void* bt, const void* pk,
+                                   const void* pv, int T, int B, int P, int NB,
+                                   int H, int KV, int D, int bs, int Lp,
                                    int max_q_len, float scale, int QT, int KT,
                                    int stages, int splits, int chunk,
                                    int out_f32, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
-      !valid_plan(B, P, H, KV, D, bs, max_q_len, QT, KT, stages, splits,
+      !valid_pre(pk, pv, Lp) ||
+      !valid_plan(B, P, H, KV, D, bs, Lp, max_q_len, QT, KT, stages, splits,
                   chunk, dtype))
     return (int)cudaErrorInvalidValue;
   const int es = dtype == ptt::kFloat32 ? 4 : 2;
@@ -1962,9 +2061,9 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
   const int R = QT * (H / KV);
   const long long tiles = grid_tiles(T, B, max_q_len, QT);
   if (D > 512) {
-#define PTT_K4_ARGS                                                        \
-  tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, H, D, bs, \
-      max_q_len, QT, chunk, scale, out_f32
+#define PTT_K4_ARGS                                                         \
+  tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T, B, P, NB, H, \
+      D, bs, Lp, max_q_len, QT, chunk, scale, out_f32
     return dtype == ptt::kFloat32
                ? (int)launch_wide<float>(PTT_K4_ARGS)
                : (int)launch_wide<__nv_bfloat16>(PTT_K4_ARGS);
@@ -1974,17 +2073,19 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
       layout(tc, R, D, es, KT, stages, splits, B, chunk, bs).total;
   if (tc) {
     const int KG = tc_key_groups(R), DP = tc_cols(D);
-#define PTT_K4_ARGS                                                         \
-  smem, KG, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, \
-      P, NB, H, D, bs, max_q_len, QT, chunk, stages, scale, out_f32
+#define PTT_K4_ARGS                                                     \
+  smem, KG, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, \
+      pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk, stages, scale, \
+      out_f32
     if (DP == 64) return (int)launch_tc<64>(PTT_K4_ARGS);
     if (DP == 128) return (int)launch_tc<128>(PTT_K4_ARGS);
     return (int)launch_tc<256>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
   }
-#define PTT_K4_ARGS                                                          \
-  smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, T, B, P, NB, \
-      H, D, bs, max_q_len, QT, chunk, stages, scale, out_f32
+#define PTT_K4_ARGS                                                     \
+  smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, pv, \
+      T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk, stages, scale,    \
+      out_f32
   if (dtype == ptt::kFloat32)
     return KT == 64   ? (int)launch_simt<float, 64>(PTT_K4_ARGS)
            : KT == 32 ? (int)launch_simt<float, 32>(PTT_K4_ARGS)
@@ -1998,8 +2099,9 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
 // K4-int8: q [T, H, D] and the fresh k / v [T, KV, D] (token strides
 // k_stride / v_stride elements, each head's row contiguous) in `dtype`;
 // uint8 pools kc / vc [NB, KV, bs, D]; float32 dequantization scales kd /
-// vd [B, KV]; out [T, H, D], in `dtype` or (out_f32) float32; `splits`
-// blocks of a cluster, each walking `chunk` keys.  `tc` runs the
+// vd [B, KV]; the pre-caches pk / pv [B, KV, Lp, D] in `dtype` (NULL with
+// Lp 0); out [T, H, D], in `dtype` or (out_f32) float32; `splits` blocks
+// of a cluster, each walking `chunk` of the Lp + P * block_size keys.  `tc` runs the
 // tensor-core instance: bfloat16, D a multiple of 8 up to 256, at most 64
 // query rows a tile, 64-key tiles, k and v 16-byte aligned with token
 // strides of whole 16 bytes and the pools aligned to their rows' pieces (16
@@ -2012,13 +2114,15 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
 extern "C" int ptt_paged_attention_int8(
     const void* q, const void* k, const void* v, const void* kc,
     const void* vc, const void* kd, const void* vd, void* out,
-    const void* dec, const void* now, const void* cu, const void* bt, int T,
-    int B, int P, int NB, int H, int KV, int D, int bs, int max_q_len,
-    long long k_stride, long long v_stride, float scale, int QT, int KT,
-    int splits, int chunk, int tc, int out_f32, int dtype, void* stream) {
+    const void* dec, const void* now, const void* cu, const void* bt,
+    const void* pk, const void* pv, int T, int B, int P, int NB, int H,
+    int KV, int D, int bs, int Lp, int max_q_len, long long k_stride,
+    long long v_stride, float scale, int QT, int KT, int splits, int chunk,
+    int tc, int out_f32, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long ctx = (long long)P * bs;
-  if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) || B <= 0 ||
+  const long long ctx = (long long)P * bs + Lp;  // the combined key axis
+  if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
+      !valid_pre(pk, pv, Lp) || B <= 0 ||
       KV <= 0 || H % KV || D <= 0 || bs <= 0 || P <= 0 || max_q_len < 0 ||
       QT <= 0 || (KT != 64 && KT != 32 && KT != 16 && KT != 8) ||
       splits < 1 || splits > kMaxSplits || chunk <= 0 || chunk % KT ||
@@ -2040,8 +2144,8 @@ extern "C" int ptt_paged_attention_int8(
     const int KG = tc_key_groups(R), DP = tc_cols(D);
 #define PTT_K4I_ARGS                                                       \
   KG, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec, now,  \
-      cu, bt, T, B, P, NB, H, D, bs, max_q_len, QT, chunk, k_stride,       \
-      v_stride, scale, out_f32
+      cu, bt, pk, pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk,     \
+      k_stride, v_stride, scale, out_f32
     if (DP == 64) return (int)launch_int8_mma<64>(PTT_K4I_ARGS);
     if (DP == 128) return (int)launch_int8_mma<128>(PTT_K4I_ARGS);
     return (int)launch_int8_mma<256>(PTT_K4I_ARGS);
@@ -2055,8 +2159,8 @@ extern "C" int ptt_paged_attention_int8(
   const size_t smem = int8_layout(R, D, KT, splits, B, chunk, bs).total;
 #define PTT_K4I_ARGS                                                         \
   KT, aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out,    \
-      dec, now, cu, bt, T, B, P, NB, H, D, bs, max_q_len, QT, chunk,         \
-      k_stride, v_stride, scale, out_f32
+      dec, now, cu, bt, pk, pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT,    \
+      chunk, k_stride, v_stride, scale, out_f32
   if (dtype == ptt::kFloat32)
     return (int)launch_int8_kt<float>(PTT_K4I_ARGS);
   return (int)launch_int8_kt<__nv_bfloat16>(PTT_K4I_ARGS);

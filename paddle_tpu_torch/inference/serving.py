@@ -36,19 +36,24 @@ positions wrote K/V that the next feed overwrites before any read, so
 spec-on gives spec-off's tokens.
 
 The program cache: on CUDA the two megastep loops (``_run_megastep``,
-``_run_mixed``) and the verify, sampling and its threefry draw included,
-run as CUDA graphs (``jit/graphs.py``), one per (program, K,
-``all_greedy``), K bucketed to powers of two up to ``megastep_k`` for
-the pure-decode loop and ``megastep_k`` for the mixed one, and one per
-("spec", ``all_greedy``) for the verify (its shapes are fixed by the
-batch and ``spec_k``); ``capture_sample_probs`` is fixed per engine.  A
-key's first call runs eagerly (its results are returned) and is then
-captured; later calls copy the host arrays, block tables included, into
-the graph's static buffers and replay it.
-``compile_count`` counts the captures, as the reference counts its jit
-programs; ``load_weights`` drops the graphs, which read the old weights.
-The single-step program (prefill-only batches, ``megastep_k=1``) runs
-eagerly, and on the CPU nothing is captured (``compile_count`` stays 0).
+``_run_mixed``), the verify and the single step (``_run_step``), sampling
+and its threefry draw included, run as CUDA graphs (``jit/graphs.py``),
+one per (program, K, ``all_greedy``), K bucketed to powers of two up to
+``megastep_k`` for the pure-decode loop and ``megastep_k`` for the mixed
+one, one per ("spec", ``all_greedy``) for the verify (its shapes are
+fixed by the batch and ``spec_k``), and one per ("step", ``mq``,
+``all_greedy``, ``capture_sample_probs``) for the single step, ``mq`` 1
+for a pure-decode step (a [B] token buffer) and ``token_budget`` for one
+that carries prefill (a [T] buffer), as the reference compiles its step
+once per ``mq``.  A key's first call runs eagerly (its results are
+returned) and is then captured; later calls copy the host arrays, block
+tables included, into the graph's static buffers and replay it.  A graph
+reads and writes the KV pools and, under the int8 cache, each layer's
+``cache_scales`` at fixed addresses (the step's dynamic refresh rewrites
+them in place).  ``compile_count`` counts the captures, as the reference
+counts its jit programs; ``load_weights`` drops the graphs, which read
+the old weights.  On the CPU nothing is captured (``compile_count`` stays
+0).
 The private ``_graphs = False`` runs the loops eagerly on CUDA too, for
 comparison (the tests and ``chip_smoke.py``); there is no public switch,
 as the reference has none.
@@ -698,8 +703,9 @@ class ServingEngine:
         # + batch marshalling, execute = device work + the one read-back,
         # harvest = token/unblocking bookkeeping)
         self.phase_seconds = {"schedule": 0.0, "execute": 0.0, "harvest": 0.0}
-        # the megastep loops and the verify as CUDA graphs, one per
-        # (program, K, all_greedy) or ("spec", all_greedy), counted in
+        # the megastep loops, the verify and the single step as CUDA
+        # graphs, one per (program, K, all_greedy), ("spec", all_greedy) or
+        # ("step", mq, all_greedy, capture_sample_probs), counted in
         # compile_count; never on the CPU.  Only the tests and
         # chip_smoke.py set _graphs = False (the eager loops on CUDA, for
         # comparison)
@@ -847,7 +853,8 @@ class ServingEngine:
 
     def _run_step(self, tokens, enc, dec, now, cu, bt, temps, top_ks,
                   top_ps, seeds, spos, mq, all_greedy):
-        """The single-step program: one forward + sampling."""
+        """The single-step program: one forward + sampling (on CUDA a
+        graph per ("step", mq, all_greedy, capture_sample_probs))."""
         logits = self._forward(tokens, enc, dec, now, cu, bt, mq)
         return _sample_tokens(logits, temps, top_ks, top_ps, seeds, spos,
                               return_probs=self.capture_sample_probs,
@@ -1481,12 +1488,13 @@ class ServingEngine:
 
         t1 = self._clock()
         self.phase_seconds["schedule"] += t1 - t0
-        nxt, lps, probs = self._run_step(
-            self._dev(tokens), self._dev(enc), self._dev(dec),
-            self._dev(now), self._dev(cu), self._dev(self.block_tables),
-            self._dev(temps), self._dev(top_ks), self._dev(top_ps),
-            self._dev(seeds), self._dev(spos),
-            1 if decode_only else self.T, bool((temps <= 0).all()))
+        mq = 1 if decode_only else self.T
+        all_greedy = bool((temps <= 0).all())
+        nxt, lps, probs = self._graphed(
+            ("step", mq, all_greedy, self.capture_sample_probs),
+            lambda *ins: self._run_step(*ins, mq, all_greedy),
+            (tokens, enc, dec, now, cu, self.block_tables, temps, top_ks,
+             top_ps, seeds, spos))
         nxt = nxt.cpu().numpy()
         lps = lps.cpu().numpy()
         probs = probs.cpu().numpy() if probs is not None else None

@@ -63,18 +63,17 @@ _SIGNATURES = {
     # a, b, g, da, db, n, dtype, stream
     "ptt_swiglu_bwd": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I, _P],
     # q, key_cache, value_cache, out, seq_lens_decoder, seq_lens_this_time,
-    # cu_seqlens_q, block_tables, T, B, P, NB, H, KV, D, block_size,
-    # max_q_len, scale, query tile, key tile, stages, splits, chunk, float32
-    # output, dtype, stream
-    "ptt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
+    # cu_seqlens_q, block_tables, pre_key|NULL, pre_value|NULL, T, B, P,
+    # NB, H, KV, D, block_size, pre_len, max_q_len, scale, query tile, key
+    # tile, stages, splits, chunk, float32 output, dtype, stream
+    "ptt_paged_attention": [_P] * 10 + [_I] * 10 + [_F] + [_I] * 7 + [_P],
     # q, k, v (this step's, full precision), key_cache, value_cache
     # (uint8), k/v dequant scales [B, KV] float32, out, seq_lens_decoder,
-    # seq_lens_this_time, cu_seqlens_q, block_tables, T, B, P, NB, H, KV,
-    # D, block_size, max_q_len, k and v token strides, scale, query tile,
-    # key tile, splits, chunk, tensor cores, float32 output, dtype, stream
-    "ptt_paged_attention_int8": [_P] * 12 + [_I] * 9 + [
+    # seq_lens_this_time, cu_seqlens_q, block_tables, pre_key|NULL,
+    # pre_value|NULL, T, B, P, NB, H, KV, D, block_size, pre_len, max_q_len,
+    # k and v token strides, scale, query tile, key tile, splits, chunk,
+    # tensor cores, float32 output, dtype, stream
+    "ptt_paged_attention_int8": [_P] * 14 + [_I] * 10 + [
         ctypes.c_longlong] * 2 + [_F, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, q_off|NULL, B, Sq, Sk, H, KVH, D, q/k/v strides
     # over (batch, seq, head), causal, q_off_host, scale, block_q, block_k,

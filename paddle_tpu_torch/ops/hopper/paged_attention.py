@@ -45,6 +45,17 @@ and the split from host sizes.  Its plain version is
 Both wrappers take ``out_dtype``: None or q's dtype (the output rounded to
 it once), or float32, which ``blha_attention`` asks for where its
 epilogue reads the attention's float32 value.
+
+Both take the pre-caches (``pre_key``, ``pre_value`` [B, KV, Lp, D] in q's
+dtype, ``blha_attention``'s ``pre_key_cache`` / ``pre_value_cache``,
+``:255-260``): the attention then runs over Lp prefix keys followed by the
+row's paged context, every query sees the whole prefix, and paged key j
+stays visible at positions >= j (the reference's ``kpos = arange(Lf) -
+pre_len; vis = kpos <= qpos``).  In every instance the prefix is a second
+source of key rows in the copier (key < Lp reads row ``pre[b, kh, key]``,
+contiguous; K4-int8 reads it at full precision, as the step's fresh
+keys), the plans count Lp in the context they split, and nothing is
+written for it.
 """
 from __future__ import annotations
 
@@ -169,9 +180,11 @@ def _grid_tiles(T: int, B: int, max_q_len: int, qt: int) -> int:
 
 
 def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
-               KV: int, D: int, dtype: torch.dtype) -> PagedPlan:
+               KV: int, D: int, dtype: torch.dtype,
+               pre_len: int = 0) -> PagedPlan:
     """The tile and split of a K4 call of T tokens in B rows, from
-    host-known sizes only.
+    host-known sizes only (``pre_len`` prefix keys before each row's
+    ``P * bs`` paged ones: the context is their sum).
 
     * ``qt``: 1 at decode (``max_q_len`` 1); else up to ``MAX_QT`` tokens,
       so that a tile holds about ``TILE_ROWS`` query rows of G heads each
@@ -189,7 +202,8 @@ def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
     * ``splits``: 1 where the grid of (query tile, KV head) blocks already
       gives every SM of the card a block; else the power of two that does,
       at most ``SPLIT_CAP`` and at most one key tile per split.  ``chunk``
-      is the keys of ``P * bs`` a split walks, a multiple of ``kt``.
+      is the keys of ``pre_len + P * bs`` a split walks, a multiple of
+      ``kt``.
     * Past ``MAX_HEAD_DIM`` columns: the wide instance, up to
       ``WIDE_ROWS`` query rows a tile (a larger group takes one token),
       32-key tiles, one split walking the whole context (``stages`` 1),
@@ -199,25 +213,26 @@ def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
     Raises ValueError for a tensor-core tile of more than ``TC_ROWS``
     query rows (a head group above 64) and a shape whose block would need
     more than the 227 KB of shared memory a block may use."""
-    return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype)
+    return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype, pre_len=pre_len)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
           D: int, dtype: torch.dtype, qt: Optional[int] = None,
           splits: Optional[int] = None,
-          stages: Optional[int] = None) -> PagedPlan:
+          stages: Optional[int] = None, pre_len: int = 0) -> PagedPlan:
     """``paged_plan``, with ``qt``, ``splits`` and ``stages`` replacing its
     choices when given (``chip_smoke.py`` holds the kernel to its plain
     version under such forced plans; the wrapper never forces one).  A
     forced ring depth the instance does not take, or more than
     ``SPLIT_CAP`` splits, raises ValueError."""
-    if D <= 0 or KV <= 0 or H % KV:
+    if D <= 0 or KV <= 0 or H % KV or pre_len < 0:
         raise ValueError(f"paged_attention: no plan for H {H}, KV {KV}, "
-                         f"head_dim {D} (head_dim >= 1, H % KV == 0)")
+                         f"head_dim {D}, {pre_len} prefix keys (head_dim "
+                         ">= 1, H % KV == 0, pre_len >= 0)")
     es = dtype.itemsize
     G = H // KV
-    ctx = P * bs
+    ctx = P * bs + pre_len
     if D > MAX_HEAD_DIM:
         return _wide_plan(T, B, max_q_len, bs, G, KV, D, ctx, qt, splits,
                           stages)
@@ -320,11 +335,13 @@ def _token_rows(cu_seqlens_q, seq_lens_this_time, T, B):
 
 
 def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len,
-                out_dtype=None):
+                out_dtype=None, pre_len=0):
     """blha_attention steps 7-8 over the gathered context k_all / v_all
-    [B, KV, L, D]: padded-batch attention with float32 softmax, gathered
-    back to the packed buffer and rounded once to ``out_dtype`` (q's dtype
-    when None); ``rows`` is ``_token_rows``'s."""
+    [B, KV, L, D], whose first ``pre_len`` keys are the pre-caches' (seen
+    by every query; key j >= pre_len is visible at positions >= j -
+    pre_len): padded-batch attention with float32 softmax, gathered back
+    to the packed buffer and rounded once to ``out_dtype`` (q's dtype when
+    None); ``rows`` is ``_token_rows``'s."""
     T, H, D = q.shape
     B, KV, L = k_all.shape[:3]
     dev = q.device
@@ -339,7 +356,8 @@ def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len,
     logits = torch.einsum("bskgd,bkld->bkgsl", qg, k_all.float()) / (D ** 0.5)
     qpos = (seq_lens_decoder.long()[:, None]
             + torch.arange(S, device=dev)[None, :])       # [B, S]
-    vis = torch.arange(L, device=dev)[None, None, :] <= qpos[:, :, None]
+    kpos = torch.arange(L, device=dev) - pre_len
+    vis = kpos[None, None, :] <= qpos[:, :, None]
     logits = torch.where(vis[:, None, None], logits,
                          torch.tensor(-1e30, dtype=torch.float32, device=dev))
     p = torch.softmax(logits, dim=-1)
@@ -350,16 +368,26 @@ def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len,
     return out_full[bs_idx, lc_idx].to(out_dtype or q.dtype)  # [T, H, D]
 
 
+def _with_pre(ctx, pre):
+    """The context [B, KV, L, D] with the pre-cache [B, KV, Lp, D] in
+    front of it, in the context's dtype (``:255-260``), or as it is."""
+    return ctx if pre is None else torch.cat([pre.to(ctx.dtype), ctx], 2)
+
+
 def _paged_attention_ref(q, key_cache, value_cache, seq_lens_decoder,
                          seq_lens_this_time, cu_seqlens_q, block_tables,
-                         max_q_len, out_dtype=None):
-    """blha_attention steps 6-8: gather each row's context, padded-batch
-    attention with float32 softmax, gather back to the packed buffer."""
+                         max_q_len, out_dtype=None, pre_key=None,
+                         pre_value=None):
+    """blha_attention steps 6-8: gather each row's context (after the
+    pre-caches, where given), padded-batch attention with float32
+    softmax, gather back to the packed buffer."""
     rows = _token_rows(cu_seqlens_q, seq_lens_this_time, q.shape[0],
                        block_tables.shape[0])
-    return _attend_ref(q, paged_gather_kv(key_cache, block_tables),
-                       paged_gather_kv(value_cache, block_tables),
-                       seq_lens_decoder, rows, max_q_len, out_dtype)
+    return _attend_ref(
+        q, _with_pre(paged_gather_kv(key_cache, block_tables), pre_key),
+        _with_pre(paged_gather_kv(value_cache, block_tables), pre_value),
+        seq_lens_decoder, rows, max_q_len, out_dtype,
+        0 if pre_key is None else pre_key.shape[2])
 
 
 def _row_scales(scales, B):
@@ -372,18 +400,20 @@ def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
                               k_dequant_scales, v_dequant_scales,
                               seq_lens_decoder, seq_lens_this_time,
                               cu_seqlens_q, block_tables, max_q_len,
-                              out_dtype=None):
+                              out_dtype=None, pre_key=None, pre_value=None):
     """blha_attention steps 6-8 over the int8 cache (``:237-254``, then
     ``:262-316``): gather the uint8 blocks (a block id outside the pool
     gathers uint8 0), dequantize as (u8 - 128) * d[b, kv], overlay this
-    step's full-precision k / v at each valid token's position, attend."""
+    step's full-precision k / v at each valid token's position, put the
+    pre-caches (unquantized) in front, attend."""
     B = block_tables.shape[0]
     T, KV = q.shape[0], key_cache.shape[1]
     rows = _token_rows(cu_seqlens_q, seq_lens_this_time, T, B)
     b_idx, local, valid = rows
     ctx = []
-    for cache, scales, new in ((key_cache, k_dequant_scales, k),
-                               (value_cache, v_dequant_scales, v)):
+    for cache, scales, new, pre in (
+            (key_cache, k_dequant_scales, k, pre_key),
+            (value_cache, v_dequant_scales, v, pre_value)):
         d = _row_scales(scales, B)[:, :, None, None]
         full = (paged_gather_kv(cache, block_tables).float() - 128.0) * d
         pos = seq_lens_decoder.long()[b_idx] + local
@@ -391,9 +421,9 @@ def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
         heads = torch.arange(KV, device=q.device)[None, :]
         full.index_put_((b_idx[ok][:, None], heads, pos[ok][:, None]),
                         new[ok].float())
-        ctx.append(full)
+        ctx.append(_with_pre(full, pre))
     return _attend_ref(q, ctx[0], ctx[1], seq_lens_decoder, rows, max_q_len,
-                       out_dtype)
+                       out_dtype, 0 if pre_key is None else pre_key.shape[2])
 
 
 def _out_dtype(name, q, out_dtype):
@@ -427,33 +457,61 @@ def _check(name, q, key_cache, value_cache, ints, block_tables):
                              f"must be int32 on {q.device}")
 
 
+def _pre_args(name, q, pre_key, pre_value, B, KV):
+    """The pre-caches' pointers and length for a C entry: (0, 0, 0) for
+    none; else both [B, KV, Lp, D] in q's dtype, contiguous and 16-byte
+    aligned (the copies read their rows in the pieces of q's), on q's
+    device."""
+    if pre_key is None and pre_value is None:
+        return 0, 0, 0
+    D = q.shape[2]
+    for t in (pre_key, pre_value):
+        if (t is None or t.dim() != 4 or tuple(t.shape[:2]) != (B, KV)
+                or t.shape[3] != D or t.shape != pre_key.shape
+                or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(
+                f"{name}: pre_key and pre_value must be contiguous, 16-byte "
+                f"aligned [{B}, {KV}, Lp, {D}] {q.dtype} on {q.device}, got "
+                + " / ".join("None" if x is None else
+                             f"{tuple(x.shape)} {x.dtype}"
+                             for x in (pre_key, pre_value)))
+    return pre_key.data_ptr(), pre_value.data_ptr(), pre_key.shape[2]
+
+
 def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                     value_cache: torch.Tensor,
                     seq_lens_decoder: torch.Tensor,
                     seq_lens_this_time: torch.Tensor,
                     cu_seqlens_q: torch.Tensor, block_tables: torch.Tensor,
                     max_q_len: int,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None,
+                    pre_key: Optional[torch.Tensor] = None,
+                    pre_value: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """q [T, H, D] (after rope), caches [NB, KV, bs, D] already holding this
     step's keys and values, seq_lens_decoder/this_time [B], cu_seqlens_q
     [B+1], block_tables [B, P] -> attention output [T, H, D] in q's dtype,
     or float32 with ``out_dtype=torch.float32`` (the float32 value,
     unrounded).  Token i of row b sits at ``dec_b + (i - cu_b)`` and attends
-    its row's keys up to that position; tokens past ``cu[-1]``, past their
-    row's length, or at a local index >= ``max_q_len`` give zeros."""
+    its row's keys up to that position, after the whole of the pre-caches
+    ``pre_key`` / ``pre_value`` [B, KV, Lp, D] (q's dtype) where given;
+    tokens past ``cu[-1]``, past their row's length, or at a local index
+    >= ``max_q_len`` give zeros."""
     od = _out_dtype("paged_attention", q, out_dtype)
     if q.device.type == "cpu":
         return _paged_attention_ref(q, key_cache, value_cache,
                                     seq_lens_decoder, seq_lens_this_time,
                                     cu_seqlens_q, block_tables, max_q_len,
-                                    od)
+                                    od, pre_key, pre_value)
     return _launch(q, key_cache, value_cache, seq_lens_decoder,
                    seq_lens_this_time, cu_seqlens_q, block_tables, max_q_len,
-                   od)
+                   od, pre_key=pre_key, pre_value=pre_value)
 
 
 def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len, out_dtype=None, **force):
+            cu_seqlens_q, block_tables, max_q_len, out_dtype=None,
+            pre_key=None, pre_value=None, **force):
     """The kernel's launch for CUDA tensors, under ``paged_plan``'s plan or
     one that ``force`` (``qt``, ``splits``, ``stages``) fixes in part."""
     name = "paged_attention"
@@ -464,9 +522,11 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
     T, H, D = q.shape
     NB, KV, bs, _ = key_cache.shape
     B, P = block_tables.shape
+    pk, pv, Lp = _pre_args(name, q, pre_key, pre_value, B, KV)
     if not B:                   # no rows: every token gives zeros
         return torch.zeros_like(q, dtype=od)
-    plan = _plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, **force)
+    plan = _plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, **force,
+                 pre_len=Lp)
     out = torch.empty_like(q, dtype=od)
     if T:
         with _build.device_guard(q):
@@ -474,8 +534,8 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
                 q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
                 out.data_ptr(), seq_lens_decoder.data_ptr(),
                 seq_lens_this_time.data_ptr(), cu_seqlens_q.data_ptr(),
-                block_tables.data_ptr(), T, B, P, NB, H, KV, D, bs,
-                int(max_q_len), 1.0 / math.sqrt(D), plan.qt, plan.kt,
+                block_tables.data_ptr(), pk, pv, T, B, P, NB, H, KV, D, bs,
+                Lp, int(max_q_len), 1.0 / math.sqrt(D), plan.qt, plan.kt,
                 plan.stages, plan.splits, plan.chunk,
                 int(od == torch.float32), dt, stream), name)
         paged_attention.launches += 1
@@ -526,8 +586,10 @@ def _int8_smem_bytes(R: int, D: int, kt: int, splits: int, B: int,
 
 def paged_int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int,
                     H: int, KV: int, D: int,
-                    dtype: torch.dtype = torch.float32) -> Int8Plan:
-    """K4-int8's instance and tiles, from host-known sizes only.
+                    dtype: torch.dtype = torch.float32,
+                    pre_len: int = 0) -> Int8Plan:
+    """K4-int8's instance and tiles, from host-known sizes only (the
+    context split is ``pre_len + P * bs`` keys, as ``paged_plan``'s).
 
     * Tensor cores (``tc``) for bfloat16 where K4 runs its own (D a
       multiple of 8 up to 256) and a tile of one token holds at most
@@ -541,14 +603,15 @@ def paged_int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int,
       else the power of two that does, at most ``SPLIT_CAP``).
 
     Raises ValueError where one token's query rows do not fit at 8 keys."""
-    return _int8_plan(T, B, max_q_len, P, bs, H, KV, D, dtype)
+    return _int8_plan(T, B, max_q_len, P, bs, H, KV, D, dtype,
+                      pre_len=pre_len)
 
 
 @functools.lru_cache(maxsize=256)
 def _int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
                KV: int, D: int, dtype: torch.dtype,
                tc: Optional[bool] = None,
-               splits: Optional[int] = None) -> Int8Plan:
+               splits: Optional[int] = None, pre_len: int = 0) -> Int8Plan:
     """``paged_int8_plan``, with ``tc`` (the instance) and ``splits``
     replacing its choices when given (``chip_smoke.py`` times the SIMT
     instance on bfloat16 beside the tensor cores and holds both to the
@@ -556,11 +619,12 @@ def _int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
     inputs whose alignment the tensor-core copies cannot take).  A forced
     ``tc`` the shape does not allow, or more than ``SPLIT_CAP`` splits,
     raises ValueError."""
-    if D <= 0 or KV <= 0 or H % KV:
+    if D <= 0 or KV <= 0 or H % KV or pre_len < 0:
         raise ValueError(f"paged_attention_int8: no plan for H {H}, KV {KV}, "
-                         f"head_dim {D} (head_dim >= 1, H % KV == 0)")
+                         f"head_dim {D}, {pre_len} prefix keys (head_dim "
+                         ">= 1, H % KV == 0, pre_len >= 0)")
     G = H // KV
-    ctx = P * bs
+    ctx = P * bs + pre_len
     can_tc = _tc(dtype, D) and G <= TC_ROWS
     if tc and not can_tc:
         raise ValueError(f"paged_attention_int8: no tensor-core instance for "
@@ -571,7 +635,7 @@ def _int8_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
                          f"{SPLIT_CAP} blocks of a cluster")
     if can_tc if tc is None else tc:
         p = _plan(T, B, max_q_len, P, bs, H, KV, D, torch.bfloat16,
-                  splits=splits)
+                  splits=splits, pre_len=pre_len)
         return Int8Plan(p.qt, p.kt, p.splits, p.chunk, p.smem, p.blocks,
                         True)
     rs = _row_chunks(_ceil(D, VEC) * VEC, 4) * 4
@@ -614,7 +678,9 @@ def paged_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          seq_lens_this_time: torch.Tensor,
                          cu_seqlens_q: torch.Tensor,
                          block_tables: torch.Tensor, max_q_len: int,
-                         out_dtype: Optional[torch.dtype] = None
+                         out_dtype: Optional[torch.dtype] = None,
+                         pre_key: Optional[torch.Tensor] = None,
+                         pre_value: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """K4-int8: q [T, H, D] (after rope), this step's full-precision k and v
     [T, KV, D] (q's dtype; each head's row contiguous, any token stride),
@@ -625,17 +691,19 @@ def paged_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     before ``seq_lens_decoder[b]`` read (u8 - 128) * d[b, kv] (uint8 0 for
     a block id outside the pool); its keys from there on are this step's,
     read from k and v at token ``cu[b] + (key - dec[b])``, not from the
-    cache."""
+    cache.  The pre-caches ``pre_key`` / ``pre_value`` [B, KV, Lp, D] (q's
+    dtype, full precision), where given, come before every row's context
+    and are seen by every query."""
     od = _out_dtype("paged_attention_int8", q, out_dtype)
     if q.device.type == "cpu":
         return _paged_attention_int8_ref(
             q, k, v, key_cache, value_cache, k_dequant_scales,
             v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len, od)
+            cu_seqlens_q, block_tables, max_q_len, od, pre_key, pre_value)
     return _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                         v_dequant_scales, seq_lens_decoder,
                         seq_lens_this_time, cu_seqlens_q, block_tables,
-                        max_q_len, od)
+                        max_q_len, od, pre_key=pre_key, pre_value=pre_value)
 
 
 def _tc_aligned(k, v, key_cache, value_cache) -> bool:
@@ -650,7 +718,7 @@ def _tc_aligned(k, v, key_cache, value_cache) -> bool:
 
 
 def _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
-                      max_q_len, tc=None, splits=None) -> Int8Plan:
+                      max_q_len, tc=None, splits=None, pre_len=0) -> Int8Plan:
     """The plan ``_launch_int8`` launches for these inputs:
     ``paged_int8_plan``'s, or its instance and split count forced by ``tc``
     and ``splits``; SIMT where the plan takes the tensor cores unforced but
@@ -659,18 +727,18 @@ def _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
     _, KV, bs, _ = key_cache.shape
     B, P = block_tables.shape
     plan = _int8_plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, tc,
-                      splits)
+                      splits, pre_len)
     if plan.tc and tc is None and not _tc_aligned(k, v, key_cache,
                                                   value_cache):
         plan = _int8_plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype,
-                          False, splits)
+                          False, splits, pre_len)
     return plan
 
 
 def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                  v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
                  cu_seqlens_q, block_tables, max_q_len, out_dtype=None,
-                 tc=None, splits=None):
+                 tc=None, splits=None, pre_key=None, pre_value=None):
     """K4-int8's launch for CUDA tensors, under ``paged_int8_plan`` (or its
     instance and split count forced by ``tc`` and ``splits``)."""
     name = "paged_attention_int8"
@@ -709,10 +777,11 @@ def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
     dt, stream = _build.launch_args(name, q, k, v)
+    pk, pv, Lp = _pre_args(name, q, pre_key, pre_value, B, KV)
     if not B:                   # no rows: every token gives zeros
         return torch.zeros_like(q, dtype=od)
     plan = _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
-                             max_q_len, tc, splits)
+                             max_q_len, tc, splits, Lp)
     out = torch.empty_like(q, dtype=od)
     if T:
         with _build.device_guard(q):
@@ -721,8 +790,9 @@ def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                 key_cache.data_ptr(), value_cache.data_ptr(),
                 scales[0].data_ptr(), scales[1].data_ptr(), out.data_ptr(),
                 seq_lens_decoder.data_ptr(), seq_lens_this_time.data_ptr(),
-                cu_seqlens_q.data_ptr(), block_tables.data_ptr(), T, B, P,
-                NB, H, KV, D, bs, int(max_q_len), k.stride(0), v.stride(0),
+                cu_seqlens_q.data_ptr(), block_tables.data_ptr(), pk, pv, T,
+                B, P, NB, H, KV, D, bs, Lp, int(max_q_len), k.stride(0),
+                v.stride(0),
                 1.0 / math.sqrt(D), plan.qt, plan.kt, plan.splits,
                 plan.chunk, int(plan.tc), int(od == torch.float32), dt,
                 stream), name)

@@ -1,7 +1,7 @@
 """Paged-KV serving attention — the port of ``paddle_tpu/ops/paged_attention.py``.
 
-``blha_attention`` covers the reference's surface but the pre-caches and
-the encoder/decoder masks (ROADMAP A4b, which raise).  One step is
+``blha_attention`` covers the reference's surface but the encoder/decoder
+masks (ROADMAP A4b, which raise).  One step is
 
 1. split the packed ``qkv`` buffer (an int32 one dequantized by
    ``qkv_out_scale``, then ``qkv_bias``);
@@ -18,7 +18,9 @@ the encoder/decoder masks (ROADMAP A4b, which raise).  One step is
 6. attention over the paged context — kernel K4, or over the int8 cache
    K4-int8 (``ops/hopper/paged_attention.py``), which read blocks through
    the block tables instead of gathering ``[B, KV, L, D]``; K4-int8 takes
-   each row's own keys of this step at full precision from k and v;
+   each row's own keys of this step at full precision from k and v; the
+   pre-caches, where given, are a dense prefix of every row's keys that
+   both kernels read in place (nothing of them is written to the pools);
 7. the shift/smooth epilogue and the int8 output quantization.
 
 Steps 1, 4, 5 and 7 are PyTorch ops on both devices: the reference
@@ -164,6 +166,13 @@ def _refresh_scales(k, v, plan: StepPlan, seq_lens_encoder, max_q_len,
         d_s.copy_(torch.where(pre, m / max_bound, d_s))
 
 
+def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, contiguous and 16-byte aligned (what the kernels'
+    copies read): as it is where it already is, else a copy."""
+    t = t.to(dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _scatter_kv(key_cache, value_cache, k, v, plan: StepPlan):
     """Write each token's K/V [KV, D] at (plan.blk, :, plan.slot), in
     place; dropped tokens write into the drop block."""
@@ -218,12 +227,19 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
     [T, H*D] in ``compute_dtype``, or int8 with ``has_out_quant``,
     key_cache, value_cache).  With ``out_shift``, ``out_smooth`` or
     ``has_out_quant`` the attention hands its float32 output to the
-    epilogue, which rounds (or quantizes) once, as the reference does."""
-    if (pre_key_cache is not None or pre_value_cache is not None
-            or mask is not None or tgt_mask is not None):
+    epilogue, which rounds (or quantizes) once, as the reference does.
+    ``pre_key_cache`` / ``pre_value_cache`` [B, KV, Lp, D], both or
+    neither, put Lp keys in front of every row's context that all its
+    queries see (``:255-260``, ``:274-279``): cast to the cache's dtype,
+    or under cache quantization to the fresh keys' (full precision, not
+    quantized)."""
+    if mask is not None or tgt_mask is not None:
         raise NotImplementedError(
-            "blha_attention: pre-caches and the encoder/decoder masks are "
-            "not ported yet (ROADMAP A4b: K4 and K4-int8 variants)")
+            "blha_attention: the encoder/decoder masks are not ported yet "
+            "(ROADMAP A4b: K4 and K4-int8 variants)")
+    if (pre_key_cache is None) != (pre_value_cache is None):
+        raise ValueError("blha_attention: pre_key_cache and pre_value_cache "
+                         "come together")
     if cache_quant not in ("none", "static", "dynamic"):
         raise ValueError("cache_quant must be 'none', 'static' or 'dynamic'")
     quant = cache_quant != "none"
@@ -259,12 +275,17 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
     epilogue = (out_shift is not None or out_smooth is not None
                 or has_out_quant)
     od = torch.float32 if epilogue else None
+    # the pre-caches in the cache's dtype, or the fresh keys' under quant
+    pdt = k.dtype if quant else key_cache.dtype
+    pre = ({} if pre_key_cache is None else
+           dict(pre_key=_aligned(pre_key_cache, pdt),
+                pre_value=_aligned(pre_value_cache, pdt)))
     if not quant:
         _scatter_kv(key_cache, value_cache, k, v, plan)
         out = paged_attention(q.contiguous(), key_cache[:nb],
                               value_cache[:nb], seq_lens_decoder,
                               seq_lens_this_time, cu_seqlens_q,
-                              block_tables, max_q_len, out_dtype=od)
+                              block_tables, max_q_len, out_dtype=od, **pre)
     else:
         if cache_quant == "dynamic" and seq_lens_encoder is not None:
             # before the write: this step's tokens take the new scales
@@ -283,7 +304,7 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
         out = paged_attention_int8(
             q.contiguous(), k, v, key_cache[:nb], value_cache[:nb],
             scales[2], scales[3], seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len, out_dtype=od)
+            cu_seqlens_q, block_tables, max_q_len, out_dtype=od, **pre)
     out = out.reshape(T, H * D)
     # the elementwise epilogue (:317-329): shift, then smooth, then the
     # int8 output quantization

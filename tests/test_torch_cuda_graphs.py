@@ -2,15 +2,18 @@
 the CPU, where there is no card and nothing is captured by default.
 
 On CUDA the engine runs its two megastep loops as CUDA graphs, one per
-(program, K, ``all_greedy``); ``chip_smoke.py`` phase 3 holds them against
-the eager loops on the card.  Here the cache's logic runs with a stand-in
-for a CUDA graph (its capture runs the function once to make the output
-buffers, its replay runs it again into them): the key each megastep
-takes, the static input buffers against ``_dev``, the launch counts a
-replay adds, ``load_weights`` dropping the graphs, tokens, logprobs and
-scheduling counters equal to the eager engine's, and a default CPU engine
-capturing nothing.  Float32, a 2-layer Llama; tokens and logprobs
-compared exactly (the same code on the same device in both engines).
+(program, K, ``all_greedy``), and its single step, one per ("step",
+``mq``, ``all_greedy``, ``capture_sample_probs``); ``chip_smoke.py``
+phases 3 and 12 hold them against the eager loops on the card.  Here the
+cache's logic runs with a stand-in for a CUDA graph (its capture runs the
+function once to make the output buffers, its replay runs it again into
+them): the key each megastep and single step takes, the static input
+buffers against ``_dev``, the launch counts a replay adds,
+``load_weights`` dropping the graphs, tokens, logprobs and scheduling
+counters equal to the eager engine's (over the int8 cache too, with every
+layer's dynamic scales), and a default CPU engine capturing nothing.
+Float32, a 2-layer Llama; tokens, logprobs and scales compared exactly
+(the same code on the same device in both engines).
 """
 import numpy as np
 import pytest
@@ -97,11 +100,13 @@ def test_keys_follow_program_k_bucket_and_all_greedy(models):
     """Each megastep launch takes the key (program, K, all_greedy): the
     pure-decode loop K bucketed to the power of two at or above the most
     tokens a row has left (at most megastep_k), the mixed loop megastep_k;
-    all_greedy from the host's temperatures.  One capture per key; every
-    later call of a key replays its graph."""
+    each single step ("step", mq, all_greedy, capture_sample_probs): mq 1
+    for a pure-decode step ([B] tokens), token_budget for one carrying
+    prefill ([T] tokens); all_greedy from the host's temperatures.  One
+    capture per key; every later call of a key replays its graph."""
     eng = _graph_engine(models[0])
     calls = []
-    program = eng._program
+    program, graphed = eng._program, eng._graphed
 
     def logged(name, fn, arrays, K, all_greedy):
         temps = arrays[10] if name == "megastep" else arrays[11]
@@ -109,14 +114,26 @@ def test_keys_follow_program_k_bucket_and_all_greedy(models):
         assert all_greedy == bool((temps <= 0).all())
         return program(name, fn, arrays, K, all_greedy)
 
-    eng._program = logged
+    def logged_step(key, fn, arrays):
+        if key[0] == "step":
+            _, mq, all_greedy, probs = key
+            calls.append(key)
+            assert arrays[0].shape == ((eng.B,) if mq == 1 else (eng.T,))
+            assert mq in (1, eng.T)
+            assert all_greedy == bool((arrays[6] <= 0).all())
+            assert probs is eng.capture_sample_probs is False
+        return graphed(key, fn, arrays)
+
+    eng._program, eng._graphed = logged, logged_step
     _serve(eng)
     keys = set(calls)
     assert keys == {("megastep", 4, True), ("megastep", 8, True),
                     ("megastep", 8, False), ("mixed", 8, False),
-                    ("mixed", 8, True)}
-    for name, K, _ in keys:
-        assert K == 8 if name == "mixed" else K in (1, 2, 4, 8)
+                    ("mixed", 8, True), ("step", 16, True, False),
+                    ("step", 16, False, False)}
+    for name, K, *_ in keys:
+        assert (K == 8 if name == "mixed" else K == 16 if name == "step"
+                else K in (1, 2, 4, 8))
     assert set(eng._graph_cache.graphs) == keys
     assert eng.compile_count == eng._graph_cache.captures == len(keys)
     replays = sum(g.graph.replays for g in eng._graph_cache.graphs.values())
@@ -131,6 +148,67 @@ def test_graph_engine_equals_the_eager_engine(models):
     eager = ServingEngine(models[0], **ENGINE)
     assert eager._graphs is False
     assert got == _serve(eager)
+
+
+def _serve_int8(eng):
+    """Waves over the int8 cache: one-shot prefills (prompts within the
+    16-token budget, a prefill waiting for budget beside decoding rows),
+    single steps at mq 1 and 16, megasteps, a sampled request.  Returns
+    tokens, logprobs, the scheduling counters and every layer's scales."""
+    rng = np.random.default_rng(2)
+    a = eng.add_request(rng.integers(1, 512, 12).tolist(), max_new_tokens=3,
+                        sampling=dict(logprobs=True))
+    b = eng.add_request(rng.integers(1, 512, 9).tolist(), max_new_tokens=10,
+                        sampling=SAMPLED)
+    eng.step()
+    c = eng.add_request(rng.integers(1, 512, 15).tolist(), max_new_tokens=6,
+                        sampling=dict(logprobs=True))
+    d = eng.add_request([4, 5, 6], max_new_tokens=1)
+    done = eng.run()
+    e = eng.add_request(rng.integers(1, 512, 16).tolist(), max_new_tokens=2,
+                        sampling=dict(logprobs=True))
+    f = eng.add_request(rng.integers(1, 512, 7).tolist(), max_new_tokens=11,
+                        sampling=SAMPLED)
+    done.update(eng.run())
+    # alone with one token left: pure-decode single steps (mq 1)
+    g = eng.add_request([8, 9, 10, 11], max_new_tokens=2,
+                        sampling=dict(logprobs=True))
+    done.update(eng.run())
+    h = eng.add_request(rng.integers(1, 512, 5).tolist(), max_new_tokens=2)
+    done.update(eng.run())
+    rids = (a, b, c, d, e, f, g, h)
+    lps = eng.pop_token_logprobs()
+    scales = [{n: t.clone() for n, t in sc.items()}
+              for sc in eng.cache_scales]
+    return ([done[r] for r in rids], [lps.get(r) for r in rids],
+            {n: getattr(eng, n) for n in COUNTERS}, scales)
+
+
+def test_int8_graph_engine_equals_the_eager_engine(models):
+    """The int8 cache's single steps (every prefill is one: no mixed loop)
+    on graphs: their first calls eager, then replays that refresh the
+    dynamic scales in place at the graph's fixed addresses.  Tokens,
+    logprobs, the scheduling counters and every layer's ``cache_scales``
+    equal the eager engine's exactly; the step keys at mq 1 and 16 were
+    captured and replayed."""
+    eng = _graph_engine(models[0], cache_quant="int8")
+    got = _serve_int8(eng)
+    eager = ServingEngine(models[0], cache_quant="int8", **ENGINE)
+    assert eager._graphs is False
+    want = _serve_int8(eager)
+    assert got[:3] == want[:3]
+    assert got[2]["megasteps"] > 0 and not got[2]["megasteps_mixed"]
+    assert len(got[3]) == len(want[3]) == models[0].config.num_hidden_layers
+    for g, w in zip(got[3], want[3]):
+        assert set(g) == {"kq", "vq", "kd", "vd"}
+        for n in g:
+            assert torch.equal(g[n], w[n]), n
+    graphs = eng._graph_cache.graphs
+    steps = {k for k in graphs if k[0] == "step"}
+    assert {("step", 1, True, False), ("step", 16, True, False),
+            ("step", 16, False, False)} <= steps
+    assert sum(graphs[k].graph.replays for k in steps) > 0
+    assert eager.compile_count == 0 and not eager._graph_cache.graphs
 
 
 def test_static_inputs_are_what_dev_gives(models):
