@@ -10,6 +10,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py                  # all phases
     python3 chip_smoke.py --phases 1,2     # build + kernel checks only
     python3 chip_smoke.py --phases 2,9,10  # kernels + the int8 predictor
+    python3 chip_smoke.py --phases 2,13    # kernels + block_multihead_attention
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
 Phases (each prints its seconds):
@@ -83,6 +84,17 @@ Phases (each prints its seconds):
      cores, SIMT, wide) and both K4-int8 ones with prefixes of 1, 64 and
      130 keys at decode and at the mixed 255-token step, one and four
      splits forced, against their plain versions;
+     the additive masks (A4b): K4 and K4-int8 in their masked instances
+     at decode (tgt_mask [8, H, 1, 512]) and at the mixed 255-token step
+     (its prefill rows under mask [8, 1, 256, 512]), 32 / 32 and 32 / 8
+     heads (K4's library time SDPA with a float attn_mask; the bound
+     counts the masks' bytes), and every instance under masks of one and
+     H heads, fewer and more rows and columns than the call's, with
+     prefixes of 0, 1, 64 and 130 keys, splits forced, against their plain
+     versions; a row whose visible keys are all -inf (Queue C10) pinned:
+     zeros from the kernels, the reference's mean from the plain versions;
+     the entry refuses a mask without seq_lens_encoder or of a head count
+     other than 1 and H;
      K2's interleaved pairs at the serving step's [1, 256] rows;
      then (informative) B1 and B8 in bf16 at every compiled tile pair
      (autotune.tune), B8's two GQA modes, and whether two bf16 B8 runs
@@ -228,10 +240,22 @@ Phases (each prints its seconds):
      engine, one untraced and one under torch.profiler (wall, busy share,
      K1/K2, K4-int8's device time and kernels, equal to its wrapper calls,
      each wave's single steps as phase 3's);
+ 13. the public incubate.nn.functional.block_multihead_attention (run
+     before the 7B model is built) at the 7B attention geometry (32 heads
+     of 128, batch 8, max_seq_len 512 in blocks of 64, a [64, KV, 64, 128]
+     pool pair for each of 32 layers, seeded random qkv): a prefill call a
+     layer (prompts of 7-400 tokens under an ALiBi causal-plus-padding
+     mask), then 32 decode steps of 32 layers under tgt_mask, over bf16,
+     static-int8 and dynamic-int8 pools, with a 64-key pre-cache, and at
+     32 / 8 heads; each run's outputs, pools and scales held against its
+     plain twin on the card (K2, K4 and K4-int8 replaced by their plain
+     versions), K4 / K4-int8 and K2 launches equal to the calls, all of
+     them masked, the pools' data_ptr() unchanged, ms a call; then two
+     float32 layers on cuda against the same calls on the CPU;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
-  "int8", "spec", "generate", "train", "predict"}, null for a path whose
-  phase did not run), then the card line, then {"ok": true, "device": {...}} as the
-  last line.
+  "int8", "spec", "generate", "train", "predict", "blha"}, null for a path
+  whose phase did not run), then the card line, then {"ok": true,
+  "device": {...}} as the last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
 imports nothing of JAX or paddle_tpu.
@@ -239,6 +263,7 @@ imports nothing of JAX or paddle_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -320,6 +345,9 @@ PATHS = {
               "swiglu_bwd", "flash_attention", "flash_attention_bwd",
               "fused_adamw"),
     "predict": ("int8_matmul", "flash_attention"),
+    # phase 13: the public block_multihead_attention over bf16 and int8
+    # pools (K2's rope, K4 and K4-int8 in their masked instances)
+    "blha": ("rope", "paged_attention", "paged_attention_int8"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -653,6 +681,25 @@ def kernel_cases(torch, dtype):
             f"{heads} heads / {kv_heads} KV", heads, kv_heads, D,
             torch.randint(64, 511, (B,), generator=g, device=dev).to(
                 torch.int32), [1] * B, False, Lp=64))
+    # the additive masks (A4b): K4's and K4-int8's masked instances at
+    # decode (tgt_mask [8, H, 1, 512]) and at the single step's mixed batch
+    # (its prefill rows under mask [8, 1, 256, 512], the others under
+    # tgt_mask), 32 / 32 and 32 / 8 heads
+    for heads, kv_heads in ((Hq, Hq), (Hq, 8)):
+        for what, dec, now in (
+                ("decode 8 rows, context <= 512",
+                 torch.randint(64, 511, (B,), generator=g, device=dev),
+                 [1] * B),
+                ("mixed 255 tokens",
+                 torch.tensor([300, 0, 200, 450, 0, 0, 20, 64], device=dev),
+                 [1, 100, 16, 1, 60, 0, 1, 76])):
+            label = f"{what}, masks, {heads} heads / {kv_heads} KV"
+            cases.append(_paged_case(torch, rnd, es, g, label, heads,
+                                     kv_heads, D, dec.to(torch.int32), now,
+                                     masked=True))
+            cases.append(_paged_int8_case(torch, rnd, es, g, label, heads,
+                                          kv_heads, D, dec.to(torch.int32),
+                                          now, False, masked=True))
     return cases
 
 
@@ -1207,12 +1254,46 @@ _K1_PLANS = {}
 _K2_PLANS = {}
 
 
+def _serving_masks(torch, g, H, dec, now, mq, L):
+    """Additive masks of a serving step (blha_attention's): ``mask`` [B, 1,
+    mq, L] on the rows in prefill (seq_lens_encoder = now where dec is 0,
+    the rows that start their prompt), ``tgt_mask`` [B, H, 1, L] on the
+    others, seeded values in [-2, 0] (a learned or positional bias)."""
+    B = now.shape[0]
+    dev = now.device
+    enc = torch.where(dec == 0, now, 0).to(torch.int32)
+
+    def bias(*shape):
+        return -2 * torch.rand(*shape, generator=g, device=dev)
+
+    return dict(mask=bias(B, 1, mq, L), tgt_mask=bias(B, H, 1, L),
+                seq_lens_encoder=enc)
+
+
+def _mask_bytes(masks, dec, live, Lp, ctx):
+    """The bytes of the masks a call reads: for each attending token (local
+    index s of its row) and each head of the row's mask, its visible keys'
+    entries inside the mask (s below its rows, keys below its columns),
+    float32."""
+    enc = masks["seq_lens_encoder"].tolist()
+    n = 0
+    for b, (d, t) in enumerate(zip(dec.tolist(), live)):
+        m = masks["mask"] if enc[b] > 0 else masks["tgt_mask"]
+        if m is None:
+            continue
+        _, heads, sq, lm = m.shape
+        for s in range(min(t, sq)):
+            n += heads * min(Lp + min(d + s + 1, ctx), lm)
+    return 4 * n
+
+
 def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
-                T=None, P=32, NB=256, Lp=0):
+                T=None, P=32, NB=256, Lp=0, masked=False):
     """One K4 case: a decode batch (one token per row, T = B), a mixed
     batch in the single-step program's [256] buffer (max_q_len 256), or
     the given ``mq`` and ``T`` (the mixed loop's program); ``Lp`` > 0
-    puts pre-caches [B, KV, Lp, D] in front of every row's context."""
+    puts pre-caches [B, KV, Lp, D] in front of every row's context;
+    ``masked`` adds ``_serving_masks`` (the masked instances)."""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     bs, B = 16, len(now)
@@ -1229,6 +1310,8 @@ def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
     if mq is None:
         T = int(cu[-1]) if decode else 256
         mq = 1 if decode else 256
+    if masked:
+        pre.update(_serving_masks(torch, g, H, dec, now, mq, Lp + P * bs))
     q = rnd(T, H, D)
     dname = str(q.dtype).split(".")[1]
     _K4_PLANS[(label, dname)] = pa.paged_plan(T, B, mq, P, bs, H, KV, D,
@@ -1244,6 +1327,8 @@ def _paged_case(torch, rnd, es, g, label, H, KV, D, dec, now, mq=None,
     keys = sum(Lp + min(d + n, P * bs)
                for d, n in zip(dec.tolist(), live) if n)
     nbytes = ((sum(live) + T) * H * D + 2 * keys * KV * D) * es
+    if masked:
+        nbytes += _mask_bytes(pre, dec, live, Lp, P * bs)
     # QK^T and PV, 2 operations per multiply-add, over each attending
     # token's visible keys (the whole prefix, then its paged keys)
     vis = sum(Lp + min(d + j + 1, P * bs)
@@ -1268,13 +1353,13 @@ _K4I_ARGS = {}
 
 
 def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
-                     P=32, NB=256, Lp=0):
+                     P=32, NB=256, Lp=0, masked=False):
     """One K4-int8 case over uint8 pools of random codes and random
     per-(row, KV head) scales: a decode batch (T = B) or a mixed batch in
     the single step's [256] buffer (max_q_len 256); ``oob``: row 0's first
     block-table entry, visible, is outside the pool (uint8 0); ``Lp`` > 0
     puts full-precision pre-caches [B, KV, Lp, D] in front of every
-    row's context."""
+    row's context; ``masked`` adds ``_serving_masks``."""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     bs, B = 16, len(now)
@@ -1300,6 +1385,8 @@ def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
     vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
     pre = (dict(pre_key=rnd(B, KV, Lp, D), pre_value=rnd(B, KV, Lp, D))
            if Lp else {})
+    if masked:
+        pre.update(_serving_masks(torch, g, H, dec, now, mq, Lp + P * bs))
     dname = str(q.dtype).split(".")[1]
     _K4I_PLANS[(label, dname)] = pa.paged_int8_plan(T, B, mq, P, bs, H, KV,
                                                     D, q.dtype, pre_len=Lp)
@@ -1318,6 +1405,8 @@ def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
     fresh = sum(Lp + min(d + n, ctx) - min(d, ctx) for d, n in rows)
     nbytes = ((sum(live) + T) * H * D * es + 2 * cached * KV * D
               + 2 * fresh * KV * D * es + 2 * B * KV * 4)
+    if masked:
+        nbytes += _mask_bytes(pre, dec, live, Lp, ctx)
     vis = sum(Lp + min(d + j + 1, ctx) for d, n in rows for j in range(n))
     ops = 4 * vis * H * D + 4 * cached * KV * D
     args = (q, k, v, kc, vc, kd, vd, dec, now, cu, bt, mq)
@@ -1329,11 +1418,16 @@ def _paged_int8_case(torch, rnd, es, g, label, H, KV, D, dec, now, oob,
 
 
 def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq, pre_key=None,
-               pre_value=None):
+               pre_value=None, **masks):
     """F.scaled_dot_product_attention over the gathered, padded context,
     after the pre-caches where given (the library yardstick for K4; timed
-    alone, gather and concatenation excluded)."""
-    from paddle_tpu_torch.ops.hopper.paged_attention import paged_gather_kv
+    alone, gather and concatenation excluded); with ``masks`` (mask,
+    tgt_mask, seq_lens_encoder) a float attn_mask: the masks' term on the
+    visible keys, -inf elsewhere (made before the timing)."""
+    from paddle_tpu_torch.ops.hopper.paged_attention import (
+        _mask_bias,
+        paged_gather_kv,
+    )
 
     B = bt.shape[0]
     H, D = q.shape[1], q.shape[2]
@@ -1354,6 +1448,10 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq, pre_key=None,
     qpos = dec.long()[:, None] + torch.arange(S, device=q.device)[None, :]
     mask = (torch.arange(L, device=q.device)[None, None, :] - Lp
             <= qpos[:, :, None])[:, None]        # [B, 1, S, L]
+    if masks:
+        bias = _mask_bias((masks["mask"], masks["tgt_mask"],
+                           masks["seq_lens_encoder"], now), H, S, L)
+        mask = torch.where(mask, bias, float("-inf")).to(q.dtype)
     F = torch.nn.functional
     gqa = {"enable_gqa": True} if k_all.shape[1] != H else {}
     return lambda: F.scaled_dot_product_attention(
@@ -1478,6 +1576,7 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
     _paged_edges(torch)
     _paged_int8_edges(torch)
     _pre_edges(torch)
+    _mask_edges(torch)
     _decode_edges(torch)
     _int8_edges(torch)
     _flash_tiles(torch)
@@ -2234,6 +2333,168 @@ def _pre_edges(torch):
           "runs each")
 
 
+def _mask_configs(H, mq, Lf):
+    """The masks of ``_mask_edges``, as ((heads, rows, columns) of ``mask``
+    | None, the same of ``tgt_mask`` | None): one head and H heads, fewer
+    and more rows than ``max_q_len``, fewer and more columns than the
+    combined key axis Lf, each mask alone and both together."""
+    return (((1, mq, Lf), (H, 1, Lf)),
+            ((H, max(1, mq // 2), Lf - 37), (1, 1, Lf + 9)),
+            ((1, mq + 7, Lf + 20), None),
+            (None, (H, 3, Lf - 100)))
+
+
+def _mask_edges(torch):
+    """The additive masks (A4b) in every K4 and K4-int8 instance against the
+    plain versions (the `_tol` of phase 2): the instances of `_pre_edges`
+    (K4's tensor cores, SIMT and wide; K4-int8's tensor cores and SIMT,
+    forced and by dtype / head dim), without a prefix and with prefixes of
+    1, 64 and 130 keys, at decode (two rows in prefill under ``mask``, the
+    others under ``tgt_mask``, a row with now 0, an out-of-pool block) and
+    at the single step's mixed batch of 255 tokens (its prefill rows under
+    ``mask``, the rest under ``tgt_mask``), under the masks of
+    `_mask_configs` in turn (values in [-3, 1], 5% of them -inf, column 0
+    finite so that every query keeps a key); the plan's own split and one
+    and four splits forced.  Each plan with a cluster gives the same bits
+    in three runs.  Then the edge of ROADMAP Queue C10 in every instance:
+    a decode row whose visible keys all carry -inf gives zeros from the
+    kernel, and the mean of its invisible keys' values from the plain
+    version (the reference's answer); the other rows agree."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(18)
+    dev, bs, P, B = "cuda", 16, 32, 8
+    NB = B * P + 4
+    batches = (  # (max_q_len, T, dec, now, enc)
+        (1, B, [300, 0, 200, 450, 17, 63, 511, 64], [1, 1, 1, 1, 1, 1, 0, 1],
+         [0, 1, 0, 0, 1, 0, 0, 0]),
+        (256, 256, [300, 0, 200, 450, 0, 0, 20, 64],
+         [1, 100, 16, 1, 60, 0, 1, 76], [0, 100, 0, 0, 60, 0, 0, 76]))
+    instances = (  # (kernel, dtype, D, tensor cores forced)
+        ("k4", torch.bfloat16, 128, None), ("k4", torch.float32, 128, None),
+        ("k4", torch.bfloat16, 100, None), ("k4", torch.bfloat16, 640, None),
+        ("k4", torch.float32, 640, None),
+        ("k4-int8", torch.bfloat16, 128, None),
+        ("k4-int8", torch.bfloat16, 128, False),
+        ("k4-int8", torch.float32, 128, None),
+        ("k4-int8", torch.bfloat16, 100, None))
+
+    def rand_mask(shape):
+        if shape is None:
+            return None
+        m = torch.rand(B, *shape, generator=g, device=dev) * 4 - 3
+        m[torch.rand(m.shape, generator=g, device=dev) < 0.05] = -float("inf")
+        m[..., 0] = 0.0
+        return m
+
+    n = worst = clusters = turn = 0
+    edge = []
+    for kern, dtype, D, tc in instances:
+        dname = str(dtype).split(".")[1]
+        KV, H = (2, 16) if D > 512 else (8, 32)
+        int8 = kern == "k4-int8"
+        if int8:
+            kc, vc = (torch.randint(0, 256, (NB, KV, bs, D), generator=g,
+                                    device=dev, dtype=torch.uint8)
+                      for _ in range(2))
+            kd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+            vd = (torch.rand(B, KV, generator=g, device=dev) + 0.5) / 64
+        else:
+            kc, vc = (torch.randn(NB, KV, bs, D, generator=g, device=dev,
+                                  dtype=dtype) for _ in range(2))
+        bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(
+            B, P).to(torch.int32)
+        bt[3, 2] = -1                   # visible to row 3, outside the pool
+
+        def call(mq, T, dec, now, enc, Lp, masks):
+            """(args, kwargs, plain output, kernel output) of one case."""
+            dec_t, now_t, enc_t = (torch.tensor(x, dtype=torch.int32,
+                                                device=dev)
+                                   for x in (dec, now, enc))
+            cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+            cu[1:] = torch.cumsum(now_t, 0)
+            q = torch.randn(T, H, D, generator=g, device=dev, dtype=dtype)
+            kw = dict(seq_lens_encoder=enc_t, **masks)
+            if Lp:
+                kw.update({n_: torch.randn(B, KV, Lp, D, generator=g,
+                                           device=dev, dtype=dtype)
+                           for n_ in ("pre_key", "pre_value")})
+            if int8:
+                k, v = (torch.randn(T, KV, D, generator=g, device=dev,
+                                    dtype=dtype) for _ in range(2))
+                args = (q, k, v, kc, vc, kd, vd, dec_t, now_t, cu, bt, mq)
+                return (args, kw, pa._paged_attention_int8_ref(*args, **kw),
+                        pa.paged_attention_int8(*args, **kw))
+            args = (q, kc, vc, dec_t, now_t, cu, bt, mq)
+            return (args, kw, pa._paged_attention_ref(*args, **kw),
+                    pa.paged_attention(*args, **kw))
+
+        for Lp in (0, 1, 64, 130):
+            for mq, T, dec, now, enc in batches:
+                cfg = _mask_configs(H, mq, Lp + P * bs)
+                mk, tk = cfg[turn % len(cfg)]
+                turn += 1
+                masks = dict(mask=rand_mask(mk), tgt_mask=rand_mask(tk))
+                args, kw, ref, own = call(mq, T, dec, now, enc, Lp, masks)
+                tol = _tol(dname, ref)
+                outs = [("plan", own, None)]
+                for splits in (1, pa.SPLIT_CAP):
+                    try:
+                        if int8:
+                            p = pa._int8_plan(T, B, mq, P, bs, H, KV, D,
+                                              dtype, tc, splits, Lp)
+                            run = (lambda s=splits: pa._launch_int8(
+                                *args, tc=tc, splits=s, **kw))
+                        else:
+                            p = pa._plan(T, B, mq, P, bs, H, KV, D, dtype,
+                                         splits=splits, pre_len=Lp)
+                            run = (lambda s=splits: pa._launch(
+                                *args, splits=s, **kw))
+                    except ValueError:   # the wide instance: one split
+                        continue
+                    outs.append((p, run(), run))
+                for p, got, run in outs:
+                    err = _err(torch, got, ref)
+                    n += 1
+                    worst = max(worst, err / tol)
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"{kern} masks {mk} / {tk} prefix {Lp} {dname} D "
+                            f"{D} tc {tc} mq {mq} {p}: kernel and plain "
+                            f"differ by {err} > {tol}")
+                    if run is not None and p.splits > 1:
+                        clusters += 1
+                        for _ in range(2):
+                            if not torch.equal(run(), got):
+                                raise AssertionError(
+                                    f"{kern} masks prefix {Lp} {dname} D {D} "
+                                    f"mq {mq} {p}: two runs differ")
+        # Queue C10: row 0 (decode, position 300) sees keys 0 .. 300, all
+        # -inf under its tgt_mask; its keys 301 .. 511 are finite
+        tgt = torch.zeros(B, 1, 1, P * bs, device=dev)
+        tgt[0, :, :, :301] = -float("inf")
+        args, kw, ref, own = call(1, B, *batches[0][2:], 0,
+                                  dict(mask=None, tgt_mask=tgt))
+        tol = _tol(dname, ref[1:])
+        if (own[0].abs().max() != 0 or not ref[0].abs().max() > 0
+                or not _err(torch, own[1:], ref[1:]) <= tol):
+            raise AssertionError(
+                f"{kern} {dname} D {D}: the all -inf row gave "
+                f"{float(own[0].abs().max())} (kernel) and "
+                f"{float(ref[0].abs().max())} (plain), or another row moved")
+        edge.append(f"{kern} {dname} D {D} tc {tc}: kernel 0, plain "
+                    f"|max| {float(ref[0].float().abs().max()):.4f}")
+    torch.cuda.synchronize()
+    print(f"mask edges: {n} calls of K4 and K4-int8 under masks agree with "
+          f"the plain versions (largest error {worst:.3f} of its "
+          f"tolerance); the {clusters} with clusters gave the same bits in 3 "
+          f"runs each; mask launches {pa.paged_attention.mask_launches} "
+          f"(K4) {pa.paged_attention_int8.mask_launches} (K4-int8)")
+    print("mask edge, a row whose visible keys are all -inf (Queue C10): "
+          + "; ".join(edge))
+
+
 def _paged_sweep(torch, timer, label, dname):
     """Informative, for paged_plan's rules (``--k4-sweep``): one K4 case
     timed under every split count, ring depth and, for prefill tiles,
@@ -2328,7 +2589,9 @@ def _refusals(torch):
     the 227 KB a K4 block may use (by its plan, before any launch); the K4
     entry refuses a plan it has no instance for, a chunk short of the
     prefix and the context, and a prefix without its rows or off 16-byte
-    alignment.  A head dim of 520, which
+    alignment; the entry refuses a mask
+    without seq_lens_encoder or of neither 1 nor H heads.  A head dim of
+    520, which
     B1, B8, B2 and K4 refused here before (Queue C8), is computed and held
     to the plain versions in both dtypes.  (K1 refused a 16384-wide row
     here before its rows moved to registers, and B2 a head dim of 72
@@ -2375,11 +2638,28 @@ def _refusals(torch):
             q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
             z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), pk,
             pk, 1, 1, P, 1, 8, 8, 128, 16, Lp, 1, 0.1, qt, kt, stages,
-            splits, chunk, 0, 1, torch.cuda.current_stream().cuda_stream)
+            splits, chunk, 0, *(0,) * 9, 1,
+            torch.cuda.current_stream().cuda_stream)
         if err != 1:
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")
         print(f"refused paged_attention plan with {what}: cudaError_t 1")
+    # the masks' arguments (mask, heads, rows, columns, tgt_mask, ...,
+    # seq_lens_encoder) under a plan the entry takes
+    m = torch.zeros(1, 1, 1, 16, device=dev).data_ptr()
+    for what, mk in (
+            ("a mask without seq_lens_encoder", (m, 1, 1, 16, 0, 0, 0, 0, 0)),
+            ("a mask of 2 heads for 8",
+             (0, 0, 0, 0, m, 2, 1, 16, z.data_ptr()))):
+        err = _build.lib().ptt_paged_attention(
+            q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
+            z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), None,
+            None, 1, 1, 1, 1, 8, 8, 128, 16, 0, 1, 0.1, 1, 64, 2, 1, 64, 0,
+            *mk, 1, torch.cuda.current_stream().cuda_stream)
+        if err != 1:
+            raise AssertionError(f"paged_attention {what} not refused: "
+                                 f"{err}")
+        print(f"refused paged_attention with {what}: cudaError_t 1")
     # a head dim past 512 (C8, closed): every attention kernel computes
     # it (the wide instances), held to its plain version
     from paddle_tpu_torch.ops.hopper import decode_attention as da
@@ -2488,6 +2768,8 @@ def _zero_counters():
     for fn in counters.values():
         fn.launches = 0
     counters["int8_matmul"].bias_launches = 0   # B7 with the bias fused
+    for name in ("paged_attention", "paged_attention_int8"):
+        counters[name].mask_launches = 0        # the masked instances
     return counters
 
 
@@ -2749,6 +3031,7 @@ def full_width_serving(torch, model):
         if k4_n != calls[-1]:
             raise AssertionError(f"K4 ({label}): {k4_n} kernels for "
                                  f"{calls[-1]} calls")
+        _unmasked([ev.key for ev in k4], f"K4 in the decode wave, {label}")
     _draw_cost(torch, cfg.vocab_size)
     return launches
 
@@ -2778,6 +3061,24 @@ def _draw_cost(torch, V):
     draw = timer(lambda: _draw(lg, seeds, spos))
     print(f"sampling step [{B}, {V}]: one sampled row {sampled:.4f} ms, all "
           f"greedy {greedy:.4f} ms, threefry draw alone {draw:.4f} ms")
+
+
+def _unmasked(names, label):
+    """Raise unless each of the profiled K4 / K4-int8 kernel ``names`` is
+    an unmasked instance, its last template argument (kMask) false: the
+    serving engines pass no mask, so they launch what they did before the
+    masks."""
+    import re
+
+    instances = set()
+    for name in names:
+        m = re.search(r"paged_attention\w*<([^<>]*)>", name)
+        if m is None or m.group(1).rsplit(",", 1)[-1].strip() != "false":
+            raise AssertionError(f"{label}: not an unmasked instance: "
+                                 f"{name[:200]}")
+        instances.add(m.group(0))
+    print(f"{label}: every kernel unmasked (kMask false): "
+          f"{', '.join(sorted(instances))}")
 
 
 def _profile(torch, label, untraced, traced=None, top=12, trace=None):
@@ -3894,6 +4195,7 @@ def full_width_spec(torch, model):
         if len(k4) != calls[-1]:
             raise AssertionError(f"K4 ({label}): {len(k4)} kernels for "
                                  f"{calls[-1]} calls")
+        _unmasked([k.name for k in k4], f"K4 in the decode wave, {label}")
         tags = [name for name, n in log for _ in range(n * L)]
         if len(tags) != len(k4):
             raise AssertionError(f"K4 ({label}): {len(k4)} kernels for "
@@ -4214,12 +4516,258 @@ def full_width_int8(torch, model):
         if k4_n != calls[-1] or not k4_n:
             raise AssertionError(f"K4-int8 ({label}): {k4_n} kernels for "
                                  f"{calls[-1]} calls")
+        _unmasked([ev.key for ev in k4],
+                  f"K4-int8 in the int8 decode wave, {label}")
     return launches
+
+
+# -------------------------------------------------------------- phase 13
+# the public block_multihead_attention at the Llama-2-7B attention
+# geometry (phases 3 and 12): 32 heads of 128, batch 8, max_seq_len 512 in
+# blocks of 64 (8 a row), one [64, KV, 64, 128] pool pair a layer
+BLHA = dict(batch=8, max_seq_len=512, block_size=64, layers=32, heads=32,
+            head_dim=128, decode_steps=32,
+            prompts=(7, 400, 128, 256, 33, 300, 90, 150))
+
+
+class _PlainKernels:
+    """Within the block, ``ops.paged_attention`` (what blha_attention
+    calls) runs the plain PyTorch versions of K2, K4 and K4-int8 on the
+    card's tensors: the wrapper's plain twin."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import paged_attention as blha
+        from paddle_tpu_torch.ops.hopper import fused_ops
+        from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+        self.mod = blha
+        self.saved = {n: getattr(blha, n) for n in (
+            "rope_fused", "paged_attention", "paged_attention_int8")}
+        blha.rope_fused = (lambda q, k, cos, sin, interleaved=False:
+                           fused_ops._rope_ref(q, k, cos, sin, interleaved))
+        blha.paged_attention = pa._paged_attention_ref
+        blha.paged_attention_int8 = pa._paged_attention_int8_ref
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.mod, n, f)
+
+
+def _alibi_masks(torch, H, lens, Lp, L, decode_pos=None):
+    """Additive masks of a model with linear position biases, float32 on the
+    card: head h's slope 2^(-8 (h + 1) / H) times the distance s - j on
+    visible keys, -1e4 on padding.  A prefill (``decode_pos`` None): mask
+    [B, H, max, Lp + L], row s of row b live while s < its length, its
+    visible keys the prefix (bias 0) and paged keys j <= s.  A decode step:
+    tgt_mask [B, H, 1, Lp + L] at each row's position."""
+    dev = "cuda"
+    slope = 2.0 ** (-8.0 * torch.arange(1, H + 1, device=dev) / H)
+    j = torch.arange(Lp + L, device=dev) - Lp            # paged key index
+    if decode_pos is None:
+        n = torch.tensor(lens, device=dev)
+        s = torch.arange(int(n.max()), device=dev)
+        dist = (s[:, None] - j[None, :]).clamp(min=0).float()   # [S, Lk]
+        ok = ((j[None, None, :] <= s[None, :, None])
+              & (s[None, :, None] < n[:, None, None]))            # [B, S, Lk]
+        ok = ok | (j < 0)[None, None, :]
+        m = -slope[None, :, None, None] * dist[None, None]
+        return torch.where(ok[:, None], m, -1e4).contiguous()
+    pos = torch.tensor(decode_pos, device=dev)
+    dist = (pos[:, None] - j[None, :]).clamp(min=0).float()       # [B, Lk]
+    ok = (j[None, :] <= pos[:, None]) | (j < 0)[None, :]
+    m = -slope[None, :, None] * dist[:, None, :]                  # [B, H, Lk]
+    return torch.where(ok[:, None], m, -1e4)[:, :, None].contiguous()
+
+
+def _blha_run(torch, KV, quant, Lp, layers=None, dtype=None, device="cuda",
+              plain=False, seed=13):
+    """One run of the wrapper: a prefill call a layer (prompts of 7-400
+    tokens under an ALiBi causal-plus-padding ``mask``), then
+    ``decode_steps`` decode calls a layer under ``tgt_mask``, over fresh
+    pools per layer (``quant`` "none": q's dtype, else uint8 with static
+    [KV] or dynamic [B, KV] scales), rope at absolute positions (neox), a
+    ``Lp``-key pre-cache per layer where Lp > 0.  Seeded on the card, the
+    same inputs for the same ``seed`` on either device.  ``plain`` runs the
+    plain twin (``_PlainKernels``).  Returns (the outputs of every call,
+    the pools, the scale tensors, wall seconds of the prefill and decode
+    calls, the number of calls, the pools' data_ptr() before and after)."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        block_multihead_attention,
+    )
+
+    c = BLHA
+    dtype = dtype or torch.bfloat16
+    layers = layers or c["layers"]
+    B, bs, H, D = c["batch"], c["block_size"], c["heads"], c["head_dim"]
+    P = c["max_seq_len"] // bs
+    NB = B * P
+    lens = list(c["prompts"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    bt = torch.randperm(NB, generator=g, device="cuda").view(B, P).to(
+        torch.int32)
+    inv = 1.0 / (10000.0 ** (torch.arange(0, D, 2, device="cuda") / D))
+    fr = torch.arange(c["max_seq_len"], device="cuda")[:, None] * inv
+    rope = torch.stack([fr.cos(), fr.sin()])[:, None, :, None, :].float()
+    cdt = torch.uint8 if quant != "none" else dtype
+    pools = [[torch.zeros(NB, KV, bs, D, dtype=cdt, device="cuda")
+              for _ in range(2)] for _ in range(layers)]
+    pre = [dict(pre_key_cache=rnd(B, KV, Lp, D),
+                pre_value_cache=rnd(B, KV, Lp, D)) if Lp else {}
+           for _ in range(layers)]
+    names = ("cache_k_quant_scales", "cache_v_quant_scales",
+             "cache_k_dequant_scales", "cache_v_dequant_scales")
+    if quant == "static":
+        kq = torch.full((KV,), 127.0 / 4, device="cuda")
+        scales = [dict(zip(names, (kq, kq.clone(), 1 / kq, 1 / kq)))
+                  for _ in range(layers)]
+    elif quant == "dynamic":
+        scales = [{n: torch.zeros(B, KV, device="cuda") for n in names}
+                  for _ in range(layers)]
+    else:
+        scales = [{} for _ in range(layers)]
+    mask = _alibi_masks(torch, H, lens, Lp, P * bs)
+    W = (H + 2 * KV) * D
+    steps = [(lens, [0] * B, lens, dict(mask=mask))]
+    for t in range(c["decode_steps"]):
+        pos = [n + t for n in lens]
+        steps.append(([0] * B, pos, [1] * B, dict(
+            tgt_mask=_alibi_masks(torch, H, lens, Lp, P * bs, pos))))
+    # every call's qkv, made up front from the seed
+    qkvs = [[rnd(sum(now), W) for _ in range(layers)]
+            for _, _, now, _ in steps]
+    dev = torch.device(device)
+    move = (lambda t: t.to(dev)) if dev.type == "cpu" else (lambda t: t)
+    pools = [[move(t) for t in pr] for pr in pools]
+    pre = [{k: move(v) for k, v in d.items()} for d in pre]
+    scales = [{k: move(v) for k, v in d.items()} for d in scales]
+    rope, bt = move(rope), move(bt)
+    ptrs = [[t.data_ptr() for t in pr] for pr in pools]
+    outs, secs = [], [0.0, 0.0]
+    with _PlainKernels() if plain else contextlib.nullcontext():
+        for i, (enc, dec, now, masks) in enumerate(steps):
+            cu = [0]
+            for n in now:
+                cu.append(cu[-1] + n)
+            ints = [torch.tensor(x, dtype=torch.int32, device=dev)
+                    for x in (enc, dec, now, cu)]
+            kw = {k: move(v) for k, v in masks.items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for layer in range(layers):
+                out = block_multihead_attention(
+                    move(qkvs[i][layer]), *pools[layer], *ints[:3], None,
+                    None, ints[3], ints[3], bt, rope_emb=rope,
+                    block_size=bs, use_neox_style=True,
+                    use_dynamic_cachekv_quant=quant == "dynamic",
+                    **pre[layer], **scales[layer], **kw)[0]
+                outs.append(out)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs[min(i, 1)] += time.perf_counter() - t0
+    after = [[t.data_ptr() for t in pr] for pr in pools]
+    return (outs, pools, scales, secs, len(steps) * layers, ptrs, after)
+
+
+def full_width_blha(torch):
+    """Phase 13: the public incubate.nn.functional.block_multihead_attention
+    at full width (``BLHA``): per run, 32 layers' prefill calls and 32
+    decode steps of 32 layers; bf16, static and dynamic int8 pools, a
+    64-key pre-cache, GQA 32 / 8.  Each run's outputs held against its plain
+    twin on the card (K2, K4 and K4-int8 replaced by their plain
+    versions), the pools and scales after the run too; K4 / K4-int8 and K2
+    launches equal to the wrapper's calls, every one a masked launch; the
+    pools written in place; ms a call.  Then a float32 two-layer run
+    against the same wrapper on the CPU."""
+    from paddle_tpu_torch.ops.hopper import fused_ops
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    counters = _zero_counters()
+    runs = (("bf16", 32, "none", 0), ("static int8", 32, "static", 0),
+            ("dynamic int8", 32, "dynamic", 0),
+            ("bf16, 64-key pre-cache", 32, "none", 64),
+            ("bf16, GQA 32 / 8", 8, "none", 0))
+    for label, KV, quant, Lp in runs:
+        kern = (pa.paged_attention_int8 if quant != "none"
+                else pa.paged_attention)
+        n0, m0, r0 = kern.launches, kern.mask_launches, \
+            fused_ops.rope_fused.launches
+        outs, pools, scales, secs, calls, ptrs, after = _blha_run(
+            torch, KV, quant, Lp)
+        launched = (kern.launches - n0, kern.mask_launches - m0,
+                    fused_ops.rope_fused.launches - r0)
+        if launched != (calls, calls, calls) or ptrs != after:
+            raise AssertionError(
+                f"blha {label}: {launched} kernel / masked / K2 launches for "
+                f"{calls} calls, or a pool moved ({ptrs != after})")
+        p_outs, p_pools, p_scales, *_ = _blha_run(torch, KV, quant, Lp,
+                                                  plain=True)
+        worst = 0.0
+        for got, ref in zip(outs, p_outs):
+            err, tol = _err(torch, got, ref), _tol("bfloat16", ref)
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                raise AssertionError(f"blha {label}: the wrapper and its "
+                                     f"plain twin differ by {err} > {tol}")
+        codes = 1.0
+        for pr, qr in zip(pools, p_pools):
+            for a, b in zip(pr, qr):
+                if quant == "none":
+                    if not _err(torch, a, b) <= _tol("bfloat16", b):
+                        raise AssertionError(f"blha {label}: pools differ")
+                else:
+                    d = (a.int() - b.int()).abs()
+                    codes = min(codes, float((d == 0).float().mean()))
+                    if int(d.max()) > 1:
+                        raise AssertionError(f"blha {label}: codes differ "
+                                             "by more than 1")
+        for sa, sb in zip(scales, p_scales):
+            for n in sa:
+                if not torch.allclose(sa[n], sb[n], rtol=1e-2) or not bool(
+                        (sa[n] > 0).all()):
+                    raise AssertionError(f"blha {label}: scales {n} differ "
+                                         "from the plain twin's or are 0")
+        if codes < 0.99:
+            raise AssertionError(f"blha {label}: {codes:.4f} of the codes "
+                                 "equal the plain twin's")
+        n_dec = calls - BLHA["layers"]
+        print(f"blha {label}: {calls} calls ({BLHA['layers']} prefill of "
+              f"{sum(BLHA['prompts'])} tokens, {n_dec} decode), "
+              f"{launched[0]} {kern.__name__} launches, all masked, "
+              f"{launched[2]} K2; prefill {1e3 * secs[0] / BLHA['layers']:.3f}"
+              f" ms a call, decode {1e3 * secs[1] / n_dec:.3f} ms a call "
+              f"(host wall, a host read each); outputs within "
+              f"{worst:.3f} of the tolerance of the plain twin, pools in "
+              f"place" + ("" if quant == "none" else
+                          f", {codes:.4f} of the codes equal"), flush=True)
+    launches = _path_launches("blha", counters)
+    # float32, two layers: the wrapper on the card against the CPU
+    kw = dict(KV=32, quant="none", Lp=0, layers=2, dtype=torch.float32)
+    gpu = _blha_run(torch, **kw)
+    cpu = _blha_run(torch, device="cpu", **kw)
+    err = max(_err(torch, a.cpu(), b) for a, b in zip(gpu[0], cpu[0]))
+    scale = max(_scale(b) for b in cpu[0])
+    perr = max(_err(torch, a.cpu(), b) for pa_, pb in zip(gpu[1], cpu[1])
+               for a, b in zip(pa_, pb))
+    if not (err <= 1e-4 * scale + 1e-5 and perr <= 1e-5):
+        raise AssertionError(f"blha float32: cuda and the CPU differ by "
+                             f"{err} (outputs) / {perr} (pools)")
+    print(f"blha float32, 2 layers: cuda == CPU within {err:.3e} of "
+          f"{scale:.3e} (outputs), {perr:.3e} (pools) over {len(cpu[0])} "
+          "calls")
+    return launches
+
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -4271,6 +4819,12 @@ def main(argv=None) -> int:
                                 k1_sweep=args.k1_sweep)
         _done("2", t)
     launches = {path: None for path in PATHS}
+    if 13 in phases:
+        t = _phase("13 the public block_multihead_attention")
+        launches["blha"] = full_width_blha(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("13", t)
     model = full_width_model(torch) if phases & {3, 5, 11, 12} else None
     if 3 in phases:
         t = _phase("3 full-width serving")

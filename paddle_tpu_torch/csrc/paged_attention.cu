@@ -27,6 +27,21 @@
 // masks and the block window run over the combined axis of Lp + P *
 // block_size keys, the window covering only its paged part.  Nothing is
 // written for the prefix.
+// The additive masks (blha_attention's mask / tgt_mask, :285-308): float32
+// [B, 1 | H, Sq, Lm], `mask` added to the scores of the rows in prefill
+// (seq_lens_encoder > 0), `tgt_mask` to the other rows.  Query head h
+// reads mask head h (head 0 where the mask has one), a token reads mask
+// row s = its local index, and key j of the combined axis (the prefix
+// first) reads column j; rows s >= Sq and columns j >= Lm add 0.  The
+// term goes in after the scale, in the log2 domain (m * log2(e)), on the
+// visible keys only: a key outside causal visibility stays -inf.  The
+// masked instances are the same kernels with kMask set, compiled from
+// this file a second time (paged_attention_masked.cu, PTT_PAGED_MASKED),
+// so that nvcc builds them in parallel with the unmasked ones; an entry
+// given a mask hands the call to that build's entry.  The serving engine
+// passes no mask and launches the unmasked instances as they were.  The
+// mask is read straight from global memory in the score loop (L2-resident
+// at serving sizes); nothing of it is staged in shared memory.
 //
 // Bound on the H100: bytes.  Every serving shape reads each visible key and
 // value row once and does ~4 operations per (query row, key, column) on it,
@@ -93,8 +108,15 @@
 
 namespace cg = cooperative_groups;
 
+// 1 in paged_attention_masked.cu: that build holds the masked instances
+#ifndef PTT_PAGED_MASKED
+#define PTT_PAGED_MASKED 0
+#endif
+
 namespace {
 
+constexpr bool kMasked = PTT_PAGED_MASKED;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;          // elements of a row a thread takes at once
@@ -209,6 +231,50 @@ struct Tile {
   int Lp;
   const void *pk, *pv;
 };
+
+// The additive masks of a call: m[0] `mask` (the rows in prefill, enc[b]
+// > 0), m[1] `tgt_mask` (the others), each float32 [B, heads, sq, lm]
+// with heads 1 or H, or null; enc is seq_lens_encoder [B] (null without
+// masks).  The unmasked instances never read it.
+struct Masks {
+  const float* m[2];
+  int heads[2], sq[2], lm[2];
+  const int* enc;
+};
+
+// Row b's mask (its row 0 of head 0), or null where the row's mask was
+// not given; rows `sq` and columns `lm` wide, heads `hstride` elements
+// apart (0 for a mask of one head).
+struct RowMask {
+  const float* p;
+  int hstride, sq, lm;
+  // the row of query head h at local index s, or null past the mask's rows
+  __device__ __forceinline__ const float* row(int h, int s) const {
+    return p != nullptr && s < sq
+               ? p + (size_t)h * hstride + (size_t)s * lm
+               : nullptr;
+  }
+};
+
+// the block's row b picks `mask` or `tgt_mask` (a tile's row has now > 0)
+__device__ __forceinline__ RowMask row_mask(const Masks& mk, int b) {
+  const int w = mk.enc[b] > 0 ? 0 : 1;
+  RowMask r;
+  r.sq = mk.sq[w];
+  r.lm = mk.lm[w];
+  r.hstride = mk.heads[w] > 1 ? r.sq * r.lm : 0;
+  r.p = mk.m[w] != nullptr
+            ? mk.m[w] + (size_t)b * mk.heads[w] * r.sq * r.lm
+            : nullptr;
+  return r;
+}
+
+// the additive term of combined key `key` on a mask row (RowMask::row), in
+// the log2 domain; 0 without a row and past its columns
+__device__ __forceinline__ float mask_term(const float* row, int lm,
+                                           int key) {
+  return row != nullptr && key < lm ? __ldg(row + key) * kLog2e : 0.f;
+}
 
 // The row tables, the zeros of the tokens that no tile owns, and the
 // block's tile and key range over the combined axis (Lp prefix keys, then
@@ -526,8 +592,9 @@ __device__ void finish(void* __restrict__ out, size_t qo, bool f32,
 // thread (rg, j) scores key j for rows rg, rg + NRG, ...; thread (kg, rsl,
 // dc) adds keys kg, kg + KG, ... into columns [8 dc, 8 dc + 8) of rows rsl,
 // rsl + RSL, ... of partial kg.  PB: 16 where a row is whole 16-byte
-// pieces (the copies' sizes fixed at compile time), else 0.
-template <typename T, int KT, int PB>
+// pieces (the copies' sizes fixed at compile time), else 0.  kMask: the
+// masks' term on every visible score.
+template <typename T, int KT, int PB, bool kMask>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ kc,
     const T* __restrict__ vc, void* __restrict__ out,
@@ -535,7 +602,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
     const T* pv, int T_, int B, int P, int NB, int H, int KV, int D, int bs,
     int Lp, int mq, int QT, int chunk, int stages, float scale_log2,
-    int out_f32) {
+    int out_f32, Masks mk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
@@ -563,6 +630,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const size_t hd = (size_t)H * D;
   const int DA = simt_cols(D);
   const int rs = L.rstride;
+  RowMask rm = {};
+  if constexpr (kMask) rm = row_mask(mk, t.b);
   for (int idx = tid; idx < nr * DA; idx += kThreads) {
     const int r = idx / DA, d = idx - r * DA;
     qs[idx] = d < D ? ptt::to_f(q[t.qo + (size_t)(r / G) * hd + (r % G) * D +
@@ -636,9 +705,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
         for (int k = 0; k < kRowsPerPass; ++k) {
           const int r = r0 + k * NRG;
-          if (r < nr)
-            sc[r * KT + sj] =
-                full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
+          if (r < nr) {
+            float v = full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
+            if constexpr (kMask) {
+              if (v != -INFINITY)
+                v += mask_term(rm.row(kh * G + r % G, t.t_first + r / G),
+                               rm.lm, key);
+            }
+            sc[r * KT + sj] = v;
+          }
         }
       }
     }
@@ -922,7 +997,7 @@ __device__ __forceinline__ void expand_codes(__nv_bfloat16* ks, int t0,
 // cached key's score is kd (q . code) and its probability is weighed by vd
 // before the P V product packs it to bf16, the others' by 1, so that (m,
 // l, O) are in value units throughout.
-template <int DP, int KG, bool kInt8>
+template <int DP, int KG, bool kInt8, bool kMask>
 __device__ __forceinline__ void tc_attend(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, const uint8_t* __restrict__ k8,
@@ -934,7 +1009,7 @@ __device__ __forceinline__ void tc_attend(
     const int* __restrict__ bt, const __nv_bfloat16* pk,
     const __nv_bfloat16* pv, int T_, int B, int P, int NB, int H, int KV,
     int D, int bs, int Lp, int mq, int QT, int chunk, int stages,
-    float scale_log2, bool f32) {
+    float scale_log2, bool f32, const Masks& mk) {
   using bf = __nv_bfloat16;
   constexpr int KT = kTcKeys;
   constexpr int KW = KT / KG;    // keys of a tile a warp takes
@@ -1010,6 +1085,16 @@ __device__ __forceinline__ void tc_attend(
   const int row0 = slab * 16 + g;  // this thread's rows: row0, row0 + 8
   const bool active = slab * 16 < nr;
   const int lim0 = lim[row0], lim1 = lim[row0 + 8];
+  // the mask rows of this thread's rows row0 and row0 + 8 (null past nr)
+  const float *mrow0 = nullptr, *mrow1 = nullptr;
+  int mlm = 0;
+  if constexpr (kMask) {
+    const RowMask rm = row_mask(mk, t.b);
+    mlm = rm.lm;
+    if (row0 < nr) mrow0 = rm.row(kh * G + row0 % G, t.t_first + row0 / G);
+    if (row0 + 8 < nr)
+      mrow1 = rm.row(kh * G + (row0 + 8) % G, t.t_first + (row0 + 8) / G);
+  }
   float o[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -1064,9 +1149,10 @@ __device__ __forceinline__ void tc_attend(
           mma_bf16(s[2 * n2 + 1], a, bk[2], bk[3]);
         }
       }
-      // scale into the log2 domain (a cached key's by kd too); the mask
-      // only where a row's last visible key or the split's end falls
-      // inside this tile
+      // scale into the log2 domain (a cached key's by kd too); the causal
+      // mask only where a row's last visible key or the split's end falls
+      // inside this tile; the additive masks' term (kMask) on every
+      // visible key, after the scale
       const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -1077,6 +1163,10 @@ __device__ __forceinline__ void tc_attend(
                                                                 : scale_log2);
           if (!full) {
             if (!(key < c1 && key <= (e < 2 ? lim0 : lim1))) v = -INFINITY;
+          }
+          if constexpr (kMask) {
+            if (v != -INFINITY)
+              v += mask_term(e < 2 ? mrow0 : mrow1, mlm, key);
           }
           s[n][e] = v;
         }
@@ -1198,7 +1288,7 @@ __device__ __forceinline__ void tc_attend(
   finish<bf>(out, t.qo, f32, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws);
 }
 
-template <int DP, int KG>
+template <int DP, int KG, bool kMask>
 __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
     const __nv_bfloat16* __restrict__ vc, void* __restrict__ out,
@@ -1206,11 +1296,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tc_kernel(
     const int* __restrict__ cu, const int* __restrict__ bt,
     const __nv_bfloat16* pk, const __nv_bfloat16* pv, int T_, int B, int P,
     int NB, int H, int KV, int D, int bs, int Lp, int mq, int QT, int chunk,
-    int stages, float scale_log2, int out_f32) {
-  tc_attend<DP, KG, false>(q, kc, vc, nullptr, nullptr, nullptr, nullptr,
-                           nullptr, nullptr, 0, 0, out, dec, now, cu, bt, pk,
-                           pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
-                           stages, scale_log2, out_f32);
+    int stages, float scale_log2, int out_f32, Masks mk) {
+  tc_attend<DP, KG, false, kMask>(
+      q, kc, vc, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
+      out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
+      chunk, stages, scale_log2, out_f32, mk);
 }
 
 // query tiles in the grid: at most ceil(max_q_len / QT) a row, and at most
@@ -1237,7 +1327,7 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
                           const void* bt, const void* pk, const void* pv,
                           int T_, int B, int P, int NB, int H, int D, int bs,
                           int Lp, int mq, int QT, int chunk, int stages,
-                          float scale, int out_f32) {
+                          float scale, int out_f32, const Masks& mk) {
   if (tiles > 65535 || KV > 65535) return cudaErrorInvalidConfiguration;
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -1259,26 +1349,28 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
                          out, (const int*)dec, (const int*)now,
                          (const int*)cu, (const int*)bt, (const T*)pk,
                          (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
-                         chunk, stages, scale_log2, out_f32);
+                         chunk, stages, scale_log2, out_f32, mk);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool kMask>
 cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
                       int KV, cudaStream_t st, const void* q, const void* kc,
                       const void* vc, void* out, const void* dec,
                       const void* now, const void* cu, const void* bt,
                       const void* pk, const void* pv, int T_, int B, int P,
                       int NB, int H, int D, int bs, int Lp, int mq, int QT,
-                      int chunk, int stages, float scale, int out_f32) {
+                      int chunk, int stages, float scale, int out_f32,
+                      const Masks& mk) {
 #define PTT_K4_TC(kg)                                                        \
   if (KG == kg)                                                              \
-    return launch_kernel<decltype(&paged_attention_tc_kernel<DP, kg>),       \
-                         __nv_bfloat16>(                                     \
-        paged_attention_tc_kernel<DP, kg>, smem, splits, tiles, KV, st, q,   \
-        kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp,   \
-        mq, QT, chunk, stages, scale, out_f32);
+    return launch_kernel<                                                    \
+        decltype(&paged_attention_tc_kernel<DP, kg, kMask>),                 \
+        __nv_bfloat16>(                                                      \
+        paged_attention_tc_kernel<DP, kg, kMask>, smem, splits, tiles, KV,   \
+        st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D,    \
+        bs, Lp, mq, QT, chunk, stages, scale, out_f32, mk);
   PTT_K4_TC(4)
   PTT_K4_TC(2)
   PTT_K4_TC(1)
@@ -1288,23 +1380,26 @@ cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
 
 // the SIMT instance whose copies are whole 16-byte pieces where a row is,
 // else the one that takes the row's pieces at run time
-template <typename T, int KT>
+template <typename T, int KT, bool kMask>
 cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         cudaStream_t st, const void* q, const void* kc,
                         const void* vc, void* out, const void* dec,
                         const void* now, const void* cu, const void* bt,
                         const void* pk, const void* pv, int T_, int B, int P,
                         int NB, int H, int D, int bs, int Lp, int mq, int QT,
-                        int chunk, int stages, float scale, int out_f32) {
+                        int chunk, int stages, float scale, int out_f32,
+                        const Masks& mk) {
   if (ptt::tc::piece_bytes(D * (int)sizeof(T)) == 16)
-    return launch_kernel<decltype(&paged_attention_kernel<T, KT, 16>), T>(
-        paged_attention_kernel<T, KT, 16>, smem, splits, tiles, KV, st, q,
-        kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp,
-        mq, QT, chunk, stages, scale, out_f32);
-  return launch_kernel<decltype(&paged_attention_kernel<T, KT, 0>), T>(
-      paged_attention_kernel<T, KT, 0>, smem, splits, tiles, KV, st, q, kc,
-      vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp, mq, QT,
-      chunk, stages, scale, out_f32);
+    return launch_kernel<
+        decltype(&paged_attention_kernel<T, KT, 16, kMask>), T>(
+        paged_attention_kernel<T, KT, 16, kMask>, smem, splits, tiles, KV,
+        st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs,
+        Lp, mq, QT, chunk, stages, scale, out_f32, mk);
+  return launch_kernel<decltype(&paged_attention_kernel<T, KT, 0, kMask>),
+                       T>(
+      paged_attention_kernel<T, KT, 0, kMask>, smem, splits, tiles, KV, st,
+      q, kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp,
+      mq, QT, chunk, stages, scale, out_f32, mk);
 }
 
 // ---------------------------------------------- past 512 columns (C8)
@@ -1312,9 +1407,11 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
 // head kh G + r % G of the tile; a key below Lp is a prefix row of pk /
 // pv, the others come through the split's block ids (none outside the
 // pool: zeros); row r sees the prefix and the paged keys up to its
-// position
-template <typename T>
+// position; kMask: the masks' term (query head h0 + r % G, local index
+// t_first + r / G) on its visible scores
+template <typename T, bool kMask>
 struct PagedRows {
+  static constexpr bool kBias = kMask;
   const T *qb, *kc, *vc, *pk, *pv;
   void* out;
   size_t qo;  // q's and out's element of the tile's row 0
@@ -1322,6 +1419,8 @@ struct PagedRows {
   const int* s_blk;
   size_t hd, head, blk_stride;
   int G, D, bs, b0, pos0, last, Lp;
+  RowMask rm;
+  int h0, t_first;
   __device__ size_t row(int r) const {
     return (size_t)(r / G) * hd + (size_t)(r % G) * D;
   }
@@ -1342,10 +1441,13 @@ struct PagedRows {
   __device__ void put(int r, int d, float x) const {
     ptt::put_out<T>(out, qo + row(r) + d, x, f32);
   }
+  __device__ float bias(int r, int key) const {
+    return mask_term(rm.row(h0 + r % G, t_first + r / G), rm.lm, key);
+  }
 };
 
 // one block per (slice, query tile, KV head)
-template <typename T>
+template <typename T, bool kMask>
 __global__ void __launch_bounds__(ptt::wide::kThreads)
     paged_attention_wide_kernel(
         const T* __restrict__ q, const T* __restrict__ kc,
@@ -1354,7 +1456,7 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
         const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
         const T* pv, int T_, int B, int P, int NB, int H, int KV, int D,
         int bs, int Lp, int mq, int QT, int chunk, float scale_log2, int W,
-        int out_f32) {
+        int out_f32, Masks mk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV, kh = blockIdx.z;
   int* tables =
@@ -1364,38 +1466,42 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
                            T_, B, P, NB, H, G, D, bs, Lp, mq, QT, chunk))
     return;
   // the walk's first barrier comes before its first read of s_blk
-  const PagedRows<T> src{q + t.qo, kc, vc,
-                         static_cast<const T*>(t.pk),
-                         static_cast<const T*>(t.pv), out, t.qo,
-                         out_f32 != 0, tables + 4 * B + 2, (size_t)H * D,
-                         (size_t)kh * bs * D, (size_t)KV * bs * D, G, D, bs,
-                         t.b0, t.pos0, t.ctx - 1, Lp};
+  RowMask rm = {};
+  if constexpr (kMask) rm = row_mask(mk, t.b);
+  const PagedRows<T, kMask> src{q + t.qo, kc, vc,
+                                static_cast<const T*>(t.pk),
+                                static_cast<const T*>(t.pv), out, t.qo,
+                                out_f32 != 0, tables + 4 * B + 2,
+                                (size_t)H * D, (size_t)kh * bs * D,
+                                (size_t)KV * bs * D, G, D, bs, t.b0, t.pos0,
+                                t.ctx - 1, Lp, rm, kh * G, t.t_first};
   ptt::wide::attend<T>(src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W,
                        scale_log2, smem);
 }
 
-template <typename T>
+template <typename T, bool kMask>
 cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
                         const void* q, const void* kc, const void* vc,
                         void* out, const void* dec, const void* now,
                         const void* cu, const void* bt, const void* pk,
                         const void* pv, int T_, int B, int P, int NB, int H,
                         int D, int bs, int Lp, int mq, int QT, int chunk,
-                        float scale, int out_f32) {
+                        float scale, int out_f32, const Masks& mk) {
   const int R = QT * (H / KV);
   const int W = ptt::wide::slice_cols(R, D);
   if (W == 0 || tiles > 65535 || KV > 65535)
     return cudaErrorInvalidConfiguration;
   const size_t smem = ptt::wide::smem_bytes(R, W) +
                       (size_t)(4 * B + 2 + chunk / bs + 2) * sizeof(int);
-  cudaError_t e = ptt::allow_smem(paged_attention_wide_kernel<T>, smem);
+  const auto kern = paged_attention_wide_kernel<T, kMask>;
+  cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((D + W - 1) / W, (unsigned)tiles, KV);
-  paged_attention_wide_kernel<T><<<grid, ptt::wide::kThreads, smem, st>>>(
+  kern<<<grid, ptt::wide::kThreads, smem, st>>>(
       (const T*)q, (const T*)kc, (const T*)vc, out, (const int*)dec,
       (const int*)now, (const int*)cu, (const int*)bt, (const T*)pk,
       (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
-      scale * 1.4426950408889634f, W, out_f32);
+      scale * 1.4426950408889634f, W, out_f32, mk);
   return cudaGetLastError();
 }
 
@@ -1693,8 +1799,9 @@ __device__ void int8_tile(float* ks, float* vs, const Int8Rows<T>& s,
 // kg, kg + KG, ... into columns [8 dc, 8 dc + 8) of rows rsl, rsl + RSL,
 // ... of partial kg (a grid-stride loop over the items: past 1024 columns
 // a thread takes several).  kAligned: D % 8 == 0 with 16-byte aligned
-// fresh rows and 8-byte aligned cache rows.
-template <typename T, int KT, bool kAligned>
+// fresh rows and 8-byte aligned cache rows.  kMask: the masks' term on
+// every visible score.
+template <typename T, int KT, bool kAligned, bool kMask>
 __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     const T* __restrict__ q, const T* __restrict__ kf,
     const T* __restrict__ vf, const uint8_t* __restrict__ kc,
@@ -1704,7 +1811,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
     const T* pv, int T_, int B, int P, int NB, int H, int KV, int D, int bs,
     int Lp, int mq, int QT, int chunk, long long kstride, long long vstride,
-    float scale_log2, int out_f32) {
+    float scale_log2, int out_f32, Masks mk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
@@ -1752,6 +1859,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
   src.tok0 = tables[t.b] - row_dec;  // s_cu[b]: token of key dec
   src.kd = kdq[(size_t)t.b * KV + kh];
   src.vd = vdq[(size_t)t.b * KV + kh];
+  RowMask rm = {};
+  if constexpr (kMask) rm = row_mask(mk, t.b);
   for (int idx = tid; idx < nr * DA; idx += kThreads) {
     const int r = idx / DA, d = idx - r * DA;
     qs[idx] = d < D ? ptt::to_f(q[t.qo + (size_t)(r / G) * hd +
@@ -1808,9 +1917,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
 #pragma unroll
       for (int k = 0; k < kRowsPerPass; ++k) {
         const int r = r0 + k * NRG;
-        if (r < nr)
-          sc[r * KT + sj] =
-              full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
+        if (r < nr) {
+          float v = full || (key < c1 && key <= lim[r]) ? s[k] : -INFINITY;
+          if constexpr (kMask) {
+            if (v != -INFINITY)
+              v += mask_term(rm.row(kh * G + r % G, t.t_first + r / G),
+                             rm.lm, key);
+          }
+          sc[r * KT + sj] = v;
+        }
       }
     }
     __syncthreads();
@@ -1902,7 +2017,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
 // query tile, KV head), a ring of kInt8Stages; bfloat16 only
 constexpr int kInt8Stages = 2;
 
-template <int DP, int KG>
+template <int DP, int KG, bool kMask>
 __global__ void __launch_bounds__(kThreads) paged_attention_int8_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kf,
     const __nv_bfloat16* __restrict__ vf, const uint8_t* __restrict__ kc,
@@ -1912,11 +2027,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_mma_kernel(
     const int* __restrict__ cu, const int* __restrict__ bt,
     const __nv_bfloat16* pk, const __nv_bfloat16* pv, int T_, int B, int P,
     int NB, int H, int KV, int D, int bs, int Lp, int mq, int QT, int chunk,
-    long long kstride, long long vstride, float scale_log2, int out_f32) {
-  tc_attend<DP, KG, true>(q, nullptr, nullptr, kc, vc, kf, vf, kdq, vdq,
-                          kstride, vstride, out, dec, now, cu, bt, pk, pv, T_,
-                          B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
-                          kInt8Stages, scale_log2, out_f32);
+    long long kstride, long long vstride, float scale_log2, int out_f32,
+    Masks mk) {
+  tc_attend<DP, KG, true, kMask>(q, nullptr, nullptr, kc, vc, kf, vf, kdq,
+                                 vdq, kstride, vstride, out, dec, now, cu, bt,
+                                 pk, pv, T_, B, P, NB, H, KV, D, bs, Lp, mq,
+                                 QT, chunk, kInt8Stages, scale_log2, out_f32,
+                                 mk);
 }
 
 // either K4-int8 kernel over a grid of (splits, tiles, KV), a cluster of
@@ -1932,7 +2049,8 @@ cudaError_t launch_int8_kernel(K kern, size_t smem, int splits,
                                const void* pv, int T_, int B, int P, int NB,
                                int H, int D, int bs, int Lp, int mq, int QT,
                                int chunk, long long kstride,
-                               long long vstride, float scale, int out_f32) {
+                               long long vstride, float scale, int out_f32,
+                               const Masks& mk) {
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -1952,12 +2070,12 @@ cudaError_t launch_int8_kernel(K kern, size_t smem, int splits,
       (const uint8_t*)vc, (const float*)kd, (const float*)vd, out,
       (const int*)dec, (const int*)now, (const int*)cu, (const int*)bt,
       (const T*)pk, (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
-      chunk, kstride, vstride, scale * 1.4426950408889634f, out_f32);
+      chunk, kstride, vstride, scale * 1.4426950408889634f, out_f32, mk);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool kMask>
 cudaError_t launch_int8_mma(int KG, size_t smem, int splits, long long tiles,
                             int KV, cudaStream_t st, const void* q,
                             const void* k, const void* v, const void* kc,
@@ -1967,14 +2085,16 @@ cudaError_t launch_int8_mma(int KG, size_t smem, int splits, long long tiles,
                             const void* pv, int T_, int B, int P, int NB,
                             int H, int D, int bs, int Lp, int mq, int QT,
                             int chunk, long long kstride, long long vstride,
-                            float scale, int out_f32) {
-#define PTT_K4I_MMA(kg)                                                      \
-  if (KG == kg)                                                              \
-    return launch_int8_kernel<                                               \
-        decltype(&paged_attention_int8_mma_kernel<DP, kg>), __nv_bfloat16>(  \
-        paged_attention_int8_mma_kernel<DP, kg>, smem, splits, tiles, KV, st, \
-        q, k, v, kc, vc, kd, vd, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, \
-        H, D, bs, Lp, mq, QT, chunk, kstride, vstride, scale, out_f32);
+                            float scale, int out_f32, const Masks& mk) {
+#define PTT_K4I_MMA(kg)                                                       \
+  if (KG == kg)                                                               \
+    return launch_int8_kernel<                                                \
+        decltype(&paged_attention_int8_mma_kernel<DP, kg, kMask>),            \
+        __nv_bfloat16>(                                                       \
+        paged_attention_int8_mma_kernel<DP, kg, kMask>, smem, splits,         \
+        tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec, now, cu, bt, pk,    \
+        pv, T_, B, P, NB, H, D, bs, Lp, mq, QT, chunk, kstride, vstride,      \
+        scale, out_f32, mk);
   PTT_K4I_MMA(4)
   PTT_K4I_MMA(2)
   PTT_K4I_MMA(1)
@@ -1982,7 +2102,7 @@ cudaError_t launch_int8_mma(int KG, size_t smem, int splits, long long tiles,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, int KT>
+template <typename T, int KT, bool kMask>
 cudaError_t launch_int8(bool aligned, size_t smem, int splits,
                         long long tiles, int KV, cudaStream_t st,
                         const void* q, const void* k, const void* v,
@@ -1992,16 +2112,16 @@ cudaError_t launch_int8(bool aligned, size_t smem, int splits,
                         const void* pk, const void* pv, int T_, int B, int P,
                         int NB, int H, int D, int bs, int Lp, int mq, int QT,
                         int chunk, long long kstride, long long vstride,
-                        float scale, int out_f32) {
-  auto kern = aligned ? paged_attention_int8_kernel<T, KT, true>
-                      : paged_attention_int8_kernel<T, KT, false>;
+                        float scale, int out_f32, const Masks& mk) {
+  auto kern = aligned ? paged_attention_int8_kernel<T, KT, true, kMask>
+                      : paged_attention_int8_kernel<T, KT, false, kMask>;
   return launch_int8_kernel<decltype(kern), T>(
       kern, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,
       now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp, mq, QT, chunk,
-      kstride, vstride, scale, out_f32);
+      kstride, vstride, scale, out_f32, mk);
 }
 
-template <typename T>
+template <typename T, bool kMask>
 cudaError_t launch_int8_kt(int KT, bool aligned, size_t smem, int splits,
                            long long tiles, int KV, cudaStream_t st,
                            const void* q, const void* k, const void* v,
@@ -2011,16 +2131,17 @@ cudaError_t launch_int8_kt(int KT, bool aligned, size_t smem, int splits,
                            const void* pk, const void* pv, int T_, int B,
                            int P, int NB, int H, int D, int bs, int Lp,
                            int mq, int QT, int chunk, long long kstride,
-                           long long vstride, float scale, int out_f32) {
+                           long long vstride, float scale, int out_f32,
+                           const Masks& mk) {
 #define PTT_K4I_ARGS                                                        \
   aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec,  \
       now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp, mq, QT, chunk,       \
-      kstride, vstride, scale, out_f32
+      kstride, vstride, scale, out_f32, mk
   switch (KT) {
-    case 64: return launch_int8<T, 64>(PTT_K4I_ARGS);
-    case 32: return launch_int8<T, 32>(PTT_K4I_ARGS);
-    case 16: return launch_int8<T, 16>(PTT_K4I_ARGS);
-    case 8: return launch_int8<T, 8>(PTT_K4I_ARGS);
+    case 64: return launch_int8<T, 64, kMask>(PTT_K4I_ARGS);
+    case 32: return launch_int8<T, 32, kMask>(PTT_K4I_ARGS);
+    case 16: return launch_int8<T, 16, kMask>(PTT_K4I_ARGS);
+    case 8: return launch_int8<T, 8, kMask>(PTT_K4I_ARGS);
   }
 #undef PTT_K4I_ARGS
   return cudaErrorInvalidValue;
@@ -2035,24 +2156,87 @@ bool valid_pre(const void* pk, const void* pv, int Lp) {
          (Lp > 0 && pk && pv && aligned_to(pk, 16) && aligned_to(pv, 16));
 }
 
+// The masks of an entry's arguments: none, or seq_lens_encoder and each
+// given mask with 1 or H heads and at least one row and column.
+Masks make_masks(const void* mask, int mask_heads, int mask_sq, int mask_lm,
+                 const void* tgt, int tgt_heads, int tgt_sq, int tgt_lm,
+                 const void* enc) {
+  Masks mk = {};
+  mk.m[0] = static_cast<const float*>(mask);
+  mk.m[1] = static_cast<const float*>(tgt);
+  mk.heads[0] = mask_heads, mk.sq[0] = mask_sq, mk.lm[0] = mask_lm;
+  mk.heads[1] = tgt_heads, mk.sq[1] = tgt_sq, mk.lm[1] = tgt_lm;
+  mk.enc = static_cast<const int*>(enc);
+  return mk;
+}
+
+bool valid_masks(const Masks& mk, int H) {
+  if (mk.m[0] == nullptr && mk.m[1] == nullptr) return true;
+  for (int w = 0; w < 2; ++w)
+    if (mk.m[w] != nullptr &&
+        (!(mk.heads[w] == 1 || mk.heads[w] == H) || mk.sq[w] <= 0 ||
+         mk.lm[w] <= 0))
+      return false;
+  return mk.enc != nullptr;
+}
+
 }  // namespace
+
+#if PTT_PAGED_MASKED
+// this build's entries, which the unmasked build's hand a masked call
+#define PTT_K4_ENTRY ptt_paged_attention_masked
+#define PTT_K4_INT8_ENTRY ptt_paged_attention_int8_masked
+#else
+#define PTT_K4_ENTRY ptt_paged_attention
+#define PTT_K4_INT8_ENTRY ptt_paged_attention_int8
+extern "C" int ptt_paged_attention_masked(
+    const void* q, const void* kc, const void* vc, void* out,
+    const void* dec, const void* now, const void* cu, const void* bt,
+    const void* pk, const void* pv, int T, int B, int P, int NB, int H,
+    int KV, int D, int bs, int Lp, int max_q_len, float scale, int QT,
+    int KT, int stages, int splits, int chunk, int out_f32, const void* mask,
+    int mask_heads, int mask_sq, int mask_lm, const void* tgt_mask,
+    int tgt_heads, int tgt_sq, int tgt_lm, const void* enc, int dtype,
+    void* stream);
+extern "C" int ptt_paged_attention_int8_masked(
+    const void* q, const void* k, const void* v, const void* kc,
+    const void* vc, const void* kd, const void* vd, void* out,
+    const void* dec, const void* now, const void* cu, const void* bt,
+    const void* pk, const void* pv, int T, int B, int P, int NB, int H,
+    int KV, int D, int bs, int Lp, int max_q_len, long long k_stride,
+    long long v_stride, float scale, int QT, int KT, int splits, int chunk,
+    int tc, int out_f32, const void* mask, int mask_heads, int mask_sq,
+    int mask_lm, const void* tgt_mask, int tgt_heads, int tgt_sq,
+    int tgt_lm, const void* enc, int dtype, void* stream);
+#endif
 
 // K4: q [T, H, D]; pools kc / vc [NB, KV, bs, D] of q's dtype; the
 // pre-caches pk / pv [B, KV, Lp, D] of q's dtype (NULL with Lp 0); out
 // [T, H, D], in q's dtype or (out_f32) float32.  The plan (QT, KT,
-// stages, splits, chunk) is paged_plan's over Lp + P * bs keys.
-extern "C" int ptt_paged_attention(const void* q, const void* kc,
-                                   const void* vc, void* out, const void* dec,
-                                   const void* now, const void* cu,
-                                   const void* bt, const void* pk,
-                                   const void* pv, int T, int B, int P, int NB,
-                                   int H, int KV, int D, int bs, int Lp,
-                                   int max_q_len, float scale, int QT, int KT,
-                                   int stages, int splits, int chunk,
-                                   int out_f32, int dtype, void* stream) {
+// stages, splits, chunk) is paged_plan's over Lp + P * bs keys.  The
+// masks: float32 [B, heads, sq, lm], NULL where not given, with
+// seq_lens_encoder [B] int32 where one is; a mask launches the masked
+// instances (ptt_paged_attention_masked).
+extern "C" int PTT_K4_ENTRY(
+    const void* q, const void* kc, const void* vc, void* out,
+    const void* dec, const void* now, const void* cu, const void* bt,
+    const void* pk, const void* pv, int T, int B, int P, int NB, int H,
+    int KV, int D, int bs, int Lp, int max_q_len, float scale, int QT,
+    int KT, int stages, int splits, int chunk, int out_f32, const void* mask,
+    int mask_heads, int mask_sq, int mask_lm, const void* tgt_mask,
+    int tgt_heads, int tgt_sq, int tgt_lm, const void* enc, int dtype,
+    void* stream) {
+  if (!kMasked && (mask != nullptr || tgt_mask != nullptr))
+    return ptt_paged_attention_masked(
+        q, kc, vc, out, dec, now, cu, bt, pk, pv, T, B, P, NB, H, KV, D, bs,
+        Lp, max_q_len, scale, QT, KT, stages, splits, chunk, out_f32, mask,
+        mask_heads, mask_sq, mask_lm, tgt_mask, tgt_heads, tgt_sq, tgt_lm,
+        enc, dtype, stream);
   cudaStream_t st = (cudaStream_t)stream;
+  const Masks mk = make_masks(mask, mask_heads, mask_sq, mask_lm, tgt_mask,
+                              tgt_heads, tgt_sq, tgt_lm, enc);
   if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
-      !valid_pre(pk, pv, Lp) ||
+      !valid_pre(pk, pv, Lp) || !valid_masks(mk, H) ||
       !valid_plan(B, P, H, KV, D, bs, Lp, max_q_len, QT, KT, stages, splits,
                   chunk, dtype))
     return (int)cudaErrorInvalidValue;
@@ -2063,10 +2247,10 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
   if (D > 512) {
 #define PTT_K4_ARGS                                                         \
   tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T, B, P, NB, H, \
-      D, bs, Lp, max_q_len, QT, chunk, scale, out_f32
+      D, bs, Lp, max_q_len, QT, chunk, scale, out_f32, mk
     return dtype == ptt::kFloat32
-               ? (int)launch_wide<float>(PTT_K4_ARGS)
-               : (int)launch_wide<__nv_bfloat16>(PTT_K4_ARGS);
+               ? (int)launch_wide<float, kMasked>(PTT_K4_ARGS)
+               : (int)launch_wide<__nv_bfloat16, kMasked>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
   }
   const size_t smem =
@@ -2076,23 +2260,24 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
 #define PTT_K4_ARGS                                                     \
   smem, KG, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, \
       pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk, stages, scale, \
-      out_f32
-    if (DP == 64) return (int)launch_tc<64>(PTT_K4_ARGS);
-    if (DP == 128) return (int)launch_tc<128>(PTT_K4_ARGS);
-    return (int)launch_tc<256>(PTT_K4_ARGS);
+      out_f32, mk
+    if (DP == 64) return (int)launch_tc<64, kMasked>(PTT_K4_ARGS);
+    if (DP == 128) return (int)launch_tc<128, kMasked>(PTT_K4_ARGS);
+    return (int)launch_tc<256, kMasked>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
   }
 #define PTT_K4_ARGS                                                     \
   smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, pv, \
       T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk, stages, scale,    \
-      out_f32
+      out_f32, mk
   if (dtype == ptt::kFloat32)
-    return KT == 64   ? (int)launch_simt<float, 64>(PTT_K4_ARGS)
-           : KT == 32 ? (int)launch_simt<float, 32>(PTT_K4_ARGS)
-                      : (int)launch_simt<float, 16>(PTT_K4_ARGS);
-  return KT == 64   ? (int)launch_simt<__nv_bfloat16, 64>(PTT_K4_ARGS)
-         : KT == 32 ? (int)launch_simt<__nv_bfloat16, 32>(PTT_K4_ARGS)
-                    : (int)launch_simt<__nv_bfloat16, 16>(PTT_K4_ARGS);
+    return KT == 64   ? (int)launch_simt<float, 64, kMasked>(PTT_K4_ARGS)
+           : KT == 32 ? (int)launch_simt<float, 32, kMasked>(PTT_K4_ARGS)
+                      : (int)launch_simt<float, 16, kMasked>(PTT_K4_ARGS);
+  return KT == 64 ? (int)launch_simt<__nv_bfloat16, 64, kMasked>(PTT_K4_ARGS)
+         : KT == 32
+             ? (int)launch_simt<__nv_bfloat16, 32, kMasked>(PTT_K4_ARGS)
+             : (int)launch_simt<__nv_bfloat16, 16, kMasked>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
 }
 
@@ -2110,19 +2295,30 @@ extern "C" int ptt_paged_attention(const void* q, const void* kc,
 // 4 splits, a chunk that is not a multiple of KT or does not cover P *
 // block_size keys (or leaves a split without keys), a grid past 65535
 // tiles or KV heads, and a block past the shared memory it may use (227
-// KB).
-extern "C" int ptt_paged_attention_int8(
+// KB).  The masks as K4's entry takes them (a mask launches the masked
+// instances, ptt_paged_attention_int8_masked).
+extern "C" int PTT_K4_INT8_ENTRY(
     const void* q, const void* k, const void* v, const void* kc,
     const void* vc, const void* kd, const void* vd, void* out,
     const void* dec, const void* now, const void* cu, const void* bt,
     const void* pk, const void* pv, int T, int B, int P, int NB, int H,
     int KV, int D, int bs, int Lp, int max_q_len, long long k_stride,
     long long v_stride, float scale, int QT, int KT, int splits, int chunk,
-    int tc, int out_f32, int dtype, void* stream) {
+    int tc, int out_f32, const void* mask, int mask_heads, int mask_sq,
+    int mask_lm, const void* tgt_mask, int tgt_heads, int tgt_sq,
+    int tgt_lm, const void* enc, int dtype, void* stream) {
+  if (!kMasked && (mask != nullptr || tgt_mask != nullptr))
+    return ptt_paged_attention_int8_masked(
+        q, k, v, kc, vc, kd, vd, out, dec, now, cu, bt, pk, pv, T, B, P, NB,
+        H, KV, D, bs, Lp, max_q_len, k_stride, v_stride, scale, QT, KT,
+        splits, chunk, tc, out_f32, mask, mask_heads, mask_sq, mask_lm,
+        tgt_mask, tgt_heads, tgt_sq, tgt_lm, enc, dtype, stream);
   cudaStream_t st = (cudaStream_t)stream;
   const long long ctx = (long long)P * bs + Lp;  // the combined key axis
+  const Masks mk = make_masks(mask, mask_heads, mask_sq, mask_lm, tgt_mask,
+                              tgt_heads, tgt_sq, tgt_lm, enc);
   if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
-      !valid_pre(pk, pv, Lp) || B <= 0 ||
+      !valid_pre(pk, pv, Lp) || !valid_masks(mk, H) || B <= 0 ||
       KV <= 0 || H % KV || D <= 0 || bs <= 0 || P <= 0 || max_q_len < 0 ||
       QT <= 0 || (KT != 64 && KT != 32 && KT != 16 && KT != 8) ||
       splits < 1 || splits > kMaxSplits || chunk <= 0 || chunk % KT ||
@@ -2139,30 +2335,32 @@ extern "C" int ptt_paged_attention_int8(
         (v_stride * 2) % 16 || !aligned_to(kc, piece) ||
         !aligned_to(vc, piece))
       return (int)cudaErrorInvalidValue;
-    const size_t smem =
-        layout(true, R, D, 2, KT, kInt8Stages, splits, B, chunk, bs).total;
-    const int KG = tc_key_groups(R), DP = tc_cols(D);
-#define PTT_K4I_ARGS                                                       \
-  KG, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec, now,  \
-      cu, bt, pk, pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk,     \
-      k_stride, v_stride, scale, out_f32
-    if (DP == 64) return (int)launch_int8_mma<64>(PTT_K4I_ARGS);
-    if (DP == 128) return (int)launch_int8_mma<128>(PTT_K4I_ARGS);
-    return (int)launch_int8_mma<256>(PTT_K4I_ARGS);
-#undef PTT_K4I_ARGS
   }
   const int es = dtype == ptt::kFloat32 ? 4 : 2;
   const bool aligned = D % kVec == 0 && aligned_to(k, 16) &&
                        aligned_to(v, 16) && (k_stride * es) % 16 == 0 &&
                        (v_stride * es) % 16 == 0 && aligned_to(kc, 8) &&
                        aligned_to(vc, 8);
-  const size_t smem = int8_layout(R, D, KT, splits, B, chunk, bs).total;
+  const size_t smem =
+      tc ? layout(true, R, D, 2, KT, kInt8Stages, splits, B, chunk, bs).total
+         : int8_layout(R, D, KT, splits, B, chunk, bs).total;
+  if (tc) {
+    const int KG = tc_key_groups(R), DP = tc_cols(D);
+#define PTT_K4I_ARGS                                                       \
+  KG, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out, dec, now,  \
+      cu, bt, pk, pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk,     \
+      k_stride, v_stride, scale, out_f32, mk
+    if (DP == 64) return (int)launch_int8_mma<64, kMasked>(PTT_K4I_ARGS);
+    if (DP == 128) return (int)launch_int8_mma<128, kMasked>(PTT_K4I_ARGS);
+    return (int)launch_int8_mma<256, kMasked>(PTT_K4I_ARGS);
+#undef PTT_K4I_ARGS
+  }
 #define PTT_K4I_ARGS                                                         \
   KT, aligned, smem, splits, tiles, KV, st, q, k, v, kc, vc, kd, vd, out,    \
       dec, now, cu, bt, pk, pv, T, B, P, NB, H, D, bs, Lp, max_q_len, QT,    \
-      chunk, k_stride, v_stride, scale, out_f32
+      chunk, k_stride, v_stride, scale, out_f32, mk
   if (dtype == ptt::kFloat32)
-    return (int)launch_int8_kt<float>(PTT_K4I_ARGS);
-  return (int)launch_int8_kt<__nv_bfloat16>(PTT_K4I_ARGS);
+    return (int)launch_int8_kt<float, kMasked>(PTT_K4I_ARGS);
+  return (int)launch_int8_kt<__nv_bfloat16, kMasked>(PTT_K4I_ARGS);
 #undef PTT_K4I_ARGS
 }

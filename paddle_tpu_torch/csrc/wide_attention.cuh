@@ -25,6 +25,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace ptt {
@@ -69,11 +71,23 @@ __host__ __device__ inline int slice_cols(int R, int D) {
 //   const T* q(int r), k(int key), v(int key)  (nullptr reads as zeros)
 //   bool vis(int r, int key)                    (key < c1 is given)
 //   void put(int r, int d, float x)             (output row r, column d)
+// and, where it declares `static constexpr bool kBias = true`,
+//   float bias(int r, int key)                  (an additive term in the
+//                                                log2 domain, on visible
+//                                                scores only)
 // Leaves each row's m (log2 domain) and l in the returned pointers.
 struct Stats {
   const float* m;
   const float* l;
 };
+
+// whether a row source adds a term to its scores (Src::kBias); none for a
+// source that does not declare it (B1's and B2's wide rows)
+template <typename Src, typename = void>
+struct HasBias : std::false_type {};
+template <typename Src>
+struct HasBias<Src, std::void_t<decltype(Src::kBias)>>
+    : std::integral_constant<bool, Src::kBias> {};
 
 template <typename T, typename Src>
 __device__ Stats attend(const Src& src, int R, int D, int c0, int c1,
@@ -129,9 +143,13 @@ __device__ Stats attend(const Src& src, int R, int D, int c0, int c1,
       for (int e = 0; e < kPer; ++e) {
         const int i = tid + e * kThreads;
         const int r = r0 + i / kKeys, key = t0 + i % kKeys;
-        if (r < R)
-          sc[r * kKeys + i % kKeys] =
-              key < c1 && src.vis(r, key) ? s[e] : -INFINITY;
+        if (r < R) {
+          float x = key < c1 && src.vis(r, key) ? s[e] : -INFINITY;
+          if constexpr (HasBias<Src>::value) {
+            if (x != -INFINITY) x += src.bias(r, key);
+          }
+          sc[r * kKeys + i % kKeys] = x;
+        }
       }
     }
     // the tile's V rows of the slice (the copies before the barrier)

@@ -45,6 +45,9 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# K4's and K4-int8's masks: mask|NULL, its heads, rows and columns,
+# tgt_mask|NULL, its heads, rows and columns, seq_lens_encoder|NULL
+_MASKS = [_P, _I, _I, _I, _P, _I, _I, _I, _P]
 # C entry -> argtypes; each returns the cudaError_t of its launch as int
 _SIGNATURES = {
     # x, residual|NULL, w, out, residual_out|NULL, n, h, eps, 16-byte
@@ -65,16 +68,18 @@ _SIGNATURES = {
     # q, key_cache, value_cache, out, seq_lens_decoder, seq_lens_this_time,
     # cu_seqlens_q, block_tables, pre_key|NULL, pre_value|NULL, T, B, P,
     # NB, H, KV, D, block_size, pre_len, max_q_len, scale, query tile, key
-    # tile, stages, splits, chunk, float32 output, dtype, stream
-    "ptt_paged_attention": [_P] * 10 + [_I] * 10 + [_F] + [_I] * 7 + [_P],
+    # tile, stages, splits, chunk, float32 output, the masks (_MASKS),
+    # dtype, stream
+    "ptt_paged_attention": ([_P] * 10 + [_I] * 10 + [_F] + [_I] * 6
+                            + _MASKS + [_I, _P]),
     # q, k, v (this step's, full precision), key_cache, value_cache
     # (uint8), k/v dequant scales [B, KV] float32, out, seq_lens_decoder,
     # seq_lens_this_time, cu_seqlens_q, block_tables, pre_key|NULL,
     # pre_value|NULL, T, B, P, NB, H, KV, D, block_size, pre_len, max_q_len,
     # k and v token strides, scale, query tile, key tile, splits, chunk,
-    # tensor cores, float32 output, dtype, stream
+    # tensor cores, float32 output, the masks, dtype, stream
     "ptt_paged_attention_int8": [_P] * 14 + [_I] * 10 + [
-        ctypes.c_longlong] * 2 + [_F, _I, _I, _I, _I, _I, _I, _I, _P],
+        ctypes.c_longlong] * 2 + [_F] + [_I] * 6 + _MASKS + [_I, _P],
     # q, k, v, out, lse, q_off|NULL, B, Sq, Sk, H, KVH, D, q/k/v strides
     # over (batch, seq, head), causal, q_off_host, scale, block_q, block_k,
     # dtype, stream

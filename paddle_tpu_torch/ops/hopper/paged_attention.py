@@ -56,6 +56,18 @@ source of key rows in the copier (key < Lp reads row ``pre[b, kh, key]``,
 contiguous; K4-int8 reads it at full precision, as the step's fresh
 keys), the plans count Lp in the context they split, and nothing is
 written for it.
+
+Both take the additive masks (``mask``, ``tgt_mask``: float32 [B, 1 | H,
+Sq, Lm], ``blha_attention``'s, ``:285-308``) with ``seq_lens_encoder``
+[B]: ``mask`` is added to the scores of the rows in prefill
+(``seq_lens_encoder > 0``), ``tgt_mask`` to the others; query head h reads
+mask head h (head 0 of a one-head mask), a token its local index's row,
+key j of the combined axis (the prefix first) column j; rows past Sq and
+columns past Lm add 0.  A masked call launches the masked instances
+(``csrc/paged_attention_masked.cu``: every instance with ``kMask`` set,
+to which the C entry hands a call with a mask); ``launches`` counts it as
+any launch and ``mask_launches`` too.  The plans and shared memory are those of the
+unmasked call: the kernels read the masks from global memory.
 """
 from __future__ import annotations
 
@@ -334,14 +346,40 @@ def _token_rows(cu_seqlens_q, seq_lens_this_time, T, B):
     return b_idx, local, valid
 
 
+def _mask_bias(masks, H, S, L):
+    """The masks' additive term of the padded batch's logits (``:285-308``),
+    float32 [B, H, S, L], or None without masks: ``masks`` is (mask,
+    tgt_mask, seq_lens_encoder, seq_lens_this_time); row b takes ``mask``
+    where seq_lens_encoder[b] > 0, ``tgt_mask`` where it is <= 0 and
+    seq_lens_this_time[b] > 0, else 0; each mask [B, 1 | H, Sq, Lm] is
+    broadcast over the heads, zero-padded or cropped to S rows and L
+    columns (the reference's ``_add_mask``)."""
+    mask, tgt_mask, enc, now = masks
+    if mask is None and tgt_mask is None:
+        return None
+    bias = None
+    for m, rows in ((mask, enc > 0), (tgt_mask, (enc <= 0) & (now > 0))):
+        if m is None:
+            continue
+        B, _, Sq, Lm = m.shape
+        full = torch.zeros((B, H, S, L), dtype=torch.float32,
+                           device=m.device)
+        full[:, :, :min(Sq, S), :min(Lm, L)] = m.float()[
+            :, :, :S, :L].expand(B, H, -1, -1)
+        full = torch.where(rows[:, None, None, None], full, 0.0)
+        bias = full if bias is None else bias + full
+    return bias
+
+
 def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len,
-                out_dtype=None, pre_len=0):
+                out_dtype=None, pre_len=0, masks=None):
     """blha_attention steps 7-8 over the gathered context k_all / v_all
     [B, KV, L, D], whose first ``pre_len`` keys are the pre-caches' (seen
     by every query; key j >= pre_len is visible at positions >= j -
-    pre_len): padded-batch attention with float32 softmax, gathered back
-    to the packed buffer and rounded once to ``out_dtype`` (q's dtype when
-    None); ``rows`` is ``_token_rows``'s."""
+    pre_len): padded-batch attention with float32 softmax, the masks'
+    term (``_mask_bias`` of ``masks``) added after the causal mask,
+    gathered back to the packed buffer and rounded once to ``out_dtype``
+    (q's dtype when None); ``rows`` is ``_token_rows``'s."""
     T, H, D = q.shape
     B, KV, L = k_all.shape[:3]
     dev = q.device
@@ -360,6 +398,9 @@ def _attend_ref(q, k_all, v_all, seq_lens_decoder, rows, max_q_len,
     vis = kpos[None, None, :] <= qpos[:, :, None]
     logits = torch.where(vis[:, None, None], logits,
                          torch.tensor(-1e30, dtype=torch.float32, device=dev))
+    bias = None if masks is None else _mask_bias(masks, H, S, L)
+    if bias is not None:
+        logits = logits + bias.view(B, KV, H // KV, S, L)
     p = torch.softmax(logits, dim=-1)
     out_pad = torch.einsum("bkgsl,bkld->bskgd", p, v_all.float())
     out_full = torch.zeros((B + 1, S + 1, H, D), dtype=torch.float32,
@@ -377,17 +418,19 @@ def _with_pre(ctx, pre):
 def _paged_attention_ref(q, key_cache, value_cache, seq_lens_decoder,
                          seq_lens_this_time, cu_seqlens_q, block_tables,
                          max_q_len, out_dtype=None, pre_key=None,
-                         pre_value=None):
+                         pre_value=None, mask=None, tgt_mask=None,
+                         seq_lens_encoder=None):
     """blha_attention steps 6-8: gather each row's context (after the
     pre-caches, where given), padded-batch attention with float32
-    softmax, gather back to the packed buffer."""
+    softmax and the masks' term, gather back to the packed buffer."""
     rows = _token_rows(cu_seqlens_q, seq_lens_this_time, q.shape[0],
                        block_tables.shape[0])
     return _attend_ref(
         q, _with_pre(paged_gather_kv(key_cache, block_tables), pre_key),
         _with_pre(paged_gather_kv(value_cache, block_tables), pre_value),
         seq_lens_decoder, rows, max_q_len, out_dtype,
-        0 if pre_key is None else pre_key.shape[2])
+        0 if pre_key is None else pre_key.shape[2],
+        (mask, tgt_mask, seq_lens_encoder, seq_lens_this_time))
 
 
 def _row_scales(scales, B):
@@ -400,12 +443,14 @@ def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
                               k_dequant_scales, v_dequant_scales,
                               seq_lens_decoder, seq_lens_this_time,
                               cu_seqlens_q, block_tables, max_q_len,
-                              out_dtype=None, pre_key=None, pre_value=None):
+                              out_dtype=None, pre_key=None, pre_value=None,
+                              mask=None, tgt_mask=None,
+                              seq_lens_encoder=None):
     """blha_attention steps 6-8 over the int8 cache (``:237-254``, then
     ``:262-316``): gather the uint8 blocks (a block id outside the pool
     gathers uint8 0), dequantize as (u8 - 128) * d[b, kv], overlay this
     step's full-precision k / v at each valid token's position, put the
-    pre-caches (unquantized) in front, attend."""
+    pre-caches (unquantized) in front, attend under the masks."""
     B = block_tables.shape[0]
     T, KV = q.shape[0], key_cache.shape[1]
     rows = _token_rows(cu_seqlens_q, seq_lens_this_time, T, B)
@@ -423,7 +468,8 @@ def _paged_attention_int8_ref(q, k, v, key_cache, value_cache,
                         new[ok].float())
         ctx.append(_with_pre(full, pre))
     return _attend_ref(q, ctx[0], ctx[1], seq_lens_decoder, rows, max_q_len,
-                       out_dtype, 0 if pre_key is None else pre_key.shape[2])
+                       out_dtype, 0 if pre_key is None else pre_key.shape[2],
+                       (mask, tgt_mask, seq_lens_encoder, seq_lens_this_time))
 
 
 def _out_dtype(name, q, out_dtype):
@@ -479,6 +525,51 @@ def _pre_args(name, q, pre_key, pre_value, B, KV):
     return pre_key.data_ptr(), pre_value.data_ptr(), pre_key.shape[2]
 
 
+def _check_masks(name, q, mask, tgt_mask, seq_lens_encoder, B):
+    """The masks' shapes: each None or 4-D [B, 1 | H, Sq, Lm], and
+    ``seq_lens_encoder`` [B] beside any (it picks the rows each mask
+    reaches); a ValueError otherwise."""
+    H = q.shape[1]
+    for label, m in (("mask", mask), ("tgt_mask", tgt_mask)):
+        if m is not None and (m.dim() != 4 or m.shape[0] != B
+                              or m.shape[1] not in (1, H)):
+            raise ValueError(f"{name}: {label} must be [{B}, 1 | {H}, Sq, "
+                             f"Lm], got {tuple(m.shape)}")
+    if (mask is not None or tgt_mask is not None) and (
+            seq_lens_encoder is None
+            or tuple(seq_lens_encoder.shape) != (B,)):
+        raise ValueError(f"{name}: a mask needs seq_lens_encoder [{B}] "
+                         "(it picks the rows each mask reaches)")
+
+
+def _mask_args(name, q, mask, tgt_mask, seq_lens_encoder, B):
+    """The masks' arguments for a C entry: (pointer, heads, rows, columns)
+    of ``mask``, then of ``tgt_mask`` (zeros for one not given, or with no
+    element), then ``seq_lens_encoder``'s pointer (0 without masks).  Each
+    mask float32, contiguous and 16-byte aligned on q's device, shaped as
+    ``_check_masks`` says; ``seq_lens_encoder`` int32 on q's device."""
+    _check_masks(name, q, mask, tgt_mask, seq_lens_encoder, B)
+    args = []
+    for label, m in (("mask", mask), ("tgt_mask", tgt_mask)):
+        if m is None or not m.numel():
+            args += [0, 0, 0, 0]
+            continue
+        if (m.dtype != torch.float32 or m.device != q.device
+                or not m.is_contiguous() or m.data_ptr() % 16):
+            raise ValueError(f"{name}: {label} must be contiguous, 16-byte "
+                             f"aligned float32 on {q.device}, got {m.dtype} "
+                             f"on {m.device}")
+        args += [m.data_ptr(), m.shape[1], m.shape[2], m.shape[3]]
+    if not (args[0] or args[4]):
+        return (0,) * 9
+    if (seq_lens_encoder.dtype != torch.int32
+            or seq_lens_encoder.device != q.device
+            or not seq_lens_encoder.is_contiguous()):
+        raise ValueError(f"{name}: seq_lens_encoder must be contiguous int32 "
+                         f"on {q.device}")
+    return (*args, seq_lens_encoder.data_ptr())
+
+
 def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                     value_cache: torch.Tensor,
                     seq_lens_decoder: torch.Tensor,
@@ -487,7 +578,10 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                     max_q_len: int,
                     out_dtype: Optional[torch.dtype] = None,
                     pre_key: Optional[torch.Tensor] = None,
-                    pre_value: Optional[torch.Tensor] = None
+                    pre_value: Optional[torch.Tensor] = None,
+                    mask: Optional[torch.Tensor] = None,
+                    tgt_mask: Optional[torch.Tensor] = None,
+                    seq_lens_encoder: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """q [T, H, D] (after rope), caches [NB, KV, bs, D] already holding this
     step's keys and values, seq_lens_decoder/this_time [B], cu_seqlens_q
@@ -497,21 +591,28 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     its row's keys up to that position, after the whole of the pre-caches
     ``pre_key`` / ``pre_value`` [B, KV, Lp, D] (q's dtype) where given;
     tokens past ``cu[-1]``, past their row's length, or at a local index
-    >= ``max_q_len`` give zeros."""
+    >= ``max_q_len`` give zeros.  ``mask`` / ``tgt_mask`` [B, 1 | H, Sq,
+    Lm] (float32) add to the scores of the rows in prefill / the others,
+    as ``seq_lens_encoder`` [B] says (module docstring)."""
     od = _out_dtype("paged_attention", q, out_dtype)
+    masks = dict(mask=mask, tgt_mask=tgt_mask,
+                 seq_lens_encoder=seq_lens_encoder)
     if q.device.type == "cpu":
+        _check_masks("paged_attention", q, mask, tgt_mask, seq_lens_encoder,
+                     block_tables.shape[0])
         return _paged_attention_ref(q, key_cache, value_cache,
                                     seq_lens_decoder, seq_lens_this_time,
                                     cu_seqlens_q, block_tables, max_q_len,
-                                    od, pre_key, pre_value)
+                                    od, pre_key, pre_value, **masks)
     return _launch(q, key_cache, value_cache, seq_lens_decoder,
                    seq_lens_this_time, cu_seqlens_q, block_tables, max_q_len,
-                   od, pre_key=pre_key, pre_value=pre_value)
+                   od, pre_key=pre_key, pre_value=pre_value, **masks)
 
 
 def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
             cu_seqlens_q, block_tables, max_q_len, out_dtype=None,
-            pre_key=None, pre_value=None, **force):
+            pre_key=None, pre_value=None, mask=None, tgt_mask=None,
+            seq_lens_encoder=None, **force):
     """The kernel's launch for CUDA tensors, under ``paged_plan``'s plan or
     one that ``force`` (``qt``, ``splits``, ``stages``) fixes in part."""
     name = "paged_attention"
@@ -523,6 +624,7 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
     NB, KV, bs, _ = key_cache.shape
     B, P = block_tables.shape
     pk, pv, Lp = _pre_args(name, q, pre_key, pre_value, B, KV)
+    mk = _mask_args(name, q, mask, tgt_mask, seq_lens_encoder, B)
     if not B:                   # no rows: every token gives zeros
         return torch.zeros_like(q, dtype=od)
     plan = _plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, **force,
@@ -537,8 +639,9 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
                 block_tables.data_ptr(), pk, pv, T, B, P, NB, H, KV, D, bs,
                 Lp, int(max_q_len), 1.0 / math.sqrt(D), plan.qt, plan.kt,
                 plan.stages, plan.splits, plan.chunk,
-                int(od == torch.float32), dt, stream), name)
+                int(od == torch.float32), *mk, dt, stream), name)
         paged_attention.launches += 1
+        paged_attention.mask_launches += bool(mk[8])
     return out
 
 
@@ -680,7 +783,10 @@ def paged_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          block_tables: torch.Tensor, max_q_len: int,
                          out_dtype: Optional[torch.dtype] = None,
                          pre_key: Optional[torch.Tensor] = None,
-                         pre_value: Optional[torch.Tensor] = None
+                         pre_value: Optional[torch.Tensor] = None,
+                         mask: Optional[torch.Tensor] = None,
+                         tgt_mask: Optional[torch.Tensor] = None,
+                         seq_lens_encoder: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """K4-int8: q [T, H, D] (after rope), this step's full-precision k and v
     [T, KV, D] (q's dtype; each head's row contiguous, any token stride),
@@ -693,17 +799,23 @@ def paged_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     read from k and v at token ``cu[b] + (key - dec[b])``, not from the
     cache.  The pre-caches ``pre_key`` / ``pre_value`` [B, KV, Lp, D] (q's
     dtype, full precision), where given, come before every row's context
-    and are seen by every query."""
+    and are seen by every query; the masks as ``paged_attention``'s."""
     od = _out_dtype("paged_attention_int8", q, out_dtype)
+    masks = dict(mask=mask, tgt_mask=tgt_mask,
+                 seq_lens_encoder=seq_lens_encoder)
     if q.device.type == "cpu":
+        _check_masks("paged_attention_int8", q, mask, tgt_mask,
+                     seq_lens_encoder, block_tables.shape[0])
         return _paged_attention_int8_ref(
             q, k, v, key_cache, value_cache, k_dequant_scales,
             v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len, od, pre_key, pre_value)
+            cu_seqlens_q, block_tables, max_q_len, od, pre_key, pre_value,
+            **masks)
     return _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                         v_dequant_scales, seq_lens_decoder,
                         seq_lens_this_time, cu_seqlens_q, block_tables,
-                        max_q_len, od, pre_key=pre_key, pre_value=pre_value)
+                        max_q_len, od, pre_key=pre_key, pre_value=pre_value,
+                        **masks)
 
 
 def _tc_aligned(k, v, key_cache, value_cache) -> bool:
@@ -738,7 +850,8 @@ def _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
 def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                  v_dequant_scales, seq_lens_decoder, seq_lens_this_time,
                  cu_seqlens_q, block_tables, max_q_len, out_dtype=None,
-                 tc=None, splits=None, pre_key=None, pre_value=None):
+                 tc=None, splits=None, pre_key=None, pre_value=None,
+                 mask=None, tgt_mask=None, seq_lens_encoder=None):
     """K4-int8's launch for CUDA tensors, under ``paged_int8_plan`` (or its
     instance and split count forced by ``tc`` and ``splits``)."""
     name = "paged_attention_int8"
@@ -778,6 +891,7 @@ def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
         raise ValueError(f"{name}: q must be contiguous")
     dt, stream = _build.launch_args(name, q, k, v)
     pk, pv, Lp = _pre_args(name, q, pre_key, pre_value, B, KV)
+    mk = _mask_args(name, q, mask, tgt_mask, seq_lens_encoder, B)
     if not B:                   # no rows: every token gives zeros
         return torch.zeros_like(q, dtype=od)
     plan = _int8_launch_plan(q, k, v, key_cache, value_cache, block_tables,
@@ -794,11 +908,14 @@ def _launch_int8(q, k, v, key_cache, value_cache, k_dequant_scales,
                 B, P, NB, H, KV, D, bs, Lp, int(max_q_len), k.stride(0),
                 v.stride(0),
                 1.0 / math.sqrt(D), plan.qt, plan.kt, plan.splits,
-                plan.chunk, int(plan.tc), int(od == torch.float32), dt,
+                plan.chunk, int(plan.tc), int(od == torch.float32), *mk, dt,
                 stream), name)
         paged_attention_int8.launches += 1
+        paged_attention_int8.mask_launches += bool(mk[8])
     return out
 
 
 paged_attention.launches = 0
+paged_attention.mask_launches = 0
 paged_attention_int8.launches = 0
+paged_attention_int8.mask_launches = 0

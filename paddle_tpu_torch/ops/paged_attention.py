@@ -1,7 +1,6 @@
 """Paged-KV serving attention — the port of ``paddle_tpu/ops/paged_attention.py``.
 
-``blha_attention`` covers the reference's surface but the encoder/decoder
-masks (ROADMAP A4b, which raise).  One step is
+``blha_attention`` covers the reference's surface.  One step is
 
 1. split the packed ``qkv`` buffer (an int32 one dequantized by
    ``qkv_out_scale``, then ``qkv_bias``);
@@ -21,15 +20,23 @@ masks (ROADMAP A4b, which raise).  One step is
    each row's own keys of this step at full precision from k and v; the
    pre-caches, where given, are a dense prefix of every row's keys that
    both kernels read in place (nothing of them is written to the pools);
+   the additive ``mask`` (rows in prefill) and ``tgt_mask`` (the other
+   rows) enter both kernels' scores (their masked instances);
 7. the shift/smooth epilogue and the int8 output quantization.
 
 Steps 1, 4, 5 and 7 are PyTorch ops on both devices: the reference
 computes them in jnp, outside any Pallas kernel.  The caches and the
 dynamic scales are updated in place where the JAX function returns new
-ones.  The caches hold one block more than the pool, the drop block: the
-reference drops the K/V writes of invalid tokens (``mode="drop"`` at block
-id NB), which ``index_put_`` cannot do, so here they land in block NB,
-which no block table names and K4 never reads.
+ones.  The reference drops the K/V writes of invalid tokens, and of tokens
+whose block-table entry is outside the pool (``mode="drop"`` at block id
+NB), which ``index_put_`` cannot do.  The serving engine's caches hold one
+block more than the pool, the drop block (``drop_block=True``, the
+default): those writes land in block NB, which no block table names and
+K4 never reads, and the step needs no host sync.  With
+``drop_block=False`` the caches are the whole pool, as the reference's
+public ``[NB, KV, bs, D]`` caches (``incubate.nn.functional.
+block_multihead_attention``), and the write selects the kept tokens with
+a data-dependent index (a host sync): a dropped token writes nothing.
 """
 from __future__ import annotations
 
@@ -173,12 +180,19 @@ def _aligned(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _scatter_kv(key_cache, value_cache, k, v, plan: StepPlan):
+def _scatter_kv(key_cache, value_cache, k, v, plan: StepPlan,
+                drop_block: bool = True):
     """Write each token's K/V [KV, D] at (plan.blk, :, plan.slot), in
-    place; dropped tokens write into the drop block."""
+    place.  Dropped tokens (plan.blk the pool's size) write into the drop
+    block, or with ``drop_block=False`` nothing: only the kept tokens'
+    rows are written (a data-dependent index)."""
     heads = torch.arange(key_cache.shape[1], device=plan.blk.device)[None, :]
+    blk, slot = plan.blk, plan.slot
+    if not drop_block:
+        keep = (blk < key_cache.shape[0]).nonzero().squeeze(1)
+        blk, slot, k, v = blk[keep], slot[keep], k[keep], v[keep]
     for cache, new in ((key_cache, k), (value_cache, v)):
-        cache.index_put_((plan.blk[:, None], heads, plan.slot[:, None]),
+        cache.index_put_((blk[:, None], heads, slot[:, None]),
                          new.to(cache.dtype))
 
 
@@ -210,13 +224,16 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
                    out_scale: float = -1.0,
                    quant_max_bound: float = 127.0,
                    quant_min_bound: float = -127.0,
-                   plan: Optional[StepPlan] = None):
+                   plan: Optional[StepPlan] = None,
+                   drop_block: bool = True):
     """One serving attention step over the paged cache.
 
     qkv [T, (H+2*KV)*D] (int32 with ``qkv_out_scale`` [(H+2KV)*D]); caches
     [NB+1, KV, bs, D], updated IN PLACE, the last block being the drop
-    block (module docstring), uint8 when ``cache_quant`` is "static" or
-    "dynamic"; lengths [B] int32; ``cu_seqlens_q`` [B+1] and
+    block (module docstring), or with ``drop_block=False`` [NB, KV, bs, D],
+    the whole pool, where a dropped token writes nothing; uint8 when
+    ``cache_quant`` is "static" or "dynamic"; lengths [B] int32;
+    ``cu_seqlens_q`` [B+1] and
     ``block_tables`` [B, P] int32; ``rope_emb`` [2, Br, Smax, 1, D/2]
     float32 (cos, sin).  ``seq_lens_encoder`` marks the rows whose dynamic
     scales refresh (> 0); None says that no row does (the serving
@@ -232,11 +249,12 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
     neither, put Lp keys in front of every row's context that all its
     queries see (``:255-260``, ``:274-279``): cast to the cache's dtype,
     or under cache quantization to the fresh keys' (full precision, not
-    quantized)."""
-    if mask is not None or tgt_mask is not None:
-        raise NotImplementedError(
-            "blha_attention: the encoder/decoder masks are not ported yet "
-            "(ROADMAP A4b: K4 and K4-int8 variants)")
+    quantized).  ``mask`` [B, 1 | H, max_q_len, Lk] and ``tgt_mask`` [B,
+    1 | H, 1, Lt] are additive (``:285-308``): ``mask`` on the rows with
+    ``seq_lens_encoder > 0``, ``tgt_mask`` on the other rows with tokens;
+    their key axis starts at the pre-caches' first column; they take
+    ``seq_lens_encoder`` (ValueError without it) and are read in
+    float32."""
     if (pre_key_cache is None) != (pre_value_cache is None):
         raise ValueError("blha_attention: pre_key_cache and pre_value_cache "
                          "come together")
@@ -251,7 +269,8 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
                          "and all four float32 scale tensors")
     H, KV, D = num_heads, kv_num_heads, head_dim
     T = qkv.shape[0]
-    nb = key_cache.shape[0] - 1             # the pool, without the drop block
+    # the pool, without the drop block
+    nb = key_cache.shape[0] - (1 if drop_block else 0)
     if plan is None:
         plan = plan_step(cu_seqlens_q, seq_lens_decoder, seq_lens_this_time,
                          block_tables, T, block_size, nb, rope_emb)
@@ -277,15 +296,20 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
     od = torch.float32 if epilogue else None
     # the pre-caches in the cache's dtype, or the fresh keys' under quant
     pdt = k.dtype if quant else key_cache.dtype
-    pre = ({} if pre_key_cache is None else
-           dict(pre_key=_aligned(pre_key_cache, pdt),
-                pre_value=_aligned(pre_value_cache, pdt)))
+    extra = ({} if pre_key_cache is None else
+             dict(pre_key=_aligned(pre_key_cache, pdt),
+                  pre_value=_aligned(pre_value_cache, pdt)))
+    # the masks in float32, with the rows they reach (``seq_lens_encoder``)
+    if mask is not None or tgt_mask is not None:
+        extra.update(seq_lens_encoder=seq_lens_encoder, **{
+            n: None if m is None else _aligned(m, torch.float32)
+            for n, m in (("mask", mask), ("tgt_mask", tgt_mask))})
     if not quant:
-        _scatter_kv(key_cache, value_cache, k, v, plan)
+        _scatter_kv(key_cache, value_cache, k, v, plan, drop_block)
         out = paged_attention(q.contiguous(), key_cache[:nb],
                               value_cache[:nb], seq_lens_decoder,
                               seq_lens_this_time, cu_seqlens_q,
-                              block_tables, max_q_len, out_dtype=od, **pre)
+                              block_tables, max_q_len, out_dtype=od, **extra)
     else:
         if cache_quant == "dynamic" and seq_lens_encoder is not None:
             # before the write: this step's tokens take the new scales
@@ -300,11 +324,11 @@ def blha_attention(qkv: torch.Tensor, key_cache: torch.Tensor,
                     _quantize_u8(k, ksc, round_ties_away, quant_max_bound,
                                  quant_min_bound),
                     _quantize_u8(v, vsc, round_ties_away, quant_max_bound,
-                                 quant_min_bound), plan)
+                                 quant_min_bound), plan, drop_block)
         out = paged_attention_int8(
             q.contiguous(), k, v, key_cache[:nb], value_cache[:nb],
             scales[2], scales[3], seq_lens_decoder, seq_lens_this_time,
-            cu_seqlens_q, block_tables, max_q_len, out_dtype=od, **pre)
+            cu_seqlens_q, block_tables, max_q_len, out_dtype=od, **extra)
     out = out.reshape(T, H * D)
     # the elementwise epilogue (:317-329): shift, then smooth, then the
     # int8 output quantization

@@ -168,26 +168,30 @@ def test_helpers_match_jax():
 
 
 def test_unported_surface_raises():
-    """What the port's blha_attention does not take yet (ROADMAP A4b's
-    second half): the encoder/decoder masks raise, naming A4b.  The
-    pre-caches (its first half) are computed: the output is the JAX
-    function's (tests/test_torch_pre_cache.py holds them in full)."""
+    """What the port's blha_attention did not take before A4b: the
+    pre-caches (its first half) and the encoder/decoder masks (its second
+    half, which raised NotImplementedError naming A4b until then) are
+    computed: the output is the JAX function's, with the masks alone and
+    with both (tests/test_torch_pre_cache.py and
+    tests/test_torch_blha_masks.py hold them in full)."""
     rng = np.random.default_rng(9)
     m = _mixed_batch(rng)
-    args = _port_args(m)
     kw = dict(num_heads=m["H"], kv_num_heads=m["KV"], head_dim=m["D"],
               block_size=m["bs"], max_q_len=5)
-    B, KV, D = len(m["now"]), m["KV"], m["D"]
+    B, H, KV, D = len(m["now"]), m["H"], m["KV"], m["D"]
     pre = rng.standard_normal((B, KV, 2, D)).astype(np.float32)
-    out, _, _ = blha_attention(*args, pre_key_cache=torch.as_tensor(pre),
-                               pre_value_cache=torch.as_tensor(pre), **kw)
+    mask = rng.uniform(-2, 1, (B, 1, 5, 26)).astype(np.float32)
+    tgt = rng.uniform(-2, 1, (B, H, 1, 24)).astype(np.float32)
     names = ("qkv", "kc", "vc", "enc", "dec", "now", "cu", "bt")
-    j_out = jax_blha(*(jnp.asarray(m[k]) for k in names),
-                     pre_key_cache=jnp.asarray(pre),
-                     pre_value_cache=jnp.asarray(pre), **kw)[0]
-    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), rtol=2e-5,
-                               atol=2e-5)
-    for extra in (dict(mask=torch.zeros(B, 1, 5, 24)),
-                  dict(tgt_mask=torch.zeros(B, 1, 1, 24))):
-        with pytest.raises(NotImplementedError, match="A4b"):
-            blha_attention(*args, **extra, **kw)
+    for extra in (dict(pre_key_cache=pre, pre_value_cache=pre),
+                  dict(mask=mask[..., :24]), dict(tgt_mask=tgt),
+                  dict(pre_key_cache=pre, pre_value_cache=pre, mask=mask,
+                       tgt_mask=tgt)):
+        out, _, _ = blha_attention(
+            *_port_args(m), **{k: torch.as_tensor(v)
+                               for k, v in extra.items()}, **kw)
+        j_out = jax_blha(*(jnp.asarray(m[k]) for k in names),
+                         **{k: jnp.asarray(v) for k, v in extra.items()},
+                         **kw)[0]
+        np.testing.assert_allclose(out.numpy(), np.asarray(j_out),
+                                   rtol=2e-5, atol=2e-5)

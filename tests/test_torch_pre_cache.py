@@ -182,8 +182,10 @@ def test_plain_versions_with_pre_caches_match_jax_core(Lp, kernel):
 
 
 def test_pre_caches_come_together_and_masks_raise():
-    """One pre-cache without the other is a ValueError; the masks are still
-    A4b's second half."""
+    """One pre-cache without the other is a ValueError.  The masks (A4b's
+    second half) are computed beside the pre-caches, their key axis
+    starting at the prefix's first column, as the JAX function's; a mask
+    without seq_lens_encoder (the rows it reaches) raises ValueError."""
     rng = np.random.default_rng(3)
     m = _batch(rng, 4, 2, 32, 4, "none")
     args = [torch.as_tensor(np.array(m[n])) for n in NAMES]
@@ -193,9 +195,14 @@ def test_pre_caches_come_together_and_masks_raise():
     for one in (dict(pre_key_cache=pk), dict(pre_value_cache=pk)):
         with pytest.raises(ValueError, match="together"):
             blha_attention(*args, **one, **kw)
-    with pytest.raises(NotImplementedError, match="A4b"):
+    mask = rng.uniform(-2, 1, (4, 1, 6, 28)).astype(np.float32)
+    j = _jax(m, mask=jnp.asarray(mask), **kw)
+    out = _port(m, mask=torch.as_tensor(mask), **kw)[0]
+    np.testing.assert_allclose(out, j[0], **TOL)
+    args[3] = None
+    with pytest.raises(ValueError, match="seq_lens_encoder"):
         blha_attention(*args, pre_key_cache=pk, pre_value_cache=pk,
-                       mask=torch.zeros(4, 1, 6, 28), **kw)
+                       mask=torch.as_tensor(mask), **kw)
 
 
 def test_pre_args_check_the_pre_caches():
