@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's four paths — Llama serving through the paged
-ServingEngine (with speculative decoding, KV block transfer and the int8
-KV cache), Llama
+ServingEngine (with speculative decoding, KV block transfer, the int8
+KV cache and the serving control plane over two engines), Llama
 generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
@@ -11,6 +11,8 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 1,2     # build + kernel checks only
     python3 chip_smoke.py --phases 2,9,10  # kernels + the int8 predictor
     python3 chip_smoke.py --phases 2,13    # kernels + block_multihead_attention
+    python3 chip_smoke.py --phases 14      # the serving control plane
+    python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
 Phases (each prints its seconds):
@@ -91,8 +93,13 @@ Phases (each prints its seconds):
      counts the masks' bytes), and every instance under masks of one and
      H heads, fewer and more rows and columns than the call's, with
      prefixes of 0, 1, 64 and 130 keys, splits forced, against their plain
-     versions; a row whose visible keys are all -inf (Queue C10) pinned:
-     zeros from the kernels, the reference's mean from the plain versions;
+     versions; rows whose visible logits all sit at or below -1e30
+     (Queue C10: a decode row's visible keys all -inf or all
+     finfo(float32).min, a prefill row's all -inf, every key -inf) in
+     every masked instance, with and without a 64-key prefix, one and
+     four splits forced: the kernels equal the plain versions (the
+     reference's softmax over the invisible keys' -1e30 logits; NaN where
+     every key is -inf);
      the entry refuses a mask without seq_lens_encoder or of a head count
      other than 1 and H;
      K2's interleaved pairs at the serving step's [1, 256] rows;
@@ -252,8 +259,34 @@ Phases (each prints its seconds):
      versions), K4 / K4-int8 and K2 launches equal to the calls, all of
      them masked, the pools' data_ptr() unchanged, ms a call; then two
      float32 layers on cuda against the same calls on the CPU;
+ 14. the serving control plane on phase 3's model (run before the model is
+     dropped for phase 7): a prefill-role and a decode-role engine of phase
+     3's geometry (megastep_k 8, prefix cache, CUDA graphs, a flight
+     recorder each), each with a BlockWireServer on 127.0.0.1, under one
+     ServingFrontend with ServingMetrics, a Tracer, a RequestJournal in a
+     temporary directory and a KVFabric over MemoryKV; 12 requests of 32
+     new tokens (8 on a 256-token system prefix with 7-144 tokens of their
+     own, 4 sharing nothing; HIGH, NORMAL and LOW; one seeded sampled, one
+     cancelled after its first tokens, one with a deadline), the counters
+     zeroed just before and read just after the graph pair's runs (the
+     "control" path), every engine program and replay under CUDA sync
+     debugging set to raise: every prefill pass on the prefill engine, its
+     chain pulled over the wire by the decode engine (blocks, bytes and
+     GB/s printed; informative, one pull split into export, wire pull and
+     import), no fallback, relay pull, pull failure, recompute, replica
+     death or failover requeue; then a second frontend dropped
+     with requests in flight and ServingFrontend.recover over the same
+     engines: the orphans reaped, every client retry answered with its
+     first rid, one terminal record per admitted request; every trace
+     tree complete; statuses, tokens and logprobs of both runs equal bit
+     for bit to the same runs over eager twins (_graphs = False); TTFT,
+     inter-token latency and tokens/s beside the card's name and power
+     limit, the Prometheus text parsed; (informative) how many requests
+     one engine without the frontend gives the same tokens; a profiled
+     stretch through a frontend over the graph pair: K4 unmasked;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
-  "int8", "spec", "generate", "train", "predict", "blha"}, null for a path
+  "int8", "spec", "generate", "train", "predict", "blha", "control"},
+  null for a path
   whose phase did not run), then the card line, then {"ok": true,
   "device": {...}} as the last line.
 
@@ -348,6 +381,10 @@ PATHS = {
     # phase 13: the public block_multihead_attention over bf16 and int8
     # pools (K2's rope, K4 and K4-int8 in their masked instances)
     "blha": ("rope", "paged_attention", "paged_attention_int8"),
+    # phase 14: the serving control plane over two engines (the serving
+    # path's kernels, driven by ServingFrontend.step)
+    "control": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+                "paged_attention"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -701,6 +738,26 @@ def kernel_cases(torch, dtype):
                                           kv_heads, D, dec.to(torch.int32),
                                           now, False, masked=True))
     return cases
+
+
+def masked_rows(torch, root):
+    """``--masked-rows``: the CUDA-event times (phase 2's timer) of the
+    masked K4 and K4-int8 rows of ``kernel_cases`` in bfloat16, for the
+    package at ``root`` (its kernels built there on first use)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.ops.hopper import _build
+
+    t = time.perf_counter()
+    _build.lib()
+    print(f"masked rows of {os.path.dirname(paddle_tpu_torch.__file__)} "
+          f"(build or load {time.perf_counter() - t:.1f} s)")
+    timer = Timer(torch, 20)
+    for name, label, kern, *_ in kernel_cases(torch, torch.bfloat16):
+        if ", masks, " in label:
+            print(f"masked row {name} {label}: ms {timer(kern):.4f}",
+                  flush=True)
+    return 0
 
 
 def _generation_cases(torch, rnd, es, g, dtype):
@@ -2344,6 +2401,33 @@ def _mask_configs(H, mq, Lf):
             (None, (H, 3, Lf - 100)))
 
 
+def _c10_case(torch, g, case, B, H, Lp, L):
+    """One of Queue C10's rows for ``_mask_edges``: (the batch, the masks,
+    (row, local token) of the case's query).  (a) The decode row 0 at
+    position 300 whose visible keys all carry -inf under ``tgt_mask``; (b)
+    the same row under finfo(float32).min over Lp + 320 columns (every
+    visible key, not the whole axis of Lp + L: the keys past them carry
+    the row); (c) token 40 of the mixed step's prefill row 1 whose visible
+    keys all carry -inf under ``mask`` (in K4-int8 its invisible keys hold
+    the step's later tokens); (d) token 70 of that row with every key
+    -inf.  The other entries are uniform in [-3, 1]."""
+    Lf = Lp + L
+
+    def rand(*shape):
+        return torch.rand(B, *shape, generator=g, device="cuda") * 4 - 3
+
+    if case in "ab":
+        tgt = rand(1, 1, Lf if case == "a" else Lp + 320)
+        if case == "a":
+            tgt[0, :, :, :Lp + 301] = -float("inf")
+        else:
+            tgt[0] = torch.finfo(torch.float32).min
+        return 0, dict(mask=None, tgt_mask=tgt), (0, 0)
+    mask, tok = rand(1, 256, Lf), 40 if case == "c" else 70
+    mask[1, :, tok, :Lp + tok + 1 if case == "c" else Lf] = -float("inf")
+    return 1, dict(mask=mask, tgt_mask=rand(1, 1, Lf)), (1, tok)
+
+
 def _mask_edges(torch):
     """The additive masks (A4b) in every K4 and K4-int8 instance against the
     plain versions (the `_tol` of phase 2): the instances of `_pre_edges`
@@ -2356,10 +2440,12 @@ def _mask_edges(torch):
     `_mask_configs` in turn (values in [-3, 1], 5% of them -inf, column 0
     finite so that every query keeps a key); the plan's own split and one
     and four splits forced.  Each plan with a cluster gives the same bits
-    in three runs.  Then the edge of ROADMAP Queue C10 in every instance:
-    a decode row whose visible keys all carry -inf gives zeros from the
-    kernel, and the mean of its invisible keys' values from the plain
-    version (the reference's answer); the other rows agree."""
+    in three runs.  Then ROADMAP Queue C10 in every instance, without a
+    prefix and with 64 keys, under the plan's split and one and four
+    splits forced: the rows of `_c10_case`, whose visible logits all sit
+    at or below -1e30, equal the plain versions' (the reference's softmax
+    over the -1e30 logits of their invisible keys; NaN where every key is
+    -inf), and so do the calls' other rows."""
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
 
     g = torch.Generator(device="cuda")
@@ -2388,7 +2474,7 @@ def _mask_edges(torch):
         m[..., 0] = 0.0
         return m
 
-    n = worst = clusters = turn = 0
+    n = worst = clusters = turn = c10 = 0
     edge = []
     for kern, dtype, D, tc in instances:
         dname = str(dtype).split(".")[1]
@@ -2470,29 +2556,70 @@ def _mask_edges(torch):
                                 raise AssertionError(
                                     f"{kern} masks prefix {Lp} {dname} D {D} "
                                     f"mq {mq} {p}: two runs differ")
-        # Queue C10: row 0 (decode, position 300) sees keys 0 .. 300, all
-        # -inf under its tgt_mask; its keys 301 .. 511 are finite
-        tgt = torch.zeros(B, 1, 1, P * bs, device=dev)
-        tgt[0, :, :, :301] = -float("inf")
-        args, kw, ref, own = call(1, B, *batches[0][2:], 0,
-                                  dict(mask=None, tgt_mask=tgt))
-        tol = _tol(dname, ref[1:])
-        if (own[0].abs().max() != 0 or not ref[0].abs().max() > 0
-                or not _err(torch, own[1:], ref[1:]) <= tol):
-            raise AssertionError(
-                f"{kern} {dname} D {D}: the all -inf row gave "
-                f"{float(own[0].abs().max())} (kernel) and "
-                f"{float(ref[0].abs().max())} (plain), or another row moved")
-        edge.append(f"{kern} {dname} D {D} tc {tc}: kernel 0, plain "
-                    f"|max| {float(ref[0].float().abs().max()):.4f}")
+        # Queue C10: rows whose visible logits all sit at or below -1e30
+        # take the reference's softmax over the -1e30 logits of their
+        # invisible keys (NaN where every key is -inf), in every instance,
+        # with and without a prefix, under the plan's split and one and
+        # four splits forced; the calls' other rows as before
+        for Lp in (0, 64):
+            for case in "abcd":
+                bi, masks, (row, tok) = _c10_case(torch, g, case, B, H,
+                                                  Lp, P * bs)
+                mq, T, dec, now, enc = batches[bi]
+                args, kw, ref, own = call(mq, T, dec, now, enc, Lp, masks)
+                outs = [("plan", own)]
+                for splits in (1, pa.SPLIT_CAP):
+                    try:
+                        if int8:
+                            p = pa._int8_plan(T, B, mq, P, bs, H, KV, D,
+                                              dtype, tc, splits, Lp)
+                            got = pa._launch_int8(*args, tc=tc,
+                                                  splits=splits, **kw)
+                        else:
+                            p = pa._plan(T, B, mq, P, bs, H, KV, D, dtype,
+                                         splits=splits, pre_len=Lp)
+                            got = pa._launch(*args, splits=splits, **kw)
+                    except ValueError:   # the wide instance: one split
+                        continue
+                    outs.append((p, got))
+                tol = _tol(dname, ref.nan_to_num(0.0))
+                i = (int(torch.tensor([0] + list(now))[:row + 1].sum())
+                     + tok)              # the case's token
+                want = ref[i].float()
+                if case == "d":
+                    if not bool(want.isnan().all()):
+                        raise AssertionError(f"{kern} C10 (d): the plain "
+                                             "version's row is not NaN")
+                elif not (bool(want.isfinite().all())
+                          and float(want.abs().max()) > 0):
+                    raise AssertionError(f"{kern} C10 ({case}): the plain "
+                                         "version's row is not a mean")
+                for p, got in outs:
+                    same_nan = torch.equal(got.isnan(), ref.isnan())
+                    err = float((got.float() - ref.float()).nan_to_num(
+                        0.0).abs().max())
+                    n += 1
+                    c10 += 1
+                    worst = max(worst, err / tol)
+                    if not (same_nan and err <= tol):
+                        raise AssertionError(
+                            f"{kern} C10 ({case}) prefix {Lp} {dname} D {D} "
+                            f"tc {tc} {p}: NaN where the plain version has "
+                            f"it {same_nan}, error {err} > {tol}")
+                if case == "a":
+                    edge.append(f"{kern} {dname} D {D} tc {tc} prefix {Lp}:"
+                                f" (a) |max| {float(want.abs().max()):.4f}")
     torch.cuda.synchronize()
     print(f"mask edges: {n} calls of K4 and K4-int8 under masks agree with "
           f"the plain versions (largest error {worst:.3f} of its "
           f"tolerance); the {clusters} with clusters gave the same bits in 3 "
           f"runs each; mask launches {pa.paged_attention.mask_launches} "
           f"(K4) {pa.paged_attention_int8.mask_launches} (K4-int8)")
-    print("mask edge, a row whose visible keys are all -inf (Queue C10): "
-          + "; ".join(edge))
+    print(f"mask edges, Queue C10: {c10} of those calls carry rows whose "
+          "visible logits all sit at or below -1e30 ((a) a decode row's "
+          "visible keys all -inf, (b) finfo.min over them, (c) a prefill "
+          "row's, (d) every key -inf: NaN), kernels equal to the plain "
+          "versions, NaN where they have it; " + "; ".join(edge))
 
 
 def _paged_sweep(torch, timer, label, dname):
@@ -4765,9 +4892,350 @@ def full_width_blha(torch):
 
 
 
+# -------------------------------------------------------------- phase 14
+# phase 14's traffic: 8 prompts of the 256-token system prefix and 7-144
+# tokens of their own, 4 sharing nothing; request 3 sampled, request 5
+# cancelled after its first tokens, request 9 with a deadline
+CP_OWN = (7, 30, 55, 80, 100, 120, 144, 16)
+CP_SOLO = (24, 60, 130, 200)
+CP_SAMPLED, CP_CANCEL, CP_DEADLINE = 3, 5, 9
+
+
+def _cp_traffic(vocab):
+    """Phase 14's 12 requests as (prompt, submit kwargs): 32 new tokens
+    each, logprobs, priorities HIGH / NORMAL / LOW in turn, a client key
+    each (the retry after recovery)."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference import Priority
+
+    rng = np.random.default_rng(14)
+    system = rng.integers(1, vocab, 256).tolist()
+    prompts = ([system + rng.integers(1, vocab, n).tolist() for n in CP_OWN]
+               + [rng.integers(1, vocab, n).tolist() for n in CP_SOLO])
+    prios = (Priority.HIGH, Priority.NORMAL, Priority.LOW)
+    reqs = []
+    for i, p in enumerate(prompts):
+        kw = dict(max_new_tokens=32, priority=prios[i % 3], logprobs=True,
+                  idempotency_key=f"client-{i}")
+        if i == CP_SAMPLED:
+            kw.update(temperature=0.8, top_p=0.9, seed=7)
+        if i == CP_DEADLINE:
+            kw.update(deadline_s=600.0)
+        reqs.append((p, kw))
+    return reqs
+
+
+def _cp_engines(torch, model, graphs, pulls):
+    """The prefill-role and the decode-role engine over ``model`` (phase
+    3's geometry, megastep_k 8, prefix cache, a flight recorder each), on
+    the model's device, each with a ``BlockWireServer`` on 127.0.0.1 (it
+    sets the engine's ``wire_endpoint``); ``graphs`` False: the eager
+    twins (``_graphs = False``).  Every device program of an engine runs
+    with CUDA sync debugging set to raise (main wraps the replays); a
+    pull's blocks, bytes and seconds (synchronized on both sides) go to
+    ``pulls``."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.blockwire import BlockWireServer
+    from paddle_tpu_torch.inference.tracing import FlightRecorder
+
+    device = next(model.parameters()).device
+    engines, servers = [], []
+    for role in ("prefill", "decode"):
+        e = ServingEngine(model, megastep_k=8, device=device,
+                          trace_recorder=FlightRecorder(
+                              proc=f"engine-{role}"), **SERVE_KW)
+        e.role = role
+        if not graphs:
+            e._graphs = False
+        for name in ("_run_megastep", "_run_mixed", "_run_step"):
+            setattr(e, name, _sync_free(torch, getattr(e, name)))
+        pull = e.pull_blocks
+
+        def timed(*args, pull=pull, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n, nbytes = pull(*args, **kwargs)
+            torch.cuda.synchronize()
+            pulls.append((n, nbytes, time.perf_counter() - t))
+            return n, nbytes
+
+        e.pull_blocks = timed
+        servers.append(BlockWireServer(e))
+        engines.append(e)
+    return engines, servers
+
+
+def _cp_frontend(engines, journal_path, proc):
+    """A ServingFrontend over ``engines`` with its own ServingMetrics,
+    Tracer, RequestJournal (no fsync) and KVFabric over MemoryKV; returns
+    (frontend, fabric)."""
+    from paddle_tpu_torch.inference import (RequestJournal, ServingFrontend,
+                                            ServingMetrics, Tracer)
+    from paddle_tpu_torch.inference.kv_fabric import KVFabric, MemoryKV
+
+    fab = KVFabric(MemoryKV())
+    fe = ServingFrontend(engines, kv_fabric=fab, metrics=ServingMetrics(),
+                         tracer=Tracer(proc=proc),
+                         journal=RequestJournal(journal_path, fsync=False))
+    return fe, fab
+
+
+def _cp_outcome(res):
+    """{rid: (status, tokens, logprobs, detail)} of a run's results."""
+    return {rid: (r.status.value, [int(t) for t in r.tokens],
+                  None if r.logprobs is None else list(r.logprobs), r.detail)
+            for rid, r in sorted(res.items())}
+
+
+def _cp_traces(fe, rids, label):
+    """Raise unless every request's trace tree is complete."""
+    from paddle_tpu_torch.inference.tracing import TraceContext, tree_complete
+
+    for rid in rids:
+        ok, why = tree_complete(fe.tracer.tree_for(
+            TraceContext.mint(rid).trace_id))
+        if not ok:
+            raise AssertionError(f"{label}: request {rid}'s trace: {why}")
+
+
+def _cp_run(torch, engines, reqs, jdir, tag):
+    """The crash-free run, then the crash-and-recover run, over one pair of
+    engines.  Returns (outcome, recovered outcome, facts): the crash-free
+    frontend cancels request CP_CANCEL at the first step that finds
+    tokens of it; the second frontend is dropped, with requests in
+    flight, at the first step after which a request is done and the
+    engines hold others, and ``ServingFrontend.recover`` takes its
+    journal over the same engines (reaping the orphans they hold), the
+    clients retry with their keys, and the run ends."""
+    from paddle_tpu_torch.inference import (RequestJournal, ServingFrontend,
+                                            ServingMetrics, Tracer)
+    from paddle_tpu_torch.inference.kv_fabric import KVFabric, MemoryKV
+
+    facts = {}
+    fe, fab = _cp_frontend(engines, os.path.join(jdir, f"{tag}-a.wal"),
+                           "frontend-a")
+    rids = [fe.submit(p, **kw) for p, kw in reqs]
+    cancelled = False
+    t = time.perf_counter()
+    while fe.pending:
+        fe.step()
+        req = fe._requests.get(rids[CP_CANCEL])
+        if not cancelled and req is not None and req.generated:
+            cancelled = fe.cancel(rids[CP_CANCEL])
+    torch.cuda.synchronize()
+    facts["seconds"] = time.perf_counter() - t
+    res = fe.results()
+    _cp_traces(fe, rids, f"{tag}, the crash-free run")
+    facts.update(fabric=dict(fab.counters), metrics=fe.metrics.snapshot(),
+                 prometheus=fe.metrics.prometheus_text(),
+                 alive=[r.alive for r in fe.replicas],
+                 errors=[r.last_error for r in fe.replicas])
+    fe.journal.close()
+    # the crash: the first frontend is dropped with requests in flight
+    path = os.path.join(jdir, f"{tag}-b.wal")
+    fe, _ = _cp_frontend(engines, path, "frontend-b")
+    rids_b = [fe.submit(p, **kw) for p, kw in reqs]
+    while True:
+        fe.step()
+        held = sum(e.num_active + len(e._queue) for e in engines)
+        if fe.results() and held:
+            break
+        if not fe.pending:
+            raise AssertionError(f"{tag}: no step left a request done and "
+                                 "others on the engines")
+    first = {rid: r.status.value for rid, r in fe.results().items()}
+    fe.journal.close()
+    fe = None
+    fe2 = ServingFrontend.recover(
+        path, engines, kv_fabric=KVFabric(MemoryKV()),
+        metrics=ServingMetrics(), tracer=Tracer(proc="frontend-c"))
+    reaped = fe2.metrics.counter("orphans_reaped_total")
+    retries = [fe2.submit(p, **kw) for p, kw in reqs]
+    res2 = fe2.run()
+    _cp_traces(fe2, rids_b, f"{tag}, the recovered run")
+    fe2.journal.close()
+    snap, recs = RequestJournal(path).replay()
+    terminals = ([r["rid"] for r in recs if r["t"] == "terminal"]
+                 + [d["rid"] for d in (snap or {}).get("done", [])])
+    if not (retries == rids_b and sorted(res2) == sorted(rids_b)
+            and sorted(terminals) == sorted(rids_b)
+            and all(res2[rid].status.value == s for rid, s in first.items())
+            and 0 < len(first) < len(rids_b) and reaped == held > 0):
+        raise AssertionError(
+            f"{tag}, recovery: retries {retries} for {rids_b}, results "
+            f"{sorted(res2)}, terminal records {sorted(terminals)}, "
+            f"{len(first)} done before the crash, reaped {reaped} of "
+            f"{held} held")
+    facts.update(pre_crash=len(first), reaped=reaped,
+                 recovered=fe2.metrics.counter("recovered_requests_total"))
+    return _cp_outcome(res), _cp_outcome(res2), facts
+
+
+def full_width_control_plane(torch, model, card):
+    """Phase 14: the serving control plane (ServingFrontend, ServingMetrics,
+    Tracer, RequestJournal, KVFabric over blockwire) over a prefill-role
+    and a decode-role engine of phase 3's geometry on one 7B model, on
+    CUDA graphs, against the same runs over eager twins."""
+    import tempfile
+
+    from paddle_tpu_torch.inference import ServingEngine, ServingFrontend
+
+    reqs = _cp_traffic(model.config.vocab_size)
+    pulls = []
+    graphs, servers = _cp_engines(torch, model, True, pulls)
+    with tempfile.TemporaryDirectory() as jdir:
+        replays0 = _REPLAYS[0]
+        counters = _zero_counters()
+        out, rec, facts = _cp_run(torch, graphs, reqs, jdir, "graphs")
+        launches = _path_launches("control", counters)
+        replays = _REPLAYS[0] - replays0
+        twins, twin_servers = _cp_engines(torch, model, False, [])
+        e_out, e_rec, _ = _cp_run(torch, twins, reqs, jdir, "eager")
+    if out != e_out or rec != e_rec:
+        bad = sorted({rid for a, b in ((out, e_out), (rec, e_rec))
+                      for rid in a if a[rid] != b.get(rid)})
+        raise AssertionError(f"phase 14: graphs and eager twins differ on "
+                             f"requests {bad}")
+    fab, snap = facts["fabric"], facts["metrics"]
+    fe_counters = snap["counters"]
+    status = [s for s, *_ in out.values()]
+    cancelled = out[sorted(out)[CP_CANCEL]]
+    if (status.count("completed") != len(reqs) - 1
+            or cancelled[0] != "cancelled" or not 0 < len(cancelled[1]) < 32
+            or any(len(t) != 32 for s, t, *_ in out.values()
+                   if s == "completed")):
+        raise AssertionError(f"phase 14: statuses {status}, the cancelled "
+                             f"request {cancelled[0]} with "
+                             f"{len(cancelled[1])} tokens")
+    print(f"control plane, graphs == eager twins: statuses, tokens and "
+          f"logprobs identical over {len(out)} requests (11 completed, the "
+          f"cancelled one with its {len(cancelled[1])} partial tokens) and "
+          f"over the {len(rec)} of the crash-and-recover run; "
+          f"{replays} graph replays in the graph runs")
+    quiet = ("wire_fallbacks_total", "relay_pulls_total")
+    quiet_fe = ("fabric_pull_failures_total", "fabric_recomputes_total",
+                "replica_deaths_total", "requeued_on_failover_total")
+    if not (fab["wire_pulls_total"] > 0 and pulls
+            and all(fab[k] == 0 for k in quiet)
+            and all(fe_counters.get(k, 0) == 0 for k in quiet_fe)
+            and all(facts["alive"])):
+        raise AssertionError(
+            f"phase 14: the fabric fell back or a replica died: fabric "
+            f"{fab}, frontend {[(k, fe_counters.get(k)) for k in quiet_fe]}, "
+            f"alive {facts['alive']}, last errors {facts['errors']}")
+    n_blk = sum(n for n, _, _ in pulls)
+    n_b = sum(b for _, b, _ in pulls)
+    secs = sum(s for _, _, s in pulls)
+    print(f"control plane fabric: {fab['wire_pulls_total']} wire pulls, "
+          f"{n_blk} blocks, {n_b} bytes in {secs * 1e3:.2f} ms of pulls "
+          f"({n_b / secs / 1e9:.2f} GB/s, synchronized on both sides, "
+          f"listener on 127.0.0.1); fallbacks, relay pulls, pull failures, "
+          f"recomputes, replica deaths and failover requeues all 0; "
+          f"prefill passes {fe_counters.get('fabric_prefill_passes_total')}")
+    _pull_breakdown(torch, model, graphs[0], reqs)
+    print(f"control plane recovery: {facts['pre_crash']} requests done "
+          f"before the crash, {facts['recovered']} recovered, "
+          f"{facts['reaped']} orphans reaped, every client retry returned "
+          f"its first rid, one terminal record per admitted request; the "
+          f"recovered tokens equal the eager twins' run")
+    lat = snap["latency"]
+    print(f"control plane metrics ({card}): TTFT p50 "
+          f"{lat['ttft_seconds']['p50'] * 1e3:.1f} ms p95 "
+          f"{lat['ttft_seconds']['p95'] * 1e3:.1f} ms, inter-token p50 "
+          f"{lat['token_latency_seconds']['p50'] * 1e3:.2f} ms p95 "
+          f"{lat['token_latency_seconds']['p95'] * 1e3:.2f} ms, "
+          f"{snap['tokens_per_sec']:.1f} tokens/s; the crash-free run "
+          f"{facts['seconds']:.3f} s")
+    for line in facts["prometheus"].splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            float(value)
+            if not name.startswith("paddle_tpu_serving_"):
+                raise AssertionError(f"prometheus line {line!r}")
+    # informative: the requests whose tokens one engine gives without the
+    # frontend (a row's bits may depend on its batch on the card)
+    one = ServingEngine(model, megastep_k=8,
+                        device=next(model.parameters()).device, **SERVE_KW)
+    rids = [one.add_request(p, max_new_tokens=32, sampling=_cp_sampling(kw))
+            for p, kw in reqs]
+    done = one.run()
+    same = sum(done[rid] == out[k][1] for rid, k in zip(rids, sorted(out))
+               if out[k][0] == "completed")
+    print(f"control plane vs one engine without the frontend: {same} of "
+          f"{len(reqs) - 1} completed requests give the same tokens "
+          "(informative)")
+    one = None
+    # a profiled stretch through a frontend over the graph pair: K4
+    # unmasked, the device's busy share
+    fe = ServingFrontend(graphs, kv_fabric=None)
+    extra = [(p[:200] + p[-20:], 16) for p, _ in reqs[:8]]
+
+    def wave(part):
+        for p, n in part:
+            fe.submit(p, max_new_tokens=n)
+        fe.run()
+
+    evs = _profile(torch, "control plane, a frontend over the graph pair "
+                   "(4 requests, 16 new tokens)", lambda: wave(extra[:4]),
+                   lambda: wave(extra[4:]), top=10)
+    k4 = [ev.key for ev in evs if "paged_attention" in ev.key]
+    if not k4:
+        raise AssertionError("phase 14: no K4 kernel in the profile")
+    _unmasked(k4, "K4 under the control plane")
+    for s in servers + twin_servers:
+        s.close()
+    return launches
+
+
+def _pull_breakdown(torch, model, src, reqs):
+    """Informative: one pull of the longest prompt's chain off ``src``'s
+    listener split into its parts, each synchronized: the export alone
+    (device gather, device-to-host copy), the wire pull (the listener's
+    export, framing, CRC and the loopback socket), and the import into a
+    fresh engine (pinned staging, host-to-device copy, ``index_copy_``)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.blockwire import default_pool
+    from paddle_tpu_torch.inference.serving import prompt_block_hashes
+
+    hashes = prompt_block_hashes(max((p for p, _ in reqs), key=len),
+                                 SERVE_KW["block_size"])
+    fresh = ServingEngine(model, device=next(model.parameters()).device,
+                          **SERVE_KW)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    _, export_s = timed(lambda: src.export_blocks_packed(hashes))
+    (header, raw), wire_s = timed(
+        lambda: default_pool().pull(src.wire_endpoint, hashes))
+    n, import_s = timed(lambda: fresh.import_blocks_packed(header, raw))
+    if n != len(hashes):
+        raise AssertionError(f"phase 14: {n} of {len(hashes)} blocks "
+                             "imported")
+    gbs = len(raw) / 1e9
+    print(f"control plane pull of {n} blocks, {len(raw)} bytes: export "
+          f"{export_s * 1e3:.2f} ms ({gbs / export_s:.2f} GB/s), wire pull "
+          f"{wire_s * 1e3:.2f} ms ({gbs / wire_s:.2f} GB/s), import "
+          f"{import_s * 1e3:.2f} ms ({gbs / import_s:.2f} GB/s) "
+          "(informative)")
+
+
+def _cp_sampling(kw):
+    from paddle_tpu_torch.inference import SamplingParams
+
+    return SamplingParams(temperature=kw.get("temperature", 0.0),
+                          top_p=kw.get("top_p", 1.0), seed=kw.get("seed", 0))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -4781,6 +5249,11 @@ def main(argv=None) -> int:
     ap.add_argument("--b7-sweep", action="store_true",
                     help="phase 2 also times each bf16 B7 case under every "
                          "plan the instances take (informative)")
+    ap.add_argument("--masked-rows", metavar="ROOT", nargs="?", const=ROOT,
+                    help="only time phase 2's masked K4 / K4-int8 rows "
+                         "(bf16) of the package in ROOT (default: beside "
+                         "this script, built there on first use), then "
+                         "exit: a change and its parent timed in one call")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -4793,6 +5266,8 @@ def main(argv=None) -> int:
         print("chip_smoke: paddle_tpu_torch is not beside this script",
               file=sys.stderr)
         return 2
+    if args.masked_rows:
+        return masked_rows(torch, args.masked_rows)
     sys.path.insert(0, ROOT)
     import paddle_tpu_torch  # noqa: F401  (precision pin)
     from paddle_tpu_torch.jit import graphs
@@ -4825,7 +5300,8 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _done("13", t)
-    model = full_width_model(torch) if phases & {3, 5, 11, 12} else None
+    model = (full_width_model(torch) if phases & {3, 5, 11, 12, 14}
+             else None)
     if 3 in phases:
         t = _phase("3 full-width serving")
         launches["serving"] = full_width_serving(torch, model)
@@ -4872,6 +5348,12 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _done("12", t)
+    if 14 in phases:
+        t = _phase("14 the serving control plane at full width")
+        launches["control"] = full_width_control_plane(torch, model, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("14", t)
     model = None                # the 7B weights: room for training
     torch.cuda.empty_cache()
     if 7 in phases:

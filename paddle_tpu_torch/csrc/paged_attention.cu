@@ -41,7 +41,15 @@
 // given a mask hands the call to that build's entry.  The serving engine
 // passes no mask and launches the unmasked instances as they were.  The
 // mask is read straight from global memory in the score loop (L2-resident
-// at serving sizes); nothing of it is staged in shared memory.
+// at serving sizes); nothing of it is staged in shared memory.  The
+// reference gives an invisible key the logit -1e30 + m, not -inf, so a
+// row whose visible logits all sit at or below about -1e30 (all -inf, or
+// finfo.min, under its mask) takes its softmax from the invisible keys,
+// or is NaN where every key is -inf (Queue C10).  The walks skip invisible
+// keys; in the masked builds only, a row that ends with such a largest
+// score (merged across the cluster) is computed once more over its whole
+// combined axis in plain float32 (RefRows, a warp a row) and written in
+// place of the walk's result.  No other row pays for it.
 //
 // Bound on the H100: bytes.  Every serving shape reads each visible key and
 // value row once and does ~4 operations per (query row, key, column) on it,
@@ -116,8 +124,17 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr bool kMasked = PTT_PAGED_MASKED;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 128;
+// K4-int8's tensor-core kernel pins its occupancy target in the masked
+// build: without it, the rare rows' code (RefRows) moves ptxas to 128
+// registers and spills in the walk at D <= 128 (the unmasked build keeps
+// its bounds: 160-170 registers there, no spill)
+#if PTT_PAGED_MASKED
+#define PTT_K4I_BOUNDS(DP) __launch_bounds__(kThreads, (DP) <= 128 ? 3 : 1)
+#else
+#define PTT_K4I_BOUNDS(DP) __launch_bounds__(kThreads)
+#endif
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;          // elements of a row a thread takes at once
 constexpr int kRowsPerPass = 4;  // query rows a SIMT thread carries
@@ -275,6 +292,140 @@ __device__ __forceinline__ float mask_term(const float* row, int lm,
                                            int key) {
   return row != nullptr && key < lm ? __ldg(row + key) * kLog2e : 0.f;
 }
+
+// Queue C10: the rows whose visible logits all sit at or below -1e30.
+// The reference (blha_attention :273-311) gives every causally invisible
+// key the logit fl(-1e30 + m), m the mask's column (0 past its columns),
+// and takes the softmax over the whole combined axis of Lp + P * bs keys.
+// Such a key carries weight only where no visible logit lies above about
+// -1e30; the walks skip invisible keys, so a row whose largest visible
+// score M (log2 domain) is at or below kRareLog2, or that saw no key (l
+// = 0: every visible score -inf, or a mask of finfo.min scaled past the
+// float range), is computed once more by RefRows.  The threshold sits
+// well above -1e30 * log2(e) so that the rounding of the log2 scores does
+// not decide: RefRows is the reference on every row it takes.
+constexpr float kRareLog2 = -1e29f;
+
+__device__ __forceinline__ bool rare_row(float m, float l) {
+  return !(l > 0.f) || m <= kRareLog2;
+}
+
+// The unmasked builds' stand-in: no row is rare.
+struct NoRef {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ void operator()(int, int, int) const {}
+};
+
+// The reference's softmax of one query row of a tile over its whole
+// combined key axis, in plain float32, by one warp (a lane a key): a
+// visible key's logit fl(qk / sqrt(D) + m), an invisible key's fl(-1e30 +
+// m), a -inf logit no weight, NaN where every logit is -inf (the
+// reference's softmax of such a row).  The keys' rows are those of the
+// reference's k_all / v_all: the prefix rows, the paged rows (zeros for a
+// block outside the pool), and with kInt8 the codes dequantized as (u -
+// 128) * kd (vd) with the step's own tokens of the row overlaid at full
+// precision.  Speed does not matter here: only rare rows come this way.
+template <typename T, bool kInt8>
+struct RefRows {
+  static constexpr bool kOn = true;
+  const T* q;                      // query row 0 of the tile
+  void* out;
+  size_t qo, hd;                   // out's element of row 0; a token's
+  bool f32;
+  int G, D, Lp, P, NB, bs;
+  const T *pk, *pv;                // the row's prefix rows
+  const void *kc, *vc;             // the pools (T, or uint8 with kInt8)
+  const int* bt;                   // the row's block table
+  size_t head, blk_stride;
+  int b, pos0, t_first, h0;        // row, token 0's position and index
+  float scale;                     // 1 / sqrt(D)
+  RowMask rm;
+  // kInt8: the step's k / v at head kh (a token `stride` elements apart),
+  // the row's fresh positions fresh0 .. fresh0 + nfresh - 1 (token tok0
+  // first), its dequantization scales
+  const T *kf, *vf;
+  long long kstride, vstride;
+  int fresh0, nfresh, tok0;
+  float kd, vd;
+
+  // key j's K (V where `val`) row as k_all (v_all) holds it: its elements
+  // (T), or uint8 codes dequantized as (u - 128) * s, or none (zeros; with
+  // kInt8 the code 0 of a block outside the pool)
+  struct Row {
+    const void* p;
+    bool u8;
+    float s;
+    __device__ __forceinline__ float at(int d) const {
+      if (kInt8 && u8)
+        return ((p != nullptr ? (float)static_cast<const uint8_t*>(p)[d]
+                              : 0.f) - 128.f) * s;
+      return p != nullptr ? ptt::to_f(static_cast<const T*>(p)[d]) : 0.f;
+    }
+  };
+
+  __device__ __forceinline__ Row row_of(bool val, int j) const {
+    if (j < Lp) return {(val ? pv : pk) + (size_t)j * D, false, 0.f};
+    const int p = j - Lp;
+    if constexpr (kInt8) {
+      if (p >= fresh0 && p < fresh0 + nfresh)
+        return {(val ? vf : kf) +
+                    (long long)(tok0 + p - fresh0) * (val ? vstride : kstride),
+                false, 0.f};
+    }
+    const int kb = p / bs;
+    const int blk = bt[kb];
+    const size_t o = (size_t)blk * blk_stride + head + (size_t)(p - kb * bs) * D;
+    const bool in = blk >= 0 && blk < NB;
+    if constexpr (kInt8)
+      return {in ? static_cast<const uint8_t*>(val ? vc : kc) + o : nullptr,
+              true, val ? vd : kd};
+    return {in ? static_cast<const T*>(val ? vc : kc) + o : nullptr, false,
+            0.f};
+  }
+
+  // the logit of query row r at key j
+  __device__ __forceinline__ float logit(int r, int j) const {
+    const float* mr = rm.row(h0 + r % G, t_first + r / G);
+    const float m = mr != nullptr && j < rm.lm ? __ldg(mr + j) : 0.f;
+    if (j >= Lp && j - Lp > pos0 + r / G) return -1e30f + m;
+    if (m == -INFINITY) return -INFINITY;
+    const T* qr = q + (size_t)(r / G) * hd + (size_t)(r % G) * D;
+    const Row k = row_of(false, j);
+    float dot = 0.f;
+    for (int d = 0; d < D; ++d) dot = fmaf(ptt::to_f(qr[d]), k.at(d), dot);
+    return dot * scale + m;
+  }
+
+  // columns d0 .. d1 - 1 of query row r's output (the whole warp calls)
+  __device__ __forceinline__ void operator()(int r, int d0, int d1) const {
+    const int lane = threadIdx.x % 32;
+    const int Lf = Lp + P * bs;
+    const size_t o = qo + (size_t)(r / G) * hd + (size_t)(r % G) * D;
+    float M = -INFINITY;
+    for (int j = lane; j < Lf; j += 32) M = fmaxf(M, logit(r, j));
+    M = ptt::warp_max(M);
+    if (M == -INFINITY) {
+      for (int d = d0 + lane; d < d1; d += 32)
+        ptt::put_out<T>(out, o + d, NAN, f32);
+      return;
+    }
+    // a lane's columns d = c + lane, one pass of the keys for each
+    for (int c = d0; c < d1; c += 32) {
+      const int d = c + lane;
+      float a = 0.f, l = 0.f;
+      for (int jb = 0; jb < Lf; jb += 32) {
+        const float w = jb + lane < Lf ? expf(logit(r, jb + lane) - M) : 0.f;
+        l += w;
+        for (int k = 0; k < 32; ++k) {
+          const float wk = __shfl_sync(0xffffffffu, w, k);
+          if (wk != 0.f && d < d1) a = fmaf(wk, row_of(true, jb + k).at(d), a);
+        }
+      }
+      l = ptt::warp_sum(l);
+      if (d < d1) ptt::put_out<T>(out, o + d, a / l, f32);
+    }
+  }
+};
 
 // The row tables, the zeros of the tokens that no tile owns, and the
 // block's tile and key range over the combined axis (Lp prefix keys, then
@@ -519,24 +670,106 @@ __device__ __forceinline__ const T* ring_wait(T* stage, int stages, int it,
   return stage + (it % stages) * step;
 }
 
+// RefRows for the block's tile (the masked builds), recomputed where it is
+// used from the row tables in shared memory (setup_tile's), blockIdx and
+// the kernel's parameters: no value of the walk is kept live for it, so
+// the walk is allocated as in a build without the rare rows.
+template <typename T, bool kInt8>
+__device__ __forceinline__ RefRows<T, kInt8> ref_rows(
+    const int* tables, const T* q, void* out, bool f32, const void* kc,
+    const void* vc, const T* pk, const T* pv, const int* bt, int B, int P,
+    int NB, int H, int KV, int D, int bs, int Lp, int QT, float scale_log2,
+    const Masks& mk) {
+  const int* s_cu = tables;
+  const int* s_pt = s_cu + 2 * B + 1;
+  const int* s_dec = s_pt + B + 1;
+  const int k = blockIdx.y, kh = blockIdx.z, G = H / KV;
+  int b = 0, hi = B - 1;  // the last row with pt[b] <= k owns tile k
+  while (b < hi) {
+    const int mid = (b + hi + 1) / 2;
+    if (s_pt[mid] <= k)
+      b = mid;
+    else
+      hi = mid - 1;
+  }
+  RefRows<T, kInt8> f = {};
+  f.b = b;
+  f.t_first = (k - s_pt[b]) * QT;
+  f.pos0 = s_dec[b] + f.t_first;
+  f.qo = (((size_t)s_cu[b] + f.t_first) * H + (size_t)kh * G) * D;
+  f.q = q + f.qo;
+  f.out = out;
+  f.hd = (size_t)H * D;
+  f.f32 = f32;
+  f.G = G;
+  f.D = D;
+  f.Lp = Lp;
+  f.P = P;
+  f.NB = NB;
+  f.bs = bs;
+  const size_t pre = ((size_t)b * KV + kh) * Lp * D;
+  f.pk = Lp > 0 ? pk + pre : nullptr;
+  f.pv = Lp > 0 ? pv + pre : nullptr;
+  f.kc = kc;
+  f.vc = vc;
+  f.bt = bt + (size_t)b * P;
+  f.head = (size_t)kh * bs * D;
+  f.blk_stride = (size_t)KV * bs * D;
+  f.h0 = kh * G;
+  f.scale = scale_log2 / kLog2e;
+  f.rm = row_mask(mk, b);
+  return f;
+}
+
+// the int8 fields of RefRows: the step's tokens of row b are the valid
+// ones of the reference (local index < now[b], inside cu and the buffer)
+template <typename T>
+__device__ __forceinline__ void ref_int8(RefRows<T, true>& f,
+                                         const int* tables, const T* kf,
+                                         const T* vf, long long kstride,
+                                         long long vstride, const float* kdq,
+                                         const float* vdq, const int* now,
+                                         int T_, int KV) {
+  const int* s_cu = tables;
+  const int b = f.b, kh = blockIdx.z;
+  f.kf = kf + (size_t)kh * f.D;
+  f.vf = vf + (size_t)kh * f.D;
+  f.kstride = kstride;
+  f.vstride = vstride;
+  f.fresh0 = f.pos0 - f.t_first;
+  f.tok0 = s_cu[b];
+  f.nfresh = max(0, min(now[b], min(s_cu[b + 1], T_) - f.tok0));
+  f.kd = kdq[(size_t)b * KV + kh];
+  f.vd = vdq[(size_t)b * KV + kh];
+}
+
 // The output of a block's rows from its (m, l, acc) (acc rows `astride`
 // floats apart, unnormalised), row 0 at element qo of out (T, or float32
 // where f32).  With one split, acc / l; with a cluster, the leader weighs
 // split s by exp2(m_s - M), M the largest m (a split that saw no key, m =
-// -inf, weighs 0), reading the others' shared memory.  The caller
-// synchronises the block first.
-template <typename T>
+// -inf, weighs 0), reading the others' shared memory.  A rare row (Queue
+// C10, the masked builds) takes `ref` instead, a warp a row, after the
+// merge.  The caller synchronises the block first.
+template <typename T, typename Ref = NoRef>
 __device__ void finish(void* __restrict__ out, size_t qo, bool f32,
                        size_t hd, int G, int D, int nr, int astride, int RP,
-                       float* mrow, float* lrow, float* acc, float* ws) {
-  const int tid = threadIdx.x;
+                       float* mrow, float* lrow, float* acc, float* ws,
+                       const Ref& ref = Ref()) {
+  const int tid = threadIdx.x, warp = tid / 32;
   const int splits = gridDim.x;
   if (splits == 1) {
     for (int idx = tid; idx < nr * D; idx += kThreads) {
       const int r = idx / D, d = idx - r * D;
       const float l = lrow[r];
+      if constexpr (Ref::kOn) {
+        if (rare_row(mrow[r], l)) continue;
+      }
       ptt::put_out<T>(out, qo + (size_t)(r / G) * hd + (r % G) * D + d,
                       l > 0.f ? acc[(size_t)r * astride + d] / l : 0.f, f32);
+    }
+    if constexpr (Ref::kOn) {
+      for (int r = warp; r < nr; r += kWarps)
+        if (rare_row(mrow[r], lrow[r])) ref(r, 0, D);
     }
     return;
   }
@@ -554,7 +787,10 @@ __device__ void finish(void* __restrict__ out, size_t qo, bool f32,
         ws[s * RP + r] = w;
         Lsum += w * cl.map_shared_rank(lrow, s)[r];
       }
-      ws[splits * RP + r] = Lsum > 0.f ? 1.f / Lsum : 0.f;
+      // a rare row's -1 sends it to `ref`
+      ws[splits * RP + r] = Ref::kOn && rare_row(M, Lsum) ? -1.f
+                            : Lsum > 0.f                  ? 1.f / Lsum
+                                                          : 0.f;
     }
     __syncthreads();
     // 4 columns a thread (acc rows hold at least D rounded up to 4)
@@ -575,11 +811,16 @@ __device__ void finish(void* __restrict__ out, size_t qo, bool f32,
         }
       }
       const float inv = ws[splits * RP + r];
+      if (Ref::kOn && inv < 0.f) continue;
       const size_t od = qo + (size_t)(r / G) * hd + (r % G) * D + d;
       const float x[4] = {sum.x, sum.y, sum.z, sum.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (d + e < D) ptt::put_out<T>(out, od + e, x[e] * inv, f32);
+    }
+    if constexpr (Ref::kOn) {
+      for (int r = warp; r < nr; r += kWarps)
+        if (ws[splits * RP + r] < 0.f) ref(r, 0, D);
     }
   }
   cl.sync();  // no split leaves while the leader still reads it
@@ -796,7 +1037,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     }
     __syncthreads();
   }
-  finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
+  if constexpr (kMask)
+    finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws,
+              ref_rows<T, false>(tables, q, out, out_f32, kc, vc, pk, pv,
+                                 bt, B, P, NB, H, KV, D, bs, Lp, QT,
+                                 scale_log2, mk));
+  else
+    finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
 }
 
 // -------------------------------------------------------- tensor cores
@@ -1285,7 +1532,18 @@ __device__ __forceinline__ void tc_attend(
     }
     __syncthreads();
   }
-  finish<bf>(out, t.qo, f32, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws);
+  if constexpr (kMask) {
+    auto ref = ref_rows<bf, kInt8>(
+        tables, q, out, f32, kInt8 ? static_cast<const void*>(k8) : kc,
+        kInt8 ? static_cast<const void*>(v8) : vc, pk, pv, bt, B, P, NB, H,
+        KV, D, bs, Lp, QT, scale_log2, mk);
+    if constexpr (kInt8)
+      ref_int8(ref, tables, kf, vf, kstride, vstride, kdq, vdq, now, T_, KV);
+    finish<bf>(out, t.qo, f32, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws,
+               ref);
+  } else {
+    finish<bf>(out, t.qo, f32, hd, G, D, nr, DP, RP, mrow, lrow, acc, ws);
+  }
 }
 
 template <int DP, int KG, bool kMask>
@@ -1475,8 +1733,17 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
                                 (size_t)H * D, (size_t)kh * bs * D,
                                 (size_t)KV * bs * D, G, D, bs, t.b0, t.pos0,
                                 t.ctx - 1, Lp, rm, kh * G, t.t_first};
-  ptt::wide::attend<T>(src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W,
-                       scale_log2, smem);
+  const ptt::wide::Stats st = ptt::wide::attend<T>(
+      src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W, scale_log2, smem);
+  if constexpr (kMask) {  // rare rows (Queue C10): the slice once more
+    const auto ref =
+        ref_rows<T, false>(tables, q, out, out_f32, kc, vc, pk, pv, bt, B, P,
+                           NB, H, KV, D, bs, Lp, QT, scale_log2, mk);
+    __syncthreads();  // after the walk's writes of the slice
+    const int cs = blockIdx.x * W, ce = min(cs + W, D);
+    for (int r = threadIdx.x / 32; r < t.nr; r += ptt::wide::kWarps)
+      if (rare_row(st.m[r], st.l[r])) ref(r, cs, ce);
+  }
 }
 
 template <typename T, bool kMask>
@@ -2010,7 +2277,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
     }
     __syncthreads();
   }
-  finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
+  if constexpr (kMask) {
+    auto ref = ref_rows<T, true>(tables, q, out, out_f32, kc, vc, pk, pv, bt,
+                                 B, P, NB, H, KV, D, bs, Lp, QT, scale_log2,
+                                 mk);
+    ref_int8(ref, tables, kf, vf, kstride, vstride, kdq, vdq, now, T_, KV);
+    finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws,
+              ref);
+  } else {
+    finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
+  }
 }
 
 // The tensor-core instance (tc_attend with kInt8): one block per (split,
@@ -2018,7 +2294,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_int8_kernel(
 constexpr int kInt8Stages = 2;
 
 template <int DP, int KG, bool kMask>
-__global__ void __launch_bounds__(kThreads) paged_attention_int8_mma_kernel(
+__global__ void PTT_K4I_BOUNDS(DP) paged_attention_int8_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kf,
     const __nv_bfloat16* __restrict__ vf, const uint8_t* __restrict__ kc,
     const uint8_t* __restrict__ vc, const float* __restrict__ kdq,

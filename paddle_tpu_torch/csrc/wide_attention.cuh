@@ -19,7 +19,8 @@
 // The scores are recomputed once for each slice: simple and right, not
 // fast.  Rows are read in place with scalar loads of T (any D, any
 // alignment).  A row whose keys are all masked keeps m = -inf and l = 0:
-// its output is zeros.  Bound on the H100 by bytes at decode and by the
+// its output is zeros (K4's masked build then writes its rare rows anew
+// from the returned m and l: Queue C10).  Bound on the H100 by bytes at decode and by the
 // SIMT cores' float32 rate (67 TFLOP/s) at prefill lengths.
 #pragma once
 

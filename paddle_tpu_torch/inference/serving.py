@@ -63,8 +63,9 @@ stream is the JAX engine's, and replays across K, rebuilds and preemption.
 
 Block transfer (``export_blocks[_packed]``, ``import_blocks[_packed]``)
 moves published KV blocks between engines as bit-exact payloads keyed by
-chain hash, with the reference's headers.  ``pull_blocks`` is not ported
-yet and raises.
+chain hash, with the reference's headers; ``pull_blocks`` takes a chain
+straight off a peer's ``blockwire.BlockWireServer`` (the serving control
+plane's one-hop pull, ``control_plane.py`` / ``kv_fabric.py``).
 
 The int8 paged cache (``cache_quant="int8"``, the reference's dynamic
 cache-quant serving mode): uint8 blocks with float32 per-(slot, KV head)
@@ -553,6 +554,12 @@ class ServingEngine:
     >>> rid = eng.add_request([1, 5, 7], max_new_tokens=16)
     >>> outputs = eng.run()   # {rid: [token, ...]}
     """
+
+    # data-plane listener endpoint ("host:port"), stamped by
+    # blockwire.BlockWireServer when this engine serves direct
+    # engine-to-engine block pulls; None = relay-only (KVFabric.pull's
+    # degrade ladder skips the wire rung)
+    wire_endpoint: Optional[str] = None
 
     def __init__(self, model, max_batch_size: int = 4, max_seq_len: int = 256,
                  block_size: int = 16, token_budget: int = 32,
@@ -2192,9 +2199,17 @@ class ServingEngine:
     def pull_blocks(self, peer_endpoint: str, hashes: Sequence[str], *,
                     epoch: Optional[int] = None,
                     timeout: float = 60.0) -> Tuple[int, int]:
-        """Pull a chain segment off a peer's data-plane listener: not
-        ported yet."""
-        raise NotImplementedError(
-            "pull_blocks is not ported yet (a later slice of the port: "
-            "Queue A6, the binary data plane inference/blockwire.py); move "
-            "blocks with export_blocks_packed / import_blocks_packed")
+        """Pull a chain segment straight off a peer's data-plane listener
+        (inference/blockwire.py) and import it: the destination side of
+        the one-hop transfer; the frontend only orchestrates it with
+        directory-sized control messages.  The packed payload lands in
+        the caches through ``import_blocks_packed`` (pinned staging, one
+        host-to-device copy, one ``index_copy_`` per cache).  Returns
+        ``(blocks_imported, payload_bytes)``.  Raises ``StaleEpoch`` when
+        the peer fenced the handshake, ``WireError`` for transport faults:
+        callers degrade to the frontend relay."""
+        from .blockwire import default_pool
+
+        header, raw = default_pool().pull(peer_endpoint, list(hashes),
+                                          epoch=epoch, timeout=timeout)
+        return self.import_blocks_packed(header, raw), len(raw)

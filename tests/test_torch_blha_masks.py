@@ -10,9 +10,11 @@ identity) with rope: masks of one and of H heads, fewer and more rows than
 combined key axis, a 3-key pre-cache in front of it, a mixed call with a
 prefill row under ``mask`` and rows under ``tgt_mask``, GQA 8 / 2, static
 and dynamic int8 caches under both masks, ``out_shift`` with a mask, and
--inf entries.  A row whose every visible key carries -inf is an edge
-where the kernels differ from the reference (ROADMAP Queue C10): the
-plain versions' answer, the reference's, is pinned here.
+-inf entries.  Rows whose visible logits all sit at or below -1e30 (every
+visible key -inf, finfo.min, or every key -inf: NaN) take the reference's
+softmax over the -1e30 logits of their invisible keys (ROADMAP Queue C10,
+closed): the plain versions give the JAX core's answer here, and
+``chip_smoke.py``'s ``_mask_edges`` holds the kernels to them on the card.
 
 Tolerances, float32: the attention output rtol = atol = 2e-5 (sums over
 the context in another order); the float caches hold the rotated keys
@@ -251,10 +253,10 @@ def test_a_row_whose_visible_keys_are_all_neg_inf():
     query carries -inf.  The reference's softmax then falls onto its -1e30
     keys (the invisible ones, where the mask is finite): the row gives
     their values' mean.  The plain versions transcribe the reference, so
-    the port on the CPU gives the same; the kernels skip invisible keys
-    (-inf), so on the card that row has no key and gives zeros
-    (``chip_smoke.py``'s ``_mask_edges`` pins both sides there).  The
-    other rows are unaffected."""
+    the port on the CPU gives the same; on the card the masked kernels
+    compute such a row once more over its whole key axis
+    (``chip_smoke.py``'s ``_mask_edges``).  The other rows are
+    unaffected."""
     H, KV, D = 4, 2, 32
     rng = np.random.default_rng(41)
     m = _batch(rng, H, KV, D)
@@ -346,3 +348,109 @@ def test_mask_checks():
     with pytest.raises(ValueError, match="seq_lens_encoder"):
         blha_attention(*args, **_kw(4, 2, 32),
                        mask=torch.zeros(4, 1, MQ, 24))
+
+
+# Queue C10: rows whose visible logits all sit at or below -1e30.  The
+# reference gives an invisible key the logit -1e30 + m (m 0 past the mask's
+# columns) and takes the softmax over the whole combined key axis: (a) a
+# decode row whose visible keys all carry -inf takes the mean of its
+# invisible keys' values; (b) the same row under finfo(float32).min over
+# columns that cover its visible keys but not the whole axis is carried by
+# the invisible keys past the mask's columns; (c) a prefill row whose
+# visible keys all carry -inf (in int8 the step's later tokens, invisible
+# to it, are overlaid at full precision); (d) a row whose every key is
+# -inf gives NaN.  The other rows of each call are the usual ones.
+C10_CASES = ("a", "b", "c", "d")
+
+
+def _c10_masks(rng, H, Lp, case):
+    """``mask`` [4, 1, MQ, Lf] (the prefill row 1) and ``tgt_mask`` [4, 1,
+    1, Lp + 16] (the decode row 0, position 13) of one case; the same
+    shapes in every case."""
+    Lf = Lp + BS * P
+    mask = _mask(rng, 1, MQ, Lf)
+    tgt = _mask(rng, 1, 1, Lp + 16)
+    if case == "a":
+        tgt[0, :, :, :Lp + 14] = -np.inf
+    elif case == "b":
+        tgt[0] = np.finfo(np.float32).min
+    elif case == "c":
+        mask[1, :, 2, :Lp + 3] = -np.inf       # token 2 sees keys 0 .. Lp+2
+    else:
+        mask[1, :, 4, :] = -np.inf             # every key of token 4
+    return mask, tgt
+
+
+@pytest.mark.parametrize("Lp", [0, 2], ids=["no prefix", "prefix 2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["k4", "k4_int8"])
+@pytest.mark.parametrize("case", C10_CASES)
+def test_c10_rows_match_jax_core(case, kernel, dtype, Lp):
+    """The plain versions of K4 and K4-int8 (static scales), and their
+    wrappers on CPU tensors, against the JAX core on C10's rows (a)-(d),
+    NaN equal to NaN; float32 at rtol = atol = 1e-5, bfloat16 (caches,
+    prefixes and outputs in bf16) within one bf16 step of the largest
+    output."""
+    H, KV, D = 4, 2, 32
+    quant = "none" if kernel == "k4" else "static"
+    rng = np.random.default_rng(61 + Lp)
+    m = _batch(rng, H, KV, D, quant, Lp=Lp, enc=(0, 6, 0, 0))
+    mask, tgt = _c10_masks(rng, H, Lp, case)
+    bf16 = dtype == "bfloat16"
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    floats = ["qkv", "pk", "pv"] + (["kc", "vc"] if quant == "none" else [])
+    jm = {n: jnp.asarray(m[n], jdt) if n in floats else jnp.asarray(m[n])
+          for n in m}
+    extra = {n: jm[n] for n in SCALES if n in jm}
+    if Lp:
+        extra.update(pre_key_cache=jm["pk"], pre_value_cache=jm["pv"])
+    res = jax_blha(*(jm[n] for n in NAMES), **extra,
+                   **_kw(H, KV, D, quant, compute_dtype=jdt),
+                   mask=jnp.asarray(mask), tgt_mask=jnp.asarray(tgt))
+    want = np.asarray(res[0].astype(jnp.float32))
+    T = m["qkv"].shape[0]
+    want = want.reshape(T, H, D)
+    row0, row1 = want[0], want[1:7]
+    # the case's row: NaN for (d), else finite and carried by the -1e30 keys
+    if case == "d":
+        assert np.isnan(row1[4]).all() and np.isfinite(row1[:4]).all()
+    else:
+        assert np.isfinite(want).all()
+
+    def t(x):
+        return torch.as_tensor(np.array(x, np.float32)).to(tdt)
+
+    qkv = t(np.asarray(jm["qkv"].astype(jnp.float32)))
+    q = qkv[:, :H * D].reshape(T, H, D)
+    ints = [torch.as_tensor(m[n]) for n in ("dec", "now", "cu", "bt")]
+    kw = dict(mask=torch.as_tensor(mask), tgt_mask=torch.as_tensor(tgt),
+              seq_lens_encoder=torch.as_tensor(m["enc"]))
+    if Lp:
+        kw.update(pre_key=t(jm["pk"].astype(jnp.float32)),
+                  pre_value=t(jm["pv"].astype(jnp.float32)))
+    if kernel == "k4":
+        caches = [t(np.asarray(c.astype(jnp.float32))) for c in res[1:3]]
+        outs = [f(q, *caches, *ints, MQ, **kw)
+                for f in (_paged_attention_ref, paged_attention)]
+    else:
+        caches = [torch.as_tensor(np.array(c)) for c in res[1:3]]
+        k = qkv[:, H * D:(H + KV) * D].reshape(T, KV, D)
+        v = qkv[:, (H + KV) * D:].reshape(T, KV, D)
+        scales = [torch.as_tensor(m[n]) for n in SCALES[2:]]
+        outs = [f(q, k, v, *caches, *scales, *ints, MQ, **kw)
+                for f in (_paged_attention_int8_ref, paged_attention_int8)]
+    tol = (dict(rtol=0, atol=2.0 ** -8 * np.nanmax(np.abs(want)) + 1e-6)
+           if bf16 else dict(rtol=1e-5, atol=1e-5))
+    for ours in outs:
+        assert ours.dtype == tdt
+        np.testing.assert_allclose(ours.float().numpy(), want, **tol)
+    if case in ("a", "b") and not bf16 and quant == "none":
+        # the decode row: the mean of the values of its invisible keys
+        # whose logit is -1e30 (under (b) the paged keys 14 and 15 carry
+        # finfo.min too, since the mask covers them)
+        ctx = np.concatenate([np.asarray(res[2])[b] for b in m["bt"][0]],
+                             axis=1)
+        lo = 14 if case == "a" else 16
+        mean = np.repeat(ctx[:, lo:].mean(axis=1), H // KV, axis=0)
+        np.testing.assert_allclose(row0, mean, rtol=1e-5, atol=1e-5)

@@ -252,5 +252,24 @@ def test_chain_gap_pressure_and_cached_hashes(mha):
 
 
 def test_pull_blocks_is_not_ported(mha):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _port(mha).pull_blocks("localhost:1", HASHES)
+    """The name is older than the port of ``pull_blocks``: the pull now
+    computes.  A port engine pulls the warm chain off another port
+    engine's ``BlockWireServer`` on 127.0.0.1: every block imported, the
+    payload's bytes those of the source's packed export, and the prompt
+    then served on them with its locally warmed tokens."""
+    from paddle_tpu_torch.inference.blockwire import BlockWireServer
+
+    src, dst = _port(mha), _port(mha)
+    _warm(src)
+    header, raw = src.export_blocks_packed(HASHES)
+    with BlockWireServer(src) as srv:
+        assert src.wire_endpoint == srv.endpoint
+        assert dst.pull_blocks(srv.endpoint, HASHES) == (len(HASHES),
+                                                        len(raw))
+    assert src.wire_endpoint is None
+    assert dst.export_blocks_packed(HASHES) == (header, raw)
+    got = _warm(dst, n=8)
+    assert dst.prefix_hit_blocks == len(HASHES)
+    local = _port(mha)
+    _warm(local)
+    assert _warm(local, n=8) == got

@@ -46,6 +46,10 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.ops.hopper.fused_adamw,"
             " paddle_tpu_torch.optimizer, paddle_tpu_torch.jit,"
             " paddle_tpu_torch.inference, paddle_tpu_torch.quantization,"
+            " paddle_tpu_torch.inference.control_plane,"
+            " paddle_tpu_torch.inference.kv_fabric,"
+            " paddle_tpu_torch.inference.blockwire,"
+            " paddle_tpu_torch.distributed.launch.master,"
             " paddle_tpu_torch.nn.transformer,"
             " paddle_tpu_torch.ops.hopper.int8_matmul\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')"

@@ -239,13 +239,17 @@ def test_seeded_stream_replays_across_rebuild(mha):
 
 
 def test_unported_options_raise(mha):
-    """What the port's engine does not take yet: ``pull_blocks`` (Queue
-    A6, the binary data plane) raises; ``cache_quant`` past "none" and
-    "int8" is refused as the reference refuses it."""
+    """The engine's typed refusals: ``pull_blocks`` (ported since the
+    binary data plane, ``blockwire.py``) raises the reference's
+    ``WireError`` where no listener answers, the transport fault callers
+    degrade on; ``cache_quant`` past "none" and "int8" is refused as the
+    reference refuses it."""
+    from paddle_tpu_torch.inference.blockwire import WireError
+
     _, pm = mha
     eng = PortEngine(pm, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.pull_blocks("localhost:1", [])
+    with pytest.raises(WireError):
+        eng.pull_blocks("127.0.0.1:1", [], timeout=5.0)
     with pytest.raises(ValueError, match="cache_quant"):
         PortEngine(pm, cache_quant="fp8", device="cpu", **ENGINE)
 
