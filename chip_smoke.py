@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's four paths — Llama serving through the paged
 ServingEngine (with speculative decoding, KV block transfer, the int8
-KV cache and the serving control plane over two engines), Llama
+KV cache, the serving control plane over two engines and the serving
+fleet over worker processes), Llama
 generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
@@ -12,6 +13,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 2,9,10  # kernels + the int8 predictor
     python3 chip_smoke.py --phases 2,13    # kernels + block_multihead_attention
     python3 chip_smoke.py --phases 14      # the serving control plane
+    python3 chip_smoke.py --phases 15      # the serving fleet
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
@@ -284,10 +286,38 @@ Phases (each prints its seconds):
      limit, the Prometheus text parsed; (informative) how many requests
      one engine without the frontend gives the same tokens; a profiled
      stretch through a frontend over the graph pair: K4 unmasked;
+ 15. the serving fleet across worker processes (run after the 7B model is
+     dropped): a ServingFleet of three paddle_tpu_torch.tools.serving_worker
+     processes on cuda (prefill, decode, decode), each Llama-2-7B width cut
+     to 8 layers (bf16, seed 15, phase 3's engine geometry, megastep_k 8,
+     prefix cache, CUDA graphs, a flight recorder and a blockwire
+     listener), and a warm one booting beside them; phase 14's 12
+     requests (no client keys, none cancelled) through the fleet and
+     through an in-process twin (one ServingFrontend over three engines
+     of the same roles on the parent's own model of the same spec, each
+     stepped at begin_step as a worker is): statuses, tokens and logprobs
+     equal bit for bit; every decode-role chain pulled worker to worker
+     (_w_pull_blocks over blockwire: blocks, bytes and GB/s printed), no
+     relay, fallback, pull failure or recompute; TTFT, inter-token latency
+     and tokens/s of that first run (captures inside) and of a second one,
+     each process's memory, beside the card's name and power limit; then
+     the traffic again with worker2 SIGKILLed after its first tokens: the
+     heartbeat finds it, every request completes, at least one requeued,
+     the tokens held to the first run's (equal, or from the first position
+     whose margin is under bf16's step: the exact-equality count
+     printed); the warm worker claimed from the WarmPool; a rolling_swap
+     to the same spec as "v1" and 4 requests after it (two over the
+     shared prefix, two without it, so the claimed worker takes some)
+     held the same way;
+     the fleet's Prometheus page parsed with its replica labels; every
+     worker's launch counts set to 0 over RPC before the first run (a
+     warm worker zeroes its own after its warm-up), and after shutdown
+     each surviving worker's WORKER_EXIT counts: each survivor took
+     requests of the phase, K1-K4 launched in each, no masked K4;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
-  "int8", "spec", "generate", "train", "predict", "blha", "control"},
-  null for a path
-  whose phase did not run), then the card line, then {"ok": true,
+  "int8", "spec", "generate", "train", "predict", "blha", "control",
+  "fleet"}, null for a path whose phase did not run; "fleet" the sum over
+  the surviving workers), then the card line, then {"ok": true,
   "device": {...}} as the last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
@@ -300,6 +330,7 @@ import contextlib
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -385,6 +416,10 @@ PATHS = {
     # path's kernels, driven by ServingFrontend.step)
     "control": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                 "paged_attention"),
+    # phase 15: the serving fleet, each worker process's own counts
+    # (WORKER_EXIT), summed over the surviving workers
+    "fleet": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+              "paged_attention"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -5232,10 +5267,442 @@ def _cp_sampling(kw):
                           top_p=kw.get("top_p", 1.0), seed=kw.get("seed", 0))
 
 
+# -------------------------------------------------------------- phase 15
+# the fleet's model: Llama-2-7B width at 8 layers (three worker processes,
+# the warm one and the parent's twin share the card), bf16, seed 15
+FLEET_MODEL = dict(num_hidden_layers=8, dtype="bfloat16")
+FLEET_SEED = 15
+FLEET_ROLES = ("prefill", "decode", "decode")
+
+
+def _fleet_spec(model_kw):
+    """The workers' spec: phase 3's engine geometry, megastep_k 8, prefix
+    cache (the default), a flight recorder and a blockwire listener."""
+    return {"seed": FLEET_SEED, "model": dict(model_kw),
+            "engine": dict(SERVE_KW, megastep_k=8), "tracing": True,
+            "wire": True}
+
+
+def _fleet_traffic(vocab):
+    """Phase 14's 12 requests without their client keys (the fleet serves
+    the traffic twice) and with phase 14's sampling; as (prompt, kw)."""
+    return [(p, {k: v for k, v in kw.items() if k != "idempotency_key"})
+            for p, kw in _cp_traffic(vocab)]
+
+
+def _fleet_frontend_kwargs(proc):
+    from paddle_tpu_torch.inference import ServingMetrics, Tracer
+    from paddle_tpu_torch.inference.kv_fabric import KVFabric, MemoryKV
+
+    return dict(kv_fabric=KVFabric(MemoryKV()), metrics=ServingMetrics(),
+                tracer=Tracer(proc=proc))
+
+
+class _BeginStep:
+    """An in-process engine with a ``RemoteReplica``'s step timing: the
+    frontend's ``begin_step()`` runs the step then, before the frontend
+    harvests the replicas stepped ahead of it, and ``step()`` hands the
+    result over (a worker's step RPC goes out at ``begin_step``, and the
+    replica's later calls wait for it)."""
+
+    def __init__(self, eng):
+        self._eng = eng
+        self._done = None
+
+    def __getattr__(self, attr):
+        return getattr(self._eng, attr)
+
+    def begin_step(self):
+        if self._done is None:
+            self._done = self._eng.step()
+
+    def step(self):
+        out, self._done = self._done, None
+        return self._eng.step() if out is None else out
+
+
+def _fleet_twin(model, device):
+    """The in-process twin: a ServingFrontend over three engines of the
+    fleet's roles on the parent's own model of the same spec, each with a
+    flight recorder and a BlockWireServer on 127.0.0.1, stepped as the
+    fleet's replicas are (``_BeginStep``)."""
+    from paddle_tpu_torch.inference import ServingEngine, ServingFrontend
+    from paddle_tpu_torch.inference.blockwire import BlockWireServer
+    from paddle_tpu_torch.inference.tracing import FlightRecorder
+
+    engines, servers = [], []
+    for i, role in enumerate(FLEET_ROLES):
+        e = ServingEngine(model, megastep_k=8, device=device,
+                          trace_recorder=FlightRecorder(proc=f"twin{i}"),
+                          **SERVE_KW)
+        e.role = role
+        servers.append(BlockWireServer(e))
+        engines.append(_BeginStep(e))
+    return (ServingFrontend(engines, **_fleet_frontend_kwargs("twin")),
+            servers)
+
+
+def _fleet_serve(fe, reqs, step, on_step=None, served=None):
+    """Submit ``reqs`` to ``fe``, drive ``step()`` until none is pending
+    (``on_step()`` after each step); returns (outcome, seconds).
+    ``served``: a set that gains the worker of every replica handed a
+    request (a prefill pass or a decode placement) in this run."""
+    if served is not None:
+        for rep in fe.replicas:
+            _note_served(rep.engine, served)
+    rids = [fe.submit(p, **kw) for p, kw in reqs]
+    t = time.perf_counter()
+    while fe.pending:
+        step()
+        if on_step is not None:
+            on_step()
+    secs = time.perf_counter() - t
+    res = fe.results()
+    return _cp_outcome({rid: res[rid] for rid in rids}), secs
+
+
+def _note_served(eng, served):
+    """Wrap a RemoteReplica's ``add_request`` (once) so that it adds the
+    worker's name to ``served``."""
+    if getattr(eng, "_served", None) is served:
+        return
+    add = eng.add_request
+
+    def noted(*args, **kwargs):
+        served.add(eng.worker)
+        return add(*args, **kwargs)
+
+    eng.add_request, eng._served = noted, served
+
+
+def _fleet_margins(torch, model, device, prompt, gen, sampling):
+    """Per generated position of ``gen``: (margin, bf16 step) of the choice
+    there, teacher-forced over prompt + gen on a fresh engine of the
+    fleet's geometry (``_draw_margin``: the top-two logits of a greedy
+    row, of the filtered, scaled logits plus the Gumbel noise of a
+    sampled one)."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    # one pass over the whole sequence: a token budget of max_seq_len
+    eng = ServingEngine(model, device=device, **dict(
+        SERVE_KW, token_budget=SERVE_KW["max_seq_len"]))
+    seq = list(prompt) + list(gen[:-1])
+    with torch.no_grad():
+        h = _forced_trunk(torch, eng, seq)
+        lg = (h[len(prompt) - 1:len(seq)]
+              @ eng._weights["head"]).float().cpu()
+    return [_draw_margin(torch, lg[j], sampling, j)
+            for j in range(len(gen))]
+
+
+def _fleet_agree(torch, model, device, reqs, got, want, what):
+    """Phase 4's ``_agree`` rule at bf16: each request's tokens equal up
+    to the first position whose margin is under bf16's step (phase 11's
+    threshold, 2^-7 of the largest |logit|); prints the exact-equality
+    count and every divergence.  ``got`` / ``want``: _cp_outcome's."""
+    exact = 0
+    for (prompt, kw), k in zip(reqs, sorted(want)):
+        a, b = got[k][1], want[k][1]
+        if a == b:
+            exact += 1
+            continue
+        sampling = ({"temperature": kw["temperature"],
+                     "top_p": kw.get("top_p", 1.0), "seed": kw["seed"]}
+                    if kw.get("temperature") else None)
+        margins = _fleet_margins(torch, model, device, prompt, b, sampling)
+        stop = next((j for j, (m, st) in enumerate(margins) if m < st),
+                    len(b))
+        if a[:stop] != b[:stop]:
+            raise AssertionError(f"{what}: request {k} differs before "
+                                 f"position {stop}: {a[:stop]} vs "
+                                 f"{b[:stop]}")
+        print(f"{what}: request {k} diverges at position {stop} (margin "
+              f"{margins[stop][0]:.4e} under bf16's step "
+              f"{margins[stop][1]:.4e})")
+    print(f"{what}: {exact} of {len(want)} requests equal bit for bit")
+
+
+def _fleet_pulls(fleet, pulls):
+    """Time every decode replica's ``pull_blocks`` RPC (the worker's wire
+    pull off its peer's listener and its import, enqueued) into
+    ``pulls``, from the end of the step the replica has in flight (which
+    the RPC waits for first)."""
+    import concurrent.futures
+
+    for rep in fleet.frontend.replicas:
+        eng = rep.engine
+        if eng.role != "decode":
+            continue
+        pull = eng.pull_blocks
+
+        def timed(*args, pull=pull, eng=eng, **kwargs):
+            if eng._pending_step is not None:
+                concurrent.futures.wait([eng._pending_step])
+            t = time.perf_counter()
+            n, nbytes = pull(*args, **kwargs)
+            pulls.append((n, nbytes, time.perf_counter() - t))
+            return n, nbytes
+
+        eng.pull_blocks = timed
+
+
+def _fleet_memory(torch, fleet):
+    """{worker: (max allocated GB, reserved GB)} over RPC: the caching
+    allocator's figures, read in the worker (no device work)."""
+    out = {}
+    for name in fleet.workers:
+        out[name] = tuple(
+            fleet._rpc.rpc_sync(name, fn, timeout=30) / 1e9
+            for fn in (torch.cuda.max_memory_allocated,
+                       torch.cuda.memory_reserved))
+    return out
+
+
+def _fleet_metrics(card, label, snap, secs):
+    lat = snap["latency"]
+    print(f"fleet metrics, {label} ({card}): TTFT p50 "
+          f"{lat['ttft_seconds']['p50'] * 1e3:.1f} ms p95 "
+          f"{lat['ttft_seconds']['p95'] * 1e3:.1f} ms, inter-token p50 "
+          f"{lat['token_latency_seconds']['p50'] * 1e3:.2f} ms p95 "
+          f"{lat['token_latency_seconds']['p95'] * 1e3:.2f} ms, "
+          f"{snap['tokens_per_sec']:.1f} tokens/s; {secs:.3f} s, "
+          f"{snap['counters']['tokens_emitted_total']} tokens")
+
+
+def _fleet_exit_launches(fleet, names, served):
+    """Each surviving worker's kernel launch counts from its WORKER_EXIT
+    line (read after shutdown; every count was set to 0 before the
+    phase's traffic).  Raises unless each survivor took requests of the
+    phase (``served``), launched every kernel of the fleet path and no
+    masked K4 instance; returns the sum over the survivors."""
+    idle = [n for n in names if n not in served]
+    if idle:
+        raise AssertionError(f"phase 15: survivors {idle} took no request "
+                             f"of the phase")
+    per = {}
+    for name in names:
+        line = next((ln for ln in fleet.worker_log(name, 1 << 16)
+                     .splitlines() if ln.startswith(f"WORKER_EXIT {name} ")),
+                    None)
+        if line is None:
+            raise AssertionError(f"phase 15: no WORKER_EXIT line from "
+                                 f"{name}:\n{fleet.worker_log(name)}")
+        per[name] = json.loads(line.split("launches=", 1)[1])
+        print(f"launches fleet {name} {json.dumps(per[name])}")
+        for k in PATHS["fleet"]:
+            if per[name][k] <= 0:
+                raise AssertionError(f"kernel {k} was never launched in "
+                                     f"worker {name}")
+        if per[name]["paged_attention.mask_launches"]:
+            raise AssertionError(f"phase 15: {name} launched a masked K4 "
+                                 "instance")
+    total = {k: sum(p[k] for p in per.values()) for k in per[names[0]]}
+    print(f"launches fleet {json.dumps(total)}")
+    return total
+
+
+def full_width_fleet(torch, card, model_kw=FLEET_MODEL, device="cuda"):
+    """Phase 15: the serving fleet across worker processes (module
+    docstring).  Cut: 8 of the 32 layers, so that three workers, a warm
+    one and the parent's twin (each with its own model, KV pool, graph
+    pool and CUDA context) fit on one card; widths are Llama-2-7B's.
+    ``model_kw`` / ``device`` let the phase be rehearsed on the CPU at a
+    small width (``device="cpu"``: CPU workers; the kernel check then has
+    nothing to count)."""
+    from paddle_tpu_torch.inference import ServingFleet
+    from paddle_tpu_torch.inference.fleet import build_spec_model
+
+    spec = _fleet_spec(model_kw)
+    os.environ["PADDLE_LOCAL_IP"] = "127.0.0.1"   # loopback only
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()      # the twin's peak alone
+    t = time.perf_counter()
+    fleet = ServingFleet(spec, num_workers=len(FLEET_ROLES),
+                         worker_roles=list(FLEET_ROLES),
+                         frontend_kwargs=_fleet_frontend_kwargs("fleet"),
+                         cpu_workers=device == "cpu", spawn_timeout=300.0,
+                         rpc_timeout=300.0, warm_pool_size=1)
+    try:
+        boot = time.perf_counter() - t
+        print(f"fleet: {len(FLEET_ROLES)} workers ({', '.join(FLEET_ROLES)})"
+              f" booted in {boot:.3f} s, in parallel, with a warm one "
+              f"booting beside them")
+        model = build_spec_model(spec["model"], spec["seed"], device=device)
+        reqs = _fleet_traffic(model.config.vocab_size)
+        pulls = []
+        _fleet_pulls(fleet, pulls)
+        fe = fleet.frontend
+        if device == "cuda":
+            # the counts of this run only: every worker's set to 0 in
+            # the worker (the warm one zeroes its own after its warm-up)
+            from paddle_tpu_torch.tools.serving_worker import \
+                reset_launch_counts
+
+            for name in fleet.workers:
+                fleet._rpc.rpc_sync(name, reset_launch_counts, timeout=60)
+        served = set()
+        out, secs = _fleet_serve(fe, reqs, fleet.step, served=served)
+        cold = fe.metrics.snapshot()
+        fab = dict(fe.fabric.counters)
+        twin, servers = _fleet_twin(model, device)
+        t_out, _ = _fleet_serve(twin, reqs, twin.step)
+        for srv in servers:
+            srv.close()
+        twin = servers = None
+        if out != t_out:
+            bad = {k: (out[k], t_out.get(k)) for k in out
+                   if out[k] != t_out.get(k)}
+            raise AssertionError(f"phase 15: the fleet and its in-process "
+                                 f"twin differ on requests {bad}")
+        status = [s for s, *_ in out.values()]
+        if status != ["completed"] * len(reqs) or any(
+                len(tk) != 32 for _, tk, *_ in out.values()):
+            raise AssertionError(f"phase 15: statuses {status}")
+        print(f"fleet == in-process twin: statuses, tokens and logprobs "
+              f"identical over {len(out)} requests")
+        fe_c = cold["counters"]
+        quiet = ("wire_fallbacks_total", "relay_pulls_total")
+        quiet_fe = ("fabric_pull_failures_total", "fabric_recomputes_total",
+                    "replica_deaths_total", "requeued_on_failover_total")
+        if not (fab["wire_pulls_total"] > 0 and pulls
+                and fab["wire_pulls_total"] == len(pulls)
+                and all(fab[k] == 0 for k in quiet)
+                and all(fe_c.get(k, 0) == 0 for k in quiet_fe)):
+            raise AssertionError(
+                f"phase 15: a chain did not arrive worker to worker: "
+                f"fabric {fab}, pull RPCs {len(pulls)}, frontend "
+                f"{[(k, fe_c.get(k)) for k in quiet_fe]}")
+        n_blk = sum(n for n, _, _ in pulls)
+        n_b = sum(b for _, b, _ in pulls)
+        p_s = sum(s for _, _, s in pulls)
+        print(f"fleet fabric: {len(pulls)} worker-to-worker pulls "
+              f"(_w_pull_blocks over blockwire, 127.0.0.1), {n_blk} blocks,"
+              f" {n_b} bytes in {p_s * 1e3:.2f} ms of pull RPCs "
+              f"({n_b / p_s / 1e9:.3f} GB/s: the RPC round trip, the wire "
+              f"pull and the import's enqueue); relay pulls, fallbacks, "
+              f"pull failures and recomputes 0")
+        _fleet_metrics(card, "the first run (each worker's first calls "
+                       "and graph captures inside)", cold, secs)
+        # the same traffic again: the graphs captured, the prefix warm
+        fe.metrics.reset()
+        w_out, w_secs = _fleet_serve(fe, reqs, fleet.step, served=served)
+        _fleet_metrics(card, "the second run (graphs captured, the "
+                       "prefix cache warm)", fe.metrics.snapshot(), w_secs)
+        _fleet_agree(torch, model, device, reqs, dict(
+            zip(sorted(out), w_out.values())), out,
+            "fleet second run vs first")
+        if device == "cuda":
+            for name, (peak, res) in sorted(
+                    _fleet_memory(torch, fleet).items()):
+                print(f"fleet memory {name}: max allocated {peak:.3f} GB, "
+                      f"reserved {res:.3f} GB ({card})")
+            print(f"fleet memory parent (the twin's model and engines): "
+                  f"max allocated "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+            used = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip()
+            print(f"fleet memory on the card, every process with its CUDA "
+                  f"context: {used}")
+
+        # the crash run: worker2 SIGKILLed after its first tokens
+        fe.metrics.reset()
+        doomed = fe.replicas[2]
+        victim = doomed.engine.worker
+        killed = []
+
+        def kill():
+            if killed or not any(r.generated
+                                 for r in doomed.requests.values()):
+                return
+            os.kill(doomed.engine.pid, signal.SIGKILL)
+            fleet._procs[victim].wait(timeout=60)
+            fleet.heartbeat()          # the heartbeat finds it dead
+            killed.append(doomed.alive)
+
+        c_out, _ = _fleet_serve(fe, reqs, fleet.step, on_step=kill,
+                                served=served)
+        c = fe.metrics.snapshot()["counters"]
+        if not (killed == [False] and victim not in fleet.workers
+                and c.get("requeued_on_failover_total", 0) >= 1
+                and c.get("replica_deaths_total", 0) == 1
+                and [s for s, *_ in c_out.values()]
+                == ["completed"] * len(reqs)):
+            raise AssertionError(
+                f"phase 15 crash run: killed {killed}, workers "
+                f"{fleet.workers}, statuses "
+                f"{[s for s, *_ in c_out.values()]}, counters "
+                f"{[(k, c.get(k)) for k in quiet_fe]}")
+        print(f"fleet crash run: {victim} SIGKILLed after its first tokens,"
+              f" found by the heartbeat; {len(c_out)} requests completed, "
+              f"{c['requeued_on_failover_total']} requeued on failover, "
+              f"none dropped")
+        _fleet_agree(torch, model, device, reqs, dict(
+            zip(sorted(out), c_out.values())), out,
+            "fleet crash run vs crash-free")
+
+        # a warm worker claimed, then a rolling swap to the same spec
+        wait = time.perf_counter()
+        while not fleet.warm_pool.ready_names():
+            if time.perf_counter() - wait > 300:
+                raise AssertionError(f"phase 15: the warm worker never got "
+                                     f"ready: {fleet.spawn_errors}")
+            time.sleep(0.1)
+        fleet.warm_pool.size = 0       # no refill behind the claim
+        warm = fleet.spawn_worker_async()
+        while fleet.num_pending_spawns:
+            fleet.step()
+            time.sleep(0.01)
+        if (warm not in fleet.workers or warm in fleet.spawn_errors
+                or fe.metrics.counter("pool_attaches_total") != 1):
+            raise AssertionError(f"phase 15: warm claim of {warm}: workers "
+                                 f"{fleet.workers}, {fleet.spawn_errors}")
+        print(f"fleet warm pool: {warm} claimed and attached in "
+              f"{time.perf_counter() - wait:.3f} s after its boot")
+        n = fleet.rolling_swap(spec, "v1")
+        if n != len(fleet.workers) or {
+                r.engine.weights_version for r in fe.replicas} != {"v1"}:
+            raise AssertionError(f"phase 15: rolling swap gave {n}")
+        # two requests over the shared prefix and two without it, so the
+        # claimed worker takes some (the prefix's holder takes the first)
+        pick = (0, 1, 8, 9)
+        after = [reqs[i] for i in pick]
+        keys = [sorted(out)[i] for i in pick]
+        s_out, _ = _fleet_serve(fe, after, fleet.step, served=served)
+        if [st for st, *_ in s_out.values()] != ["completed"] * len(pick):
+            raise AssertionError(
+                f"phase 15 after the swap: "
+                f"{[(st, d) for st, _, _, d in s_out.values()]}, spawn "
+                f"errors {dict(fleet.spawn_errors)}")
+        _fleet_agree(torch, model, device, after, dict(
+            zip(keys, s_out.values())), {k: out[k] for k in keys},
+            f"fleet after the rolling swap to v1 ({n} workers)")
+        text = fleet.prometheus_text()
+        for name in fleet.workers + ["frontend"]:
+            if f'replica="{name}"' not in text:
+                raise AssertionError(f"phase 15: no replica={name} series")
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                float(value)
+                if not name.startswith("paddle_tpu_serving_"):
+                    raise AssertionError(f"prometheus line {line!r}")
+        print(f"fleet prometheus page parsed: {len(text.splitlines())} "
+              f"lines, replica labels {sorted(fleet.workers)} + frontend")
+        survivors = list(fleet.workers)
+        print(f"fleet survivors {survivors}; took requests of the phase: "
+              f"{sorted(served)}")
+    finally:
+        fleet.shutdown()
+    return _fleet_exit_launches(fleet, survivors, served) \
+        if device == "cuda" else None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -5356,6 +5823,12 @@ def main(argv=None) -> int:
         _done("14", t)
     model = None                # the 7B weights: room for training
     torch.cuda.empty_cache()
+    if 15 in phases:
+        t = _phase("15 the serving fleet across worker processes")
+        launches["fleet"] = full_width_fleet(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("15", t)
     if 7 in phases:
         t = _phase("7 full-width training")
         launches["train"] = full_width_training(torch)

@@ -1,3 +1,4 @@
-"""Distributed pieces of the port.  Only the launch KV store
-(``launch/master.py``) is ported so far; nothing here imports
-``torch.distributed`` at import time."""
+"""Distributed pieces of the port: the launch KV store
+(``launch/master.py``) and the user RPC over HTTP (``rpc``), both host-side
+stdlib; nothing here imports ``torch.distributed`` at import time."""
+from . import rpc  # noqa: F401

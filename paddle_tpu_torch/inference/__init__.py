@@ -4,8 +4,9 @@ continuous-batching ``ServingEngine`` (``serving.py``), its failpoint
 registry (``faults.py``), and the serving control plane over it: the
 ``ServingFrontend`` (``control_plane.py``), ``ServingMetrics``
 (``metrics.py``), tracing (``tracing.py``), tenancy (``tenancy.py``), the
-request journal (``journal.py``), leases and fencing (``ha.py``), and the
-KV fabric's directory and data plane (``kv_fabric.py``, ``blockwire.py``).
+request journal (``journal.py``), leases and fencing (``ha.py``), the
+KV fabric's directory and data plane (``kv_fabric.py``, ``blockwire.py``),
+and the serving fleet of worker processes over RPC (``fleet.py``).
 The host-side modules are copied from paddle_tpu's, so this package never
 imports the JAX one."""
 from .control_plane import (  # noqa: F401
@@ -20,6 +21,13 @@ from .faults import (  # noqa: F401
     FaultInjector,
     FaultSpec,
     RespawnCircuitBreaker,
+)
+from .fleet import (  # noqa: F401
+    AutoscalePolicy,
+    FleetAutoscaler,
+    RemoteReplica,
+    ServingFleet,
+    WarmPool,
 )
 from .ha import (  # noqa: F401
     EpochFence,

@@ -163,15 +163,18 @@ class BlockWireServer:
     ``engine.export_blocks_packed`` runs under ``self._lock`` — the
     listener thread and the worker's RPC handler threads share one
     engine, and the packed gather must not interleave with a step's
-    cache writes."""
+    cache writes.  A serving worker passes as ``lock`` the worker lock
+    its CUDA-issuing RPC handlers hold (``fleet._WORKER["lock"]``): on
+    the card no gather may run beside a step's CUDA graph capture."""
 
     def __init__(self, engine, *, fence: Optional[EpochFence] = None,
                  fault_injector=None, host: str = "127.0.0.1",
-                 port: int = 0, advertise_host: Optional[str] = None):
+                 port: int = 0, advertise_host: Optional[str] = None,
+                 lock=None):
         self.engine = engine
         self.fence = fence if fence is not None else EpochFence()
         self._faults = fault_injector
-        self._lock = threading.Lock()
+        self._lock = lock if lock is not None else threading.Lock()
         self.counters = {
             "serve_pulls_total": 0,    # block frames served
             "serve_bytes_total": 0,    # raw packed bytes served

@@ -36,7 +36,11 @@ its inputs as numpy arrays.
   (``torch.cuda.graph_pool_handle()``): its graphs never run at once, and
   the caller reads a replay's outputs before it runs any graph of the pool
   again (a graph captured later may use the memory of an earlier graph's
-  outputs for its own temporaries).
+  outputs for its own temporaries).  Once every graph was dropped
+  (``clear``, ``watch``), the next capture takes a new pool: PyTorch
+  asserts on a capture into a pool whose graphs are all gone while their
+  outputs still hold its memory (a serving worker's rolling weight swap
+  did that).
 * **Launch counters.**  A replay runs no Python wrapper.  A capture
   records how far each kernel counter moved while it was captured (every
   integer attribute named ``*launches`` of the objects ``counters()``
@@ -191,6 +195,15 @@ class GraphCache:
         self.graphs.pop(key, None)
         self.states.pop(key, None)
 
+    def _pool_for_capture(self):
+        """The pool the next capture allocates from: a new one when no
+        graph of the cache is left (a pool whose graphs were all dropped
+        may still hold their outputs' memory, and PyTorch refuses a new
+        capture into it; the old pool goes with its last tensor)."""
+        if self.pool is None or not self.graphs:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
     def watch(self):
         """Drop every graph and state when the ``weights`` (read by the
         graphs, owned by the caller) are not at the addresses of the last
@@ -225,8 +238,7 @@ class GraphCache:
         out = fn(*ins)
         if cuda:
             torch.cuda.synchronize(self.device)
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
+            self._pool_for_capture()
         t1 = time.perf_counter()
         counters = self.counters()
         before = _snapshot(counters)

@@ -10,8 +10,17 @@ the repository root, the equivalent of
          -Xcompiler -fPIC -o build/paddle_tpu_torch/libpaddle_tpu_torch_kernels.so \\
          paddle_tpu_torch/csrc/*.cu
 
-The library is rebuilt when a source is newer than it.  A missing nvcc or
-a failed compile raises: there is no fallback to the plain versions.  The
+The library is rebuilt when a source is newer than it.  The check and the
+build run under an exclusive ``fcntl.flock`` on ``BUILD_DIR/build.lock``,
+taken on a file of the caller's own opening, so it excludes other threads
+as well as other processes: the serving fleet starts several worker
+processes at once on a fresh checkout, each finds the library stale, and
+without the lock they would run nvcc into the same object files.  The
+first caller builds; the others wait on the lock, find the library fresh
+and load it.  The link writes ``LIB_PATH + ".tmp"`` and ``os.replace``s it
+into place, so a reader never maps a half-written library.  A missing
+nvcc or a failed compile raises: there is no fallback to the plain
+versions.  The
 C functions take every pointer and the stream as ``void*``, allocate
 nothing, launch on the given stream and return ``cudaGetLastError()``.
 """
@@ -19,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -129,14 +139,36 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > t for s in _DEPS)
 
 
+@contextlib.contextmanager
+def _locked():
+    """The exclusive file lock on ``BUILD_DIR/build.lock`` that every
+    process and thread building into ``BUILD_DIR`` takes (released when
+    the holder exits, however it exits)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(force: bool = False, verbose: bool = False) -> str:
     """Compile every source in parallel, link the shared library, return
     its path.  ``verbose`` adds ``-Xptxas -v`` and prints what ptxas says
-    (registers, shared memory, spills per kernel)."""
+    (registers, shared memory, spills per kernel).  Another process
+    building into the same directory is waited for, and what it built is
+    taken where it is fresh (``force`` builds again all the same)."""
     if not force and not _stale():
         return LIB_PATH
+    with _locked():
+        if not force and not _stale():
+            return LIB_PATH
+        return _compile_and_link(verbose)
+
+
+def _compile_and_link(verbose: bool) -> str:
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
     extra = ["-Xptxas", "-v"] if verbose else []
     procs = []
     for src in SOURCES:

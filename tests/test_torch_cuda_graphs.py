@@ -295,6 +295,25 @@ def test_load_weights_drops_the_graphs_and_serves_the_new_weights(models):
     assert got[:2] == want[:2]
 
 
+def test_a_new_pool_once_every_graph_was_dropped(monkeypatch):
+    """Graphs share one pool while any of them lives; once ``clear`` (a
+    rolling swap's ``load_weights``) or ``watch`` dropped them all, the
+    next capture takes a new pool: PyTorch asserts on a capture into a
+    pool whose graphs are gone while their outputs hold its memory."""
+    handles = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: next(handles))
+    cache = GraphCache("cpu")
+    first = cache._pool_for_capture()
+    cache.graphs["a"] = object()
+    assert cache._pool_for_capture() == first
+    cache.graphs["b"] = object()
+    cache.drop("a")
+    assert cache._pool_for_capture() == first      # "b" still uses it
+    cache.clear()
+    assert cache._pool_for_capture() != first
+
+
 def test_a_cpu_engine_captures_nothing(models):
     """By default a CPU engine runs every loop eagerly: no graph, no
     capture, compile_count 0 after megasteps and mixed loops ran."""

@@ -50,6 +50,10 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.inference.kv_fabric,"
             " paddle_tpu_torch.inference.blockwire,"
             " paddle_tpu_torch.distributed.launch.master,"
+            " paddle_tpu_torch.distributed.rpc,"
+            " paddle_tpu_torch.inference.fleet,"
+            " paddle_tpu_torch.tools.serving_worker,"
+            " paddle_tpu_torch.tools.chaos_serving,"
             " paddle_tpu_torch.nn.transformer,"
             " paddle_tpu_torch.ops.hopper.int8_matmul\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')"
