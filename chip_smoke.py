@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's four paths — Llama serving through the paged
 ServingEngine (with speculative decoding, KV block transfer, the int8
-KV cache, the serving control plane over two engines and the serving
-fleet over worker processes), Llama
+KV cache, a KV cache of the other float dtype, the serving control plane
+over two engines, the serving fleet over worker processes and the
+in-process chaos soaks), Llama
 generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
@@ -14,6 +15,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 2,13    # kernels + block_multihead_attention
     python3 chip_smoke.py --phases 14      # the serving control plane
     python3 chip_smoke.py --phases 15      # the serving fleet
+    python3 chip_smoke.py --phases 2,16    # kernels + the chaos soaks
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
@@ -104,6 +106,17 @@ Phases (each prints its seconds):
      every key is -inf);
      the entry refuses a mask without seq_lens_encoder or of a head count
      other than 1 and H;
+     K4 over a cache whose dtype is not q's (Queue C12): a float32 q over
+     bfloat16 pools (the SIMT and wide instances with the cache's element
+     type) and a bfloat16 q over float32 pools (widened by the wrapper) at
+     decode (8 rows, context <= 512, 32 / 32 and 32 / 8 heads), the
+     single step's mixed batch of 255 tokens, a 64-key prefix in the
+     cache's dtype, the masks and head_dim 640, each under the plan's
+     split and 1 and 4 splits forced, the same bits twice, timed beside
+     the float32 K4 over a float32 cache and SDPA over the context widened
+     to float32 (rows of their own in the kernels line, "cache_dtype"
+     set); the K4 entry refuses a bfloat16 q over float32 pools, and
+     decode_attention a ring of another dtype than q's;
      K2's interleaved pairs at the serving step's [1, 256] rows;
      then (informative) B1 and B8 in bf16 at every compiled tile pair
      (autotune.tune), B8's two GQA modes, and whether two bf16 B8 runs
@@ -143,7 +156,15 @@ Phases (each prints its seconds):
      int8 cache (cache_quant="int8", K4-int8) on cuda against the CPU at
      head_dim 128, 72 and 640: greedy tokens equal up to the first top-2
      gap below 1e-3 of the CPU engine's own int8 decode, logprobs within
-     1e-3 of the largest |logprob| + 1e-3 there;
+     1e-3 of the largest |logprob| + 1e-3 there; C12's engines: the
+     2-layer float32 pair over a bfloat16 cache and a 2-layer bfloat16
+     pair over a float32 cache, each against the CPU engine of the same
+     cache_dtype (the bf16 pair's logits within 2^-5 of the largest
+     |logit|, its tokens up to the first top-2 gap under 2^-6 of it); then the
+     7B widths in float32 cut to 4 layers over a bfloat16 cache serve 8
+     requests (one sampled) on CUDA graphs and eagerly, tokens and
+     logprobs equal bit for bit (the "mixed_cache" path's launches), a
+     profiled wave's K4 kernels the float-over-bf16 instance;
   5. generation at full width, on phase 3's model: the launch counters are
      zeroed, then (a) model(ids [2, 1024]) gives finite logits, (b) on the
      eager loop (_graphs = False), then on CUDA graphs (the default on
@@ -314,11 +335,22 @@ Phases (each prints its seconds):
      warm worker zeroes its own after its warm-up), and after shutdown
      each surviving worker's WORKER_EXIT counts: each survivor took
      requests of the phase, K1-K4 launched in each, no masked K4;
+  16. the in-process chaos soaks of paddle_tpu_torch.tools.chaos_serving
+     on the card (run after the 7B model is dropped), at Llama-2-7B width
+     cut to 2 layers in float32 (CHAOS_MODEL says why not bf16) with the
+     soaks' own ENGINE, seeds and streams: run_chaos at seed 7 (poison)
+     and with a brownout, run_chaos twice at seed 11 (equal reports:
+     replay determinism on graphs), run_chaos_spec, run_chaos_disagg,
+     run_chaos_multitenant,
+     run_kill_frontend (its serve-phase child on cuda, a real SIGKILL)
+     and run_standby, each with its own assertions (every request typed
+     terminal, survivors equal to the fault-free run on the card, the
+     faults fired); each mode's seconds and fault kinds printed;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict", "blha", "control",
-  "fleet"}, null for a path whose phase did not run; "fleet" the sum over
-  the surviving workers), then the card line, then {"ok": true,
-  "device": {...}} as the last line.
+  "fleet", "mixed_cache", "chaos"}, null for a path whose phase did not
+  run; "fleet" the sum over the surviving workers), then the card line,
+  then {"ok": true, "device": {...}} as the last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
 imports nothing of JAX or paddle_tpu.
@@ -419,6 +451,14 @@ PATHS = {
     # phase 15: the serving fleet, each worker process's own counts
     # (WORKER_EXIT), summed over the surviving workers
     "fleet": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+              "paged_attention"),
+    # phase 4's full-width float32 engine over a bfloat16 cache (C12)
+    "mixed_cache": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+                    "paged_attention"),
+    # phase 16: the in-process chaos soaks (their replicas, the spec
+    # verify and the soaks' own reference engines; not the kill-frontend
+    # child, a process of its own)
+    "chaos": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
               "paged_attention"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
@@ -1550,6 +1590,140 @@ def _sdpa_case(torch, q, kc, vc, dec, now, cu, bt, mq, pre_key=None,
         qp, k_all, v_all, attn_mask=mask, **gqa)
 
 
+# Queue C12: K4 over a cache whose dtype is not q's.  (q, cache) dtype
+# pairs, and the cases: (label, heads, KV heads, head_dim, dec, now, prefix
+# keys, masks), dec None for 8 random decode contexts under 512
+MIXED_PAIRS = (("float32", "bfloat16"), ("bfloat16", "float32"))
+MIXED_CASES = (
+    ("decode 8 rows, context <= 512, 32 heads / 32 KV", 32, 32, 128, None,
+     [1] * 8, 0, False),
+    ("decode 8 rows, context <= 512, 32 heads / 8 KV", 32, 8, 128, None,
+     [1] * 8, 0, False),
+    ("mixed 255 tokens (single step), 32 heads / 32 KV", 32, 32, 128,
+     [300, 0, 200, 450, 0, 0, 20, 64], [1, 100, 16, 1, 60, 0, 1, 76], 0,
+     False),
+    ("decode 8 rows, context <= 512, prefix 64, 32 heads / 32 KV", 32, 32,
+     128, None, [1] * 8, 64, False),
+    ("decode 8 rows, context <= 512, masks, 32 heads / 32 KV", 32, 32, 128,
+     None, [1] * 8, 0, True),
+    ("decode 8 rows, 8 heads / 2 KV, head_dim 640", 8, 2, 640, None, [1] * 8,
+     0, False))
+
+
+def _mixed_cache_rows(torch, timer):
+    """Phase 2's C12 rows: K4 with a float32 q over bfloat16 pools and a
+    bfloat16 q over float32 pools (``MIXED_PAIRS``) at ``MIXED_CASES``:
+    decode (8 rows, contexts under 512, 32 / 32 and 32 / 8 heads), the
+    single step's mixed batch of 255 tokens, a 64-key prefix (in the
+    cache's dtype), the masks (``_serving_masks``), head_dim 640 (the wide
+    instance).  Each is held to the plain version (``_tol`` of q's dtype)
+    under the plan's split and under 1 and 4 splits forced (past 512
+    columns: one), a plan with a cluster giving the same bits twice; then
+    timed beside the plain version, the float32 K4 over a float32 cache
+    at the same shape (q and the pools widened before the timing) and
+    SDPA over the context widened to float32; its bound is the bytes at
+    each operand's own width over the HBM rate, or its operations at the
+    float32 rate.  Returns the kernels line's rows."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1212)
+    dev, bs, B, P, NB = "cuda", 16, 8, 32, 256
+    rows = []
+    edges = clusters = 0
+    for qname, cname in MIXED_PAIRS:
+        qdt, cdt = getattr(torch, qname), getattr(torch, cname)
+        eq, ec = qdt.itemsize, cdt.itemsize
+        for label, H, KV, D, dec, now, Lp, masked in MIXED_CASES:
+            def rnd(*shape, dt):
+                return torch.randn(*shape, generator=g, device=dev, dtype=dt)
+
+            dec = (torch.randint(64, 511, (B,), generator=g, device=dev)
+                   if dec is None else torch.tensor(dec, device=dev)).to(
+                       torch.int32)
+            now_t = torch.tensor(now, dtype=torch.int32, device=dev)
+            cu = torch.zeros(B + 1, dtype=torch.int32, device=dev)
+            cu[1:] = torch.cumsum(now_t, 0)
+            decode = max(now) == 1
+            T, mq = (B, 1) if decode else (256, 256)
+            kc, vc = rnd(NB, KV, bs, D, dt=cdt), rnd(NB, KV, bs, D, dt=cdt)
+            bt = torch.randperm(NB, generator=g, device=dev)[:B * P].view(
+                B, P).to(torch.int32)
+            q = rnd(T, H, D, dt=qdt)
+            extra = (dict(pre_key=rnd(B, KV, Lp, D, dt=cdt),
+                          pre_value=rnd(B, KV, Lp, D, dt=cdt)) if Lp else {})
+            if masked:
+                extra.update(_serving_masks(torch, g, H, dec, now_t, mq,
+                                            Lp + P * bs))
+            args = (q, kc, vc, dec, now_t, cu, bt, mq)
+            ref = pa._paged_attention_ref(*args, **extra)
+            tol = _tol(qname, ref)
+            what = f"{qname} q over a {cname} cache, {label}"
+            runs = [("plan", lambda: pa.paged_attention(*args, **extra))]
+            if D <= pa.MAX_HEAD_DIM:
+                runs += [(f"{n} splits forced",
+                          lambda n=n: pa._launch(*args, splits=n, **extra))
+                         for n in (1, pa.SPLIT_CAP)]
+            err = 0.0
+            for how, run in runs:
+                got = run()
+                e = _err(torch, got, ref)
+                edges += 1
+                if got.dtype != qdt or not e <= tol:
+                    raise AssertionError(f"C12 K4 {what}, {how}: {got.dtype}"
+                                         f", kernel and plain differ by {e}"
+                                         f" > {tol}")
+                if not torch.equal(run(), got):
+                    raise AssertionError(f"C12 K4 {what}, {how}: two runs "
+                                         "differ")
+                clusters += how != "plan"
+                err = max(err, e)
+            wide = {k: (v.float() if k.startswith("pre") else v)
+                    for k, v in extra.items()}
+            q32, k32, v32 = q.float(), kc.float(), vc.float()
+            # q float32 (a bfloat16 q is widened first) over the pools
+            plan = pa.paged_plan(T, B, mq, P, bs, H, KV, D, torch.float32,
+                                 pre_len=Lp, cache_dtype=cdt)
+            live = [min(n, mq) for n in now]
+            keys = sum(Lp + min(d + n, P * bs)
+                       for d, n in zip(dec.tolist(), live) if n)
+            nbytes = (sum(live) + T) * H * D * eq + 2 * keys * KV * D * ec
+            if masked:
+                nbytes += _mask_bytes(extra, dec, live, Lp, P * bs)
+            vis = sum(Lp + min(d + j + 1, P * bs)
+                      for d, n in zip(dec.tolist(), live) for j in range(n))
+            ops = 4 * vis * H * D
+            ms = timer(runs[0][1])
+            plain_ms = timer(lambda: pa._paged_attention_ref(*args, **extra))
+            f32_ms = timer(lambda: pa.paged_attention(
+                q32, k32, v32, dec, now_t, cu, bt, mq, **wide))
+            lib_ms = timer(_sdpa_case(torch, q32, k32, v32, dec, now_t, cu,
+                                      bt, mq, **wide))
+            bound_ms, bound_by = _bound(nbytes, ops, "float32")
+            print(f"kernel paged_attention C12 {what}: max_abs_err {err:.3e} "
+                  f"tol {tol:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms {lib_ms:.4f} (SDPA over the float32 context)"
+                  f" bound_ms {bound_ms:.4f} ({bound_by}) of_bound "
+                  f"{bound_ms / ms:.3f}; float32 K4 over a float32 cache "
+                  f"{f32_ms:.4f} ms; qt {plan.qt} kt {plan.kt} stages "
+                  f"{plan.stages} splits {plan.splits} smem {plan.smem}",
+                  flush=True)
+            rows.append(dict(
+                name="paged_attention", shape=f"C12: {what}", dtype=qname,
+                cache_dtype=cname, route="cuda",
+                source=SOURCES["paged_attention"],
+                replaces=REPLACES["paged_attention"], max_abs_err=err,
+                max_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                f32_cache_ms=f32_ms))
+    torch.cuda.synchronize()
+    print(f"C12 mixed-cache K4: {edges} calls (plans, 1 and 4 splits "
+          f"forced; {clusters} forced) agree with the plain versions and "
+          "give the same bits twice; no shape refused up to and past "
+          "head_dim 512", flush=True)
+    return rows
+
+
 def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                      b7_sweep=False, k1_sweep=False):
     """Check every case in both types; time it; return the rows of the
@@ -1661,6 +1835,7 @@ def kernels_vs_plain(torch, iters=20, k4_sweep=False, b2_sweep=False,
                     max_abs_err=err, max_err=err, tol=tol, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=lib_ms))
+    rows += _mixed_cache_rows(torch, timer)
     _refusals(torch)
     _norm_rope_edges(torch)
     _rope_sign_bits(torch)
@@ -2800,7 +2975,7 @@ def _refusals(torch):
             q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
             z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), pk,
             pk, 1, 1, P, 1, 8, 8, 128, 16, Lp, 1, 0.1, qt, kt, stages,
-            splits, chunk, 0, *(0,) * 9, 1,
+            splits, chunk, 0, *(0,) * 9, 1, 1,
             torch.cuda.current_stream().cuda_stream)
         if err != 1:
             raise AssertionError(f"paged_attention {what} not refused: "
@@ -2817,11 +2992,38 @@ def _refusals(torch):
             q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
             z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), None,
             None, 1, 1, 1, 1, 8, 8, 128, 16, 0, 1, 0.1, 1, 64, 2, 1, 64, 0,
-            *mk, 1, torch.cuda.current_stream().cuda_stream)
+            *mk, 1, 1, torch.cuda.current_stream().cuda_stream)
         if err != 1:
             raise AssertionError(f"paged_attention {what} not refused: "
                                  f"{err}")
         print(f"refused paged_attention with {what}: cudaError_t 1")
+    # the entry takes a cache of q's dtype or bfloat16 under float32 (C12);
+    # a bfloat16 q over float32 pools is the wrapper's to widen
+    kv32 = kv.float()
+    err = _build.lib().ptt_paged_attention(
+        q.data_ptr(), kv32.data_ptr(), kv32.data_ptr(), q.data_ptr(),
+        z.data_ptr(), one.data_ptr(), cu.data_ptr(), bt.data_ptr(), None,
+        None, 1, 1, 1, 1, 8, 8, 128, 16, 0, 1, 0.1, 1, 64, 2, 1, 64, 0,
+        *(0,) * 9, 1, 0, torch.cuda.current_stream().cuda_stream)
+    if err != 1:
+        raise AssertionError(f"paged_attention's entry took a bfloat16 q "
+                             f"over float32 pools: {err}")
+    print("refused paged_attention's entry with a bfloat16 q over float32 "
+          "pools: cudaError_t 1 (the wrapper widens q)")
+    # every other kernel keeps launch_args' one dtype for all its inputs
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+    try:
+        ring = torch.ones(1, 16, 8, 128, device=dev)
+        da.decode_attention(q.view(1, 1, 8, 128), ring, ring,
+                            torch.zeros((), dtype=torch.int32, device=dev))
+    except ValueError as e:
+        if "one device and dtype" not in str(e):
+            raise
+        print(f"refused decode_attention bfloat16 q over a float32 ring: "
+              f"{e}")
+    else:
+        raise AssertionError("decode_attention took a float32 ring under a "
+                             "bfloat16 q")
     # a head dim past 512 (C8, closed): every attention kernel computes
     # it (the wide instances), held to its plain version
     from paddle_tpu_torch.ops.hopper import decode_attention as da
@@ -3431,7 +3633,10 @@ def two_layer_models(torch, head_dim=None, seed=1):
     return gpu_model, cpu_model
 
 
-def kernels_vs_plain_path(torch, gpu_model, cpu_model):
+def kernels_vs_plain_path(torch, gpu_model, cpu_model, cache_dtype=None):
+    """Engines on cuda (kernels) against engines on the CPU (plain
+    versions) over the same weights: first-step logits and greedy tokens;
+    ``cache_dtype`` gives every engine a KV cache of that dtype (C12)."""
     import numpy as np
 
     from paddle_tpu_torch.inference.serving import ServingEngine
@@ -3439,6 +3644,8 @@ def kernels_vs_plain_path(torch, gpu_model, cpu_model):
     cfg = gpu_model.config
     engine_kw = dict(max_batch_size=4, max_seq_len=128, block_size=16,
                      token_budget=128)
+    if cache_dtype is not None:
+        engine_kw["cache_dtype"] = cache_dtype
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
                for n in (9, 33, 48, 20)]
@@ -3450,9 +3657,16 @@ def kernels_vs_plain_path(torch, gpu_model, cpu_model):
     lg_cpu = _first_step_logits(
         torch, ServingEngine(cpu_model, device="cpu", **engine_kw), prompts)
     err = float((lg_gpu - lg_cpu).abs().max())
-    tol = 1e-3 * float(lg_cpu.abs().max()) + 1e-3
+    scale = float(lg_cpu.abs().max())
+    # bfloat16: both sides round every projection to bf16 after summing in
+    # their own orders; logits within four bf16 steps of the largest
+    # |logit|, tokens compared up to the first position whose CPU top-2
+    # gap is under two such steps
+    bf16 = cfg.dtype == "bfloat16"
+    tol = 2 ** -5 * scale if bf16 else 1e-3 * scale + 1e-3
+    thresh = 2 ** -6 * scale if bf16 else 1e-3
     print(f"first-step logits: max_abs_err {err:.3e} tol {tol:.3e} "
-          f"(max |logit| {float(lg_cpu.abs().max()):.3f})")
+          f"(max |logit| {scale:.3f})")
     if not err <= tol:
         raise AssertionError("first-step logits differ beyond tolerance")
     # greedy serving, 16 new tokens each; the repeat of prompt 1 comes
@@ -3467,11 +3681,118 @@ def kernels_vs_plain_path(torch, gpu_model, cpu_model):
     for i, p in enumerate(flat):
         gaps = _top2_gaps(torch, ServingEngine(cpu_model, device="cpu",
                                                **engine_kw), p, cpu[i])
-        _agree(gpu[i], cpu[i], gaps, f"request {i} cuda vs cpu")
+        _agree(gpu[i], cpu[i], gaps, f"request {i} cuda vs cpu", thresh)
         _agree(gpu[i], gpu_off[i], gaps,
-               f"request {i} prefix cache on vs off")
+               f"request {i} prefix cache on vs off", thresh)
     print(f"kernel path == plain path on {len(flat)} requests "
           f"(prefix hit blocks on cuda: repeat served)")
+
+
+def _bf16_pair(torch, seed=3):
+    """The 7B geometry at 2 layers in bfloat16, on cuda and on the CPU,
+    with identical weights from ``seed`` (phase 4's C12 engines)."""
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+        llama_7b,
+        load_numpy_state_dict,
+    )
+
+    cfg = llama_7b(dtype="bfloat16", num_hidden_layers=2)
+    gpu_model = LlamaForCausalLM(cfg, seed=seed)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    # bf16 values widen to float32 exactly and narrow back unchanged
+    load_numpy_state_dict(cpu_model, {k: v.float().cpu().numpy() for k, v in
+                                      gpu_model.state_dict().items()})
+    return gpu_model, cpu_model
+
+
+def mixed_cache_vs_plain(torch, f32_pair):
+    """Phase 4's C12 engines: the 2-layer float32 pair over a bfloat16
+    cache (K4's float32 q over bf16 pools) and a 2-layer bfloat16 pair over
+    a float32 cache (a bf16 q widened by the wrapper), each on cuda held to
+    the CPU engine of the same cache_dtype (``kernels_vs_plain_path``)."""
+    print("-- float32 engine over a bfloat16 cache")
+    kernels_vs_plain_path(torch, *f32_pair, cache_dtype="bfloat16")
+    print("-- bfloat16 engine over a float32 cache")
+    kernels_vs_plain_path(torch, *_bf16_pair(torch), cache_dtype="float32")
+
+
+# phase 4's full-width C12 run: Llama-2-7B widths in float32 cut to 4
+# layers (32 float32 layers take 27 GB), over a bfloat16 cache
+MIXED_LAYERS = 4
+
+
+def full_width_mixed_cache(torch, card):
+    """Phase 4's C12 run at full width: the 7B widths in float32 at
+    ``MIXED_LAYERS`` layers (seed 4) over a bfloat16 KV cache, 8 requests
+    (one sampled, each with logprobs) served through CUDA graphs and by
+    an eager twin over the same weights (``_graphs = False``): tokens and
+    logprobs equal bit for bit; the kernel launches of the graph run are
+    the "mixed_cache" path; a profiled wave's K4 kernels are the mixed
+    instance (float q over __nv_bfloat16 pools) and unmasked."""
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    model = LlamaForCausalLM(llama_7b(dtype="float32",
+                                      num_hidden_layers=MIXED_LAYERS), seed=4)
+    eng = ServingEngine(model, cache_dtype="bfloat16", **SERVE_KW)
+    eager = ServingEngine(model, cache_dtype="bfloat16", **SERVE_KW)
+    eager._graphs = False
+    kv = sum(c.numel() * c.element_size()
+             for c in eng.key_caches + eng.value_caches)
+    print(f"mixed cache: float32 model ({MIXED_LAYERS} layers), bfloat16 "
+          f"KV pool of {kv / 1e9:.3f} GB (a float32 pool: "
+          f"{2 * kv / 1e9:.3f} GB)")
+    for e in (eng, eager):
+        for name in ("_run_megastep", "_run_mixed", "_run_step"):
+            setattr(e, name, _sync_free(torch, getattr(e, name)))
+    rng = np.random.default_rng(12)
+    greedy = dict(logprobs=True)
+    sampled = dict(temperature=0.8, top_p=0.9, seed=12, logprobs=True)
+    lens = [9, 33, 64, 120, 200, 17, 80, 300]
+    news = [32, 24, 40, 16, 32, 8, 28, 20]
+    wave = [(rng.integers(1, model.config.vocab_size, n).tolist(), m,
+             sampled if i == 2 else greedy)
+            for i, (n, m) in enumerate(zip(lens, news))]
+    counters = _zero_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lps = []
+    outs = _serve_waves(eng, [wave], lps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = _path_launches("mixed_cache", counters)
+    if counters["paged_attention"].mask_launches:
+        raise AssertionError("mixed cache: a masked K4 instance launched")
+    e_lps = []
+    t = time.perf_counter()
+    e_outs = _serve_waves(eager, [wave], e_lps)
+    torch.cuda.synchronize()
+    e_secs = time.perf_counter() - t
+    if outs != e_outs or lps != e_lps:
+        bad = [i for i, (a, b) in enumerate(zip(outs, e_outs)) if a != b]
+        raise AssertionError(f"mixed cache: graphs and eager differ: tokens "
+                             f"of requests {bad}, logprobs equal "
+                             f"{lps == e_lps}")
+    n_tok = sum(len(o) for o in outs)
+    print(f"mixed cache graphs == eager: tokens and logprobs identical over "
+          f"{len(outs)} requests ({n_tok} tokens, one sampled); "
+          f"{eng.compile_count} graphs captured; {secs:.3f} s on graphs "
+          f"(captures inside), {e_secs:.3f} s eager ({card}, informative)")
+    probe = [[(rng.integers(1, model.config.vocab_size, 64).tolist(), 16,
+               None) for _ in range(8)]]
+    _serve_waves(eng, probe)            # the keys this wave takes, captured
+    evs = _profile(torch, "mixed cache decode wave (8 rows, 64-token "
+                   "prompts, 16 new tokens, graphs)",
+                   lambda: _serve_waves(eng, probe),
+                   lambda: _serve_waves(eng, probe), top=8)
+    k4 = [ev.key for ev in evs if "paged_attention" in ev.key]
+    if not k4 or not all("float, __nv_bfloat16" in k for k in k4):
+        raise AssertionError(f"mixed cache: K4 kernels {k4}")
+    _unmasked(k4, "K4 in the mixed-cache wave")
+    return launches
 
 
 def _load_weights_on_graphs(torch, gpu_model, other):
@@ -5699,10 +6020,73 @@ def full_width_fleet(torch, card, model_kw=FLEET_MODEL, device="cuda"):
         if device == "cuda" else None
 
 
+# -------------------------------------------------------------- phase 16
+# the in-process soaks' model: Llama-2-7B widths (LlamaConfig's defaults)
+# cut to 2 layers, with the soaks' own ENGINE, seeds and streams, in
+# float32 (the reference soaks' dtype).  The soaks hold their survivors
+# to fresh engines bit for bit although the batches differ (failover
+# re-prefills, spec verifies, swaps); bf16 logits at this width tie or
+# nearly tie (a top-2 gap of 0 in phase 4's bf16 pair), and in bf16 runs
+# on an H100 the spec soak lost 3 of 12 requests and the multitenant one
+# 1 of 15 to such ties
+CHAOS_MODEL = dict(num_hidden_layers=2, dtype="float32")
+
+
+def full_width_chaos(torch, card, model_kw=CHAOS_MODEL, device=None):
+    """Phase 16: the in-process chaos soaks of
+    ``paddle_tpu_torch.tools.chaos_serving`` on the card (module
+    docstring), each with its own assertions: every request typed
+    terminal, the survivors equal to the soak's fault-free run over fresh
+    engines on the card, the faults fired.  ``run_chaos`` at seed 11 runs
+    twice and must give equal reports (replay determinism on graphs).
+    Prints each mode's seconds and the fault kinds fired; returns the
+    launches of the phase (its soaks' engines in this process; the
+    kill-frontend child is a process of its own).  ``model_kw`` /
+    ``device`` let the phase be rehearsed on the CPU at a small width."""
+    from paddle_tpu_torch.tools import chaos_serving as cs
+
+    kw = dict(model_kw=model_kw, device=device)
+    modes = (
+        ("run_chaos, seed 7, poison", lambda: cs.run_chaos(seed=7, **kw)),
+        ("run_chaos, seed 7, brownout",
+         lambda: cs.run_chaos(seed=7, brownout=True, **kw)),
+        ("run_chaos, seed 11", lambda: cs.run_chaos(seed=11, **kw)),
+        ("run_chaos, seed 11 again", lambda: cs.run_chaos(seed=11, **kw)),
+        ("run_chaos_spec", lambda: cs.run_chaos_spec(seed=0, **kw)),
+        ("run_chaos_disagg", lambda: cs.run_chaos_disagg(seed=0, **kw)),
+        ("run_chaos_multitenant",
+         lambda: cs.run_chaos_multitenant(seed=0, **kw)),
+        ("run_kill_frontend", lambda: cs.run_kill_frontend(seed=0, **kw)),
+        ("run_standby", lambda: cs.run_standby(seed=0, **kw)))
+    counters = _zero_counters() if device is None else None
+    reports = {}
+    for label, run in modes:
+        t = time.perf_counter()
+        rep = run()
+        secs = time.perf_counter() - t
+        reports[label] = rep
+        print(f"chaos {label}: {secs:.3f} s, {rep.get('steps', '-')} steps, "
+              f"statuses {json.dumps(rep['statuses'], sort_keys=True)}, "
+              f"fault kinds fired {rep.get('fault_kinds_fired')}, "
+              f"{len(rep['survivors'])} survivors equal to the fault-free "
+              f"run on {rep['device']} ({card})", flush=True)
+    if reports["run_chaos, seed 11"] != reports["run_chaos, seed 11 again"]:
+        raise AssertionError("phase 16: run_chaos at seed 11 did not replay "
+                             "to an equal report")
+    print("chaos run_chaos seed 11 replayed to an equal report (trace "
+          f"digest {reports['run_chaos, seed 11']['trace_digest']})")
+    if counters is None:
+        return None
+    launches = _path_launches("chaos", counters)
+    if counters["paged_attention"].mask_launches:
+        raise AssertionError("phase 16: a masked K4 instance launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -5789,6 +6173,11 @@ def main(argv=None) -> int:
         for d in (None, 72, 640):
             print(f"-- int8 cache, head_dim {d or 128}")
             int8_kernels_vs_plain(torch, *(dims[d] if d else pair))
+        mixed_cache_vs_plain(torch, pair)
+        print("-- full width, float32 over a bfloat16 cache")
+        launches["mixed_cache"] = full_width_mixed_cache(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
         _done("4", t)
     if 5 in phases:
         t = _phase("5 full-width generation")
@@ -5829,6 +6218,12 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _done("15", t)
+    if 16 in phases:
+        t = _phase("16 the in-process chaos soaks")
+        launches["chaos"] = full_width_chaos(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("16", t)
     if 7 in phases:
         t = _phase("7 full-width training")
         launches["train"] = full_width_training(torch)

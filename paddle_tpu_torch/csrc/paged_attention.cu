@@ -19,7 +19,7 @@
 // and output quantization read the float32 value and round once).
 // The pre-caches (blha_attention's pre_key_cache / pre_value_cache,
 // :255-260 and :274-279): with pre_len Lp > 0 the keys of row b are Lp
-// prefix rows pk / pv [B, KV, Lp, D] (q's dtype, contiguous), seen by
+// prefix rows pk / pv [B, KV, Lp, D] (the cache's dtype, contiguous), seen by
 // every query, followed by its paged context: key j >= Lp is paged key j -
 // Lp, visible at positions >= j - Lp.  The prefix is a second source of
 // key rows in the copier (a key below Lp reads pre[b, kh, key, :]; a tile
@@ -50,6 +50,17 @@
 // score (merged across the cluster) is computed once more over its whole
 // combined axis in plain float32 (RefRows, a warp a row) and written in
 // place of the walk's result.  No other row pays for it.
+//
+// The cache's dtype (Queue C12): the pools and the pre-caches are q's
+// dtype, or bfloat16 under a float32 q (a float32 engine whose
+// cache_dtype is bfloat16; the reference stores k and v in the cache's
+// dtype and attends in float32).  That pair runs the SIMT instance (and
+// past 512 columns the wide one) with the cache's element type C apart
+// from q's T: the ring holds the tiles at their stored bf16 width, filled
+// by the same cp.async pieces, and every read from shared memory widens
+// them exactly; the plan counts the ring at that width.  A bfloat16 q over
+// a float32 cache is widened to float32 by the wrapper (exact) and takes
+// the float32 instances, the output rounded once.
 //
 // Bound on the H100: bytes.  Every serving shape reads each visible key and
 // value row once and does ~4 operations per (query row, key, column) on it,
@@ -99,7 +110,8 @@
 //   be captured.  The first split of every tile also writes the zeros of
 //   its share of the tokens that no tile owns.
 // QT, KT, the number of splits and the chunk come from
-// ops/hopper/paged_attention.py:paged_plan; the entry refuses a KT without
+// ops/hopper/paged_attention.py:paged_plan; the entry refuses a cache dtype
+// other than q's or bfloat16 under float32, a KT without
 // an instance, more than 4 splits, a ring other than 2 stages on the tensor
 // cores (2 or 3 on SIMT; past 512 columns 32-key tiles, 1 stage and 1
 // split), 16-key tiles at 256 columns or fewer, a chunk
@@ -109,6 +121,8 @@
 #include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -225,7 +239,8 @@ __host__ __device__ inline Layout layout(bool tc, int R, int D, int es,
   return L;
 }
 
-// 8 consecutive elements of T (16-byte aligned) as floats
+// 8 consecutive elements of T (16-byte aligned) as floats: bfloat16
+// widens exactly
 template <typename T>
 __device__ __forceinline__ void load8(const T* p, float* out) {
   if constexpr (sizeof(T) == 2) {
@@ -243,7 +258,7 @@ struct Tile {
   int b, t_first, nt, nr, pos0, ctx, c0, c1, b0;
   size_t qo;  // q / out offset of row 0 (token t_first, head kh * G)
   // keys 0 .. Lp - 1 are the prefix rows pk / pv (at row b, head kh, of
-  // the caller's element type); key j >= Lp is paged key j - Lp, whose
+  // the cache's element type); key j >= Lp is paged key j - Lp, whose
   // blocks from b0 on are the split's s_blk
   int Lp;
   const void *pk, *pv;
@@ -325,16 +340,20 @@ struct NoRef {
 // block outside the pool), and with kInt8 the codes dequantized as (u -
 // 128) * kd (vd) with the step's own tokens of the row overlaid at full
 // precision.  Speed does not matter here: only rare rows come this way.
-template <typename T, bool kInt8>
+// C: the element type of the pools and the prefix rows (K4 over a cache
+// whose dtype is not q's, Queue C12; T with kInt8).
+template <typename T, bool kInt8, typename C = T>
 struct RefRows {
+  static_assert(!kInt8 || std::is_same<C, T>::value,
+                "K4-int8's full-precision rows are q's dtype");
   static constexpr bool kOn = true;
   const T* q;                      // query row 0 of the tile
   void* out;
   size_t qo, hd;                   // out's element of row 0; a token's
   bool f32;
   int G, D, Lp, P, NB, bs;
-  const T *pk, *pv;                // the row's prefix rows
-  const void *kc, *vc;             // the pools (T, or uint8 with kInt8)
+  const C *pk, *pv;                // the row's prefix rows
+  const void *kc, *vc;             // the pools (C, or uint8 with kInt8)
   const int* bt;                   // the row's block table
   size_t head, blk_stride;
   int b, pos0, t_first, h0;        // row, token 0's position and index
@@ -349,7 +368,7 @@ struct RefRows {
   float kd, vd;
 
   // key j's K (V where `val`) row as k_all (v_all) holds it: its elements
-  // (T), or uint8 codes dequantized as (u - 128) * s, or none (zeros; with
+  // (C), or uint8 codes dequantized as (u - 128) * s, or none (zeros; with
   // kInt8 the code 0 of a block outside the pool)
   struct Row {
     const void* p;
@@ -359,7 +378,7 @@ struct RefRows {
       if (kInt8 && u8)
         return ((p != nullptr ? (float)static_cast<const uint8_t*>(p)[d]
                               : 0.f) - 128.f) * s;
-      return p != nullptr ? ptt::to_f(static_cast<const T*>(p)[d]) : 0.f;
+      return p != nullptr ? ptt::to_f(static_cast<const C*>(p)[d]) : 0.f;
     }
   };
 
@@ -379,7 +398,7 @@ struct RefRows {
     if constexpr (kInt8)
       return {in ? static_cast<const uint8_t*>(val ? vc : kc) + o : nullptr,
               true, val ? vd : kd};
-    return {in ? static_cast<const T*>(val ? vc : kc) + o : nullptr, false,
+    return {in ? static_cast<const C*>(val ? vc : kc) + o : nullptr, false,
             0.f};
   }
 
@@ -433,15 +452,16 @@ struct RefRows {
 // s_blk filled (the split's block ids of its paged keys, -1 outside the
 // pool); the caller synchronises before reading it.  kSliced: the grid's
 // x takes output slices, not splits (the wide instance): every block
-// walks the whole context, and the first slice writes the zeros.
-template <typename T, bool kSliced = false>
+// walks the whole context, and the first slice writes the zeros.  C: the
+// prefix rows' element type (the cache's).
+template <typename T, bool kSliced = false, typename C = T>
 __device__ bool setup_tile(Tile& t, int* tables, void* __restrict__ out,
                            bool f32,
                            const int* __restrict__ dec,
                            const int* __restrict__ now,
                            const int* __restrict__ cu,
-                           const int* __restrict__ bt, const T* pk,
-                           const T* pv, int T_, int B, int P, int NB, int H,
+                           const int* __restrict__ bt, const C* pk,
+                           const C* pv, int T_, int B, int P, int NB, int H,
                            int G, int D, int bs, int Lp, int mq, int QT,
                            int chunk) {
   int* s_cu = tables;         // B + 1
@@ -674,10 +694,10 @@ __device__ __forceinline__ const T* ring_wait(T* stage, int stages, int it,
 // used from the row tables in shared memory (setup_tile's), blockIdx and
 // the kernel's parameters: no value of the walk is kept live for it, so
 // the walk is allocated as in a build without the rare rows.
-template <typename T, bool kInt8>
-__device__ __forceinline__ RefRows<T, kInt8> ref_rows(
+template <typename T, bool kInt8, typename C = T>
+__device__ __forceinline__ RefRows<T, kInt8, C> ref_rows(
     const int* tables, const T* q, void* out, bool f32, const void* kc,
-    const void* vc, const T* pk, const T* pv, const int* bt, int B, int P,
+    const void* vc, const C* pk, const C* pv, const int* bt, int B, int P,
     int NB, int H, int KV, int D, int bs, int Lp, int QT, float scale_log2,
     const Masks& mk) {
   const int* s_cu = tables;
@@ -692,7 +712,7 @@ __device__ __forceinline__ RefRows<T, kInt8> ref_rows(
     else
       hi = mid - 1;
   }
-  RefRows<T, kInt8> f = {};
+  RefRows<T, kInt8, C> f = {};
   f.b = b;
   f.t_first = (k - s_pt[b]) * QT;
   f.pos0 = s_dec[b] + f.t_first;
@@ -834,22 +854,26 @@ __device__ void finish(void* __restrict__ out, size_t qo, bool f32,
 // dc) adds keys kg, kg + KG, ... into columns [8 dc, 8 dc + 8) of rows rsl,
 // rsl + RSL, ... of partial kg.  PB: 16 where a row is whole 16-byte
 // pieces (the copies' sizes fixed at compile time), else 0.  kMask: the
-// masks' term on every visible score.
-template <typename T, int KT, int PB, bool kMask>
+// masks' term on every visible score.  C: the element type of the pools
+// and the pre-caches, T's but for a float32 q over a bfloat16 cache
+// (Queue C12: the cache_dtype of a float32 engine): the ring holds the
+// tiles at their stored width, by the same cp.async pieces, and the reads
+// from shared memory (load8) widen them to float32.
+template <typename T, typename C, int KT, int PB, bool kMask>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, void* __restrict__ out,
+    const T* __restrict__ q, const C* __restrict__ kc,
+    const C* __restrict__ vc, void* __restrict__ out,
     const int* __restrict__ dec, const int* __restrict__ now,
-    const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
-    const T* pv, int T_, int B, int P, int NB, int H, int KV, int D, int bs,
+    const int* __restrict__ cu, const int* __restrict__ bt, const C* pk,
+    const C* pv, int T_, int B, int P, int NB, int H, int KV, int D, int bs,
     int Lp, int mq, int QT, int chunk, int stages, float scale_log2,
     int out_f32, Masks mk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   const int R = QT * G;
   const Layout L =
-      layout(false, R, D, sizeof(T), KT, stages, gridDim.x, B, chunk, bs);
-  T* stage = reinterpret_cast<T*>(smem + L.stage);
+      layout(false, R, D, sizeof(C), KT, stages, gridDim.x, B, chunk, bs);
+  C* stage = reinterpret_cast<C*>(smem + L.stage);
   float* qs = reinterpret_cast<float*>(smem + L.q);
   float* sc = reinterpret_cast<float*>(smem + L.s);
   float* acc = reinterpret_cast<float*>(smem + L.acc);
@@ -864,8 +888,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   Tile t;
-  if (!setup_tile<T>(t, tables, out, out_f32, dec, now, cu, bt, pk, pv, T_,
-                     B, P, NB, H, G, D, bs, Lp, mq, QT, chunk))
+  if (!setup_tile<T, false, C>(t, tables, out, out_f32, dec, now, cu, bt, pk,
+                               pv, T_, B, P, NB, H, G, D, bs, Lp, mq, QT,
+                               chunk))
     return;
   const int nr = t.nr, c0 = t.c0, c1 = t.c1;
   const size_t hd = (size_t)H * D;
@@ -892,7 +917,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   // columns < D only)
   for (int idx = tid; idx < 2 * stages * KT * (DA - D); idx += kThreads) {
     const int row = idx / (DA - D);
-    stage[row * rs + D + idx - row * (DA - D)] = ptt::from_f<T>(0.f);
+    stage[row * rs + D + idx - row * (DA - D)] = ptt::from_f<C>(0.f);
   }
   __syncthreads();  // s_blk before the first copies
 
@@ -906,14 +931,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   constexpr int NRG = kThreads / KT;
   const int sj = tid % KT, rg = tid / KT;
 
-  const Copier cp = make_copier<T>(KV, kh, D, bs);
+  const Copier cp = make_copier<C>(KV, kh, D, bs);
   for (int i = 0; i < stages - 1 && i < ntile; ++i)
-    issue_tile<T, KT, PB>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t,
+    issue_tile<C, KT, PB>(stage + (size_t)i * 2 * KT * rs, kc, vc, s_blk, t,
                          cp, c0 + i * KT, rs, D, bs);
   for (int it = 0; it < ntile; ++it) {
-    const T* ks = ring_wait<T, KT, PB>(stage, stages, it, ntile, kc, vc,
+    const C* ks = ring_wait<C, KT, PB>(stage, stages, it, ntile, kc, vc,
                                       s_blk, t, cp, rs, D, bs);
-    const T* vs = ks + KT * rs;
+    const C* vs = ks + KT * rs;
     const int t0 = c0 + it * KT;
     const int kcount = min(KT, c1 - t0);
     // the mask only where a row's last visible key or the split's end
@@ -921,7 +946,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const bool full = t0 + KT <= c1 && t0 + KT - 1 <= lim[0];
 
     {  // scores (log2 domain)
-      const T* krow = ks + sj * rs;
+      const C* krow = ks + sj * rs;
       const int key = t0 + sj;
       for (int r0 = rg; r0 < nr; r0 += NRG * kRowsPerPass) {
         float s[kRowsPerPass];
@@ -1039,9 +1064,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
   if constexpr (kMask)
     finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws,
-              ref_rows<T, false>(tables, q, out, out_f32, kc, vc, pk, pv,
-                                 bt, B, P, NB, H, KV, D, bs, Lp, QT,
-                                 scale_log2, mk));
+              ref_rows<T, false, C>(tables, q, out, out_f32, kc, vc, pk, pv,
+                                    bt, B, P, NB, H, KV, D, bs, Lp, QT,
+                                    scale_log2, mk));
   else
     finish<T>(out, t.qo, out_f32, hd, G, D, nr, DA, R, mrow, lrow, acc, ws);
 }
@@ -1577,7 +1602,8 @@ bool uses_tc(int dtype, int D) {
   return dtype == ptt::kBFloat16 && D % 8 == 0 && D <= 256;
 }
 
-template <typename K, typename T>
+// T: q's and the output's element type, C: the pools' and the pre-caches'
+template <typename K, typename T, typename C = T>
 cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
                           int KV, cudaStream_t st, const void* q,
                           const void* kc, const void* vc, void* out,
@@ -1603,10 +1629,10 @@ cudaError_t launch_kernel(K kern, size_t smem, int splits, long long tiles,
   cfg.numAttrs = splits > 1 ? 1 : 0;
   // log2(e) / sqrt(D): the scores live in the log2 domain (exp2f)
   const float scale_log2 = scale * 1.4426950408889634f;
-  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)kc, (const T*)vc,
+  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const C*)kc, (const C*)vc,
                          out, (const int*)dec, (const int*)now,
-                         (const int*)cu, (const int*)bt, (const T*)pk,
-                         (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
+                         (const int*)cu, (const int*)bt, (const C*)pk,
+                         (const C*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT,
                          chunk, stages, scale_log2, out_f32, mk);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -1636,9 +1662,9 @@ cudaError_t launch_tc(size_t smem, int KG, int splits, long long tiles,
   return cudaErrorInvalidValue;
 }
 
-// the SIMT instance whose copies are whole 16-byte pieces where a row is,
-// else the one that takes the row's pieces at run time
-template <typename T, int KT, bool kMask>
+// the SIMT instance whose copies are whole 16-byte pieces where a row (of
+// the cache's C) is, else the one that takes the row's pieces at run time
+template <typename T, typename C, int KT, bool kMask>
 cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         cudaStream_t st, const void* q, const void* kc,
                         const void* vc, void* out, const void* dec,
@@ -1647,17 +1673,17 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
                         int NB, int H, int D, int bs, int Lp, int mq, int QT,
                         int chunk, int stages, float scale, int out_f32,
                         const Masks& mk) {
-  if (ptt::tc::piece_bytes(D * (int)sizeof(T)) == 16)
+  if (ptt::tc::piece_bytes(D * (int)sizeof(C)) == 16)
     return launch_kernel<
-        decltype(&paged_attention_kernel<T, KT, 16, kMask>), T>(
-        paged_attention_kernel<T, KT, 16, kMask>, smem, splits, tiles, KV,
+        decltype(&paged_attention_kernel<T, C, KT, 16, kMask>), T, C>(
+        paged_attention_kernel<T, C, KT, 16, kMask>, smem, splits, tiles, KV,
         st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs,
         Lp, mq, QT, chunk, stages, scale, out_f32, mk);
-  return launch_kernel<decltype(&paged_attention_kernel<T, KT, 0, kMask>),
-                       T>(
-      paged_attention_kernel<T, KT, 0, kMask>, smem, splits, tiles, KV, st,
-      q, kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs, Lp,
-      mq, QT, chunk, stages, scale, out_f32, mk);
+  return launch_kernel<
+      decltype(&paged_attention_kernel<T, C, KT, 0, kMask>), T, C>(
+      paged_attention_kernel<T, C, KT, 0, kMask>, smem, splits, tiles, KV,
+      st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T_, B, P, NB, H, D, bs,
+      Lp, mq, QT, chunk, stages, scale, out_f32, mk);
 }
 
 // ---------------------------------------------- past 512 columns (C8)
@@ -1666,11 +1692,13 @@ cudaError_t launch_simt(size_t smem, int splits, long long tiles, int KV,
 // pv, the others come through the split's block ids (none outside the
 // pool: zeros); row r sees the prefix and the paged keys up to its
 // position; kMask: the masks' term (query head h0 + r % G, local index
-// t_first + r / G) on its visible scores
-template <typename T, bool kMask>
+// t_first + r / G) on its visible scores; C: the element type of the pools
+// and the pre-caches (the walk widens each element as it stages it)
+template <typename T, typename C, bool kMask>
 struct PagedRows {
   static constexpr bool kBias = kMask;
-  const T *qb, *kc, *vc, *pk, *pv;
+  const T* qb;
+  const C *kc, *vc, *pk, *pv;
   void* out;
   size_t qo;  // q's and out's element of the tile's row 0
   bool f32;   // out is float32 (else T)
@@ -1683,7 +1711,7 @@ struct PagedRows {
     return (size_t)(r / G) * hd + (size_t)(r % G) * D;
   }
   __device__ const T* q(int r) const { return qb + row(r); }
-  __device__ const T* key_row(const T* c, const T* pre, int key) const {
+  __device__ const C* key_row(const C* c, const C* pre, int key) const {
     if (key < Lp) return pre + (size_t)key * D;
     key -= Lp;
     const int kb = key / bs;
@@ -1691,8 +1719,8 @@ struct PagedRows {
     return blk < 0 ? nullptr
                    : c + blk * blk_stride + head + (size_t)(key - kb * bs) * D;
   }
-  __device__ const T* k(int key) const { return key_row(kc, pk, key); }
-  __device__ const T* v(int key) const { return key_row(vc, pv, key); }
+  __device__ const C* k(int key) const { return key_row(kc, pk, key); }
+  __device__ const C* v(int key) const { return key_row(vc, pv, key); }
   __device__ bool vis(int r, int key) const {
     return key <= Lp + min(pos0 + r / G, last);
   }
@@ -1705,14 +1733,14 @@ struct PagedRows {
 };
 
 // one block per (slice, query tile, KV head)
-template <typename T, bool kMask>
+template <typename T, typename C, bool kMask>
 __global__ void __launch_bounds__(ptt::wide::kThreads)
     paged_attention_wide_kernel(
-        const T* __restrict__ q, const T* __restrict__ kc,
-        const T* __restrict__ vc, void* __restrict__ out,
+        const T* __restrict__ q, const C* __restrict__ kc,
+        const C* __restrict__ vc, void* __restrict__ out,
         const int* __restrict__ dec, const int* __restrict__ now,
-        const int* __restrict__ cu, const int* __restrict__ bt, const T* pk,
-        const T* pv, int T_, int B, int P, int NB, int H, int KV, int D,
+        const int* __restrict__ cu, const int* __restrict__ bt, const C* pk,
+        const C* pv, int T_, int B, int P, int NB, int H, int KV, int D,
         int bs, int Lp, int mq, int QT, int chunk, float scale_log2, int W,
         int out_f32, Masks mk) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1720,15 +1748,16 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
   int* tables =
       reinterpret_cast<int*>(smem + ptt::wide::smem_bytes(QT * G, W));
   Tile t;
-  if (!setup_tile<T, true>(t, tables, out, out_f32, dec, now, cu, bt, pk, pv,
-                           T_, B, P, NB, H, G, D, bs, Lp, mq, QT, chunk))
+  if (!setup_tile<T, true, C>(t, tables, out, out_f32, dec, now, cu, bt, pk,
+                              pv, T_, B, P, NB, H, G, D, bs, Lp, mq, QT,
+                              chunk))
     return;
   // the walk's first barrier comes before its first read of s_blk
   RowMask rm = {};
   if constexpr (kMask) rm = row_mask(mk, t.b);
-  const PagedRows<T, kMask> src{q + t.qo, kc, vc,
-                                static_cast<const T*>(t.pk),
-                                static_cast<const T*>(t.pv), out, t.qo,
+  const PagedRows<T, C, kMask> src{q + t.qo, kc, vc,
+                                   static_cast<const C*>(t.pk),
+                                   static_cast<const C*>(t.pv), out, t.qo,
                                 out_f32 != 0, tables + 4 * B + 2,
                                 (size_t)H * D, (size_t)kh * bs * D,
                                 (size_t)KV * bs * D, G, D, bs, t.b0, t.pos0,
@@ -1737,8 +1766,8 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
       src, t.nr, D, t.c0, t.c1, blockIdx.x * W, W, scale_log2, smem);
   if constexpr (kMask) {  // rare rows (Queue C10): the slice once more
     const auto ref =
-        ref_rows<T, false>(tables, q, out, out_f32, kc, vc, pk, pv, bt, B, P,
-                           NB, H, KV, D, bs, Lp, QT, scale_log2, mk);
+        ref_rows<T, false, C>(tables, q, out, out_f32, kc, vc, pk, pv, bt, B,
+                              P, NB, H, KV, D, bs, Lp, QT, scale_log2, mk);
     __syncthreads();  // after the walk's writes of the slice
     const int cs = blockIdx.x * W, ce = min(cs + W, D);
     for (int r = threadIdx.x / 32; r < t.nr; r += ptt::wide::kWarps)
@@ -1746,7 +1775,7 @@ __global__ void __launch_bounds__(ptt::wide::kThreads)
   }
 }
 
-template <typename T, bool kMask>
+template <typename T, typename C, bool kMask>
 cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
                         const void* q, const void* kc, const void* vc,
                         void* out, const void* dec, const void* now,
@@ -1760,14 +1789,14 @@ cudaError_t launch_wide(long long tiles, int KV, cudaStream_t st,
     return cudaErrorInvalidConfiguration;
   const size_t smem = ptt::wide::smem_bytes(R, W) +
                       (size_t)(4 * B + 2 + chunk / bs + 2) * sizeof(int);
-  const auto kern = paged_attention_wide_kernel<T, kMask>;
+  const auto kern = paged_attention_wide_kernel<T, C, kMask>;
   cudaError_t e = ptt::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((D + W - 1) / W, (unsigned)tiles, KV);
   kern<<<grid, ptt::wide::kThreads, smem, st>>>(
-      (const T*)q, (const T*)kc, (const T*)vc, out, (const int*)dec,
-      (const int*)now, (const int*)cu, (const int*)bt, (const T*)pk,
-      (const T*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
+      (const T*)q, (const C*)kc, (const C*)vc, out, (const int*)dec,
+      (const int*)now, (const int*)cu, (const int*)bt, (const C*)pk,
+      (const C*)pv, T_, B, P, NB, H, KV, D, bs, Lp, mq, QT, chunk,
       scale * 1.4426950408889634f, W, out_f32, mk);
   return cudaGetLastError();
 }
@@ -2473,7 +2502,7 @@ extern "C" int ptt_paged_attention_masked(
     int KT, int stages, int splits, int chunk, int out_f32, const void* mask,
     int mask_heads, int mask_sq, int mask_lm, const void* tgt_mask,
     int tgt_heads, int tgt_sq, int tgt_lm, const void* enc, int dtype,
-    void* stream);
+    int cache_dtype, void* stream);
 extern "C" int ptt_paged_attention_int8_masked(
     const void* q, const void* k, const void* v, const void* kc,
     const void* vc, const void* kd, const void* vd, void* out,
@@ -2486,11 +2515,14 @@ extern "C" int ptt_paged_attention_int8_masked(
     int tgt_lm, const void* enc, int dtype, void* stream);
 #endif
 
-// K4: q [T, H, D]; pools kc / vc [NB, KV, bs, D] of q's dtype; the
-// pre-caches pk / pv [B, KV, Lp, D] of q's dtype (NULL with Lp 0); out
-// [T, H, D], in q's dtype or (out_f32) float32.  The plan (QT, KT,
-// stages, splits, chunk) is paged_plan's over Lp + P * bs keys.  The
-// masks: float32 [B, heads, sq, lm], NULL where not given, with
+// K4: q [T, H, D] of `dtype`; pools kc / vc [NB, KV, bs, D] and the
+// pre-caches pk / pv [B, KV, Lp, D] (NULL with Lp 0) of `cache_dtype`:
+// q's, or bfloat16 under a float32 q (Queue C12: the SIMT and wide
+// instances over a cache staged at its own width; a bfloat16 q over a
+// float32 cache is widened by the wrapper and takes the float32
+// instances); out [T, H, D], in q's dtype or (out_f32) float32.  The plan
+// (QT, KT, stages, splits, chunk) is paged_plan's over Lp + P * bs keys.
+// The masks: float32 [B, heads, sq, lm], NULL where not given, with
 // seq_lens_encoder [B] int32 where one is; a mask launches the masked
 // instances (ptt_paged_attention_masked).
 extern "C" int PTT_K4_ENTRY(
@@ -2501,22 +2533,25 @@ extern "C" int PTT_K4_ENTRY(
     int KT, int stages, int splits, int chunk, int out_f32, const void* mask,
     int mask_heads, int mask_sq, int mask_lm, const void* tgt_mask,
     int tgt_heads, int tgt_sq, int tgt_lm, const void* enc, int dtype,
-    void* stream) {
+    int cache_dtype, void* stream) {
   if (!kMasked && (mask != nullptr || tgt_mask != nullptr))
     return ptt_paged_attention_masked(
         q, kc, vc, out, dec, now, cu, bt, pk, pv, T, B, P, NB, H, KV, D, bs,
         Lp, max_q_len, scale, QT, KT, stages, splits, chunk, out_f32, mask,
         mask_heads, mask_sq, mask_lm, tgt_mask, tgt_heads, tgt_sq, tgt_lm,
-        enc, dtype, stream);
+        enc, dtype, cache_dtype, stream);
   cudaStream_t st = (cudaStream_t)stream;
   const Masks mk = make_masks(mask, mask_heads, mask_sq, mask_lm, tgt_mask,
                               tgt_heads, tgt_sq, tgt_lm, enc);
+  // the cache's dtype: q's, or bfloat16 under a float32 q
+  const bool widen = dtype == ptt::kFloat32 && cache_dtype == ptt::kBFloat16;
   if ((dtype != ptt::kFloat32 && dtype != ptt::kBFloat16) ||
-      !valid_pre(pk, pv, Lp) || !valid_masks(mk, H) ||
+      (cache_dtype != dtype && !widen) || !valid_pre(pk, pv, Lp) ||
+      !valid_masks(mk, H) ||
       !valid_plan(B, P, H, KV, D, bs, Lp, max_q_len, QT, KT, stages, splits,
                   chunk, dtype))
     return (int)cudaErrorInvalidValue;
-  const int es = dtype == ptt::kFloat32 ? 4 : 2;
+  const int es = cache_dtype == ptt::kFloat32 ? 4 : 2;  // a staged element
   const bool tc = uses_tc(dtype, D);
   const int R = QT * (H / KV);
   const long long tiles = grid_tiles(T, B, max_q_len, QT);
@@ -2524,9 +2559,12 @@ extern "C" int PTT_K4_ENTRY(
 #define PTT_K4_ARGS                                                         \
   tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, pv, T, B, P, NB, H, \
       D, bs, Lp, max_q_len, QT, chunk, scale, out_f32, mk
+    if (widen)
+      return (int)launch_wide<float, __nv_bfloat16, kMasked>(PTT_K4_ARGS);
     return dtype == ptt::kFloat32
-               ? (int)launch_wide<float, kMasked>(PTT_K4_ARGS)
-               : (int)launch_wide<__nv_bfloat16, kMasked>(PTT_K4_ARGS);
+               ? (int)launch_wide<float, float, kMasked>(PTT_K4_ARGS)
+               : (int)launch_wide<__nv_bfloat16, __nv_bfloat16, kMasked>(
+                     PTT_K4_ARGS);
 #undef PTT_K4_ARGS
   }
   const size_t smem =
@@ -2546,14 +2584,19 @@ extern "C" int PTT_K4_ENTRY(
   smem, splits, tiles, KV, st, q, kc, vc, out, dec, now, cu, bt, pk, pv, \
       T, B, P, NB, H, D, bs, Lp, max_q_len, QT, chunk, stages, scale,    \
       out_f32, mk
+  using bf = __nv_bfloat16;
+  if (widen)
+    return KT == 64   ? (int)launch_simt<float, bf, 64, kMasked>(PTT_K4_ARGS)
+           : KT == 32 ? (int)launch_simt<float, bf, 32, kMasked>(PTT_K4_ARGS)
+                      : (int)launch_simt<float, bf, 16, kMasked>(PTT_K4_ARGS);
   if (dtype == ptt::kFloat32)
-    return KT == 64   ? (int)launch_simt<float, 64, kMasked>(PTT_K4_ARGS)
-           : KT == 32 ? (int)launch_simt<float, 32, kMasked>(PTT_K4_ARGS)
-                      : (int)launch_simt<float, 16, kMasked>(PTT_K4_ARGS);
-  return KT == 64 ? (int)launch_simt<__nv_bfloat16, 64, kMasked>(PTT_K4_ARGS)
-         : KT == 32
-             ? (int)launch_simt<__nv_bfloat16, 32, kMasked>(PTT_K4_ARGS)
-             : (int)launch_simt<__nv_bfloat16, 16, kMasked>(PTT_K4_ARGS);
+    return KT == 64 ? (int)launch_simt<float, float, 64, kMasked>(PTT_K4_ARGS)
+           : KT == 32
+               ? (int)launch_simt<float, float, 32, kMasked>(PTT_K4_ARGS)
+               : (int)launch_simt<float, float, 16, kMasked>(PTT_K4_ARGS);
+  return KT == 64 ? (int)launch_simt<bf, bf, 64, kMasked>(PTT_K4_ARGS)
+         : KT == 32 ? (int)launch_simt<bf, bf, 32, kMasked>(PTT_K4_ARGS)
+                    : (int)launch_simt<bf, bf, 16, kMasked>(PTT_K4_ARGS);
 #undef PTT_K4_ARGS
 }
 

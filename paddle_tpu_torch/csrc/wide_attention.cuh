@@ -69,7 +69,10 @@ __host__ __device__ inline int slice_cols(int R, int D) {
 
 // Attends R query rows to keys c0 .. c1 - 1 and writes the output's
 // columns [cs, cs + W) of each row.  Src gives the rows:
-//   const T* q(int r), k(int key), v(int key)  (nullptr reads as zeros)
+//   const T* q(int r), k(int key), v(int key)  (nullptr reads as zeros;
+//                                               k and v may return
+//                                               another element type,
+//                                               K4's cache of its own)
 //   bool vis(int r, int key)                    (key < c1 is given)
 //   void put(int r, int d, float x)             (output row r, column d)
 // and, where it declares `static constexpr bool kBias = true`,
@@ -125,7 +128,7 @@ __device__ Stats attend(const Src& src, int R, int D, int c0, int c1,
         }
         for (int i = tid; i < kKeys * kChunk; i += kThreads) {
           const int j = i / kChunk, c = i - j * kChunk, d = d0 + c;
-          const T* row = t0 + j < c1 && d < D ? src.k(t0 + j) : nullptr;
+          const auto* row = t0 + j < c1 && d < D ? src.k(t0 + j) : nullptr;
           kc[j * (kChunk + 1) + c] = row != nullptr ? to_f(row[d]) : 0.f;
         }
         __syncthreads();
@@ -156,7 +159,7 @@ __device__ Stats attend(const Src& src, int R, int D, int c0, int c1,
     // the tile's V rows of the slice (the copies before the barrier)
     for (int i = tid; i < kKeys * W; i += kThreads) {
       const int j = i / W, d = cs + i - j * W;
-      const T* row = t0 + j < c1 && d < D ? src.v(t0 + j) : nullptr;
+      const auto* row = t0 + j < c1 && d < D ? src.v(t0 + j) : nullptr;
       vs[i] = row != nullptr ? to_f(row[d]) : 0.f;
     }
     __syncthreads();

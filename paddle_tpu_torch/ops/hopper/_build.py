@@ -38,7 +38,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-__all__ = ["build", "lib", "check", "launch_args", "dtype_code",
+__all__ = ["build", "lib", "check", "launch_args", "launch_args_cached",
+           "dtype_code",
            "device_guard", "wants_grad", "SOURCES", "LIB_PATH"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -79,9 +80,9 @@ _SIGNATURES = {
     # cu_seqlens_q, block_tables, pre_key|NULL, pre_value|NULL, T, B, P,
     # NB, H, KV, D, block_size, pre_len, max_q_len, scale, query tile, key
     # tile, stages, splits, chunk, float32 output, the masks (_MASKS),
-    # dtype, stream
+    # q's dtype, the caches' dtype, stream
     "ptt_paged_attention": ([_P] * 10 + [_I] * 10 + [_F] + [_I] * 6
-                            + _MASKS + [_I, _P]),
+                            + _MASKS + [_I, _I, _P]),
     # q, k, v (this step's, full precision), key_cache, value_cache
     # (uint8), k/v dequant scales [B, KV] float32, out, seq_lens_decoder,
     # seq_lens_this_time, cu_seqlens_q, block_tables, pre_key|NULL,
@@ -239,6 +240,23 @@ def launch_args(name: str, *tensors: torch.Tensor) -> Tuple[int, int]:
                              f"{dev}/{dt}")
     return dtype_code(name, tensors[0]), torch.cuda.current_stream(
         dev).cuda_stream
+
+
+def launch_args_cached(name: str, q: torch.Tensor,
+                       *caches: torch.Tensor) -> Tuple[int, int, int]:
+    """``launch_args`` for a kernel over a cache whose dtype may differ from
+    q's (K4 over a ``cache_dtype`` of its own): q on a CUDA device in a
+    kernel dtype, the caches on q's device sharing a kernel dtype of their
+    own.  Returns (q's dtype code, the caches' dtype code, current stream
+    handle).  Every other kernel keeps ``launch_args``."""
+    dt, stream = launch_args(name, q)
+    cd = caches[0].dtype
+    for t in caches:
+        if t.device != q.device or t.dtype != cd:
+            raise ValueError(f"{name}: the caches must share one dtype on "
+                             f"q's device {q.device}, got {t.device}/"
+                             f"{t.dtype} beside {q.device}/{cd}")
+    return dt, dtype_code(name, caches[0]), stream
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:

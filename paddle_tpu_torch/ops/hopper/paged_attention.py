@@ -46,8 +46,26 @@ Both wrappers take ``out_dtype``: None or q's dtype (the output rounded to
 it once), or float32, which ``blha_attention`` asks for where its
 epilogue reads the attention's float32 value.
 
-Both take the pre-caches (``pre_key``, ``pre_value`` [B, KV, Lp, D] in q's
-dtype, ``blha_attention``'s ``pre_key_cache`` / ``pre_value_cache``,
+``paged_attention``'s caches may hold another dtype than q (Queue C12: a
+``ServingEngine`` whose ``cache_dtype`` is not its model's, and
+``blha_attention`` with a ``compute_dtype`` other than its pools'); the
+reference stores k and v in the cache's dtype and attends in float32:
+
+* a float32 q over bfloat16 caches runs the SIMT instance (past 512
+  columns the wide one) with the cache's element type apart from q's: the
+  ring holds the tiles at their stored bf16 width (``paged_plan``'s
+  ``cache_dtype`` counts them so) and the reads from shared memory widen
+  them exactly; nothing copies the pools;
+* a bfloat16 q over float32 caches is widened to float32 (exact, as the
+  reference does), runs the float32 instances with a float32 output and
+  is rounded once, to ``out_dtype`` or q's dtype.
+
+The pre-caches then come in the cache's dtype, as ``blha_attention``
+hands them over.
+
+Both take the pre-caches (``pre_key``, ``pre_value`` [B, KV, Lp, D] in the
+cache's dtype (K4-int8: q's), ``blha_attention``'s ``pre_key_cache`` /
+``pre_value_cache``,
 ``:255-260``): the attention then runs over Lp prefix keys followed by the
 row's paged context, every query sees the whole prefix, and paged key j
 stays visible at positions >= j (the reference's ``kpos = arange(Lf) -
@@ -193,10 +211,13 @@ def _grid_tiles(T: int, B: int, max_q_len: int, qt: int) -> int:
 
 def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
                KV: int, D: int, dtype: torch.dtype,
-               pre_len: int = 0) -> PagedPlan:
+               pre_len: int = 0,
+               cache_dtype: Optional[torch.dtype] = None) -> PagedPlan:
     """The tile and split of a K4 call of T tokens in B rows, from
     host-known sizes only (``pre_len`` prefix keys before each row's
-    ``P * bs`` paged ones: the context is their sum).
+    ``P * bs`` paged ones: the context is their sum).  ``dtype`` is q's;
+    ``cache_dtype`` the caches' (None: q's), whose width the SIMT ring is
+    staged at (bfloat16 under a float32 q: Queue C12).
 
     * ``qt``: 1 at decode (``max_q_len`` 1); else up to ``MAX_QT`` tokens,
       so that a tile holds about ``TILE_ROWS`` query rows of G heads each
@@ -204,9 +225,9 @@ def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
       ``max_q_len``.  The grid holds the most query tiles that T tokens
       in B rows can fill; a block finds its row from the row lengths on
       the device.
-    * The instance: tensor cores (``mma.sync``) for bfloat16 with D a
-      multiple of 8 up to 256, at most ``TC_ROWS`` query rows a tile;
-      SIMT otherwise (float32, the other bfloat16 head dims).
+    * The instance: tensor cores (``mma.sync``) for bfloat16 q and caches
+      with D a multiple of 8 up to 256, at most ``TC_ROWS`` query rows a
+      tile; SIMT otherwise (float32 q, the other bfloat16 head dims).
     * ``stages`` and ``kt``: a ring of 2 tiles of 64 keys on the tensor
       cores; on SIMT a ring of 3, else 2, of 64 keys, else 32 (else 16
       past 256 columns), the first whose ring takes at most
@@ -225,14 +246,16 @@ def paged_plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int,
     Raises ValueError for a tensor-core tile of more than ``TC_ROWS``
     query rows (a head group above 64) and a shape whose block would need
     more than the 227 KB of shared memory a block may use."""
-    return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype, pre_len=pre_len)
+    return _plan(T, B, max_q_len, P, bs, H, KV, D, dtype, pre_len=pre_len,
+                 cache_dtype=cache_dtype)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
           D: int, dtype: torch.dtype, qt: Optional[int] = None,
           splits: Optional[int] = None,
-          stages: Optional[int] = None, pre_len: int = 0) -> PagedPlan:
+          stages: Optional[int] = None, pre_len: int = 0,
+          cache_dtype: Optional[torch.dtype] = None) -> PagedPlan:
     """``paged_plan``, with ``qt``, ``splits`` and ``stages`` replacing its
     choices when given (``chip_smoke.py`` holds the kernel to its plain
     version under such forced plans; the wrapper never forces one).  A
@@ -242,13 +265,14 @@ def _plan(T: int, B: int, max_q_len: int, P: int, bs: int, H: int, KV: int,
         raise ValueError(f"paged_attention: no plan for H {H}, KV {KV}, "
                          f"head_dim {D}, {pre_len} prefix keys (head_dim "
                          ">= 1, H % KV == 0, pre_len >= 0)")
-    es = dtype.itemsize
+    cache_dtype = cache_dtype or dtype
+    es = cache_dtype.itemsize           # a staged K / V element
     G = H // KV
     ctx = P * bs + pre_len
     if D > MAX_HEAD_DIM:
         return _wide_plan(T, B, max_q_len, bs, G, KV, D, ctx, qt, splits,
                           stages)
-    tc = _tc(dtype, D)
+    tc = _tc(dtype, D) and cache_dtype == dtype
     if stages is not None and stages not in STAGES[tc]:
         raise ValueError(f"paged_attention: no ring of {stages} stages "
                          f"(the instance takes {STAGES[tc]})")
@@ -503,22 +527,23 @@ def _check(name, q, key_cache, value_cache, ints, block_tables):
                              f"must be int32 on {q.device}")
 
 
-def _pre_args(name, q, pre_key, pre_value, B, KV):
+def _pre_args(name, q, pre_key, pre_value, B, KV, dtype=None):
     """The pre-caches' pointers and length for a C entry: (0, 0, 0) for
-    none; else both [B, KV, Lp, D] in q's dtype, contiguous and 16-byte
-    aligned (the copies read their rows in the pieces of q's), on q's
-    device."""
+    none; else both [B, KV, Lp, D] in ``dtype`` (the caches' for K4, q's
+    for K4-int8; None: q's), contiguous and 16-byte aligned (the copies
+    read their rows in the pieces of the pools'), on q's device."""
     if pre_key is None and pre_value is None:
         return 0, 0, 0
     D = q.shape[2]
+    dtype = dtype or q.dtype
     for t in (pre_key, pre_value):
         if (t is None or t.dim() != 4 or tuple(t.shape[:2]) != (B, KV)
                 or t.shape[3] != D or t.shape != pre_key.shape
-                or t.dtype != q.dtype or t.device != q.device
+                or t.dtype != dtype or t.device != q.device
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
                 f"{name}: pre_key and pre_value must be contiguous, 16-byte "
-                f"aligned [{B}, {KV}, Lp, {D}] {q.dtype} on {q.device}, got "
+                f"aligned [{B}, {KV}, Lp, {D}] {dtype} on {q.device}, got "
                 + " / ".join("None" if x is None else
                              f"{tuple(x.shape)} {x.dtype}"
                              for x in (pre_key, pre_value)))
@@ -583,13 +608,15 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                     tgt_mask: Optional[torch.Tensor] = None,
                     seq_lens_encoder: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """q [T, H, D] (after rope), caches [NB, KV, bs, D] already holding this
+    """q [T, H, D] (after rope), caches [NB, KV, bs, D] (q's dtype, or the
+    other of float32 and bfloat16: module docstring) already holding this
     step's keys and values, seq_lens_decoder/this_time [B], cu_seqlens_q
     [B+1], block_tables [B, P] -> attention output [T, H, D] in q's dtype,
     or float32 with ``out_dtype=torch.float32`` (the float32 value,
     unrounded).  Token i of row b sits at ``dec_b + (i - cu_b)`` and attends
     its row's keys up to that position, after the whole of the pre-caches
-    ``pre_key`` / ``pre_value`` [B, KV, Lp, D] (q's dtype) where given;
+    ``pre_key`` / ``pre_value`` [B, KV, Lp, D] (the caches' dtype) where
+    given;
     tokens past ``cu[-1]``, past their row's length, or at a local index
     >= ``max_q_len`` give zeros.  ``mask`` / ``tgt_mask`` [B, 1 | H, Sq,
     Lm] (float32) add to the scores of the rows in prefill / the others,
@@ -614,21 +641,33 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
             pre_key=None, pre_value=None, mask=None, tgt_mask=None,
             seq_lens_encoder=None, **force):
     """The kernel's launch for CUDA tensors, under ``paged_plan``'s plan or
-    one that ``force`` (``qt``, ``splits``, ``stages``) fixes in part."""
+    one that ``force`` (``qt``, ``splits``, ``stages``) fixes in part.  A
+    bfloat16 q over float32 caches launches the float32 instances on q
+    widened (exact), their float32 output rounded once to ``out_dtype``
+    (q's dtype when None): one kernel launch, counted once."""
     name = "paged_attention"
     od = _out_dtype(name, q, out_dtype)
+    if q.dtype == torch.bfloat16 and key_cache.dtype == torch.float32:
+        out = _launch(q.float(), key_cache, value_cache, seq_lens_decoder,
+                      seq_lens_this_time, cu_seqlens_q, block_tables,
+                      max_q_len, torch.float32, pre_key=pre_key,
+                      pre_value=pre_value, mask=mask, tgt_mask=tgt_mask,
+                      seq_lens_encoder=seq_lens_encoder, **force)
+        return out.to(od)
     ints = (seq_lens_decoder, seq_lens_this_time, cu_seqlens_q)
     _check(name, q, key_cache, value_cache, ints, block_tables)
-    dt, stream = _build.launch_args(name, q, key_cache, value_cache)
+    dt, cdt, stream = _build.launch_args_cached(name, q, key_cache,
+                                                value_cache)
     T, H, D = q.shape
     NB, KV, bs, _ = key_cache.shape
     B, P = block_tables.shape
-    pk, pv, Lp = _pre_args(name, q, pre_key, pre_value, B, KV)
+    pk, pv, Lp = _pre_args(name, q, pre_key, pre_value, B, KV,
+                           key_cache.dtype)
     mk = _mask_args(name, q, mask, tgt_mask, seq_lens_encoder, B)
     if not B:                   # no rows: every token gives zeros
         return torch.zeros_like(q, dtype=od)
     plan = _plan(T, B, int(max_q_len), P, bs, H, KV, D, q.dtype, **force,
-                 pre_len=Lp)
+                 pre_len=Lp, cache_dtype=key_cache.dtype)
     out = torch.empty_like(q, dtype=od)
     if T:
         with _build.device_guard(q):
@@ -639,7 +678,7 @@ def _launch(q, key_cache, value_cache, seq_lens_decoder, seq_lens_this_time,
                 block_tables.data_ptr(), pk, pv, T, B, P, NB, H, KV, D, bs,
                 Lp, int(max_q_len), 1.0 / math.sqrt(D), plan.qt, plan.kt,
                 plan.stages, plan.splits, plan.chunk,
-                int(od == torch.float32), *mk, dt, stream), name)
+                int(od == torch.float32), *mk, dt, cdt, stream), name)
         paged_attention.launches += 1
         paged_attention.mask_launches += bool(mk[8])
     return out
