@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's four paths — Llama serving through the paged
+"""Drive paddle_tpu_torch's paths — Llama serving through the paged
 ServingEngine (with speculative decoding, KV block transfer, the int8
 KV cache, a KV cache of the other float dtype, the serving control plane
 over two engines, the serving fleet over worker processes and the
 in-process chaos soaks), Llama
 generation (forward, generate, greedy_decode) over the
-static KV ring, Llama pretraining (TrainStep + AdamW), and the inference
+static KV ring, Llama pretraining (TrainStep + AdamW, and under AMP with
+a GradScaler, a gradient clip and a schedule), bench_ladder.py's BERT-base
+finetune with dropout, and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
 — on one NVIDIA H100, and check every Hopper kernel on them.
 
@@ -16,6 +18,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 14      # the serving control plane
     python3 chip_smoke.py --phases 15      # the serving fleet
     python3 chip_smoke.py --phases 2,16    # kernels + the chaos soaks
+    python3 chip_smoke.py --phases 2,8,17,18  # kernels + AMP and dropout
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
@@ -27,7 +30,9 @@ Phases (each prints its seconds):
      (HGMMA) and of B2 (HMMA);
   2. each kernel against its plain PyTorch version on the same CUDA tensors,
      in bfloat16 and float32, at the shapes the paths give it (B9 over
-     three steps from one state);
+     three steps from one state; also with a TrainStep's clip scale and
+     skip flag on the device, and with the flag set: parameter, master and
+     moments bit for bit the inputs, and AdamW's step count t unchanged);
      then CUDA-event times (L2 flushed before each launch) of the kernel,
      the plain version and, where one exists, the one PyTorch call that
      computes the same function, beside the bound: the larger of bytes
@@ -205,13 +210,19 @@ Phases (each prints its seconds):
      against 989 TFLOP/s printed, informative), run_steps over a
      [4, 8, 2048] stack with CUDA sync debugging set to raise, one step
      untraced and one under torch.profiler (busy share, time by kernel,
-     K1's and K2's time a launch); then every kernel of the path
-     launched;
+     K1's and K2's time a launch, the copy kernels); then every
+     kernel of the path launched;
   8. phase 4's float32 pair: one step's loss and every parameter's
      gradient, then the parameters after 3 AdamW(multi_precision) steps
      through TrainStep, kernels on cuda against the plain path on the CPU
      (1e-4 of each tensor's largest |value|); then the same at head_dim
-     72, 264 and 640;
+     72, 264 and 640; then a 2-layer float32 pair at hidden 1024 (8
+     heads of 128, vocab 8192; identical weights) through
+     TrainStep under O1 bf16 with a GradScaler, ClipGradByGlobalNorm and a
+     LinearWarmup schedule, 3 steps, one forced to overflow (the loss times
+     inf), one more: cuda against the CPU at the bf16 tolerance
+     ``training_amp_vs_plain`` states, the scaler's state equal, the
+     overflow step leaving cuda's state bit for bit;
   9. bench_ladder.py's BERT-base classifier (vocab 30522, hidden 768, 12
      layers, 12 heads, FFN 3072, seq 128) in bfloat16 with seeded random
      weights, ids [32, 128]: (a) the float Predictor gives finite logits;
@@ -346,11 +357,37 @@ Phases (each prints its seconds):
      and run_standby, each with its own assertions (every request typed
      terminal, survivors equal to the fault-free run on the card, the
      faults fired); each mode's seconds and fault kinds printed;
+ 17. Llama pretraining as a user runs it (after phase 8): bench.py's
+     geometry built in float32, amp.decorate(level="O2", bf16: every
+     parameter bf16, float32 masters), AdamW(LinearWarmup(3) into
+     CosineAnnealingDecay, ClipGradByGlobalNorm(1.0)), a dynamic
+     GradScaler, TrainStep over LlamaPretrainingCriterion under
+     auto_cast(O2) on [8, 2048], recompute on; every step under CUDA sync
+     debugging set to raise, the learning rate held to the schedule
+     written out in the script on each step: 8 steps (6 timed), one
+     forced to overflow (every parameter, master, moment and step count
+     bit for bit, the scale halved), 4 more; 12 finite losses, the last
+     below the first; ms a step, tokens/s, peak memory, a profiled step's
+     copy kernels (the AMP casts: their count and time beside phase
+     7's); the "train_amp" path's launches (no fused residual K1);
+ 18. bench_ladder.py's BERT-base finetune (accelerator geometry, dropout
+     0.1, gelu), model.bfloat16(), AdamW(2e-5, multi_precision), TrainStep
+     over cross_entropy on ids [32, 128]: the same forward from one
+     generator state twice gives the same loss bit for bit, another seed
+     another; a [32, 12, 128, 128] mask keeps 0.9 +- 0.005; 12 steps under
+     CUDA sync debugging set to raise, finite losses, ms a step,
+     examples/s, the int64 (threefry) kernels' share of a profiled step's
+     device time, and the step's masks drawn alone: their profiled
+     device time as a share of the step's, and their CUDA-event time; the
+     "finetune" path's launches (B9; no B1 at dropout 0.1); then a 2-layer
+     BERT at hidden 128 on cuda against the CPU: the same masks bit for
+     bit, 3 steps' losses and parameters within 1e-4;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict", "blha", "control",
-  "fleet", "mixed_cache", "chaos"}, null for a path whose phase did not
-  run; "fleet" the sum over the surviving workers), then the card line,
-  then {"ok": true, "device": {...}} as the last line.
+  "fleet", "mixed_cache", "chaos", "train_amp", "finetune"}, null for a
+  path whose phase did not run; "fleet" the sum over the surviving
+  workers), then the card line, then {"ok": true, "device": {...}} as the
+  last line.
 
 Any failure raises and the script exits non-zero before the last line.  It
 imports nothing of JAX or paddle_tpu.
@@ -361,6 +398,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import signal
 import subprocess
@@ -460,6 +498,14 @@ PATHS = {
     # child, a process of its own)
     "chaos": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
               "paged_attention"),
+    # phase 17: Llama pretraining under O2 bf16 with a GradScaler, a clip
+    # and a schedule; under AMP the residual add and the black-listed
+    # norm are two ops, so K1's fused residual variant does not run
+    "train_amp": ("rms_norm", "rope", "rope_bwd", "swiglu", "swiglu_bwd",
+                  "flash_attention", "flash_attention_bwd", "fused_adamw"),
+    # phase 18: BERT-base finetune at dropout 0.1: the attention takes the
+    # plain path (as the reference's), LayerNorm and gelu are torch ops
+    "finetune": ("fused_adamw",),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -1175,6 +1221,9 @@ def _training_cases(torch, rnd, es, g, dtype):
             10 * B * Hq * vis * Dh))
     cases += [_adamw_case(torch, rnd, es, dtype, shape)
               for shape in ((2560, 8192), (2560,))]
+    # a TrainStep's clip scale and skip flag on the device (A7b)
+    cases += [_adamw_case(torch, rnd, es, dtype, (2560, 8192), mode)
+              for mode in ("gmul", "skip")]
     return cases
 
 
@@ -1273,22 +1322,39 @@ def _sdpa_b8(torch, q, k, v, go, causal):
                                        retain_graph=True)
 
 
-def _adamw_case(torch, rnd, es, dtype, shape):
+def _adamw_case(torch, rnd, es, dtype, shape, mode=None):
     """B9 on one parameter (bf16 or f32, the case's type) with float32
     master and moments.  The check runs three steps (t = 1, 2, 3) on the
     kernel and on the plain version from one state, and holds each output
     to its own limit: the master within 1e-3 of the plain version's largest
     change over the steps (a missing or stale step is off by a whole
     change), m and v within 1e-4 of their own largest value, and a bf16
-    parameter within one bf16 ulp of its own value everywhere and equal to
+    parameter within one bf16 ulp of its own value everywhere (at least
+    the master's limit: near zero that is the larger) and equal to
     the plain rounding in all but 1e-3 of the elements (the two masters may
     straddle a rounding midpoint; a skipped, stale or truncating store
     differs almost everywhere).  The times are of one step.  Library:
     torch.optim.AdamW(fused=True) over the float32 master, which writes no
-    low-precision copy."""
+    low-precision copy.
+
+    ``mode`` "gmul": a TrainStep's controls, a clip scale of 0.3712 (the
+    gradient times it rounds in the gradient's type) and a skip flag of 0,
+    both one float32 on the device; the bound counts the two scalars too,
+    the library call takes ``grad_scale`` = 1 / 0.3712.  ``mode`` "skip":
+    the flag set; the check requires the kernel's and the plain version's
+    outputs to equal the inputs bit for bit, and AdamW's update of a
+    parameter under the flag (``optimizer.Skip``) to leave its step count
+    t; the bound counts the flag's 4 bytes, all this run's data needs (the
+    kernel returns before its loop); the library call takes
+    ``found_inf`` = 1."""
     from paddle_tpu_torch.ops.hopper import fused_adamw as fad
 
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    if mode == "gmul":
+        kw.update(gmul=torch.full((1,), 0.3712, device="cuda"),
+                  skip=torch.zeros(1, device="cuda"))
+    elif mode == "skip":
+        kw.update(skip=torch.ones(1, device="cuda"))
     w0 = rnd(*shape, dt=torch.float32) * 0.02
     grads = [rnd(*shape) * 0.01 for _ in range(3)]
 
@@ -1305,6 +1371,8 @@ def _adamw_case(torch, rnd, es, dtype, shape):
         return tuple(st[:4])
 
     def check():
+        if mode == "skip":
+            return _adamw_skip_check(torch, fad, state, run, grads)
         kp, kw, km, kv = run(fad.fused_adamw, state(), 3)
         rp, rw, rm, rv = run(fad._fused_adamw_ref, state(), 3)
         torch.cuda.synchronize()
@@ -1315,8 +1383,11 @@ def _adamw_case(torch, rnd, es, dtype, shape):
         err = max(e for _, e, _ in parts)
         if not own:
             rf, d = rp.float(), (kp.float() - rp.float()).abs()
+            # an element's own ulp, but not below the masters' limit: a
+            # value near zero rounds a master that may be off by that much
             ulp = torch.exp2(torch.floor(torch.log2(
-                rf.abs().clamp_min(2.0 ** -126))) - 7)
+                rf.abs().clamp_min(2.0 ** -126))) - 7).clamp_min(
+                    parts[0][2])
             parts += [("p / own bf16 ulp", float((d / ulp).max()), 1.0),
                       ("p share off the plain rounding",
                        float((d > 0).float().mean()), 1e-3)]
@@ -1330,13 +1401,61 @@ def _adamw_case(torch, rnd, es, dtype, shape):
                             weight_decay=0.01, fused=True)
     n = w0.numel()
     own = dtype == torch.float32
-    return ("fused_adamw", f"{list(shape)} x 3 steps",
+    # g read, w/m/v read and written, p written (no p: w is p)
+    nbytes, ops = n * (es + 24 + (0 if own else es)), 15 * n
+    label = f"{list(shape)} x 3 steps"
+    if mode == "gmul":
+        lib.grad_scale = torch.full((), 1 / 0.3712, device="cuda")
+        nbytes, ops, label = nbytes + 8, ops + n, label + ", clip scale"
+    elif mode == "skip":
+        lib.found_inf = torch.ones((), device="cuda")
+        nbytes, ops, label = 4, 0, f"{list(shape)}, skip set"
+    return ("fused_adamw", label,
             lambda: fad.fused_adamw(*ks[:4], grads[0], 1e-4, ks[4], **kw),
             lambda: fad._fused_adamw_ref(*ps[:4], grads[0], 1e-4, ps[4],
                                          **kw),
-            lib.step,
-            # g read, w/m/v read and written, p written (no p: w is p)
-            n * (es + 24 + (0 if own else es)), 15 * n, check)
+            lib.step, nbytes, ops, check)
+
+
+def _adamw_skip_check(torch, fad, state, run, grads):
+    """Phase 2's B9 row with the skip flag set: three flagged steps on the
+    kernel and on the plain version leave the parameter, master and
+    moments bit for bit the inputs; then AdamW's update of a parameter
+    under ``Skip`` leaves its step count t and its states, and under a
+    clear flag advances t by one.  -> (0.0, parts)."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.optimizer import Skip
+
+    parts = []
+    for label, fn in (("kernel", fad.fused_adamw),
+                      ("plain", fad._fused_adamw_ref)):
+        st = state()
+        before = [x.clone() for x in st[:4]]
+        run(fn, st, 3)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(st[:4], before))
+        parts.append((f"{label} p/w/m/v changed under skip",
+                      0.0 if same else 1.0, 0.0))
+    p = torch.nn.Parameter(state()[0].clone())
+    opt = AdamW(learning_rate=1e-4, parameters=[p], multi_precision=True)
+    opt._ensure_state()
+    t0 = opt._beta_pow(p).clone()
+    snap = [x.clone() for x in (p.data, opt._master(p),
+                                opt._acc("moment1", p))]
+    with torch.no_grad():
+        opt._apply_update(p, grads[0], 1e-4, 0.0, None,
+                          Skip.of(torch.ones((), device="cuda")))
+    torch.cuda.synchronize()
+    kept = torch.equal(opt._beta_pow(p), t0) and all(
+        torch.equal(a, b) for a, b in zip(
+            snap, (p.data, opt._master(p), opt._acc("moment1", p))))
+    with torch.no_grad():
+        opt._apply_update(p, grads[0], 1e-4, 0.0, None,
+                          Skip.of(torch.zeros((), device="cuda")))
+    moved = float(opt._beta_pow(p)) == float(t0) + 1
+    parts.append(("AdamW under skip: t or a state moved, or a clear flag "
+                  "did not advance t", 0.0 if kept and moved else 1.0, 0.0))
+    return max(v for _, v, _ in parts), parts
 
 
 def _sdpa_b1(torch, q, k, v, causal, off):
@@ -4123,6 +4242,7 @@ def full_width_training(torch):
                       num_attention_heads=20, max_position_embeddings=2048,
                       dtype="bfloat16", recompute=True)
     B, S = 8, 2048
+    before = torch.cuda.memory_allocated()    # held over from earlier phases
     t = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=0)
     step = _train_setup(torch, model, 1e-4)
@@ -4152,7 +4272,8 @@ def full_width_training(torch):
     print(f"train step [{B}, {S}]: {dt * 1e3:.1f} ms, {tok_s:.1f} tokens/s, "
           f"MFU {tok_s * flops_tok / 989e12:.4f} against 989 TFLOP/s "
           f"(informative), max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated()} bytes")
+          f"{torch.cuda.max_memory_allocated()} bytes, {before} of them "
+          "allocated before the phase")
     # run_steps: 4 steps over a stacked window, no host sync inside
     stack = ids[None].expand(4, B, S)
     torch.cuda.synchronize()
@@ -4164,8 +4285,11 @@ def full_width_training(torch):
         raise AssertionError(f"run_steps losses {l4}")
     print(f"run_steps [4, {B}, {S}]: {time.perf_counter() - t:.3f} s, "
           f"losses {[round(float(x), 4) for x in l4]}, no host sync inside")
-    _k1_k2(_profile(torch, "train step", lambda: step(ids), top=20),
-           "the train step")
+    evs = _profile(torch, "train step", lambda: step(ids), top=20)
+    _k1_k2(evs, "the train step")
+    _COPIES["train"] = _copies(evs)
+    print(f"profile train: {_COPIES['train'][0]} copy kernels, "
+          f"{_COPIES['train'][1]:.3f} ms a step")
     n_steps = 12 + 4 + 2
     launches = _path_launches("train", counters)
     print("launches per train step: " + json.dumps(
@@ -4237,13 +4361,496 @@ def training_kernels_vs_plain(torch, gpu_model, cpu_model):
     print("training kernel path == plain path (loss, gradients, AdamW)")
 
 
+# --------------------------------------------------------- phase 8 (AMP)
+def _amp_train_setup(torch, model, lr, level, scale, decorate=False):
+    """TrainStep under ``auto_cast(level)`` bf16 with a dynamic GradScaler
+    (doubling after 2 good steps), AdamW(multi_precision) with
+    ClipGradByGlobalNorm(1.0) and LinearWarmup(3 steps) into
+    CosineAnnealingDecay(T_max 12); O2 also ``amp.decorate``s the model.
+    The loss is multiplied by the batch's ``poison`` (1, or inf to force
+    an overflow).  -> (step, scheduler, scaler, optimizer)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (
+        CosineAnnealingDecay,
+        LinearWarmup,
+    )
+
+    sched = LinearWarmup(CosineAnnealingDecay(lr, T_max=12), 3, 0.0, lr)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
+    if decorate:
+        model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    scaler = amp.GradScaler(init_loss_scaling=scale, incr_every_n_steps=2)
+    crit = LlamaPretrainingCriterion()
+
+    def loss_fn(m, ids, poison):
+        with amp.auto_cast(level=level, dtype="bfloat16"):
+            return crit(m(ids), ids) * poison
+
+    return TrainStep(model, loss_fn, opt, scaler=scaler), sched, scaler, opt
+
+
+def _schedule_lr(lr, epoch, warm=3, t_max=12):
+    """LinearWarmup(CosineAnnealingDecay(lr, t_max), warm, 0, lr) at
+    ``epoch``, written out here apart from optimizer/lr.py."""
+    if epoch < warm:
+        return lr * epoch / warm
+    return lr * (1 + math.cos(math.pi * (epoch - warm) / t_max)) / 2
+
+
+def _state_snapshot(model, opt):
+    """Clones of every parameter and every optimizer state tensor (masters,
+    moments, step counts)."""
+    sd = opt.state_dict()
+    return ([p.detach().clone() for p in model.parameters()],
+            {k: v.clone() for k, v in sd.items() if hasattr(v, "clone")})
+
+
+def _unchanged(torch, model, opt, snap, what):
+    params, states = snap
+    sd = opt.state_dict()
+    moved = [n for (n, p), q in zip(model.named_parameters(), params)
+             if not torch.equal(p.detach(), q)]
+    moved += [k for k, v in states.items() if not torch.equal(sd[k], v)]
+    if moved:
+        raise AssertionError(f"{what}: the overflow step changed "
+                             f"{len(moved)} tensors, e.g. {moved[:4]}")
+    print(f"{what}: the overflow step left {len(params)} parameters and "
+          f"{len(states)} optimizer tensors (masters, moments, step counts) "
+          "bit for bit")
+
+
+# phase 8's AMP pair: 2 float32 layers of 8 heads of 128 (the paths' head
+# dim) at hidden 1024: its CPU side's bf16 products take ~1 s a step, where
+# phase 4's 7B-width pair took 20-50 s a step on the card's host
+AMP_LLAMA = dict(hidden_size=1024, num_attention_heads=8,
+                 intermediate_size=2816, vocab_size=8192)
+
+
+def amp_pair(torch, seed=4):
+    """Two 2-layer float32 Llamas of ``AMP_LLAMA``'s widths with identical
+    weights, on cuda and on the CPU (phase 8's AMP run)."""
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+        llama_7b,
+        load_numpy_state_dict,
+    )
+
+    cfg = llama_7b(dtype="float32", num_hidden_layers=2, **AMP_LLAMA)
+    gpu_model = LlamaForCausalLM(cfg, seed=seed)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=seed)
+    load_numpy_state_dict(cpu_model, {k: v.cpu().numpy() for k, v in
+                                      gpu_model.state_dict().items()})
+    return gpu_model, cpu_model
+
+
+def training_amp_vs_plain(torch, gpu_model, cpu_model):
+    """Phase 8 under AMP: a float32 pair with identical weights
+    (``amp_pair``), each through TrainStep under O1 bf16 with a GradScaler,
+    ClipGradByGlobalNorm and a LinearWarmup schedule (``_amp_train_setup``):
+    3 steps, one forced to overflow (the loss times inf), one more; kernels
+    on cuda against plain versions on the CPU.  The gradient's global norm
+    is checked to exceed the clip's 1.0 first, so the clip's factor (B9's
+    ``gmul`` on cuda) scales every update.  The bf16 tolerance: the two
+    sides round the white-listed products to bf16 at other places, so each
+    finite loss within 2e-2 of the CPU's; the scaler's state equal after
+    every step; the overflow step leaves cuda's parameters and optimizer
+    state bit for bit; after the 4 updates every parameter within 2^-7 of
+    its largest |w| plus 2 lr steps of the CPU's, AdamW's step count equal,
+    moment1 and moment2 within 5e-2 of the CPU's in L2 norm (they carry
+    the unscale and the clip's factor: a lost factor moves them by the
+    factor itself), and each tensor's change within 0.1 of the CPU's
+    change in L2 norm.  Adam divides the moments' scale out of the update,
+    so the change tells little of the factor; it shows an update that is
+    missing or doubled."""
+    w0 = [p.detach().clone() for p in cpu_model.parameters()]
+    lr = 1e-4
+    sg, schg, scg, og = _amp_train_setup(torch, gpu_model, lr, "O1", 2.0 ** 16)
+    sc, schc, scc, oc = _amp_train_setup(torch, cpu_model, lr, "O1", 2.0 ** 16)
+    g = torch.Generator()
+    g.manual_seed(18)
+    ids = torch.randint(1, gpu_model.config.vocab_size, (2, 64), generator=g)
+    dev = gpu_model.device
+    gn = _amp_grad_norm(torch, cpu_model, ids)
+    print(f"O1 global gradient norm before the first step {gn:.4f} "
+          f"(clip scale {min(1.0, 1.0 / gn):.4f})")
+    if not gn > 1.0:
+        raise AssertionError("phase 8 O1: the clip would not act")
+    poison = [1.0, 1.0, 1.0, math.inf, 1.0]
+    for i, f in enumerate(poison):
+        snap = _state_snapshot(gpu_model, og) if f != 1.0 else None
+        a = float(sg(ids.to(dev), torch.full((), f, device=dev)))
+        b = float(sc(ids, torch.tensor(f)))
+        print(f"O1 step {i} (lr {schg():.3e}, poison {f}): loss cuda {a:.6f} "
+              f"cpu {b:.6f}, scale {scg.get_loss_scaling()}")
+        if scg.state_dict() != scc.state_dict():
+            raise AssertionError(f"O1 step {i}: scaler cuda "
+                                 f"{scg.state_dict()} cpu {scc.state_dict()}")
+        if f == 1.0 and not abs(a - b) <= 2e-2 * abs(b):
+            raise AssertionError(f"O1 step {i}: losses differ beyond 2e-2")
+        if f != 1.0:
+            if math.isfinite(a) or math.isfinite(b):
+                raise AssertionError("the poisoned loss is finite")
+            _unchanged(torch, gpu_model, og, snap, "phase 8 O1")
+        schg.step()
+        schc.step()
+    worst, worst_m = 0.0, 0.0
+    for (n, pg), pc, p0 in zip(gpu_model.named_parameters(),
+                               cpu_model.parameters(), w0):
+        for acc in ("beta_pow", "moment1", "moment2"):
+            mg = og._accumulators[acc][id(pg)].cpu()
+            mc = oc._accumulators[acc][id(pc)]
+            if acc == "beta_pow":
+                if not torch.equal(mg, mc):
+                    raise AssertionError(f"O1 {n}: t {mg} cuda, {mc} CPU")
+                continue
+            rel = float(torch.linalg.vector_norm(mg - mc)
+                        / torch.linalg.vector_norm(mc))
+            worst_m = max(worst_m, rel)
+            if not rel <= 5e-2:
+                raise AssertionError(f"O1 {n}: {acc} off by {rel:.4f} of "
+                                     "the CPU's")
+        pg, pc = pg.detach().cpu(), pc.detach()
+        err = float((pg - pc).abs().max())
+        if not err <= 2 ** -7 * float(pc.abs().max()) + 2 * lr * 4:
+            raise AssertionError(f"O1 {n}: {err}")
+        dc = torch.linalg.vector_norm(pc - p0)
+        ratio = float(torch.linalg.vector_norm((pg - p0) - (pc - p0)) / dc)
+        worst = max(worst, ratio)
+        if not ratio <= 0.1:
+            raise AssertionError(f"O1 {n}: change off by {ratio:.3f} of "
+                                 "the CPU's")
+    print(f"O1 + GradScaler + clip + schedule: cuda == CPU (each tensor's "
+          f"change within {worst:.4f} of the CPU's, the moments within "
+          f"{worst_m:.4f}; the overflow step skipped on both)")
+
+
+def _amp_grad_norm(torch, model, ids):
+    """The global L2 norm of ``model``'s gradients of the pretraining loss
+    on ``ids`` under O1 bf16, without a step (the gradients are dropped)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        LlamaPretrainingCriterion()(model(ids), ids).backward()
+    grads = [p.grad.float() for p in model.parameters() if p.grad is not None]
+    gn = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads])))
+    model.zero_grad(set_to_none=True)
+    return gn
+
+
+# -------------------------------------------------------------- phase 17
+def _copies(evs):
+    """(kernels, ms) of PyTorch's copy kernels in a profile
+    (``direct_copy_kernel_cuda``, ``bfloat16_copy_kernel_cuda``): the AMP
+    casts, and any other copy."""
+    mine = [e for e in evs if "copy_kernel" in e.key]
+    return (sum(e.count for e in mine),
+            sum(e.self_device_time_total for e in mine) / 1e3)
+
+
+_COPIES = {}    # phase 7's copy kernels a step, for phase 17's difference
+
+
+# phase 17's model: bench.py's geometry (phase 7's), built in float32
+TRAIN_AMP_MODEL = dict(vocab_size=32000, hidden_size=2560,
+                       intermediate_size=8192, num_hidden_layers=9,
+                       num_attention_heads=20, max_position_embeddings=2048)
+
+
+def full_width_train_amp(torch, card, model_kw=TRAIN_AMP_MODEL,
+                         batch=(8, 2048), device="cuda"):
+    """Phase 17: path (a), Llama pretraining as a user runs it at bench.py's
+    geometry (phase 7's), the model built in float32 and
+    ``amp.decorate``d to O2 bf16 (``_amp_train_setup``: GradScaler, clip,
+    LinearWarmup + cosine schedule), [8, 2048]; returns the "train_amp"
+    path's launches.  ``model_kw``, ``batch`` and ``device`` cut it to a
+    rehearsal on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**model_kw, dtype="float32", recompute=True)
+    (B, S), lr = batch, 1e-4
+    before = torch.cuda.memory_allocated()    # held over from earlier phases
+    t = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    step, sched, scaler, opt = _amp_train_setup(
+        torch, model, lr, "O2", 2.0 ** 15, decorate=True)
+    torch.cuda.synchronize()
+    dts = sorted({str(p.dtype) for p in model.parameters()})
+    print(f"train_amp model: {model.num_params} parameters in {dts} after "
+          f"decorate, multi_precision {opt._multi_precision}, setup seconds "
+          f"{time.perf_counter() - t:.3f}")
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int64, device=device)
+    one = torch.ones((), device=device)
+    inf = torch.full((), math.inf, device=device)
+    free = _sync_free(torch, step)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses, lrs, calls = [], [], 0
+
+    def run(poison):
+        nonlocal calls
+        want = _schedule_lr(lr, sched.last_epoch)
+        if abs(opt.get_lr() - want) > 1e-12 * lr:
+            raise AssertionError(f"lr {opt.get_lr()} at epoch "
+                                 f"{sched.last_epoch}, the schedule {want}")
+        lrs.append(opt.get_lr())
+        out = free(ids, poison)
+        sched.step()
+        calls += 1
+        return out
+
+    for _ in range(2):                         # warm-up
+        losses.append(run(one))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(6):
+        losses.append(run(one))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / 6
+    peak = torch.cuda.max_memory_allocated()    # before the snapshot's clones
+    scale = scaler.get_loss_scaling()
+    snap = _state_snapshot(model, opt)
+    bad = run(inf)
+    torch.cuda.synchronize()
+    if math.isfinite(float(bad)):
+        raise AssertionError("phase 17: the poisoned loss is finite")
+    _unchanged(torch, model, opt, snap, "phase 17")
+    snap = None
+    if scaler.get_loss_scaling() != scale / 2:
+        raise AssertionError(f"phase 17: scale {scale} -> "
+                             f"{scaler.get_loss_scaling()}, not halved")
+    print(f"overflow step: scale {scale} -> {scaler.get_loss_scaling()}")
+    for _ in range(4):
+        losses.append(run(one))
+    lv = torch.stack(losses).float().cpu()
+    print(f"train_amp losses {[round(float(x), 4) for x in lv]}, learning "
+          f"rates {[f'{x:.3e}' for x in lrs]}")
+    if len(lv) != 12 or not bool(torch.isfinite(lv).all()) \
+            or not lv[-1] < lv[0]:
+        raise AssertionError(f"phase 17 losses not finite and falling: {lv}")
+    tok_s = B * S / dt
+    print(f"train_amp step [{B}, {S}] (O2 bf16, scaler, clip): "
+          f"{dt * 1e3:.1f} ms, {tok_s:.1f} tokens/s, max_memory_allocated "
+          f"{peak} bytes ({before} allocated before the phase), scale "
+          f"{scaler.get_loss_scaling()} ({card}); no host sync inside a "
+          "step")
+    evs = _profile(torch, "train_amp step", lambda: run(one), top=20)
+    n, ms = _copies(evs)
+    base = _COPIES.get("train")
+    print(f"profile train_amp: {n} copy kernels, {ms:.3f} ms a step"
+          + ("" if base is None else
+             f"; phase 7's bf16 step {base[0]} ({base[1]:.3f} ms): AMP adds "
+             f"{n - base[0]} launches, {ms - base[1]:.3f} ms"))
+    _k1_k2(evs, "the train_amp step")
+    launches = _path_launches("train_amp", counters)
+    if launches["rms_norm_residual"]:
+        raise AssertionError("phase 17: K1's fused residual add ran under "
+                             "AMP (the reference adds, then norms)")
+    print("launches per train_amp step: " + json.dumps(
+        {k: launches[k] / calls for k in PATHS["train_amp"]}))
+    return launches
+
+
+# -------------------------------------------------------------- phase 18
+def _finetune_step(torch, model, lr=2e-5):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                multi_precision=True)
+    return TrainStep(model, lambda m, ids, y: F.cross_entropy(m(ids), y),
+                     opt)
+
+
+def _forward_loss(torch, model, ids, y, seed):
+    """The finetune step's loss from the default generator at ``seed``
+    (the step's key chain, dropout on), without a gradient."""
+    from paddle_tpu_torch.framework import random as prand
+    from paddle_tpu_torch.jit import trace_state
+    from paddle_tpu_torch.nn import functional as F
+
+    prand.seed(seed)
+    ctx = trace_state.TraceContext(prand.default_generator().next_key(
+        ids.device))
+    with torch.no_grad(), trace_state.activate(ctx):
+        return F.cross_entropy(model(ids), y).float().cpu()
+
+
+def _mask_ms(torch, layers, B, S, h, heads, ffn, device):
+    """One step's dropout draws replayed alone: per layer the attention's
+    [B, H, S, S] mask and the hidden, activation and hidden masks ([B, S,
+    h], [B, S, ffn], [B, S, h]), each from its own key.  -> (CUDA-event
+    ms, traced device ms, elements): the event time is wall time on the
+    device's clock and takes in the gaps between launches; the traced time
+    sums the draws' kernels (threefry's int64 ops, the uniform's
+    conversions, the compare) alone."""
+    from paddle_tpu_torch.framework import random as prand
+
+    shapes = [(B, heads, S, S), (B, S, h), (B, S, ffn), (B, S, h)] * layers
+    base = prand.key(3, device)
+
+    def draws():
+        for i, shp in enumerate(shapes):
+            prand.bernoulli(prand.fold_in(base, i + 1), 0.9, shp)
+
+    draws()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    draws()
+    e.record()
+    e.synchronize()
+    evs = _profile(torch, "finetune masks alone", draws, top=8)
+    dev = sum(ev.self_device_time_total for ev in evs) / 1e3
+    return s.elapsed_time(e), dev, sum(math.prod(x) for x in shapes)
+
+
+def full_width_finetune(torch, card, geo=BERT, device="cuda"):
+    """Phase 18: path (b), bench_ladder's BERT-base finetune (h 768, 12
+    layers, 12 heads, seq 128, batch 32, dropout 0.1, gelu) built in
+    float32, then ``model.bfloat16()``, AdamW(2e-5, multi_precision),
+    TrainStep over cross_entropy; then the 2-layer narrow BERT on cuda
+    against the CPU.  Returns the "finetune" path's launches.  ``geo``
+    (``BERT``'s keys) and ``device`` cut it to a rehearsal on the CPU."""
+    from paddle_tpu_torch.framework import random as prand
+
+    B, S = geo["batch"], BERT["seq"]
+    before = torch.cuda.memory_allocated()    # held over from earlier phases
+    model = bert_classifier(torch, geo["layers"], torch.float32,
+                            device=device, seed=4, hidden=geo["hidden"],
+                            heads=geo["heads"], vocab=geo["vocab"])
+    model.bfloat16()
+    model.train()
+    step = _finetune_step(torch, model)
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    ids = torch.randint(0, geo["vocab"], (B, S), device=device, generator=g)
+    y = torch.randint(0, 2, (B,), device=device, generator=g)
+    # the same step from one generator state twice, then another seed
+    la, lb, lc = (_forward_loss(torch, model, ids, y, s) for s in (7, 7, 8))
+    if not torch.equal(la, lb) or torch.equal(la, lc):
+        raise AssertionError(f"phase 18: seed 7 gave {la} and {lb}, seed 8 "
+                             f"{lc}")
+    print(f"finetune loss from seed 7 twice: {float(la)} == {float(lb)}; "
+          f"seed 8: {float(lc)}")
+    kept = float(prand.bernoulli(prand.key(11, device), 0.9,
+                                 (B, geo["heads"], S, S)).float().mean())
+    print(f"kept share of a [{B}, {geo['heads']}, {S}, {S}] mask at "
+          f"p 0.1: {kept:.5f}")
+    if not abs(kept - 0.9) <= 0.005:
+        raise AssertionError(f"phase 18: kept share {kept}")
+    prand.seed(0)
+    free = _sync_free(torch, step)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [free(ids, y) for _ in range(2)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        losses.append(free(ids, y))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / 10
+    lv = torch.stack(losses).float().cpu()
+    print(f"finetune losses {[round(float(x), 4) for x in lv]}")
+    if not bool(torch.isfinite(lv).all()):
+        raise AssertionError(f"phase 18 losses not finite: {lv}")
+    print(f"finetune step [{B}, {S}]: {dt * 1e3:.1f} ms, {B / dt:.1f} "
+          f"examples/s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes ({before} allocated "
+          f"before the phase; {card}); no host sync inside a step")
+    evs = _profile(torch, "finetune step", lambda: step(ids, y), top=16)
+    dev = sum(e.self_device_time_total for e in evs) / 1e3
+    mask = sum(e.self_device_time_total for e in evs
+               if "<long" in e.key or "int64" in e.key) / 1e3
+    print(f"profile finetune: int64 kernels (threefry's part of the draws) "
+          f"{mask:.3f} of {dev:.3f} ms device time a step "
+          f"({100 * mask / max(dev, 1e-9):.1f}%)")
+    m_ms, m_dev, n_el = _mask_ms(torch, geo["layers"], B, S,
+                                 geo["hidden"], geo["heads"],
+                                 4 * geo["hidden"], device)
+    print(f"the step's {4 * geo['layers']} masks ({n_el} elements) drawn "
+          f"alone: {m_dev:.3f} ms device time (profile), "
+          f"{100 * m_dev / max(dev, 1e-9):.1f}% of the step's {dev:.3f} ms "
+          f"device time; {m_ms:.3f} ms by CUDA events (wall on the device's "
+          "clock, the gaps between launches included)")
+    launches = _path_launches("finetune", counters)
+    if launches["flash_attention"]:
+        raise AssertionError("phase 18: B1 launched at dropout 0.1")
+    model = step = None
+    torch.cuda.empty_cache()
+    _finetune_vs_plain(torch, device)
+    return launches
+
+
+def _finetune_vs_plain(torch, device="cuda"):
+    """The 2-layer BERT at narrow width (hidden 128, 4 heads, vocab 1024) in
+    float32 with identical weights on cuda and on the CPU: the same masks
+    (a [4, 4, 128, 128] draw equal bit for bit), then 3 TrainSteps from
+    the same seed: losses within 1e-4 relative, every parameter within 1e-4
+    of its largest |w| plus 2 lr steps (Adam's sign of a near-zero
+    gradient), all but 1e-3 of the elements within the 1e-4 alone."""
+    from paddle_tpu_torch.framework import random as prand
+    from paddle_tpu_torch.nn import load_numpy_state_dict
+
+    narrow = dict(hidden=128, heads=4, vocab=1024)
+    gm = bert_classifier(torch, 2, torch.float32, device=device, seed=6,
+                         **narrow)
+    cm = bert_classifier(torch, 2, torch.float32, device="cpu", seed=6,
+                         **narrow)
+    load_numpy_state_dict(cm, {k: v.cpu().numpy()
+                               for k, v in gm.state_dict().items()})
+    mk = [prand.bernoulli(prand.key(9, d), 0.9, (4, 4, 128, 128)).cpu()
+          for d in (device, "cpu")]
+    if not torch.equal(*mk):
+        raise AssertionError("phase 18: masks differ on cuda and the CPU")
+    lr = 1e-3
+    sg, sc = _finetune_step(torch, gm, lr), _finetune_step(torch, cm, lr)
+    g = torch.Generator()
+    g.manual_seed(12)
+    ids = torch.randint(0, 1024, (4, BERT["seq"]), generator=g)
+    y = torch.randint(0, 2, (4,), generator=g)
+    for i in range(3):
+        prand.seed(30 + i)
+        a = float(sg(ids.to(device), y.to(device)))
+        prand.seed(30 + i)
+        b = float(sc(ids, y))
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"finetune step {i}: cuda {a} cpu {b}")
+    n_out = n_all = 0
+    for (n, pg), pc in zip(gm.named_parameters(), cm.parameters()):
+        err = (pg.detach().cpu() - pc.detach()).abs()
+        tol = 1e-4 * float(pc.detach().abs().max())
+        if not float(err.max()) <= tol + 2 * lr * 3:
+            raise AssertionError(f"finetune {n}: {float(err.max())}")
+        if not n.endswith("k_proj.bias"):   # its gradient is rounding noise
+            n_out += int((err > tol).sum())
+            n_all += err.numel()
+    if n_out > 1e-3 * n_all:
+        raise AssertionError(f"finetune: {n_out} of {n_all} elements off")
+    print(f"finetune 2-layer narrow BERT: cuda == CPU over 3 steps with "
+          f"dropout ({n_out} of {n_all} elements beyond 1e-4)")
+
+
 # --------------------------------------------------------------- phase 9
-def bert_classifier(torch, layers, dtype, device=None, seed=0):
+def bert_classifier(torch, layers, dtype, device=None, seed=0, hidden=None,
+                    heads=None, vocab=None):
     """bench_ladder.py's BertClassifier (bench_ladder.py:107-123) from the
     port's layers: token and learned position embeddings, a post-norm gelu
-    TransformerEncoder (FFN 4 x hidden, dropout 0.1, the identity in eval),
-    a 2-way Linear head on the first token.  Random weights from a
-    generator seeded with ``seed`` on ``device`` (None: CUDA)."""
+    TransformerEncoder (FFN 4 x hidden, dropout 0.1: the identity in eval,
+    the seeded masks while training), a 2-way Linear head on the first
+    token.  Random weights from a generator seeded with ``seed`` on
+    ``device`` (None: CUDA); ``hidden``, ``heads`` and ``vocab`` narrow it
+    (default BERT-base's)."""
     from paddle_tpu_torch import nn as pnn
     from paddle_tpu_torch.device import resolve_device
     from paddle_tpu_torch.nn.transformer import (
@@ -4254,17 +4861,17 @@ def bert_classifier(torch, layers, dtype, device=None, seed=0):
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    h, seq = BERT["hidden"], BERT["seq"]
+    h, seq = hidden or BERT["hidden"], BERT["seq"]
     kw = dict(device=dev, dtype=dtype, generator=g)
 
     class BertClassifier(torch.nn.Module):
         def __init__(self):
             super().__init__()
-            self.embed = pnn.Embedding(BERT["vocab"], h, **kw)
+            self.embed = pnn.Embedding(vocab or BERT["vocab"], h, **kw)
             self.pos = pnn.Embedding(seq, h, **kw)
             self.encoder = TransformerEncoder(TransformerEncoderLayer(
-                h, BERT["heads"], 4 * h, dropout=0.1, activation="gelu",
-                **kw), layers)
+                h, heads or BERT["heads"], 4 * h, dropout=0.1,
+                activation="gelu", **kw), layers)
             self.cls = pnn.Linear(h, 2, **kw)
 
         def forward(self, ids):
@@ -6086,7 +6693,7 @@ def full_width_chaos(torch, card, model_kw=CHAOS_MODEL, device=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -6235,9 +6842,23 @@ def main(argv=None) -> int:
         for d in (72, 264, 640):
             print(f"-- head_dim {d}")
             training_kernels_vs_plain(torch, *dims[d])
+        print("-- O1 bf16, GradScaler, clip, schedule")
+        training_amp_vs_plain(torch, *amp_pair(torch))
         _done("8", t)
     pair = dims = None
     torch.cuda.empty_cache()
+    if 17 in phases:
+        t = _phase("17 full-width pretraining under AMP")
+        launches["train_amp"] = full_width_train_amp(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("17", t)
+    if 18 in phases:
+        t = _phase("18 full-width BERT-base finetune with dropout")
+        launches["finetune"] = full_width_finetune(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("18", t)
     if 9 in phases:
         t = _phase("9 full-width predictor")
         launches["predict"] = full_width_predictor(torch, card)

@@ -17,6 +17,17 @@
 // a float32 parameter is its own master weight (w is p), as in the
 // reference's optimizer, and nothing else is written.
 //
+// Two optional one-element float32 pointers carry a TrainStep's controls,
+// both read from device memory (no host sync):
+//   gmul: a gradient clip's scale; g is read as
+//         float(round_to_G(float(g) * gmul)), the reference's
+//         (g * scale).astype(g.dtype) then widened to float32
+//         (paddle_tpu/nn/clip.py, jit/api.py:536-540);
+//   skip: nonzero where the step's scaler found a non-finite gradient; the
+//         kernel then writes nothing, so p, w, m and v keep their bits (the
+//         reference's jnp.where(found_inf, old, new), jit/api.py:556-562).
+//         Every thread reads it and returns before its loop.
+//
 // Bound on the H100: bytes, 28 per element with a bfloat16 gradient and
 // parameter (g 2, w/m/v 4 + 4 each, p 2) against ~20 flops.  Design: one
 // grid-stride pass, each thread on consecutive elements of all five arrays
@@ -36,15 +47,21 @@ __global__ void __launch_bounds__(kThreads)
     adamw_kernel(P* __restrict__ p, float* __restrict__ w,
                  float* __restrict__ m, float* __restrict__ v,
                  const G* __restrict__ g, const float* __restrict__ t_ptr,
-                 long long n, float lr, float b1, float b2, float omb1,
-                 float omb2, float eps, float wd) {
+                 const float* __restrict__ gmul_ptr,
+                 const float* __restrict__ skip_ptr, long long n, float lr,
+                 float b1, float b2, float omb1, float omb2, float eps,
+                 float wd) {
+  if (skip_ptr != nullptr && *skip_ptr != 0.f) return;
+  const bool scaled = gmul_ptr != nullptr;
+  const float gmul = scaled ? *gmul_ptr : 1.f;
   const float t = *t_ptr;
   const float c1 = 1.f - powf(b1, t), c2 = 1.f - powf(b2, t);
   const float decay = 1.f - lr * wd;
   const long long step = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += step) {
-    const float gf = ptt::to_f(g[i]);
+    float gf = ptt::to_f(g[i]);
+    if (scaled) gf = ptt::to_f(ptt::from_f<G>(gf * gmul));
     float wv = w[i] * decay;
     const float mv = b1 * m[i] + omb1 * gf;
     const float vv = b2 * v[i] + omb2 * gf * gf;
@@ -58,47 +75,52 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename P, typename G>
 cudaError_t launch(void* p, void* w, void* m, void* v, const void* g,
-                   const void* t, long long n, float lr, float b1, float b2,
-                   float omb1, float omb2, float eps, float wd,
-                   cudaStream_t st) {
+                   const void* t, const void* gmul, const void* skip,
+                   long long n, float lr, float b1, float b2, float omb1,
+                   float omb2, float eps, float wd, cudaStream_t st) {
   const long long blocks = (n + kThreads - 1) / kThreads;
   const int grid = (int)(blocks < 132 * 8 ? blocks : 132 * 8);
   adamw_kernel<P, G><<<grid, kThreads, 0, st>>>(
       (P*)p, (float*)w, (float*)m, (float*)v, (const G*)g, (const float*)t,
-      n, lr, b1, b2, omb1, omb2, eps, wd);
+      (const float*)gmul, (const float*)skip, n, lr, b1, b2, omb1, omb2, eps,
+      wd);
   return cudaGetLastError();
 }
 
 template <typename P>
 cudaError_t by_grad(void* p, void* w, void* m, void* v, const void* g,
-                    int g_dtype, const void* t, long long n, float lr,
-                    float b1, float b2, float omb1, float omb2, float eps,
-                    float wd, cudaStream_t st) {
+                    int g_dtype, const void* t, const void* gmul,
+                    const void* skip, long long n, float lr, float b1,
+                    float b2, float omb1, float omb2, float eps, float wd,
+                    cudaStream_t st) {
   if (g_dtype == ptt::kFloat32)
-    return launch<P, float>(p, w, m, v, g, t, n, lr, b1, b2, omb1, omb2, eps,
-                            wd, st);
+    return launch<P, float>(p, w, m, v, g, t, gmul, skip, n, lr, b1, b2,
+                            omb1, omb2, eps, wd, st);
   if (g_dtype == ptt::kBFloat16)
-    return launch<P, __nv_bfloat16>(p, w, m, v, g, t, n, lr, b1, b2, omb1,
-                                    omb2, eps, wd, st);
+    return launch<P, __nv_bfloat16>(p, w, m, v, g, t, gmul, skip, n, lr, b1,
+                                    b2, omb1, omb2, eps, wd, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// p|NULL (p_dtype), w, m, v float32, g (g_dtype), t float32 [1]; omb1 and
-// omb2 are 1 - b1 and 1 - b2 as the caller rounds them
+// p|NULL (p_dtype), w, m, v float32, g (g_dtype), t float32 [1], gmul|NULL
+// and skip|NULL float32 [1]; omb1 and omb2 are 1 - b1 and 1 - b2 as the
+// caller rounds them
 extern "C" int ptt_fused_adamw(void* p, void* w, void* m, void* v,
-                               const void* g, const void* t, long long n,
-                               float lr, float b1, float b2, float omb1,
-                               float omb2, float eps, float wd, int p_dtype,
-                               int g_dtype, void* stream) {
+                               const void* g, const void* t,
+                               const void* gmul, const void* skip,
+                               long long n, float lr, float b1, float b2,
+                               float omb1, float omb2, float eps, float wd,
+                               int p_dtype, int g_dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaSuccess;
   if (p == nullptr || p_dtype == ptt::kFloat32)
-    return (int)by_grad<float>(p, w, m, v, g, g_dtype, t, n, lr, b1, b2,
-                               omb1, omb2, eps, wd, st);
+    return (int)by_grad<float>(p, w, m, v, g, g_dtype, t, gmul, skip, n, lr,
+                               b1, b2, omb1, omb2, eps, wd, st);
   if (p_dtype == ptt::kBFloat16)
-    return (int)by_grad<__nv_bfloat16>(p, w, m, v, g, g_dtype, t, n, lr, b1,
-                                       b2, omb1, omb2, eps, wd, st);
+    return (int)by_grad<__nv_bfloat16>(p, w, m, v, g, g_dtype, t, gmul, skip,
+                                       n, lr, b1, b2, omb1, omb2, eps, wd,
+                                       st);
   return (int)cudaErrorInvalidValue;
 }

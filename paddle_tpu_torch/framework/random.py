@@ -23,9 +23,17 @@ card alike.  What each function computes, in ``jax/_src``:
 - ``categorical``: ``random.categorical`` with replacement — the argmax of
   ``gumbel + logits`` over the last axis.
 
+- ``bernoulli``: ``random.bernoulli`` in mode ``"low"`` —
+  ``uniform(key, shape) < p``, p rounded to float32.
+
 ``Generator(seed).next_key()`` is ``fold_in(key(seed), counter)`` after
-``counter += 1``, as the reference's.  There is no global generator: a
-caller that draws passes its ``Generator``.
+``counter += 1``, as the reference's; inside a ``TrainStep`` (an active
+``jit.trace_state.TraceContext``) it is the step's ``fold_in(base, i)``
+instead, as the reference's inside a trace.  The process-wide
+``default_generator()`` (seeded by ``seed``) is the stream dropout draws
+from, as in the reference; sampling takes an explicit ``Generator``.
+A key for an integer seed or counter is made on its device by a fill, never
+by a host-to-device copy, so drawing needs no host sync.
 """
 from __future__ import annotations
 
@@ -34,7 +42,8 @@ from typing import Sequence, Union
 import torch
 
 __all__ = ["key", "fold_in", "random_bits", "uniform", "gumbel",
-           "categorical", "Generator"]
+           "categorical", "bernoulli", "Generator", "seed",
+           "default_generator", "get_rng_state", "set_rng_state"]
 
 _M32 = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
@@ -43,6 +52,17 @@ _F32_ONE_BITS = 0x3F800000
 _F32_TINY = torch.finfo(torch.float32).tiny
 
 Seed = Union[int, torch.Tensor]
+
+
+def _word(x: Seed, device) -> torch.Tensor:
+    """A 32-bit word (or a tensor of them) as int64 on ``device``: a Python
+    integer is written there by a fill, so no host-to-device copy (a host
+    sync) is made; a tensor is moved as it is."""
+    if isinstance(x, int):
+        return torch.full((), x & _M32, dtype=torch.int64, device=device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64) & _M32
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
 
 
 def _threefry2x32(k1, k2, x1, x2):
@@ -65,14 +85,14 @@ def key(seed: Seed, device=None) -> torch.Tensor:
     """Raw threefry key(s) from an integer seed or an integer tensor of
     seeds: ``[..., 2]`` int64 on ``device`` (the seed tensor's device when
     a tensor is given)."""
-    s = torch.as_tensor(seed, dtype=torch.int64, device=device) & _M32
+    s = _word(seed, device)
     return torch.stack([torch.zeros_like(s), s], dim=-1)
 
 
 def fold_in(k: torch.Tensor, data: Seed) -> torch.Tensor:
     """A new key from ``k`` [..., 2] and a 32-bit integer (or an integer
     tensor broadcasting against ``k``'s batch)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=k.device) & _M32
+    d = _word(data, k.device)
     y1, y2 = _threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([y1, y2], dim=-1)
 
@@ -119,6 +139,15 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(g + logits, dim=-1)
 
 
+def bernoulli(k: torch.Tensor, p: float, shape: Sequence[int]
+              ) -> torch.Tensor:
+    """Booleans, True with probability ``p``: ``uniform(k, shape) < p``
+    with ``p`` rounded to float32, ``jax.random.bernoulli``'s "low" mode
+    for a float ``p``."""
+    p32 = float(torch.tensor(float(p), dtype=torch.float32))
+    return uniform(k, shape) < p32
+
+
 class Generator:
     """A seeded stream of keys: ``next_key()`` advances the counter and
     returns ``fold_in(key(seed), counter)``, as
@@ -135,8 +164,41 @@ class Generator:
         return self
 
     def next_key(self, device=None) -> torch.Tensor:
+        """A fresh key; advances the stream.  Inside a ``TrainStep`` the
+        key comes from the step's context (``fold_in(base, i)`` on the
+        base key's device), as the reference's does inside a trace."""
+        from ..jit import trace_state
+
+        ctx = trace_state.current()
+        if ctx is not None:
+            return ctx.next_key()
         self._counter += 1
         return fold_in(key(self._seed, device), self._counter)
 
     def get_state(self):
         return (self._seed, self._counter)
+
+    def set_state(self, state) -> "Generator":
+        self._seed, self._counter = int(state[0]), int(state[1])
+        return self
+
+
+_default_generator = Generator(0)
+
+
+def default_generator() -> Generator:
+    """The process-wide stream that dropout draws from."""
+    return _default_generator
+
+
+def seed(s: int) -> Generator:
+    """``paddle.seed``: reseed the default generator (counter 0)."""
+    return _default_generator.manual_seed(s)
+
+
+def get_rng_state():
+    return _default_generator.get_state()
+
+
+def set_rng_state(state):
+    _default_generator.set_state(state)

@@ -29,9 +29,21 @@ layer runs under ``torch.utils.checkpoint`` (the reference's
 kernels launch again in the backward.  ``LlamaPretrainingCriterion`` is the
 shifted next-token loss over the logits; ``pretraining_loss`` the same loss
 through the chunked head (``_chunked_lm_loss``), each chunk checkpointed.
+
+AMP (``amp.auto_cast``): each op casts its inputs by the reference's tag
+(``embedding``, ``rms_norm`` on the black list, ``linear`` and
+``flash_attention`` on the white list, ``fused_rope``, ``silu`` /
+``multiply``, ``add``, ``fused_lm_loss``).  The reference adds the residual
+("add") and then norms ("rms_norm"), two ops with two casts, so under AMP
+the port runs them as two too (``_add_norm``: the add, then K1 on the
+float32 sum) instead of K1's fused residual add.  A recomputed layer runs
+in the backward, outside the caller's ``auto_cast``:
+``_recompute_contexts`` restores the forward's AMP state and random
+counter around the recomputation.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -40,7 +52,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..amp.auto_cast import amp_cast, is_auto_cast_enabled
+from ..amp.auto_cast import restore as amp_restore
+from ..amp.auto_cast import snapshot as amp_snapshot
 from ..device import resolve_device
+from ..framework.random import default_generator
+from ..jit import trace_state
 from ..nn import Embedding, ParallelLinear, RMSNorm, load_numpy_state_dict
 from ..nn import functional as F
 from ..ops.hopper.decode_attention import decode_attention
@@ -122,11 +139,60 @@ def apply_rotary_pos_emb(q, k, cos, sin, position_offset=0):
     K2 then reads it and takes the rows ``lax.dynamic_slice`` takes
     (``clamp(off, 0, Smax - S) + s``, a negative off counted from the end
     first) in its one launch (no host sync)."""
+    q, k, cos, sin = amp_cast("fused_rope", q, k, cos, sin)
+    if cos.dtype != torch.float32:
+        # O2 casts the tables as the reference's op does; K2 reads them
+        # at float32 (their low-precision values exactly)
+        cos, sin = cos.float(), sin.float()
     if isinstance(position_offset, torch.Tensor):
         return rope_fused(q, k, cos, sin, position_offset=position_offset)
     S = q.shape[1]
     return rope_fused(q, k, cos[position_offset:position_offset + S],
                       sin[position_offset:position_offset + S])
+
+
+def _add_norm(x, residual, norm: RMSNorm):
+    """(norm(h), h) for the residual stream h = x + residual (h = x where
+    ``residual`` is None).  One K1 launch with the add fused; under AMP the
+    reference's two ops, the add ("add") and then the norm ("rms_norm",
+    black-listed: K1 on the float32 sum), so the stream keeps the dtype the
+    reference's add gives it."""
+    if not is_auto_cast_enabled():
+        if residual is None:
+            return rms_norm_fused(x, norm.weight, norm.epsilon), x
+        return rms_norm_residual_fused(x, residual, norm.weight,
+                                       norm.epsilon)
+    if residual is not None:
+        x, residual = amp_cast("add", x, residual)
+        x = residual + x
+    return norm(x), x
+
+
+def _recompute_contexts():
+    """``checkpoint``'s ``context_fn``: the forward runs as it is; the
+    recomputation in the backward runs under the AMP state and from the
+    random counter the forward started with (the step's ``TraceContext``,
+    or the default generator outside a step), so it casts and draws as
+    the forward did."""
+    amp = amp_snapshot()
+    ctx = trace_state.current()
+    replay = None if ctx is None else ctx.fork()
+    gen = default_generator()
+    gen_state = gen.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        later = gen.get_state()
+        if replay is None:
+            gen.set_state(gen_state)
+        try:
+            with amp_restore(amp), trace_state.activate(replay):
+                yield
+        finally:
+            if replay is None:
+                gen.set_state(later)
+
+    return contextlib.nullcontext(), recompute()
 
 
 class LlamaAttention(nn.Module):
@@ -199,7 +265,9 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         """down(silu(gate(x)) * up(x)), the gating in kernel K3."""
-        return self.down_proj(swiglu_fused(self.gate_proj(x), self.up_proj(x)))
+        (gate,) = amp_cast("silu", self.gate_proj(x))
+        (up,) = amp_cast("multiply", self.up_proj(x))
+        return self.down_proj(swiglu_fused(gate, up))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -216,22 +284,17 @@ class LlamaDecoderLayer(nn.Module):
         """The reference's ``residual + attn(ln1(h))`` then
         ``+ mlp(ln2(.))`` over the layer input ``h = x + residual``
         (``residual`` None: h = x), with each residual add fused into the
-        norm after it (K1).  Returns (mlp_out, residual) — the layer's
+        norm after it (K1; under AMP the reference's add, then the norm:
+        ``_add_norm``).  Returns (mlp_out, residual) — the layer's
         output is their sum, left for the next norm to take — and the new
         cache when ``cache`` is given."""
-        ln1 = self.input_layernorm
-        if residual is None:
-            h, residual = rms_norm_fused(x, ln1.weight, ln1.epsilon), x
-        else:
-            h, residual = rms_norm_residual_fused(x, residual, ln1.weight,
-                                                  ln1.epsilon)
+        h, residual = _add_norm(x, residual, self.input_layernorm)
         attn = self.self_attn(h, cos, sin, attn_mask, cache)
         new_cache = None
         if cache is not None:
             attn, new_cache = attn
-        ln2 = self.post_attention_layernorm
-        h2, residual = rms_norm_residual_fused(attn, residual, ln2.weight,
-                                               ln2.epsilon)
+        h2, residual = _add_norm(attn, residual,
+                                 self.post_attention_layernorm)
         out = self.mlp(h2)
         if cache is not None:
             return out, residual, new_cache
@@ -277,11 +340,11 @@ class LlamaModel(nn.Module):
                 # whole, its activations rebuilt in the backward
                 x, residual = checkpoint(layer, x, residual, cos, sin,
                                          attn_mask, use_reentrant=False,
-                                         preserve_rng_state=False)
+                                         preserve_rng_state=False,
+                                         context_fn=_recompute_contexts)
             else:
                 x, residual = layer(x, residual, cos, sin, attn_mask)
-        hidden, _ = rms_norm_residual_fused(x, residual, self.norm.weight,
-                                            self.norm.epsilon)
+        hidden, _ = _add_norm(x, residual, self.norm)
         if caches is not None:
             return hidden, new_caches
         return hidden
@@ -324,7 +387,7 @@ class LlamaForCausalLM(nn.Module):
         ids = torch.as_tensor(input_ids, device=self.device)
         out = self.llama(ids, attn_mask, caches)
         hidden = out[0] if caches is not None else out
-        logits = hidden @ self._head_weight()
+        logits = F.linear(hidden, self._head_weight())
         if caches is not None:
             return logits, out[1]
         return logits
@@ -342,9 +405,9 @@ class LlamaForCausalLM(nn.Module):
         ids = torch.as_tensor(input_ids, device=self.device)
         labels = ids if labels is None else torch.as_tensor(
             labels, device=self.device)
-        hidden = self.llama(ids)
-        return _chunked_lm_loss(hidden, self._head_weight(), labels,
-                                n_chunks)
+        hidden, w = amp_cast("fused_lm_loss", self.llama(ids),
+                             self._head_weight())
+        return _chunked_lm_loss(hidden, w, labels, n_chunks)
 
     @property
     def num_params(self) -> int:

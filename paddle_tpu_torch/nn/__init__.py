@@ -14,7 +14,11 @@ paddle's ``LayerList``/``Sequential`` under the same attribute names.
 leaves it to XLA), ``Embedding`` one ``index_select`` (its backward an
 ``index_add_``, which needs no host sync), ``LayerNorm``
 ``torch.nn.functional.layer_norm`` (not a TPU kernel in the reference),
-``RMSNorm`` kernel K1 (``ops/hopper/fused_norm.py``).  Parameters are
+``RMSNorm`` kernel K1 (``ops/hopper/fused_norm.py``), ``Dropout`` the
+functional's seeded masks.  Under AMP each layer casts its inputs by its
+op's tag in the reference (``linear``, ``embedding``, ``layer_norm``,
+``rms_norm``; ``amp.amp_cast``).  The gradient clips of ``nn/clip.py`` are
+exported here, as the reference's are.  Parameters are
 trainable (``requires_grad=True``, the reference's ``stop_gradient=False``);
 the inference entry points run under ``torch.no_grad``.  Layers take
 ``device=None`` (CUDA, or ``RuntimeError`` without it; ``device="cpu"`` for
@@ -30,12 +34,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..amp.auto_cast import amp_cast
 from ..device import resolve_device
 from ..ops.hopper.fused_norm import rms_norm_fused
 from . import functional as F
+from .clip import (  # noqa: F401
+    ClipGradByGlobalNorm,
+    ClipGradByNorm,
+    ClipGradByValue,
+    clip_grad_norm_,
+)
 
 __all__ = ["Linear", "ParallelLinear", "Embedding", "LayerNorm", "RMSNorm",
-           "Dropout", "load_numpy_state_dict"]
+           "Dropout", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "load_numpy_state_dict"]
 
 
 def _xavier(in_features: int, out_features: int, device, dtype,
@@ -82,7 +94,7 @@ class ParallelLinear(nn.Module):
                               generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight
+        return F.linear(x, self.weight)
 
 
 class Embedding(nn.Module):
@@ -99,8 +111,9 @@ class Embedding(nn.Module):
         self.weight = nn.Parameter(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        rows = self.weight.index_select(0, ids.reshape(-1).long())
-        return rows.view(*ids.shape, self.weight.shape[1])
+        (w,) = amp_cast("embedding", self.weight)
+        rows = w.index_select(0, ids.reshape(-1).long())
+        return rows.view(*ids.shape, w.shape[1])
 
 
 class LayerNorm(nn.Module):
@@ -123,21 +136,25 @@ class LayerNorm(nn.Module):
                                              device=dev, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = amp_cast("layer_norm", x, self.weight, self.bias)
         return torch.nn.functional.layer_norm(
-            x, self._normalized_shape, self.weight, self.bias, self._epsilon)
+            x, self._normalized_shape, w, b, self._epsilon)
 
 
 class Dropout(nn.Module):
-    """The identity in eval or at ``p == 0``; dropout while training needs
-    a random stream that is not ported, and raises."""
+    """``F.dropout`` while training; the identity in eval or at p == 0."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train"):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        F._no_dropout("Dropout", self.p, self.training)
-        return x
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
 
 
 class RMSNorm(nn.Module):
@@ -151,7 +168,8 @@ class RMSNorm(nn.Module):
             torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm_fused(x, self.weight, self.epsilon)
+        x, w = amp_cast("rms_norm", x, self.weight)
+        return rms_norm_fused(x, w, self.epsilon)
 
 
 def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:

@@ -6,13 +6,17 @@
 a ``Linear`` with a bias, so the weight-only int8 rewrite of
 ``inference.Predictor`` reaches them) and its caches, and attends through
 ``nn.functional.scaled_dot_product_attention`` on ``[B, S, H, D]``:
-unmasked, that is kernel B1; with an additive ``attn_mask``, the plain
-masked attention, as in the reference.  Sub-module names equal the
-reference's, so its ``state_dict`` loads one for one.
+unmasked and without dropout, that is kernel B1; with an additive
+``attn_mask``, or its dropout while training, the plain attention, as in
+the reference.  Sub-module names equal the reference's, so its
+``state_dict`` loads one for one.
 
 The layers take ``device=None`` (CUDA, or ``RuntimeError`` without it),
 ``dtype`` and an explicit ``torch.Generator`` as keywords.  Dropout is the
-identity in eval; a dropout above 0 while training raises.
+identity in eval; while training each layer draws its masks in the
+reference's order (the attention's, ``dropout1``, ``act_dropout``,
+``dropout2``) from the default generator, or from the step's keys inside a
+``TrainStep``.  The residual adds cast as the reference's "add" under AMP.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..amp.auto_cast import amp_cast
 from ..device import resolve_device
 from . import Dropout, LayerNorm, Linear
 from . import functional as F
@@ -97,6 +102,12 @@ class MultiHeadAttention(nn.Module):
 _ACT = {"relu": F.relu, "gelu": F.gelu}
 
 
+def _add(a, b):
+    """The reference's "add" op, cast as AMP casts it."""
+    a, b = amp_cast("add", a, b)
+    return a + b
+
+
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float = 0.1, activation: str = "relu",
@@ -135,7 +146,7 @@ class TransformerEncoderLayer(nn.Module):
             src, cache = self.self_attn(src, src, src, src_mask, cache)
         else:
             src = self.self_attn(src, src, src, src_mask)
-        src = residual + self.dropout1(src)
+        src = _add(residual, self.dropout1(src))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -143,7 +154,7 @@ class TransformerEncoderLayer(nn.Module):
             src = self.norm2(src)
         src = self.linear2(self.act_dropout(self.activation(
             self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = _add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src if cache is None else (src, cache)

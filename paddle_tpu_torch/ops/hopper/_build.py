@@ -39,7 +39,7 @@ from typing import List, Optional, Tuple
 import torch
 
 __all__ = ["build", "lib", "check", "launch_args", "launch_args_cached",
-           "dtype_code",
+           "dtype_code", "f16_note",
            "device_guard", "wants_grad", "SOURCES", "LIB_PATH"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -104,9 +104,9 @@ _SIGNATURES = {
     "ptt_flash_attention_bwd": [_P] * 13 + [
         _I, _I, _I, _I, _I, _I, *[ctypes.c_longlong] * 9, _I, _F, _I, _I,
         _I, _I, _P],
-    # p|NULL, w, m, v, g, t, n, lr, b1, b2, 1 - b1, 1 - b2, eps, wd,
-    # p_dtype, g_dtype, stream
-    "ptt_fused_adamw": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+    # p|NULL, w, m, v, g, t, gmul|NULL, skip|NULL, n, lr, b1, b2, 1 - b1,
+    # 1 - b2, eps, wd, p_dtype, g_dtype, stream
+    "ptt_fused_adamw": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                         *[_F] * 7, _I, _I, _P],
     # q, kbuf, vbuf, out, pos, B, L, H, KVH, D, scale, splits, dtype,
     # stream
@@ -218,11 +218,18 @@ def lib() -> ctypes.CDLL:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def f16_note(dtype: torch.dtype) -> str:
+    """What a refusal of ``dtype`` adds for float16 (AMP's float16 reaches
+    the kernels before they take it)."""
+    return (" (float16 kernels are ROADMAP F16, not ported)"
+            if dtype == torch.float16 else "")
+
+
 def dtype_code(name: str, t: torch.Tensor) -> int:
     """The C entries' code for ``t``'s dtype (0 float32, 1 bfloat16)."""
     if t.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
-                        f"got {t.dtype}")
+                        f"got {t.dtype}{f16_note(t.dtype)}")
     return _DTYPE_CODES[t.dtype]
 
 

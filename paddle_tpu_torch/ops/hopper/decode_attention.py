@@ -174,7 +174,8 @@ def _plan(B: int, L: int, H: int, KVH: int, D: int, dtype: torch.dtype,
         raise ValueError(f"{name}: no plan for H {H}, KVH {KVH}, head_dim "
                          f"{D} (head_dim >= 1, H % KVH == 0)")
     if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{name}: no instance for {dtype}")
+        raise ValueError(f"{name}: no instance for {dtype}"
+                         f"{_build.f16_note(dtype)}")
     G = H // KVH
     R = min(G, ROWS)
     base = B * KVH * _ceil(G, ROWS)

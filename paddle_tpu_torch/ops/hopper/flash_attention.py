@@ -212,7 +212,7 @@ def _select_blocks(name: str, kind: str, dtype: torch.dtype, sq: int,
         return pair
     if dtype != torch.bfloat16:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
-                        f"got {dtype}")
+                        f"got {dtype}{_build.f16_note(dtype)}")
     pair = (tuple(blocks) if blocks is not None
             else autotune.get_flash_blocks(kind, sq, sk, d))
     if pair not in autotune.INSTANCES[(kind, autotune.head_dim_class(d))]:

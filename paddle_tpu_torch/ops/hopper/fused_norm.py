@@ -96,7 +96,8 @@ def rms_plan(n: int, h: int, dtype: torch.dtype, aligned: bool, *,
     fewer than ``BLOCK`` threads share a block, fewer of them while the grid
     is under ``SMS`` blocks."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"rms_plan: float32 or bfloat16, got {dtype}")
+        raise ValueError(f"rms_plan: float32 or bfloat16, got {dtype}"
+                         f"{_build.f16_note(dtype)}")
     if n < 1 or h < 1:
         raise ValueError(f"rms_plan: n, h >= 1, got {n}, {h}")
     v16 = 16 // dtype.itemsize

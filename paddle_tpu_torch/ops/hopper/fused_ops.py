@@ -76,7 +76,8 @@ def rope_plan(B: int, S: int, H: int, KVH: int, D: int, dtype: torch.dtype,
     stride of the call is 16-byte aligned.  ``vec=False`` forces the scalar
     body (``chip_smoke.py``'s edges)."""
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"rope_plan: float32 or bfloat16, got {dtype}")
+        raise ValueError(f"rope_plan: float32 or bfloat16, got {dtype}"
+                         f"{_build.f16_note(dtype)}")
     cp = 16 // dtype.itemsize
     can = aligned and D % 2 == 0 and (D // 2) % cp == 0
     if vec is None:

@@ -126,7 +126,8 @@ def int8_plan(M: int, N: int, K: int, dtype: torch.dtype, *,
     until the grid reaches 132 blocks, while every split keeps at least 4
     steps of 64 and the last one is not empty."""
     if dtype not in _X_DTYPES:
-        raise ValueError(f"int8_plan: float32 or bfloat16, got {dtype}")
+        raise ValueError(f"int8_plan: float32 or bfloat16, got {dtype}"
+                         f"{_build.f16_note(dtype)}")
     if M < 1 or N < 1 or K < 0:
         raise ValueError(f"int8_plan: M, N >= 1 and K >= 0, got {M}, {N}, "
                          f"{K}")
@@ -186,7 +187,7 @@ def _check(x, qw, scale, bias=None):
     name = "int8_matmul"
     if x.dtype not in _X_DTYPES:
         raise TypeError(f"{name}: x must be float32 or bfloat16, got "
-                        f"{x.dtype}")
+                        f"{x.dtype}{_build.f16_note(x.dtype)}")
     if qw.dtype != torch.int8:
         raise TypeError(f"{name}: qw must be int8, got {qw.dtype}")
     if qw.dim() != 2 or x.shape[-1] != qw.shape[0]:

@@ -1,11 +1,20 @@
-"""Learning-rate scheduler base — the port of ``paddle_tpu/optimizer/lr.py``'s
-``LRScheduler`` (``lr.py:15``), the class ``Optimizer.get_lr`` consults.
-The concrete schedulers are not ported yet."""
+"""Learning-rate schedulers — the port of ``paddle_tpu/optimizer/lr.py``
+(``:15-338``): the ``LRScheduler`` base that ``Optimizer.get_lr`` consults
+and its 18 schedulers, each the reference's host-side arithmetic on Python
+floats, with its ``state_dict`` / ``set_state_dict``.  A ``TrainStep``
+reads the rate once per call on the host; nothing here touches a device.
+"""
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import List, Optional
 
-__all__ = ["LRScheduler"]
+__all__ = [
+    "LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay", "InverseTimeDecay",
+    "PolynomialDecay", "LinearWarmup", "ExponentialDecay", "MultiStepDecay", "StepDecay",
+    "LambdaDecay", "ReduceOnPlateau", "CosineAnnealingDecay", "MultiplicativeDecay",
+    "OneCycleLR", "CyclicLR", "CosineAnnealingWarmRestarts", "LinearLR", "ConstantLR",
+]
 
 
 class LRScheduler:
@@ -26,15 +35,308 @@ class LRScheduler:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
         if self.verbose:
-            print(f"Epoch {self.last_epoch}: set learning rate to "
-                  f"{self.last_lr}.")
+            print(f"Epoch {self.last_epoch}: set learning rate to {self.last_lr}.")
 
     def get_lr(self) -> float:
         raise NotImplementedError
 
     def state_dict(self):
-        return {k: v for k, v in self.__dict__.items()
-                if isinstance(v, (int, float, bool, str, list))}
+        return {k: v for k, v in self.__dict__.items() if isinstance(v, (int, float, bool, str, list))}
 
     def set_state_dict(self, state):
         self.__dict__.update(state)
+
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model**-0.5) * min(step**-0.5, step * self.warmup_steps**-1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries: List[int], values: List[float], last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0, cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(max(step, 1) / self.decay_steps)
+            decay_steps = self.decay_steps * max(div, 1)
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return (self.base_lr - self.end_lr) * (1 - step / decay_steps) ** self.power + self.end_lr
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr, last_epoch=-1, verbose=False):
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) else None
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        base = learning_rate.base_lr if self.lr_sched else float(learning_rate)
+        super().__init__(base, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.warmup_steps:
+            return (self.end_lr - self.start_lr) * self.last_epoch / self.warmup_steps + self.start_lr
+        if self.lr_sched is not None:
+            self.lr_sched.step(self.last_epoch - self.warmup_steps)
+            return self.lr_sched()
+        return self.base_lr
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma**self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1, verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma**n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1, verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.eta_min + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (1 + math.cos(math.pi * t / t_i)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10, threshold=1e-4,
+                 threshold_mode="rel", cooldown=0, min_lr=0, epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad = 0
+        self.cooldown_counter = 0
+        self._lr = float(learning_rate)
+        super().__init__(learning_rate, -1, verbose)
+
+    def get_lr(self):
+        return self._lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            self.last_epoch += 1
+            self.last_lr = self._lr
+            return
+        # a 0-d tensor or a number; a device tensor is read on the host
+        m = float(metrics)
+        better = False
+        if self.best is None:
+            better = True
+        elif self.threshold_mode == "rel":
+            if self.mode == "min":
+                better = m < self.best * (1 - self.threshold)
+            else:
+                better = m > self.best * (1 + self.threshold)
+        else:
+            better = m < self.best - self.threshold if self.mode == "min" else m > self.best + self.threshold
+        if better:
+            self.best = m
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        if self.num_bad > self.patience:
+            new_lr = max(self._lr * self.factor, self.min_lr)
+            if self._lr - new_lr > self.epsilon:
+                self._lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad = 0
+        self.last_epoch += 1
+        self.last_lr = self._lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0, end_learning_rate=0.0001,
+                 phase_pct=0.3, anneal_strategy="cos", three_phase=False, last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = int(self.phase_pct * self.total_steps)
+        if step <= up_steps:
+            return self._interp(self.initial_lr, self.max_lr, step / max(up_steps, 1))
+        down = (step - up_steps) / max(self.total_steps - up_steps, 1)
+        return self._interp(self.max_lr, self.end_lr, down)
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up, step_size_down=None,
+                 mode="triangular", exp_gamma=1.0, scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down if step_size_down is not None else step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self.scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        cycle_len = self.step_up + self.step_down
+        cycle = self.last_epoch // cycle_len
+        pos = self.last_epoch % cycle_len
+        if pos < self.step_up:
+            pct = pos / self.step_up
+        else:
+            pct = 1 - (pos - self.step_up) / self.step_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.scale_fn is not None:
+            x = cycle + 1 if self.scale_mode == "cycle" else self.last_epoch
+            amp *= self.scale_fn(x)
+        elif self.mode == "triangular2":
+            amp *= 0.5**cycle
+        elif self.mode == "exp_range":
+            amp *= self.exp_gamma**self.last_epoch
+        return self.base_lr + amp
+
+
+class LinearLR(LRScheduler):
+    def __init__(self, learning_rate, total_steps, start_factor=1.0 / 3, end_factor=1.0, last_epoch=-1, verbose=False):
+        self.total_steps = total_steps
+        self.start_factor = start_factor
+        self.end_factor = end_factor
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        pct = min(self.last_epoch / self.total_steps, 1.0)
+        factor = self.start_factor + (self.end_factor - self.start_factor) * pct
+        return self.base_lr * factor
+
+
+class ConstantLR(LRScheduler):
+    def __init__(self, learning_rate, factor=1.0 / 3, total_steps=5, last_epoch=-1, verbose=False):
+        self.factor = factor
+        self.total_steps = total_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch < self.total_steps:
+            return self.base_lr * self.factor
+        return self.base_lr

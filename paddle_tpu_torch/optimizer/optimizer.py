@@ -8,17 +8,23 @@ parameter; float32 master weights for low-precision parameters under
 casts the gradients to float32 under ``multi_precision``; ``clear_grad``;
 ``state_dict`` / ``set_state_dict`` with the reference's keys
 (``<param>__<accumulator>``, ``<param>__master_weight``, ``@step``, and
-``LR_Scheduler``).  A parameter is named by its position, ``param_<i>``,
-the reference's name for a parameter without one.
+``LR_Scheduler``); a ``grad_clip`` (``nn/clip.py``) applied to each
+parameter group's gradients before its update, as in
+``paddle_tpu/optimizer/optimizer.py:106-107``.  A parameter is named by its
+position, ``param_<i>``, the reference's name for a parameter without one.
 
 State lives on each parameter's device as torch tensors; the update runs
 under ``torch.no_grad`` and writes the parameters through ``.data``, so no
-version counter of a graph moves.  A ``grad_clip`` is not ported yet.
+version counter of a graph moves.  A clip reaches the update as a float32
+device scale per gradient (``gmul``: the gradient is read as ``(g * gmul)``
+rounded to its dtype), and ``TrainStep``'s scaler as a skip flag
+(``Skip``): where it is set, every state of the parameter keeps its bits,
+the reference's ``jnp.where(found_inf, old, new)`` (``jit/api.py:556-562``).
 """
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -29,15 +35,25 @@ __all__ = ["Optimizer"]
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
 
+class Skip(NamedTuple):
+    """A step's skip on the device: ``flag`` float32 [] is 1 where the
+    update is skipped (a non-finite gradient under a scaler), else 0;
+    ``advance`` is ``1 - flag``, what each step count moves by."""
+    flag: torch.Tensor
+    advance: torch.Tensor
+
+    @classmethod
+    def of(cls, found_inf: torch.Tensor) -> "Skip":
+        flag = found_inf.to(torch.float32)
+        return cls(flag, 1.0 - flag)
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False):
         if parameters is None:
             raise ValueError("parameters is required (pass "
                              "model.parameters())")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip is not ported yet (nn/clip.py is a later slice)")
         params = list(parameters)
         if params and isinstance(params[0], dict):
             self._param_groups = params
@@ -48,6 +64,7 @@ class Optimizer:
         self._learning_rate = learning_rate
         self._weight_decay = self._parse_decay(weight_decay)
         self._multi_precision = multi_precision
+        self._grad_clip = grad_clip
         # accumulators: name -> {id(param): tensor}
         self._accumulators: Dict[str, Dict[int, torch.Tensor]] = \
             defaultdict(dict)
@@ -93,21 +110,50 @@ class Optimizer:
         self._step(self.get_lr())
 
     @torch.no_grad()
-    def _step(self, base_lr: float):
+    def _step(self, base_lr: float, skip: Optional[Skip] = None):
         """One update of every parameter that has a gradient, at
-        ``base_lr`` times each group's ``learning_rate``."""
+        ``base_lr`` times each group's ``learning_rate``, each group's
+        gradients clipped by ``grad_clip``; none at all where ``skip``'s
+        flag is set."""
         for group in self._param_groups:
+            pg = [(p, p.grad) for p in group["params"]
+                  if p.grad is not None and p.requires_grad]
+            factors = (self._grad_clip._factors(pg)
+                       if self._grad_clip is not None
+                       else [(p, g, None) for p, g in pg])
             lr = base_lr * group.get("learning_rate", 1.0)
             wd = self._parse_decay(group.get("weight_decay",
                                              self._weight_decay))
-            for p in group["params"]:
-                if p.grad is not None and p.requires_grad:
-                    self._apply_update(p, p.grad, lr, wd)
+            for p, g, gmul in factors:
+                if g is not None:
+                    self._apply_update(p, g, lr, wd, gmul, skip)
         self._step_count += 1
 
-    def _apply_update(self, p, grad, lr: float, wd: float):
+    def _apply_update(self, p, grad, lr: float, wd: float, gmul=None,
+                      skip: Optional[Skip] = None):
+        """The plain update: the clip's scale applied to the gradient in
+        float32 and rounded to its dtype, the gradient widened to float32
+        under ``multi_precision``, then ``_update_param``; under ``skip``
+        every state of ``p`` is put back where the flag is set."""
+        if gmul is not None:
+            grad = (grad.float() * gmul).to(grad.dtype)
         g = grad.float() if self._multi_precision else grad
+        if skip is None:
+            self._update_param(p, g, lr, wd)
+            return
+        accs = {name: d[id(p)] for name, d in self._accumulators.items()
+                if id(p) in d}
+        master = self._master_weights.get(id(p))
+        data = p.data.clone()
         self._update_param(p, g, lr, wd)
+        keep = skip.flag > 0
+        for name, old in accs.items():
+            d = self._accumulators[name]
+            d[id(p)] = torch.where(keep, old, d[id(p)])
+        if master is not None:
+            self._master_weights[id(p)] = torch.where(
+                keep, master, self._master_weights[id(p)])
+        p.data.copy_(torch.where(keep, data, p.data))
 
     def _update_param(self, p, grad, lr: float, weight_decay: float):
         raise NotImplementedError

@@ -72,18 +72,20 @@ class AdamW(Adam):
                          None, grad_clip, multi_precision)
         self._wd = float(weight_decay)
 
-    def _apply_update(self, p, grad, lr, wd):
+    def _apply_update(self, p, grad, lr, wd, gmul=None, skip=None):
         if not (p.is_cuda and self._master(p).dtype == torch.float32):
-            return super()._apply_update(p, grad, lr, wd)
-        # B9: one pass over the raw gradient (converted exactly in
-        # registers), master/moments in place
+            return super()._apply_update(p, grad, lr, wd, gmul, skip)
+        # B9: one pass over the raw gradient (scaled by the clip's gmul and
+        # rounded, then widened, in registers), master/moments in place;
+        # under a set skip flag the kernel writes nothing and t stays
         self._create_accumulators(p)
         t = self._beta_pow(p)
-        t.add_(1)
+        t.add_(1 if skip is None else skip.advance)
         fused_adamw(p.data, self._master(p), self._acc("moment1", p),
                     self._acc("moment2", p), grad.contiguous(), lr, t,
                     b1=self._beta1, b2=self._beta2, eps=self._epsilon,
-                    wd=self._wd)
+                    wd=self._wd, gmul=gmul,
+                    skip=None if skip is None else skip.flag)
 
     def _decay(self, w, grad, lr, weight_decay):
         return (w * (1 - lr * self._wd) if self._wd else w), grad

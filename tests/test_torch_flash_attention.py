@@ -144,11 +144,27 @@ def test_functional_sdpa_matches_jax(masked):
 
 
 def test_dropout_is_refused_while_training():
-    x = torch.zeros(1, 2, 1, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        F.flash_attention(x, x, x, dropout=0.1)
-    out, _ = F.flash_attention(x, x, x, dropout=0.1, training=False)
-    assert out.shape == x.shape
+    """Refused before the port had a random stream; now computed: dropout
+    0.1 while training takes the plain attention with the default
+    generator's mask, the reference's output for the same seed (the key
+    drawn in the same place), and in eval the kernel path."""
+    import paddle_tpu as P
+    from paddle_tpu_torch.framework import random as prand
+
+    rng = np.random.default_rng(3)
+    q, k, v = (_np(rng, 2, 16, 2, 8) for _ in range(3))
+    P.seed(11)
+    prand.seed(11)
+    ref, _ = JF.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                dropout=0.1, causal=True)
+    ours, _ = F.flash_attention(*(torch.as_tensor(a) for a in (q, k, v)),
+                                dropout=0.1, causal=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref._value), **TOL)
+    # a mask was drawn: the output is not the undropped one
+    plain, _ = F.flash_attention(*(torch.as_tensor(a) for a in (q, k, v)),
+                                 dropout=0.1, causal=True, training=False)
+    assert not torch.allclose(ours, plain)
+    assert prand.get_rng_state() == (11, 1)
 
 
 def test_cpu_tensors_take_the_plain_version_without_launching():

@@ -128,14 +128,25 @@ def test_gelu_exact_and_tanh(approximate):
 
 
 def test_dropout_is_identity_in_eval_and_raises_while_training():
+    """The identity in eval and at p 0; while training (refused before the
+    port had a random stream) the reference's Dropout bit for bit from the
+    same seed."""
+    from paddle_tpu_torch.framework import random as prand
+
     d = pnn.Dropout(0.1)
     x = torch.ones(3)
     d.eval()
     assert d(x) is x
-    d.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        d(x)
     assert pnn.Dropout(0.0)(x) is x
+    d.train()
+    xs = np.random.default_rng(4).standard_normal((4, 33)).astype(
+        np.float32)
+    P.seed(5)
+    prand.seed(5)
+    ref = jnn.Dropout(0.1)(P.to_tensor(xs)).numpy()
+    ours = d(torch.as_tensor(xs)).numpy()
+    np.testing.assert_array_equal(ours, ref)
+    assert 0 < int((ours == 0).sum()) < ours.size
 
 
 def _mha_pair():

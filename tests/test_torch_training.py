@@ -302,14 +302,39 @@ def test_optimizer_state_dict_keys_match_the_reference(models):
 
 
 def test_unported_options_raise():
-    pm = PortLlama(PortConfig(vocab_size=64, hidden_size=32,
-                              intermediate_size=64, num_hidden_layers=1,
-                              num_attention_heads=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="grad_clip"):
-        AdamW(parameters=pm.parameters(), grad_clip=object())
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        TrainStep(pm, lambda m, x: m(x).sum(),
-                  AdamW(parameters=pm.parameters()), scaler=object())
+    """``grad_clip`` and ``TrainStep(scaler=)``, refused before AMP and the
+    clips were ported, now compute: 3 float32 TrainSteps with
+    ClipGradByGlobalNorm(0.5) and a dynamic GradScaler (doubling after 2
+    good steps) give the reference's losses, weights and scaler state
+    (the float32 tolerances above)."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    jm = _jax_model(7)
+    pm = _port_of(jm)
+    ids = _ids(8)
+    jopt = P.optimizer.AdamW(learning_rate=LR, parameters=jm.parameters(),
+                             grad_clip=P.nn.ClipGradByGlobalNorm(0.5))
+    jscaler = P.amp.GradScaler(init_loss_scaling=1024.0,
+                               incr_every_n_steps=2)
+    jcrit = JaxCriterion()
+    jstep = P.jit.TrainStep(jm, lambda m, x: jcrit(m(x), x), jopt,
+                            scaler=jscaler)
+    opt = AdamW(learning_rate=LR, parameters=pm.parameters(),
+                grad_clip=ClipGradByGlobalNorm(0.5))
+    scaler = GradScaler(init_loss_scaling=1024.0, incr_every_n_steps=2)
+    crit = LlamaPretrainingCriterion()
+    step = TrainStep(pm, lambda m, x: crit(m(x), x), opt, scaler=scaler)
+    jl = [float(_np(jstep(P.to_tensor(ids)))) for _ in range(3)]
+    pl = [float(step(torch.as_tensor(ids))) for _ in range(3)]
+    np.testing.assert_allclose(pl, jl, rtol=1e-4)
+    assert scaler.get_loss_scaling() == float(_np(jscaler._scale)) == 2048.0
+    assert scaler.state_dict()["incr_count"] == 1
+    jw = {k: _np(v) for k, v in jm.state_dict().items()}
+    for k, v in pm.state_dict().items():
+        err = np.abs(v.numpy() - jw[k])
+        assert float(err.max()) <= (1e-4 * float(np.abs(jw[k]).max())
+                                    + 2 * LR * 3), k
 
 
 def test_inference_records_no_graph(models):

@@ -251,6 +251,55 @@ def test_fused_adamw_matches_pallas_over_three_steps():
     assert not torch.equal(p, torch.tensor(w0))
 
 
+@pytest.mark.parametrize("skip", [None, 0.0, 1.0])
+@pytest.mark.parametrize("gmul", [None, 0.3712])
+def test_fused_adamw_gmul_and_skip_match_the_reference(gmul, skip):
+    """B9's plain version with a clip scale and a skip flag against the
+    reference's arithmetic: the clip's ``(g * scale).astype(g.dtype)`` then
+    the Pallas update (interpret mode), and ``jnp.where(found_inf, old,
+    new)`` over every state.  A set flag leaves parameter, master and
+    moments bit for bit as they were."""
+    rng = np.random.default_rng(11)
+    n = 512 * 256
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    w0 = _np(rng, n)
+    m0 = np.abs(_np(rng, n)) * 1e-3
+    v0 = np.abs(_np(rng, n)) * 1e-5
+    g = (_np(rng, n) * 0.1).astype(ml_dtypes.bfloat16)
+    jg = jnp.asarray(g)
+    if gmul is not None:
+        jg = (jg * jnp.float32(gmul)).astype(jnp.bfloat16)
+    jp0 = jnp.asarray(w0.astype(ml_dtypes.bfloat16))
+    jout = jfad.fused_adamw(jp0, jnp.asarray(w0), jnp.asarray(m0),
+                            jnp.asarray(v0), jg, 1e-3, 0.9 ** 2,
+                            0.999 ** 2, interpret=True, **kw)
+    if skip:
+        jout = (jp0, jnp.asarray(w0), jnp.asarray(m0), jnp.asarray(v0))
+    tp = _bf16_torch(w0.astype(ml_dtypes.bfloat16))
+    tw, tm, tv = (torch.tensor(a) for a in (w0, m0, v0))
+    fad.fused_adamw(tp, tw, tm, tv, _bf16_torch(g), 1e-3,
+                    torch.full((1,), 2.0), **kw,
+                    gmul=None if gmul is None else torch.tensor([gmul]),
+                    skip=None if skip is None else torch.tensor([skip]))
+    jp, jw, jm, jv = (np.asarray(a).astype(np.float32) for a in jout)
+    if skip:
+        for o, r in ((tp, jp), (tw, jw), (tm, jm), (tv, jv)):
+            np.testing.assert_array_equal(o.float().numpy(), r)
+        return
+    for o, r in ((tw, jw), (tm, jm), (tv, jv)):
+        np.testing.assert_allclose(o.numpy(), r, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(tp.float().numpy(), jp, rtol=2 ** -7,
+                               atol=0)
+
+
+def test_fused_adamw_refuses_controls_of_another_shape():
+    n = 8
+    args = [torch.zeros(n) for _ in range(5)]
+    for bad in (dict(gmul=torch.ones(2)), dict(skip=torch.ones(1).double())):
+        with pytest.raises(ValueError, match="one float32"):
+            fad._check("fused_adamw", *args, torch.ones(1), **bad)
+
+
 @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
 def test_cross_entropy_matches_jax(reduction):
     rng = np.random.default_rng(8)
