@@ -6,8 +6,10 @@ over two engines, the serving fleet over worker processes and the
 in-process chaos soaks), Llama
 generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW, and under AMP with
-a GradScaler, a gradient clip and a schedule), bench_ladder.py's BERT-base
-finetune with dropout, and the inference
+a GradScaler, a gradient clip and a schedule, and under Lamb and the other
+optimizers), bench_ladder.py's BERT-base finetune with dropout (also
+through hapi.Model with DataLoader workers, checkpoints and a reload), and
+the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
 — on one NVIDIA H100, and check every Hopper kernel on them.
 
@@ -19,6 +21,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 15      # the serving fleet
     python3 chip_smoke.py --phases 2,16    # kernels + the chaos soaks
     python3 chip_smoke.py --phases 2,8,17,18  # kernels + AMP and dropout
+    python3 chip_smoke.py --phases 19,20   # Model.fit, the optimizers
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
@@ -382,9 +385,38 @@ Phases (each prints its seconds):
      "finetune" path's launches (B9; no B1 at dropout 0.1); then a 2-layer
      BERT at hidden 128 on cuda against the CPU: the same masks bit for
      bit, 3 steps' losses and parameters within 1e-4;
+ 19. the same BERT-base finetune through hapi.Model as a user writes it:
+     AdamW(LinearWarmup, multi_precision) prepared with cross_entropy and
+     Accuracy; fit over a TensorDataset of 256 seeded examples (8 steps an
+     epoch) and 64 for evaluation, batch 32, 2 epochs, shuffle off, two
+     DataLoader worker processes (the shared-memory ring g++ builds from
+     paddle_tpu_torch/native/shm_queue.cpp), ModelCheckpoint(save_freq=2),
+     LRScheduler(by_step) and EarlyStopping("val_loss"); then evaluate,
+     predict, save and load: finite losses, an evaluation after each
+     epoch, fit's batches equal to an in-process loader's bit for bit,
+     every sample read in a child forked from this CUDA process, two
+     checkpoints (their sizes), a fresh model and optimizer loaded from
+     the final one giving the trained model's eval logits and the saved
+     optimizer state (dtypes and bits), predict's outputs equal to the
+     evaluation's logits; the train step's ms (the step sync-free, its
+     loss read once), examples/s, the evaluation's ms a batch and each
+     checkpoint's seconds; the "fit" path's launches (B9 once a parameter
+     a step, B1 once a layer an evaluation forward);
+ 20. the other optimizers: (i) phase 7's Llama (bf16, recompute) under
+     Lamb(LinearWarmup into CosineAnnealingDecay, multi_precision,
+     ClipGradByGlobalNorm(1.0)) through TrainStep, 5 steps under CUDA sync
+     debugging set to raise: finite, falling losses, ms a step, tokens/s,
+     a profiled step and the update alone (kernels and device time); the
+     "optimizers" path's launches (K1-K3, B1, B8, B6b; no B9); (ii) a
+     2-layer float32 Llama at hidden 256 on cuda and on the CPU from the
+     same weights, 3 TrainSteps of each of the 12 optimizers TrainStep
+     takes (a clip and a StepDecay schedule) and two LBFGS step(closure)
+     calls: every parameter and state tensor within 1e-4 of the CPU's in
+     L2 norm relative to the tensor's, the worst printed;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict", "blha", "control",
-  "fleet", "mixed_cache", "chaos", "train_amp", "finetune"}, null for a
+  "fleet", "mixed_cache", "chaos", "train_amp", "finetune", "fit",
+  "optimizers"}, null for a
   path whose phase did not run; "fleet" the sum over the surviving
   workers), then the card line, then {"ok": true, "device": {...}} as the
   last line.
@@ -506,6 +538,13 @@ PATHS = {
     # phase 18: BERT-base finetune at dropout 0.1: the attention takes the
     # plain path (as the reference's), LayerNorm and gelu are torch ops
     "finetune": ("fused_adamw",),
+    # phase 19: the same finetune through hapi.Model.fit, then evaluate and
+    # predict in eval mode, where the attention runs B1
+    "fit": ("fused_adamw", "flash_attention"),
+    # phase 20: phase 7's Llama under Lamb (its plain update: no B9)
+    "optimizers": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd",
+                   "swiglu", "swiglu_bwd", "flash_attention",
+                   "flash_attention_bwd"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -4841,6 +4880,445 @@ def _finetune_vs_plain(torch, device="cuda"):
           f"dropout ({n_out} of {n_all} elements beyond 1e-4)")
 
 
+# -------------------------------------------------------------- phase 19
+FIT_TRAIN, FIT_EVAL = 256, 64
+
+
+def _fit_data(n, vocab, seed):
+    """n seeded examples: ids [n, 128] and 0/1 labels, int64 numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, (n, BERT["seq"])),
+            rng.integers(0, 2, (n,))]
+
+
+def _host_dataset(torch, arrays):
+    """A TensorDataset whose samples, read in a DataLoader worker, must be
+    read in a child forked from this CUDA process (where a CUDA call
+    raises: the sample then fails the batch in the parent)."""
+    from paddle_tpu_torch import io as pio
+
+    class Forked(pio.TensorDataset):
+        def __getitem__(self, idx):
+            if pio.get_worker_info() is not None \
+                    and not torch.cuda._is_in_bad_fork():
+                raise AssertionError("a DataLoader worker that is not a "
+                                     "fork of the CUDA process")
+            return super().__getitem__(idx)
+
+    return Forked(arrays)
+
+
+def _same_batches(torch, got, want, what):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches, not {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: batch {i} differs")
+
+
+def full_width_fit(torch, card, geo=BERT, device="cuda", n=(FIT_TRAIN,
+                                                           FIT_EVAL)):
+    """Phase 19: phase 18's BERT-base finetune through ``hapi.Model``: fit
+    with two DataLoader workers, callbacks and checkpoints, then evaluate,
+    predict, save and load.  Returns the "fit" path's launches.  ``geo``,
+    ``device`` and ``n`` cut it to a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import callbacks as pcb
+    from paddle_tpu_torch import framework_io
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.framework import random as prand
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup
+
+    B = geo["batch"]
+    train = _host_dataset(torch, _fit_data(n[0], geo["vocab"], 19))
+    evald = _host_dataset(torch, _fit_data(n[1], geo["vocab"], 20))
+    in_process = list(pio.DataLoader(train, batch_size=B))
+
+    def make(seed):
+        net = bert_classifier(torch, geo["layers"], torch.float32,
+                              device=device, seed=seed, hidden=geo["hidden"],
+                              heads=geo["heads"], vocab=geo["vocab"])
+        net.bfloat16()
+        opt = AdamW(learning_rate=LinearWarmup(2e-5, 4, 0.0, 2e-5),
+                    parameters=net.parameters(), multi_precision=True)
+        return net, ptt.Model(net).prepare(opt, F.cross_entropy, Accuracy())
+
+    net, model = make(4)
+    # what fit hands train_batch (the loader's CPU batches), the steps'
+    # times, each evaluation's time and outputs, each checkpoint's time
+    seen, step_s, evals, outs, saves, forwards = [], [], [], [], [], [0]
+    train_batch, evaluate, eval_batch, save = (
+        model.train_batch, model.evaluate, model.eval_batch, model.save)
+
+    def train_batch_(xs, y):
+        seen.append([x.clone() for x in xs] + [y.clone()])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_batch(xs, y)        # its loss read to the host: a sync
+        step_s.append(time.perf_counter() - t0)
+        ts = model._train_step
+        if not getattr(ts, "_checked", False):   # the step itself: no sync
+            ts._one, ts._checked = _sync_free(torch, ts._one), True
+        return out
+
+    def evaluate_(*a, **k):
+        outs.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate(*a, **k)
+        evals.append((res, time.perf_counter() - t0))
+        return res
+
+    def eval_batch_(xs, y):
+        loss, out = eval_batch(xs, y)
+        outs.append(out)
+        return loss, out
+
+    def save_(path, training=True):
+        t0 = time.perf_counter()
+        save(path, training)
+        torch.cuda.synchronize()
+        saves.append((path, time.perf_counter() - t0))
+
+    model.train_batch, model.evaluate = train_batch_, evaluate_
+    model.eval_batch, model.save = eval_batch_, save_
+
+    def count_forwards(module, args):
+        if not module.training:
+            forwards[0] += 1
+
+    tmp = tempfile.mkdtemp(prefix="ptt_fit_")
+    hooks = [net.encoder.register_forward_pre_hook(count_forwards)]
+    try:
+        prand.seed(0)
+        counters = _zero_counters()
+        t = time.perf_counter()
+        hist = model.fit(train, evald, batch_size=B, epochs=2,
+                         shuffle=False, num_workers=2, verbose=1, log_freq=4,
+                         callbacks=[pcb.ModelCheckpoint(save_freq=2,
+                                                        save_dir=tmp),
+                                    pcb.LRScheduler(by_step=True),
+                                    pcb.EarlyStopping("val_loss",
+                                                      patience=5)])
+        fit_s = time.perf_counter() - t
+        losses = hist["loss"]
+        print(f"fit: epoch losses {losses}, evaluations "
+              f"{[r for r, _ in evals]}, {fit_s:.3f} s")
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 19: epoch losses {losses}")
+        if len(evals) != 2:
+            raise AssertionError(f"phase 19: {len(evals)} evaluations in "
+                                 "fit, not one after each of 2 epochs")
+        _same_batches(torch, seen, in_process * 2,
+                      "phase 19, fit's batches through two workers")
+        print(f"fit: {len(seen)} batches through two DataLoader workers "
+              "equal an in-process loader's bit for bit, every sample read "
+              "in a child forked from this CUDA process")
+        names = sorted(os.listdir(tmp))
+        want = ["1.pdopt", "1.pdparams", "final.pdopt", "final.pdparams"]
+        if names != want or len(saves) != 2:
+            raise AssertionError(f"phase 19: checkpoints {names}")
+        for path, secs in saves:
+            size = sum(os.path.getsize(path + ext)
+                       for ext in (".pdparams", ".pdopt"))
+            print(f"checkpoint {os.path.basename(path)}: {size} bytes in "
+                  f"{secs:.3f} s")
+        res = evaluate_(evald, batch_size=B, verbose=0)
+        logits = torch.cat(outs)
+        preds = torch.cat(model.predict(evald, batch_size=B))
+        if not torch.equal(preds, logits):
+            raise AssertionError("phase 19: predict's outputs are not the "
+                                 "evaluation's logits")
+        model.save(os.path.join(tmp, "again"))
+        fresh, fm = make(99)
+        hooks.append(fresh.encoder.register_forward_pre_hook(
+            count_forwards))
+        fm.load(os.path.join(tmp, "final"))
+        ids = torch.as_tensor(evald.tensors[0][:B])
+        a, b = fm.predict_batch([ids]), model.predict_batch([ids])
+        if not torch.equal(a, b):
+            raise AssertionError("phase 19: the reloaded model's logits "
+                                 "differ from the trained model's")
+        saved = framework_io.load(os.path.join(tmp, "final.pdopt"))
+        got = fm._optimizer.state_dict()
+        bad = [k for k, v in saved.items() if isinstance(v, torch.Tensor)
+               and not (got[k].dtype == v.dtype
+                        and torch.equal(got[k].cpu(), v))]
+        if set(got) != set(saved) or bad:
+            raise AssertionError(f"phase 19: the reloaded optimizer state "
+                                 f"differs: {bad[:4]}")
+        dts = sorted({str(v.dtype) for v in got.values()
+                      if isinstance(v, torch.Tensor)})
+        print(f"reload: eval logits bit for bit; {len(got)} optimizer "
+              f"entries with their saved dtypes {dts} and bits; evaluate "
+              f"{res}; predict == the evaluation's logits")
+    finally:
+        for h in hooks:
+            h.remove()
+        shutil.rmtree(tmp)
+    n_tensors = len(list(net.parameters()))
+    steps = len(step_s)
+    ms = sorted(step_s[2:])[len(step_s[2:]) // 2] * 1e3
+    eval_ms = evals[-1][1] * 1e3 / (n[1] // B)
+    print(f"fit step [{B}, {BERT['seq']}] through Model.train_batch: "
+          f"median {ms:.1f} ms of steps 3-{steps} (the loss read to the "
+          f"host once a step), {B / ms * 1e3:.1f} examples/s; evaluation "
+          f"{eval_ms:.1f} ms a batch; {card}")
+    launches = _path_launches("fit", counters)
+    if launches["fused_adamw"] != n_tensors * steps:
+        raise AssertionError(f"phase 19: B9 launched "
+                             f"{launches['fused_adamw']} times for "
+                             f"{n_tensors} parameters x {steps} steps")
+    if launches["flash_attention"] != geo["layers"] * forwards[0]:
+        raise AssertionError(f"phase 19: B1 launched "
+                             f"{launches['flash_attention']} times for "
+                             f"{forwards[0]} eval forwards of "
+                             f"{geo['layers']} layers")
+    print(f"fit: B9 {n_tensors} x {steps}, B1 {geo['layers']} x "
+          f"{forwards[0]} eval forwards")
+    return launches
+
+
+# -------------------------------------------------------------- phase 20
+LAMB_LR = 5e-3
+
+
+def full_width_lamb(torch, card, model_kw=TRAIN_AMP_MODEL, batch=(8, 2048),
+                    device="cuda"):
+    """Phase 20 (i): phase 7's Llama (bf16, recompute) under Lamb with
+    master weights, a LinearWarmup into CosineAnnealingDecay and
+    ClipGradByGlobalNorm(1.0), 5 TrainSteps; returns the "optimizers"
+    path's launches.  ``model_kw``, ``batch`` and ``device`` cut it to a
+    rehearsal on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        LlamaPretrainingCriterion,
+    )
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.optimizer.lr import (
+        CosineAnnealingDecay,
+        LinearWarmup,
+    )
+
+    cfg = LlamaConfig(**model_kw, dtype="bfloat16", recompute=True)
+    B, S = batch
+    t = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+    sched = LinearWarmup(CosineAnnealingDecay(LAMB_LR, T_max=12), 2,
+                         LAMB_LR / 4, LAMB_LR)
+    opt = Lamb(learning_rate=sched, parameters=model.parameters(),
+               grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
+    crit = LlamaPretrainingCriterion()
+    step = TrainStep(model, lambda m, ids: crit(m(ids), ids), opt)
+    torch.cuda.synchronize()
+    print(f"lamb model: {model.num_params} parameters, setup seconds "
+          f"{time.perf_counter() - t:.3f}")
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int64, device=device)
+    free = _sync_free(torch, step)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [free(ids)]
+    sched.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(4):
+        losses.append(free(ids))
+        sched.step()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / 4
+    lv = torch.stack(losses).float().cpu()
+    print(f"lamb losses {[round(float(x), 4) for x in lv]}")
+    if not bool(torch.isfinite(lv).all()) or not lv[-1] < lv[0]:
+        raise AssertionError(f"phase 20: Lamb losses not finite and "
+                             f"falling: {lv}")
+    print(f"lamb step [{B}, {S}] (bf16, masters, clip, schedule): "
+          f"{dt * 1e3:.1f} ms, {B * S / dt:.1f} tokens/s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} "
+          f"bytes; {card}; no host sync inside a step")
+    launches = _path_launches("optimizers", counters)
+    if launches["fused_adamw"]:
+        raise AssertionError("phase 20: B9 launched under Lamb")
+    _profile(torch, "lamb step", lambda: step(ids), top=16)
+    # the update alone over the last step's gradients: Lamb's plain passes
+    crit(model(ids), ids).backward()
+    lr = opt.get_lr()
+    evs = _profile(torch, "lamb update", lambda: opt._step(lr), top=8)
+    n_k = sum(e.count for e in evs)
+    n_p = len(list(model.parameters()))
+    print(f"lamb update: {n_k} kernels for {n_p} parameters "
+          f"({n_k / n_p:.1f} a parameter), "
+          f"{sum(e.self_device_time_total for e in evs) / 1e3:.3f} ms "
+          "device time")
+    opt.clear_grad()
+    return launches
+
+
+NARROW_LLAMA = dict(hidden_size=256, num_attention_heads=2,
+                    intermediate_size=688, vocab_size=4096)
+# the optimizers TrainStep takes, each with its rate; LBFGS apart
+STEP_OPTS = {"SGD": 0.1, "Momentum": 0.05, "Adamax": 1e-3, "Adagrad": 0.01,
+             "Adadelta": 1.0, "RMSProp": 1e-3, "Lamb": 1e-3, "Lars": 0.5,
+             "ASGD": 0.1, "Rprop": 1e-3, "NAdam": 1e-3, "RAdam": 1e-3}
+
+
+def _rel(torch, a, b, keep=None) -> float:
+    """|a - b| / |b| in L2 (0 where both are 0), over the elements where
+    ``keep`` (a bool mask of b's shape) holds, if given."""
+    a, b = a.detach().float().cpu(), b.detach().float()
+    if keep is not None:
+        a, b = a[keep], b[keep]
+    nb = float(torch.linalg.vector_norm(b))
+    diff = float(torch.linalg.vector_norm(a - b))
+    return diff / nb if nb else diff
+
+
+def _rprop_agreed(torch, mine, ref):
+    """Rprop's state on cuda against the CPU's.  Rprop moves each step size
+    by the sign of g * g_prev, and where that product lies within
+    float32's rounding of 0 the sign is rounding's choice (float32 against
+    float64 on the CPU alone leaves 5e-3 of a step-size tensor's norm
+    apart).  An element is agreed where its step sizes agree within 1e-4
+    and its last gradients (``prev_grad``, whose sign is all Rprop reads
+    of it) have one sign; at most 1e-3 of each tensor's elements may
+    disagree.  The last gradients' values are taken at parameters that
+    differ in the disagreeing elements by a step each, so they are printed
+    and not held.  -> ({parameter index: agreed mask}, prev_grad's
+    largest relative L2 gap over the agreed elements)."""
+    keep, gap = {}, 0.0
+    for k, v in mine.items():
+        if not k.endswith("__step_size"):
+            continue
+        i, grad = k[:-len("step_size")], k[:-len("step_size")] + "prev_grad"
+        a, b = v.float().cpu(), ref[k].float()
+        ok = ((a - b).abs() <= 1e-4 * b.abs()) & (
+            torch.sign(mine[grad].cpu()) == torch.sign(ref[grad]))
+        off = int((~ok).sum())
+        if off > 1e-3 * ok.numel():
+            raise AssertionError(f"phase 20 Rprop: {i}: {off} of "
+                                 f"{ok.numel()} elements disagree")
+        keep[int(k[6:].split("__")[0])] = ok
+        gap = max(gap, _rel(torch, mine[grad], ref[grad], ok))
+    print(f"optimizer Rprop: elements whose step or last gradient's sign "
+          f"differ (a sign within rounding of 0): "
+          f"{sum(int((~m).sum()) for m in keep.values())} of "
+          f"{sum(m.numel() for m in keep.values())}; the last gradients' "
+          f"largest relative L2 gap over the rest {gap:.3e} (not held)")
+    return keep
+
+
+def optimizers_vs_plain(torch, device="cuda"):
+    """Phase 20 (ii): a 2-layer float32 Llama at hidden 256 on ``device``
+    and on the CPU from the same weights, 3 TrainSteps of each optimizer
+    of ``STEP_OPTS`` (ClipGradByGlobalNorm(1.0), StepDecay), then two
+    LBFGS step(closure) calls: every parameter and state tensor within
+    1e-4 of the CPU's (L2, relative to the CPU tensor's norm); for Rprop
+    its parameters and step sizes over the elements whose sign decisions
+    agree, at most 1e-3 of them apart (``_rprop_agreed``)."""
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import (
+        LlamaForCausalLM,
+        LlamaPretrainingCriterion,
+        llama_7b,
+        load_numpy_state_dict,
+    )
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
+    cfg = llama_7b(dtype="float32", num_hidden_layers=2, **NARROW_LLAMA)
+    base = LlamaForCausalLM(cfg, device=device, seed=7)
+    weights = {k: v.cpu().numpy() for k, v in base.state_dict().items()}
+    ids = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 128))
+    crit = LlamaPretrainingCriterion()
+
+    def pair():
+        return [load_numpy_state_dict(LlamaForCausalLM(cfg, device=d,
+                                                       seed=7), weights)
+                for d in (device, "cpu")]
+
+    # one backward from the same weights: the gap the kernels alone leave
+    # in each gradient
+    grads = []
+    for m in pair():
+        x = torch.as_tensor(ids, device=next(m.parameters()).device)
+        crit(m(x), x).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    gaps = {n: _rel(torch, g, grads[1][n]) for n, g in grads[0].items()}
+    print("gradients from the same weights, cuda vs CPU, the largest "
+          "relative L2 gaps: " + ", ".join(
+              f"{n} {e:.3e}" for n, e in sorted(gaps.items(),
+                                                 key=lambda kv: -kv[1])[:4]))
+    worst, failed = {}, []
+    for name, lr in list(STEP_OPTS.items()) + [("LBFGS", 0.05)]:
+        models, opts = pair(), []
+        for m in models:
+            x = torch.as_tensor(ids, device=next(m.parameters()).device)
+            if name == "LBFGS":
+                opt = popt.LBFGS(learning_rate=lr, max_iter=5,
+                                 parameters=m.parameters())
+
+                def closure(m=m, x=x):
+                    loss = crit(m(x), x)
+                    loss.backward()
+                    return loss
+
+                for _ in range(2):
+                    opt.step(closure)
+            else:
+                opt = getattr(popt, name)(
+                    learning_rate=StepDecay(lr, 1, 0.7),
+                    parameters=m.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+                step = TrainStep(m, lambda m, x: crit(m(x), x), opt)
+                for _ in range(3):
+                    step(x)
+                    opt._learning_rate.step()
+            opts.append(opt)
+        mine, ref = opts[0].state_dict(), opts[1].state_dict()
+        if set(mine) != set(ref):
+            raise AssertionError(f"phase 20 {name}: state keys differ")
+        keep = _rprop_agreed(torch, mine, ref) if name == "Rprop" else {}
+        errs = {n: _rel(torch, p, q, keep.get(i)) for i, ((n, p), q) in
+                enumerate(zip(models[0].named_parameters(),
+                              models[1].parameters()))}
+        errs.update({k: _rel(torch, v, ref[k],
+                             keep.get(int(k[6:].split("__")[0])))
+                     for k, v in mine.items() if isinstance(v, torch.Tensor)
+                     and not (keep and k.endswith("__prev_grad"))})
+        moved = max(_rel(torch, p, torch.as_tensor(weights[n]))
+                    for n, p in models[1].named_parameters())
+        top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+        worst[name] = top[0][1]
+        print(f"optimizer {name}: cuda vs CPU over {len(errs)} tensors, the "
+              "largest relative L2 gaps " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in top)
+              + f"; the CPU's largest relative move {moved:.3e}")
+        if not top[0][1] <= 1e-4 or not moved > 0:
+            failed.append(f"{name}: {top[0][0]} off by {top[0][1]} (moved "
+                          f"{moved})")
+    if failed:
+        raise AssertionError("phase 20: " + "; ".join(failed))
+    print(f"optimizers: cuda == CPU within {max(worst.values()):.3e} for "
+          f"{len(worst)} optimizers")
+
+
 # --------------------------------------------------------------- phase 9
 def bert_classifier(torch, layers, dtype, device=None, seed=0, hidden=None,
                     heads=None, vocab=None):
@@ -6693,7 +7171,8 @@ def full_width_chaos(torch, card, model_kw=CHAOS_MODEL, device=None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
+                            "19,20",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -6859,6 +7338,19 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         _done("18", t)
+    if 19 in phases:
+        t = _phase("19 BERT-base finetune through hapi.Model")
+        launches["fit"] = full_width_fit(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("19", t)
+    if 20 in phases:
+        t = _phase("20 the other optimizers")
+        launches["optimizers"] = full_width_lamb(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        optimizers_vs_plain(torch)
+        _done("20", t)
     if 9 in phases:
         t = _phase("9 full-width predictor")
         launches["predict"] = full_width_predictor(torch, card)

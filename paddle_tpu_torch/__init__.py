@@ -6,6 +6,8 @@ held against.  This package imports ``torch`` and never ``jax`` or
 ``paddle_tpu``.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (see ``device.py``); every hand-written Hopper kernel lives
 under ``ops/hopper/`` with its plain PyTorch version beside it.
+``save`` / ``load`` (``framework_io``) and ``Model`` / ``summary``
+(``hapi``) are exported here, as the reference exports them.
 """
 from __future__ import annotations
 
@@ -19,3 +21,5 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .device import resolve_device  # noqa: E402,F401
+from .framework_io import load, save  # noqa: E402,F401
+from .hapi import Model, summary  # noqa: E402,F401

@@ -25,6 +25,11 @@ card alike.  What each function computes, in ``jax/_src``:
 
 - ``bernoulli``: ``random.bernoulli`` in mode ``"low"`` —
   ``uniform(key, shape) < p``, p rounded to float32.
+- ``split(key, num)``: ``prng._threefry_split_foldlike`` — the hash of the
+  counter pairs ``(0, i)``, so ``split(key)[i] == fold_in(key, i)``;
+- ``permutation(key, n)``: ``random._shuffle`` over ``arange(n)`` —
+  ``ceil(3 ln n / ln(2**32 - 1))`` rounds, each splitting the key, drawing
+  32-bit sort keys from the subkey and sorting stably by them.
 
 ``Generator(seed).next_key()`` is ``fold_in(key(seed), counter)`` after
 ``counter += 1``, as the reference's; inside a ``TrainStep`` (an active
@@ -39,10 +44,11 @@ from __future__ import annotations
 
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
-__all__ = ["key", "fold_in", "random_bits", "uniform", "gumbel",
-           "categorical", "bernoulli", "Generator", "seed",
+__all__ = ["key", "fold_in", "split", "random_bits", "uniform", "gumbel",
+           "categorical", "bernoulli", "permutation", "Generator", "seed",
            "default_generator", "get_rng_state", "set_rng_state"]
 
 _M32 = 0xFFFFFFFF
@@ -97,6 +103,13 @@ def fold_in(k: torch.Tensor, data: Seed) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys ``[num, 2]`` from one key ``k`` [2]."""
+    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    y1, y2 = _threefry2x32(k[0], k[1], torch.zeros_like(i), i)
+    return torch.stack([y1, y2], dim=-1)
+
+
 def random_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element: int64 tensor ``k.shape[:-1] + shape``
     with values in [0, 2**32)."""
@@ -146,6 +159,19 @@ def bernoulli(k: torch.Tensor, p: float, shape: Sequence[int]
     for a float ``p``."""
     p32 = float(torch.tensor(float(p), dtype=torch.float32))
     return uniform(k, shape) < p32
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: a permutation of ``range(n)``,
+    int64 on ``k``'s device."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
 
 
 class Generator:

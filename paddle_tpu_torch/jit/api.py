@@ -135,6 +135,12 @@ class TrainStep:
 
     step = __call__
 
+    def sync_to_model(self):
+        """The model: its parameters are updated in place by every step,
+        so there is nothing to write back (the reference copies its
+        compiled state into the model here)."""
+        return self.model
+
     def run_steps(self, *batch_stacks) -> torch.Tensor:
         """K steps, step i on ``[x[i] for x in batch_stacks]`` (each a
         tensor with leading dim K) with the key ``fold_in(window key, i)``,

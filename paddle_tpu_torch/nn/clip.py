@@ -10,8 +10,8 @@ scales as float32 device tensors, one per pair (None where the gradient is
 replaced instead, as ``ClipGradByValue`` clamps it), so that ``AdamW`` on
 CUDA hands the scale to kernel B9, which multiplies and rounds in
 registers, and no clipped copy of the gradients is written.  The norms are
-taken with ``torch._foreach_norm`` in float32 and stay on the device: a
-clip needs no host sync.
+taken in float32 (``torch._foreach_norm`` on CUDA, a pairwise sum of
+squares on the CPU) and stay on the device: a clip needs no host sync.
 """
 from __future__ import annotations
 
@@ -32,8 +32,14 @@ def _scaled(g: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def _norms(grads: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Each gradient's L2 norm, computed in float32."""
-    return list(torch._foreach_norm(grads, 2, dtype=torch.float32))
+    """Each gradient's L2 norm, computed in float32: one ``_foreach_norm``
+    on CUDA; on the CPU the square root of a sum of squares, which torch
+    sums pairwise, as the reference does, where its CPU norm kernel
+    accumulates in one pass (2e-4 of the norm off for a Llama lm_head's
+    [256, 4096] gradient: Queue C14)."""
+    if grads and grads[0].is_cuda:
+        return list(torch._foreach_norm(grads, 2, dtype=torch.float32))
+    return [torch.sqrt(torch.sum(torch.square(g.float()))) for g in grads]
 
 
 class ClipGradBase:

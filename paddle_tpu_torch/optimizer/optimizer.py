@@ -8,7 +8,9 @@ parameter; float32 master weights for low-precision parameters under
 casts the gradients to float32 under ``multi_precision``; ``clear_grad``;
 ``state_dict`` / ``set_state_dict`` with the reference's keys
 (``<param>__<accumulator>``, ``<param>__master_weight``, ``@step``, and
-``LR_Scheduler``); a ``grad_clip`` (``nn/clip.py``) applied to each
+``LR_Scheduler``), each saved state keeping its dtype on load (a
+bfloat16 moment stays bfloat16, as ``paddle_tpu/optimizer/optimizer.py:
+187-191`` keeps it); a ``grad_clip`` (``nn/clip.py``) applied to each
 parameter group's gradients before its update, as in
 ``paddle_tpu/optimizer/optimizer.py:106-107``.  A parameter is named by its
 position, ``param_<i>``, the reference's name for a parameter without one.
@@ -26,6 +28,7 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .lr import LRScheduler
@@ -46,6 +49,19 @@ class Skip(NamedTuple):
     def of(cls, found_inf: torch.Tensor) -> "Skip":
         flag = found_inf.to(torch.float32)
         return cls(flag, 1.0 - flag)
+
+
+def _state_tensor(val) -> torch.Tensor:
+    """A saved state as a tensor of its own dtype.  A bfloat16 numpy array
+    (``ml_dtypes``, what the reference's ``framework_io`` writes for a
+    bfloat16 leaf) is read through float32, exactly, so ``ml_dtypes`` is
+    not imported."""
+    if isinstance(val, torch.Tensor):
+        return val
+    arr = np.asarray(val)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
 
 
 class Optimizer:
@@ -80,13 +96,26 @@ class Optimizer:
         lr = self._learning_rate
         return lr() if isinstance(lr, LRScheduler) else float(lr)
 
+    def set_lr(self, value: float):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._learning_rate = float(value)
+
     # ----------------------------------------------------------- state
     def _acc(self, name: str, p: torch.Tensor, init=None) -> torch.Tensor:
+        """The accumulator ``name`` of ``p``, made on first use: zeros like
+        its master, or what ``init()`` returns."""
         d = self._accumulators[name]
         if id(p) not in d:
             d[id(p)] = (torch.zeros_like(self._master(p))
-                        if init is None else init)
+                        if init is None else init())
         return d[id(p)]
+
+    def _beta_pow(self, p: torch.Tensor) -> torch.Tensor:
+        """The float32 0-d step count ``beta_pow`` of the Adam family, on
+        ``p``'s device."""
+        return self._acc("beta_pow", p, init=lambda: torch.zeros(
+            (), dtype=torch.float32, device=p.device))
 
     def _set_acc(self, name: str, p: torch.Tensor, value: torch.Tensor):
         self._accumulators[name][id(p)] = value
@@ -207,8 +236,7 @@ class Optimizer:
             p = by_name.get(pname)
             if p is None:
                 continue
-            t = torch.as_tensor(val).to(device=p.device,
-                                        dtype=torch.float32).clone()
+            t = _state_tensor(val).to(device=p.device).clone()
             if acc_name == "master_weight":
                 self._master_weights[id(p)] = t
             else:

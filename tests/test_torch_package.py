@@ -55,9 +55,13 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.tools.serving_worker,"
             " paddle_tpu_torch.tools.chaos_serving,"
             " paddle_tpu_torch.nn.transformer,"
-            " paddle_tpu_torch.ops.hopper.int8_matmul\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu')"
-            " or m.startswith(('jax.', 'paddle_tpu.'))]\n"
+            " paddle_tpu_torch.ops.hopper.int8_matmul,"
+            " paddle_tpu_torch.io, paddle_tpu_torch.native,"
+            " paddle_tpu_torch.hapi, paddle_tpu_torch.callbacks,"
+            " paddle_tpu_torch.metric, paddle_tpu_torch.framework_io\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu',"
+            " 'ml_dtypes') or m.startswith(('jax.', 'paddle_tpu.',"
+            " 'ml_dtypes.'))]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -77,7 +81,8 @@ def test_no_source_imports_jax_or_paddle_tpu():
                 continue
             for n in names:
                 root = n.split(".")[0]
-                assert root not in ("jax", "jaxlib", "paddle_tpu"), \
+                assert root not in ("jax", "jaxlib", "paddle_tpu",
+                                    "ml_dtypes"), \
                     f"{path} imports {n}"
 
 
