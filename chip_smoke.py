@@ -8,8 +8,9 @@ generation (forward, generate, greedy_decode) over the
 static KV ring, Llama pretraining (TrainStep + AdamW, and under AMP with
 a GradScaler, a gradient clip and a schedule, and under Lamb and the other
 optimizers), bench_ladder.py's BERT-base finetune with dropout (also
-through hapi.Model with DataLoader workers, checkpoints and a reload), and
-the inference
+through hapi.Model with DataLoader workers, checkpoints and a reload),
+GPT-3 1.3B pretraining and generation over growing caches, the
+Transformer base's training and cached decoding, and the inference
 Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
 — on one NVIDIA H100, and check every Hopper kernel on them.
 
@@ -22,6 +23,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 2,16    # kernels + the chaos soaks
     python3 chip_smoke.py --phases 2,8,17,18  # kernels + AMP and dropout
     python3 chip_smoke.py --phases 19,20   # Model.fit, the optimizers
+    python3 chip_smoke.py --phases 2,21,22,23  # kernels + GPT, the decoder
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
@@ -413,10 +415,36 @@ Phases (each prints its seconds):
      takes (a clip and a StepDecay schedule) and two LBFGS step(closure)
      calls: every parameter and state tensor within 1e-4 of the CPU's in
      L2 norm relative to the tensor's, the worst printed;
+ 21. (run right after phase 1, while no phase holds memory on the card)
+     GPT-3 1.3B (gpt3_1_3b, seeded random weights on the card) under
+     amp.decorate O2 bf16 with AdamW(multi_precision): a warm-up and 3
+     timed TrainSteps on one [4, 2048] batch (finite, falling losses; B1
+     and B8 24 launches a step, B9 293: counted exactly), ms a step,
+     tokens/s, max_memory_allocated, a profiled step; then in eval under
+     auto_cast O2 greedy generate of 8 prompts x 128 tokens, 32 new, over
+     growing caches (ms a token, B1 exactly 24 x 32), and each cached
+     step's logits against one full forward over prompt + generated
+     tokens (4e-2 of the largest |logit|);
+ 22. GPT at gpt3_1_3b's width cut to 2 layers, float32 and O2 bf16, the
+     same weights and CUDA tensors through B1 / B8 / B9 and through their
+     plain versions: logits, loss, every gradient, every parameter and
+     optimizer state after one AdamW step (1e-4 / 3e-2), generate's greedy
+     tokens (float32 equal; bf16 up to a near tie), and in float32 the
+     identity of tests/test_gpt.py (the last generated token is the full
+     forward's argmax);
+ 23. the Transformer base (d_model 512, 8 heads, 6 + 6 layers, FFN 2048,
+     dropout 0.1) under O2 bf16: 3 TrainSteps on seeded embedded inputs,
+     src and tgt [32, 128] under generate_square_subsequent_mask (B9 once
+     a parameter a step, no B1 at dropout 0.1), ms a step, a profiled
+     step; then in eval
+     the encoder's memory, gen_cache and 64 cached steps (B1 at [32, 1,
+     8, 64] over the growing Cache and the StaticCache), ms a step, each
+     step against row t of the teacher-forced decoder (bf16 5e-2; float32
+     on a twin with the initial weights 1e-4), B1 counted exactly;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict", "blha", "control",
   "fleet", "mixed_cache", "chaos", "train_amp", "finetune", "fit",
-  "optimizers"}, null for a
+  "optimizers", "gpt", "decoder"}, null for a
   path whose phase did not run; "fleet" the sum over the surviving
   workers), then the card line, then {"ok": true, "device": {...}} as the
   last line.
@@ -545,6 +573,12 @@ PATHS = {
     "optimizers": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd",
                    "swiglu", "swiglu_bwd", "flash_attention",
                    "flash_attention_bwd"),
+    # phase 21: GPT-3 1.3B pretraining under O2 bf16 (its LayerNorm and
+    # gelu are torch ops) and generate over growing caches
+    "gpt": ("flash_attention", "flash_attention_bwd", "fused_adamw"),
+    # phase 23: the Transformer base, trained at dropout 0.1 (the plain
+    # attention) and decoded over gen_cache's caches (B1)
+    "decoder": ("flash_attention", "fused_adamw"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -945,7 +979,19 @@ def _generation_cases(torch, rnd, es, g, dtype):
             ("causal head_dim 256 [1, 256, 8, 256]", 1, 256, 256, 8, 8, 256,
              True, None),
             ("causal Sq 96 > Sk 64: rows 0-31 see no key", 1, 96, 64, 8, 8,
-             128, True, None)):
+             128, True, None),
+            # GPT-3 1.3B (phase 21): training's forward, and a cached
+            # decode step of generate's 8 prompts at its last key count
+            ("GPT causal [4, 2048, 16, 128]", 4, 2048, 2048, 16, 16, 128,
+             True, None),
+            ("GPT decode Sq 1, Sk 160 [8, 1, 16, 128]", 8, 1, 160, 16, 16,
+             128, True, None),
+            # the Transformer base's cached decode (phase 23): one query
+            # over the self-attention's 64 keys and the memory's 128
+            ("decoder step non-causal [32, 1, 8, 64], Sk 64", 32, 1, 64, 8,
+             8, 64, False, None),
+            ("decoder step non-causal [32, 1, 8, 64], Sk 128", 32, 1, 128, 8,
+             8, 64, False, None)):
         q, k, v = rnd(B, Sq, H, D), rnd(B, Sk, KVH, D), rnd(B, Sk, KVH, D)
         off_t = (None if off is None else
                  torch.full((), off, dtype=torch.int32, device=dev))
@@ -1227,7 +1273,9 @@ def _training_cases(torch, rnd, es, g, dtype):
             (f"causal head_dim 256 [8, {S}, 10, 256] (bench.py headline)", 8,
              S, S, 10, 10, 256, True),
             ("causal Sq 96 > Sk 64: rows 0-31 see no key", 1, 96, 64, 8, 8,
-             128, True)):
+             128, True),
+            ("GPT causal [4, 2048, 16, 128] (phase 21)", 4, 2048, 2048, 16,
+             16, 128, True)):
         q, kk, v = rnd(B, Sq, Hq, Dh), rnd(B, Sk, KVH, Dh), rnd(B, Sk, KVH,
                                                                 Dh)
         scale = 1.0 / Dh ** 0.5
@@ -7168,11 +7216,553 @@ def full_width_chaos(torch, card, model_kw=CHAOS_MODEL, device=None):
     return launches
 
 
+# -------------------------------------------------------- phases 21-23
+class _PlainAttentionAdamW:
+    """Within the block, B1 (``flash_attention_fused``), B8
+    (``flash_attention_bwd_fused``) and B9 (AdamW's ``fused_adamw``) run
+    their plain PyTorch versions on the card's tensors: the kernel path's
+    plain twin over the same CUDA tensors (phase 22)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.hopper import fused_adamw as fad
+        from paddle_tpu_torch.ops.hopper import flash_attention as fa
+        from paddle_tpu_torch.optimizer import optimizers
+
+        def fwd(q, k, v, causal=False, scale=None, q_offset=None,
+                blocks=None):
+            s = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+            return fa._plain_bshd(q, k, v, causal, s, q_offset)
+
+        def bwd(q, k, v, out, lse, g, causal=False, scale=None,
+                blocks=None):
+            s = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+            return fa._plain_bwd_bshd(q, k, v, out, lse, g, causal, s)
+
+        def adamw(param, master, m, v, grad, lr, t, *, b1, b2, eps, wd,
+                  gmul=None, skip=None):
+            fad._fused_adamw_ref(param, master, m, v, grad, float(lr), t,
+                                 b1, b2, eps, wd, gmul, skip)
+            return param, master, m, v
+
+        self.saved = [(fa, "flash_attention_fused", fa.flash_attention_fused),
+                      (fa, "flash_attention_bwd_fused",
+                       fa.flash_attention_bwd_fused),
+                      (optimizers, "fused_adamw", optimizers.fused_adamw)]
+        fa.flash_attention_fused, fa.flash_attention_bwd_fused = fwd, bwd
+        optimizers.fused_adamw = adamw
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+GPT_LR = 1e-4      # AdamW's rate in phases 21 and 22
+
+
+def _gpt_config(**kw):
+    """``gpt3_1_3b()`` with the fields of ``kw`` replaced (a cut depth, or
+    a rehearsal's sizes on the CPU)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import gpt3_1_3b
+
+    return dataclasses.replace(gpt3_1_3b(), **kw)
+
+
+def _gpt_setup(torch, model, lr):
+    """AdamW(multi_precision) and ``amp.decorate`` to O2 bfloat16 (the
+    norms' parameters stay float32), a TrainStep whose loss runs under
+    ``auto_cast(O2)`` -> (step, optimizer)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(m, ids):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return crit(m(ids), ids)
+
+    return TrainStep(model, loss_fn, opt), opt
+
+
+def _gpt_cached_logits(torch, model, ids, toks):
+    """The growing-cache steps ``generate`` takes, fed ``toks`` [B, n]:
+    the last row's logits of the prefill and of each of the n - 1 decode
+    steps -> [B, n, V] float32."""
+    cfg = model.config
+    B = ids.shape[0]
+    shape = (B, 0, cfg.num_key_value_heads, cfg.head_dim)
+    caches = [(torch.zeros(shape, device=ids.device),
+               torch.zeros(shape, device=ids.device))
+              for _ in range(cfg.num_hidden_layers)]
+    out = []
+    with torch.no_grad():
+        lg, caches = model(ids, caches=caches)
+        out.append(lg[:, -1].float())
+        for i in range(toks.shape[1] - 1):
+            lg, caches = model(toks[:, i:i + 1], caches=caches)
+            out.append(lg[:, -1].float())
+    return torch.stack(out, dim=1)
+
+
+def _gpt_forced_logits(torch, model, ids, toks):
+    """One full forward over prompt + toks[:, :-1] -> the logits [B, n, V]
+    float32 at the rows from which each generated token was chosen."""
+    full = torch.cat([ids, toks[:, :-1].to(ids.dtype)], dim=1)
+    with torch.no_grad():
+        lg = model(full)
+    return lg[:, ids.shape[1] - 1:].float()
+
+
+def full_width_gpt(torch, card, model_kw=None, batch=(4, 2048),
+                   prompts=(8, 128), new=32, device="cuda"):
+    """Phase 21: GPT-3 1.3B (``gpt3_1_3b``: 24 layers, hidden 2048, 16
+    heads of 128, vocab 50304) with seeded random weights made on the card,
+    ``amp.decorate``d to O2 bf16 with AdamW(multi_precision): a warm-up and
+    three timed TrainSteps on one [4, 2048] batch (B1 and B8 once a layer a
+    step, B9 once a parameter a step, counted exactly), one profiled step;
+    then in eval under auto_cast O2 greedy ``generate`` of 8 prompts x 128
+    tokens, 32 new, over growing caches (B1 once a layer a forward: 24 x
+    32), and each cached step's logits against one full forward over
+    prompt + generated tokens.  Returns the "gpt" path's launches.
+    ``model_kw``, ``batch``, ``prompts``, ``new`` and ``device`` cut it to
+    a rehearsal on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM, generate
+
+    cfg = _gpt_config(**(model_kw or {}))
+    (B, S), L = batch, cfg.num_hidden_layers
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=device, seed=21)
+    step, opt = _gpt_setup(torch, model, GPT_LR)
+    torch.cuda.synchronize()
+    n_params, n_tensors = model.num_params, len(list(model.parameters()))
+    dts = sorted({str(p.dtype) for p in model.parameters()})
+    print(f"gpt model: {n_params} parameters in {n_tensors} tensors "
+          f"({dts} after decorate), recompute {cfg.recompute}, setup "
+          f"seconds {time.perf_counter() - t:.3f}")
+    if model_kw is None and (n_params, n_tensors) != (1_418_842_112, 293):
+        raise AssertionError(f"phase 21: gpt3_1_3b has {n_params} "
+                             f"parameters in {n_tensors} tensors")
+    ids = torch.as_tensor(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int64, device=device)
+    free = _sync_free(torch, step)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [free(ids)]                        # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        losses.append(free(ids))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / 3
+    peak = torch.cuda.max_memory_allocated()
+    lv = torch.stack(losses).float().cpu()
+    print(f"gpt losses {[round(float(x), 4) for x in lv]}")
+    if not bool(torch.isfinite(lv).all()) or not lv[-1] < lv[0]:
+        raise AssertionError(f"phase 21 losses not finite and falling: {lv}")
+    train = {k: fn.launches for k, fn in counters.items()}
+    # B1 once a layer a forward (twice under recompute), B8 once a layer
+    # a backward, B9 once a parameter a step: every parameter has a master
+    want = {"flash_attention": 4 * L * (2 if cfg.recompute else 1),
+            "flash_attention_bwd": 4 * L, "fused_adamw": 4 * n_tensors}
+    got = {k: train[k] for k in want}
+    print("gpt launches a step: " + json.dumps(
+        {k: v / 4 for k, v in got.items()}))
+    if got != want:
+        raise AssertionError(f"phase 21: launches in 4 steps {got}, "
+                             f"expected {want}")
+    flops_tok = 6 * n_params + 12 * L * cfg.hidden_size * S * 0.5
+    print(f"gpt train step [{B}, {S}] (O2 bf16, AdamW multi_precision): "
+          f"{dt * 1e3:.1f} ms, {B * S / dt:.1f} tokens/s, MFU "
+          f"{B * S / dt * flops_tok / 989e12:.4f} against 989 TFLOP/s "
+          f"(informative), max_memory_allocated {peak} bytes ({before} "
+          f"allocated before the phase; {card}); no host sync inside a step")
+    _profile(torch, "gpt train step", lambda: free(ids), top=16)
+    # generation over growing caches, in eval under auto_cast O2
+    model.eval()
+    P, Sp = prompts
+    prompt = torch.as_tensor(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (P, Sp)), dtype=torch.int64, device=device)
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        generate(model, prompt[:, :8], max_new_tokens=2)      # warm-up
+        torch.cuda.synchronize()
+        counters = _zero_counters()
+        t = time.perf_counter()
+        toks = generate(model, prompt, max_new_tokens=new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        gen = {k: fn.launches for k, fn in counters.items()}
+        cached = _gpt_cached_logits(torch, model, prompt, toks)
+        forced = _gpt_forced_logits(torch, model, prompt, toks)
+    if tuple(toks.shape) != (P, new) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"phase 21: generated {tuple(toks.shape)}, "
+                             "or a token out of the vocabulary")
+    print(f"gpt generate [{P}, {Sp}] + {new} (growing caches, O2 bf16): "
+          f"{gen_s * 1e3 / new:.2f} ms a token ({gen_s:.3f} s, the prefill "
+          f"included), B1 launches {gen['flash_attention']} ({card})")
+    if gen["flash_attention"] != L * new:
+        raise AssertionError(f"phase 21: generate launched B1 "
+                             f"{gen['flash_attention']} times, expected "
+                             f"{L} x {new}")
+    if not torch.equal(cached.argmax(-1), toks.to(torch.int64)):
+        raise AssertionError("phase 21: the cached steps' argmaxes are not "
+                             "generate's tokens")
+    err = float((cached - forced).abs().max())
+    scale = float(forced.abs().max())
+    print(f"gpt cached steps vs the full forward: max_abs_err {err:.4e} of "
+          f"max |logit| {scale:.4e} ({err / scale:.2e}), tol 4e-2")
+    if not err <= 4e-2 * scale:
+        raise AssertionError("phase 21: cached logits differ from the full "
+                             "forward's beyond bf16 tolerance")
+    launches = {k: train[k] + gen[k] for k in train}
+    for k in PATHS["gpt"]:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the "
+                                 "gpt path")
+    print(f"launches gpt {json.dumps(launches)}")
+    return launches
+
+
+def _rel_l2(torch, got, ref):
+    ref = ref.float()
+    return float((got.float() - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def _gpt_pair(torch, dtype, layers=2, model_kw=None, device="cuda"):
+    """Two ``gpt3_1_3b``-width models cut to ``layers`` with the same
+    seeded weights on the card; bf16: both O2-decorated, with the step's
+    optimizer -> (kernel model, plain model, kernel step, plain step)."""
+    import copy
+
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    cfg = _gpt_config(num_hidden_layers=layers, **(model_kw or {}))
+    a = GPTForCausalLM(cfg, device=device, seed=22)
+    b = copy.deepcopy(a)
+    if dtype == "bfloat16":
+        (sa, _), (sb, _) = (_gpt_setup(torch, a, GPT_LR),
+                            _gpt_setup(torch, b, GPT_LR))
+    else:
+        from paddle_tpu_torch.jit import TrainStep
+        from paddle_tpu_torch.models import GPTPretrainingCriterion
+        from paddle_tpu_torch.optimizer import AdamW
+
+        crit = GPTPretrainingCriterion()
+
+        def make(m):
+            return TrainStep(m, lambda mm, x: crit(mm(x), x), AdamW(
+                learning_rate=GPT_LR, parameters=m.parameters(),
+                multi_precision=True))
+        sa, sb = make(a), make(b)
+    return a, b, sa, sb
+
+
+def gpt_kernels_vs_plain(torch, layers=2, model_kw=None, batch=(2, 512),
+                         prompts=(2, 64), new=16, device="cuda"):
+    """Phase 22: ``gpt3_1_3b``'s width at ``layers`` layers, float32 and
+    O2 bf16, the same weights and CUDA tensors through the kernels (B1,
+    B8, B9) and through their plain versions (``_PlainAttentionAdamW``):
+    logits and loss, every gradient, every parameter and optimizer state
+    after one AdamW step, and greedy ``generate`` tokens (float32: equal;
+    bf16: equal up to a top-2 gap within the logits' tolerance); then, in
+    float32 on the kernel path, the identity of ``tests/test_gpt.py``:
+    the last generated token is the argmax of a full forward over prompt
+    + the tokens before it."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTPretrainingCriterion, generate
+
+    rng = np.random.default_rng(23)
+    lr = GPT_LR
+    for dname in ("float32", "bfloat16"):
+        a, b, sa, sb = _gpt_pair(torch, dname, layers, model_kw, device)
+        V = a.config.vocab_size
+        ids = torch.as_tensor(rng.integers(0, V, batch), dtype=torch.int64,
+                              device=device)
+        ctx = (amp.auto_cast(level="O2", dtype="bfloat16")
+               if dname == "bfloat16" else contextlib.nullcontext())
+        rel = 1e-4 if dname == "float32" else 3e-2
+        crit = GPTPretrainingCriterion()
+        outs = []
+        for m, plain in ((a, False), (b, True)):
+            with (_PlainAttentionAdamW() if plain
+                  else contextlib.nullcontext()):
+                m.zero_grad(set_to_none=True)
+                with ctx:
+                    lg = m(ids)
+                    loss = crit(lg, ids)
+                loss.backward()
+                outs.append((lg.detach().float(), float(loss.detach()),
+                             [p.grad.float() for p in m.parameters()]))
+        (lk, sk_, gk), (lp, sp_, gp) = outs
+        err = float((lk - lp).abs().max())
+        scale = float(lp.abs().max())
+        print(f"gpt {dname} [{batch[0]}, {batch[1]}] logits: max_abs_err "
+              f"{err:.3e} of {scale:.3e}; loss kernel {sk_:.6f} plain "
+              f"{sp_:.6f}")
+        if not err <= rel * scale or not abs(sk_ - sp_) <= rel * abs(sp_):
+            raise AssertionError(f"phase 22 {dname}: logits or loss differ")
+        worst = max(_rel_l2(torch, x, y) for x, y in zip(gk, gp))
+        print(f"gpt {dname} gradients: worst relative L2 {worst:.3e} over "
+              f"{len(gk)} tensors")
+        if not worst <= rel:
+            raise AssertionError(f"phase 22 {dname}: gradients differ")
+        a.zero_grad(set_to_none=True)
+        b.zero_grad(set_to_none=True)
+        sa(ids)
+        with _PlainAttentionAdamW():
+            sb(ids)
+        # moments and step counts: relative L2.  A master weight moves by
+        # lr m / sqrt(v) ~ +-lr on Adam's first step whatever the
+        # gradient's size, so an element whose gradient is rounding noise
+        # (the k third of qkv.bias: 0 in exact arithmetic) may move the
+        # other way: each element within 2 lr of the plain one's
+        worst, worst_w, n = 0.0, 0.0, 0
+        sda, sdb = sa.optimizer.state_dict(), sb.optimizer.state_dict()
+        for key, va in sda.items():
+            if not isinstance(va, torch.Tensor):
+                continue
+            n += 1
+            vb = sdb[key]
+            if key.endswith("__master_weight"):
+                e = float((va - vb).abs().max())
+                worst_w = max(worst_w, e)
+                if not e <= rel * float(vb.abs().max()) + 2 * lr:
+                    raise AssertionError(f"phase 22 {dname}: {key} differs "
+                                         f"by {e} after one step")
+            else:
+                worst = max(worst, _rel_l2(torch, va, vb))
+        print(f"gpt {dname} after one AdamW step: {n} optimizer tensors; "
+              f"moments and step counts within relative L2 {worst:.3e}, "
+              f"master weights within {worst_w:.3e} (2 lr = {2 * lr:.0e})")
+        if not worst <= rel or n == 0:
+            raise AssertionError(f"phase 22 {dname}: optimizer states "
+                                 "differ after one step")
+        for (na, pa), pb in zip(a.named_parameters(), b.parameters()):
+            e = float((pa.detach().float() - pb.detach().float()).abs()
+                      .max())
+            lim = rel * float(pb.detach().float().abs().max()) + 2 * lr
+            if not e <= lim:
+                raise AssertionError(f"phase 22 {dname}: {na} differs by "
+                                     f"{e} > {lim} after one step")
+        a.eval()
+        b.eval()
+        P, Sp = prompts
+        prompt = torch.as_tensor(rng.integers(0, V, (P, Sp)),
+                                 dtype=torch.int64, device=device)
+        with ctx:
+            tk = generate(a, prompt, max_new_tokens=new)
+            with _PlainAttentionAdamW():
+                tp = generate(b, prompt, max_new_tokens=new)
+                gaps = torch.topk(_gpt_forced_logits(torch, b, prompt, tp),
+                                  2, dim=-1).values
+        gaps = (gaps[..., 0] - gaps[..., 1]).cpu()
+        if dname == "float32":
+            if not torch.equal(tk, tp):
+                raise AssertionError("phase 22 float32: generate's tokens "
+                                     "differ between the kernel and plain "
+                                     "paths")
+            print(f"gpt float32 generate [{P}, {Sp}] + {new}: kernel == "
+                  "plain tokens")
+            full = torch.cat([prompt, tk[:, :-1].to(prompt.dtype)], dim=1)
+            with torch.no_grad():
+                last = a(full)[:, -1].float().argmax(-1)
+            if not torch.equal(last, tk[:, -1].to(torch.int64)):
+                raise AssertionError("phase 22: the last generated token is "
+                                     "not the full forward's argmax")
+            print("gpt float32: generate's last token == the full "
+                  "forward's argmax (tests/test_gpt.py's identity)")
+        else:
+            # a near tie: a top-2 gap within 3x the logits' error measured
+            # above may break either way
+            for r in range(P):
+                _agree(tk[r].tolist(), tp[r].tolist(), gaps[r].tolist(),
+                       f"gpt bf16 generate row {r} kernel vs plain",
+                       thresh=3 * err)
+            print(f"gpt bf16 generate [{P}, {Sp}] + {new}: kernel == plain "
+                  f"tokens up to a top-2 gap under {3 * err:.3e}")
+        a = b = sa = sb = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("gpt kernel path == plain path (logits, loss, gradients, one "
+          "AdamW step, generate)")
+
+
+# phase 23: the reference's Transformer defaults (transformer.py:237-239)
+TRANSFORMER_BASE = dict(d_model=512, nhead=8, num_encoder_layers=6,
+                        num_decoder_layers=6, dim_feedforward=2048,
+                        dropout=0.1)
+
+
+def _decode_vs_forced(torch, model, src, tgt, n):
+    """The encoder's memory, ``decoder.gen_cache(memory)`` and ``n`` cached
+    steps fed ``tgt[:, t]`` -> (steps [B, n, d], the teacher-forced
+    ``decoder(tgt[:, :n], memory, causal mask)`` [B, n, d], seconds a step,
+    each float32)."""
+    from paddle_tpu_torch.nn.transformer import Transformer
+
+    with torch.no_grad():
+        memory = model.encoder(src)
+        caches = model.decoder.gen_cache(memory)
+        outs = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(n):
+            out, caches = model.decoder(tgt[:, i:i + 1], memory, None, None,
+                                        caches)
+            outs.append(out)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t) / n
+        mask = Transformer.generate_square_subsequent_mask(
+            n, device=src.device)
+        forced = model.decoder(tgt[:, :n], memory, mask)
+    return torch.cat(outs, dim=1).float(), forced.float(), step_s
+
+
+def full_width_transformer(torch, card, geo=TRANSFORMER_BASE,
+                           batch=(32, 128, 128), n=64, device="cuda"):
+    """Phase 23: the Transformer base (d_model 512, 8 heads, 6 + 6 layers,
+    FFN 2048, dropout 0.1) built in float32 from a seeded generator on the
+    card and ``amp.decorate``d to O2 bf16: three TrainSteps of
+    AdamW(multi_precision) on seeded embedded inputs, src [32, 128] and tgt
+    [32, 128] under ``generate_square_subsequent_mask``, the outputs' d
+    scores against seeded labels (dropout on: the attention takes the plain
+    path, no B1; B9 once a parameter a step), one profiled step; then in
+    eval under auto_cast
+    O2 the encoder's memory, ``gen_cache`` and 64 cached steps (B1 non-
+    causal at D 64: self-attention over the growing Cache, cross-attention
+    over the StaticCache), each step against row t of the teacher-forced
+    decoder (its self-attention the plain masked path); the same in
+    float32 on a twin with the initial weights, tight.  Returns the
+    "decoder" path's launches."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import random as prand
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.transformer import Transformer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build():
+        g = torch.Generator(device=device)
+        g.manual_seed(23)
+        return Transformer(**geo, device=device, generator=g)
+
+    B, Ss, St = batch
+    d = geo["d_model"]
+    L = geo["num_decoder_layers"]
+    t = time.perf_counter()
+    model = build()
+    twin = build()                       # float32, the initial weights
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    n_tensors = len(list(model.parameters()))
+    mask = Transformer.generate_square_subsequent_mask(St, device=device)
+
+    def loss_fn(m, src, tgt, y):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            out = m(src, tgt, None, mask)
+            return F.cross_entropy(out.reshape(-1, d), y)
+
+    step = TrainStep(model, loss_fn, opt)
+    prand.seed(23)                 # the steps' dropout keys
+    rng = np.random.default_rng(23)
+    src = torch.as_tensor(rng.standard_normal((B, Ss, d)),
+                          dtype=torch.float32, device=device)
+    tgt = torch.as_tensor(rng.standard_normal((B, St, d)),
+                          dtype=torch.float32, device=device)
+    y = torch.as_tensor(rng.integers(0, d, (B * St,)), dtype=torch.int64,
+                        device=device)
+    torch.cuda.synchronize()
+    print(f"transformer: {sum(p.numel() for p in model.parameters())} "
+          f"parameters in {n_tensors} tensors, setup seconds "
+          f"{time.perf_counter() - t:.3f}")
+    free = _sync_free(torch, step)
+    counters = _zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [free(src, tgt, y)]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2):
+        losses.append(free(src, tgt, y))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / 2
+    lv = torch.stack(losses).float().cpu()
+    print(f"transformer losses {[round(float(x), 4) for x in lv]}")
+    if not bool(torch.isfinite(lv).all()) or not lv[-1] < lv[0]:
+        raise AssertionError(f"phase 23 losses not finite and falling: {lv}")
+    train = {k: fn.launches for k, fn in counters.items()}
+    print(f"transformer train step [{B}, {Ss} / {St}] (O2 bf16, dropout "
+          f"0.1): {dt * 1e3:.1f} ms, {B * St / dt:.1f} target tokens/s, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
+          f"({card}); B9 {train['fused_adamw']} launches in 3 steps, B1 "
+          f"{train['flash_attention']}")
+    if train["fused_adamw"] != 3 * n_tensors or train["flash_attention"]:
+        raise AssertionError(f"phase 23: training launched B9 "
+                             f"{train['fused_adamw']} times (expected "
+                             f"{3 * n_tensors}) and B1 "
+                             f"{train['flash_attention']} (expected 0 at "
+                             "dropout 0.1)")
+    _profile(torch, "transformer train step", lambda: free(src, tgt, y),
+             top=12)
+    model.eval()
+    counters = _zero_counters()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        steps, forced, step_s = _decode_vs_forced(torch, model, src, tgt, n)
+    dec = {k: fn.launches for k, fn in counters.items()}
+    # the encoder's L self-attentions, 2 L a cached step, and the
+    # teacher-forced decoder's L cross-attentions (its self-attention is
+    # masked: the plain path)
+    want = geo["num_encoder_layers"] + 2 * L * n + L
+    err = float((steps - forced).abs().max())
+    scale = float(forced.abs().max())
+    print(f"transformer decode [{B}, {n} steps] over gen_cache (O2 bf16): "
+          f"{step_s * 1e3:.3f} ms a step; vs the teacher-forced decoder "
+          f"max_abs_err {err:.4e} of {scale:.4e} ({err / scale:.2e}), tol "
+          f"5e-2; B1 launches {dec['flash_attention']} (expected {want})")
+    if dec["flash_attention"] != want:
+        raise AssertionError("phase 23: B1 launches in the decode")
+    if not err <= 5e-2 * scale:
+        raise AssertionError("phase 23 bf16: cached steps differ from the "
+                             "teacher-forced decoder")
+    twin.eval()
+    steps, forced, step_s = _decode_vs_forced(torch, twin, src, tgt, n)
+    err = float((steps - forced).abs().max())
+    scale = float(forced.abs().max())
+    print(f"transformer decode float32: {step_s * 1e3:.3f} ms a step; vs "
+          f"the teacher-forced decoder max_abs_err {err:.4e} of "
+          f"{scale:.4e}, tol 1e-4")
+    if not err <= 1e-4 * scale:
+        raise AssertionError("phase 23 float32: cached steps differ from "
+                             "the teacher-forced decoder")
+    launches = {k: train[k] + dec[k] for k in train}
+    for k in PATHS["decoder"]:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the "
+                                 "decoder path")
+    print(f"launches decoder {json.dumps(launches)}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19,20",
+                            "19,20,21,22,23",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -7222,6 +7812,27 @@ def main(argv=None) -> int:
     t = _phase("1 environment")
     card = environment(torch)
     _done("1", t)
+    launches = {path: None for path in PATHS}
+    # the GPT and Transformer phases first, while no earlier phase holds
+    # memory on the card
+    if 21 in phases:
+        t = _phase("21 GPT-3 1.3B pretraining and generation")
+        launches["gpt"] = full_width_gpt(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("21", t)
+    if 22 in phases:
+        t = _phase("22 GPT: kernel path vs plain path")
+        gpt_kernels_vs_plain(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("22", t)
+    if 23 in phases:
+        t = _phase("23 the Transformer base: training and cached decoding")
+        launches["decoder"] = full_width_transformer(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("23", t)
     rows = []
     if 2 in phases:
         t = _phase("2 kernels vs plain")
@@ -7230,7 +7841,6 @@ def main(argv=None) -> int:
                                 b7_sweep=args.b7_sweep,
                                 k1_sweep=args.k1_sweep)
         _done("2", t)
-    launches = {path: None for path in PATHS}
     if 13 in phases:
         t = _phase("13 the public block_multihead_attention")
         launches["blha"] = full_width_blha(torch)

@@ -33,7 +33,8 @@ through the chunked head (``_chunked_lm_loss``), each chunk checkpointed.
 AMP (``amp.auto_cast``): each op casts its inputs by the reference's tag
 (``embedding``, ``rms_norm`` on the black list, ``linear`` and
 ``flash_attention`` on the white list, ``fused_rope``, ``silu`` /
-``multiply``, ``add``, ``fused_lm_loss``).  The reference adds the residual
+``multiply``, ``add``, ``concat`` (a growing cache), ``fused_lm_loss``).
+The reference adds the residual
 ("add") and then norms ("rms_norm"), two ops with two casts, so under AMP
 the port runs them as two too (``_add_norm``: the add, then K1 on the
 float32 sum) instead of K1's fused residual add.  A recomputed layer runs
@@ -60,6 +61,7 @@ from ..framework.random import default_generator
 from ..jit import trace_state
 from ..nn import Embedding, ParallelLinear, RMSNorm, load_numpy_state_dict
 from ..nn import functional as F
+from ..nn.transformer import _concat
 from ..ops.hopper.decode_attention import decode_attention
 from ..ops.hopper.flash_attention import flash_attention_fwd
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
@@ -221,8 +223,8 @@ class LlamaAttention(nn.Module):
         q, k = apply_rotary_pos_emb(q, k, cos, sin, position_offset=offset)
         new_cache = None
         if cache is not None:
-            k = torch.cat([cache[0], k], dim=1)
-            v = torch.cat([cache[1], v], dim=1)
+            k = _concat(cache[0], k)
+            v = _concat(cache[1], v)
             new_cache = (k, v)
         if attn_mask is None and cache is None:
             out, _ = F.flash_attention(q, k, v, causal=True)

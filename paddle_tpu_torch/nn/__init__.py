@@ -11,9 +11,14 @@ Counterparts: ``paddle_tpu/nn/layer/common.py`` ``Linear``/``Dropout``/
 paddle's ``LayerList``/``Sequential`` under the same attribute names.
 
 ``Linear`` and ``ParallelLinear`` are one ``torch.matmul`` (the reference
-leaves it to XLA), ``Embedding`` one ``index_select`` (its backward an
+leaves it to XLA; operands of two float dtypes are promoted as jnp
+promotes them, so a bfloat16 activation times a float32 weight is a
+float32 product), ``Embedding`` one ``index_select`` (its backward an
 ``index_add_``, which needs no host sync), ``LayerNorm``
-``torch.nn.functional.layer_norm`` (not a TPU kernel in the reference),
+``torch.nn.functional.layer_norm`` (not a TPU kernel in the reference;
+over an input of another dtype than its parameters it normalizes in the
+input's dtype and then scales and shifts under jnp's promotion, as the
+reference's jnp formula does),
 ``RMSNorm`` kernel K1 (``ops/hopper/fused_norm.py``), ``Dropout`` the
 functional's seeded masks.  Under AMP each layer casts its inputs by its
 op's tag in the reference (``linear``, ``embedding``, ``layer_norm``,
@@ -23,7 +28,11 @@ trainable (``requires_grad=True``, the reference's ``stop_gradient=False``);
 the inference entry points run under ``torch.no_grad``.  Layers take
 ``device=None`` (CUDA, or ``RuntimeError`` without it; ``device="cpu"`` for
 the plain path), a ``dtype``, and draw random weights from an explicit
-``torch.Generator``, never from global random state.
+``torch.Generator``, never from global random state.  A ``weight_attr`` /
+``bias_attr`` may be None, a name, or a ``ParamAttr``-like object without
+an initializer; one that carries an initializer (or an initializer given
+directly) raises ``NotImplementedError``: initializers are
+``nn/initializer``, not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -60,15 +69,36 @@ def _xavier(in_features: int, out_features: int, device, dtype,
     return nn.Parameter(w)
 
 
+def _check_attr(attr, what: str = "weight_attr"):
+    """Refuse a parameter attribute the port cannot honour: an initializer
+    (a ``ParamAttr`` carrying one, or one given directly, as
+    ``ParamAttr._to_attr`` reads it), a frozen or rescaled parameter.
+    None, False (no parameter, where the layer allows it), a name and a
+    plain ``ParamAttr`` pass."""
+    if attr is None or attr is False or isinstance(attr, str):
+        return
+    init = getattr(attr, "initializer", attr)
+    if init is not None:
+        raise NotImplementedError(
+            f"{what} with an initializer: nn/initializer is not ported yet "
+            "(ROADMAP A10)")
+    if (not getattr(attr, "trainable", True)
+            or getattr(attr, "learning_rate", 1.0) != 1.0):
+        raise NotImplementedError(
+            f"{what}: a frozen or rescaled parameter is not ported")
+
+
 class Linear(nn.Module):
     """``y = x @ weight + bias``: ``weight [in, out]`` Xavier-uniform,
     ``bias [out]`` zeros, or none with ``bias_attr=False``."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 bias_attr: Optional[bool] = None, device=None,
+                 weight_attr=None, bias_attr=None, device=None,
                  dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
+        _check_attr(weight_attr)
+        _check_attr(bias_attr, "bias_attr")
         self.weight = _xavier(in_features, out_features, device, dtype,
                               generator)
         self.bias = (None if bias_attr is False else nn.Parameter(
@@ -80,21 +110,36 @@ class Linear(nn.Module):
 
 
 class ParallelLinear(nn.Module):
-    """Column/RowParallelLinear at mp=1, as Llama's projections use them:
-    ``weight [in, out]`` Xavier-uniform, no bias.  Not a ``Linear``, as the
-    reference's mp layers are not, so the weight-only int8 rewrite of
-    ``inference.Predictor`` leaves them as they are, as the reference's
-    does."""
+    """Column/RowParallelLinear at mp=1: ``weight [in, out]``
+    Xavier-uniform and, unless ``has_bias`` is False (the default, as
+    Llama's projections use them), ``bias [out]`` zeros; ``has_bias=None``
+    is a bias, as ColumnParallelLinear reads it.  The column form
+    (``row=False``) adds the bias inside the product's op (``F.linear(x,
+    w, b)``, ``mp_layers.py:70-89``), the row form after it, as an "add"
+    of its own (``mp_layers.py:96-115``; under AMP the two cast
+    differently).  Not a ``Linear``, as the reference's mp layers are not,
+    so the weight-only int8 rewrite of ``inference.Predictor`` leaves them
+    as they are, as the reference's does."""
 
-    def __init__(self, in_features: int, out_features: int, *, device=None,
-                 dtype: torch.dtype = torch.float32,
+    def __init__(self, in_features: int, out_features: int, *,
+                 has_bias: Optional[bool] = False, row: bool = False,
+                 device=None, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator):
         super().__init__()
+        self.row = row
         self.weight = _xavier(in_features, out_features, device, dtype,
                               generator)
+        self.bias = (None if has_bias is False else nn.Parameter(
+            torch.zeros(out_features, device=self.weight.device,
+                        dtype=dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight)
+        if self.bias is None:
+            return F.linear(x, self.weight)
+        if not self.row:
+            return F.linear(x, self.weight, self.bias)
+        out, b = amp_cast("add", F.linear(x, self.weight), self.bias)
+        return out + b
 
 
 class Embedding(nn.Module):
@@ -119,26 +164,42 @@ class Embedding(nn.Module):
 class LayerNorm(nn.Module):
     """``(x - mean) / sqrt(var + eps) * weight + bias`` over the trailing
     ``normalized_shape`` (biased variance, ``nn/functional/norm.py:87``);
-    ``weight`` ones, ``bias`` zeros."""
+    ``weight`` ones, ``bias`` zeros, either left out with
+    ``weight_attr=False`` / ``bias_attr=False`` (``nn/layer/norm.py:98-119``).
+    An input of another dtype than the parameters is normalized in its own
+    dtype, then scaled and shifted under jnp's promotion (a bfloat16 input
+    with float32 parameters gives float32), as the reference's formula."""
 
     def __init__(self, normalized_shape: Union[int, Sequence[int]],
-                 epsilon: float = 1e-5, *, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None, *,
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
+        _check_attr(weight_attr)
+        _check_attr(bias_attr, "bias_attr")
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = tuple(normalized_shape)
         self._epsilon = epsilon
         dev = resolve_device(device)
-        self.weight = nn.Parameter(torch.ones(self._normalized_shape,
-                                              device=dev, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(self._normalized_shape,
-                                             device=dev, dtype=dtype))
+        self.register_parameter("weight", None if weight_attr is False else
+                                nn.Parameter(torch.ones(
+                                    self._normalized_shape, device=dev,
+                                    dtype=dtype)))
+        self.register_parameter("bias", None if bias_attr is False else
+                                nn.Parameter(torch.zeros(
+                                    self._normalized_shape, device=dev,
+                                    dtype=dtype)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = amp_cast("layer_norm", x, self.weight, self.bias)
-        return torch.nn.functional.layer_norm(
-            x, self._normalized_shape, w, b, self._epsilon)
+        if all(p is None or p.dtype == x.dtype for p in (w, b)):
+            return torch.nn.functional.layer_norm(
+                x, self._normalized_shape, w, b, self._epsilon)
+        out = torch.nn.functional.layer_norm(x, self._normalized_shape,
+                                             eps=self._epsilon)
+        if w is not None:
+            out = out * w
+        return out if b is None else out + b
 
 
 class Dropout(nn.Module):

@@ -38,14 +38,25 @@ __all__ = ["flash_attention", "scaled_dot_product_attention",
            "dropout3d", "alpha_dropout"]
 
 
+def _matmul(x, w):
+    """``x @ w`` under jnp's promotion: two float dtypes meet at the wider
+    (bfloat16 by float32 is a float32 product), where ``torch.matmul``
+    takes one dtype only."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)``, paddle's ``[in, out]`` weight; one
-    ``torch.matmul``, as the reference leaves it to XLA."""
+    ``torch.matmul``, as the reference leaves it to XLA.  Mixed dtypes
+    promote as jnp's, the product first, then the bias add."""
     if bias is None:
         x, weight = amp_cast("linear", x, weight)
-        return x @ weight
+        return _matmul(x, weight)
     x, weight, bias = amp_cast("linear", x, weight, bias)
-    return x @ weight + bias
+    return _matmul(x, weight) + bias
 
 
 def relu(x):
