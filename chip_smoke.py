@@ -11,8 +11,10 @@ optimizers), bench_ladder.py's BERT-base finetune with dropout (also
 through hapi.Model with DataLoader workers, checkpoints and a reload),
 GPT-3 1.3B pretraining and generation over growing caches, the
 Transformer base's training and cached decoding, and the inference
-Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
-— on one NVIDIA H100, and check every Hopper kernel on them.
+Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier,
+and its deployment (to_static, jit.save / jit.load over torch.export, the
+artifact Predictor) — on one NVIDIA H100, and check every Hopper kernel on
+them.
 
     python3 chip_smoke.py                  # all phases
     python3 chip_smoke.py --phases 1,2     # build + kernel checks only
@@ -24,6 +26,7 @@ Predictor with weight-only int8 over bench_ladder.py's BERT-base classifier
     python3 chip_smoke.py --phases 2,8,17,18  # kernels + AMP and dropout
     python3 chip_smoke.py --phases 19,20   # Model.fit, the optimizers
     python3 chip_smoke.py --phases 2,21,22,23  # kernels + GPT, the decoder
+    python3 chip_smoke.py --phases 24      # jit.save artifacts, to_static
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
@@ -289,9 +292,10 @@ Phases (each prints its seconds):
  13. the public incubate.nn.functional.block_multihead_attention (run
      before the 7B model is built) at the 7B attention geometry (32 heads
      of 128, batch 8, max_seq_len 512 in blocks of 64, a [64, KV, 64, 128]
-     pool pair for each of 32 layers, seeded random qkv): a prefill call a
+     pool pair for each of 8 layers (the 7B's 32 cut to 8, for phase
+     24's time), seeded random qkv): a prefill call a
      layer (prompts of 7-400 tokens under an ALiBi causal-plus-padding
-     mask), then 32 decode steps of 32 layers under tgt_mask, over bf16,
+     mask), then 32 decode steps of 8 layers under tgt_mask, over bf16,
      static-int8 and dynamic-int8 pools, with a 64-key pre-cache, and at
      32 / 8 heads; each run's outputs, pools and scales held against its
      plain twin on the card (K2, K4 and K4-int8 replaced by their plain
@@ -441,10 +445,27 @@ Phases (each prints its seconds):
      8, 64] over the growing Cache and the StaticCache), ms a step, each
      step against row t of the teacher-forced decoder (bf16 5e-2; float32
      on a twin with the initial weights 1e-4), B1 counted exactly;
+ 24. (after phase 10) deployment: BERT-base (phase 9's classifier, bf16,
+     [32, 128]) saved by jit.save(jit.to_static(model), path,
+     input_spec=[InputSpec([32, 128], "int32")]) (a torch.export program
+     whose Hopper kernels are custom ops), served by Config(path) on CUDA
+     graphs: its logits against the live Predictor's bit for bit (else
+     the difference named and held to bf16's 1.6%), a replay's B1
+     launches the live one's; the same for the int8-rewritten model (B7
+     and its fused biases); enable_batch_padding at batch 20 of 32 (and
+     batch 33 refused); a 2-layer Llama at 7B width (bf16, [1, 256]): a
+     replay's K1, K2, K3 and B1 launches and logits against the live
+     forward's; to_static on the card (one capture, a replay launching
+     eager's kernels, dropout's masks new each call and bit for bit
+     eager's for the same keys, a host read mid-forward giving 2 segments
+     and eager's values, full_graph=True raising); the float32 2-layer
+     Llama exported on cuda and on the CPU, logits within 1e-4 of the
+     largest |logit|; export, save, load, first-run, capture and steady
+     ms and each .pt2's bytes;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict", "blha", "control",
   "fleet", "mixed_cache", "chaos", "train_amp", "finetune", "fit",
-  "optimizers", "gpt", "decoder"}, null for a
+  "optimizers", "gpt", "decoder", "deploy"}, null for a
   path whose phase did not run; "fleet" the sum over the surviving
   workers), then the card line, then {"ok": true, "device": {...}} as the
   last line.
@@ -579,6 +600,11 @@ PATHS = {
     # phase 23: the Transformer base, trained at dropout 0.1 (the plain
     # attention) and decoded over gen_cache's caches (B1)
     "decoder": ("flash_attention", "fused_adamw"),
+    # phase 24: the jit.save artifacts served by Config(path) Predictors
+    # (BERT-base float and int8, a 2-layer 7B-width Llama): the kernels
+    # as custom ops inside torch.export programs
+    "deploy": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+               "flash_attention", "int8_matmul"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -2245,8 +2271,10 @@ def _dispatches(torch, fn):
 
 def _rope_one_launch(torch):
     """apply_rotary_pos_emb with the ring's pos on the device is one K2
-    launch and dispatches nothing to PyTorch but the outputs' allocations
-    (the window's clamp, arange, add and gathers were six launches)."""
+    launch and dispatches nothing to PyTorch but K2's custom op
+    (``paddle_tpu_torch::rope``, whose real implementation allocates the
+    outputs and launches; the window's clamp, arange, add and gathers were
+    six launches)."""
     from paddle_tpu_torch.models.llama import apply_rotary_pos_emb
     from paddle_tpu_torch.ops.hopper import fused_ops
 
@@ -2258,11 +2286,13 @@ def _rope_one_launch(torch):
     n0 = fused_ops.rope_fused.launches
     ops = _dispatches(torch, lambda: apply_rotary_pos_emb(
         q, k, tc, tc, position_offset=pos))
-    kernels = [op for op in ops if not op.startswith("aten.empty")]
+    kernels = [op for op in ops if not op.startswith("aten.empty")
+               and op != "paddle_tpu_torch.rope.default"]
     print(f"apply_rotary_pos_emb with a device offset: "
           f"{fused_ops.rope_fused.launches - n0} K2 launch, PyTorch "
           f"dispatches {ops}")
-    if kernels or fused_ops.rope_fused.launches != n0 + 1:
+    if (kernels or ops.count("paddle_tpu_torch.rope.default") != 1
+            or fused_ops.rope_fused.launches != n0 + 1):
         raise AssertionError(f"apply_rotary_pos_emb dispatched {ops} "
                              "beside one K2 launch")
 
@@ -5528,8 +5558,9 @@ def full_width_predictor(torch, card):
 
 def _no_bias_add(torch, q8, evs):
     """No separate bias add in the int8 run: one biased Int8Linear's
-    forward dispatches no add to PyTorch (its bias rides B7's epilogue;
-    the launch itself goes through ctypes), and the run's profile holds no
+    forward dispatches no aten add (its bias rides B7's epilogue; the
+    launch is B7's custom op ``paddle_tpu_torch::int8_linear``, whose real
+    implementation launches through ctypes), and the run's profile holds no
     more elementwise add kernels than the encoder's residual adds (2 a
     layer) and the position embedding's (the parent's 73 bias adds ran as
     adds of their own).  CUPTI may drop a session's first records, so the
@@ -5540,8 +5571,9 @@ def _no_bias_add(torch, q8, evs):
     b7 = _counters()["int8_matmul"]
     n0, f0 = b7.launches, b7.bias_launches
     ops = _dispatches(torch, lambda: lin(x))
-    adds = [op for op in ops if "add" in op]
-    if adds or (b7.launches, b7.bias_launches) != (n0 + 1, f0 + 1):
+    adds = [op for op in ops if op.startswith("aten.") and "add" in op]
+    if (adds or ops.count("paddle_tpu_torch.int8_linear.default") != 1
+            or (b7.launches, b7.bias_launches) != (n0 + 1, f0 + 1)):
         raise AssertionError(f"one biased Int8Linear dispatched {ops} "
                              "beside one B7 launch with its bias")
     n_adds = sum(e.count for e in evs if "add" in e.key.lower()
@@ -5609,6 +5641,355 @@ def predictor_kernels_vs_plain(torch):
             raise AssertionError(f"{what} predictor logits differ beyond "
                                  "1e-4 of the largest |logit|")
     print("predictor kernel path == plain path (int8 and float)")
+
+
+# -------------------------------------------------------------- phase 24
+# phase 24's Llama: Llama-2-7B widths cut to 2 layers, [1, 256] in bf16;
+# its float32 twin exported on cuda and on the CPU at [1, 128]
+DEPLOY_LLAMA = dict(num_hidden_layers=2)
+DEPLOY_IDS = (1, 256)
+DEPLOY_F32_IDS = (1, 128)
+
+
+def _launch_snapshot():
+    """Every launch counter, and B7's fused-bias count as "int8_bias"."""
+    c = _counters()
+    snap = {k: fn.launches for k, fn in c.items()}
+    snap["int8_bias"] = c["int8_matmul"].bias_launches
+    return snap
+
+
+def _launched_since(before):
+    now = _launch_snapshot()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def _replay_of(torch, pred, xs):
+    """One more run of a predictor whose signature is captured (a replay):
+    (its outputs, the launches it added)."""
+    torch.cuda.synchronize()
+    before = _launch_snapshot()
+    out = pred.run(xs)[0]
+    return out, _launched_since(before)
+
+
+def _same_logits(np, what, got, ref):
+    """Bit for bit; otherwise name the difference and hold bf16's 1.6% of
+    the largest |logit| (the export would then have changed an op)."""
+    if np.array_equal(got, ref):
+        print(f"{what}: logits equal bit for bit")
+        return
+    err = float(np.abs(got - ref).max())
+    tol = 1.6e-2 * float(np.abs(ref).max())
+    print(f"{what}: logits differ by {err:.4e} (tol {tol:.4e}): the "
+          "exported program changed an op")
+    if not err <= tol:
+        raise AssertionError(f"{what}: logits differ beyond bf16's 1.6%")
+
+
+def _saved(torch, jit, layer, path, spec):
+    """``jit.save`` of ``to_static(layer)`` -> (seconds, the export's
+    seconds inside it, .pt2 bytes); an export error raises."""
+    from paddle_tpu_torch.jit import serialization
+
+    export, spent = serialization._export, []
+
+    def timed(*args):
+        t = time.perf_counter()
+        try:
+            return export(*args)
+        finally:
+            spent.append(time.perf_counter() - t)
+
+    serialization._export = timed
+    t = time.perf_counter()
+    try:
+        jit.save(jit.to_static(layer), path, input_spec=spec)
+    finally:
+        serialization._export = export
+    secs = time.perf_counter() - t
+    with open(path + ".pdmodel.json") as f:
+        meta = json.load(f)
+    if "export_error" in meta or not os.path.exists(path + ".pt2"):
+        raise AssertionError(f"jit.save {path}: {meta.get('export_error')}")
+    return secs, spent[0], os.path.getsize(path + ".pt2")
+
+
+def _artifact(torch, path):
+    """``Config(path)`` -> (the predictor, its load seconds)."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    t = time.perf_counter()
+    pred = create_predictor(Config(path))
+    torch.cuda.synchronize()
+    return pred, time.perf_counter() - t
+
+
+def _first_runs(torch, pred, xs):
+    """A signature's first run (eager) and second (captured): their ms."""
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred.run(xs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def full_width_deploy(torch, card, geo=BERT, llama_kw=None, device="cuda"):
+    """Phase 24: jit.save / jit.load and the artifact Predictor at BERT-base
+    and 2-layer 7B-width Llama widths, then to_static on the card; returns
+    the deploy path's launches (the artifacts' runs).  ``geo`` (BERT's
+    keys), ``llama_kw`` (LlamaConfig fields) and ``device`` let the phase
+    be rehearsed on the CPU at a small width."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.inference.predictor import (
+        _rewrite_weight_only_int8,
+    )
+    from paddle_tpu_torch.jit import trace_state
+    from paddle_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        llama_7b,
+    )
+    from paddle_tpu_torch.nn import functional as F
+
+    tmp = tempfile.mkdtemp(prefix="deploy_")
+    try:
+        # the live paths: BERT-base's float and int8 predictors (a replay
+        # each) and the Llama's eager forward, before the counts start
+        model = bert_classifier(torch, geo["layers"], torch.bfloat16,
+                                device=device, hidden=geo["hidden"],
+                                heads=geo["heads"], vocab=geo["vocab"])
+        rng = np.random.default_rng(24)
+        ids = rng.integers(0, geo["vocab"], (geo["batch"], geo["seq"])
+                           ).astype(np.int32)
+        n_pad = geo["batch"] * 5 // 8          # 20 of 32
+        padded = np.concatenate([ids[:n_pad], np.zeros_like(ids[n_pad:])])
+        live = {}
+        fp, q8 = _predictor(model, False), _predictor(model, True)
+        for name, pred, x in (("float", fp, ids), ("int8", q8, ids),
+                              ("padded", fp, padded)):
+            _first_runs(torch, pred, [x])
+            live[name] = _replay_of(torch, pred, [x])
+        llama_kw = llama_kw or llama_7b(**DEPLOY_LLAMA).__dict__
+        lm = LlamaForCausalLM(LlamaConfig(**{**llama_kw,
+                                             "dtype": "bfloat16"}),
+                              device=device, seed=24)
+        lids = rng.integers(0, lm.config.vocab_size, DEPLOY_IDS
+                            ).astype(np.int32)
+        lids_t = torch.from_numpy(lids).to(device)
+        with torch.no_grad():
+            lm(lids_t)
+            torch.cuda.synchronize()
+            before = _launch_snapshot()
+            lref = lm(lids_t)
+            l_launches = _launched_since(before)
+            lref = lref.float().cpu().numpy()
+
+        # the artifacts: save (export + write), load
+        spec = [jit.InputSpec([geo["batch"], geo["seq"]], "int32")]
+        paths = {k: os.path.join(tmp, k) for k in ("float", "int8", "llama")}
+        saves = {"float": _saved(torch, jit, model, paths["float"], spec),
+                 "int8": _saved(torch, jit, _rewrite_weight_only_int8(model),
+                                paths["int8"], spec),
+                 "llama": _saved(torch, jit, lm, paths["llama"], [
+                     jit.InputSpec(list(DEPLOY_IDS), "int32")])}
+        preds = {name: _artifact(torch, paths[name])
+                 for name in ("float", "int8", "llama")}
+        print(f"(a) save (export + write; the export's ms; .pt2 bytes), then "
+              f"load (Config(path) + create_predictor), {card}: "
+              + "; ".join(f"{k} {v[0] * 1e3:.1f} ms ({v[1] * 1e3:.1f} ms; "
+                          f"{v[2]} bytes), load {preds[k][1] * 1e3:.1f} ms"
+                          for k, v in saves.items())
+              + f" (BERT-base bf16 {list(ids.shape)}, its int8 rewrite, "
+              f"Llama 2 layers at 7B width bf16 {DEPLOY_IDS})")
+
+        # the deploy path: the artifacts' runs, counted from 0; the float
+        # artifact's predictor then pads a batch of 20 (its config's
+        # enable_batch_padding, read at each run)
+        counters = _zero_counters()
+        runs = {}
+        for name, x in (("float", ids), ("int8", ids), ("llama", lids),
+                        ("padded", ids[:n_pad])):
+            pred = preds["float" if name == "padded" else name][0]
+            if name == "padded":
+                pred.config.enable_batch_padding()
+            first = _first_runs(torch, pred, [x])
+            runs[name] = (first, *_replay_of(torch, pred, [x]))
+            if name == "float":
+                steady = _ms_per_run(torch, pred, ids)
+        launches = _path_launches("deploy", counters)
+        for name, (first, _, _) in runs.items():
+            print(f"(b) {name} artifact: first run {first[0]:.1f} ms, second "
+                  f"{first[1]:.1f} ms "
+                  + ("(replays of the float signature's graph)"
+                     if name == "padded" else "(eager, then the capture)"))
+        print(f"(b) float artifact {list(ids.shape)} steady: {steady:.3f} ms "
+              f"per run "
+              f"({card})")
+
+        # the artifacts against the live paths
+        for name, keys in (("float", ("flash_attention",)),
+                           ("int8", ("int8_matmul", "int8_bias",
+                                     "flash_attention")),
+                           ("padded", ("flash_attention",))):
+            got, n = runs[name][1], runs[name][2]
+            ref, m = live[name]
+            if name == "padded":
+                ref = ref[:n_pad]
+                if got.shape != (n_pad, 2):
+                    raise AssertionError(f"padded run gave {got.shape}")
+            _same_logits(np, f"(c) {name} artifact vs the live Predictor",
+                         got, ref)
+            if any(n.get(k, 0) != m.get(k, 0) or not n.get(k) for k in keys):
+                raise AssertionError(f"{name} artifact launched {n}, the live "
+                                     f"Predictor {m}")
+            print(f"(c) {name}: a replay launched "
+                  + ", ".join(f"{k} {n[k]}" for k in keys)
+                  + ", as the live Predictor's")
+        with_pad = preds["float"][0]
+        try:
+            with_pad.run([np.concatenate([ids, ids[:1]])])
+        except ValueError as e:
+            print(f"(c) batch {len(ids) + 1} with padding to {len(ids)}: "
+                  f"ValueError ({e})")
+        else:
+            raise AssertionError("a batch past the artifact's ran")
+        got, n = runs["llama"][1], runs["llama"][2]
+        _same_logits(np, "(d) Llama artifact vs its live forward", got, lref)
+        keys = ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+                "flash_attention")
+        if {k: n.get(k) for k in keys} != {k: l_launches.get(k)
+                                           for k in keys}:
+            raise AssertionError(f"Llama artifact launched {n}, the live "
+                                 f"forward {l_launches}")
+        print("(d) Llama: a replay launched "
+              + ", ".join(f"{k} {n[k]}" for k in keys)
+              + ", as the live forward")
+        del preds, runs, live, fp, q8
+
+        # to_static on the card: one capture per key, replays launching
+        # what eager launched
+        st = jit.to_static(lm)
+        with torch.no_grad():
+            outs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                before = _launch_snapshot()
+                outs.append(st(lids_t).float().cpu().numpy())
+            n = _launched_since(before)
+        cache = st._graph_cache
+        if cache.captures != 1 or len(st._cache) != 1:
+            raise AssertionError(f"to_static: {cache.captures} captures for "
+                                 f"{len(st._cache)} keys")
+        if n != l_launches:
+            raise AssertionError(f"to_static replay launched {n}, eager "
+                                 f"{l_launches}")
+        for o in outs:
+            _same_logits(np, "(e) to_static(Llama) vs its eager forward", o,
+                         lref)
+        print(f"(e) to_static(Llama): 1 capture, the replay launched {n}")
+
+        def drop(x):
+            return F.dropout(x, 0.5, training=True) * 2.0
+
+        x = torch.randn(64, 1024, device=device)
+        prandom.seed(24)
+        sd = jit.to_static(drop)
+        with torch.no_grad():
+            got = [sd(x).clone() for _ in range(4)]
+        prandom.seed(24)
+        for i, g in enumerate(got):
+            k = prandom.default_generator().next_key(device)
+            with trace_state.activate(trace_state.TraceContext(k)):
+                want = drop(x)
+            if not torch.equal(g, want):
+                raise AssertionError(f"to_static dropout call {i}: masks "
+                                     "differ from eager's for the same key")
+        if any(torch.equal(got[i], got[i + 1]) for i in range(3)):
+            raise AssertionError("to_static dropout repeated a mask")
+        if sd._graph_cache.captures != 1:
+            raise AssertionError("to_static dropout captured more than once")
+        print("(e) to_static dropout: 4 calls (eager, eager + capture, 2 "
+              "replays), new masks each call, bit for bit eager's for the "
+              "same keys")
+
+        g = torch.Generator(device=device)
+        g.manual_seed(24)
+        from paddle_tpu_torch import nn as pnn
+
+        class MidBreak(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.fc1 = pnn.Linear(1024, 1024, device=device, generator=g)
+                self.fc2 = pnn.Linear(1024, 256, device=device, generator=g)
+
+            def forward(self, x):
+                h = self.fc1(x)
+                s = float(h.detach().cpu().numpy().std()) + 1.0
+                return self.fc2(h / s)
+
+        net = MidBreak()
+        sb = jit.to_static(net)
+        with torch.no_grad():
+            want = net(x)
+            import warnings
+
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                a, b = sb(x), sb(x)
+        if (sb.last_segment_count != 2 or len(sb._fallback_keys) != 1
+                or not any("graph break" in str(m.message) for m in w)
+                or not (torch.equal(a, want) and torch.equal(b, want))):
+            raise AssertionError(f"graph break: {sb.last_segment_count} "
+                                 "segments, or values differ from eager")
+        try:
+            with torch.no_grad():
+                jit.to_static(net, full_graph=True)(x)
+        except RuntimeError as e:
+            print(f"(e) a .numpy() mid-forward: 2 segments, eager's values; "
+                  f"full_graph=True raises ({str(e)[:60]}...)")
+        else:
+            raise AssertionError("full_graph=True ran through a host read")
+
+        # against the plain path: the float32 Llama exported on cuda and on
+        # the CPU (its kernels' plain versions)
+        lf = LlamaForCausalLM(LlamaConfig(**llama_kw), device=device,
+                              seed=25)
+        lc = copy.deepcopy(lf).to("cpu")
+        fids = rng.integers(0, lf.config.vocab_size, DEPLOY_F32_IDS
+                            ).astype(np.int32)
+        fspec = [jit.InputSpec(list(DEPLOY_F32_IDS), "int32")]
+        outs = {}
+        for dev, m in ((device, lf), ("cpu", lc)):
+            path = os.path.join(tmp, f"f32_{dev}")
+            secs, _, size = _saved(torch, jit, m, path, fspec)
+            t = time.perf_counter()
+            loaded = jit.load(path)
+            outs[dev] = loaded(fids).float().cpu().numpy()
+            print(f"(f) float32 Llama artifact on {dev}: save {secs:.2f} s, "
+                  f"{size} bytes, load + one run "
+                  f"{time.perf_counter() - t:.2f} s")
+            del loaded
+        err = float(np.abs(outs[device] - outs["cpu"]).max())
+        tol = 1e-4 * float(np.abs(outs["cpu"]).max())
+        print(f"(f) float32 artifacts cuda vs cpu: max_abs_err {err:.3e} "
+              f"tol {tol:.3e}")
+        if not err <= tol:
+            raise AssertionError("float32 artifacts differ beyond 1e-4 of the "
+                                 "largest |logit|")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ main
@@ -6140,8 +6521,10 @@ def full_width_int8(torch, model):
 # -------------------------------------------------------------- phase 13
 # the public block_multihead_attention at the Llama-2-7B attention
 # geometry (phases 3 and 12): 32 heads of 128, batch 8, max_seq_len 512 in
-# blocks of 64 (8 a row), one [64, KV, 64, 128] pool pair a layer
-BLHA = dict(batch=8, max_seq_len=512, block_size=64, layers=32, heads=32,
+# blocks of 64 (8 a row), one [64, KV, 64, 128] pool pair a layer; depth
+# cut to 8 of the 32 layers (each layer's calls are checked alone), so
+# that the full run keeps its limit with phase 24
+BLHA = dict(batch=8, max_seq_len=512, block_size=64, layers=8, heads=32,
             head_dim=128, decode_steps=32,
             prompts=(7, 400, 128, 256, 33, 300, 90, 150))
 
@@ -6293,9 +6676,10 @@ def _blha_run(torch, KV, quant, Lp, layers=None, dtype=None, device="cuda",
 
 def full_width_blha(torch):
     """Phase 13: the public incubate.nn.functional.block_multihead_attention
-    at full width (``BLHA``): per run, 32 layers' prefill calls and 32
-    decode steps of 32 layers; bf16, static and dynamic int8 pools, a
-    64-key pre-cache, GQA 32 / 8.  Each run's outputs held against its plain
+    at full width (``BLHA``, 8 layers): per run, a prefill call a layer
+    and 32 decode steps of every layer; bf16, static and dynamic int8
+    pools, a 64-key pre-cache, GQA 32 / 8.  Each run's outputs held against
+    its plain
     twin on the card (K2, K4 and K4-int8 replaced by their plain
     versions), the pools and scales after the run too; K4 / K4-int8 and K2
     launches equal to the wrapper's calls, every one a masked launch; the
@@ -7762,7 +8146,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19,20,21,22,23",
+                            "19,20,21,22,23,24",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -7969,6 +8353,13 @@ def main(argv=None) -> int:
         t = _phase("10 predictor: kernel path vs plain path")
         predictor_kernels_vs_plain(torch)
         _done("10", t)
+    if 24 in phases:
+        t = _phase("24 deployment: to_static, jit.save / jit.load and the "
+                   "artifact Predictor")
+        launches["deploy"] = full_width_deploy(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("24", t)
     # launches per path, each from that path's own run: null when its
     # phase did not run
     for r in rows:

@@ -157,7 +157,7 @@ def bernoulli(k: torch.Tensor, p: float, shape: Sequence[int]
     """Booleans, True with probability ``p``: ``uniform(k, shape) < p``
     with ``p`` rounded to float32, ``jax.random.bernoulli``'s "low" mode
     for a float ``p``."""
-    p32 = float(torch.tensor(float(p), dtype=torch.float32))
+    p32 = float(np.float32(p))
     return uniform(k, shape) < p32
 
 

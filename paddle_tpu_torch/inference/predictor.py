@@ -1,39 +1,50 @@
 """Inference predictor — the port of ``paddle_tpu/inference/__init__.py``'s
 ``Config``/``Predictor`` surface (paddle's ``create_predictor`` API).
 
-A ``Predictor`` serves a live layer (``Config.set_layer``): it runs the
-layer under ``torch.no_grad()`` in ``eval()`` on the device of the layer's
-parameters, with the inputs moved there, and hands the outputs back as
-numpy.  With ``Config.enable_weight_only_quant("int8")`` it first rewrites
-a deep copy of the layer (the caller's layer is left untouched), swapping
-every ``nn.Linear`` for an ``Int8Linear`` whose product is kernel B7
-(``quantization.weight_only_linear``).  ``ParallelLinear`` (Llama's
+A ``Predictor`` serves a live layer (``Config.set_layer``) or a saved
+artifact (``Config(model_path)``, the path ``jit.save`` wrote).
+
+A live layer runs under ``torch.no_grad()`` in ``eval()`` on the device of
+the layer's parameters, with the inputs moved there, and hands the outputs
+back as numpy.  With ``Config.enable_weight_only_quant("int8")`` it first
+rewrites a deep copy of the layer (the caller's layer is left untouched),
+swapping every ``nn.Linear`` for an ``Int8Linear`` whose product is kernel
+B7 (``quantization.weight_only_linear``).  ``ParallelLinear`` (Llama's
 projections) is not a ``Linear`` and is left as it is, as the reference's
 rewrite leaves its mp layers.
+
+An artifact runs its exported program (``jit.load``: a ``torch.export``
+program whose kernels are the port's custom ops) on the device it was
+exported on.  ``get_input_names`` reads its input spec (``x0``, ``x1``,
+...); ``enable_weight_only_quant`` has no effect on it and warns, as the
+reference's (the weights are in the program: save an int8-rewritten layer
+instead); ``enable_batch_padding`` pads dim 0 of each input with zeros up
+to the exported batch (``_pad_batch``; a larger batch raises
+``ValueError``) and slices the outputs back to the real batch.  A missing
+artifact raises ``FileNotFoundError`` on its ``.pdmodel.json``.
 
 The reference keeps one ``jax.jit`` per input signature, keyed
 ``tuple((shape, dtype))``.  On CUDA each ``Predictor`` owns a
 ``jit.graphs.GraphCache`` (its own memory pool; a ``PredictorPool``'s
 predictors each have theirs) under the same key: a signature's first run
-is eager, then the layer's forward is captured into a CUDA graph; later
-runs copy the inputs into the graph's static buffers (numpy and CPU
-tensors through pinned staging, device tensors device to device), replay,
-and copy the outputs to numpy, the run's one wait.  The handles API takes
-the same route.  The cache is unbounded, as the reference's.  The graphs
-read the layer's parameters in place: a parameter or buffer replaced by
-another tensor (``Module.to``, ``load_state_dict(..., assign=True)``)
-drops them at the next run (``GraphCache.watch``), and they are captured
-again; a submodule swapped in after the predictor was made is not seen
-(the reference's compiled programs keep the weights of their first run).
-A layer on the CPU runs eagerly; the private ``_graphs = False`` runs it
-eagerly on CUDA too (the tests and ``chip_smoke.py``).
-
-Not ported: predictors over a saved artifact (``Config(model_path)``, the
-reference's ``.jaxexport``; a ``torch.export`` counterpart is ROADMAP A9).
+is eager, then the layer's forward (or the artifact's program) is
+captured into a CUDA graph; later runs copy the inputs into the graph's
+static buffers (numpy and CPU tensors through pinned staging, device
+tensors device to device), replay, and copy the outputs to numpy, the
+run's one wait.  The handles API takes the same route.  The cache is
+unbounded, as the reference's.  The graphs read the parameters in place:
+a parameter or buffer replaced by another tensor (``Module.to``,
+``load_state_dict(..., assign=True)``) drops them at the next run
+(``GraphCache.watch``), and they are captured again; a submodule swapped
+in after the predictor was made is not seen (the reference's compiled
+programs keep the weights of their first run).  A layer or artifact on
+the CPU runs eagerly; the private ``_graphs = False`` runs it eagerly on
+CUDA too (the tests and ``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import copy
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -51,15 +62,12 @@ __all__ = ["Config", "create_predictor", "Predictor", "PredictorPool",
 
 
 class Config:
-    """paddle.inference.Config for a live layer."""
+    """paddle.inference.Config: a live layer (``set_layer``) or the
+    ``jit.save`` path of an artifact (``model_path``; ``params_path`` kept
+    for parity)."""
 
     def __init__(self, model_path: Optional[str] = None,
                  params_path: Optional[str] = None):
-        if model_path is not None:
-            raise NotImplementedError(
-                "inference.Config(model_path): predictors over a saved "
-                "artifact are not ported yet (ROADMAP A9, torch.export); "
-                "serve a live layer with Config().set_layer(layer)")
         self.model_path = model_path
         self.params_path = params_path
         self._weight_only = None
@@ -93,10 +101,9 @@ class Config:
         self._weight_only = dtype
 
     def enable_batch_padding(self, flag=True):
-        """Pad smaller batches up to an artifact's compiled batch.  Only a
-        predictor over an artifact reads it, as in the reference, and that
-        predictor is not ported yet (ROADMAP A9, with ``_pad_batch``): on a
-        live layer it has no effect."""
+        """Pad smaller batches up to an artifact's exported batch instead of
+        failing on them.  Only a predictor over an artifact reads it, as in
+        the reference: on a live layer it has no effect."""
         self._batch_pad = flag
 
     def set_layer(self, layer: nn.Module):
@@ -146,25 +153,42 @@ class Predictor:
     bfloat16; the widening is exact)."""
 
     def __init__(self, config: Config):
-        if config._layer is None:
-            raise ValueError("Predictor: the config holds no layer; call "
-                             "config.set_layer(layer)")
         self.config = config
         self._layer = config._layer
-        if config._weight_only == "int8":
-            self._layer = _rewrite_weight_only_int8(self._layer)
-        # a layer with neither parameters nor buffers runs on the card
-        # (resolve_device raises without CUDA: there is no quiet CPU run)
-        first = next(iter(self._layer.parameters()),
-                     next(iter(self._layer.buffers()), None))
-        self._device = (first.device if first is not None
-                        else resolve_device(None))
+        self._loaded = None
+        self._input_names: List[str] = []
+        if config.model_path and self._layer is None:
+            from ..jit.serialization import load as jit_load
+
+            self._loaded = jit_load(config.model_path)
+            if config._weight_only is not None:
+                warnings.warn(
+                    "enable_weight_only_quant has no effect on a saved "
+                    "artifact (weights are baked into the compiled program); "
+                    "build the predictor from a live Layer via "
+                    "config.set_layer() to serve int8 weights")
+            spec = self._loaded.meta.get("input_spec") or []
+            self._input_names = [f"x{i}" for i in range(len(spec))]
+            self._device = self._loaded.device
+            weights = self._loaded.module or torch.nn.Module()
+        elif self._layer is None:
+            raise ValueError("Predictor: the config holds no layer; call "
+                             "config.set_layer(layer)")
+        else:
+            if config._weight_only == "int8":
+                self._layer = _rewrite_weight_only_int8(self._layer)
+            # a layer with neither parameters nor buffers runs on the card
+            # (resolve_device raises without CUDA: there is no quiet CPU run)
+            first = next(iter(self._layer.parameters()),
+                         next(iter(self._layer.buffers()), None))
+            self._device = (first.device if first is not None
+                            else resolve_device(None))
+            weights = self._layer
         self._inputs: Dict[str, _Handle] = {}
         self._outputs: List[np.ndarray] = []
-        self._input_names: List[str] = []
         self._graphs = self._device.type == "cuda"
         self._graph_cache = GraphCache(self._device, counters=launch_counters,
-                                       weights=module_tensors(self._layer))
+                                       weights=module_tensors(weights))
 
     # ----------------------------------------------------------- handles API
     def get_input_names(self):
@@ -194,11 +218,18 @@ class Predictor:
             inputs = [self._inputs[n]._val for n in self._input_names]
         vals = [v if isinstance(v, torch.Tensor)
                 else _tensor_from_numpy(np.asarray(v)) for v in inputs]
-        layer = self._layer
+        real_n = None
+        if self._loaded is not None:
+            forward = self._loaded.forward_flat
+            spec = self._loaded.meta.get("input_spec") or []
+            if self.config._batch_pad and spec:
+                vals, real_n = _pad_batch(vals, spec)
+        else:
+            layer = self._layer
 
-        def forward(*xs):
-            layer.eval()
-            return _flatten(layer(*xs))
+            def forward(*xs):
+                layer.eval()
+                return _flatten(layer(*xs))
 
         with torch.no_grad():
             if self._graphs:
@@ -208,15 +239,14 @@ class Predictor:
                 outs = cache.run(key, forward, vals)
             else:
                 outs = forward(*[v.to(self._device) for v in vals])
-        self._outputs = [_to_numpy(o) for o in outs]
+        self._outputs = [_to_numpy(o)[:real_n] for o in outs]
         return self._outputs
 
 
 def _pad_batch(vals: List[torch.Tensor], spec):
     """Pad dim 0 of each input with zeros up to the artifact's batch
     (``spec[i]["shape"][0]``, 1 when unknown); return (padded, real batch).
-    A larger batch raises ``ValueError``.  For the artifact predictor
-    (ROADMAP A9)."""
+    A larger batch raises ``ValueError``."""
     real_n = int(vals[0].shape[0])
     out = []
     for v, sm in zip(vals, spec):

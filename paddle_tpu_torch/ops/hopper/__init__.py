@@ -1,9 +1,18 @@
 """Hand-written Hopper (sm_90a) kernels, one module per kernel source in
 ``paddle_tpu_torch/csrc/``, mirroring ``paddle_tpu/ops/pallas/``.  Each
-module keeps the kernel's plain PyTorch version beside its wrapper."""
+module keeps the kernel's plain PyTorch version beside its wrapper.
+
+Importing this package registers the ``torch.library`` ops of the
+kernels an exported program calls (``_build.kernel_op``:
+``paddle_tpu_torch::rms_norm``, ``::rms_norm_residual``, ``::rope``,
+``::swiglu``, ``::flash_attention``, ``::int8_linear``), so
+``torch.export.load`` finds them (``jit/serialization.py`` imports it
+first)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
+
+from . import flash_attention, fused_norm, fused_ops, int8_matmul  # noqa: F401
 
 __all__ = ["launch_counters"]
 

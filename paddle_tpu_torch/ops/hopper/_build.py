@@ -34,12 +34,12 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 __all__ = ["build", "lib", "check", "launch_args", "launch_args_cached",
-           "dtype_code", "f16_note",
+           "dtype_code", "f16_note", "kernel_op",
            "device_guard", "wants_grad", "SOURCES", "LIB_PATH"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -264,6 +264,32 @@ def launch_args_cached(name: str, q: torch.Tensor,
                              f"q's device {q.device}, got {t.device}/"
                              f"{t.dtype} beside {q.device}/{cd}")
     return dt, dtype_code(name, caches[0]), stream
+
+
+# the namespace of the kernels' ops (``torch.ops.paddle_tpu_torch``); the
+# registrations live as long as this object
+_OPS = torch.library.Library("paddle_tpu_torch", "FRAGMENT")
+
+
+def kernel_op(schema: str, fake: Callable):
+    """Decorator: define the op ``paddle_tpu_torch::<schema>`` with the
+    decorated function as its implementation on every device
+    (``CompositeExplicitAutograd``: the function takes the plain version
+    for CPU tensors and launches the kernel for CUDA ones) and ``fake`` as
+    its fake implementation (the output shapes and dtypes, for
+    ``torch.export``); return the op.  A wrapper calls the op, so eager
+    runs, CUDA graphs and exported programs take one path.  Not
+    ``torch.library.custom_op``: its wrapper imports ``torch._dynamo``
+    (sympy, DTensor) at each process's first call, seconds in every
+    serving worker."""
+    def register(impl):
+        name = schema.split("(", 1)[0]
+        _OPS.define(schema)
+        _OPS.impl(name, impl, "CompositeExplicitAutograd")
+        torch.library.register_fake(f"paddle_tpu_torch::{name}", fake,
+                                    lib=_OPS)
+        return getattr(torch.ops.paddle_tpu_torch, name).default
+    return register
 
 
 def wants_grad(*tensors: torch.Tensor) -> bool:

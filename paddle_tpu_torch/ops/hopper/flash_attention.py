@@ -45,7 +45,11 @@ output columns (Queue C8).
 versions (``_ref_fwd_impl`` / ``_ref_bwd_impl``, the reference's jnp
 fallbacks transcribed, in float32) only for CPU tensors.  For CUDA tensors
 they launch the kernels or raise; ``launches`` counts the calls that
-launch (a call may be several CUDA kernels).
+launch (a call may be several CUDA kernels).  The forward is the
+``torch.library`` op ``paddle_tpu_torch::flash_attention``: every
+address, alignment check and tile choice is read in its real
+implementation, so ``torch.export`` traces it through its fake one
+(output shapes only) and keeps the call.
 ``block_fwd`` / ``block_bwd`` and ``flash_attention_fwd`` are the
 reference's entries over them; ``flash_attention_fwd`` is differentiable
 (a ``torch.autograd.Function`` saving q, k, v, out and lse, as
@@ -232,15 +236,46 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset`` (causal only) is an int or a 0-d int32 device tensor,
     ``Sk - Sq`` when None.  ``blocks`` forces a (block_q, block_k) pair
     (``autotune.tune`` times them); by default the tile table picks.
-    ``launches`` counts calls that launch (one CUDA kernel each)."""
+    ``launches`` counts calls that launch (one CUDA kernel each).  The call
+    is the op ``paddle_tpu_torch::flash_attention``."""
     D = q.shape[-1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    off_t = q_offset if isinstance(q_offset, torch.Tensor) else None
+    off_i = None if q_offset is None or off_t is not None else int(q_offset)
+    return _flash_fwd(q, k, v, bool(causal), scale, off_t, off_i,
+                      None if blocks is None else [int(b) for b in blocks])
+
+
+def _flash_fake(q, k, v, causal, scale, q_offset, q_offset_int, blocks):
+    B, Sq, H, D = q.shape
+    return (q.new_empty((B, Sq, H, D)),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+@_build.kernel_op("flash_attention(Tensor q, Tensor k, Tensor v, "
+                  "bool causal, float scale, Tensor? q_offset, "
+                  "int? q_offset_int, int[]? blocks) -> (Tensor, Tensor)",
+                  fake=_flash_fake)
+def _flash_fwd(q, k, v, causal, scale, q_offset, q_offset_int, blocks):
+    """B1 (its plain version for CPU tensors): the real implementation
+    checks, picks the tiles, reads the addresses, launches and counts;
+    ``q_offset`` (a device tensor) and ``q_offset_int`` are the two kinds
+    of ``flash_attention_fused``'s offset, at most one given."""
+    off = q_offset if q_offset is not None else q_offset_int
     if q.device.type == "cpu":
-        return _plain_bshd(q, k, v, causal, scale, q_offset)
+        return _plain_bshd(q, k, v, causal, scale, off)
+    return _flash_launch(q, k, v, causal, scale, off,
+                         None if blocks is None else tuple(blocks))
+
+
+def _flash_launch(q, k, v, causal, scale, q_offset, blocks):
+    """B1 on CUDA tensors (a head dim that is not a multiple of 8
+    zero-padded to the next one)."""
     name = "flash_attention_fused"
+    D = q.shape[-1]
     if D % 8:
-        out, lse = flash_attention_fused(*_pad8(q, k, v), causal, scale,
-                                         q_offset, blocks)
+        out, lse = _flash_launch(*_pad8(q, k, v), causal, scale, q_offset,
+                                 blocks)
         return out[..., :D].contiguous(), lse
     _check(name, q, k, v, q_offset)
     dt, stream = _build.launch_args(name, q, k, v)

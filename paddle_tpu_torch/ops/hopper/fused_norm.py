@@ -19,6 +19,11 @@ plan (``chip_smoke.py``'s edges and ``--k1-sweep``).
 A wrapper runs the plain version (``_ref_rms`` / ``_ref_rms_residual``, a
 transcription of the Pallas kernels) only for CPU tensors.  For CUDA tensors
 it launches the kernel or raises; ``launches`` counts kernel launches.
+Each forward is a ``torch.library`` op (``paddle_tpu_torch::rms_norm``,
+``::rms_norm_residual``; ``_build.kernel_op``): its real implementation
+checks, plans from the tensors' addresses, launches and counts; its fake
+one states the output shapes, so ``torch.export`` traces the op without
+reading an address or launching anything (``jit/serialization.py``).
 
 Both are differentiable.  Where a gradient is wanted the forward runs inside
 a ``torch.autograd.Function`` that saves its inputs, and the backward is the
@@ -186,12 +191,18 @@ def _launch(fn, x, r, w, eps, **force):
     return out, res_out
 
 
+@_build.kernel_op("rms_norm(Tensor x, Tensor w, float eps) -> Tensor",
+                  fake=lambda x, w, eps: x.new_empty(x.shape))
 def _rms_fwd(x, w, eps):
     if x.device.type == "cpu":
         return _ref_rms(x, w, eps)
     return _launch(rms_norm_fused, x, None, w, eps)[0]
 
 
+@_build.kernel_op("rms_norm_residual(Tensor x, Tensor residual, Tensor w, "
+                  "float eps) -> (Tensor, Tensor)",
+                  fake=lambda x, r, w, eps: (x.new_empty(x.shape),
+                                             x.new_empty(x.shape)))
 def _rms_residual_fwd(x, residual, w, eps):
     if x.device.type == "cpu":
         return _ref_rms_residual(x, residual, w, eps)

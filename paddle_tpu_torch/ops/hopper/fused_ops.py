@@ -39,7 +39,11 @@ counts kernel launches.  ``rope_fused`` and ``swiglu_fused`` are
 differentiable: where a gradient is wanted they run inside a
 ``torch.autograd.Function`` whose backward is ``rope_bwd_fused`` (saving
 only the cos/sin tables and the offset, as ``_rope_fwd``) or
-``swiglu_bwd_fused`` (saving ``(a, b)``, as ``_swiglu_fwd``).
+``swiglu_bwd_fused`` (saving ``(a, b)``, as ``_swiglu_fwd``).  The
+forwards of ``rope_fused`` and ``swiglu_fused`` are ``torch.library``
+ops (``paddle_tpu_torch::rope``, ``::swiglu``; ``_build.kernel_op``:
+checks, plan, launch and count in the real implementation, shapes only in
+the fake one), so ``torch.export`` keeps them as calls of the kernels.
 """
 from __future__ import annotations
 
@@ -220,7 +224,12 @@ def _rope_launch(fn, q, k, cos, sin, position_offset=None, sign=1.0,
     return oq, ok
 
 
-def _rope_fwd(q, k, cos, sin, position_offset=None, interleaved=False):
+@_build.kernel_op("rope(Tensor q, Tensor k, Tensor cos, Tensor sin, "
+                  "Tensor? position_offset, bool interleaved) -> "
+                  "(Tensor, Tensor)",
+                  fake=lambda q, k, *_: (q.new_empty(q.shape),
+                                         k.new_empty(k.shape)))
+def _rope_fwd(q, k, cos, sin, position_offset, interleaved):
     if q.device.type == "cpu":
         return _rope_ref(q, k, *_window(cos, sin, q.shape[1],
                                         position_offset), interleaved)
@@ -313,6 +322,8 @@ def _check_same(name, *tensors):
                              f"shape, got {[tuple(x.shape) for x in tensors]}")
 
 
+@_build.kernel_op("swiglu(Tensor a, Tensor b) -> Tensor",
+                  fake=lambda a, b: a.new_empty(a.shape))
 def _swiglu_fwd(a, b):
     if a.device.type == "cpu":
         return _swiglu_ref(a, b)

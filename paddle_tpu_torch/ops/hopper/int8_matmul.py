@@ -32,9 +32,12 @@ that dtype); for CUDA tensors they launch the kernel or raise.  An x other
 than float32 or bfloat16, or a qw other than int8, raises on either device.
 ``int8_matmul.launches`` counts kernel launches (one per call of either
 wrapper), ``int8_matmul.bias_launches`` those that added a bias in the
-epilogue.  The gradient flows to x, ``dx = g @ (qw * scale)^T`` in g's
-dtype, plain torch as the reference's jnp backward, and to the bias, ``g``
-summed over rows; qw and scale get none.
+epilogue.  The forward is the ``torch.library`` op
+``paddle_tpu_torch::int8_linear`` (the plan and the addresses are read in
+its real implementation; its fake one gives the output's shape), so an
+exported program keeps the call.  The gradient flows to x, ``dx = g @
+(qw * scale)^T`` in g's dtype, plain torch as the reference's jnp
+backward, and to the bias, ``g`` summed over rows; qw and scale get none.
 """
 from __future__ import annotations
 
@@ -235,6 +238,10 @@ def _launch(x2, qw, scale, bias=None, **force):
     return out
 
 
+@_build.kernel_op("int8_linear(Tensor x, Tensor qw, Tensor scale, "
+                  "Tensor? bias) -> Tensor",
+                  fake=lambda x, qw, scale, bias: x.new_empty(
+                      (*x.shape[:-1], qw.shape[1])))
 def _forward(x, qw, scale, bias):
     K, N = qw.shape
     x2 = x.reshape(-1, K)          # a view where the layout allows one

@@ -58,7 +58,11 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.ops.hopper.int8_matmul,"
             " paddle_tpu_torch.io, paddle_tpu_torch.native,"
             " paddle_tpu_torch.hapi, paddle_tpu_torch.callbacks,"
-            " paddle_tpu_torch.metric, paddle_tpu_torch.framework_io\n"
+            " paddle_tpu_torch.metric, paddle_tpu_torch.framework_io,"
+            " paddle_tpu_torch.jit.api, paddle_tpu_torch.jit.lazy_segments,"
+            " paddle_tpu_torch.jit.serialization,"
+            " paddle_tpu_torch.incubate,"
+            " paddle_tpu_torch.inference.predictor\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu',"
             " 'ml_dtypes') or m.startswith(('jax.', 'paddle_tpu.',"
             " 'ml_dtypes.'))]\n"
@@ -119,6 +123,27 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         inference.create_predictor(cfg)
     cfg.set_layer(pnn.LayerNorm(4, device="cpu"))
     assert inference.create_predictor(cfg)._device.type == "cpu"
+    # an artifact runs where it was exported: one exported on the card is
+    # refused here, by jit.load and by Config(path); a CPU one runs
+    import json
+    import tempfile
+
+    from paddle_tpu_torch import jit
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "model")
+        jit.save(pnn.LayerNorm(4, device="cpu"), path,
+                 input_spec=[jit.InputSpec([2, 4], "float32")])
+        assert jit.load(path)(torch.ones(2, 4)).shape == (2, 4)
+        with open(path + ".pdmodel.json") as f:
+            meta = json.load(f)
+        meta["device"] = "cuda:0"
+        with open(path + ".pdmodel.json", "w") as f:
+            json.dump(meta, f)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            jit.load(path)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            inference.create_predictor(inference.Config(path))
 
 
 def test_generation_runs_on_the_model_device():
