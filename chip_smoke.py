@@ -5,7 +5,8 @@ KV cache, a KV cache of the other float dtype, the serving control plane
 over two engines, the serving fleet over worker processes and the
 in-process chaos soaks), Llama
 generation (forward, generate, greedy_decode) over the
-static KV ring, Llama pretraining (TrainStep + AdamW, and under AMP with
+static KV ring (also under AMP O1), Llama pretraining (TrainStep + AdamW,
+and through static Programs, and under AMP with
 a GradScaler, a gradient clip and a schedule, and under Lamb and the other
 optimizers), bench_ladder.py's BERT-base finetune with dropout (also
 through hapi.Model with DataLoader workers, checkpoints and a reload),
@@ -27,7 +28,9 @@ them.
     python3 chip_smoke.py --phases 19,20   # Model.fit, the optimizers
     python3 chip_smoke.py --phases 2,21,22,23  # kernels + GPT, the decoder
     python3 chip_smoke.py --phases 24      # jit.save artifacts, to_static
+    python3 chip_smoke.py --phases 7,25    # static Programs (beside phase 7)
     python3 chip_smoke.py --masked-rows PARENT_DIR  # masked K4 rows only
+    python3 chip_smoke.py --decode-costs PARENT_DIR  # dispatch, decode
     python3 chip_smoke.py --phases 1,2 --k1-sweep   # + K1 under each plan
 
 Phases (each prints its seconds):
@@ -462,10 +465,28 @@ Phases (each prints its seconds):
      Llama exported on cuda and on the CPU, logits within 1e-4 of the
      largest |logit|; export, save, load, first-run, capture and steady
      ms and each .pt2's bytes;
+ 25. (after phase 7) static Programs (paddle_tpu_torch.static): C16 first
+     (a float32 2-layer 7B-width Llama under auto_cast O1 bf16: a decode
+     step's new cache rows over growing caches and the ring against the
+     CPU's plain versions, and generate (ring and growing) and
+     greedy_decode's tokens against the CPU's); a 2-layer 7B-width bf16
+     Llama recorded under program_guard with data("ids", [1, 256]) and
+     replayed by Executor.run (the first run eager, then captured, later
+     runs graph replays adding no cache entry) bit for bit and launch for
+     launch against the eager forward, the same after DCE, CSE and
+     constant folding, and through save_inference_model /
+     load_inference_model; bench.py's Llama (phase 7's geometry, bf16,
+     float32 masters, no recompute) at [8, 2048] trained by three
+     Executor.run steps of AdamW.minimize(pretraining_loss) against an
+     eager twin (step 0's loss bit for bit, later ones within 1e-5, the
+     spread two eager twins show), each kernel's launches a step equal,
+     the loss's checkpointed chunks replayed through checkpoint, ms a
+     step and peak memory (above what was held before the model) beside
+     the twin's, and phase 7's;
   then one JSON line {"kernels": [...]}, "launches" per path ({"serving",
   "int8", "spec", "generate", "train", "predict", "blha", "control",
   "fleet", "mixed_cache", "chaos", "train_amp", "finetune", "fit",
-  "optimizers", "gpt", "decoder", "deploy"}, null for a
+  "optimizers", "gpt", "decoder", "deploy", "static"}, null for a
   path whose phase did not run; "fleet" the sum over the surviving
   workers), then the card line, then {"ok": true, "device": {...}} as the
   last line.
@@ -482,6 +503,7 @@ import json
 import math
 import os
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -605,6 +627,12 @@ PATHS = {
     # as custom ops inside torch.export programs
     "deploy": ("rms_norm", "rms_norm_residual", "rope", "swiglu",
                "flash_attention", "int8_matmul"),
+    # phase 25: static Programs replayed by the Executor: a 2-layer
+    # 7B-width Llama's forward (a CUDA graph) and bench.py's Llama trained
+    # through AdamW.minimize (the kernel ops' registered backwards, B9)
+    "static": ("rms_norm", "rms_norm_residual", "rope", "rope_bwd",
+               "swiglu", "swiglu_bwd", "flash_attention",
+               "flash_attention_bwd", "fused_adamw"),
 }
 # phase 2's head dims beyond the tensor-core classes (72, 100, 264, 512)
 # and past 512 (the wide instances, Queue C8)
@@ -977,6 +1005,160 @@ def masked_rows(torch, root):
         if ", masks, " in label:
             print(f"masked row {name} {label}: ms {timer(kern):.4f}",
                   flush=True)
+    return 0
+
+
+def decode_costs(torch, root):
+    """``--decode-costs``: what the kernel ops' autograd registration and
+    the decode step's one q/k/v product cost, for the package at ``root``
+    (its kernels built there on first use); a change and its parent are
+    measured in one call.
+
+    (a) Host microseconds a call of the K1, K2, K3 and B1 wrappers, eager,
+        at a [1, 16] token batch of Llama-2-7B (bf16): 200 calls back to
+        back (the kernels take a few microseconds, so the host's enqueue time
+        is what is timed), on inputs without a gradient and with one
+        wanted (the forward only).
+    (b) The eager no-grad forward of phase 24's 2-layer 7B-width Llama at
+        [1, 256]: host ms a call (enqueue time) and ms to its end, and its
+        kernel launches.
+    (c) Llama-2-7B (bf16, 32 layers): ``greedy_decode`` of [8, 128] over a
+        512-row ring, 64 tokens, on graphs (after a call that captures)
+        and on the eager loop, and ``generate`` over growing caches, 32
+        tokens: ms a token (the call less a one-token call, over the
+        tokens after the first), the peak memory of the call above what
+        was held before it, and what stays held after it (the rings and,
+        from this tree on, the q/k/v concatenations the graphs read)."""
+    sys.path.insert(0, os.path.abspath(root))
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.generation import generate, greedy_decode
+    from paddle_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        llama_7b,
+    )
+    from paddle_tpu_torch.ops.hopper import _build
+    from paddle_tpu_torch.ops.hopper.flash_attention import (
+        flash_attention_fwd,
+    )
+    from paddle_tpu_torch.ops.hopper.fused_norm import rms_norm_fused
+    from paddle_tpu_torch.ops.hopper.fused_ops import rope_fused, swiglu_fused
+
+    t = time.perf_counter()
+    _build.lib()
+    where = os.path.dirname(paddle_tpu_torch.__file__)
+    print(f"decode costs of {where} (build or load "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+    out = {"root": where}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(26)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    S, E, H, D, F = 16, 4096, 32, 128, 11008
+    for grad in (False, True):
+        def leaf(*shape, dtype=bf):
+            return rnd(*shape, dtype=dtype).requires_grad_(grad)
+
+        x, w = leaf(1, S, E), leaf(E)
+        q, k, v = leaf(1, S, H, D), leaf(1, S, H, D), leaf(1, S, H, D)
+        cos, sin = rnd(S, D // 2, dtype=torch.float32), rnd(
+            S, D // 2, dtype=torch.float32)
+        a, b = leaf(1, S, F), leaf(1, S, F)
+        row = {"K1 rms_norm": host_us(lambda: rms_norm_fused(x, w)),
+               "K2 rope": host_us(lambda: rope_fused(q, k, cos, sin)),
+               "K3 swiglu": host_us(lambda: swiglu_fused(a, b)),
+               "B1 flash_attention": host_us(
+                   lambda: flash_attention_fwd(q, k, v, causal=True))}
+        out[f"host_us_a_call{'_grad' if grad else ''}"] = row
+        print(f"(a) host us a wrapper call, {'a gradient wanted' if grad else 'no gradient'}: "
+              + json.dumps({n: round(u, 2) for n, u in row.items()}),
+              flush=True)
+        del x, w, q, k, v, a, b
+
+    m = LlamaForCausalLM(LlamaConfig(**{**llama_7b(**DEPLOY_LLAMA).__dict__,
+                                        "dtype": "bfloat16"}), seed=25)
+    ids = torch.randint(0, m.config.vocab_size, DEPLOY_IDS, generator=g,
+                        device="cuda")
+    counters = _zero_counters()
+    with torch.no_grad():
+        m(ids)
+        torch.cuda.synchronize()
+        before = _launch_snapshot()
+        hosts, ends = [], []
+        for _ in range(20):
+            t = time.perf_counter()
+            m(ids)
+            hosts.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter() - t)
+        n = {k: v // 20 for k, v in _launched_since(before).items() if v}
+    del counters
+    out["forward"] = {"host_ms": statistics.median(hosts) * 1e3,
+                      "end_ms": statistics.median(ends) * 1e3,
+                      "launches": n}
+    print(f"(b) eager no-grad forward {list(DEPLOY_IDS)}, 2 layers: host "
+          f"{out['forward']['host_ms']:.3f} ms, to its end "
+          f"{out['forward']['end_ms']:.3f} ms (medians of 20), launches "
+          f"{json.dumps(n)}", flush=True)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = LlamaForCausalLM(llama_7b(dtype="bfloat16"), seed=0)
+    p8 = torch.randint(1, model.config.vocab_size, (8, 128), generator=g,
+                       device="cuda")
+    p4 = p8[:4]
+
+    def timed(call, n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = call(n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, toks
+
+    for label, graphs, call, n in (
+            ("greedy_decode graphs", True, lambda n: greedy_decode(
+                model, p8, n, max_length=512), 64),
+            ("greedy_decode eager", False, lambda n: greedy_decode(
+                model, p8, n, max_length=512), 64),
+            ("generate growing", False, lambda n: generate(
+                model, p4, n), 32)):
+        model._graphs = graphs
+        gc.collect()
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        if graphs:
+            timed(call, 2)    # the key's first call captures
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            full, toks = timed(call, n)
+            peak = torch.cuda.max_memory_allocated() - base
+            one, _ = timed(call, 1)
+            times.append((full - one) / (n - 1) * 1e3)
+        held = torch.cuda.memory_allocated() - held0
+        out[label] = {"ms_a_token": times, "peak_above_held": peak,
+                      "held_after": held}
+        print(f"(c) {label} [{p8.shape[0] if 'greedy' in label else 4}, "
+              f"128] -> {n} tokens: ms a token "
+              f"{[round(x, 4) for x in times]}, peak {peak} bytes above "
+              f"what was held, {held} bytes held after the calls", flush=True)
+    print(json.dumps(out))
     return 0
 
 
@@ -4072,13 +4254,14 @@ def _forced_logits(torch, model, ids, toks, static):
     """Last-position logits [B, n, V] (float32) of the prefill and of each
     decode step fed ``toks[:, :-1]``: the logits from which a decode loop
     picked ``toks``, through the ring (static) or growing caches."""
-    from paddle_tpu_torch.models.generation import _ring_length, _Rings
+    from paddle_tpu_torch.models.generation import _QKV, _ring_length, _Rings
 
     B, S = ids.shape
     n = toks.shape[1]
     cfg = model.config
     if static:
-        rings = _Rings(model, B, _ring_length(model, S, n, None))
+        rings = _Rings(model, B, _ring_length(model, S, n, None),
+                       _QKV(model))
 
         def fwd(x):
             return rings.forward(model, x)
@@ -4383,6 +4566,7 @@ def full_width_training(torch):
     if not bool(torch.isfinite(lv).all()) or not lv[-1] < lv[0]:
         raise AssertionError(f"training losses not finite and falling: {lv}")
     tok_s = B * S / dt
+    _TRAIN_STEP.update(ms=dt * 1e3, peak=torch.cuda.max_memory_allocated())
     # bench.py:96: 6 N per token (forward + backward) + the attention term
     flops_tok = 6 * n_params + 12 * cfg.num_hidden_layers \
         * cfg.hidden_size * S * 0.5
@@ -5990,6 +6174,411 @@ def full_width_deploy(torch, card, geo=BERT, llama_kw=None, device="cuda"):
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -------------------------------------------------------------- phase 25
+STATIC_TRAIN = (8, 2048)        # bench.py's batch, phase 7's
+_TRAIN_STEP = {}                # phase 7's ms a step and peak bytes
+
+
+def _steps_ms(torch, fn, n):
+    """``fn()`` n times after a sync: (host ms a call, the results)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3, outs
+
+
+def _c16_rows(torch, card, pair, prompt=(2, 7), new=8):
+    """Phase 25 (c): C16 on the card.  A float32 2-layer Llama under
+    ``auto_cast(O1, bf16)``: a 7-token prefill and one decode step over
+    growing caches and over the static ring (the rows the step writes,
+    cuda against the CPU's plain versions), then ``generate`` over the
+    ring and over growing caches and ``greedy_decode`` (on graphs) for
+    ``new`` tokens, against the same calls on the CPU."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.generation import generate, greedy_decode
+
+    gpu, cpu = pair
+    cfg = gpu.config
+    rng = np.random.default_rng(25)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, (prompt[0],
+                                                            prompt[1] + 1)))
+    B, S = prompt
+    shape = (B, 0, cfg.num_key_value_heads, cfg.head_dim)
+    for static in (False, True):
+        rows = {}
+        for name, m in (("cuda", gpu), ("cpu", cpu)):
+            dev = next(m.parameters()).device
+            if static:
+                L = S + new
+                caches = [(torch.zeros(B, L, *shape[2:], device=dev),
+                           torch.zeros(B, L, *shape[2:], device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+                          for _ in range(cfg.num_hidden_layers)]
+            else:
+                caches = [(torch.zeros(shape, device=dev),
+                           torch.zeros(shape, device=dev))
+                          for _ in range(cfg.num_hidden_layers)]
+            with torch.no_grad(), amp.auto_cast(level="O1",
+                                                dtype="bfloat16"):
+                for lo, hi in ((0, S), (S, S + 1)):
+                    _, caches = m(ids[:, lo:hi].to(dev), caches=caches)
+            rows[name] = [[t[:, S].float().cpu() for t in c[:2]]
+                          for c in caches]
+            if any(t.dtype != torch.float32 for c in caches for t in c[:2]):
+                raise AssertionError("C16: a float32 cache changed dtype")
+        for layer, (a, b) in enumerate(zip(rows["cuda"], rows["cpu"])):
+            for kind, x, y in zip("kv", a, b):
+                err = float((x - y).abs().max())
+                ref = float(y.abs().max())
+                # the first layer reads the embedding (the same bits on
+                # both devices): the suite's float32 rule; the second one
+                # the first one's bf16 products: bf16's rule
+                tol = (1e-5 * ref + 1e-5 if layer == 0 else 2 ** -6 * ref)
+                print(f"(c) C16 {'ring' if static else 'growing'} decode "
+                      f"row, layer {layer} {kind}: max_abs_err {err:.3e} "
+                      f"tol {tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError("C16: the decode step's cache row "
+                                         "differs from the CPU's")
+    # the logits are bf16 under O1: ties one bf16 ulp apart are common at
+    # this width, and the two devices round the products at other places;
+    # so the tokens must equal the CPU's up to its first top-2 gap under
+    # two ulps (2^-6 of the largest |logit|), and each token must be, on
+    # the CPU over the card's own prefix, within two ulps of the argmax
+    p = ids[:, :S]
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        want = greedy_decode(cpu, p, new)
+        for what, static, call in (
+                ("greedy_decode", True,
+                 lambda x: greedy_decode(gpu, x, new)),
+                ("generate ring", True, lambda x: generate(
+                    gpu, x, new, use_static_cache=True)),
+                ("generate growing", False,
+                 lambda x: generate(gpu, x, new))):
+            t = time.perf_counter()
+            got = call(p.to(next(gpu.parameters()).device)).cpu()
+            ms = (time.perf_counter() - t) * 1e3
+            lg = _forced_logits(torch, cpu, p, want, static)
+            gaps, thresh = _gaps(torch, lg), 2 ** -6 * float(lg.abs().max())
+            own = _forced_logits(torch, cpu, p, got, static)
+            picked = own.gather(-1, got.long()[..., None])[..., 0]
+            worst = float((own.max(-1).values - picked).max())
+            if not worst <= thresh:
+                raise AssertionError(f"C16 {what}: a token {worst:.3e} "
+                                     "below the CPU's argmax")
+            same = []
+            for r in range(B):
+                _agree(got[r].tolist(), want[r].tolist(), gaps[r],
+                       f"(c) C16 {what} O1 row {r} cuda vs cpu", thresh)
+                same.append(next((i for i, (a, b) in enumerate(zip(
+                    got[r].tolist(), want[r].tolist())) if a != b), new))
+            print(f"(c) C16 {what} under O1 bf16 (no ValueError): tokens "
+                  f"equal the CPU's for the first {same} of {new} a row, "
+                  f"every token within {worst:.3e} of the CPU's argmax "
+                  f"over its prefix (two bf16 ulps: {thresh:.3e}); "
+                  f"{ms:.1f} ms host, {card}")
+
+
+def full_width_static(torch, card, serve_kw=None, train_kw=TRAIN_AMP_MODEL,
+                      batch=STATIC_TRAIN, pair=None, capture=None,
+                      device="cuda"):
+    """Phase 25: the ``static`` core at full width; returns the "static"
+    path's launches: the serving program's runs (before and after the
+    passes) and the training program's steps, counted from 0 (the eager
+    references, the timings and the artifact's run are outside the
+    count).
+
+    (a) A 2-layer Llama-2-7B-width bf16 model recorded under
+        ``program_guard`` with ``data("ids", [1, 256], "int32")``: the
+        Executor's first run (eager, then the capture) and two replays
+        equal the eager forward bit for bit and launch for launch; the
+        later runs add no cache entry; DCE, CSE and constant folding leave
+        the logits bit for bit; ``save_inference_model`` ->
+        ``load_inference_model`` gives the same logits.
+    (b) bench.py's Llama (phase 7's geometry, bf16 weights, float32
+        masters, no recompute) at ``batch``:
+        ``AdamW(...).minimize(model.pretraining_loss(ids, labels))`` and
+        three ``Executor.run`` steps against an eager twin of the same
+        weights, data and optimizer (run first, twice): step 0's loss bit
+        for bit, later steps within 1e-5 (the backward's scatter-adds sum
+        in atomics' order: two eager twins differ too), each kernel's
+        launches a step equal; the program's checkpointed regions (the
+        loss's chunks) replayed through ``checkpoint``; ms a step and
+        peak memory above what was held before the model beside the
+        twin's, and phase 7's.
+    (c) C16's rows (``_c16_rows``) over ``pair`` (the float32 2-layer
+        7B-width pair of phases 4, 6 and 8; made here when None).
+
+    ``serve_kw`` (LlamaConfig fields), ``train_kw``, ``batch``, ``pair``,
+    ``capture`` (a stand-in for ``jit.graphs``' capture) and ``device``
+    let the phase be rehearsed on the CPU at a small width."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.jit.graphs import GraphCache
+    from paddle_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        llama_7b,
+    )
+    from paddle_tpu_torch.ops.hopper import launch_counters
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def executor():
+        exe = static.Executor()
+        if capture is not None:
+            exe._graphs = True
+            exe._graph_cache = GraphCache(device, counters=launch_counters,
+                                          capture=capture,
+                                          weights=exe._weights)
+        return exe
+
+    def record(build):
+        pt.enable_static()
+        try:
+            prog = static.Program()
+            t = time.perf_counter()
+            with static.program_guard(prog), static.device_guard(device):
+                out = build()
+            return prog, out, time.perf_counter() - t
+        finally:
+            pt.disable_static()
+
+    _c16_rows(torch, card, pair or two_layer_models(torch, seed=26))
+    gc.collect()
+
+    # (b)'s eager twin first, alone on the card, twice: the run-to-run
+    # spread of eager training itself
+    cfg = LlamaConfig(**{**train_kw, "dtype": "bfloat16"})
+    B, S = batch
+    data = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
+    tids = data.astype(np.int32)
+    labels = np.roll(data, -1, axis=1).astype(np.int32)
+    step_keys = ("rope_bwd", "swiglu_bwd", "flash_attention_bwd",
+                 "fused_adamw", "rms_norm", "rms_norm_residual", "rope",
+                 "swiglu", "flash_attention")
+
+    def opt_for(m):
+        return AdamW(learning_rate=1e-4, parameters=m.parameters(),
+                     multi_precision=True)
+
+    tids_t = torch.from_numpy(tids).to(device)
+    lab_t = torch.from_numpy(labels).to(device)
+
+    def eager_twin():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        twin = LlamaForCausalLM(cfg, device=device, seed=0)
+        opt = opt_for(twin)
+
+        def step():
+            loss = twin.pretraining_loss(tids_t, lab_t)
+            opt.minimize(loss)
+            opt.clear_grad()
+            return loss.detach()
+
+        out, n = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            before = _launch_snapshot()
+            ms, (lv,) = _steps_ms(torch, step, 1)
+            out.append((float(lv), ms))
+            n.append(_launched_since(before))
+        # the training's own peak: above what was held before its model
+        # was made (earlier phases' memory not counted)
+        peak = torch.cuda.max_memory_allocated() - held
+        del twin, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, n, peak
+
+    eager, eager_n, eager_peak = eager_twin()
+    again = eager_twin()[0]
+
+    # (a)'s model and its eager forward
+    serve_kw = serve_kw or llama_7b(**DEPLOY_LLAMA).__dict__
+    lm = LlamaForCausalLM(LlamaConfig(**{**serve_kw, "dtype": "bfloat16"}),
+                          device=device, seed=25)
+    rng = np.random.default_rng(25)
+    ids = rng.integers(0, lm.config.vocab_size, DEPLOY_IDS).astype(np.int32)
+    ids_t = torch.from_numpy(ids).to(device)
+    with torch.no_grad():
+        lm(ids_t)
+        torch.cuda.synchronize()
+        before = _launch_snapshot()
+        ref = lm(ids_t)
+        eager_launches = _launched_since(before)
+        ref = ref.float().cpu().numpy()
+
+    def build_serving():
+        x = static.data("ids", list(DEPLOY_IDS), "int32")
+        with torch.no_grad():
+            return x, lm(x)
+
+    prog, (x_var, logits), secs = record(build_serving)
+    print(f"(a) recorded the serving program: {len(prog.ops)} ops in "
+          f"{secs:.2f} s, kernel ops "
+          + json.dumps({k: sum(1 for *_, n in prog.ops
+                               if f"paddle_tpu_torch.{k}." in n)
+                        for k in ("rms_norm", "rms_norm_residual", "rope",
+                                  "swiglu", "flash_attention")}))
+
+    # the static path, counted from 0
+    counters = _zero_counters()
+    exe = executor()
+    runs = []
+    for i in range(3):
+        n_keys = len(exe._cache)
+        torch.cuda.synchronize()
+        before = _launch_snapshot()
+        replays = _REPLAYS[0]
+        (got,) = exe.run(prog, feed={"ids": ids}, fetch_list=[logits])
+        runs.append((got, _launched_since(before), _REPLAYS[0] - replays))
+        if i and len(exe._cache) != n_keys:
+            raise AssertionError("a second run at the same shape added an "
+                                 "Executor cache entry")
+    if exe._graph_cache is None or exe._graph_cache.captures != 1:
+        raise AssertionError("the serving program was not captured once")
+    keys = ("rms_norm", "rms_norm_residual", "rope", "swiglu",
+            "flash_attention")
+    for i, (got, n, replayed) in enumerate(runs):
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"Executor run {i} differs from the eager "
+                                 "forward")
+        if {k: n.get(k) for k in keys} != {k: eager_launches.get(k)
+                                           for k in keys}:
+            raise AssertionError(f"Executor run {i} launched {n}, the eager "
+                                 f"forward {eager_launches}")
+        if i and capture is None and replayed != 1:
+            raise AssertionError(f"Executor run {i} was not a graph replay")
+    print(f"(a) Executor.run {list(DEPLOY_IDS)}: runs 1-3 equal the eager "
+          "forward bit for bit and launched "
+          + ", ".join(f"{k} {runs[1][1][k]}" for k in keys)
+          + f" each, as eager; {len(exe._cache)} cache entry, "
+          f"{exe._graph_cache.captures} capture, runs 2-3 graph replays")
+    p2 = prog.clone()
+    stats = static.PassManager([
+        static.DeadCodeEliminationPass(keep=[logits]),
+        static.CommonSubexpressionEliminationPass(),
+        static.ConstantFoldingPass()]).run(p2)
+    (got,) = exe.run(p2, feed={"ids": ids}, fetch_list=[logits])
+    if not np.array_equal(got, ref):
+        raise AssertionError("the passes changed the serving program's "
+                             "logits")
+    print(f"(a) passes {stats}: {len(prog.ops)} -> {len(p2.ops)} ops, "
+          "logits bit for bit")
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    model = LlamaForCausalLM(cfg, device=device, seed=0)
+
+    def build_train():
+        xi = static.data("ids", [B, S], "int32")
+        xl = static.data("labels", [B, S], "int32")
+        loss = model.pretraining_loss(xi, xl)
+        opt_for(model).minimize(loss)
+        return loss
+
+    tprog, loss_var, secs = record(build_train)
+    print(f"(b) recorded the training program: {len(tprog.ops)} ops in "
+          f"{secs:.2f} s")
+    from paddle_tpu_torch.static import _Region
+    texe = executor()
+    feed = {"ids": tids, "labels": labels}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, step_n = [], []
+    for _ in range(3):
+        before = _launch_snapshot()
+        ms, ((lv,),) = _steps_ms(torch, lambda: texe.run(
+            tprog, feed=feed, fetch_list=[loss_var]), 1)
+        steps.append((float(lv), ms))
+        step_n.append(_launched_since(before))
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = _path_launches("static", counters)
+    n_regions = sum(isinstance(fn, _Region) for plan in texe._cache.values()
+                    for fn, *_ in plan.ops)
+    if not n_regions:
+        raise AssertionError("the training program replayed no "
+                             "checkpointed region (pretraining_loss's "
+                             "chunks)")
+
+    def spread(x, y):
+        return max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(x, y))
+
+    for i, ((a, _), (b, _), n, m) in enumerate(zip(steps, eager, step_n,
+                                                    eager_n)):
+        # step 0 is a forward of the same weights: bit for bit; later
+        # steps carry the update from a backward whose scatter-adds (the
+        # embedding's and the loss's gather) sum in atomics' order, which
+        # moves between any two runs, eager ones too (``again``)
+        if (a != b) if i == 0 else not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"static step {i} loss {a!r} differs from "
+                                 f"the eager twin's {b!r}")
+        if {k: n.get(k) for k in step_keys} != {k: m.get(k)
+                                                for k in step_keys}:
+            raise AssertionError(f"static step {i} launched {n}, the eager "
+                                 f"twin {m}")
+        if any(not n.get(k) for k in ("rope_bwd", "swiglu_bwd",
+                                      "flash_attention_bwd", "fused_adamw")):
+            raise AssertionError(f"static step {i} launched {n}: a backward "
+                                 "kernel or B9 missing")
+    if not steps[2][0] < steps[0][0]:
+        raise AssertionError(f"static losses {steps} do not fall")
+    seven = _TRAIN_STEP.get("ms")
+    print(f"(b) static AdamW.minimize {[B, S]}: losses "
+          f"{[s[0] for s in steps]}, the eager twin's "
+          f"{[e[0] for e in eager]} and again {[e[0] for e in again]}: step "
+          f"0 bit for bit, at most {spread(steps, eager):.2e} of the twin's "
+          f"(tolerance 1e-5; twin against twin {spread(again, eager):.2e}); "
+          "launches a step "
+          + ", ".join(f"{k} {step_n[1].get(k)}" for k in step_keys)
+          + f" == the twin's; ms a step {[round(s[1], 1) for s in steps]} "
+          f"(eager twin {[round(e[1], 1) for e in eager]}), peak memory "
+          f"{peak} bytes above what was held before the model (eager twin "
+          f"{eager_peak}); {n_regions} checkpointed regions replayed "
+          "through checkpoint; phase 7 (recompute, "
+          + (f"TrainStep): {seven:.1f} ms a step, peak "
+             f"{_TRAIN_STEP['peak']} bytes" if seven is not None
+             else "TrainStep): not run")
+          + f"; {card}")
+    del model, tprog, texe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # outside the count: times and the artifact
+    with torch.no_grad():
+        eager_ms, _ = _steps_ms(torch, lambda: lm(ids_t), 20)
+    run_ms, _ = _steps_ms(torch, lambda: exe.run(
+        prog, feed={"ids": ids}, fetch_list=[logits], return_numpy=False),
+        20)
+    print(f"(a) {run_ms:.3f} ms an Executor.run {list(DEPLOY_IDS)} (the "
+          "feed's copy, the replay, the output's clone) vs the eager "
+          f"forward's {eager_ms:.3f} ms (host clock, 20 runs), {card}")
+    tmp = tempfile.mkdtemp(prefix="static_")
+    try:
+        path = os.path.join(tmp, "llama")
+        t = time.perf_counter()
+        static.save_inference_model(path, [x_var], [logits], program=prog)
+        saved = time.perf_counter() - t
+        loaded, _, _ = static.load_inference_model(path)
+        got = loaded(ids_t).float().cpu().numpy()
+        _same_logits(np, f"(a) load_inference_model (saved in {saved:.2f} "
+                     "s) vs the eager forward", got, ref)
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 # ------------------------------------------------------------------ main
@@ -8146,7 +8735,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,"
-                            "19,20,21,22,23,24",
+                            "19,20,21,22,23,24,25",
                     help="phases to run after phase 1 (always run)")
     ap.add_argument("--k4-sweep", action="store_true",
                     help="phase 2 also times each K4 case under other "
@@ -8165,6 +8754,11 @@ def main(argv=None) -> int:
                          "(bf16) of the package in ROOT (default: beside "
                          "this script, built there on first use), then "
                          "exit: a change and its parent timed in one call")
+    ap.add_argument("--decode-costs", metavar="ROOT", nargs="?", const=ROOT,
+                    help="only measure the kernel wrappers' host time a "
+                         "call, an eager forward and Llama-2-7B's ms a "
+                         "token and memory in generation for the package "
+                         "in ROOT (``decode_costs``), then exit")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -8179,6 +8773,8 @@ def main(argv=None) -> int:
         return 2
     if args.masked_rows:
         return masked_rows(torch, args.masked_rows)
+    if args.decode_costs:
+        return decode_costs(torch, args.decode_costs)
     sys.path.insert(0, ROOT)
     import paddle_tpu_torch  # noqa: F401  (precision pin)
     from paddle_tpu_torch.jit import graphs
@@ -8309,6 +8905,13 @@ def main(argv=None) -> int:
         launches["train"] = full_width_training(torch)
         torch.cuda.empty_cache()
         _done("7", t)
+    if 25 in phases:
+        t = _phase("25 static: Program capture, the Executor, the passes "
+                   "and C16")
+        launches["static"] = full_width_static(torch, card, pair=pair)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _done("25", t)
     if 8 in phases:
         t = _phase("8 training: kernel path vs plain path")
         training_kernels_vs_plain(torch, *pair)

@@ -7,7 +7,10 @@ held against.  This package imports ``torch`` and never ``jax`` or
 ``device="cpu"`` (see ``device.py``); every hand-written Hopper kernel lives
 under ``ops/hopper/`` with its plain PyTorch version beside it.
 ``save`` / ``load`` (``framework_io``) and ``Model`` / ``summary``
-(``hapi``) are exported here, as the reference exports them.
+(``hapi``) are exported here, as the reference exports them, and the
+execution mode: ``enable_static()`` records ops into ``static.Program``s
+(``static/__init__.py``), ``disable_static()`` runs them eagerly again,
+``in_dynamic_mode()`` tells which.
 """
 from __future__ import annotations
 
@@ -23,3 +26,24 @@ _torch.backends.cudnn.allow_tf32 = False
 from .device import resolve_device  # noqa: E402,F401
 from .framework_io import load, save  # noqa: E402,F401
 from .hapi import Model, summary  # noqa: E402,F401
+
+
+def in_dynamic_mode() -> bool:
+    """False between ``enable_static()`` and ``disable_static()``."""
+    from . import static
+
+    return not static._static_enabled()
+
+
+def enable_static():
+    """Record ops on program variables into the current
+    ``static.Program`` (``static/__init__.py``)."""
+    from . import static
+
+    static._enable()
+
+
+def disable_static(place=None):
+    from . import static
+
+    static._disable()

@@ -23,12 +23,18 @@ layers (``torch.utils.checkpoint``) run in the backward, outside the
 caller's ``with auto_cast()``: ``models/llama.py`` captures the state with
 ``snapshot`` in the forward and ``restore``s it around the recomputation.
 
+A static program (``paddle_tpu_torch.static``) records an op with a
+program variable among its inputs uncast, as the reference's dispatch
+records it before ``_amp_cast_vals``: ``auto_cast`` does not change what a
+recorded program computes.
+
 float16 casts as the reference's; its kernels are not ported (ROADMAP F16):
 on CUDA the first kernel that meets a float16 tensor raises.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Set
 
@@ -124,9 +130,11 @@ amp_guard = auto_cast
 def amp_cast(op_name: str, *xs):
     """The inputs of the op tagged ``op_name`` as AMP casts them (see the
     module's rules); non-tensors and non-float tensors pass as they are.
-    Returns a tuple, the inputs themselves when AMP is off."""
+    Returns a tuple, the inputs themselves when AMP is off or when one
+    is a variable of a static program being recorded (the reference
+    records such an op whole, before its cast: ``_recorded``)."""
     st = _state
-    if not st.enabled:
+    if not st.enabled or _recorded(xs):
         return xs
 
     def is_float(x):
@@ -140,6 +148,13 @@ def amp_cast(op_name: str, *xs):
         return tuple(x.to(low) if is_float(x) and x.dtype == torch.float32
                      else x for x in xs)
     return xs
+
+
+def _recorded(xs) -> bool:
+    """Whether an input is a variable of a static program being recorded
+    (``paddle_tpu_torch.static``, if it was imported)."""
+    static = sys.modules.get(__name__.rsplit(".", 2)[0] + ".static")
+    return static is not None and any(static.is_variable(x) for x in xs)
 
 
 def _kept_fp32(module) -> bool:

@@ -32,6 +32,15 @@ call are never read: B2 reads cols <= pos, B1 cols <= pos + i.  At most 8
 keys are held, as in the reference; a 9th drops the oldest key's graph and
 rings (2.1 GB at 7B, B 8, L 512).
 
+A decode step projects q, k and v with one product over the three
+weights' concatenation (the reference's ``qkv_fused``): a call makes the
+concatenations once from the weights as they are
+(``LlamaForCausalLM.qkv_weights``, held by ``_QKV``) and hands them to
+every step.  On graphs one ``_QKV`` is shared by every key's rings and
+rewritten in place at each call's start, where the captured steps read
+it; it goes with the last key's rings.  A step captured under
+``amp.auto_cast`` is keyed by the AMP state too.
+
 Weights: the graphs read the parameters' memory.  ``load_numpy_state_dict``,
 ``load_state_dict`` and the optimizers write in place, and the graphs read
 the new values.  Operations that replace a parameter or buffer tensor
@@ -52,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..amp.auto_cast import amp_state
 from ..framework.random import Generator
 from ..jit.graphs import GraphCache, module_tensors
 from ..ops.hopper import launch_counters
@@ -90,13 +100,32 @@ def _ring_length(model, S: int, max_new_tokens: int,
     return L
 
 
+class _QKV:
+    """A decode's per-layer q/k/v weight concatenations (the reference's
+    ``qkv_fused`` weight), or None for a model without them."""
+
+    def __init__(self, model):
+        make = getattr(model, "qkv_weights", None)
+        self.weights = None if make is None else make()
+
+    def refresh(self, model):
+        """Rewrite the concatenations in place from the weights as they
+        are (the addresses a captured step reads stay)."""
+        if self.weights is not None:
+            model.qkv_weights(out=self.weights)
+
+    def kwargs(self) -> dict:
+        return {} if self.weights is None else {"qkv_weights": self.weights}
+
+
 class _Rings:
     """A static decode's state on the model's device: per layer a ring
     (k_buf, v_buf, pos), k_buf/v_buf [B, L, KVH, D] in the model's dtype,
-    every layer's pos the one 0-d int32 tensor ``pos``; and the token
-    buffer ``tok`` [B, 1] int32 a decode step reads."""
+    every layer's pos the one 0-d int32 tensor ``pos``; the token buffer
+    ``tok`` [B, 1] int32 a decode step reads; and ``qkv`` (``_QKV``), the
+    weights' concatenations the steps read."""
 
-    def __init__(self, model, B: int, L: int):
+    def __init__(self, model, B: int, L: int, qkv: _QKV):
         cfg = model.config
         dev = _model_device(model)
         shape = (B, L, cfg.num_key_value_heads, cfg.head_dim)
@@ -106,11 +135,12 @@ class _Rings:
                         torch.zeros(shape, dtype=dt, device=dev), self.pos)
                        for _ in range(cfg.num_hidden_layers)]
         self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        self.qkv = qkv
 
     def forward(self, model, ids):
         """model(ids) over the rings -> logits; the rows go into the rings
         and the new pos into ``pos``, in place."""
-        logits, caches = model(ids, caches=self.caches)
+        logits, caches = model(ids, caches=self.caches, **self.qkv.kwargs())
         self.pos.copy_(caches[-1][2])
         return logits
 
@@ -136,14 +166,27 @@ def _decoder(model, B: int, S: int, max_new_tokens: int,
     at 0, and ``step()``, one decode forward of ``rings.tok`` -> logits
     [B, 1, V].  On graphs the rings are those of the model's key
     ("decode", B, L) and ``step`` replays its graph; eager, fresh rings and
-    the forward itself."""
+    the forward itself.  The weights' concatenations are made (eager) or
+    rewritten in place (graphs: the ``_QKV`` every key's rings share)
+    here, once a call."""
     L = _ring_length(model, S, max_new_tokens, max_length)
     graphs = _decode_graphs(model)
     if graphs is None:
-        rings = _Rings(model, B, L)
+        rings = _Rings(model, B, L, _QKV(model))
         return rings, lambda: rings.forward(model, rings.tok)
     key = ("decode", B, L)
-    rings = graphs.state(key, lambda: _Rings(model, B, L))
+    amp = amp_state()
+    if amp.enabled:
+        # a step captured under auto_cast casts as it did then
+        key += (amp.dtype, amp.level, frozenset(amp.white),
+                frozenset(amp.black))
+    held = next(iter(graphs.states.values()), None)
+    if held is None:
+        qkv = _QKV(model)
+    else:
+        qkv = held.qkv
+        qkv.refresh(model)
+    rings = graphs.state(key, lambda: _Rings(model, B, L, qkv))
     rings.pos.zero_()
 
     def step():
@@ -196,10 +239,11 @@ def generate(model, input_ids, max_new_tokens: int = 32,
             caches = [(torch.zeros(shape, dtype=dt, device=dev),
                        torch.zeros(shape, dtype=dt, device=dev))
                       for _ in range(cfg.num_hidden_layers)]
+            qkv = _QKV(model).kwargs()
 
             def fwd(x, prefill=False):
                 nonlocal caches
-                logits, caches = model(x, caches=caches)
+                logits, caches = model(x, caches=caches, **qkv)
                 return logits
         logits = fwd(ids, prefill=True)
         out_tokens = []

@@ -18,7 +18,11 @@ modes:
 
 The trunk's norms are K1 (the residual add fused into each norm after the
 first), rope K2 and SwiGLU K3; the projections are ``torch.matmul``, as the
-reference leaves them to XLA.  The serving engine
+reference leaves them to XLA, a decode step over a cache taking q, k and v
+from one product over their concatenated weights (the reference's
+``qkv_fused``; ``LlamaForCausalLM.qkv_weights`` makes the concatenations,
+which a caller running many steps, ``models/generation.py``, makes once
+and passes as ``qkv_weights=``; without them a step concatenates).  The serving engine
 (``inference/serving.py``) runs its own forward over these parameters.
 
 Training: the forward is differentiable (K1's backward is the reference's
@@ -33,7 +37,9 @@ through the chunked head (``_chunked_lm_loss``), each chunk checkpointed.
 AMP (``amp.auto_cast``): each op casts its inputs by the reference's tag
 (``embedding``, ``rms_norm`` on the black list, ``linear`` and
 ``flash_attention`` on the white list, ``fused_rope``, ``silu`` /
-``multiply``, ``add``, ``concat`` (a growing cache), ``fused_lm_loss``).
+``multiply``, ``add``, ``concat`` (a growing cache), ``fused_lm_loss``,
+``qkv_fused`` on neither list, so O1 keeps a float32 model's decode step
+in float32; on the ring ``sdpa`` and ``decode_attention``).
 The reference adds the residual
 ("add") and then norms ("rms_norm"), two ops with two casts, so under AMP
 the port runs them as two too (``_add_norm``: the add, then K1 on the
@@ -62,7 +68,7 @@ from ..jit import trace_state
 from ..nn import Embedding, ParallelLinear, RMSNorm, load_numpy_state_dict
 from ..nn import functional as F
 from ..nn.transformer import _concat
-from ..ops.hopper.decode_attention import decode_attention
+from ..ops.hopper.decode_attention import decode_attention, kv_ring_write
 from ..ops.hopper.flash_attention import flash_attention_fwd
 from ..ops.hopper.fused_norm import rms_norm_fused, rms_norm_residual_fused
 from ..ops.hopper.fused_ops import rope_fused, rope_ring_fused, swiglu_fused
@@ -209,14 +215,24 @@ class LlamaAttention(nn.Module):
         self.v_proj = init.linear(h, config.num_key_value_heads * d)
         self.o_proj = init.linear(config.num_attention_heads * d, h)
 
-    def forward(self, hidden, cos, sin, attn_mask=None, cache=None):
+    def forward(self, hidden, cos, sin, attn_mask=None, cache=None,
+                qkv_weight=None):
         """hidden [b, s, E] (normed) -> out [b, s, E], and the layer's new
-        cache when ``cache`` is given."""
+        cache when ``cache`` is given.  A decode step (s == 1 over a
+        cache) projects q, k and v with one product, the reference's
+        ``qkv_fused`` op (``_qkv_fused``, over ``qkv_weight`` where
+        given); otherwise three "linear"s."""
         b, s = hidden.shape[0], hidden.shape[1]
         nh, nkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        q = self.q_proj(hidden).view(b, s, nh, hd)
-        k = self.k_proj(hidden).view(b, s, nkv, hd)
-        v = self.v_proj(hidden).view(b, s, nkv, hd)
+        if s == 1 and cache is not None:
+            qkv = self._qkv_fused(hidden, qkv_weight)
+            q = qkv[..., :nh * hd].view(b, s, nh, hd)
+            k = qkv[..., nh * hd:(nh + nkv) * hd].view(b, s, nkv, hd)
+            v = qkv[..., (nh + nkv) * hd:].view(b, s, nkv, hd)
+        else:
+            q = self.q_proj(hidden).view(b, s, nh, hd)
+            k = self.k_proj(hidden).view(b, s, nkv, hd)
+            v = self.v_proj(hidden).view(b, s, nkv, hd)
         if cache is not None and len(cache) == 3:
             return self._static_cache_attn(q, k, v, cos, sin, cache, b, s)
         offset = 0 if cache is None else cache[0].shape[1]
@@ -236,6 +252,22 @@ class LlamaAttention(nn.Module):
             return out, new_cache
         return out
 
+    def qkv_weight(self, out=None) -> torch.Tensor:
+        """The [E, (nh + 2 nkv) hd] concatenation of the q, k and v
+        weights, written into ``out`` in place where given."""
+        ws = [self.q_proj.weight, self.k_proj.weight, self.v_proj.weight]
+        return torch.cat(ws, dim=1, out=out)
+
+    def _qkv_fused(self, hidden, w=None):
+        """hidden [b, 1, E] @ ``w``, the concatenation of the three
+        weights (``qkv_weight``; made here when None), cast to hidden's
+        dtype, under the reference's tag "qkv_fused" (on neither AMP list:
+        O1 keeps float32, O2 casts to the low dtype)."""
+        if w is None:
+            w = self.qkv_weight()
+        hidden, w = amp_cast("qkv_fused", hidden, w)
+        return hidden @ w.to(hidden.dtype)
+
     def _static_cache_attn(self, q, k, v, cos, sin, cache, b, s):
         """The fixed-size KV ring: cache = (k_buf [B, L, KVH, D], v_buf,
         pos), pos a 0-d int32 tensor on the device.  Rope's ring mode
@@ -245,14 +277,27 @@ class LlamaAttention(nn.Module):
         place: the returned buffers are the given ones), then a decode step
         (s == 1) attends with kernel B2 over cols <= pos, and a prefill with
         B1 over the ring, row i seeing cols <= pos + i (the reference's
-        mask).  Returns (out, (k_buf, v_buf, pos + s))."""
+        mask).  Returns (out, (k_buf, v_buf, pos + s)).
+
+        Under AMP q, k and v may come in another dtype than the ring's (a
+        float32 model's prefill under O1 projects in bfloat16): then, as
+        the reference's ops do, rope rotates in their dtype (K2), the ring
+        write casts the rows into the ring's dtype (B3, the reference's
+        ``astype(buf.dtype)``: rounded, then widened), and the attention
+        casts its inputs under the reference's tag ("sdpa" for a prefill,
+        "decode_attention" for a step)."""
         kbuf, vbuf, pos = cache
-        q = rope_ring_fused(q, k, v, cos, sin, kbuf, vbuf, pos)
-        if s == 1:
-            out = decode_attention(q, kbuf, vbuf, pos)
+        if q.dtype == k.dtype == v.dtype == kbuf.dtype:
+            q = rope_ring_fused(q, k, v, cos, sin, kbuf, vbuf, pos)
         else:
-            out = flash_attention_fwd(q, kbuf, vbuf, causal=True,
-                                      q_offset=pos)
+            q, k = apply_rotary_pos_emb(q, k, cos, sin, position_offset=pos)
+            kv_ring_write(kbuf, vbuf, k, v, pos)
+        if s == 1:
+            out = decode_attention(
+                *amp_cast("decode_attention", q, kbuf, vbuf), pos)
+        else:
+            qa, ka, va = amp_cast("sdpa", q, kbuf, vbuf)
+            out = flash_attention_fwd(qa, ka, va, causal=True, q_offset=pos)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return out, (kbuf, vbuf, pos + s)
 
@@ -282,16 +327,17 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = init.norm(config.hidden_size,
                                                   config.rms_norm_eps)
 
-    def forward(self, x, residual, cos, sin, attn_mask=None, cache=None):
+    def forward(self, x, residual, cos, sin, attn_mask=None, cache=None,
+                qkv_weight=None):
         """The reference's ``residual + attn(ln1(h))`` then
         ``+ mlp(ln2(.))`` over the layer input ``h = x + residual``
         (``residual`` None: h = x), with each residual add fused into the
         norm after it (K1; under AMP the reference's add, then the norm:
         ``_add_norm``).  Returns (mlp_out, residual) — the layer's
         output is their sum, left for the next norm to take — and the new
-        cache when ``cache`` is given."""
+        cache when ``cache`` is given (``qkv_weight``: ``LlamaAttention``'s)."""
         h, residual = _add_norm(x, residual, self.input_layernorm)
-        attn = self.self_attn(h, cos, sin, attn_mask, cache)
+        attn = self.self_attn(h, cos, sin, attn_mask, cache, qkv_weight)
         new_cache = None
         if cache is not None:
             attn, new_cache = attn
@@ -321,9 +367,11 @@ class LlamaModel(nn.Module):
                                                          device=init.device),
                              persistent=False)
 
-    def forward(self, input_ids, attn_mask=None, caches=None):
+    def forward(self, input_ids, attn_mask=None, caches=None,
+                qkv_weights=None):
         """input_ids [B, S] -> final-normed hidden [B, S, E], and the new
-        caches when ``caches`` is given."""
+        caches when ``caches`` is given (``qkv_weights``: a decode step's
+        per-layer q/k/v concatenations, ``LlamaForCausalLM.qkv_weights``)."""
         x = self.embed_tokens(input_ids)
         if self.config.dtype == "bfloat16":
             x = x.to(torch.bfloat16)
@@ -334,8 +382,9 @@ class LlamaModel(nn.Module):
                      and self.training and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
             if caches is not None:
-                x, residual, c = layer(x, residual, cos, sin, attn_mask,
-                                       caches[i])
+                x, residual, c = layer(
+                    x, residual, cos, sin, attn_mask, caches[i],
+                    None if qkv_weights is None else qkv_weights[i])
                 new_caches.append(c)
             elif recompute:
                 # the layer takes and returns (x, residual): checkpointed
@@ -380,19 +429,30 @@ class LlamaForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.llama.embed_tokens.weight.device
 
-    def forward(self, input_ids, attn_mask=None, caches=None):
+    def forward(self, input_ids, attn_mask=None, caches=None,
+                qkv_weights=None):
         """input_ids [B, S] (a tensor on the model's device, or anything
         ``torch.as_tensor`` takes) -> logits [B, S, V] in the model's
         dtype, or (logits, new caches) when ``caches`` is given: per layer
         an empty or growing ``(k, v)`` [B, T, KVH, D], or the static ring
-        ``(k_buf, v_buf, pos)``."""
+        ``(k_buf, v_buf, pos)``.  ``qkv_weights`` (``qkv_weights()``) spares
+        a decode step its concatenations."""
         ids = torch.as_tensor(input_ids, device=self.device)
-        out = self.llama(ids, attn_mask, caches)
+        out = self.llama(ids, attn_mask, caches, qkv_weights)
         hidden = out[0] if caches is not None else out
         logits = F.linear(hidden, self._head_weight())
         if caches is not None:
             return logits, out[1]
         return logits
+
+    def qkv_weights(self, out=None):
+        """Each layer's q/k/v weight concatenation (the decode step's
+        ``qkv_fused`` weight), from the weights as they are; written into
+        the tensors of ``out`` in place where given."""
+        with torch.no_grad():
+            return [layer.self_attn.qkv_weight(
+                None if out is None else out[i])
+                for i, layer in enumerate(self.llama.layers)]
 
     def _head_weight(self) -> torch.Tensor:
         if self.lm_head is None:

@@ -292,6 +292,38 @@ def kernel_op(schema: str, fake: Callable):
     return register
 
 
+def autograd_op(op, function) -> None:
+    """Give the kernel op ``op`` (made by ``kernel_op``) an "Autograd"
+    implementation: a call whose tensors want a gradient runs
+    ``function.apply`` (the ``torch.autograd.Function`` of the op's
+    signature whose forward calls the op and whose backward is the
+    kernel's), any other call the op below autograd.  Inside the
+    Function's forward grad mode is off, so the op runs once, as the
+    wrapper's own call of the Function runs it: eager launches are the
+    same.  It lets a replay of recorded ops (``static.Executor``) train
+    through the kernels.  Not ``torch.library.register_autograd``, for
+    ``kernel_op``'s reason."""
+    name = op._schema.name.split("::", 1)[1]
+
+    def kernel(*args):
+        return call_op(op, function, *args)
+
+    _OPS.impl(name, kernel, "Autograd")
+
+
+def call_op(op, function, *args):
+    """A wrapper's call of the kernel op ``op``: ``function.apply`` where a
+    gradient is wanted, else the op below autograd; what the op's
+    "Autograd" implementation (``autograd_op``) does, without the
+    dispatcher's hop into that Python implementation (10-60 us more a
+    wrapper call on an H100 machine's host, ``chip_smoke.py
+    --decode-costs``)."""
+    if wants_grad(*[a for a in args if isinstance(a, torch.Tensor)]):
+        return function.apply(*args)
+    with torch._C._AutoDispatchBelowAutograd():
+        return op(*args)
+
+
 def wants_grad(*tensors: torch.Tensor) -> bool:
     """Whether a wrapper must record its backward: grad mode is on and an
     input requires grad.  Otherwise it launches its forward alone."""

@@ -51,9 +51,11 @@ address, alignment check and tile choice is read in its real
 implementation, so ``torch.export`` traces it through its fake one
 (output shapes only) and keeps the call.
 ``block_fwd`` / ``block_bwd`` and ``flash_attention_fwd`` are the
-reference's entries over them; ``flash_attention_fwd`` is differentiable
-(a ``torch.autograd.Function`` saving q, k, v, out and lse, as
-``_flash_core_fwd``) for the default causal offset.
+reference's entries over them.  The op is differentiable for the
+default causal offset: its "Autograd" implementation
+(``_build.autograd_op``) runs ``_FlashAttention``, a
+``torch.autograd.Function`` saving q, k, v, out and lse, as
+``_flash_core_fwd``, whose backward is B8.
 """
 from __future__ import annotations
 
@@ -242,8 +244,9 @@ def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     off_t = q_offset if isinstance(q_offset, torch.Tensor) else None
     off_i = None if q_offset is None or off_t is not None else int(q_offset)
-    return _flash_fwd(q, k, v, bool(causal), scale, off_t, off_i,
-                      None if blocks is None else [int(b) for b in blocks])
+    return _build.call_op(
+        _flash_fwd, _FlashAttention, q, k, v, bool(causal), scale, off_t,
+        off_i, None if blocks is None else [int(b) for b in blocks])
 
 
 def _flash_fake(q, k, v, causal, scale, q_offset, q_offset_int, blocks):
@@ -392,22 +395,34 @@ def _gqa_heads_per_block(B: int, KVH: int, Sk: int, rep: int) -> int:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """out = attention(q, k, v) with B1 forward and B8 backward; saves q, k,
-    v, out and lse, as the reference's ``_flash_core_fwd``."""
+    """The op ``paddle_tpu_torch::flash_attention`` under autograd: (out,
+    lse) with B1 forward and B8 backward (lse is not differentiable);
+    saves q, k, v, out and lse, as the reference's ``_flash_core_fwd``.  A
+    query offset (the static ring's prefill, an inference path) has no
+    backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fused(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, q_offset, q_offset_int,
+                blocks):
+        if q_offset is not None or q_offset_int is not None:
+            raise NotImplementedError(
+                "flash_attention: no backward for a q_offset (the static "
+                "KV ring is an inference path)")
+        out, lse = _flash_fwd(q, k, v, causal, scale, None, None, blocks)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.scale = causal, scale
-        return out
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_lse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_fused(q, k, v, out, lse, g,
                                                ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None, None
+
+
+_build.autograd_op(_flash_fwd, _FlashAttention)
 
 
 def block_fwd(qb, kb, vb, causal: bool, scale: float, kv_rep: int = 1,
@@ -455,10 +470,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     group's KV head).  Differentiable in q, k and v (backward: B8) with the
     default causal offset; a gradient through a ``q_offset`` (the static
     ring's prefill, an inference path) is refused."""
-    if _build.wants_grad(q, k, v):
-        if q_offset is not None:
-            raise NotImplementedError(
-                "flash_attention_fwd: no backward for a q_offset (the "
-                "static KV ring is an inference path)")
-        return _FlashAttention.apply(q, k, v, causal, scale)
+    if _build.wants_grad(q, k, v) and q_offset is not None:
+        raise NotImplementedError(
+            "flash_attention_fwd: no backward for a q_offset (the "
+            "static KV ring is an inference path)")
     return flash_attention_fused(q, k, v, causal, scale, q_offset)[0]

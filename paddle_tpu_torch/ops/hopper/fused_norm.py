@@ -25,8 +25,9 @@ checks, plans from the tensors' addresses, launches and counts; its fake
 one states the output shapes, so ``torch.export`` traces the op without
 reading an address or launching anything (``jit/serialization.py``).
 
-Both are differentiable.  Where a gradient is wanted the forward runs inside
-a ``torch.autograd.Function`` that saves its inputs, and the backward is the
+Both are differentiable: each op's "Autograd" implementation
+(``_build.autograd_op``) runs it, where a gradient is wanted, inside a
+``torch.autograd.Function`` that saves its inputs, and the backward is the
 reference's own vjp transcribed into plain torch ops (``_rms_bwd`` from
 ``fused_norm.py:_bwd``, ``_rms_residual_bwd`` from ``_bwd_res``, which
 recomputes the sum in float32 and sends ``dsum`` to both inputs): the
@@ -263,9 +264,7 @@ def rms_norm_fused(x: torch.Tensor, w: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """x [..., H], w [H] -> x * rsqrt(mean(x^2) + eps) * w, float32
     statistics, in x's dtype."""
-    if _build.wants_grad(x, w):
-        return _RmsNorm.apply(x, w, eps)
-    return _rms_fwd(x, w, eps)
+    return _build.call_op(_rms_fwd, _RmsNorm, x, w, eps)
 
 
 def rms_norm_residual_fused(x: torch.Tensor, residual: torch.Tensor,
@@ -273,10 +272,11 @@ def rms_norm_residual_fused(x: torch.Tensor, residual: torch.Tensor,
     """-> (rms(x + residual) * w, x + residual): the sum is taken in
     float32 and normalized unrounded; ``residual_out`` is it in x's
     dtype."""
-    if _build.wants_grad(x, residual, w):
-        return _RmsNormResidual.apply(x, residual, w, eps)
-    return _rms_residual_fwd(x, residual, w, eps)
+    return _build.call_op(_rms_residual_fwd, _RmsNormResidual, x, residual,
+                          w, eps)
 
 
+_build.autograd_op(_rms_fwd, _RmsNorm)
+_build.autograd_op(_rms_residual_fwd, _RmsNormResidual)
 rms_norm_fused.launches = 0
 rms_norm_residual_fused.launches = 0

@@ -36,8 +36,10 @@ A wrapper runs the plain version (``_rope_ref`` / ``_swiglu_ref`` /
 ``_swiglu_bwd_ref``, the reference's jnp forms transcribed) only for CPU
 tensors.  For CUDA tensors it launches the kernel or raises; ``launches``
 counts kernel launches.  ``rope_fused`` and ``swiglu_fused`` are
-differentiable: where a gradient is wanted they run inside a
-``torch.autograd.Function`` whose backward is ``rope_bwd_fused`` (saving
+differentiable: where a gradient is wanted their ops' "Autograd"
+implementations (``_build.autograd_op``, so a replay of the op alone
+trains too) run them inside a ``torch.autograd.Function`` whose backward
+is ``rope_bwd_fused`` (saving
 only the cos/sin tables and the offset, as ``_rope_fwd``) or
 ``swiglu_bwd_fused`` (saving ``(a, b)``, as ``_swiglu_fwd``).  The
 forwards of ``rope_fused`` and ``swiglu_fused`` are ``torch.library``
@@ -309,9 +311,8 @@ def rope_fused(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     first, as JAX indexes), read on the device.  q and k may be
     strided over B and S; each head's [D] must be contiguous.
     Differentiable in q and k."""
-    if _build.wants_grad(q, k):
-        return _Rope.apply(q, k, cos, sin, position_offset, interleaved)
-    return _rope_fwd(q, k, cos, sin, position_offset, interleaved)
+    return _build.call_op(_rope_fwd, _Rope, q, k, cos, sin, position_offset,
+                          interleaved)
 
 
 def _check_same(name, *tensors):
@@ -376,11 +377,11 @@ class _SwiGLU(torch.autograd.Function):
 def swiglu_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """silu(a) * b with float32 math, in a's dtype; a, b contiguous, same
     shape.  Differentiable (backward: kernel B6b)."""
-    if _build.wants_grad(a, b):
-        return _SwiGLU.apply(a, b)
-    return _swiglu_fwd(a, b)
+    return _build.call_op(_swiglu_fwd, _SwiGLU, a, b)
 
 
+_build.autograd_op(_rope_fwd, _Rope)
+_build.autograd_op(_swiglu_fwd, _SwiGLU)
 rope_fused.launches = 0
 rope_bwd_fused.launches = 0
 rope_ring_fused.launches = 0

@@ -198,6 +198,23 @@ class Optimizer:
                 self._master(p)
                 self._create_accumulators(p)
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """A program's loss (a ``static`` variable): mark the current
+        program for ``Executor.run`` to train (``_loss``,
+        ``_optimizer``).  An eager loss: ``loss.backward()`` and
+        ``step()``.  Returns (None, None), as the reference's."""
+        from .. import static
+
+        if static.is_variable(loss):
+            prog = static.default_main_program()
+            prog._loss = loss
+            prog._optimizer = self
+            return None, None
+        loss.backward()
+        self.step()
+        return None, None
+
     def clear_grad(self):
         for p in self._parameter_list:
             p.grad = None

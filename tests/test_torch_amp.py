@@ -460,3 +460,89 @@ def test_recompute_keeps_the_amp_state():
         grads.append([p.grad.clone() for p in pm.parameters()])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# ------------------------------------- C16: decode steps under O1
+def _o1():
+    return (P.amp.auto_cast(level="O1", dtype="bfloat16"),
+            pamp.auto_cast(level="O1", dtype="bfloat16"))
+
+
+def _cache_pair(jm, pm, B, L, static):
+    import jax.numpy as jnp
+    from paddle_tpu.tensor.tensor import Tensor
+
+    cfg = pm.config
+    shape = (B, L if static else 0, cfg.num_key_value_heads, cfg.head_dim)
+    jc = [(Tensor(jnp.zeros(shape, jnp.float32)),
+           Tensor(jnp.zeros(shape, jnp.float32)))
+          + ((Tensor(jnp.zeros((), jnp.int32)),) if static else ())
+          for _ in range(cfg.num_hidden_layers)]
+    pc = [(torch.zeros(shape), torch.zeros(shape))
+          + ((torch.zeros((), dtype=torch.int32),) if static else ())
+          for _ in range(cfg.num_hidden_layers)]
+    return jc, pc
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["growing", "ring"])
+def test_c16_decode_step_under_o1_matches_the_reference(static):
+    """A float32 Llama under O1 bf16: a 7-token prefill, then one decode
+    step, over growing caches and over the static ring.  The reference
+    projects a decode step's q, k and v with one ``qkv_fused`` product, on
+    neither AMP list, so in float32; its prefill projects in bf16 and its
+    ring write casts the rotated rows into the float32 ring (rounded, then
+    widened).  Every cache row keeps the reference's dtype.  The first
+    layer reads the embedding, the same bits on both sides, so its rows
+    (the prefill's and the step's) lie within the suite's float32
+    tolerance, 1e-5 of the largest |value| + 1e-5 (the port's three bf16
+    projections put the step's row 3.7e-3 of max |k| away; measured now
+    7.2e-7); the ring's prefill rows are bf16 values.  The second layer
+    reads the first one's bf16 attention and MLP, which the two sides
+    round at other places (one bf16 ulp), so its rows and the logits are
+    held to the file's bf16 rule, 2^-6 of the largest |value|."""
+    jm, pm = _models()
+    ids = np.random.default_rng(16).integers(0, 512, (2, 8)).astype(np.int32)
+    jc, pc = _cache_pair(jm, pm, 2, 16, static)
+    ja, pa = _o1()
+    with ja, pa, torch.no_grad():
+        for lo, hi in ((0, 7), (7, 8)):
+            jl, jc = jm(P.to_tensor(ids[:, lo:hi]), caches=jc)
+            pl, pc = pm(torch.as_tensor(ids[:, lo:hi]), caches=pc)
+            assert _dt(pl) == _dt(jl)
+            _compare(jl, pl)
+    for layer, (jt, pt) in enumerate(zip(jc, pc)):
+        for j, p in zip(jt[:2], pt[:2]):
+            assert _dt(p) == _dt(j) == "float32"
+            ref, got = _f32(j)[:, :8], _f32(p)[:, :8]
+            tol = (1e-5 * np.abs(ref).max() + 1e-5 if layer == 0
+                   else 2 ** -6 * np.abs(ref).max())
+            np.testing.assert_allclose(got, ref, rtol=0, atol=tol)
+            if static:
+                rows = p[:, :7]
+                assert torch.equal(rows.bfloat16().float(), rows)
+        if static:
+            assert int(pt[2]) == int(np.asarray(jt[2]._value)) == 8
+
+
+def test_c16_greedy_tokens_under_o1_match_the_reference():
+    """Greedy tokens over 8 steps under O1 bf16: ``generate`` over growing
+    caches and over the ring, and ``greedy_decode``, equal the
+    reference's."""
+    from paddle_tpu.models.generation import generate as jgen
+    from paddle_tpu.models.generation import greedy_decode as jgreedy
+    from paddle_tpu_torch.models.generation import generate, greedy_decode
+
+    jm, pm = _models()
+    jm.eval()
+    ids = np.random.default_rng(17).integers(0, 512, (2, 7)).astype(np.int32)
+    ja, pa = _o1()
+    with ja, pa:
+        for static in (False, True):
+            ref = np.asarray(jgen(jm, P.to_tensor(ids), max_new_tokens=8,
+                                  use_static_cache=static)._value)
+            ours = generate(pm, torch.as_tensor(ids), max_new_tokens=8,
+                            use_static_cache=static)
+            np.testing.assert_array_equal(ours.numpy(), ref)
+        ref = np.asarray(jgreedy(jm, P.to_tensor(ids), 8)._value)
+        np.testing.assert_array_equal(
+            greedy_decode(pm, torch.as_tensor(ids), 8).numpy(), ref)

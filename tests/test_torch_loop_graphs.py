@@ -223,6 +223,56 @@ def test_new_weights_reach_the_captured_graphs(pair, on_graphs):
     assert torch.equal(got, _eager(m, greedy_decode, ids, 6, max_length=16))
 
 
+def test_a_step_captured_under_auto_cast_is_keyed_by_it(pair, on_graphs):
+    """A float32 model's decode step under O1 (the reference's float32
+    ``qkv_fused`` product, bf16 elsewhere) is a key of its own beside the
+    same (B, L) without AMP: each call replays the graph of its own AMP
+    state and gives the eager loop's tokens under that state."""
+    from paddle_tpu_torch import amp
+
+    m = on_graphs(pair[1])
+    ids = _ids(8, 2, 6)
+    plain = greedy_decode(m, ids, 6, max_length=16)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        o1 = greedy_decode(m, ids, 6, max_length=16)
+        assert torch.equal(o1, _eager(m, greedy_decode, ids, 6,
+                                      max_length=16))
+    assert torch.equal(greedy_decode(m, ids, 6, max_length=16), plain)
+    keys = set(m._decode_graphs.graphs)
+    assert m._decode_graphs.captures == 2 and len(keys) == 2
+    assert ("decode", 2, 16) in keys
+
+
+def test_the_kept_qkv_weight_stays_where_the_graphs_read_it(pair,
+                                                            on_graphs):
+    """The decode step's concatenated q/k/v weights, held for the graphs
+    in the state the keys' rings share, stay at their address through an
+    eager call and a weight load (rewritten in place at the next call), so
+    a replay after them reads the weights of its call, as the eager loop
+    does; a second key's rings share them."""
+    cfg = pair[1].config
+    m = on_graphs(LlamaForCausalLM(cfg, device="cpu", seed=13))
+    other = LlamaForCausalLM(cfg, device="cpu", seed=14)
+    ids = _ids(9, 2, 6)
+    greedy_decode(m, ids, 6, max_length=16)
+
+    def held():
+        return [[w.data_ptr() for w in r.qkv.weights]
+                for r in m._decode_graphs.states.values()]
+
+    (ptrs,) = held()
+    eager = _eager(m, greedy_decode, ids, 6, max_length=16)
+    load_numpy_state_dict(m, {k: v.detach().numpy()
+                              for k, v in other.named_parameters()})
+    got = greedy_decode(m, ids, 6, max_length=16)
+    assert held() == [ptrs]
+    assert m._decode_graphs.captures == 1
+    assert torch.equal(got, greedy_decode(other, ids, 6, max_length=16))
+    assert not torch.equal(got, eager)
+    greedy_decode(m, ids, 6, max_length=20)
+    assert held() == [ptrs, ptrs]
+
+
 def test_a_ninth_key_drops_the_oldest(pair, on_graphs):
     m = on_graphs(pair[1])
     ids = _ids(7, 1, 3)

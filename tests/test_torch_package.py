@@ -62,7 +62,10 @@ def test_import_leaves_no_jax_or_paddle_tpu():
             " paddle_tpu_torch.jit.api, paddle_tpu_torch.jit.lazy_segments,"
             " paddle_tpu_torch.jit.serialization,"
             " paddle_tpu_torch.incubate,"
-            " paddle_tpu_torch.inference.predictor\n"
+            " paddle_tpu_torch.inference.predictor,"
+            " paddle_tpu_torch.static, paddle_tpu_torch.static.passes,"
+            " paddle_tpu_torch.static.nn,"
+            " paddle_tpu_torch.static.nn.control_flow\n"
             "bad = [m for m in sys.modules if m in ('jax', 'paddle_tpu',"
             " 'ml_dtypes') or m.startswith(('jax.', 'paddle_tpu.',"
             " 'ml_dtypes.'))]\n"
@@ -144,6 +147,30 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
             jit.load(path)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             inference.create_predictor(inference.Config(path))
+    # static: a placeholder is made on the card unless the CPU is asked
+    # for (device= or device_guard); a CPU Executor runs a CPU program
+    from paddle_tpu_torch import static
+
+    with static.program_guard(static.Program()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            static.data("x", [2, 4], "float32")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            with static.device_guard("gpu"):
+                pass
+    import paddle_tpu_torch as pt
+
+    prog = static.Program()
+    pt.enable_static()
+    try:
+        with static.program_guard(prog), static.device_guard("cpu"):
+            x = static.data("x", [2, 4], "float32")
+            y = pnn.LayerNorm(4, device="cpu")(x)
+            assert x.device.type == y.device.type == "cpu"
+    finally:
+        pt.disable_static()
+    (out,) = static.Executor(static.cpu_places()[0]).run(
+        prog, feed={"x": np.ones((2, 4), np.float32)}, fetch_list=[y])
+    assert out.shape == (2, 4)
 
 
 def test_generation_runs_on_the_model_device():
